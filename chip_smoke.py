@@ -1,0 +1,410 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch port (``pygim_tpu_torch``).
+
+Run from the repository root on a machine with one NVIDIA Hopper card:
+
+    python3 chip_smoke.py
+
+It builds the hand-written kernels from ``pygim_tpu_torch/csrc``, holds
+each against its plain PyTorch version at the main path's shapes (and at
+ragged shapes), times both beside a PyTorch library call and the card's
+bound, then drives the main path — 2-layer GCN inference at hidden 256
+with a float payload on the stair-int8 hybrid SpMM, on the ogbn-arxiv
+stand-in — through ``run_inference_benchmark`` and
+``run_spmm_benchmark``, and checks that the path launched every kernel.
+
+Its last three lines are the ``kernels`` JSON object, the card's name
+and power limit (``nvidia-smi``), and ``{"ok": true, "device": ...}``.
+Any failure raises and exits non-zero before those lines. Without a
+CUDA card, or without the package beside it, it exits non-zero.
+
+``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
+one inference forward by kernel, and the device's busy share.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+DATASET = "ogbn-arxiv"
+HIDDEN = 256
+CORE_BYTES = 256 << 20
+
+# H100 / H200 peaks (NVIDIA data sheets, dense): HBM bytes/s, bf16 tensor
+# FLOP/s, f32 non-tensor FLOP/s; chosen by the card's name
+_PEAKS = {
+    "H200": (4.8e12, 989e12, 67e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12),
+    "H100 PCIe": (2.0e12, 756e12, 51e12),
+    "H100": (3.35e12, 989e12, 67e12),  # SXM
+}
+
+
+def peaks(name: str):
+    for key, val in _PEAKS.items():
+        if key in name:
+            return val
+    raise RuntimeError(f"no peak table for card {name!r}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Milliseconds per call: CUDA events around ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def check_close(name, got, want, mag, rel):
+    """|got - want| <= rel * mag elementwise (mag: the sum of absolute
+    terms behind each element), and everything finite."""
+    import torch
+
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    err = (got - want).abs()
+    bad = err > rel * mag + 1e-30
+    if bad.any():
+        i = int(torch.argmax((err - rel * mag).flatten()))
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements off; worst abs err "
+            f"{float(err.flatten()[i])} vs allowed "
+            f"{float((rel * mag).flatten()[i])}"
+        )
+    return float(err.max())
+
+
+# Kernel vs plain: every int8 x bf16 product is exact, and both sides sum
+# in f32 in different orders (tensor-core k16 groups and a tiled loop vs
+# cuBLAS f32; per-run sums and atomics vs index_add_). A sum of K terms in
+# f32 errs by at most ~K * 2^-24 of the sum of |terms| in the worst case
+# and ~2^-24 * sqrt(K) typically; 1e-5 of the sum of |terms| covers the
+# typical case with a wide margin at K <= 10^4 and still catches a wrong
+# index or a lost tile, which err by O(1) of it.
+REL_TOL = 1e-5
+
+
+def core_checks(prep, x, results):
+    import torch
+
+    from pygim_tpu_torch.ops import core_dot
+
+    dev = x.device
+    g = torch.Generator(device="cpu").manual_seed(1)
+    # ragged shapes: rows not a tile multiple, widths not a multiple of
+    # 16 (scalar loads), w > r, H not a multiple of the 128-column tile
+    for r, w, h in ((37, 200, 24), (300, 1280, 256), (129, 4104, 136)):
+        band = torch.randint(-128, 128, (r, w), generator=g,
+                             dtype=torch.int8).to(dev)
+        xc = torch.randn(w + 5, h, generator=g).to(dev, torch.bfloat16)
+        rows = torch.randperm(3 * r, generator=g)[:r].to(dev, torch.int32)
+        out0 = torch.randn(3 * r, h, generator=g).to(dev)
+        got = core_dot.core_band_scatter_add(band, xc, rows, out0.clone())
+        want = core_dot.core_band_plain(band, xc, rows, out0.clone())
+        mag = out0.abs().index_add(
+            0, rows, band.float().abs() @ xc[:w].float().abs())
+        check_close(f"K-core ragged {(r, w, h)}", got, want, mag, REL_TOL)
+    # every band of the prepared operand
+    d = prep.dev_arrays
+    cn = d["core_nodes"]
+    xc = x.index_select(0, cn).to(torch.bfloat16)
+    err = 0.0
+    for b, (lo, hi, w) in enumerate(prep.stair):
+        band = d[f"stair{b}"]
+        z = torch.zeros_like(x)
+        got = core_dot.core_band_scatter_add(band, xc, cn[lo:hi], z.clone())
+        want = core_dot.core_band_plain(band, xc, cn[lo:hi], z.clone())
+        mag = z.index_add(0, cn[lo:hi],
+                          band.float().abs() @ xc[:w].float().abs())
+        err = max(err, check_close(f"K-core band {b} {(hi - lo, w)}",
+                                   got, want, mag, REL_TOL))
+        del got, want, mag
+    # time the largest band
+    b = max(range(len(prep.stair)),
+            key=lambda i: (prep.stair[i][1] - prep.stair[i][0]) * prep.stair[i][2])
+    lo, hi, w = prep.stair[b]
+    band, rows = d[f"stair{b}"], cn[lo:hi]
+    r = hi - lo
+    scratch = torch.zeros_like(x)
+    ms = cuda_ms(lambda: core_dot.core_band_scatter_add(band, xc, rows, scratch))
+    plain_ms = cuda_ms(lambda: core_dot.core_band_plain(band, xc, rows, scratch),
+                       iters=5)
+    band16 = band.to(torch.bfloat16)
+    xw = xc[:w].contiguous()
+    library_ms = cuda_ms(lambda: torch.matmul(band16, xw))
+    del band16, scratch
+    hbm, bf16, _f32 = results["peaks"]
+    h = x.shape[1]
+    nbytes = r * w + w * h * 2 + r * 4 + 2 * r * h * 4
+    ops = 2 * r * w * h
+    t_bytes, t_ops = nbytes / hbm * 1e3, ops / bf16 * 1e3
+    results["K-core"] = dict(
+        shape=[r, w, h], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        tflops=ops / ms * 1e-9,
+    )
+
+
+def tail_checks(prep, x, results):
+    import torch
+
+    from pygim_tpu_torch.ops import ell_tail
+
+    dev = x.device
+    g = torch.Generator(device="cpu").manual_seed(2)
+    # ragged: H not a multiple of 128, a hub row over many virtual rows
+    for h in (36, 256):
+        n, chunk, degree, steps = 500, 64, 3, 4
+        nv = chunk * steps
+        vrow = torch.sort(torch.randint(0, n, (nv,), generator=g)).values
+        vrow[: nv // 4] = 7  # one hub row spanning 64 virtual rows
+        vrow = torch.sort(vrow).values.to(torch.int32).view(steps, chunk)
+        cols = torch.randint(0, n, (steps, chunk * degree), generator=g,
+                             dtype=torch.int32)
+        vals = torch.randn(steps, chunk * degree, generator=g)
+        xs = torch.randn(n, h, generator=g)
+        cols, vals, vrow, xs = (t.to(dev) for t in (cols, vals, vrow, xs))
+        out0 = torch.randn(n, h, generator=g).to(dev)
+        got = ell_tail.ell_tail_add(xs, cols, vals, vrow, degree, out0.clone())
+        want = ell_tail.ell_tail_plain(xs, cols, vals, vrow, degree,
+                                       out0.clone())
+        mag = ell_tail.ell_tail_plain(xs.abs(), cols, vals.abs(), vrow, degree,
+                                      out0.abs())
+        check_close(f"K-tail ragged H={h}", got, want, mag, REL_TOL)
+    d = prep.dev_arrays
+    tabs = []
+    for i, (_chunk, degree) in enumerate(prep.ell_meta):
+        sfx = "" if i == 0 else f"_{i}"
+        tabs.append((d[f"cols2d{sfx}"], d[f"vals2d{sfx}"],
+                     d[f"vrow_to_row{sfx}"], degree))
+    z = torch.zeros_like(x)
+    got, want, mag = z.clone(), z.clone(), z.clone()
+    for c, v, r, degree in tabs:
+        ell_tail.ell_tail_add(x, c, v, r, degree, got)
+        ell_tail.ell_tail_plain(x, c, v, r, degree, want)
+        ell_tail.ell_tail_plain(x.abs(), c, v.abs(), r, degree, mag)
+    err = check_close("K-tail tables", got, want, mag, REL_TOL)
+    del got, want, mag
+
+    def run(fn):
+        def go():
+            for c, v, r, degree in tabs:
+                fn(x, c, v, r, degree, z)
+        return go
+
+    ms = cuda_ms(run(ell_tail.ell_tail_add))
+    plain_ms = cuda_ms(run(ell_tail.ell_tail_plain), iters=5)
+    # library yardstick: cuSPARSE CSR SpMM over the same (real) entries
+    rows_l, cols_l, vals_l = [], [], []
+    slots = vrows = 0
+    for c, v, r, degree in tabs:
+        slots += c.numel()
+        vrows += r.numel()
+        rr = r.reshape(-1).repeat_interleave(degree)
+        keep = v.reshape(-1) != 0
+        rows_l.append(rr[keep])
+        cols_l.append(c.reshape(-1)[keep])
+        vals_l.append(v.reshape(-1)[keep])
+    rows_t = torch.cat(rows_l).long()
+    cols_t = torch.cat(cols_l).long()
+    n = x.shape[0]
+    a = torch.sparse_coo_tensor(
+        torch.stack([rows_t, cols_t]), torch.cat(vals_l), (n, n),
+    ).coalesce().to_sparse_csr()
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a, x))
+    h = x.shape[1]
+    nnz = int(rows_t.numel())
+    u_cols = int(torch.unique(cols_t).numel())
+    u_rows = int(torch.unique(rows_t).numel())
+    hbm, _bf16, f32 = results["peaks"]
+    # least traffic: each real entry's index and value once, each needed
+    # x row once, each touched out row read and written once
+    nbytes = nnz * 8 + u_cols * h * 4 + 2 * u_rows * h * 4
+    ops = 2 * nnz * h
+    t_bytes, t_ops = nbytes / hbm * 1e3, ops / f32 * 1e3
+    results["K-tail"] = dict(
+        tables=[[int(c.shape[0]), int(c.shape[1]) // dg, dg]
+                for c, _v, _r, dg in tabs],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        # per-slot traffic model: every stored slot reads its x row
+        bound_slot_ms=(slots * (8 + 4 * h) + vrows * 4 * h) / hbm * 1e3,
+        nnz=nnz, slots=slots, vrows=vrows,
+    )
+
+
+def profile_forward(gnn, x, agg, iters: int = 5) -> None:
+    """Device time by kernel for one inference forward (torch.profiler),
+    and the device's busy share of the forward's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def fwd():
+        with torch.inference_mode():
+            gnn(x, agg)
+
+    wall_ms = cuda_ms(fwd, iters=iters)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fwd()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device kernels only: a host op (aten::mm, ...) carries its kernels'
+    # time as well, and only host ops have host time of their own
+    evs = [e for e in prof.key_averages()
+           if dev_us(e) > 0 and e.self_cpu_time_total == 0]
+    busy_ms = sum(dev_us(e) for e in evs) / iters / 1e3
+    print(f"profile: forward {wall_ms:.4f} ms wall, {busy_ms:.4f} ms device "
+          f"busy ({100 * busy_ms / wall_ms:.1f}%)", flush=True)
+    for e in sorted(evs, key=dev_us, reverse=True)[:15]:
+        print(f"profile: {dev_us(e) / iters / 1e3:9.4f} ms  "
+              f"{e.count // iters:4d}x  {e.key[:90]}", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    from pygim_tpu_torch.bench.runners import (
+        run_inference_benchmark,
+        run_spmm_benchmark,
+    )
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.ops import _build, core_dot, ell_tail
+    from pygim_tpu_torch.ops.spmm import (
+        PreparedAggregate,
+        SpmmConfig,
+        prepare_spmm,
+    )
+    from pygim_tpu_torch.utils.metrics import DataReporter
+
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"card: {card}", flush=True)
+    results = {"peaks": peaks(name)}
+
+    t0 = time.perf_counter()
+    took = _build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s {took}", flush=True)
+    for n in _build.SIGNATURES:
+        log = _build.BUILD_DIR / f"{n}.log"
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas {n}: {line.strip()}", flush=True)
+
+    t0 = time.perf_counter()
+    ds = load_dataset(DATASET)
+    cfg = SpmmConfig(backend="hybrid", hybrid_shape="stair",
+                     hybrid_dtype="int8", hybrid_core_bytes=CORE_BYTES)
+    prep = prepare_spmm(ds.graph, cfg, device="cuda")
+    print(f"prepare: {time.perf_counter() - t0:.1f} s  N={prep.nrows} "
+          f"stored={ds.graph.nnz} merged={prep.nnz} bands={prep.stair} "
+          f"tables={prep.ell_meta}", flush=True)
+
+    x = torch.randn(prep.nrows, HIDDEN,
+                    generator=torch.Generator().manual_seed(0)).cuda()
+    core_checks(prep, x, results)
+    print(f"K-core: {results['K-core']}", flush=True)
+    tail_checks(prep, x, results)
+    print(f"K-tail: {results['K-tail']}", flush=True)
+    del x
+
+    # the main path, counted
+    core_dot.launches = 0
+    ell_tail.launches = 0
+    rep = DataReporter(echo=True)
+    reuse = lambda g, c: prep  # noqa: E731 — the operand prepared above
+    run_inference_benchmark(
+        ds, model="gcn", num_layers=2, hidden=HIDDEN, agg_dtype=None,
+        config=cfg, repeat=10, reporter=rep, prepare_fn=reuse, device="cuda",
+    )
+    run_spmm_benchmark(
+        ds, hidden=HIDDEN, config=cfg, repeat=10, reporter=rep,
+        prepare_fn=reuse, device="cuda",
+    )
+    torch.cuda.synchronize()
+    launches = {"K-core": core_dot.launches, "K-tail": ell_tail.launches}
+    print(f"main-path launches: {launches}", flush=True)
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} was never launched on the main path")
+    if rep.records["verify"][-1] != "OK":
+        raise AssertionError("SpMM sampled-row check failed")
+
+    # logits through the kernels vs the same forward through mul_plain
+    gnn = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
+                   num_layers=2, device="cuda")
+    xf = torch.as_tensor(ds.x).cuda()
+    with torch.inference_mode():
+        logits = gnn(xf, PreparedAggregate(prep))
+        plain = gnn(xf, prep.mul_plain)
+    if logits.shape != (prep.nrows, ds.num_classes):
+        raise AssertionError(f"logits shape {tuple(logits.shape)}")
+    scale = max(1.0, float(plain.abs().max()))
+    lerr = float((logits - plain).abs().max())
+    print(f"logits: max abs err {lerr} of scale {scale}", flush=True)
+    # two layers of f32 reordering in the aggregates, carried through
+    # the dense layers: 1e-4 of the logits' scale
+    if not torch.isfinite(logits).all() or lerr > 1e-4 * scale:
+        raise AssertionError(f"logits differ from the plain forward: {lerr}")
+
+    if "--profile" in sys.argv[1:]:
+        profile_forward(gnn, xf, PreparedAggregate(prep))
+
+    sources = {"K-core": ("cuda", "pygim_tpu_torch/csrc/core_dot.cu",
+                          "pygim_tpu/ops/pallas_core.py:55"),
+               "K-tail": ("cuda", "pygim_tpu_torch/csrc/ell_tail.cu",
+                          "pygim_tpu/ops/spmm.py:481")}
+    kernels = []
+    for k, (route, src, repl) in sources.items():
+        res = results[k]
+        kernels.append({
+            "name": k, "route": route, "source": src, "replaces": repl,
+            "launches": launches[k], "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"],
+        })
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,8 @@
+from pygim_tpu_torch.data.datasets import (
+    DATASET_SPECS,
+    GraphDataset,
+    load_dataset,
+    rmat_edges,
+)
+
+__all__ = ["DATASET_SPECS", "GraphDataset", "load_dataset", "rmat_edges"]

@@ -1,0 +1,3 @@
+from pygim_tpu_torch.nn.models import GNN, gnn_apply, make_gnn, params_from_jax
+
+__all__ = ["GNN", "gnn_apply", "make_gnn", "params_from_jax"]

@@ -1,0 +1,135 @@
+"""Build the hand-written CUDA kernels and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C function that launches its
+kernel on a given stream and returns the launch's ``cudaError_t``. It is
+compiled with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so``
+inside this package, at first use, from the sources alone; the hash
+covers the source and the flags, so an edited source rebuilds. All
+missing libraries are compiled at once, one ``nvcc`` per source.
+
+Nothing here runs at import: this module only names paths.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / spills per kernel, kept in the log
+)
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points per source: name -> argtypes (all return int)
+SIGNATURES = {
+    "core_dot": {
+        # band, xc, rows, out, r, w, h, vec_a, stream
+        "core_band_scatter_add": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "ell_tail": {
+        # x, cols, vals, vrow, out, n_vrows, degree, h, stream
+        "ell_tail_add": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    },
+}
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels are compiled from csrc/ at first use"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=None) -> dict:
+    """Compile every named source whose library is missing, all at once.
+    Returns ``{name: seconds}`` for the sources compiled; the compiler's
+    report (``-Xptxas -v``) goes to ``_build/<name>.log``."""
+    names = list(SIGNATURES if names is None else names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(exist_ok=True)
+    exe = nvcc()
+    procs = {}
+    try:
+        for n in todo:
+            so = library_path(n)
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            p = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )
+            procs[n] = (p, tmp, so, time.perf_counter())
+        took = {}
+        for n, (p, tmp, so, t0) in procs.items():
+            log, _ = p.communicate()
+            took[n] = time.perf_counter() - t0
+            (BUILD_DIR / f"{n}.log").write_text(log)
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{n}.cu:\n{log}")
+            os.replace(tmp, so)
+        return took
+    finally:
+        for p, tmp, _so, _t0 in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            tmp.unlink(missing_ok=True)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,50 @@
+"""Symmetric scale quantization for the aggregate path.
+
+Bit-compatible with ``pygim_tpu/quant/__init__.py``:
+
+    scale = 2 * max|v| / 2**k,  k = 5 (int8), 10 (int16), 20 (int32),
+                                 20 (float passthrough — still scaled+rounded)
+    v_q   = round(v / scale)  (half to even) cast to the target dtype
+    dequantize(out, scale_edge, scale_x) = out * (scale_edge * scale_x)
+
+``dtype='bfloat16'`` casts directly with scale 1.0; ``dtype=None``
+disables quantization. A zero scale (all-zero input) is replaced by 1,
+so the quantized values and the dequantized output are exact zeros.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_SCALE_EXP = {"int8": 5, "int16": 10, "int32": 20}
+
+
+def dtype_name(dtype) -> str:
+    """``'int8'`` for ``'int8'`` or ``torch.int8``."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return str(dtype)
+
+
+def symmetric_quantize(v, dtype="int32"):
+    """Returns ``(scale, v_q)``."""
+    if dtype is None:
+        return torch.ones((), dtype=v.dtype, device=v.device), v
+    name = dtype_name(dtype)
+    if name == "bfloat16":
+        return (torch.ones((), dtype=torch.float32, device=v.device),
+                v.to(torch.bfloat16))
+    abs_max = v.abs().max()
+    k = _SCALE_EXP.get(name, 20)
+    scale = abs_max * 2.0 / (2.0 ** k)
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    v_q = torch.round(v / safe)
+    if name in _SCALE_EXP or name == "int64":
+        v_q = v_q.to(getattr(torch, name))
+    return scale, v_q
+
+
+def symmetric_dequantize(out, scale_edge, scale_x):
+    """``out * (scale_edge * scale_x)``; integer ``out`` is promoted to the
+    scale's float dtype."""
+    return out * (scale_edge * scale_x)

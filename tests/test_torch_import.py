@@ -1,0 +1,84 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the
+JAX package, and no file of it (or chip_smoke.py) imports either."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "pygim_tpu_torch"
+MODULES = [
+    "pygim_tpu_torch",
+    "pygim_tpu_torch.core",
+    "pygim_tpu_torch.core.graph",
+    "pygim_tpu_torch.core.partition",
+    "pygim_tpu_torch.core.stair",
+    "pygim_tpu_torch.data",
+    "pygim_tpu_torch.ops",
+    "pygim_tpu_torch.ops._build",
+    "pygim_tpu_torch.ops.core_dot",
+    "pygim_tpu_torch.ops.ell_tail",
+    "pygim_tpu_torch.ops.reference",
+    "pygim_tpu_torch.ops.spmm",
+    "pygim_tpu_torch.quant",
+    "pygim_tpu_torch.nn",
+    "pygim_tpu_torch.nn.layers",
+    "pygim_tpu_torch.nn.models",
+    "pygim_tpu_torch.utils.timers",
+    "pygim_tpu_torch.utils.metrics",
+    "pygim_tpu_torch.bench",
+    "pygim_tpu_torch.bench.runners",
+]
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == "pygim_tpu" or name.startswith("pygim_tpu."))
+
+
+def test_import_loads_no_jax_and_no_reference_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'pygim_tpu' or m.startswith('pygim_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_reference(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert not _forbidden(n), f"{path}: imports {n}"
+
+
+def test_import_builds_nothing(tmp_path):
+    """Kernels build at first launch, never at import."""
+    from pygim_tpu_torch.ops import _build
+
+    assert not _build._libs
+    name = _build.library_path("core_dot").name
+    assert name.startswith("libcore_dot-") and name.endswith(".so")
