@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the hand-written kernels from ``pygim_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes (and at
 ragged shapes), times both beside a PyTorch library call and the card's
-bound, then drives the main path — 2-layer GCN inference at hidden 256
+bound (K-core on the widest band, on all bands in one launch, and on a
+32768 × 65536 scale band drawn on the card), then drives the main path — 2-layer GCN inference at hidden 256
 with a float payload on the stair-int8 hybrid SpMM, on the ogbn-arxiv
 stand-in — through ``run_inference_benchmark`` and
 ``run_spmm_benchmark``, and checks that the path launched every kernel.
@@ -104,33 +105,56 @@ def check_close(name, got, want, mag, rel):
 REL_TOL = 1e-5
 
 
-def core_checks(prep, x, results):
+def core_bound(shapes, h, peaks_):
+    """Least time of one K-core launch over bands ``(r, w)`` at width
+    ``h``: the larger of its bytes over HBM (every band, ``xc[:max w]``,
+    the row ids, and the output rows read and written, each once) and its
+    operations over the bf16 rate. The bands share the launch, so one
+    band's bytes overlap another's products. Returns (ms, "bytes" |
+    "operations")."""
+    hbm, bf16, _f32 = peaks_
+    rows = sum(r for r, _w in shapes)
+    nbytes = (sum(r * w for r, w in shapes) + max(w for _r, w in shapes)
+              * h * 2 + rows * 4 + 2 * rows * h * 4)
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = sum(2 * r * w * h for r, w in shapes) / bf16 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+SCALE_BAND = (32768, 65536)  # int8 rows × width: 2 GiB, the 8 GiB core's class
+
+
+def core_checks(prep, x, results, scale_band=SCALE_BAND):
     import torch
 
     from pygim_tpu_torch.ops import core_dot
 
     dev = x.device
+    h = x.shape[1]
     g = torch.Generator(device="cpu").manual_seed(1)
-    # ragged shapes: rows not a tile multiple, widths not a multiple of
-    # 16 (scalar loads), w > r, H not a multiple of the 128-column tile
-    for r, w, h in ((37, 200, 24), (300, 1280, 256), (129, 4104, 136)):
+    # ragged shapes inside the kernel's contract: rows not a multiple of
+    # 64, widths multiples of 16 but not of the 64-deep stage, w > r, H
+    # not a multiple of the 256-column tile, and H > 256
+    for r, w, hh in ((37, 208, 24), (300, 1280, 256), (129, 4112, 136),
+                     (1936, 2048, 40), (500, 768, 384)):
         band = torch.randint(-128, 128, (r, w), generator=g,
                              dtype=torch.int8).to(dev)
-        xc = torch.randn(w + 5, h, generator=g).to(dev, torch.bfloat16)
+        xc = torch.randn(w + 5, hh, generator=g).to(dev, torch.bfloat16)
         rows = torch.randperm(3 * r, generator=g)[:r].to(dev, torch.int32)
-        out0 = torch.randn(3 * r, h, generator=g).to(dev)
+        out0 = torch.randn(3 * r, hh, generator=g).to(dev)
         got = core_dot.core_band_scatter_add(band, xc, rows, out0.clone())
         want = core_dot.core_band_plain(band, xc, rows, out0.clone())
         mag = out0.abs().index_add(
             0, rows, band.float().abs() @ xc[:w].float().abs())
-        check_close(f"K-core ragged {(r, w, h)}", got, want, mag, REL_TOL)
-    # every band of the prepared operand
+        check_close(f"K-core ragged {(r, w, hh)}", got, want, mag, REL_TOL)
+    # every band of the prepared operand alone, then all in one launch
     d = prep.dev_arrays
     cn = d["core_nodes"]
     xc = x.index_select(0, cn).to(torch.bfloat16)
+    bands = [d[f"stair{b}"] for b in range(len(prep.stair))]
     err = 0.0
     for b, (lo, hi, w) in enumerate(prep.stair):
-        band = d[f"stair{b}"]
+        band = bands[b]
         z = torch.zeros_like(x)
         got = core_dot.core_band_scatter_add(band, xc, cn[lo:hi], z.clone())
         want = core_dot.core_band_plain(band, xc, cn[lo:hi], z.clone())
@@ -139,30 +163,89 @@ def core_checks(prep, x, results):
         err = max(err, check_close(f"K-core band {b} {(hi - lo, w)}",
                                    got, want, mag, REL_TOL))
         del got, want, mag
-    # time the largest band
+    z = torch.zeros_like(x)
+    got = core_dot.core_bands_scatter_add(bands, xc, cn, prep.stair, z.clone())
+    want = core_dot.core_bands_plain(bands, xc, cn, prep.stair, z.clone())
+    mag = core_dot.core_bands_plain([t.abs() for t in bands], xc.abs(), cn,
+                                    prep.stair, z.clone())
+    err = max(err, check_close("K-core all bands, one launch", got, want,
+                               mag, REL_TOL))
+    del got, want, mag
+
+    # the widest band alone (the per-band yardstick)
     b = max(range(len(prep.stair)),
             key=lambda i: (prep.stair[i][1] - prep.stair[i][0]) * prep.stair[i][2])
     lo, hi, w = prep.stair[b]
-    band, rows = d[f"stair{b}"], cn[lo:hi]
+    band, rows = bands[b], cn[lo:hi]
     r = hi - lo
-    scratch = torch.zeros_like(x)
-    ms = cuda_ms(lambda: core_dot.core_band_scatter_add(band, xc, rows, scratch))
-    plain_ms = cuda_ms(lambda: core_dot.core_band_plain(band, xc, rows, scratch),
+    one = ([band], xc, rows, [(0, r, w)], z)
+    plans = core_dot.core_plans([band], [(0, r, w)], h)
+    ms = cuda_ms(lambda: core_dot.core_bands_scatter_add(*one, plans=plans))
+    plain_ms = cuda_ms(lambda: core_dot.core_band_plain(band, xc, rows, z),
                        iters=5)
     band16 = band.to(torch.bfloat16)
     xw = xc[:w].contiguous()
     library_ms = cuda_ms(lambda: torch.matmul(band16, xw))
-    del band16, scratch
-    hbm, bf16, _f32 = results["peaks"]
-    h = x.shape[1]
-    nbytes = r * w + w * h * 2 + r * 4 + 2 * r * h * 4
-    ops = 2 * r * w * h
-    t_bytes, t_ops = nbytes / hbm * 1e3, ops / bf16 * 1e3
+    del band16, xw
+    bound_ms, bound_by = core_bound([(r, w)], h, results["peaks"])
+    results["K-core widest band"] = dict(
+        shape=[r, w, h], ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, tflops=2 * r * w * h / ms * 1e-9,
+    )
+
+    # all bands of one SpMM in one launch: K-core's time per SpMM
+    shapes = [(hi - lo, w) for lo, hi, w in prep.stair]
+    plans = core_dot.core_plans(bands, prep.stair, h)
+    ms = cuda_ms(lambda: core_dot.core_bands_scatter_add(
+        bands, xc, cn, prep.stair, z, plans=plans))
+    plain_ms = cuda_ms(lambda: core_dot.core_bands_plain(
+        bands, xc, cn, prep.stair, z), iters=5)
+    bands16 = [t.to(torch.bfloat16) for t in bands]
+    xws = [xc[:w].contiguous() for _r, w in shapes]
+
+    def library():
+        for a, bb in zip(bands16, xws):
+            torch.matmul(a, bb)
+
+    library_ms = cuda_ms(library)
+    del bands16, xws, z
+    bound_ms, bound_by = core_bound(shapes, h, results["peaks"])
+    ops = sum(2 * r * w * h for r, w in shapes)
     results["K-core"] = dict(
-        shape=[r, w, h], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bands=len(shapes), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
         tflops=ops / ms * 1e-9,
+    )
+    torch.cuda.empty_cache()
+
+    # a scale band: the shape class of the 8 GiB staircase core, drawn on
+    # the card; checked against the plain version on sampled rows
+    r, w = scale_band
+    gc = torch.Generator(device=dev).manual_seed(4)
+    band = torch.randint(-128, 128, (r, w), generator=gc, dtype=torch.int8,
+                         device=dev)
+    xb = torch.randn(w, h, generator=gc, device=dev).to(torch.bfloat16)
+    rows = torch.randperm(r, generator=gc, device=dev).to(torch.int32)
+    out = torch.zeros(r, h, device=dev)
+    core_dot.core_band_scatter_add(band, xb, rows, out)
+    sel = torch.randperm(r, generator=gc, device=dev)[:256]
+    want = band[sel].float() @ xb.float()
+    mag = band[sel].float().abs() @ xb.float().abs()
+    serr = check_close(f"K-core scale band {scale_band} (256 sampled rows)",
+                       out[rows[sel].long()], want, mag, REL_TOL)
+    one = ([band], xb, rows, [(0, r, w)], out)
+    plans = core_dot.core_plans([band], [(0, r, w)], h)
+    ms = cuda_ms(lambda: core_dot.core_bands_scatter_add(*one, plans=plans),
+                 iters=10)
+    band16 = band.to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: torch.matmul(band16, xb), iters=10)
+    del band16, band, out, one, plans
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = core_bound([(r, w)], h, results["peaks"])
+    results["K-core scale band"] = dict(
+        shape=[r, w, h], max_abs_err=serr, ms=ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        tflops=2 * r * w * h / ms * 1e-9,
     )
 
 
@@ -336,7 +419,8 @@ def main() -> int:
     x = torch.randn(prep.nrows, HIDDEN,
                     generator=torch.Generator().manual_seed(0)).cuda()
     core_checks(prep, x, results)
-    print(f"K-core: {results['K-core']}", flush=True)
+    for k in ("K-core widest band", "K-core scale band", "K-core"):
+        print(f"{k}: {results[k]}", flush=True)
     tail_checks(prep, x, results)
     print(f"K-tail: {results['K-tail']}", flush=True)
     del x

@@ -1,230 +1,461 @@
-// K-core: int8 staircase band x bf16 payload, f32 accumulate, scatter-add.
+// K-core: int8 staircase bands x bf16 payload, f32 accumulate, scatter-add,
+// all bands of one SpMM in one persistent launch.
 //
 // Replaces the TPU kernel pygim_tpu/ops/pallas_core.py:_dequant_core_dot
 // (bf16(int8 core) @ bf16(x), f32 accumulation) together with the XLA
 // scatter of its product, out.at[core_nodes[lo:hi]].add(...) in
-// pygim_tpu/ops/spmm.py:_core_scatter. It computes, for one band of r
-// rows and width w:
+// pygim_tpu/ops/spmm.py:_core_scatter. For every band b = (lo, hi, w) it
+// computes
 //
-//     out[rows[i], :] += sum_j f32(band[i, j]) * f32(xc[j, :])
+//     out[nodes[lo + i], :] += sum_{j < w} f32(band_b[i, j]) * f32(xc[j, :])
 //
-// with band int8 (r, w) row-major, xc bf16 (>= w, h) row-major, rows
-// int32 (r,) distinct, out f32 (N, h) row-major. The Pallas kernel was
-// square (k % 256 == 0); here the band is rectangular (w may exceed r),
-// rows need not be a multiple of the tile, widths need not be either.
+// with band_b int8 (hi - lo, w) row-major, xc bf16 (>= w, h) row-major,
+// nodes int32 (distinct over all bands: the staircase bands tile disjoint
+// row ranges, so every output element belongs to exactly one tile and a
+// whole tile needs no atomics), out f32 (N, h) row-major. Contract (the wrapper
+// checks it): w % 16 == 0 (the TMA row stride is w bytes), h % 8 == 0,
+// 16-byte aligned operands, at most MAX_BANDS bands per launch (the wrapper
+// launches once per group of MAX_BANDS bands).
 //
 // What bounds it on an H100 SXM: 2*r*w*h operations against r*w bytes of
-// int8 band (the other operands are small), i.e. 2*h = 512 operations
-// per band byte at h = 256. The card balances bf16 tensor work and HBM
-// traffic at about 295 operations per byte, so at h = 256 the bound is
-// the bf16 tensor-core rate, not HBM.
+// int8 band, i.e. 2*h = 512 operations per band byte at h = 256, above the
+// card's ~295 bf16 operations per HBM byte: the bf16 tensor-core rate.
 //
 // What the design does about it:
-// - the products run on the tensor cores (mma.sync m16n8k16, bf16 in,
-//   f32 accumulate); each int8 x bf16 product is exact, so only the
-//   order of the f32 sums differs from the plain version;
-// - the int8 band is read from HBM once, as int8, and widened to bf16
-//   on its way into shared memory: no bf16 copy of the band exists;
-// - a 128 x 128 output tile per block reuses each band tile over 128
-//   columns and each xc tile over 128 band rows;
-// - the contraction over w is a loop inside the block (the Pallas grid's
-//   sequential axis), with the next tile's global loads issued before
-//   the current tile's products;
-// - the scatter is the epilogue: each block adds its tile into the
-//   output rows once. Rows within a band are distinct and bands run in
-//   stream order, so no atomics are needed.
-// This is a simple first kernel: no wgmma, no TMA, no multi-stage ring.
+// - wgmma (m64n256k16, bf16 in, f32 accumulate) is the only instruction
+//   that reaches Hopper's tensor-core rate. Each block runs two consumer
+//   warpgroups on a 128 x 256 output tile, 128 f32 accumulators a thread;
+//   setmaxnreg moves registers from the producer warpgroup to them.
+// - A comes from registers: each consumer thread reads its fragment's
+//   int8 bytes from shared memory and widens them to bf16 with byte
+//   permutes and one f32 add per value (exact for |v| <= 128; the band is
+//   never widened in memory). B (xc) is read by wgmma straight from
+//   shared memory in its own row-major (K, N) layout, i.e. MN-major with
+//   the transpose bit, 128-byte swizzled by TMA.
+// - One producer thread keeps a 4-stage ring of TMA loads in flight
+//   (cp.async.bulk.tensor, mbarrier full/empty pairs). TMA's zero fill
+//   takes the ragged row and column edges; k16 steps past w are skipped.
+// - One persistent block per SM walks its share of a host-built tile list
+//   (band, m0, n0): longest contraction first, spread over the blocks by
+//   a greedy longest-first assignment, so short bands fill the SMs that
+//   the long ones leave idle. One launch covers every band, and each
+//   tile runs its whole contraction, so no epilogue needs atomics.
+// - The epilogue stages each 64-column slice of the tile through shared
+//   memory and adds it into out[nodes[lo + i], n0:n0 + 256] with 16-byte
+//   read-modify-writes along each row.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int BM = 128;        // band rows per block
-constexpr int BN = 128;        // output columns per block
-constexpr int BK = 32;         // contraction tile
-constexpr int LDS = BK + 8;    // padded shared row (bf16): conflict-free fragment loads
-constexpr int THREADS = 256;   // 8 warps: 2 (rows) x 4 (columns), 64 x 32 each
+constexpr int MAX_BANDS = 16;
+constexpr int BM = 128;             // band rows per tile (2 warpgroups x 64)
+constexpr int BN = 256;             // output columns per tile
+constexpr int BK = 64;              // contraction per ring stage
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;        // consumer WG 0, 1; producer WG 2
+constexpr int A_STAGE = BM * BK;                // int8, 64-byte swizzle
+constexpr int B_BOX = 64 * BK * 2;              // 64 columns x BK rows bf16
+constexpr int B_STAGE = (BN / 64) * B_BOX;      // 128-byte swizzle
+constexpr int EPI_LD = 72;                      // f32 row stride of staging
+constexpr int EPI_WG = 64 * EPI_LD * 4;
+constexpr int OFF_A = 0;
+constexpr int OFF_B = OFF_A + STAGES * A_STAGE;
+constexpr int OFF_EPI = OFF_B + STAGES * B_STAGE;
+constexpr int OFF_BAR = OFF_EPI + 2 * EPI_WG;
+constexpr int SMEM_BYTES = OFF_BAR + 2 * STAGES * 8 + 1024;  // + alignment
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// error codes of the host functions besides cudaError_t
+constexpr int ERR_NO_ENCODE = 900;  // cuTensorMapEncodeTiled not found
+constexpr int ERR_ARGS = 901;
+constexpr int ERR_ENCODE = 1000;    // + CUresult
 
-struct TileRegs {
-  uint32_t a[4];     // 16 band bytes of one row, little-endian
-  uint32_t b0[4];    // 8 bf16 of xc row k
-  uint32_t b1[4];    // 8 bf16 of xc row k + 1
+struct __align__(64) Params {
+  CUtensorMap band[MAX_BANDS];
+  CUtensorMap xc;
+  int lo[MAX_BANDS], r[MAX_BANDS], w[MAX_BANDS];
 };
 
-__device__ __forceinline__ void load_tile(
-    TileRegs& t, const int8_t* __restrict__ band,
-    const __nv_bfloat16* __restrict__ xc, int r, int w, int h, int vec_a,
-    int m0, int n0, int k0, int tid) {
-  // A: 128 rows x 32 bytes, 16 bytes per thread
-  const int a_row = m0 + (tid >> 1);
-  const int a_k = k0 + (tid & 1) * 16;
-  const int8_t* ap = band + (int64_t)a_row * w + a_k;
-  if (a_row < r && vec_a && a_k + 16 <= w) {
-    const int4 q = *reinterpret_cast<const int4*>(ap);
-    t.a[0] = (uint32_t)q.x; t.a[1] = (uint32_t)q.y;
-    t.a[2] = (uint32_t)q.z; t.a[3] = (uint32_t)q.w;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+// Shared-memory matrix descriptor of one 64-row (k) x 256-column (n) bf16
+// B stage: four 64-column boxes of 64 rows x 128 bytes, 128-byte swizzle.
+// MN-major: LBO = stride between 64-column boxes (8192 B), SBO = stride
+// between 8-row groups (1024 B); both in 16-byte units.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(B_BOX >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Four int8 (bytes of q) -> two bf16x2 (lo: bytes 0, 1; hi: bytes 2, 3),
+// the lower byte in the lower half. 2^23 + 128 + v is exact in f32; the
+// subtraction leaves v, whose bf16 is the top half of its f32.
+__device__ __forceinline__ void s8x4_to_bf16x4(uint32_t q, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t x = q ^ 0x80808080u;
+  const uint32_t magic = 0x4B000000u;
+  const float f0 = __uint_as_float(__byte_perm(x, magic, 0x7440)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(x, magic, 0x7441)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(x, magic, 0x7442)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(x, magic, 0x7443)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+#define D8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 x 256] += a[64 x 16] (registers, bf16) @ B[16 x 256] (shared, bf16,
+// MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, const uint32_t* a,
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"
+      "}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64),
+        D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+#undef D8
+
+// This thread's m64k16 A fragments for the four k16 steps of one stage:
+// a[s] = {row g, cols 2t4..+1}, {row g+8, same}, {row g, cols 2t4+8..+9},
+// {row g+8, same}, read as int8 from the 64-byte-swizzled stage and
+// widened to bf16x2
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const uint8_t* As,
+                                       int a_off0, int a_off1, int swz) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int c = (s ^ swz) << 4;
+    const uint32_t q0 =
+        *reinterpret_cast<const uint16_t*>(As + a_off0 + c) |
+        (static_cast<uint32_t>(
+             *reinterpret_cast<const uint16_t*>(As + a_off0 + c + 8))
+         << 16);
+    const uint32_t q1 =
+        *reinterpret_cast<const uint16_t*>(As + a_off1 + c) |
+        (static_cast<uint32_t>(
+             *reinterpret_cast<const uint16_t*>(As + a_off1 + c + 8))
+         << 16);
+    s8x4_to_bf16x4(q0, a[s][0], a[s][2]);
+    s8x4_to_bf16x4(q1, a[s][1], a[s][3]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+core_bands_kernel(const __grid_constant__ Params p,
+                  const int* __restrict__ tiles,
+                  const int* __restrict__ starts,
+                  const int* __restrict__ nodes, float* __restrict__ out,
+                  int h) {
+  extern __shared__ uint8_t smem_raw[];
+  // TMA's swizzle patterns are address-based: align the ring to 1024 B
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t full0 = s_base + OFF_BAR;
+  const uint32_t empty0 = full0 + STAGES * 8;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int t_begin = starts[blockIdx.x], t_end = starts[blockIdx.x + 1];
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        const int b = tiles[3 * t], m0 = tiles[3 * t + 1],
+                  n0 = tiles[3 * t + 2];
+        const int nbox = min(BN / 64, (h - n0 + 63) / 64);
+        const CUtensorMap* amap = &p.band[b];
+        for (int k0 = 0; k0 < p.w[b]; k0 += BK) {
+          const uint32_t full = full0 + 8 * stage;
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full, A_STAGE + nbox * B_BOX);
+          tma_load_2d(s_base + OFF_A + stage * A_STAGE, amap, k0, m0, full);
+          for (int j = 0; j < nbox; ++j)
+            tma_load_2d(s_base + OFF_B + stage * B_STAGE + j * B_BOX, &p.xc,
+                        n0 + 64 * j, k0, full);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
   } else {
-    // ragged edge: bytes past the band's rows or width read as zero
+    // ---- consumers: wgmma on a 64 x 256 half of the tile each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    // this thread's A rows in the tile: ra and ra + 8 (same swizzle row)
+    const int ra = 64 * wg + 16 * warp + g;
+    const int swz = (ra >> 1) & 3;  // 64-byte swizzle: chunk ^= bits 7..8
+    const int a_off0 = ra * BK + 2 * t4;
+    const int a_off1 = a_off0 + 8 * BK;
+    float* epi = reinterpret_cast<float*>(smem + OFF_EPI + wg * EPI_WG);
+    int stage = 0;
+    uint32_t phase = 0;
+
+    for (int t = t_begin; t < t_end; ++t) {
+      const int b = tiles[3 * t], m0 = tiles[3 * t + 1], n0 = tiles[3 * t + 2];
+      const int r = p.r[b], lo = p.lo[b], w = p.w[b];
+      float acc[128];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t word = 0;
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+      // The A fragments of stage k + 1 are read and widened while the
+      // wgmmas of stage k run; a wgmma's registers stay untouched until
+      // wait_group has retired it.
+      uint32_t a[4][4], a_next[4][4];
+      mbar_wait(full0 + 8 * stage, phase);
+      load_a(a, smem + OFF_A + stage * A_STAGE, a_off0, a_off1, swz);
+      for (int k0 = 0; k0 < w; k0 += BK) {
+        const uint64_t desc = b_desc(s_base + OFF_B + stage * B_STAGE);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        if (w - k0 >= BK) {
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int i = 4 * q + b;
-        const uint32_t v =
-            (a_row < r && a_k + i < w) ? (uint32_t)(uint8_t)ap[i] : 0u;
-        word |= v << (8 * b);
+          for (int s = 0; s < 4; ++s)  // 16 rows of B = 128 descriptor units
+            wgmma_m64n256k16(acc, a[s], desc + 128ull * s);
+        } else {  // the last k16 steps of a width that is not a BK multiple
+          const int ksteps = (w - k0) >> 4;
+#pragma unroll
+          for (int s = 0; s < 3; ++s)
+            if (s < ksteps) wgmma_m64n256k16(acc, a[s], desc + 128ull * s);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        int next = stage + 1;
+        uint32_t next_phase = phase;
+        if (next == STAGES) {
+          next = 0;
+          next_phase ^= 1;
+        }
+        if (k0 + BK < w) {
+          mbar_wait(full0 + 8 * next, next_phase);
+          load_a(a_next, smem + OFF_A + next * A_STAGE, a_off0, a_off1, swz);
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+        stage = next;
+        phase = next_phase;
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[s][e] = a_next[s][e];
       }
-      t.a[q] = word;
-    }
-  }
-  // B: 32 rows (k) x 128 columns; each thread takes rows k, k+1 of one
-  // 8-column chunk so it can pack (k, k+1) pairs for the transposed store
-  const int kp = tid & 15;
-  const int nc = (tid >> 4) * 8;
-  const int gk = k0 + 2 * kp;
-  const int gn = n0 + nc;
-  uint4 z = make_uint4(0, 0, 0, 0);
-  uint4 q0 = z, q1 = z;
-  if (gn < h) {
-    if (gk < w)
-      q0 = *reinterpret_cast<const uint4*>(xc + (int64_t)gk * h + gn);
-    if (gk + 1 < w)
-      q1 = *reinterpret_cast<const uint4*>(xc + (int64_t)(gk + 1) * h + gn);
-  }
-  t.b0[0] = q0.x; t.b0[1] = q0.y; t.b0[2] = q0.z; t.b0[3] = q0.w;
-  t.b1[0] = q1.x; t.b1[1] = q1.y; t.b1[2] = q1.z; t.b1[3] = q1.w;
-}
 
-__device__ __forceinline__ void store_tile(
-    const TileRegs& t, __nv_bfloat16 (*As)[LDS], uint32_t (*Bs)[LDS / 2],
-    int tid) {
-  // A: widen 16 int8 to bf16 (exact for |v| <= 128) and store 32 bytes;
-  // word i holds columns (2i, 2i+1), the lower column in the lower half
-  uint32_t wv[8];
+      // ---- epilogue: out[nodes[lo + row], n0 + col] += acc ----
+      int ids[8];  // output rows of this thread's epilogue reads
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int8_t lo = (int8_t)(t.a[i >> 1] >> (16 * (i & 1)));
-    const int8_t hi = (int8_t)(t.a[i >> 1] >> (16 * (i & 1) + 8));
-    wv[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn((float)lo)) |
-            ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn((float)hi))
-             << 16);
-  }
-  uint4* dst = reinterpret_cast<uint4*>(&As[tid >> 1][(tid & 1) * 16]);
-  dst[0] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
-  dst[1] = make_uint4(wv[4], wv[5], wv[6], wv[7]);
-  // B: transposed, Bs[n][k/2] holds the bf16 pair (k, k+1) of column n,
-  // lower half = row k (the mma operand layout)
-  const int kp = tid & 15;
-  const int nc = (tid >> 4) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t lo = t.b0[i], hi = t.b1[i];
-    Bs[nc + 2 * i][kp] = (lo & 0xFFFFu) | (hi << 16);
-    Bs[nc + 2 * i + 1][kp] = (lo >> 16) | (hi & 0xFFFF0000u);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-core_band_kernel(const int8_t* __restrict__ band,
-                 const __nv_bfloat16* __restrict__ xc,
-                 const int32_t* __restrict__ rows, float* __restrict__ out,
-                 int r, int w, int h, int vec_a) {
-  __shared__ __align__(16) __nv_bfloat16 As[BM][LDS];
-  __shared__ __align__(16) uint32_t Bs[BN][LDS / 2];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 2;  // 64-row slab of the tile
-  const int wn = warp & 3;   // 32-column slab of the tile
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  TileRegs regs;
-  load_tile(regs, band, xc, r, w, h, vec_a, m0, n0, 0, tid);
-  for (int k0 = 0; k0 < w; k0 += BK) {
-    store_tile(regs, As, Bs, tid);
-    __syncthreads();
-    if (k0 + BK < w)
-      load_tile(regs, band, xc, r, w, h, vec_a, m0, n0, k0 + BK, tid);
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int rr = wm * 64 + mi * 16 + g;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[rr][ks + 2 * t4]);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[rr + 8][ks + 2 * t4]);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[rr][ks + 2 * t4 + 8]);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(&As[rr + 8][ks + 2 * t4 + 8]);
+      for (int k = 0; k < 8; ++k) {
+        const int row = m0 + 64 * wg + (tid >> 4) + 8 * k;
+        ids[k] = row < r ? nodes[lo + row] : -1;
       }
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int nn = wn * 32 + ni * 8 + g;
-        bfr[ni][0] = Bs[nn][ks / 2 + t4];
-        bfr[ni][1] = Bs[nn][ks / 2 + t4 + 4];
-      }
+      for (int c4 = 0; c4 < BN / 64; ++c4) {
+        if (n0 + 64 * c4 >= h) break;
+        named_bar_sync(1 + wg);  // the previous slice's readers are done
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * t4;
+          const int i = 32 * c4 + 4 * j;  // compile-time after unrolling
+          *reinterpret_cast<float2*>(epi + (16 * warp + g) * EPI_LD + col) =
+              make_float2(acc[i], acc[i + 1]);
+          *reinterpret_cast<float2*>(epi + (16 * warp + g + 8) * EPI_LD + col) =
+              make_float2(acc[i + 2], acc[i + 3]);
+        }
+        named_bar_sync(1 + wg);
+        const int col = n0 + 64 * c4 + 4 * (tid & 15);
+        if (col < h) {  // h % 8 == 0: the whole float4 is inside
+          float4 s[8], v[8];
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_16816(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: scatter-add the tile into its output rows
+          for (int k = 0; k < 8; ++k)
+            s[k] = *reinterpret_cast<const float4*>(
+                epi + ((tid >> 4) + 8 * k) * EPI_LD + 4 * (tid & 15));
+          // all eight loads in flight before any store
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+          for (int k = 0; k < 8; ++k)
+            if (ids[k] >= 0)
+              v[k] = *reinterpret_cast<const float4*>(
+                  out + static_cast<int64_t>(ids[k]) * h + col);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int lr = m0 + wm * 64 + mi * 16 + g + half * 8;
-      if (lr >= r) continue;
-      float* orow = out + (int64_t)rows[lr] * h;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + 2 * t4;
-        if (col < h) {  // h % 8 == 0, so col + 1 < h as well
-          float2* p = reinterpret_cast<float2*>(orow + col);
-          float2 o = *p;
-          o.x += acc[mi][ni][2 * half];
-          o.y += acc[mi][ni][2 * half + 1];
-          *p = o;
+          for (int k = 0; k < 8; ++k) {
+            if (ids[k] < 0) continue;
+            v[k].x += s[k].x;
+            v[k].y += s[k].y;
+            v[k].z += s[k].z;
+            v[k].w += s[k].w;
+            *reinterpret_cast<float4*>(
+                out + static_cast<int64_t>(ids[k]) * h + col) = v[k];
+          }
         }
       }
     }
   }
 }
 
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the CUDA runtime's entry-point lookup, so the
+// library needs no -lcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// 2-D row-major tensor (outer, inner) with a row stride of `stride` bytes,
+// loaded in boxes of (box_outer, box_inner); out-of-bounds reads are zero
+int encode_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr,
+              long long inner, long long outer, long long stride,
+              int box_inner, int box_outer, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return ERR_NO_ENCODE;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = fn(map, dtype, 2, const_cast<void*>(ptr), dims, strides,
+                          box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(res);
+}
+
 }  // namespace
 
-extern "C" int core_band_scatter_add(const void* band, const void* xc,
-                                     const void* rows, void* out, int r,
-                                     int w, int h, int vec_a, void* stream) {
-  dim3 grid((h + BN - 1) / BN, (r + BM - 1) / BM);
-  core_band_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(band),
-      static_cast<const __nv_bfloat16*>(xc),
-      static_cast<const int32_t*>(rows), static_cast<float*>(out), r, w, h,
-      vec_a);
+// Encode the TMA map of one int8 band (r, w) into `map` (128 bytes of host
+// memory). Returns 0 or an error code.
+extern "C" int core_encode_band_map(void* map, const void* band, long long r,
+                                    long long w) {
+  CUtensorMap m;
+  const int err = encode_2d(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, band, w, r, w,
+                            BK, BM, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err == 0) memcpy(map, &m, sizeof m);
+  return err;
+}
+
+// One launch over all bands: `band_maps` holds n_bands encoded maps (host),
+// `band_info` (lo, r, w) per band (host); `tiles` (int32 triples: band,
+// m0, n0) and `starts` (grid + 1 offsets into tiles, one segment per block) are on
+// the device. Returns 0 or an error code (cudaError_t, or the codes above).
+extern "C" int core_bands_scatter_add(const void* band_maps,
+                                      const int* band_info, int n_bands,
+                                      const void* xc, long long n_xc,
+                                      const void* tiles, const void* starts,
+                                      int grid, const void* nodes, void* out,
+                                      int h, void* stream) {
+  if (n_bands < 1 || n_bands > MAX_BANDS || grid < 1 || h % 8) return ERR_ARGS;
+  Params p;
+  memset(&p, 0, sizeof p);
+  memcpy(p.band, band_maps, n_bands * sizeof(CUtensorMap));
+  for (int i = 0; i < n_bands; ++i) {
+    p.lo[i] = band_info[3 * i];
+    p.r[i] = band_info[3 * i + 1];
+    p.w[i] = band_info[3 * i + 2];
+  }
+  int err = encode_2d(&p.xc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xc, h, n_xc,
+                      2ll * h, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      core_bands_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  core_bands_kernel<<<grid, THREADS, SMEM_BYTES,
+                      static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const int*>(tiles), static_cast<const int*>(starts),
+      static_cast<const int*>(nodes), static_cast<float*>(out), h);
   return static_cast<int>(cudaGetLastError());
 }

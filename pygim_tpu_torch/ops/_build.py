@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C function that launches its
 kernel on a given stream and returns the launch's ``cudaError_t``. It is
 compiled with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so``
 inside this package, at first use, from the sources alone; the hash
-covers the source and the flags, so an edited source rebuilds. All
+covers the source, every ``csrc/*.cuh`` header and the flags, so an
+edited source or header rebuilds. All
 missing libraries are compiled at once, one ``nvcc`` per source.
 
 Nothing here runs at import: this module only names paths.
@@ -35,8 +36,12 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points per source: name -> argtypes (all return int)
 SIGNATURES = {
     "core_dot": {
-        # band, xc, rows, out, r, w, h, vec_a, stream
-        "core_band_scatter_add": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # map (host, 128 B), band, r, w
+        "core_encode_band_map": [_P, _P, _LL, _LL],
+        # band maps, band (lo, r, w) (both host), n_bands, xc, xc rows,
+        # tiles, starts, grid, nodes, out, h, stream
+        "core_bands_scatter_add": [_P, _P, _I, _P, _LL, _P, _P, _I, _P, _P,
+                                   _I, _P],
     },
     "ell_tail": {
         # x, cols, vals, vrow, out, n_vrows, degree, h, stream
@@ -63,8 +68,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
@@ -123,9 +130,21 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise on a nonzero ``cudaError_t`` returned by a launch."""
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+    """Raise on a nonzero code returned by a host function of ``csrc/``:
+    a ``cudaError_t``, or the codes the sources add (900: the CUDA driver has no
+    ``cuTensorMapEncodeTiled``, 901: arguments refused, 1000 + r: the
+    encode returned ``CUresult`` r)."""
+    if err == 0:
+        return
+    if err == 900:
+        why = "cuTensorMapEncodeTiled not found in the CUDA driver"
+    elif err == 901:
+        why = "arguments refused by the host function"
+    elif err >= 1000:
+        why = f"cuTensorMapEncodeTiled failed with CUresult {err - 1000}"
+    else:
+        why = f"CUDA launch failed with cudaError {err}"
+    raise RuntimeError(f"{what}: {why}")
 
 
 def stream_of(t) -> int:

@@ -9,8 +9,8 @@ computes ``A @ x`` as
 
 1. ``out = zeros(N, H)``;
 2. K-tail over every ELL table (``ops/ell_tail.py``);
-3. ``xc = bf16(x[core_nodes])`` and K-core for each band into ``out`` at
-   ``core_nodes[lo:hi]`` (``ops/core_dot.py``)
+3. ``xc = bf16(x[core_nodes])`` and K-core over all bands into ``out``
+   at ``core_nodes[lo:hi]``, one launch (``ops/core_dot.py``)
 
 — the order of the reference's hybrid run. The host tables are the
 reference's bit for bit. Other backends, core shapes and dtypes, and
@@ -33,7 +33,11 @@ from pygim_tpu_torch.core.partition import (
     round_up,
 )
 from pygim_tpu_torch.core.stair import plan_staircase
-from pygim_tpu_torch.ops.core_dot import core_band_plain, core_band_scatter_add
+from pygim_tpu_torch.ops.core_dot import (
+    core_bands_plain,
+    core_bands_scatter_add,
+    core_plans,
+)
 from pygim_tpu_torch.ops.ell_tail import ell_tail_add, ell_tail_plain
 from pygim_tpu_torch.utils.timers import PhaseTimer
 
@@ -246,6 +250,7 @@ class PreparedSpmm:
                 self._dev[key + sfx] = self._put(arr)
             self.ell_meta.append((chunk, int(host[f"degree{sfx}"])))
         self.stair = None
+        self._core_plans = {}  # H -> K-core plans of the device bands
         if "stair_bands" in host:
             self.stair = [tuple(int(v) for v in b) for b in host["stair_bands"]]
             for b in range(len(self.stair)):
@@ -277,12 +282,25 @@ class PreparedSpmm:
         return self.raw_mul(x, self._dev)
 
     def raw_mul(self, x, dev: dict):
-        return self._run(x, dev, core_band_scatter_add, ell_tail_add)
+        core = self._core if dev is self._dev else core_bands_scatter_add
+        return self._run(x, dev, core, ell_tail_add)
+
+    def _core(self, bands, xc, core_nodes, stair, out):
+        """K-core over this operand's own bands, with their plans built
+        once per width H on the card."""
+        plans = None
+        if out.is_cuda and out.device == bands[0].device:
+            h = out.shape[1]
+            if h not in self._core_plans:
+                self._core_plans[h] = core_plans(bands, stair, h)
+            plans = self._core_plans[h]
+        return core_bands_scatter_add(bands, xc, core_nodes, stair, out,
+                                      plans=plans)
 
     def mul_plain(self, x):
         """The same product through the plain PyTorch versions on any
         device — the yardstick the kernels are held against."""
-        return self._run(x, self._dev, core_band_plain, ell_tail_plain)
+        return self._run(x, self._dev, core_bands_plain, ell_tail_plain)
 
     def _run(self, x, dev, core_fn, tail_fn):
         if x.dim() != 2 or x.shape[0] != self.ncols:
@@ -301,8 +319,8 @@ class PreparedSpmm:
         if self.stair:
             cn = dev["core_nodes"]
             xc = x.index_select(0, cn).to(torch.bfloat16)
-            for b, (lo, hi, _w) in enumerate(self.stair):
-                core_fn(dev[f"stair{b}"], xc, cn[lo:hi], out)
+            bands = [dev[f"stair{b}"] for b in range(len(self.stair))]
+            core_fn(bands, xc, cn, self.stair, out)
         return out
 
 
