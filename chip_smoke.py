@@ -6,10 +6,14 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``pygim_tpu_torch/csrc``, holds
-each against its plain PyTorch version at the main path's shapes (and at
-ragged shapes), times both beside a PyTorch library call and the card's
-bound (K-core on the widest band, on all bands in one launch, and on a
-32768 × 65536 scale band drawn on the card), then drives the main path — 2-layer GCN inference at hidden 256
+each against its plain PyTorch version at the main path's shapes and at
+ragged shapes, and times both beside a PyTorch library call and the
+card's bound: K-core on the widest band, on all bands in one launch and
+on a 32768 × 65536 scale band drawn on the card; K-tail over the smoke
+configuration's ELL tables in one launch and over the whole of a
+reddit-sized R-MAT graph's tables (the scale-tables phase). It checks
+``prep.mul`` against ``mul_plain`` at widths the kernels' tiles do not
+divide, then drives the main path — 2-layer GCN inference at hidden 256
 with a float payload on the stair-int8 hybrid SpMM, on the ogbn-arxiv
 stand-in — through ``run_inference_benchmark`` and
 ``run_spmm_benchmark``, and checks that the path launched every kernel.
@@ -249,59 +253,67 @@ def core_checks(prep, x, results, scale_band=SCALE_BAND):
     )
 
 
-def tail_checks(prep, x, results):
+SCALE_GRAPH = "rmat-232965-8000000"  # reddit's node count, 8M stored edges
+
+
+def ragged_tables(seed: int = 5):
+    """Multi-degree ELL tables (the port's planner, small steps) of a
+    graph with ragged rows, a hub row that the K-tail plan cuts across
+    units, the last row real right before the pad rows, and zero-valued
+    real edges (some in the middle of a virtual row, some at its end)."""
+    import numpy as np
+
+    from pygim_tpu_torch.core.graph import CooGraph
+    from pygim_tpu_torch.ops.spmm import (
+        SpmmConfig,
+        _plan_ell_tables,
+        ell_step_tables,
+    )
+
+    rng = np.random.default_rng(seed)
+    n = 700
+    deg = rng.zipf(1.7, n).clip(1, 80)
+    deg[7] = 1500      # hub row
+    deg[n - 1] = 5     # last row, real
+    rows = np.repeat(np.arange(n), deg)
+    cols = rng.integers(0, n, rows.size)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    vals[rng.random(rows.size) < 0.05] = 0.0
+    csr = CooGraph.from_edges(rows, cols, vals, nrows=n, ncols=n).to_csr()
+    tabs = _plan_ell_tables(csr, SpmmConfig(block_nnz_budget=2048))
+    return n, [(*ell_step_tables(t.cols, t.vals, t.vrow_to_row, chunk),
+                t.degree) for chunk, t in tabs]
+
+
+def tail_to(tables, dev):
     import torch
 
+    return [(*(torch.from_numpy(a).to(dev) for a in (c, v, r)), d)
+            for c, v, r, d in tables]
+
+
+def tail_close(name, x, tables, got, out0):
+    """``got`` (tables added into ``out0``) against the plain version."""
     from pygim_tpu_torch.ops import ell_tail
 
-    dev = x.device
-    g = torch.Generator(device="cpu").manual_seed(2)
-    # ragged: H not a multiple of 128, a hub row over many virtual rows
-    for h in (36, 256):
-        n, chunk, degree, steps = 500, 64, 3, 4
-        nv = chunk * steps
-        vrow = torch.sort(torch.randint(0, n, (nv,), generator=g)).values
-        vrow[: nv // 4] = 7  # one hub row spanning 64 virtual rows
-        vrow = torch.sort(vrow).values.to(torch.int32).view(steps, chunk)
-        cols = torch.randint(0, n, (steps, chunk * degree), generator=g,
-                             dtype=torch.int32)
-        vals = torch.randn(steps, chunk * degree, generator=g)
-        xs = torch.randn(n, h, generator=g)
-        cols, vals, vrow, xs = (t.to(dev) for t in (cols, vals, vrow, xs))
-        out0 = torch.randn(n, h, generator=g).to(dev)
-        got = ell_tail.ell_tail_add(xs, cols, vals, vrow, degree, out0.clone())
-        want = ell_tail.ell_tail_plain(xs, cols, vals, vrow, degree,
-                                       out0.clone())
-        mag = ell_tail.ell_tail_plain(xs.abs(), cols, vals.abs(), vrow, degree,
-                                      out0.abs())
-        check_close(f"K-tail ragged H={h}", got, want, mag, REL_TOL)
-    d = prep.dev_arrays
-    tabs = []
-    for i, (_chunk, degree) in enumerate(prep.ell_meta):
-        sfx = "" if i == 0 else f"_{i}"
-        tabs.append((d[f"cols2d{sfx}"], d[f"vals2d{sfx}"],
-                     d[f"vrow_to_row{sfx}"], degree))
-    z = torch.zeros_like(x)
-    got, want, mag = z.clone(), z.clone(), z.clone()
-    for c, v, r, degree in tabs:
-        ell_tail.ell_tail_add(x, c, v, r, degree, got)
-        ell_tail.ell_tail_plain(x, c, v, r, degree, want)
-        ell_tail.ell_tail_plain(x.abs(), c, v.abs(), r, degree, mag)
-    err = check_close("K-tail tables", got, want, mag, REL_TOL)
-    del got, want, mag
+    want = ell_tail.ell_tables_plain(x, tables, out0.clone())
+    mag = ell_tail.ell_tables_plain(
+        x.abs(), [(c, v.abs(), r, d) for c, v, r, d in tables], out0.abs())
+    return check_close(name, got, want, mag, REL_TOL)
 
-    def run(fn):
-        def go():
-            for c, v, r, degree in tabs:
-                fn(x, c, v, r, degree, z)
-        return go
 
-    ms = cuda_ms(run(ell_tail.ell_tail_add))
-    plain_ms = cuda_ms(run(ell_tail.ell_tail_plain), iters=5)
-    # library yardstick: cuSPARSE CSR SpMM over the same (real) entries
+def tail_bound(tables, h, peaks_):
+    """Least time of one grouped K-tail call: the larger of its bytes over
+    HBM (each real entry's index and value, each x row it needs and each
+    output row it touches, read and written, once) and its multiply-adds
+    over the f32 rate; beside it the per-slot model, where every stored
+    slot reads its x row from HBM. Also the library yardstick's matrix:
+    the real entries as one CSR (cuSPARSE through torch.sparse.mm)."""
+    import torch
+
     rows_l, cols_l, vals_l = [], [], []
     slots = vrows = 0
-    for c, v, r, degree in tabs:
+    for c, v, r, degree in tables:
         slots += c.numel()
         vrows += r.numel()
         rr = r.reshape(-1).repeat_interleave(degree)
@@ -311,31 +323,164 @@ def tail_checks(prep, x, results):
         vals_l.append(v.reshape(-1)[keep])
     rows_t = torch.cat(rows_l).long()
     cols_t = torch.cat(cols_l).long()
-    n = x.shape[0]
-    a = torch.sparse_coo_tensor(
-        torch.stack([rows_t, cols_t]), torch.cat(vals_l), (n, n),
-    ).coalesce().to_sparse_csr()
-    library_ms = cuda_ms(lambda: torch.sparse.mm(a, x))
-    h = x.shape[1]
     nnz = int(rows_t.numel())
     u_cols = int(torch.unique(cols_t).numel())
     u_rows = int(torch.unique(rows_t).numel())
-    hbm, _bf16, f32 = results["peaks"]
-    # least traffic: each real entry's index and value once, each needed
-    # x row once, each touched out row read and written once
+    hbm, _bf16, f32 = peaks_
     nbytes = nnz * 8 + u_cols * h * 4 + 2 * u_rows * h * 4
-    ops = 2 * nnz * h
-    t_bytes, t_ops = nbytes / hbm * 1e3, ops / f32 * 1e3
-    results["K-tail"] = dict(
-        tables=[[int(c.shape[0]), int(c.shape[1]) // dg, dg]
-                for c, _v, _r, dg in tabs],
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    t_bytes, t_ops = nbytes / hbm * 1e3, 2 * nnz * h / f32 * 1e3
+    return dict(
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        # per-slot traffic model: every stored slot reads its x row
         bound_slot_ms=(slots * (8 + 4 * h) + vrows * 4 * h) / hbm * 1e3,
-        nnz=nnz, slots=slots, vrows=vrows,
+        nnz=nnz, slots=slots, vrows=vrows, unique_cols=u_cols,
+        unique_rows=u_rows,
+    ), (rows_t, cols_t, torch.cat(vals_l))
+
+
+def off_aligned(t):
+    """A contiguous copy of ``t`` at a storage offset of one float, so its
+    address is not 16-byte aligned."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def tail_checks(prep, x, results):
+    import torch
+
+    from pygim_tpu_torch.ops import ell_tail
+
+    dev = x.device
+    g = torch.Generator(device="cpu").manual_seed(2)
+    # ragged: any H (not a multiple of 4, not of 128, above one slab), a
+    # hub row split across units, row N - 1 next to the pad rows, zero
+    # weights; all tables in one call, and each table alone. H 41 and the
+    # unaligned case take the register path (a), the rest the bulk copy
+    n, host = ragged_tables()
+    tables = tail_to(host, dev)
+    plan = ell_tail.tail_plan(tables)
+    if not plan.units[:, 3].any():
+        raise AssertionError("ragged tables: no hub run split across units")
+    for h in (36, 41, 256, 1100):
+        xs = torch.randn(n, h, generator=g).to(dev)
+        out0 = torch.randn(n, h, generator=g).to(dev)
+        got = ell_tail.ell_tables_add(xs, tables, out0.clone(), plan=plan)
+        tail_close(f"K-tail ragged H={h}", xs, tables, got, out0)
+        for i, (c, v, r, d) in enumerate(tables):
+            got = ell_tail.ell_tail_add(xs, c, v, r, d, out0.clone())
+            tail_close(f"K-tail ragged H={h} table {i}", xs, [(c, v, r, d)],
+                       got, out0)
+    # H % 4 == 0, but x and out off 16-byte alignment
+    xs = off_aligned(torch.randn(n, 256, generator=g).to(dev))
+    out0 = torch.randn(n, 256, generator=g).to(dev)
+    got = ell_tail.ell_tables_add(xs, tables, off_aligned(out0), plan=plan)
+    tail_close("K-tail ragged H=256 unaligned", xs, tables, got, out0)
+
+    # the smoke tables, one grouped call
+    tables = prep.ell_tables(prep.dev_arrays)
+    plan = ell_tail.tail_plan(tables)
+    z = torch.zeros_like(x)
+    got = ell_tail.ell_tables_add(x, tables, z.clone(), plan=plan)
+    err = tail_close("K-tail tables, one launch", x, tables, got, z)
+    del got
+    ms = cuda_ms(lambda: ell_tail.ell_tables_add(x, tables, z, plan=plan))
+    plain_ms = cuda_ms(lambda: ell_tail.ell_tables_plain(x, tables, z),
+                       iters=5)
+    bound, (rows_t, cols_t, vals_t) = tail_bound(tables, x.shape[1],
+                                                 results["peaks"])
+    n = x.shape[0]
+    a = torch.sparse_coo_tensor(torch.stack([rows_t, cols_t]), vals_t,
+                                (n, n)).coalesce().to_sparse_csr()
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a, x))
+    results["K-tail"] = dict(
+        tables=[[int(c.shape[0]), int(c.shape[1]) // dg, dg]
+                for c, _v, _r, dg in tables],
+        units=plan.n_units, split_units=int(plan.units[:, 3].sum()),
+        real_vrows=plan.n_real, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, **bound,
     )
+
+
+def tail_scale(results, dev, h=256):
+    """K-tail on the whole of a reddit-sized R-MAT graph's ELL tables at
+    the default SpmmConfig (all edges in the tail): checked against the
+    plain version, timed beside it, torch.sparse.mm and the bound."""
+    import numpy as np
+    import torch
+
+    from pygim_tpu_torch.core.graph import merge_duplicate_edges
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import ell_tail
+    from pygim_tpu_torch.ops.spmm import (
+        SpmmConfig,
+        _plan_ell_tables,
+        ell_step_tables,
+    )
+
+    t0 = time.perf_counter()
+    graph, _ = merge_duplicate_edges(load_dataset(SCALE_GRAPH).graph)
+    host = [(*ell_step_tables(t.cols, t.vals, t.vrow_to_row, chunk), t.degree)
+            for chunk, t in _plan_ell_tables(graph.to_csr(), SpmmConfig())]
+    tables = tail_to(host, dev)
+    plan = ell_tail.tail_plan(tables, host=[(v, r) for _c, v, r, _d in host])
+    host_s = time.perf_counter() - t0
+    n = graph.nrows
+    gx = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(n, h, generator=gx, device=dev)
+    z = torch.zeros_like(x)
+    got = ell_tail.ell_tables_add(x, tables, z.clone(), plan=plan)
+    err = tail_close(f"K-tail scale tables {SCALE_GRAPH}", x, tables, got, z)
+    del got
+    ms = cuda_ms(lambda: ell_tail.ell_tables_add(x, tables, z, plan=plan),
+                 iters=10)
+    plain_ms = cuda_ms(lambda: ell_tail.ell_tables_plain(x, tables, z),
+                       iters=3, warmup=1)
+    bound, (rows_t, cols_t, vals_t) = tail_bound(tables, h, results["peaks"])
+    a = torch.sparse_coo_tensor(torch.stack([rows_t, cols_t]), vals_t,
+                                (n, n)).coalesce().to_sparse_csr()
+    del rows_t, cols_t, vals_t
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a, x), iters=10)
+    results["K-tail scale tables"] = dict(
+        graph=SCALE_GRAPH, h=h, host_s=host_s,
+        tables=[[int(c.shape[0]), int(c.shape[1]) // dg, dg]
+                for c, _v, _r, dg in tables],
+        real_slots=int(sum(int(np.count_nonzero(v)) for _c, v, _r, _d in host)),
+        units=plan.n_units, split_units=int(plan.units[:, 3].sum()),
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound,
+    )
+    del a, x, z, tables
+    torch.cuda.empty_cache()
+
+
+def mul_any_width(prep, results, widths=(41, 1100)):
+    """``prep.mul`` (K-tail at H, K-core padded to a multiple of 8)
+    against ``mul_plain`` (nothing padded) at widths the kernels' tiles
+    do not divide."""
+    import torch
+
+    from pygim_tpu_torch.ops import core_dot, ell_tail
+
+    d = prep.dev_arrays
+    cn = d["core_nodes"]
+    bands = [d[f"stair{b}"].float().abs() for b in range(len(prep.stair))]
+    tables = [(c, v.abs(), r, dg) for c, v, r, dg in prep.ell_tables(d)]
+    g = torch.Generator(device="cpu").manual_seed(7)
+    errs = {}
+    for h in widths:
+        x = torch.randn(prep.ncols, h, generator=g).to(cn.device)
+        got = prep.mul(x)
+        want = prep.mul_plain(x)
+        if got.shape != (prep.nrows, h):
+            raise AssertionError(f"mul at H={h}: shape {tuple(got.shape)}")
+        mag = ell_tail.ell_tables_plain(x.abs(), tables, torch.zeros_like(x))
+        xc = x.index_select(0, cn).to(torch.bfloat16).abs()
+        core_dot.core_bands_plain(bands, xc, cn, prep.stair, mag)
+        errs[h] = check_close(f"mul at H={h}", got, want, mag, REL_TOL)
+        del x, got, want, mag, xc
+    results["mul any width"] = errs
 
 
 def profile_forward(gnn, x, agg, iters: int = 5) -> None:
@@ -424,6 +569,11 @@ def main() -> int:
     tail_checks(prep, x, results)
     print(f"K-tail: {results['K-tail']}", flush=True)
     del x
+    torch.cuda.empty_cache()
+    mul_any_width(prep, results)
+    print(f"mul any width, max abs err: {results['mul any width']}", flush=True)
+    tail_scale(results, torch.device("cuda"))
+    print(f"K-tail scale tables: {results['K-tail scale tables']}", flush=True)
 
     # the main path, counted
     core_dot.launches = 0

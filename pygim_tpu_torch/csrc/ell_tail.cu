@@ -1,167 +1,485 @@
-// K-tail: the ELL gather-weight-reduce of the hybrid SpMM's tail.
+// K-tail: the ELL gather-weight-reduce of the hybrid SpMM's tail, every
+// ELL table of one SpMM in one launch.
 //
 // Replaces the XLA body of pygim_tpu/ops/spmm.py:ell_scan_spmm /
 // _ell_grouped_scan (one lax.scan per table: take(x, cols) into a
 // (chunk, D, H) block, weight by vals, sum over D, then a sorted
-// scatter-add of the (chunk, H) partials at vrow_to_row). For one table
-// in step layout, flattened to n_vrows = n_steps * chunk virtual rows of
-// degree D, it computes
+// scatter-add of the (chunk, H) partials at vrow_to_row). For every table,
+// cols int32 / vals f32 (n_vrows, D) and vrow_to_row int32 (n_vrows,)
+// non-decreasing, it computes
 //
 //     out[vrow_to_row[v], :] += sum_d vals[v, d] * x[cols[v, d], :]
 //
-// with x f32 (N, h) row-major, cols int32 / vals f32 (n_vrows, D),
-// vrow_to_row int32 (n_vrows,) non-decreasing, out f32 (N, h). A hub
-// row spans several consecutive virtual rows; pad virtual rows carry
-// val 0 and point at row N - 1.
+// with x and out f32 (N, h) row-major; out is added into, not assumed
+// zero. A hub row spans several consecutive virtual rows.
 //
-// What bounds it on an H100: bytes, and in practice the latency of
-// dependent random reads. Each slot moves one x row (4h bytes, 1 KiB at
-// h = 256) chosen by an index that must be read first, and does one
-// multiply-add per element, far below the card's operations-per-byte
-// balance. The rows of x it needs are read at most once per slot, from
-// HBM or, where a row is reused soon enough, from the 50 MB L2; x itself
-// (N * h * 4 bytes) is larger than the L2 on the graphs this path serves.
+// The host plan (ops/ell_tail.py:tail_plan) gives each table a count per
+// virtual row, cnt[v] = 1 + the index of its last nonzero weight (0 if it
+// has none), and a list of work units (table, first virtual row, at most
+// 32 virtual rows). A unit holds whole runs of equal rows, except that a
+// run longer than a unit is cut into pieces of its own, each flagged to
+// add atomically. Only the first cnt[v] slots of a virtual row are read,
+// and the virtual rows past a table's last counted one (the planner's pad
+// rows: col 0, val 0, row N - 1) are in no unit.
+//
+// The one difference from the plain version and the reference: a slot
+// past cnt[v] reads no x row, so a non-finite x row that only such slots
+// reach (pad slots, or zero weights at the end of a virtual row) does not
+// turn their zero weights into NaN in the rows they point at.
+//
+// What bounds it on an H100: bytes. Each counted slot moves one x row
+// slice (4h bytes, 1 KiB at h = 256), chosen by an index that must be read
+// first, and does one multiply-add per element, far below the card's
+// operations per byte; each touched output row is read and written once.
+// x is larger than the 50 MB L2 on the graphs this path serves.
 //
 // What the design does about it:
-// - one warp per virtual row; each lane reads 16 bytes of an x row, so
-//   a row read is a whole 512-byte coalesced transaction per 128 columns;
-// - the D row reads of a virtual row are independent, and the loop over
-//   D is unrolled so several are in flight per warp;
-// - the weighted sum stays in registers: the (chunk * D, h) gather that
-//   torch's index_select would write to HBM never exists;
-// - the output is written once per row run, not once per virtual row:
-//   a block's 8 consecutive virtual rows park their partials in shared
-//   memory, and the first virtual row of each run of equal rows sums the
-//   run and adds it into out. A run that the sorted order proves to be
-//   the whole row (its neighbours outside the block hold other rows) is
-//   added with plain 16-byte read-modify-writes; only runs cut by a
-//   block edge (hub rows, the pad rows at N - 1) use f32 atomics.
-//   Per-virtual-row atomics measured slower: they made every output
-//   element one contended atomic (PERF.md).
-// Summation order: the D products in order, then the run's partials in
-// order, then the atomics of a cut run in no fixed order — the result
-// differs from the plain version only in f32 summation order.
+// - one launch for all tables: a grid over the unit list (a warp a unit,
+//   four a block, the units with the most slots first) times one grid row
+//   per 256-column slab of h, so any h >= 1 runs;
+// - a warp lays its unit's counted slots out as one stream (a prefix sum
+//   of cnt over its virtual rows, one per lane), so no pad slot costs a
+//   read and a D = 2 table streams x rows as densely as a D = 512 one;
+// - path (b), wherever h % 4 == 0 and x and out are 16-byte aligned:
+//   lane 0 keeps a ring of RING shared-memory stages per warp filled with
+//   cp.async.bulk row copies completed on mbarriers, the next copy issued
+//   as soon as a stage is read, and the warp applies the weights from
+//   shared memory; the copies hold no registers, so more warps fit on an
+//   SM;
+// - path (a), every other width or alignment: each lane issues its
+//   columns of BATCH independent x row reads into registers before it
+//   uses any;
+// - the weighted sums stay in registers; a finished row's sum is parked
+//   in shared memory, and the parked rows are added into out together,
+//   every row's load issued before any store, so a table of one-slot rows
+//   does not pay a memory latency per row;
+// - a run that the unit holds whole is added with plain read-modify-
+//   writes; only the pieces of a split hub run use f32 atomics;
+// PERF.md has the times of both paths, and of L2 cache hints (x rows
+// evict_last, the other streams evict first) that were tried and lost on
+// the smoke tables.
+// Summation order: a row's counted slots in order within a unit, then the
+// pieces of a split run in no fixed order — the result differs from the
+// plain version only in f32 summation order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 8;  // virtual rows per block
+constexpr int WARPS = 4;         // units (one a warp) per block
+constexpr int BATCH = 8;         // x rows a warp reads before using any
+constexpr int PARK = BATCH + 1;  // finished row sums a warp parks
+constexpr int RING = 4;          // shared-memory stages a warp (path b)
+constexpr unsigned FULL = 0xffffffffu;
 
-template <int NJ>  // float4 column groups per lane: h <= 128 * NJ
-__global__ void __launch_bounds__(WARPS * 32)
-ell_tail_kernel(const float* __restrict__ x, const int32_t* __restrict__ cols,
-                const float* __restrict__ vals,
-                const int32_t* __restrict__ vrow, float* __restrict__ out,
-                int64_t n_vrows, int degree, int h) {
-  __shared__ float4 part[WARPS][NJ * 32];
-  __shared__ int32_t srow[WARPS];
+// one plan table: five 64-bit words (ops/ell_tail.py:tail_plan)
+struct Table {
+  const int32_t* cols;
+  const float* vals;
+  const int32_t* vrow;
+  const int32_t* cnt;
+  long long degree;
+};
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t v0 = (int64_t)blockIdx.x * WARPS;
-  const int64_t v = v0 + warp;
-  const bool live = v < n_vrows;
-  const int h4 = h >> 2;
+__device__ __forceinline__ void zero(float4& a) {
+  a = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void zero(float& a) { a = 0.f; }
+__device__ __forceinline__ void fma_to(float4& a, float w, const float4& b) {
+  a.x = fmaf(w, b.x, a.x);
+  a.y = fmaf(w, b.y, a.y);
+  a.z = fmaf(w, b.z, a.z);
+  a.w = fmaf(w, b.w, a.w);
+}
+__device__ __forceinline__ void fma_to(float& a, float w, float b) {
+  a = fmaf(w, b, a);
+}
+__device__ __forceinline__ void add_to(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+__device__ __forceinline__ void atomic_to(float4* p, const float4& v) {
+  float* f = reinterpret_cast<float*>(p);
+  atomicAdd(f + 0, v.x);
+  atomicAdd(f + 1, v.y);
+  atomicAdd(f + 2, v.z);
+  atomicAdd(f + 3, v.w);
+}
+__device__ __forceinline__ void atomic_to(float* p, float v) { atomicAdd(p, v); }
 
-  float4 s[NJ];
+// A warp's unit: its table, first virtual row and stream length T (the
+// counted slots of all its virtual rows); lane i < n holds virtual row
+// v0 + i's row r and first stream position s (lanes >= n hold s = T).
+struct Unit {
+  Table tb;
+  int v0, T, s, r;
+  bool atomic;
+};
+
+__device__ __forceinline__ Unit load_unit(const Table* tabs, const int2* units,
+                                          int u, int lane) {
+  const int2 w = units[u];
+  Unit U;
+  U.tb = tabs[w.y & 0xff];
+  const int n = ((w.y >> 8) & 31) + 1;
+  U.atomic = (w.y >> 13) & 1;
+  U.v0 = w.x;
+  int c = 0;
+  U.r = -1;
+  if (lane < n) {
+    c = __ldg(U.tb.cnt + U.v0 + lane);
+    U.r = __ldg(U.tb.vrow + U.v0 + lane);
+  }
+  int e = c;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) s[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, e, o);
+    if (lane >= o) e += y;
+  }
+  U.T = __shfl_sync(FULL, e, 31);
+  U.s = lane < n ? e - c : U.T;
+  return U;
+}
 
-  if (live) {
-    const int32_t* c = cols + v * degree;
-    const float* a = vals + v * degree;
-#pragma unroll 4
-    for (int d = 0; d < degree; ++d) {
-      const float wgt = __ldg(a + d);
-      const float4* xr =
-          reinterpret_cast<const float4*>(x + (int64_t)__ldg(c + d) * h);
+// Stream entry q (one a lane): its x row, weight and output row. The
+// virtual row is the last lane i with s_i <= q (s is non-decreasing).
+struct Entry {
+  int col;
+  float val;
+  int row;
+};
+
+__device__ __forceinline__ Entry load_entry(const Unit& U, int q) {
+  int i = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    const int si = __shfl_sync(FULL, U.s, i + step);
+    if (si <= q) i += step;
+  }
+  Entry e;
+  const int d = q - __shfl_sync(FULL, U.s, i);
+  e.row = __shfl_sync(FULL, U.r, i);
+  e.col = 0;
+  e.val = 0.f;
+  if (q < U.T) {
+    const int64_t off = static_cast<int64_t>(U.v0 + i) * U.tb.degree + d;
+    e.col = __ldg(U.tb.cols + off);
+    e.val = __ldg(U.tb.vals + off);
+  }
+  return e;
+}
+
+// Park a finished row's sum: lane k of the warp keeps slot k's row.
+template <typename V, int NJ>
+__device__ __forceinline__ void park(V* pk, int& prow, int& n, int row,
+                                     const V (&acc)[NJ], int lane) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) pk[n * NJ * 32 + lane + 32 * j] = acc[j];
+  if (lane == n) prow = row;
+  ++n;
+}
+
+// Add the n parked sums into out: f32 atomics for the pieces of a split
+// run, else plain read-modify-writes with every row's load issued before
+// any store. live: bit j set where element j of this lane is inside h.
+template <typename V, int NJ>
+__device__ __forceinline__ void flush(const V* pk, int prow, int n,
+                                      bool atomic, float* out, int h, int col0,
+                                      int lane, unsigned live) {
+  if (atomic) {
+    for (int f = 0; f < n; ++f) {
+      const int row = __shfl_sync(FULL, prow, f);
+      V* o = reinterpret_cast<V*>(out + static_cast<int64_t>(row) * h + col0);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (live >> j & 1) atomic_to(o + lane + 32 * j, pk[f * NJ * 32 + lane + 32 * j]);
+    }
+    return;
+  }
+  V cur[PARK][NJ];
+  int rows[PARK];
+#pragma unroll
+  for (int f = 0; f < PARK; ++f) {
+    rows[f] = __shfl_sync(FULL, prow, f);
+    if (f < n) {
+      const V* o = reinterpret_cast<const V*>(
+          out + static_cast<int64_t>(rows[f]) * h + col0);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (live >> j & 1) cur[f][j] = o[lane + 32 * j];
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < PARK; ++f) {
+    if (f < n) {
+      V* o = reinterpret_cast<V*>(out + static_cast<int64_t>(rows[f]) * h + col0);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const int col4 = lane + 32 * j;
-        if (col4 < h4) {
-          const float4 xv = __ldg(xr + col4);
-          s[j].x += wgt * xv.x;
-          s[j].y += wgt * xv.y;
-          s[j].z += wgt * xv.z;
-          s[j].w += wgt * xv.w;
+        if (live >> j & 1) {
+          V v = cur[f][j];
+          add_to(v, pk[f * NJ * 32 + lane + 32 * j]);
+          o[lane + 32 * j] = v;
         }
       }
     }
   }
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) part[warp][lane + 32 * j] = s[j];
-  if (lane == 0) srow[warp] = live ? __ldg(vrow + v) : -1;
-  __syncthreads();
+}
 
-  if (!live) return;
-  const int row = srow[warp];
-  if (warp > 0 && srow[warp - 1] == row) return;  // not the head of its run
-  int end = warp + 1;
-  while (end < WARPS && srow[end] == row) ++end;
-  const bool cut =
-      (warp == 0 && v0 > 0 && __ldg(vrow + v0 - 1) == row) ||
-      (end == WARPS && v0 + WARPS < n_vrows && __ldg(vrow + v0 + WARPS) == row);
-
-  float4* o = reinterpret_cast<float4*>(out + (int64_t)row * h);
+// W: floats an element (4 for float4)
+template <int W, int NJ>
+__device__ __forceinline__ unsigned live_mask(int h, int col0, int lane) {
+  unsigned live = 0;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int col4 = lane + 32 * j;
-    if (col4 >= h4) continue;
-    float4 t = part[warp][col4];
-    for (int k = warp + 1; k < end; ++k) {
-      const float4 p = part[k][col4];
-      t.x += p.x;
-      t.y += p.y;
-      t.z += p.z;
-      t.w += p.w;
-    }
-    if (cut) {
-      float* of = reinterpret_cast<float*>(o + col4);
-      atomicAdd(of + 0, t.x);
-      atomicAdd(of + 1, t.y);
-      atomicAdd(of + 2, t.z);
-      atomicAdd(of + 3, t.w);
-    } else {
-      float4 cur = o[col4];
-      cur.x += t.x;
-      cur.y += t.y;
-      cur.z += t.z;
-      cur.w += t.w;
-      o[col4] = cur;
+  for (int j = 0; j < NJ; ++j)
+    if (col0 + W * (lane + 32 * j) < h) live |= 1u << j;
+  return live;
+}
+
+// Path (a): x rows read into registers, BATCH rows at a time, 4 bytes a
+// lane.
+template <int NJ>
+__global__ void __launch_bounds__(WARPS * 32, 4)
+tail_regs_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
+                 int n_units, const float* __restrict__ x,
+                 float* __restrict__ out, int h) {
+  using V = float;
+  constexpr int SLAB = 32 * NJ;
+  __shared__ V parked[WARPS][PARK * NJ * 32];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u = blockIdx.x * WARPS + warp;
+  if (u >= n_units) return;
+  const Unit U = load_unit(tabs, units, u, lane);
+  const int col0 = blockIdx.y * SLAB;
+  const unsigned live = live_mask<1, NJ>(h, col0, lane);
+  V* pk = parked[warp];
+
+  V acc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) zero(acc[j]);
+  int cur = -1, n_park = 0, prow = -1;
+  for (int c0 = 0; c0 < U.T; c0 += 32) {
+    const Entry e = load_entry(U, c0 + lane);
+    const int m = min(32, U.T - c0);
+    for (int b = 0; b < m; b += BATCH) {
+      V xv[BATCH][NJ];
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        const int col = __shfl_sync(FULL, e.col, b + k);
+        const V* xr = reinterpret_cast<const V*>(
+            x + static_cast<int64_t>(col) * h + col0);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (b + k < m && (live >> j & 1))
+            xv[k][j] = __ldg(xr + lane + 32 * j);
+          else
+            zero(xv[k][j]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        const int row = __shfl_sync(FULL, e.row, b + k);
+        const float wgt = __shfl_sync(FULL, e.val, b + k);
+        if (b + k < m) {
+          if (row != cur) {
+            if (cur >= 0) park<V, NJ>(pk, prow, n_park, cur, acc, lane);
+            cur = row;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) zero(acc[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) fma_to(acc[j], wgt, xv[k][j]);
+        }
+      }
+      if (c0 + b + BATCH >= U.T) park<V, NJ>(pk, prow, n_park, cur, acc, lane);
+      if (n_park) {
+        flush<V, NJ>(pk, prow, n_park, U.atomic, out, h, col0, lane, live);
+        n_park = 0;
+      }
     }
   }
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Wait for phase `parity` of an mbarrier. A copy that never lands traps
+// after about 2^32 cycles (~2 s) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 32)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_row(uint32_t dst, const float* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 template <int NJ>
-void launch(const float* x, const int32_t* cols, const float* vals,
-            const int32_t* vrow, float* out, int64_t n_vrows, int degree,
-            int h, cudaStream_t stream) {
-  const int64_t blocks = (n_vrows + WARPS - 1) / WARPS;
-  ell_tail_kernel<NJ><<<(unsigned)blocks, WARPS * 32, 0, stream>>>(
-      x, cols, vals, vrow, out, n_vrows, degree, h);
+constexpr int bulk_smem_bytes() {
+  return WARPS * (RING + PARK) * NJ * 32 * 16 + WARPS * RING * 8;
+}
+
+// Path (b): x rows copied into a shared-memory ring of RING stages a warp
+// by the bulk-copy engine (vector widths only: 16-byte aligned rows and
+// sizes).
+template <int NJ>
+__global__ void __launch_bounds__(WARPS * 32)
+tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
+                 int n_units, const float* __restrict__ x,
+                 float* __restrict__ out, int h) {
+  constexpr int SL4 = NJ * 32;  // float4 elements of one slab row
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* ring = reinterpret_cast<float4*>(smem) + warp * RING * SL4;
+  float4* pk = reinterpret_cast<float4*>(smem) + WARPS * RING * SL4 +
+               warp * PARK * SL4;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+                       smem + WARPS * (RING + PARK) * SL4 * 16) +
+                   warp * RING;
+
+  const int u = blockIdx.x * WARPS + warp;
+  if (u >= n_units) return;
+  const Unit U = load_unit(tabs, units, u, lane);
+  const int col0 = blockIdx.y * SL4 * 4;
+  const unsigned live = live_mask<4, NJ>(h, col0, lane);
+  const uint32_t bytes = static_cast<uint32_t>(min(SL4 * 4, h - col0)) * 4;
+  const uint32_t ring0 = smem_u32(ring), bar0 = smem_u32(bars);
+  if (lane == 0) {
+    for (int s = 0; s < RING; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0 + 8 * s)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncwarp();
+
+  Entry e0 = load_entry(U, lane);       // stream positions 0..31
+  Entry e1 = load_entry(U, 32 + lane);  // and 32..63
+#pragma unroll
+  for (int q = 0; q < RING; ++q) {
+    const int col = __shfl_sync(FULL, e0.col, q);
+    if (lane == 0 && q < U.T)
+      bulk_row(ring0 + q * SL4 * 16, x + static_cast<int64_t>(col) * h + col0,
+               bytes, bar0 + 8 * q);
+  }
+
+  float4 acc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) zero(acc[j]);
+  int cur = -1, n_park = 0, prow = -1;
+  for (int q = 0; q < U.T; ++q) {
+    if (q > 0 && (q & 31) == 0) {
+      e0 = e1;
+      e1 = load_entry(U, q + 32 + lane);
+    }
+    const int st = q % RING;
+    mbar_wait(bar0 + 8 * st, (q / RING) & 1);
+    float4 xv[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (live >> j & 1)
+        xv[j] = ring[st * SL4 + lane + 32 * j];
+      else
+        zero(xv[j]);
+    }
+    __syncwarp();
+    // refill the stage just read with entry q + RING
+    const int qn = q + RING;
+    const int ca = __shfl_sync(FULL, e0.col, qn & 31);
+    const int cb = __shfl_sync(FULL, e1.col, qn & 31);
+    if (lane == 0 && qn < U.T) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const int col = (qn >> 5) == (q >> 5) ? ca : cb;
+      bulk_row(ring0 + st * SL4 * 16, x + static_cast<int64_t>(col) * h + col0,
+               bytes, bar0 + 8 * st);
+    }
+    const int row = __shfl_sync(FULL, e0.row, q & 31);
+    const float wgt = __shfl_sync(FULL, e0.val, q & 31);
+    if (row != cur) {
+      if (cur >= 0) park<float4, NJ>(pk, prow, n_park, cur, acc, lane);
+      cur = row;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) zero(acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) fma_to(acc[j], wgt, xv[j]);
+    if (q == U.T - 1) park<float4, NJ>(pk, prow, n_park, cur, acc, lane);
+    if (n_park == BATCH || q == U.T - 1) {
+      flush<float4, NJ>(pk, prow, n_park, U.atomic, out, h, col0, lane, live);
+      n_park = 0;
+    }
+  }
+}
+
+struct Args {
+  const Table* tabs;
+  const int2* units;
+  int n_units;
+  const float* x;
+  float* out;
+  int h;
+};
+
+template <int NJ>
+int launch_bulk(const Args& a, cudaStream_t s) {
+  constexpr int smem = bulk_smem_bytes<NJ>();
+  const dim3 grid((a.n_units + WARPS - 1) / WARPS,
+                  (a.h + 128 * NJ - 1) / (128 * NJ));
+  cudaError_t e = cudaFuncSetAttribute(
+      tail_bulk_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  tail_bulk_kernel<NJ><<<grid, WARPS * 32, smem, s>>>(a.tabs, a.units,
+                                                      a.n_units, a.x, a.out, a.h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NJ>
+int launch_regs(const Args& a, cudaStream_t s) {
+  const dim3 grid((a.n_units + WARPS - 1) / WARPS,
+                  (a.h + 32 * NJ - 1) / (32 * NJ));
+  tail_regs_kernel<NJ><<<grid, WARPS * 32, 0, s>>>(a.tabs, a.units, a.n_units,
+                                                   a.x, a.out, a.h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// h % 4 == 0, h <= 1024, x and out 16-byte aligned; the caller checks.
-extern "C" int ell_tail_add(const void* x, const void* cols, const void* vals,
-                            const void* vrow, void* out, long long n_vrows,
-                            int degree, int h, void* stream) {
-  const float* xp = static_cast<const float*>(x);
-  const int32_t* cp = static_cast<const int32_t*>(cols);
-  const float* vp = static_cast<const float*>(vals);
-  const int32_t* rp = static_cast<const int32_t*>(vrow);
-  float* op = static_cast<float*>(out);
+// tabs: int64 (n_tables, 5) on the card (cols, vals, vrow, cnt pointers and
+// degree of each table); units: int32 (n_units, 2), (first virtual row,
+// table | (count - 1) << 8 | atomic << 13). vec: h % 4 == 0 and x, out
+// 16-byte aligned (the caller checks); path (b) where it holds, else (a).
+extern "C" int ell_tables_add(const void* tabs, const void* units, int n_units,
+                              const void* x, void* out, int h, int vec,
+                              void* stream) {
+  if (n_units <= 0 || h <= 0) return 0;
+  const Args a{static_cast<const Table*>(tabs), static_cast<const int2*>(units),
+               n_units, static_cast<const float*>(x), static_cast<float*>(out),
+               h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int groups = (h / 4 + 31) / 32;
-  if (groups <= 1)
-    launch<1>(xp, cp, vp, rp, op, n_vrows, degree, h, s);
-  else if (groups <= 2)
-    launch<2>(xp, cp, vp, rp, op, n_vrows, degree, h, s);
-  else if (groups <= 4)
-    launch<4>(xp, cp, vp, rp, op, n_vrows, degree, h, s);
-  else
-    launch<8>(xp, cp, vp, rp, op, n_vrows, degree, h, s);
-  return static_cast<int>(cudaGetLastError());
+  if (vec) return h <= 128 ? launch_bulk<1>(a, s) : launch_bulk<2>(a, s);
+  return h <= 64 ? launch_regs<2>(a, s) : launch_regs<8>(a, s);
 }

@@ -44,8 +44,8 @@ SIGNATURES = {
                                    _I, _P],
     },
     "ell_tail": {
-        # x, cols, vals, vrow, out, n_vrows, degree, h, stream
-        "ell_tail_add": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+        # tables, units, n_units, x, out, h, vec, stream
+        "ell_tables_add": [_P, _P, _I, _P, _P, _I, _I, _P],
     },
 }
 

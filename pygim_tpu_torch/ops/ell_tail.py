@@ -2,19 +2,27 @@
 
 Counterpart of ``pygim_tpu/ops/spmm.py:ell_scan_spmm`` /
 ``_ell_grouped_scan`` (the XLA body the reference runs per table). The
-CUDA kernel is ``csrc/ell_tail.cu``.
+CUDA kernel is ``csrc/ell_tail.cu``: one launch over every ELL table of
+an SpMM, walking a unit list built here on the host (:func:`tail_plan`).
 
 A table in step layout holds ``cols2d`` / ``vals2d`` of shape
-``(n_steps, chunk·D)`` and ``vrow_to_row`` of shape ``(n_steps, chunk)``.
-For every virtual row ``v``::
+``(n_steps, chunk·D)`` and ``vrow_to_row`` of shape ``(n_steps, chunk)``,
+non-decreasing. For every virtual row ``v``::
 
     out[vrow_to_row[v]] += Σ_d vals[v, d] · x[cols[v, d]]
 
-x stays float32; the tail does not round to bf16.
+x stays float32; the tail does not round to bf16. The kernel takes any
+width H. It reads only the slots up to each virtual row's last nonzero
+weight, so a non-finite x row that only pad slots (or trailing zero
+weights) reach does not spread NaN, where the plain version and the
+reference spread it; for finite x the two agree up to f32 summation order.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from pygim_tpu_torch.ops import _build
@@ -22,7 +30,9 @@ from pygim_tpu_torch.ops import _build
 # kernel launches since the last reset (plain int; launches only)
 launches = 0
 
-MAX_H = 1024  # widest row the kernel keeps in registers
+UNIT_SLOTS = 128   # stored slots a work unit aims at (its rows follow D)
+UNIT_MAX_ROWS = 32  # virtual rows a unit holds at most: one per lane
+MAX_TABLES = 256   # tables one plan carries (8 bits of a unit's word)
 
 
 def ell_tail_plain(x, cols2d, vals2d, vrow_to_row, degree: int, out):
@@ -33,6 +43,14 @@ def ell_tail_plain(x, cols2d, vals2d, vrow_to_row, degree: int, out):
     for s in range(cols2d.shape[0]):
         g = x.index_select(0, cols2d[s]) * vals2d[s][:, None]
         out.index_add_(0, vrow_to_row[s], g.view(chunk, degree, h).sum(1))
+    return out
+
+
+def ell_tables_plain(x, tables, out):
+    """:func:`ell_tail_plain` over ``tables``, ``[(cols2d, vals2d,
+    vrow_to_row, degree)]``, in order."""
+    for cols2d, vals2d, vrow_to_row, degree in tables:
+        ell_tail_plain(x, cols2d, vals2d, vrow_to_row, degree, out)
     return out
 
 
@@ -49,7 +67,8 @@ def _check(x, cols2d, vals2d, vrow_to_row, degree, out) -> None:
     if vrow_to_row.dtype != torch.int32 or vrow_to_row.dim() != 2:
         raise TypeError(f"vrow_to_row must be 2-D int32, got {vrow_to_row.dtype}")
     n_steps, cd = cols2d.shape
-    if vrow_to_row.shape[0] != n_steps or vrow_to_row.shape[1] * degree != cd:
+    if (degree < 1 or vrow_to_row.shape[0] != n_steps
+            or vrow_to_row.shape[1] * degree != cd):
         raise ValueError(
             f"tables disagree: cols2d {tuple(cols2d.shape)}, vrow_to_row "
             f"{tuple(vrow_to_row.shape)}, degree {degree}"
@@ -68,34 +87,177 @@ def _check(x, cols2d, vals2d, vrow_to_row, degree, out) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def ell_tail_add(x, cols2d, vals2d, vrow_to_row, degree: int, out):
-    """Add one ELL table's product into ``out`` (in place; returned).
-    ``vrow_to_row`` must be non-decreasing, as prepare builds it: the
-    kernel adds a row that it sees whole without atomics. CPU tensors
-    take :func:`ell_tail_plain`; CUDA tensors launch the kernel (H a
-    multiple of 4, at most :data:`MAX_H`) or raise."""
+def slot_counts(vals2d: np.ndarray, degree: int) -> np.ndarray:
+    """Per virtual row, 1 + the index of its last nonzero weight (0 for a
+    row of zeros): the slots the kernel reads. A zero weight before a
+    nonzero one is kept."""
+    nz = np.asarray(vals2d).reshape(-1, degree) != 0
+    last = degree - np.argmax(nz[:, ::-1], axis=1)
+    return np.where(nz.any(axis=1), last, 0).astype(np.int32)
+
+
+def unit_rows(degree: int) -> int:
+    """Virtual rows a work unit holds: about :data:`UNIT_SLOTS` slots, at
+    most :data:`UNIT_MAX_ROWS`."""
+    return max(1, min(UNIT_MAX_ROWS, UNIT_SLOTS // degree))
+
+
+def plan_units(vrows, counts, degrees) -> "tuple[np.ndarray, list[int]]":
+    """The kernel's work list over tables with virtual-row targets
+    ``vrows[i]`` (flat, non-decreasing) and slot counts ``counts[i]``.
+
+    A table's virtual rows past its last counted one (the planner's pads)
+    are in no unit. The rest are cut into units of at most
+    ``unit_rows(D)`` virtual rows that hold whole runs of equal rows; a
+    run longer than that is cut into pieces of its own, which add
+    atomically. A unit whose rows another table also holds adds
+    atomically too (the planner's tables hold disjoint rows). Units go
+    with the most stored slots first.
+
+    Returns ``(units, n_real)``: ``units`` int32 ``(n, 4)`` rows ``(table,
+    first virtual row, count, atomic)``, and each table's count of
+    scheduled virtual rows."""
+    if len(vrows) > MAX_TABLES:
+        raise ValueError(f"at most {MAX_TABLES} tables a plan, got {len(vrows)}")
+    reals = []
+    for r, c in zip(vrows, counts):
+        live = np.flatnonzero(c)
+        n = int(live[-1]) + 1 if live.size else 0
+        if n and np.any(np.diff(r[:n]) < 0):
+            raise ValueError("vrow_to_row must be non-decreasing")
+        reals.append(n)
+    seen = np.concatenate([np.unique(r[:n]) for r, n in zip(vrows, reals)]
+                          + [np.zeros(0, np.int64)])
+    rows, times = np.unique(seen, return_counts=True)
+    shared = rows[times > 1]
+    units, slots = [], []
+    for t, (r, c, d, n) in enumerate(zip(vrows, counts, degrees, reals)):
+        r = r[:n]
+        cap = unit_rows(d)
+        starts = np.flatnonzero(np.r_[True, r[1:] != r[:-1]]) if n else []
+        lens = np.diff(np.r_[starts, n]).tolist()
+        mine = []  # (first, count, atomic)
+        first = count = 0
+        for s, run in zip(np.asarray(starts).tolist(), lens):
+            if run > cap:
+                if count:
+                    mine.append((first, count, 0))
+                    count = 0
+                mine.extend((s + o, min(cap, run - o), 1)
+                            for o in range(0, run, cap))
+            elif count + run <= cap:
+                first = first if count else s
+                count += run
+            else:
+                mine.append((first, count, 0))
+                first, count = s, run
+        if count:
+            mine.append((first, count, 0))
+        if not mine:
+            continue
+        m = np.asarray(mine, dtype=np.int64)
+        csum = np.r_[0, np.cumsum(c[:n], dtype=np.int64)]
+        hit = np.r_[0, np.cumsum(np.isin(r, shared), dtype=np.int64)]
+        end = m[:, 0] + m[:, 1]
+        atomic = m[:, 2] | (hit[end] > hit[m[:, 0]])
+        units.append(np.stack([np.full(len(m), t), m[:, 0], m[:, 1], atomic], 1))
+        slots.append(csum[end] - csum[m[:, 0]])
+    if not units:
+        return np.zeros((0, 4), np.int32), reals
+    units = np.concatenate(units)
+    order = np.argsort(-np.concatenate(slots), kind="stable")
+    return units[order].astype(np.int32), reals
+
+
+@dataclasses.dataclass
+class TailPlan:
+    """What one K-tail launch over fixed tables needs: each table's slot
+    counts (on the tables' device), the unit list packed for the kernel,
+    the kernel's table descriptors, and what they were built for (the
+    tables' addresses and degrees). A plan is bound to its tables' storage
+    and contents: a prepared operand's tables never change."""
+
+    key: tuple
+    n_real: list
+    counts: list
+    units: np.ndarray
+    packed: torch.Tensor
+    tabs: torch.Tensor
+
+    @property
+    def n_units(self) -> int:
+        return int(self.units.shape[0])
+
+
+def _key(tables) -> tuple:
+    return tuple((c.data_ptr(), v.data_ptr(), r.data_ptr(), int(d))
+                 for c, v, r, d in tables)
+
+
+def tail_plan(tables, host=None) -> TailPlan:
+    """The plan of one grouped call over ``tables``, ``[(cols2d, vals2d,
+    vrow_to_row, degree)]``, built once and passed to every call of
+    :func:`ell_tables_add`. ``host`` gives the tables' ``(vals2d,
+    vrow_to_row)`` as numpy arrays where the caller has them; otherwise
+    they are copied from the tables (a synchronising copy from the card).
+    """
+    if host is None:
+        host = [(v.cpu().numpy(), r.cpu().numpy()) for _c, v, r, _d in tables]
+    degrees = [int(d) for *_t, d in tables]
+    counts = [slot_counts(v, d) for (v, _r), d in zip(host, degrees)]
+    vrows = [np.asarray(r).reshape(-1) for _v, r in host]
+    units, n_real = plan_units(vrows, counts, degrees)
+    dev = tables[0][0].device if tables else torch.device("cpu")
+    counts_t = [torch.from_numpy(c).to(dev) for c in counts]
+    packed = units[:, 0] | (units[:, 2] - 1) << 8 | units[:, 3] << 13
+    packed = torch.from_numpy(
+        np.ascontiguousarray(np.stack([units[:, 1], packed], 1), np.int32)
+    ).to(dev)
+    tabs = torch.tensor(
+        [[c.data_ptr(), v.data_ptr(), r.data_ptr(), n.data_ptr(), d]
+         for (c, v, r, d), n in zip(tables, counts_t)],
+        dtype=torch.int64,
+    ).reshape(-1, 5).to(dev)
+    return TailPlan(key=_key(tables), n_real=n_real, counts=counts_t,
+                    units=units, packed=packed, tabs=tabs)
+
+
+def ell_tables_add(x, tables, out, plan=None):
+    """Add every ELL table's product into ``out`` (in place; returned):
+    ``tables`` is ``[(cols2d, vals2d, vrow_to_row, degree)]``, each
+    ``vrow_to_row`` non-decreasing, as prepare builds them. CPU tensors
+    take :func:`ell_tables_plain`; CUDA tensors launch the kernel once
+    for all tables, any H, or raise: its bulk-copy path where H % 4 == 0
+    and x and out are 16-byte aligned, its register path elsewhere.
+    ``plan`` (:func:`tail_plan` of these tables) is built here when not
+    given."""
     global launches
-    _check(x, cols2d, vals2d, vrow_to_row, degree, out)
+    for cols2d, vals2d, vrow_to_row, degree in tables:
+        _check(x, cols2d, vals2d, vrow_to_row, degree, out)
     if out.device.type == "cpu":
-        return ell_tail_plain(x, cols2d, vals2d, vrow_to_row, degree, out)
+        return ell_tables_plain(x, tables, out)
     if out.device.type != "cuda":
         raise ValueError(f"no K-tail kernel for device {out.device}")
+    if plan is None:
+        plan = tail_plan(tables)
+    elif plan.key != _key(tables) or plan.tabs.device != out.device:
+        raise ValueError("K-tail plan was built for other tables")
     h = x.shape[1]
-    if h % 4 or h > MAX_H or x.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError(
-            f"K-tail needs H % 4 == 0, H <= {MAX_H} and 16-byte aligned "
-            f"x and out (H={h})"
-        )
-    n_vrows = vrow_to_row.numel()
-    if n_vrows == 0 or h == 0 or x.shape[0] == 0:
+    if plan.n_units == 0 or h == 0 or x.shape[0] == 0:
         return out
+    vec = h % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = _build.load("ell_tail")
     with torch.cuda.device(out.device):
-        err = lib.ell_tail_add(
-            x.data_ptr(), cols2d.data_ptr(), vals2d.data_ptr(),
-            vrow_to_row.data_ptr(), out.data_ptr(), n_vrows, int(degree), h,
-            _build.stream_of(out),
+        err = lib.ell_tables_add(
+            plan.tabs.data_ptr(), plan.packed.data_ptr(), plan.n_units,
+            x.data_ptr(), out.data_ptr(), h, int(vec), _build.stream_of(out),
         )
-    _build.check(err, "ell_tail_add")
+    _build.check(err, "ell_tables_add")
     launches += 1
     return out
+
+
+def ell_tail_add(x, cols2d, vals2d, vrow_to_row, degree: int, out):
+    """One ELL table's product into ``out``: the one-table case of
+    :func:`ell_tables_add` (on the card it plans the table each call)."""
+    return ell_tables_add(x, [(cols2d, vals2d, vrow_to_row, degree)], out)

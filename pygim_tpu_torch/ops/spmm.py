@@ -8,9 +8,12 @@ ELL tables, and moves them to the device; :meth:`PreparedSpmm.mul` then
 computes ``A @ x`` as
 
 1. ``out = zeros(N, H)``;
-2. K-tail over every ELL table (``ops/ell_tail.py``);
+2. K-tail over every ELL table into ``out``, one launch
+   (``ops/ell_tail.py``);
 3. ``xc = bf16(x[core_nodes])`` and K-core over all bands into ``out``
-   at ``core_nodes[lo:hi]``, one launch (``ops/core_dot.py``)
+   at ``core_nodes[lo:hi]``, one launch (``ops/core_dot.py``); where H is
+   not a multiple of 8, K-core runs on ``xc`` and ``out`` padded with
+   zero columns to the next multiple, and the product is cut back to H
 
 — the order of the reference's hybrid run. The host tables are the
 reference's bit for bit. Other backends, core shapes and dtypes, and
@@ -38,7 +41,11 @@ from pygim_tpu_torch.ops.core_dot import (
     core_bands_scatter_add,
     core_plans,
 )
-from pygim_tpu_torch.ops.ell_tail import ell_tail_add, ell_tail_plain
+from pygim_tpu_torch.ops.ell_tail import (
+    ell_tables_add,
+    ell_tables_plain,
+    tail_plan,
+)
 from pygim_tpu_torch.utils.timers import PhaseTimer
 
 _log = logging.getLogger("pygim_tpu_torch")
@@ -98,6 +105,23 @@ def ell_step_tables(cols2d, vals2d, vrow_to_row, chunk):
         np.ascontiguousarray(vals2d).reshape(n_steps, chunk * d),
         np.ascontiguousarray(vrow_to_row).reshape(n_steps, chunk),
     )
+
+
+def core_any_width(bands, xc, core_nodes, stair, out, plans=None):
+    """K-core (:func:`core_bands_scatter_add`) at any width H: where H is
+    not a multiple of 8 (K-core's rule, ``ops/core_dot.py``), ``xc`` and
+    ``out`` go to it padded with zero columns, and the first H columns
+    come back into ``out`` (in place; returned). ``plans`` are built for
+    the padded width."""
+    h = out.shape[1]
+    pad = -h % 8
+    if not pad:
+        return core_bands_scatter_add(bands, xc, core_nodes, stair, out,
+                                      plans=plans)
+    wide = torch.nn.functional.pad(out, (0, pad))
+    core_bands_scatter_add(bands, torch.nn.functional.pad(xc, (0, pad)),
+                           core_nodes, stair, wide, plans=plans)
+    return out.copy_(wide[:, :h])
 
 
 def _ell_suffix(i: int) -> str:
@@ -239,6 +263,7 @@ class PreparedSpmm:
         self.hybrid_k_eff = int(host["k"])
         self._dev = {}
         self.ell_meta = []
+        tail_host = []
         for i in range(int(host["n_ell"])):
             sfx = _ell_suffix(i)
             chunk = int(host[f"chunk{sfx}"])
@@ -249,6 +274,12 @@ class PreparedSpmm:
             for key, arr in zip(("cols2d", "vals2d", "vrow_to_row"), tabs):
                 self._dev[key + sfx] = self._put(arr)
             self.ell_meta.append((chunk, int(host[f"degree{sfx}"])))
+            tail_host.append(tabs[1:])
+        # K-tail's plan of the device tables (the card only)
+        self._tail_plan = None
+        if self.device.type == "cuda":
+            self._tail_plan = tail_plan(self.ell_tables(self._dev),
+                                        host=tail_host)
         self.stair = None
         self._core_plans = {}  # H -> K-core plans of the device bands
         if "stair_bands" in host:
@@ -282,25 +313,44 @@ class PreparedSpmm:
         return self.raw_mul(x, self._dev)
 
     def raw_mul(self, x, dev: dict):
-        core = self._core if dev is self._dev else core_bands_scatter_add
-        return self._run(x, dev, core, ell_tail_add)
+        if dev is self._dev:
+            return self._run(x, dev, self._core, self._tail)
+        return self._run(x, dev, core_any_width, ell_tables_add)
+
+    def ell_tables(self, dev: dict) -> list:
+        """The ELL tables of ``dev`` as ``[(cols2d, vals2d, vrow_to_row,
+        degree)]``."""
+        tables = []
+        for i, (_chunk, degree) in enumerate(self.ell_meta):
+            sfx = _ell_suffix(i)
+            tables.append((dev[f"cols2d{sfx}"], dev[f"vals2d{sfx}"],
+                           dev[f"vrow_to_row{sfx}"], degree))
+        return tables
+
+    def _tail(self, x, tables, out):
+        """K-tail over this operand's own tables, with the plan built
+        once at prepare."""
+        plan = self._tail_plan
+        if plan is not None and out.device != plan.tabs.device:
+            plan = None
+        return ell_tables_add(x, tables, out, plan=plan)
 
     def _core(self, bands, xc, core_nodes, stair, out):
-        """K-core over this operand's own bands, with their plans built
-        once per width H on the card."""
+        """K-core over this operand's own bands at any width, with their
+        plans built once per padded width on the card."""
         plans = None
         if out.is_cuda and out.device == bands[0].device:
-            h = out.shape[1]
+            h = -(-out.shape[1] // 8) * 8
             if h not in self._core_plans:
                 self._core_plans[h] = core_plans(bands, stair, h)
             plans = self._core_plans[h]
-        return core_bands_scatter_add(bands, xc, core_nodes, stair, out,
-                                      plans=plans)
+        return core_any_width(bands, xc, core_nodes, stair, out, plans=plans)
 
     def mul_plain(self, x):
         """The same product through the plain PyTorch versions on any
-        device — the yardstick the kernels are held against."""
-        return self._run(x, self._dev, core_bands_plain, ell_tail_plain)
+        device, at H unpadded — the yardstick the kernels are held
+        against."""
+        return self._run(x, self._dev, core_bands_plain, ell_tables_plain)
 
     def _run(self, x, dev, core_fn, tail_fn):
         if x.dim() != 2 or x.shape[0] != self.ncols:
@@ -310,12 +360,10 @@ class PreparedSpmm:
                 f"the hybrid product takes a float32 payload, got {x.dtype}; "
                 "bf16 and integer-quantized payloads come with the K-int slice"
             )
-        out = torch.zeros((self.nrows, x.shape[1]), dtype=torch.float32,
+        h = x.shape[1]
+        out = torch.zeros((self.nrows, h), dtype=torch.float32,
                           device=x.device)
-        for i, (_chunk, degree) in enumerate(self.ell_meta):
-            sfx = _ell_suffix(i)
-            tail_fn(x, dev[f"cols2d{sfx}"], dev[f"vals2d{sfx}"],
-                    dev[f"vrow_to_row{sfx}"], degree, out)
+        tail_fn(x, self.ell_tables(dev), out)
         if self.stair:
             cn = dev["core_nodes"]
             xc = x.index_select(0, cn).to(torch.bfloat16)

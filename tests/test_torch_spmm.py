@@ -31,7 +31,8 @@ def dense64(rows, cols, vals):
     return a
 
 
-@pytest.mark.parametrize("h", [32, 64])
+# 41 and 1100: widths K-core takes padded to a multiple of 8 on the card
+@pytest.mark.parametrize("h", [32, 64, 41, 1100])
 @pytest.mark.parametrize("kind", GRAPHS)
 def test_hybrid_mul_matches_jax_and_float64(kind, h):
     rows, cols, vals = make_graph(kind)
