@@ -9,14 +9,23 @@ It builds the hand-written kernels from ``pygim_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes and at
 ragged shapes, and times both beside a PyTorch library call and the
 card's bound: K-core on the widest band, on all bands in one launch and
-on a 32768 × 65536 scale band drawn on the card; K-tail over the smoke
-configuration's ELL tables in one launch and over the whole of a
-reddit-sized R-MAT graph's tables (the scale-tables phase). It checks
+on a 32768 × 65536 scale band drawn on the card; K-int (equal to its
+plain version, ``torch.equal``) on ragged shapes, an int32 wraparound
+case, the smoke bands at one to four limbs and the scale band at one and
+three; K-tail over the smoke configuration's ELL tables in one launch and
+over the whole of a reddit-sized R-MAT graph's tables (the scale-tables
+phase); K-tail-quant on integer and rounded rows, ragged, unaligned and
+on half-step ties, over the smoke and the scale tables. It checks
 ``prep.mul`` against ``mul_plain`` at widths the kernels' tiles do not
-divide, then drives the main path — 2-layer GCN inference at hidden 256
-with a float payload on the stair-int8 hybrid SpMM, on the ogbn-arxiv
-stand-in — through ``run_inference_benchmark`` and
-``run_spmm_benchmark``, and checks that the path launched every kernel.
+divide, then drives the two main paths, each with the launch counts set
+to 0 before it and read after it — 2-layer GCN inference at hidden 256 on
+the stair-int8 hybrid SpMM, on the ogbn-arxiv stand-in, through
+``run_inference_benchmark`` and ``run_spmm_benchmark`` — first with a
+float payload (K-core, K-tail), then with int32 aggregation and an int32
+SpMM (K-int, K-tail-quant), and holds both forwards' logits against the
+same forwards through the plain versions. Last it runs the flagship
+forward step, ``pygim_tpu_torch/entry.py:entry()``, on the card against
+the same step on the CPU.
 
 Its last three lines are the ``kernels`` JSON object, the card's name
 and power limit (``nvidia-smi``), and ``{"ok": true, "device": ...}``.
@@ -24,12 +33,14 @@ Any failure raises and exits non-zero before those lines. Without a
 CUDA card, or without the package beside it, it exits non-zero.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
-one inference forward by kernel, and the device's busy share.
+one inference forward of each path by kernel, and the device's busy
+share.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -39,12 +50,13 @@ HIDDEN = 256
 CORE_BYTES = 256 << 20
 
 # H100 / H200 peaks (NVIDIA data sheets, dense): HBM bytes/s, bf16 tensor
-# FLOP/s, f32 non-tensor FLOP/s; chosen by the card's name
+# FLOP/s, f32 non-tensor FLOP/s, int8 tensor OP/s; chosen by the card's
+# name
 _PEAKS = {
-    "H200": (4.8e12, 989e12, 67e12),
-    "H100 NVL": (3.9e12, 835e12, 60e12),
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
-    "H100": (3.35e12, 989e12, 67e12),  # SXM
+    "H200": (4.8e12, 989e12, 67e12, 1979e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12, 1671e12),
+    "H100 PCIe": (2.0e12, 756e12, 51e12, 1513e12),
+    "H100": (3.35e12, 989e12, 67e12, 1979e12),  # SXM
 }
 
 
@@ -116,7 +128,7 @@ def core_bound(shapes, h, peaks_):
     operations over the bf16 rate. The bands share the launch, so one
     band's bytes overlap another's products. Returns (ms, "bytes" |
     "operations")."""
-    hbm, bf16, _f32 = peaks_
+    hbm, bf16, _f32, _int8 = peaks_
     rows = sum(r for r, _w in shapes)
     nbytes = (sum(r * w for r, w in shapes) + max(w for _r, w in shapes)
               * h * 2 + rows * 4 + 2 * rows * h * 4)
@@ -253,6 +265,178 @@ def core_checks(prep, x, results, scale_band=SCALE_BAND):
     )
 
 
+# The payload range of each K-int limb count: int8 (raw), the int16
+# quantized range |q| <= 2^9, the int32 quantized range |q| <= 2^19, and
+# any int32 (raw)
+INT_RANGES = {1: ("int8", 1 << 7), 2: ("int16", 1 << 9),
+              3: ("int32", 1 << 19), 4: ("int32", 1 << 31)}
+
+
+def int_payload(rows, h, limbs, gen, dev):
+    """Integers of K-int's ``limbs`` range, of its dtype, drawn on the CPU."""
+    import torch
+
+    dtype, m = INT_RANGES[limbs]
+    q = torch.randint(-m, m, (rows, h), generator=gen, dtype=torch.int64)
+    return q.to(getattr(torch, dtype)).to(dev)
+
+
+def int_equal(name, got, want):
+    """K-int against its plain version: every product is exact, and both
+    add each f32-converted sum once into out, so the two are equal."""
+    import torch
+
+    if not torch.equal(got, want):
+        bad = (got != want).sum()
+        raise AssertionError(f"{name}: {int(bad)} elements differ, max abs "
+                             f"diff {float((got - want).abs().max())}")
+
+
+def int_bound(shapes, h, limbs, peaks_):
+    """Least time of one K-int launch over bands ``(r, w)`` at width ``h``
+    and ``limbs``: the larger of its bytes over HBM (every band, the limb
+    payload ``limbs · h · max w``, the row ids, and the output rows read
+    and written, each once) and its int8 tensor operations (``limbs · 2 ·
+    r · w · h``) over the card's int8 rate."""
+    hbm, _bf16, _f32, int8 = peaks_
+    rows = sum(r for r, _w in shapes)
+    w_max = max(w for _r, w in shapes)
+    nbytes = (sum(r * w for r, w in shapes) + limbs * h * w_max + rows * 4
+              + 2 * rows * h * 4)
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = limbs * sum(2 * r * w * h for r, w in shapes) / int8 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def int_checks(prep, x, results, scale_band=SCALE_BAND):
+    """K-int against its plain version (``torch.equal``) on ragged shapes,
+    an int32 wraparound case and the smoke bands at every limb count, and
+    on the scale band at one and three limbs; times each on the smoke
+    bands beside the bound, the plain version and, at one limb,
+    ``torch._int_mm``."""
+    import torch
+
+    from pygim_tpu_torch.ops import core_int
+
+    dev = x.device
+    h = x.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(8)
+    # ragged: rows not a multiple of 64, widths not of the 64-deep stage,
+    # H not a multiple of the tile (41, 1100) or of 4, and H > 256
+    for r, w, hh, limbs in ((37, 208, 41, 1), (300, 1280, 256, 2),
+                            (129, 4112, 1100, 3), (500, 768, 64, 4),
+                            (200, 512, 41, 3), (64, 96, 1100, 4),
+                            (130, 256, 37, 2), (96, 2048, 300, 1)):
+        band = torch.randint(-128, 128, (r, w), generator=g,
+                             dtype=torch.int8).to(dev)
+        xc = int_payload(w + 5, hh, limbs, g, dev)
+        rows = torch.randperm(3 * r, generator=g)[:r].to(dev, torch.int32)
+        z = torch.zeros(3 * r, hh, device=dev)
+        got = core_int.core_int_scatter_add([band], xc, rows, [(0, r, w)],
+                                            z.clone(), limbs)
+        want = core_int.core_int_plain([band], xc, rows, [(0, r, w)],
+                                       z.clone())
+        int_equal(f"K-int ragged {(r, w, hh)} L={limbs}", got, want)
+    # int32 wraparound: a dense band of 127s times payloads near the top
+    # of each range; every sum overflows int32
+    for limbs, q in ((3, (1 << 19) - 3), (4, (1 << 31) - 7)):
+        r, w, hh = 96, 4096, 72
+        band = torch.full((r, w), 127, dtype=torch.int8, device=dev)
+        xc = torch.full((w, hh), q, dtype=torch.int32, device=dev)
+        xc[::3] = -q
+        rows = torch.arange(r, dtype=torch.int32, device=dev)
+        z = torch.zeros(r, hh, device=dev)
+        got = core_int.core_int_scatter_add([band], xc, rows, [(0, r, w)],
+                                            z.clone(), limbs)
+        want = core_int.core_int_plain([band], xc, rows, [(0, r, w)],
+                                       z.clone())
+        int_equal(f"K-int wraparound L={limbs}", got, want)
+        exact = 127 * q * (w - 2 * len(range(0, w, 3)))
+        if exact == ((exact + (1 << 31)) % (1 << 32)) - (1 << 31):
+            raise AssertionError("wraparound case does not overflow")
+
+    # the smoke bands, every limb count, one launch each
+    d = prep.dev_arrays
+    cn = d["core_nodes"]
+    bands = [d[f"stair{b}"] for b in range(len(prep.stair))]
+    shapes = [(hi - lo, w) for lo, hi, w in prep.stair]
+    w_max = max(w for _r, w in shapes)
+    h_pad, k_pad = -(-h // 64) * 64, -(-w_max // 16) * 16
+    z = torch.zeros_like(x)  # the timed calls' output
+    per_l = {}
+    for limbs in (1, 2, 3, 4):
+        xc = int_payload(w_max, h, limbs, g, dev)
+        got = core_int.core_int_scatter_add(bands, xc, cn, prep.stair,
+                                            torch.zeros_like(x), limbs)
+        want = core_int.core_int_plain(bands, xc, cn, prep.stair,
+                                       torch.zeros_like(x))
+        int_equal(f"K-int all bands L={limbs}", got, want)
+        del got, want
+        plans = core_int.core_int_plans(bands, prep.stair, h, limbs)
+        xct = core_int.limb_split(xc, limbs, h_pad, k_pad)
+        ms = cuda_ms(lambda: core_int.core_int_launch(
+            bands, xct, cn, prep.stair, z, plans))
+        split_ms = cuda_ms(lambda: core_int.limb_split(xc, limbs, h_pad,
+                                                       k_pad))
+        plain_ms = cuda_ms(lambda: core_int.core_int_plain(
+            bands, xc, cn, prep.stair, z), iters=3, warmup=1)
+        library_ms = None
+        if limbs == 1:
+            xw = [xc[:w].contiguous() for _r, w in shapes]
+
+            def library():  # _int_mm takes more than 16 rows
+                for a, b in zip(bands, xw):
+                    if a.shape[0] > 16:
+                        torch._int_mm(a, b)
+
+            library_ms = cuda_ms(library)
+            del xw
+        bound_ms, bound_by = int_bound(shapes, h, limbs, results["peaks"])
+        per_l[limbs] = dict(
+            ms=ms, split_ms=split_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            tops=limbs * sum(2 * r * w * h for r, w in shapes) / ms * 1e-9,
+        )
+    # the main path's K-int is the int32 quantized aggregate: three limbs
+    results["K-int"] = dict(per_l[3], max_abs_err=0.0, limbs=per_l)
+    del z
+    torch.cuda.empty_cache()
+
+    # the scale band at one and three limbs, sampled rows held equal
+    r, w = scale_band
+    gc = torch.Generator(device=dev).manual_seed(9)
+    band = torch.randint(-128, 128, (r, w), generator=gc, dtype=torch.int8,
+                         device=dev)
+    rows = torch.randperm(r, generator=gc, device=dev).to(torch.int32)
+    sel = torch.randperm(r, generator=gc, device=dev)[:256]
+    scale = {}
+    for limbs in (1, 3):
+        xb = int_payload(w, h, limbs, g, dev)
+        out = torch.zeros(r, h, device=dev)
+        core_int.core_int_scatter_add([band], xb, rows, [(0, r, w)], out,
+                                      limbs)
+        want = core_int.core_band_int_plain(
+            band[sel], xb, torch.arange(256, dtype=torch.int32, device=dev),
+            torch.zeros(256, h, device=dev))
+        int_equal(f"K-int scale band {scale_band} L={limbs} (256 sampled "
+                  "rows)", out[rows[sel].long()], want)
+        plans = core_int.core_int_plans([band], [(0, r, w)], h, limbs)
+        xct = core_int.limb_split(xb, limbs, h_pad, -(-w // 16) * 16)
+        ms = cuda_ms(lambda: core_int.core_int_launch(
+            [band], xct, rows, [(0, r, w)], out, plans), iters=10)
+        library_ms = None
+        if limbs == 1:
+            library_ms = cuda_ms(lambda: torch._int_mm(band, xb), iters=10)
+        bound_ms, bound_by = int_bound([(r, w)], h, limbs, results["peaks"])
+        scale[limbs] = dict(ms=ms, library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, share_of_bound=bound_ms / ms,
+                            tops=limbs * 2 * r * w * h / ms * 1e-9)
+        del xb, out, xct, plans
+    del band
+    torch.cuda.empty_cache()
+    results["K-int scale band"] = dict(shape=[r, w, h], limbs=scale)
+
+
 SCALE_GRAPH = "rmat-232965-8000000"  # reddit's node count, 8M stored edges
 
 
@@ -292,23 +476,28 @@ def tail_to(tables, dev):
             for c, v, r, d in tables]
 
 
-def tail_close(name, x, tables, got, out0):
-    """``got`` (tables added into ``out0``) against the plain version."""
+def tail_close(name, x, tables, got, out0, safe=None):
+    """``got`` (tables added into ``out0``) against the plain version, in
+    x's payload mode (``safe``: rounded to ``round(x / safe)``)."""
+    import torch
+
     from pygim_tpu_torch.ops import ell_tail
 
-    want = ell_tail.ell_tables_plain(x, tables, out0.clone())
+    want = ell_tail.ell_tables_plain(x, tables, out0.clone(), safe)
+    q = x.float() if safe is None else torch.round(x / safe)
     mag = ell_tail.ell_tables_plain(
-        x.abs(), [(c, v.abs(), r, d) for c, v, r, d in tables], out0.abs())
+        q.abs(), [(c, v.abs(), r, d) for c, v, r, d in tables], out0.abs())
     return check_close(name, got, want, mag, REL_TOL)
 
 
-def tail_bound(tables, h, peaks_):
+def tail_bound(tables, h, peaks_, itemsize=4):
     """Least time of one grouped K-tail call: the larger of its bytes over
-    HBM (each real entry's index and value, each x row it needs and each
-    output row it touches, read and written, once) and its multiply-adds
-    over the f32 rate; beside it the per-slot model, where every stored
-    slot reads its x row from HBM. Also the library yardstick's matrix:
-    the real entries as one CSR (cuSPARSE through torch.sparse.mm)."""
+    HBM (each real entry's index and value, each x row it needs at
+    ``itemsize`` bytes an element and each f32 output row it touches,
+    read and written, once) and its multiply-adds over the f32 rate;
+    beside it the per-slot model, where every stored slot reads its x row
+    from HBM. Also the library yardstick's matrix: the real entries as one
+    CSR (cuSPARSE through torch.sparse.mm)."""
     import torch
 
     rows_l, cols_l, vals_l = [], [], []
@@ -326,13 +515,14 @@ def tail_bound(tables, h, peaks_):
     nnz = int(rows_t.numel())
     u_cols = int(torch.unique(cols_t).numel())
     u_rows = int(torch.unique(rows_t).numel())
-    hbm, _bf16, f32 = peaks_
-    nbytes = nnz * 8 + u_cols * h * 4 + 2 * u_rows * h * 4
+    hbm, _bf16, f32, _int8 = peaks_
+    nbytes = nnz * 8 + u_cols * h * itemsize + 2 * u_rows * h * 4
     t_bytes, t_ops = nbytes / hbm * 1e3, 2 * nnz * h / f32 * 1e3
     return dict(
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bound_slot_ms=(slots * (8 + 4 * h) + vrows * 4 * h) / hbm * 1e3,
+        bound_slot_ms=(slots * (8 + itemsize * h) + vrows * 4 * h) / hbm
+        * 1e3,
         nnz=nnz, slots=slots, vrows=vrows, unique_cols=u_cols,
         unique_rows=u_rows,
     ), (rows_t, cols_t, torch.cat(vals_l))
@@ -403,10 +593,105 @@ def tail_checks(prep, x, results):
     )
 
 
+def tail_quant_checks(prep, x, results):
+    """K-tail-quant against its plain version: integer rows (mode (ii))
+    and rounded f32 rows (mode (iii)) on the ragged tables at ragged and
+    unaligned widths, with half-step ties; then the smoke tables, timed
+    beside the bound, the plain version and torch.sparse.mm on the
+    rounded rows."""
+    import torch
+
+    from pygim_tpu_torch.ops import ell_tail
+    from pygim_tpu_torch.quant import quant_scale
+
+    dev = x.device
+    g = torch.Generator(device="cpu").manual_seed(10)
+    n, host = ragged_tables()
+    tables = tail_to(host, dev)
+    plan = ell_tail.tail_plan(tables)
+    # integer rows: the bulk copy where a row is a multiple of 16 bytes
+    # (int8 H 48, int16 H 40, int32 H 256), the register path elsewhere
+    for dtype, m, h in ((torch.int8, 1 << 7, 48), (torch.int8, 1 << 7, 41),
+                        (torch.int16, 1 << 15, 40), (torch.int16, 1 << 15, 36),
+                        (torch.int32, 1 << 20, 256), (torch.int32, 1 << 20, 41)):
+        xs = torch.randint(-m, m, (n, h), generator=g).to(dtype).to(dev)
+        out0 = torch.randn(n, h, generator=g).to(dev)
+        got = ell_tail.ell_tables_add(xs, tables, out0.clone(), plan=plan)
+        tail_close(f"K-tail-quant ragged {dtype} H={h}", xs, tables, got,
+                   out0)
+    # rounded f32 rows
+    for h in (36, 41, 256, 1100):
+        xs = (torch.randn(n, h, generator=g) * 3).to(dev)
+        _scale, safe = quant_scale(xs, "int32")
+        out0 = torch.randn(n, h, generator=g).to(dev)
+        got = ell_tail.ell_tables_add(xs, tables, out0.clone(), plan=plan,
+                                      safe=safe)
+        tail_close(f"K-tail-quant ragged rounded H={h}", xs, tables, got,
+                   out0, safe)
+    # H 256 at unaligned x and out: the register path
+    xs = off_aligned((torch.randn(n, 256, generator=g) * 3).to(dev))
+    _scale, safe = quant_scale(xs, "int32")
+    out0 = torch.randn(n, 256, generator=g).to(dev)
+    got = ell_tail.ell_tables_add(xs, tables, off_aligned(out0), plan=plan,
+                                  safe=safe)
+    tail_close("K-tail-quant ragged rounded H=256 unaligned", xs, tables, got,
+               out0, safe)
+    xs = off_aligned(torch.randint(-128, 128, (n, 256), generator=g,
+                                   dtype=torch.int8).to(dev))
+    got = ell_tail.ell_tables_add(xs, tables, off_aligned(out0), plan=plan)
+    tail_close("K-tail-quant ragged int8 H=256 unaligned", xs, tables, got,
+               out0)
+    # half-step ties: x / safe = k + 1/2 exactly (safe a power of two),
+    # which rounds half to even
+    safe = torch.tensor(2.0 ** -10, device=dev)
+    k = torch.randint(-6, 6, (n, 256), generator=g).float()
+    xs = ((k + 0.5) * 2.0 ** -10).to(dev)
+    out0 = torch.zeros(n, 256, device=dev)
+    got = ell_tail.ell_tables_add(xs, tables, out0.clone(), plan=plan,
+                                  safe=safe)
+    tail_close("K-tail-quant half-step ties", xs, tables, got, out0, safe)
+
+    # the smoke tables: rounded f32 rows (the int32 aggregate's tail) and
+    # int8 rows (the int8 aggregate's table), one grouped call each
+    tables = prep.ell_tables(prep.dev_arrays)
+    plan = ell_tail.tail_plan(tables)
+    h = x.shape[1]
+    z = torch.zeros_like(x)  # the timed calls' output
+    bound, (rows_t, cols_t, vals_t) = tail_bound(tables, h, results["peaks"])
+    a = torch.sparse_coo_tensor(torch.stack([rows_t, cols_t]), vals_t,
+                                (x.shape[0],) * 2).coalesce().to_sparse_csr()
+    res = {}
+    for name in ("int32", "int8"):
+        _scale, safe = quant_scale(x, name)
+        if name == "int32":
+            xq, kw, itemsize = x, {"safe": safe}, 4
+        else:
+            xq, kw, itemsize = torch.round(x / safe).to(torch.int8), {}, 1
+        zero = torch.zeros_like(x)
+        got = ell_tail.ell_tables_add(xq, tables, zero.clone(), plan=plan,
+                                      **kw)
+        err = tail_close(f"K-tail-quant tables, {name}", xq, tables, got,
+                         zero, kw.get("safe"))
+        del got
+        ms = cuda_ms(lambda: ell_tail.ell_tables_add(xq, tables, z, plan=plan,
+                                                     **kw))
+        plain_ms = cuda_ms(lambda: ell_tail.ell_tables_plain(
+            xq, tables, z, kw.get("safe")), iters=5)
+        rounded = xq.float() if name == "int8" else torch.round(x / safe)
+        library_ms = cuda_ms(lambda: torch.sparse.mm(a, rounded))
+        b, _csr = tail_bound(tables, h, results["peaks"], itemsize)
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=b["bound_ms"],
+                         bound_by=b["bound_by"])
+    # the main path's K-tail-quant is the int32 aggregate's: rounded rows
+    results["K-tail-quant"] = dict(res["int32"], int8_rows=res["int8"])
+
+
 def tail_scale(results, dev, h=256):
     """K-tail on the whole of a reddit-sized R-MAT graph's ELL tables at
     the default SpmmConfig (all edges in the tail): checked against the
-    plain version, timed beside it, torch.sparse.mm and the bound."""
+    plain version, timed beside it, torch.sparse.mm and the bound; then
+    K-tail-quant on the same tables with rounded f32 rows and int8 rows."""
     import numpy as np
     import torch
 
@@ -418,6 +703,7 @@ def tail_scale(results, dev, h=256):
         _plan_ell_tables,
         ell_step_tables,
     )
+    from pygim_tpu_torch.quant import quant_scale
 
     t0 = time.perf_counter()
     graph, _ = merge_duplicate_edges(load_dataset(SCALE_GRAPH).graph)
@@ -451,6 +737,30 @@ def tail_scale(results, dev, h=256):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         **bound,
     )
+    quant = {}
+    for name in ("int32", "int8"):
+        _scale, safe = quant_scale(x, name)
+        if name == "int32":
+            xq, kw, itemsize = x, {"safe": safe}, 4
+            rounded = torch.round(x / safe)
+        else:
+            xq, kw, itemsize = torch.round(x / safe).to(torch.int8), {}, 1
+            rounded = xq.float()
+        zero = torch.zeros_like(x)
+        got = ell_tail.ell_tables_add(xq, tables, zero.clone(), plan=plan,
+                                      **kw)
+        qerr = tail_close(f"K-tail-quant scale tables, {name}", xq, tables,
+                          got, zero, kw.get("safe"))
+        del got
+        qms = cuda_ms(lambda: ell_tail.ell_tables_add(xq, tables, z,
+                                                      plan=plan, **kw),
+                      iters=10)
+        qlib = cuda_ms(lambda: torch.sparse.mm(a, rounded), iters=10)
+        b, _csr = tail_bound(tables, h, results["peaks"], itemsize)
+        quant[name] = dict(max_abs_err=qerr, ms=qms, library_ms=qlib,
+                           bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        del xq, rounded, zero
+    results["K-tail-quant scale tables"] = quant
     del a, x, z, tables
     torch.cuda.empty_cache()
 
@@ -511,9 +821,75 @@ def profile_forward(gnn, x, agg, iters: int = 5) -> None:
     busy_ms = sum(dev_us(e) for e in evs) / iters / 1e3
     print(f"profile: forward {wall_ms:.4f} ms wall, {busy_ms:.4f} ms device "
           f"busy ({100 * busy_ms / wall_ms:.1f}%)", flush=True)
-    for e in sorted(evs, key=dev_us, reverse=True)[:15]:
+    for e in sorted(evs, key=dev_us, reverse=True)[:25]:
         print(f"profile: {dev_us(e) / iters / 1e3:9.4f} ms  "
               f"{e.count // iters:4d}x  {e.key[:90]}", flush=True)
+
+
+class PlainAggregate:
+    """The aggregate of ``prep`` through the plain versions: ``mul_plain``,
+    and the quantized hook on ``mul_quantized_plain``."""
+
+    def __init__(self, prep):
+        self.prep = prep
+
+    def __call__(self, v):
+        return self.prep.mul_plain(v)
+
+    def quantized(self, v, agg_dtype):
+        return self.prep.mul_quantized_plain(v, agg_dtype)
+
+
+def logits_check(name, gnn, xf, prep, n_classes):
+    """The forward through the kernels against the same forward through
+    the plain versions: two layers of f32 reordering in the aggregates
+    (and, with quantized aggregation, a flip of round(h / scale) by one
+    step, 2^-19 of max|h| at int32, where a reordered sum lands on the
+    other side of a half step), carried through the dense layers: 1e-4 of
+    the logits' scale."""
+    import torch
+
+    from pygim_tpu_torch.ops.spmm import PreparedAggregate
+
+    with torch.inference_mode():
+        logits = gnn(xf, PreparedAggregate(prep))
+        plain = gnn(xf, PlainAggregate(prep))
+    if logits.shape != (prep.nrows, n_classes):
+        raise AssertionError(f"{name} logits shape {tuple(logits.shape)}")
+    scale = max(1.0, float(plain.abs().max()))
+    lerr = float((logits - plain).abs().max())
+    print(f"{name} logits: max abs err {lerr} of scale {scale}", flush=True)
+    if not torch.isfinite(logits).all() or lerr > 1e-4 * scale:
+        raise AssertionError(f"{name} logits differ from the plain forward: "
+                             f"{lerr}")
+
+
+def entry_check():
+    """The flagship forward step (``pygim_tpu_torch/entry.py``: int32
+    aggregation through ``prep.mul``, so K-tail on int32 rows and K-int at
+    four limbs) on the card against the same step on the CPU (the plain
+    versions), on seeded features; the bar is ``logits_check``'s."""
+    import torch
+
+    from pygim_tpu_torch import entry
+
+    fwd, (x0,) = entry.entry()
+    if x0.device.type != "cuda" or x0.any():
+        raise AssertionError("entry(): the input is not a zero tensor on "
+                             "the card")
+    cpu_fwd, _ = entry.entry(device="cpu")
+    xr = torch.randn(x0.shape, generator=torch.Generator().manual_seed(12))
+    for name, x in (("zero", x0), ("seeded", xr)):
+        got = fwd(x.cuda()).cpu()
+        want = cpu_fwd(x.cpu())
+        scale = max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max())
+        print(f"entry(), {name} input: max abs err {err} of scale {scale}",
+              flush=True)
+        if got.shape != want.shape or not torch.isfinite(got).all() \
+                or err > 1e-4 * scale:
+            raise AssertionError(f"entry() on the card differs from the CPU: "
+                                 f"{err}")
 
 
 def main() -> int:
@@ -529,7 +905,7 @@ def main() -> int:
     )
     from pygim_tpu_torch.data import load_dataset
     from pygim_tpu_torch.nn.models import make_gnn
-    from pygim_tpu_torch.ops import _build, core_dot, ell_tail
+    from pygim_tpu_torch.ops import _build, core_dot, core_int, ell_tail
     from pygim_tpu_torch.ops.spmm import (
         PreparedAggregate,
         SpmmConfig,
@@ -548,9 +924,14 @@ def main() -> int:
     for n in _build.SIGNATURES:
         log = _build.BUILD_DIR / f"{n}.log"
         if log.exists():
+            kernel = ""  # the entry function the next lines describe
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {n}: {line.strip()}", flush=True)
+                if "Compiling entry function" in line:
+                    symbol = line.split("'")[1]
+                    m = re.search(r"[a-z][a-z_]*_kernel", symbol)
+                    kernel = symbol[m.start() if m else 0:][:40]
+                elif "registers" in line or "spill" in line:
+                    print(f"ptxas {n} {kernel}: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
     ds = load_dataset(DATASET)
@@ -566,61 +947,78 @@ def main() -> int:
     core_checks(prep, x, results)
     for k in ("K-core widest band", "K-core scale band", "K-core"):
         print(f"{k}: {results[k]}", flush=True)
+    int_checks(prep, x, results)
+    for k in ("K-int", "K-int scale band"):
+        print(f"{k}: {results[k]}", flush=True)
     tail_checks(prep, x, results)
     print(f"K-tail: {results['K-tail']}", flush=True)
+    tail_quant_checks(prep, x, results)
+    print(f"K-tail-quant: {results['K-tail-quant']}", flush=True)
     del x
     torch.cuda.empty_cache()
     mul_any_width(prep, results)
     print(f"mul any width, max abs err: {results['mul any width']}", flush=True)
     tail_scale(results, torch.device("cuda"))
-    print(f"K-tail scale tables: {results['K-tail scale tables']}", flush=True)
+    for k in ("K-tail scale tables", "K-tail-quant scale tables"):
+        print(f"{k}: {results[k]}", flush=True)
 
-    # the main path, counted
-    core_dot.launches = 0
-    ell_tail.launches = 0
+    # the main paths, each counted: float aggregation, then int32
+    # aggregation (the reference's default) with the int32 SpMM
     rep = DataReporter(echo=True)
     reuse = lambda g, c: prep  # noqa: E731 — the operand prepared above
-    run_inference_benchmark(
-        ds, model="gcn", num_layers=2, hidden=HIDDEN, agg_dtype=None,
-        config=cfg, repeat=10, reporter=rep, prepare_fn=reuse, device="cuda",
-    )
-    run_spmm_benchmark(
-        ds, hidden=HIDDEN, config=cfg, repeat=10, reporter=rep,
-        prepare_fn=reuse, device="cuda",
-    )
-    torch.cuda.synchronize()
-    launches = {"K-core": core_dot.launches, "K-tail": ell_tail.launches}
-    print(f"main-path launches: {launches}", flush=True)
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} was never launched on the main path")
-    if rep.records["verify"][-1] != "OK":
-        raise AssertionError("SpMM sampled-row check failed")
+    launches = {}
+    for agg_dtype, spmm_dtype, kernels in (
+            (None, "float32", ("K-core", "K-tail")),
+            ("int32", "int32", ("K-int", "K-tail-quant"))):
+        core_dot.launches = core_int.launches = 0
+        ell_tail.launches = ell_tail.quant_launches = 0
+        run_inference_benchmark(
+            ds, model="gcn", num_layers=2, hidden=HIDDEN, agg_dtype=agg_dtype,
+            config=cfg, repeat=10, reporter=rep, prepare_fn=reuse,
+            device="cuda",
+        )
+        run_spmm_benchmark(
+            ds, hidden=HIDDEN, dtype=spmm_dtype, config=cfg, repeat=10,
+            reporter=rep, prepare_fn=reuse, device="cuda",
+        )
+        torch.cuda.synchronize()
+        counts = {"K-core": core_dot.launches, "K-int": core_int.launches,
+                  "K-tail": ell_tail.launches,
+                  "K-tail-quant": ell_tail.quant_launches}
+        print(f"main-path launches, {agg_dtype or 'float'} aggregation: "
+              f"{counts}", flush=True)
+        for k in kernels:
+            if counts[k] <= 0:
+                raise AssertionError(f"{k} was never launched on the "
+                                     f"{agg_dtype or 'float'} main path")
+            launches[k] = counts[k]
+        if rep.records["verify"][-1] != "OK":
+            raise AssertionError(f"{spmm_dtype} SpMM sampled-row check failed")
 
-    # logits through the kernels vs the same forward through mul_plain
-    gnn = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
-                   num_layers=2, device="cuda")
     xf = torch.as_tensor(ds.x).cuda()
-    with torch.inference_mode():
-        logits = gnn(xf, PreparedAggregate(prep))
-        plain = gnn(xf, prep.mul_plain)
-    if logits.shape != (prep.nrows, ds.num_classes):
-        raise AssertionError(f"logits shape {tuple(logits.shape)}")
-    scale = max(1.0, float(plain.abs().max()))
-    lerr = float((logits - plain).abs().max())
-    print(f"logits: max abs err {lerr} of scale {scale}", flush=True)
-    # two layers of f32 reordering in the aggregates, carried through
-    # the dense layers: 1e-4 of the logits' scale
-    if not torch.isfinite(logits).all() or lerr > 1e-4 * scale:
-        raise AssertionError(f"logits differ from the plain forward: {lerr}")
+    gnns = {}
+    for agg_dtype in (None, "int32"):
+        gnns[agg_dtype] = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN,
+                                   ds.num_classes, num_layers=2,
+                                   agg_dtype=agg_dtype, device="cuda")
+        logits_check(agg_dtype or "float", gnns[agg_dtype], xf, prep,
+                     ds.num_classes)
+
+    entry_check()
 
     if "--profile" in sys.argv[1:]:
-        profile_forward(gnn, xf, PreparedAggregate(prep))
+        for agg_dtype, gnn in gnns.items():
+            print(f"profile: {agg_dtype or 'float'} aggregation", flush=True)
+            profile_forward(gnn, xf, PreparedAggregate(prep))
 
     sources = {"K-core": ("cuda", "pygim_tpu_torch/csrc/core_dot.cu",
                           "pygim_tpu/ops/pallas_core.py:55"),
                "K-tail": ("cuda", "pygim_tpu_torch/csrc/ell_tail.cu",
-                          "pygim_tpu/ops/spmm.py:481")}
+                          "pygim_tpu/ops/spmm.py:481"),
+               "K-int": ("cuda", "pygim_tpu_torch/csrc/core_int.cu",
+                         "pygim_tpu/ops/spmm.py:520"),
+               "K-tail-quant": ("cuda", "pygim_tpu_torch/csrc/ell_tail.cu",
+                                "pygim_tpu/ops/spmm.py:452")}
     kernels = []
     for k, (route, src, repl) in sources.items():
         res = results[k]

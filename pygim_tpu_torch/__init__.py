@@ -4,11 +4,14 @@ Prepare-once / run-many sparse aggregation for GNNs on one NVIDIA Hopper
 card. The module layout follows ``pygim_tpu`` so every counterpart is
 found under the same path; the JAX package stays the numeric reference.
 
-This first slice carries 2-layer GCN inference with a float payload
-through the staircase-int8 hybrid SpMM: host prepare (``core``,
-``ops.spmm``), the two hand-written kernels K-core (``ops.core_dot``)
-and K-tail (``ops.ell_tail``), the model (``nn``) and the benchmark
-bodies (``bench.runners``).
+It carries 2-layer GCN inference through the staircase-int8 hybrid
+SpMM, with a float payload or with int8, int16 or int32 quantized
+aggregation (int32 by default, as the reference): host prepare
+(``core``, ``ops.spmm``), the hand-written kernels K-core
+(``ops.core_dot``), K-int (``ops.core_int``) and K-tail with its
+quantized payload modes (``ops.ell_tail``), the quantization (``quant``),
+the model (``nn``), the benchmark bodies (``bench.runners``) and the
+flagship forward step (``entry``).
 
 The package never imports ``jax`` or ``pygim_tpu``. Entry points take an
 explicit ``device`` (default ``"cuda"``); only tests pass ``"cpu"``.

@@ -9,6 +9,7 @@ operands live on.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -50,6 +51,18 @@ def _prepare(graph, config, prepare_fn, device, rep):
     return prep
 
 
+_PAYLOAD_DTYPES = ("float32", "int8", "int16", "int32")
+
+
+def _cast_graph(graph, dtype: str):
+    """The graph with its values in the payload's dtype, as the
+    reference's ``_cast_graph`` (integer payloads, integer weights)."""
+    want = np.dtype(dtype)
+    if graph.vals.dtype == want:
+        return graph
+    return dataclasses.replace(graph, vals=graph.vals.astype(want))
+
+
 def run_spmm_benchmark(
     ds: GraphDataset,
     *,
@@ -63,38 +76,50 @@ def run_spmm_benchmark(
     device="cuda",
 ) -> dict:
     """SpMM micro-benchmark: times the prepared product and checks it on
-    sampled rows against a float64 CSR product. ``prepare_fn(graph,
-    config) -> prep`` overrides the default prepare."""
-    if dtype != "float32":
+    sampled rows against a float64 CSR product. ``dtype`` is the payload:
+    float32 (normal features), or int8, int16, int32 (integer features in
+    [-10, 10] and the graph's values cast to the dtype, as the
+    reference). ``prepare_fn(graph, config) -> prep`` overrides the
+    default prepare."""
+    if dtype not in _PAYLOAD_DTYPES:
         raise NotImplementedError(
-            f"dtype {dtype!r}: integer payloads come with the K-int slice"
+            f"dtype {dtype!r}: the port's payloads are {_PAYLOAD_DTYPES} "
+            "(bfloat16 and int64 are not ported)"
         )
     rep = reporter or DataReporter()
     rep.report("data_source", "synthetic" if ds.synthetic else "real")
     rng = np.random.default_rng(0)
     graph = ds.graph
-    x = torch.as_tensor(
-        rng.standard_normal((graph.ncols, hidden)), dtype=torch.float32,
-    ).to(device)
+    if dtype.startswith("int"):
+        x_np = rng.integers(-10, 11, (graph.ncols, hidden))
+    else:
+        x_np = rng.standard_normal((graph.ncols, hidden))
+    x = torch.as_tensor(x_np, dtype=getattr(torch, dtype)).to(device)
+    graph = _cast_graph(graph, dtype)
     prep = _prepare(graph, config, prepare_fn, device, rep)
     # the sparse operand moved to the device inside prepare; runs never
     # re-copy it
     rep.report("load_sparse_time(ms)", 0.0)
 
     dt = device_time(prep.mul, x, iters=repeat)
+    itemsize = x.element_size()
     rep.report("pim_time_spmm(ms)", dt * 1e3)
     rep.report("spmm_effective_GBps",
-               spmm_model_bytes(graph.nnz, graph.nrows, hidden) / dt / 1e9)
+               spmm_model_bytes(graph.nnz, graph.nrows, hidden, itemsize)
+               / dt / 1e9)
     rep.report("edges_per_s", graph.nnz / dt)
     nnz_unique = int(getattr(prep, "nnz", graph.nnz))
     rep.report(
         "spmm_effective_GBps_unique",
-        spmm_model_bytes(nnz_unique, graph.nrows, hidden) / dt / 1e9,
+        spmm_model_bytes(nnz_unique, graph.nrows, hidden, itemsize)
+        / dt / 1e9,
     )
     if verify:
-        # the int8 core rounds the float payload to bf16: rtol 1e-2, the
-        # reference's bar for a reduced-precision core
-        ok = _verify_against_oracle(graph, prep, x, rng, rtol=1e-2)
+        # the int8 core rounds a float payload to bf16: rtol 1e-2, the
+        # reference's bar for a reduced-precision core; an integer payload
+        # stays exact in the core: rtol 1e-4
+        ok = _verify_against_oracle(
+            graph, prep, x, rng, rtol=1e-4 if dtype.startswith("int") else 1e-2)
         rep.report("verify", "OK" if ok else "ERROR")
         if not ok:
             raise AssertionError("SpMM backend mismatch vs oracle")
@@ -129,7 +154,7 @@ def run_inference_benchmark(
     model: str = "gcn",
     num_layers: int = 2,
     hidden: int = 256,
-    agg_dtype: Optional[str] = None,
+    agg_dtype: Optional[str] = "int32",
     config: Optional[SpmmConfig] = None,
     repeat: int = 1,
     reporter: Optional[DataReporter] = None,
@@ -138,8 +163,9 @@ def run_inference_benchmark(
     device="cuda",
 ) -> dict:
     """End-to-end GNN inference: ``infer_time(ms)`` of the model forward
-    and the test accuracy of the (untrained) model. ``agg_dtype=None`` is
-    the float payload; integer aggregation comes with the K-int slice."""
+    and the test accuracy of the (untrained) model. ``agg_dtype`` defaults
+    to int32-quantized aggregation, as the reference's; int8 and int16
+    quantize too, and ``None`` aggregates the float payload."""
     rep = reporter or DataReporter()
     rep.report("data_source", "synthetic" if ds.synthetic else "real")
     graph = ds.graph

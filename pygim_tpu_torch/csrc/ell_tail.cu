@@ -10,8 +10,23 @@
 //
 //     out[vrow_to_row[v], :] += sum_d vals[v, d] * x[cols[v, d], :]
 //
-// with x and out f32 (N, h) row-major; out is added into, not assumed
-// zero. A hub row spans several consecutive virtual rows.
+// with out f32 (N, h) row-major; out is added into, not assumed zero. A
+// hub row spans several consecutive virtual rows. x (N, h) row-major is one
+// of the payload modes (template parameter P), each multiplied by the f32
+// vals and summed in f32:
+//   (i)   f32 rows as they are (AsIs; the float path);
+//   (ii)  int8, int16 or int32 rows widened to f32 (Widen<T>; the
+//         quantized aggregate's integer table, and prep.mul on an integer
+//         payload: ell_scan_spmm on integer rows, whose accumulation dtype
+//         is f32);
+//   (iii) f32 rows rounded to the quantization grid in the consumer,
+//         rintf(__fdiv_rn(g, safe)) with safe read from the card (Quant;
+//         replaces ell_scan_spmm_quant, pygim_tpu/ops/spmm.py:452). A true
+//         division rounded to nearest and a round half to even, as the
+//         reference's round(g / scale): the library is built without
+//         --use_fast_math (ops/_build.py), on which this depends. |q| <=
+//         2^19 + 1 is exact in f32, so the reference's cast through int32
+//         changes nothing.
 //
 // The host plan (ops/ell_tail.py:tail_plan) gives each table a count per
 // virtual row, cnt[v] = 1 + the index of its last nonzero weight (0 if it
@@ -28,7 +43,7 @@
 // turn their zero weights into NaN in the rows they point at.
 //
 // What bounds it on an H100: bytes. Each counted slot moves one x row
-// slice (4h bytes, 1 KiB at h = 256), chosen by an index that must be read
+// slice (h elements, 1 KiB at h = 256 in f32), chosen by an index that must be read
 // first, and does one multiply-add per element, far below the card's
 // operations per byte; each touched output row is read and written once.
 // x is larger than the 50 MB L2 on the graphs this path serves.
@@ -40,7 +55,9 @@
 // - a warp lays its unit's counted slots out as one stream (a prefix sum
 //   of cnt over its virtual rows, one per lane), so no pad slot costs a
 //   read and a D = 2 table streams x rows as densely as a D = 512 one;
-// - path (b), wherever h % 4 == 0 and x and out are 16-byte aligned:
+// - path (b), wherever h * sizeof(element) % 16 == 0 (h % 4 for 4-byte
+//   rows, h % 8 for int16, h % 16 for int8) and x and out are 16-byte
+//   aligned:
 //   lane 0 keeps a ring of RING shared-memory stages per warp filled with
 //   cp.async.bulk row copies completed on mbarriers, the next copy issued
 //   as soon as a stage is read, and the warp applies the weights from
@@ -81,6 +98,50 @@ struct Table {
   const int32_t* cnt;
   long long degree;
 };
+
+// Payload modes: the element type of x's rows and how one element
+// becomes the f32 value that is weighted (safe: mode (iii)'s divisor).
+struct AsIs {
+  using In = float;
+  static constexpr bool kQuant = false;
+  __device__ __forceinline__ static float get(float v, float) { return v; }
+};
+template <typename T>
+struct Widen {
+  using In = T;
+  static constexpr bool kQuant = false;
+  __device__ __forceinline__ static float get(T v, float) {
+    return static_cast<float>(v);  // round to nearest, as XLA's convert
+  }
+};
+struct Quant {
+  using In = float;
+  static constexpr bool kQuant = true;
+  __device__ __forceinline__ static float get(float v, float safe) {
+    return rintf(__fdiv_rn(v, safe));
+  }
+};
+
+template <typename P>
+__device__ __forceinline__ float load_safe(const float* safe) {
+  if constexpr (P::kQuant)
+    return __ldg(safe);
+  else
+    return 0.f;
+}
+
+// four consecutive elements of a row, as one load
+template <typename T>
+struct alignas(4 * sizeof(T)) Vec4 {
+  T v[4];
+};
+
+template <typename P>
+__device__ __forceinline__ float4 get4(const Vec4<typename P::In>& q,
+                                       float safe) {
+  return make_float4(P::get(q.v[0], safe), P::get(q.v[1], safe),
+                     P::get(q.v[2], safe), P::get(q.v[3], safe));
+}
 
 __device__ __forceinline__ void zero(float4& a) {
   a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -239,14 +300,16 @@ __device__ __forceinline__ unsigned live_mask(int h, int col0, int lane) {
   return live;
 }
 
-// Path (a): x rows read into registers, BATCH rows at a time, 4 bytes a
-// lane.
-template <int NJ>
+// Path (a): x rows read into registers, BATCH rows at a time, one element
+// a lane.
+template <int NJ, typename P>
 __global__ void __launch_bounds__(WARPS * 32, 4)
 tail_regs_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
-                 int n_units, const float* __restrict__ x,
-                 float* __restrict__ out, int h) {
+                 int n_units, const typename P::In* __restrict__ x,
+                 const float* __restrict__ safe_p, float* __restrict__ out,
+                 int h) {
   using V = float;
+  using In = typename P::In;
   constexpr int SLAB = 32 * NJ;
   __shared__ V parked[WARPS][PARK * NJ * 32];
 
@@ -256,6 +319,7 @@ tail_regs_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
   const Unit U = load_unit(tabs, units, u, lane);
   const int col0 = blockIdx.y * SLAB;
   const unsigned live = live_mask<1, NJ>(h, col0, lane);
+  const float safe = load_safe<P>(safe_p);
   V* pk = parked[warp];
 
   V acc[NJ];
@@ -270,12 +334,11 @@ tail_regs_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
 #pragma unroll
       for (int k = 0; k < BATCH; ++k) {
         const int col = __shfl_sync(FULL, e.col, b + k);
-        const V* xr = reinterpret_cast<const V*>(
-            x + static_cast<int64_t>(col) * h + col0);
+        const In* xr = x + static_cast<int64_t>(col) * h + col0;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           if (b + k < m && (live >> j & 1))
-            xv[k][j] = __ldg(xr + lane + 32 * j);
+            xv[k][j] = P::get(__ldg(xr + lane + 32 * j), safe);
           else
             zero(xv[k][j]);
         }
@@ -325,7 +388,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-__device__ __forceinline__ void bulk_row(uint32_t dst, const float* src,
+__device__ __forceinline__ void bulk_row(uint32_t dst, const void* src,
                                          uint32_t bytes, uint32_t bar) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    bar),
@@ -338,27 +401,38 @@ __device__ __forceinline__ void bulk_row(uint32_t dst, const float* src,
       : "memory");
 }
 
-template <int NJ>
+// bytes of one ring stage: a slab row of NJ * 32 groups of four elements
+template <int NJ, typename P>
+__host__ __device__ constexpr int stage_bytes() {
+  return NJ * 32 * static_cast<int>(sizeof(Vec4<typename P::In>));
+}
+
+template <int NJ, typename P>
 constexpr int bulk_smem_bytes() {
-  return WARPS * (RING + PARK) * NJ * 32 * 16 + WARPS * RING * 8;
+  return WARPS * RING * stage_bytes<NJ, P>() + WARPS * PARK * NJ * 32 * 16 +
+         WARPS * RING * 8;
 }
 
 // Path (b): x rows copied into a shared-memory ring of RING stages a warp
 // by the bulk-copy engine (vector widths only: 16-byte aligned rows and
 // sizes).
-template <int NJ>
+template <int NJ, typename P>
 __global__ void __launch_bounds__(WARPS * 32)
 tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
-                 int n_units, const float* __restrict__ x,
-                 float* __restrict__ out, int h) {
-  constexpr int SL4 = NJ * 32;  // float4 elements of one slab row
+                 int n_units, const typename P::In* __restrict__ x,
+                 const float* __restrict__ safe_p, float* __restrict__ out,
+                 int h) {
+  using In = typename P::In;
+  constexpr int SL4 = NJ * 32;  // groups of four elements of one slab row
+  constexpr int STAGE = stage_bytes<NJ, P>();
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float4* ring = reinterpret_cast<float4*>(smem) + warp * RING * SL4;
-  float4* pk = reinterpret_cast<float4*>(smem) + WARPS * RING * SL4 +
+  const Vec4<In>* ring =
+      reinterpret_cast<const Vec4<In>*>(smem + warp * RING * STAGE);
+  float4* pk = reinterpret_cast<float4*>(smem + WARPS * RING * STAGE) +
                warp * PARK * SL4;
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-                       smem + WARPS * (RING + PARK) * SL4 * 16) +
+                       smem + WARPS * RING * STAGE + WARPS * PARK * SL4 * 16) +
                    warp * RING;
 
   const int u = blockIdx.x * WARPS + warp;
@@ -366,7 +440,9 @@ tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
   const Unit U = load_unit(tabs, units, u, lane);
   const int col0 = blockIdx.y * SL4 * 4;
   const unsigned live = live_mask<4, NJ>(h, col0, lane);
-  const uint32_t bytes = static_cast<uint32_t>(min(SL4 * 4, h - col0)) * 4;
+  const uint32_t bytes =
+      static_cast<uint32_t>(min(SL4 * 4, h - col0)) * sizeof(In);
+  const float safe = load_safe<P>(safe_p);
   const uint32_t ring0 = smem_u32(ring), bar0 = smem_u32(bars);
   if (lane == 0) {
     for (int s = 0; s < RING; ++s)
@@ -383,7 +459,7 @@ tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
   for (int q = 0; q < RING; ++q) {
     const int col = __shfl_sync(FULL, e0.col, q);
     if (lane == 0 && q < U.T)
-      bulk_row(ring0 + q * SL4 * 16, x + static_cast<int64_t>(col) * h + col0,
+      bulk_row(ring0 + q * STAGE, x + static_cast<int64_t>(col) * h + col0,
                bytes, bar0 + 8 * q);
   }
 
@@ -402,7 +478,7 @@ tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       if (live >> j & 1)
-        xv[j] = ring[st * SL4 + lane + 32 * j];
+        xv[j] = get4<P>(ring[st * SL4 + lane + 32 * j], safe);
       else
         zero(xv[j]);
     }
@@ -414,7 +490,7 @@ tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
     if (lane == 0 && qn < U.T) {
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       const int col = (qn >> 5) == (q >> 5) ? ca : cb;
-      bulk_row(ring0 + st * SL4 * 16, x + static_cast<int64_t>(col) * h + col0,
+      bulk_row(ring0 + st * STAGE, x + static_cast<int64_t>(col) * h + col0,
                bytes, bar0 + 8 * st);
     }
     const int row = __shfl_sync(FULL, e0.row, q & 31);
@@ -439,47 +515,72 @@ struct Args {
   const Table* tabs;
   const int2* units;
   int n_units;
-  const float* x;
+  const void* x;
+  const float* safe;
   float* out;
   int h;
 };
 
-template <int NJ>
+template <int NJ, typename P>
 int launch_bulk(const Args& a, cudaStream_t s) {
-  constexpr int smem = bulk_smem_bytes<NJ>();
+  constexpr int smem = bulk_smem_bytes<NJ, P>();
   const dim3 grid((a.n_units + WARPS - 1) / WARPS,
                   (a.h + 128 * NJ - 1) / (128 * NJ));
   cudaError_t e = cudaFuncSetAttribute(
-      tail_bulk_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tail_bulk_kernel<NJ, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  tail_bulk_kernel<NJ><<<grid, WARPS * 32, smem, s>>>(a.tabs, a.units,
-                                                      a.n_units, a.x, a.out, a.h);
+  tail_bulk_kernel<NJ, P><<<grid, WARPS * 32, smem, s>>>(
+      a.tabs, a.units, a.n_units, static_cast<const typename P::In*>(a.x),
+      a.safe, a.out, a.h);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NJ>
+template <int NJ, typename P>
 int launch_regs(const Args& a, cudaStream_t s) {
   const dim3 grid((a.n_units + WARPS - 1) / WARPS,
                   (a.h + 32 * NJ - 1) / (32 * NJ));
-  tail_regs_kernel<NJ><<<grid, WARPS * 32, 0, s>>>(a.tabs, a.units, a.n_units,
-                                                   a.x, a.out, a.h);
+  tail_regs_kernel<NJ, P><<<grid, WARPS * 32, 0, s>>>(
+      a.tabs, a.units, a.n_units, static_cast<const typename P::In*>(a.x),
+      a.safe, a.out, a.h);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename P>
+int launch(const Args& a, int vec, cudaStream_t s) {
+  if (vec) return a.h <= 128 ? launch_bulk<1, P>(a, s) : launch_bulk<2, P>(a, s);
+  return a.h <= 64 ? launch_regs<2, P>(a, s) : launch_regs<8, P>(a, s);
 }
 
 }  // namespace
 
 // tabs: int64 (n_tables, 5) on the card (cols, vals, vrow, cnt pointers and
 // degree of each table); units: int32 (n_units, 2), (first virtual row,
-// table | (count - 1) << 8 | atomic << 13). vec: h % 4 == 0 and x, out
+// table | (count - 1) << 8 | atomic << 13). payload: 0 f32, 1 int8, 2 int16,
+// 3 int32 rows, 4 f32 rows rounded to multiples of *safe (a float on the
+// card; null otherwise). vec: h * sizeof(element) % 16 == 0 and x, out
 // 16-byte aligned (the caller checks); path (b) where it holds, else (a).
+// Returns 0 or an error code (cudaError_t, or 901: arguments refused).
 extern "C" int ell_tables_add(const void* tabs, const void* units, int n_units,
                               const void* x, void* out, int h, int vec,
-                              void* stream) {
+                              int payload, const void* safe, void* stream) {
   if (n_units <= 0 || h <= 0) return 0;
   const Args a{static_cast<const Table*>(tabs), static_cast<const int2*>(units),
-               n_units, static_cast<const float*>(x), static_cast<float*>(out),
-               h};
+               n_units, x, static_cast<const float*>(safe),
+               static_cast<float*>(out), h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) return h <= 128 ? launch_bulk<1>(a, s) : launch_bulk<2>(a, s);
-  return h <= 64 ? launch_regs<2>(a, s) : launch_regs<8>(a, s);
+  switch (payload) {
+    case 0:
+      return launch<AsIs>(a, vec, s);
+    case 1:
+      return launch<Widen<int8_t>>(a, vec, s);
+    case 2:
+      return launch<Widen<int16_t>>(a, vec, s);
+    case 3:
+      return launch<Widen<int32_t>>(a, vec, s);
+    case 4:
+      return safe ? launch<Quant>(a, vec, s) : 901;
+    default:
+      return 901;
+  }
 }

@@ -49,10 +49,12 @@ def batchnorm_apply(scale, bias, mean, var, x, eps: float = 1e-5):
 
 def quantized_aggregate(aggregate: Aggregate, x, agg_dtype=None):
     """quantize → A·x → dequantize. ``agg_dtype=None`` aggregates in x's
-    own dtype (scale 1). An integer ``agg_dtype`` goes to the
-    aggregate's fused hook where it has one (the hybrid operand's, which
-    raises until the K-int slice); a plain callable takes the unfused
-    quantize round trip."""
+    own dtype (scale 1). An integer ``agg_dtype`` (int8, int16, int32)
+    goes to the aggregate's fused hook where it has one
+    (:meth:`PreparedAggregate.quantized
+    <pygim_tpu_torch.ops.spmm.PreparedAggregate.quantized>`: K-tail and
+    K-int, bit-identical to the round trip); a plain callable takes the
+    unfused quantize round trip."""
     if agg_dtype is not None:
         name = dtype_name(agg_dtype)
         fused = getattr(aggregate, "quantized", None)

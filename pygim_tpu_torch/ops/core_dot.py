@@ -53,11 +53,13 @@ def core_bands_plain(bands, xc, core_nodes, stair, out):
     return out
 
 
-def _check(bands, xc, core_nodes, stair, out) -> None:
+def _check(bands, xc, core_nodes, stair, out,
+           xc_dtypes=(torch.bfloat16,)) -> None:
     if len(bands) != len(stair):
         raise ValueError(f"{len(bands)} bands for {len(stair)} stair entries")
-    if xc.dtype != torch.bfloat16 or xc.dim() != 2:
-        raise TypeError(f"xc must be 2-D bfloat16, got {xc.dtype} {tuple(xc.shape)}")
+    if xc.dtype not in xc_dtypes or xc.dim() != 2:
+        raise TypeError(f"xc must be 2-D {' or '.join(map(str, xc_dtypes))}, "
+                        f"got {xc.dtype} {tuple(xc.shape)}")
     if core_nodes.dtype != torch.int32 or core_nodes.dim() != 1:
         raise TypeError(f"rows must be 1-D int32, got {core_nodes.dtype} "
                         f"{tuple(core_nodes.shape)}")
@@ -109,10 +111,10 @@ def _check_kernel_contract(bands, xc, core_nodes, stair, out) -> None:
 _EPILOGUE_COST = 12
 
 
-def tile_schedule(stair, h: int, n_blocks: int):
+def tile_schedule(stair, h: int, n_blocks: int, bn: int = BN):
     """The kernel's work list for bands ``stair`` at width ``h``.
 
-    Every ``(band, row tile m0, column block n0)`` of 128 rows and 256
+    Every ``(band, row tile m0, column block n0)`` of 128 rows and ``bn``
     columns, each running its whole contraction over ``w``. The tiles go
     longest contraction first to ``n_blocks`` persistent blocks, each to
     the block with the least work so far (greedy longest-first), so the
@@ -124,7 +126,7 @@ def tile_schedule(stair, h: int, n_blocks: int):
     steps = [-(-w // 64) for _lo, _hi, w in stair]
     cells = [(steps[b] + _EPILOGUE_COST, b, m0, n0)
              for b, (lo, hi, _w) in enumerate(stair)
-             for m0 in range(0, hi - lo, BM) for n0 in range(0, h, BN)]
+             for m0 in range(0, hi - lo, BM) for n0 in range(0, h, bn)]
     cells.sort(key=lambda c: -c[0])  # stable: band, m0, n0 order
     n_blocks = max(1, min(n_blocks, len(cells)))
     heap = [(0, i) for i in range(n_blocks)]
@@ -152,11 +154,13 @@ def band_groups(stair, h: int):
 class CorePlan:
     """What one launch over a fixed group of device bands needs: the
     bands' TMA maps and ``(lo, r, w)`` (host), the tile schedule (on the
-    device), and what it was built for (band indices, addresses, H)."""
+    device), and what it was built for (band indices, addresses, H, tile
+    width)."""
 
     group: list
     ptrs: tuple
     h: int
+    bn: int
     maps: ctypes.Array
     info: ctypes.Array
     tiles: torch.Tensor
@@ -164,12 +168,13 @@ class CorePlan:
     grid: int
 
 
-def core_plans(bands, stair, h: int) -> list:
+def core_plans(bands, stair, h: int, bn: int = BN) -> list:
     """The plans of one grouped call over these CUDA bands at width ``h``,
-    one per launch (:func:`band_groups`). A prepared operand's bands never
-    move, so its owner builds them once per width and passes them to
-    :func:`core_bands_scatter_add`: encoding the maps and uploading the
-    schedule synchronise the stream."""
+    one per launch (:func:`band_groups`), for tiles ``bn`` columns wide. A
+    prepared operand's bands never move, so its owner builds them once per
+    width and passes them to :func:`core_bands_scatter_add`: encoding the
+    maps and uploading the schedule synchronise the stream. K-int
+    (``ops/core_int.py``) launches on the same band maps."""
     groups = band_groups(stair, h)
     if not groups:
         return []
@@ -188,12 +193,20 @@ def core_plans(bands, stair, h: int) -> list:
         sub = [stair[b] for b in group]
         info = (ctypes.c_int * (3 * len(sub)))(
             *[v for lo, hi, w in sub for v in (lo, hi - lo, w)])
-        tiles, starts = tile_schedule(sub, h, n_sm)
+        tiles, starts = tile_schedule(sub, h, n_sm, bn)
         plans.append(CorePlan(
             group=group, ptrs=tuple(bands[b].data_ptr() for b in group), h=h,
-            maps=maps, info=info, tiles=torch.from_numpy(tiles).to(dev),
+            bn=bn, maps=maps, info=info, tiles=torch.from_numpy(tiles).to(dev),
             starts=torch.from_numpy(starts).to(dev), grid=len(starts) - 1))
     return plans
+
+
+def plans_match(plans, bands, stair, h: int, bn: int) -> bool:
+    """Whether ``plans`` were built for these bands at width ``h`` with
+    tiles ``bn`` columns wide."""
+    return [(p.group, p.ptrs, p.h, p.bn) for p in plans] == [
+        (g, tuple(bands[b].data_ptr() for b in g), h, bn)
+        for g in band_groups(stair, h)]
 
 
 def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
@@ -216,9 +229,7 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
     h = out.shape[1]
     if plans is None:
         plans = core_plans(bands, stair, h)
-    elif [(p.group, p.ptrs, p.h) for p in plans] != [
-            (g, tuple(bands[b].data_ptr() for b in g), h)
-            for g in band_groups(stair, h)]:
+    elif not plans_match(plans, bands, stair, h, BN):
         raise ValueError("K-core plans were built for other bands or another H")
     lib = _build.load("core_dot")
     with torch.cuda.device(out.device):

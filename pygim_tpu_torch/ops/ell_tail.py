@@ -11,8 +11,14 @@ non-decreasing. For every virtual row ``v``::
 
     out[vrow_to_row[v]] += Σ_d vals[v, d] · x[cols[v, d]]
 
-x stays float32; the tail does not round to bf16. The kernel takes any
-width H. It reads only the slots up to each virtual row's last nonzero
+x is one of three payload modes, each weighted by the f32 vals and
+summed in f32: (i) float32 rows as they are (the float path; the tail
+does not round to bf16); (ii) int8, int16 or int32 rows widened to f32
+(``ell_scan_spmm`` on integer rows, whose accumulation dtype is f32);
+(iii) float32 rows rounded in the consumer to ``round(x / safe)``, a
+true division rounded half to even, with ``safe`` a 0-dim float32 tensor
+on x's device (``ell_scan_spmm_quant``, the int32 quantized aggregate).
+The kernel takes any width H. It reads only the slots up to each virtual row's last nonzero
 weight, so a non-finite x row that only pad slots (or trailing zero
 weights) reach does not spread NaN, where the plain version and the
 reference spread it; for finite x the two agree up to f32 summation order.
@@ -27,36 +33,59 @@ import torch
 
 from pygim_tpu_torch.ops import _build
 
-# kernel launches since the last reset (plain int; launches only)
+# kernel launches since the last reset (plain ints; launches only): K-tail
+# on float32 rows, and K-tail-quant on integer or rounded rows
 launches = 0
+quant_launches = 0
+
+# the kernel's payload codes by x dtype (mode (iii), rounded f32, is 4)
+PAYLOADS = {torch.float32: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3}
+_QUANT = 4
 
 UNIT_SLOTS = 128   # stored slots a work unit aims at (its rows follow D)
 UNIT_MAX_ROWS = 32  # virtual rows a unit holds at most: one per lane
 MAX_TABLES = 256   # tables one plan carries (8 bits of a unit's word)
 
 
-def ell_tail_plain(x, cols2d, vals2d, vrow_to_row, degree: int, out):
+def ell_tail_plain(x, cols2d, vals2d, vrow_to_row, degree: int, out,
+                   safe=None):
     """The same sum in plain PyTorch, one step at a time as the reference
-    scans, so the largest temporary is one step's (chunk·D, H) gather."""
+    scans, so the largest temporary is one step's (chunk·D, H) gather.
+    ``safe`` selects payload mode (iii)."""
     h = x.shape[1]
     chunk = vrow_to_row.shape[1]
     for s in range(cols2d.shape[0]):
-        g = x.index_select(0, cols2d[s]) * vals2d[s][:, None]
+        g = x.index_select(0, cols2d[s])
+        g = g.float() if safe is None else torch.round(g / safe)
+        g = g * vals2d[s][:, None]
         out.index_add_(0, vrow_to_row[s], g.view(chunk, degree, h).sum(1))
     return out
 
 
-def ell_tables_plain(x, tables, out):
+def ell_tables_plain(x, tables, out, safe=None):
     """:func:`ell_tail_plain` over ``tables``, ``[(cols2d, vals2d,
     vrow_to_row, degree)]``, in order."""
     for cols2d, vals2d, vrow_to_row, degree in tables:
-        ell_tail_plain(x, cols2d, vals2d, vrow_to_row, degree, out)
+        ell_tail_plain(x, cols2d, vals2d, vrow_to_row, degree, out, safe)
     return out
 
 
+def _check_payload(x, safe, out) -> None:
+    if x.dtype not in PAYLOADS or x.dim() != 2:
+        raise TypeError(f"x must be 2-D float32, int8, int16 or int32, got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    if safe is None:
+        return
+    if x.dtype != torch.float32:
+        raise TypeError(f"a rounded payload (safe given) must be float32, "
+                        f"got {x.dtype}")
+    if (safe.dtype != torch.float32 or safe.dim() != 0
+            or safe.device != out.device):
+        raise TypeError(f"safe must be a 0-dim float32 tensor on {out.device}, "
+                        f"got {safe.dtype} {tuple(safe.shape)} on {safe.device}")
+
+
 def _check(x, cols2d, vals2d, vrow_to_row, degree, out) -> None:
-    if x.dtype != torch.float32 or x.dim() != 2:
-        raise TypeError(f"x must be 2-D float32, got {x.dtype} {tuple(x.shape)}")
     if cols2d.dtype != torch.int32 or cols2d.dim() != 2:
         raise TypeError(f"cols2d must be 2-D int32, got {cols2d.dtype}")
     if vals2d.dtype != torch.float32 or vals2d.shape != cols2d.shape:
@@ -222,20 +251,24 @@ def tail_plan(tables, host=None) -> TailPlan:
                     units=units, packed=packed, tabs=tabs)
 
 
-def ell_tables_add(x, tables, out, plan=None):
+def ell_tables_add(x, tables, out, plan=None, safe=None):
     """Add every ELL table's product into ``out`` (in place; returned):
     ``tables`` is ``[(cols2d, vals2d, vrow_to_row, degree)]``, each
-    ``vrow_to_row`` non-decreasing, as prepare builds them. CPU tensors
-    take :func:`ell_tables_plain`; CUDA tensors launch the kernel once
-    for all tables, any H, or raise: its bulk-copy path where H % 4 == 0
-    and x and out are 16-byte aligned, its register path elsewhere.
+    ``vrow_to_row`` non-decreasing, as prepare builds them; x float32,
+    int8, int16 or int32, or float32 rounded to ``round(x / safe)`` where
+    ``safe`` is given (module docstring). CPU tensors take
+    :func:`ell_tables_plain`; CUDA tensors launch the kernel once for all
+    tables, any H, or raise: its bulk-copy path where a row is a multiple
+    of 16 bytes (H % 4 for 4-byte elements, H % 8 for int16, H % 16 for
+    int8) and x and out are 16-byte aligned, its register path elsewhere.
     ``plan`` (:func:`tail_plan` of these tables) is built here when not
     given."""
-    global launches
+    global launches, quant_launches
+    _check_payload(x, safe, out)
     for cols2d, vals2d, vrow_to_row, degree in tables:
         _check(x, cols2d, vals2d, vrow_to_row, degree, out)
     if out.device.type == "cpu":
-        return ell_tables_plain(x, tables, out)
+        return ell_tables_plain(x, tables, out, safe)
     if out.device.type != "cuda":
         raise ValueError(f"no K-tail kernel for device {out.device}")
     if plan is None:
@@ -245,15 +278,21 @@ def ell_tables_add(x, tables, out, plan=None):
     h = x.shape[1]
     if plan.n_units == 0 or h == 0 or x.shape[0] == 0:
         return out
-    vec = h % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    vec = (h * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
+           and out.data_ptr() % 16 == 0)
+    payload = PAYLOADS[x.dtype] if safe is None else _QUANT
     lib = _build.load("ell_tail")
     with torch.cuda.device(out.device):
         err = lib.ell_tables_add(
             plan.tabs.data_ptr(), plan.packed.data_ptr(), plan.n_units,
-            x.data_ptr(), out.data_ptr(), h, int(vec), _build.stream_of(out),
+            x.data_ptr(), out.data_ptr(), h, int(vec), payload,
+            None if safe is None else safe.data_ptr(), _build.stream_of(out),
         )
     _build.check(err, "ell_tables_add")
-    launches += 1
+    if payload:
+        quant_launches += 1
+    else:
+        launches += 1
     return out
 
 

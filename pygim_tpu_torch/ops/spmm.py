@@ -1,23 +1,28 @@
 """Prepare-once / run-many SpMM on one CUDA card.
 
 Counterpart of ``pygim_tpu/ops/spmm.py`` for the slice it carries: the
-``hybrid`` backend with a staircase int8 core and a float payload.
-:func:`prepare_spmm` plans on the host (duplicate merge, degree rank,
-staircase bands, multi-degree ELL tail), fills the int8 bands and the
-ELL tables, and moves them to the device; :meth:`PreparedSpmm.mul` then
-computes ``A @ x`` as
+``hybrid`` backend with a staircase int8 core. :func:`prepare_spmm` plans
+on the host (duplicate merge, degree rank, staircase bands, multi-degree
+ELL tail), fills the int8 bands and the ELL tables, and moves them to the
+device; :meth:`PreparedSpmm.mul` then computes ``A @ x`` as
 
 1. ``out = zeros(N, H)``;
 2. K-tail over every ELL table into ``out``, one launch
    (``ops/ell_tail.py``);
-3. ``xc = bf16(x[core_nodes])`` and K-core over all bands into ``out``
-   at ``core_nodes[lo:hi]``, one launch (``ops/core_dot.py``); where H is
-   not a multiple of 8, K-core runs on ``xc`` and ``out`` padded with
-   zero columns to the next multiple, and the product is cut back to H
+3. the core over all bands into ``out`` at ``core_nodes[lo:hi]``, one
+   launch: for a float32 x, ``xc = bf16(x[core_nodes])`` through K-core
+   (``ops/core_dot.py``; where H is not a multiple of 8, on ``xc`` and
+   ``out`` padded with zero columns to the next multiple, cut back to H);
+   for an int8, int16 or int32 x, ``xc = x[core_nodes[:max w]]`` through
+   K-int (``ops/core_int.py``), the exact int32 product wrapped as the
+   reference's, added as f32
 
-— the order of the reference's hybrid run. The host tables are the
-reference's bit for bit. Other backends, core shapes and dtypes, and
-the prepare cache come in later slices; the config raises on them.
+— the order of the reference's hybrid run. :meth:`PreparedSpmm.mul_quantized`
+is the fused quantize → aggregate → dequantize of the reference's
+``raw_mul_quantized``. The host tables are the reference's bit for bit.
+Other backends, core shapes and dtypes (the square, bf16 and int4
+cores), bfloat16 and int64 payloads, and the prepare cache come in later
+slices; they raise.
 """
 
 from __future__ import annotations
@@ -41,11 +46,20 @@ from pygim_tpu_torch.ops.core_dot import (
     core_bands_scatter_add,
     core_plans,
 )
+from pygim_tpu_torch.ops.core_int import (
+    QUANT_LIMBS,
+    RAW_LIMBS,
+    core_int_plain,
+    core_int_plans,
+    core_int_scatter_add,
+)
 from pygim_tpu_torch.ops.ell_tail import (
+    PAYLOADS,
     ell_tables_add,
     ell_tables_plain,
     tail_plan,
 )
+from pygim_tpu_torch.quant import _SCALE_EXP, dtype_name, quant_scale
 from pygim_tpu_torch.utils.timers import PhaseTimer
 
 _log = logging.getLogger("pygim_tpu_torch")
@@ -282,6 +296,7 @@ class PreparedSpmm:
                                         host=tail_host)
         self.stair = None
         self._core_plans = {}  # H -> K-core plans of the device bands
+        self._int_plans = {}   # (H, limbs) -> K-int plans of the same
         if "stair_bands" in host:
             self.stair = [tuple(int(v) for v in b) for b in host["stair_bands"]]
             for b in range(len(self.stair)):
@@ -309,13 +324,14 @@ class PreparedSpmm:
 
     def mul(self, x):
         """``A @ x`` through the kernels (plain versions on CPU tensors).
-        ``x``: (ncols, H) float32 on the operand's device."""
+        ``x``: (ncols, H) float32, int8, int16 or int32 on the operand's
+        device; the result is float32 (N, H). An integer x is exact in
+        the core (the reference's wrapped int32 product) and summed in
+        f32 in the tail, as the reference's ``run``."""
         return self.raw_mul(x, self._dev)
 
     def raw_mul(self, x, dev: dict):
-        if dev is self._dev:
-            return self._run(x, dev, self._core, self._tail)
-        return self._run(x, dev, core_any_width, ell_tables_add)
+        return self._run(x, dev)
 
     def ell_tables(self, dev: dict) -> list:
         """The ELL tables of ``dev`` as ``[(cols2d, vals2d, vrow_to_row,
@@ -327,13 +343,13 @@ class PreparedSpmm:
                            dev[f"vrow_to_row{sfx}"], degree))
         return tables
 
-    def _tail(self, x, tables, out):
+    def _tail(self, x, tables, out, **kw):
         """K-tail over this operand's own tables, with the plan built
-        once at prepare."""
+        once at prepare (``kw``: ``safe`` for a rounded payload)."""
         plan = self._tail_plan
         if plan is not None and out.device != plan.tabs.device:
             plan = None
-        return ell_tables_add(x, tables, out, plan=plan)
+        return ell_tables_add(x, tables, out, plan=plan, **kw)
 
     def _core(self, bands, xc, core_nodes, stair, out):
         """K-core over this operand's own bands at any width, with their
@@ -346,36 +362,118 @@ class PreparedSpmm:
             plans = self._core_plans[h]
         return core_any_width(bands, xc, core_nodes, stair, out, plans=plans)
 
+    def _core_int(self, bands, xc, core_nodes, stair, out, limbs):
+        """K-int over this operand's own bands, with their plans built
+        once per (H, limbs) on the card."""
+        plans = None
+        if out.is_cuda and out.device == bands[0].device:
+            key = (out.shape[1], limbs)
+            if key not in self._int_plans:
+                self._int_plans[key] = core_int_plans(bands, stair, *key)
+            plans = self._int_plans[key]
+        return core_int_scatter_add(bands, xc, core_nodes, stair, out,
+                                    limbs, plans=plans)
+
     def mul_plain(self, x):
         """The same product through the plain PyTorch versions on any
         device, at H unpadded — the yardstick the kernels are held
         against."""
-        return self._run(x, self._dev, core_bands_plain, ell_tables_plain)
+        return self._run(x, self._dev, plain=True)
 
-    def _run(self, x, dev, core_fn, tail_fn):
+    def _kernels(self, dev: dict, plain: bool):
+        """The (tail, float core, integer core) functions of a run: the
+        plain versions; the kernels with the plans this operand keeps for
+        its own tables; or the kernels planning a foreign ``dev`` each
+        call."""
+        if plain:
+            return (ell_tables_plain, core_bands_plain,
+                    lambda *a, limbs: core_int_plain(*a))
+        if dev is self._dev:
+            return self._tail, self._core, self._core_int
+        return ell_tables_add, core_any_width, core_int_scatter_add
+
+    def _run(self, x, dev, plain=False, safe=None, limbs=None):
+        """``A @ x`` into a fresh float32 (N, H). An integer x, or a
+        float32 x with ``safe`` (rounded to ``round(x / safe)`` in the tail
+        and the core), takes the integer core with ``limbs`` (default
+        :data:`RAW_LIMBS` of x's dtype)."""
         if x.dim() != 2 or x.shape[0] != self.ncols:
             raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
-        if x.dtype != torch.float32:
+        if x.dtype not in PAYLOADS:
             raise TypeError(
-                f"the hybrid product takes a float32 payload, got {x.dtype}; "
-                "bf16 and integer-quantized payloads come with the K-int slice"
+                f"the hybrid product takes a float32, int8, int16 or int32 "
+                f"payload, got {x.dtype} (bfloat16 and int64 payloads are "
+                "not ported)"
             )
+        tail_fn, core_fn, int_fn = self._kernels(dev, plain)
         h = x.shape[1]
         out = torch.zeros((self.nrows, h), dtype=torch.float32,
                           device=x.device)
-        tail_fn(x, self.ell_tables(dev), out)
+        if safe is None:
+            tail_fn(x, self.ell_tables(dev), out)
+        else:
+            tail_fn(x, self.ell_tables(dev), out, safe=safe)
         if self.stair:
             cn = dev["core_nodes"]
-            xc = x.index_select(0, cn).to(torch.bfloat16)
             bands = [dev[f"stair{b}"] for b in range(len(self.stair))]
-            core_fn(bands, xc, cn, self.stair, out)
+            if x.dtype == torch.float32 and safe is None:
+                xc = x.index_select(0, cn).to(torch.bfloat16)
+                core_fn(bands, xc, cn, self.stair, out)
+            else:
+                xc = x.index_select(0, cn[:max(w for *_, w in self.stair)])
+                if safe is not None:
+                    xc = torch.round(xc / safe).to(torch.int32)
+                int_fn(bands, xc, cn, self.stair, out,
+                       limbs=limbs or RAW_LIMBS[xc.dtype])
         return out
+
+    @property
+    def supports_fused_quant(self) -> bool:
+        """True: the hybrid backend folds the quantization into the
+        aggregate (:meth:`raw_mul_quantized`)."""
+        return True
+
+    def raw_mul_quantized(self, x, dev: dict, agg_dtype, plain=False):
+        """Fused quantize → A·x → dequantize, the reference's
+        ``raw_mul_quantized``: ``scale = 2·max|x| / 2^k`` on the device,
+        ``q = round(x / safe)`` (a true division, half to even), the exact
+        integer core product and the f32-summed tail, then ``out * scale``.
+        int8 and int16 round x once into an (N, H) table of that dtype,
+        which both tiers read; int32 has no table (it would be as large as
+        x) and rounds inside K-tail's gather (payload mode (iii)) and on
+        the core's gathered rows. ``x`` float32; returns float32.
+        ``plain`` runs the plain versions."""
+        name = dtype_name(agg_dtype)
+        if name not in _SCALE_EXP:
+            raise NotImplementedError(
+                f"fused quantization to {name!r}: int8, int16 and int32 are "
+                "ported (int64 and the float passthrough are not)"
+            )
+        if x.dtype != torch.float32:
+            raise TypeError(f"quantized aggregation takes a float32 x, got "
+                            f"{x.dtype}")
+        scale, safe = quant_scale(x, name)
+        limbs = QUANT_LIMBS[name]
+        if name == "int32":
+            out = self._run(x, dev, plain, safe=safe, limbs=limbs)
+        else:
+            xq = torch.round(x / safe).to(getattr(torch, name))
+            out = self._run(xq, dev, plain, limbs=limbs)
+        return out * scale
+
+    def mul_quantized(self, x, agg_dtype):
+        """:meth:`raw_mul_quantized` on this operand's own tables."""
+        return self.raw_mul_quantized(x, self._dev, agg_dtype)
+
+    def mul_quantized_plain(self, x, agg_dtype):
+        """:meth:`mul_quantized` through the plain versions."""
+        return self.raw_mul_quantized(x, self._dev, agg_dtype, plain=True)
 
 
 class PreparedAggregate:
-    """Callable aggregate ``v -> A·v`` bound to a prepared operand.
-    ``quantized`` is the fused integer-aggregate hook the conv layers
-    probe; it comes with the K-int slice and raises until then."""
+    """Callable aggregate ``v -> A·v`` bound to a prepared operand, with
+    ``quantized``, the fused integer-aggregate hook the conv layers probe
+    (:func:`pygim_tpu_torch.nn.layers.quantized_aggregate`)."""
 
     def __init__(self, prep, dev=None):
         self.prep = prep
@@ -385,10 +483,9 @@ class PreparedAggregate:
         return self.prep.raw_mul(v, self.dev)
 
     def quantized(self, v, agg_dtype: str):
-        raise NotImplementedError(
-            f"integer-quantized aggregation ({agg_dtype}) on the hybrid "
-            "path comes with the K-int slice (int8 / wide-int band GEMMs)"
-        )
+        """Fused quantize → aggregate → dequantize
+        (:meth:`PreparedSpmm.raw_mul_quantized`)."""
+        return self.prep.raw_mul_quantized(v, self.dev, agg_dtype)
 
 
 def prepare_spmm(graph, config: Optional[SpmmConfig] = None, *,

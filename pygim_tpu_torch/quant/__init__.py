@@ -26,6 +26,19 @@ def dtype_name(dtype) -> str:
     return str(dtype)
 
 
+def quant_scale(v, dtype="int32"):
+    """``(scale, safe)`` of :func:`symmetric_quantize` as 0-dim tensors on
+    ``v``'s device, without a host synchronisation: ``safe`` is ``scale``
+    with a zero replaced by 1. Divide by ``safe`` (``v / safe``, a true
+    division: a 0-dim CUDA divisor is not turned into a reciprocal
+    multiply), never multiply by its reciprocal, so the rounding matches
+    the reference bit for bit."""
+    abs_max = torch.linalg.vector_norm(v, float("inf"))  # max|v|, one pass
+    k = _SCALE_EXP.get(dtype_name(dtype), 20)
+    scale = abs_max * 2.0 / (2.0 ** k)
+    return scale, torch.where(scale == 0, torch.ones_like(scale), scale)
+
+
 def symmetric_quantize(v, dtype="int32"):
     """Returns ``(scale, v_q)``."""
     if dtype is None:
@@ -34,10 +47,7 @@ def symmetric_quantize(v, dtype="int32"):
     if name == "bfloat16":
         return (torch.ones((), dtype=torch.float32, device=v.device),
                 v.to(torch.bfloat16))
-    abs_max = v.abs().max()
-    k = _SCALE_EXP.get(name, 20)
-    scale = abs_max * 2.0 / (2.0 ** k)
-    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    scale, safe = quant_scale(v, name)
     v_q = torch.round(v / safe)
     if name in _SCALE_EXP or name == "int64":
         v_q = v_q.to(getattr(torch, name))

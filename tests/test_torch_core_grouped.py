@@ -66,7 +66,7 @@ def test_core_bands_plain_matches_jax_core_scatter(kind, h, monkeypatch):
     assert np.all(np.abs(got - want) <= REL * mag + 1e-30)
 
 
-def _check_schedule(stair, h, n_blocks, tiles, starts):
+def _check_schedule(stair, h, n_blocks, tiles, starts, bn=core_dot.BN):
     assert tiles.dtype == np.int32 and tiles.shape[1] == 3
     assert starts[0] == 0 and starts[-1] == len(tiles)
     assert np.all(np.diff(starts) >= 0)
@@ -74,7 +74,7 @@ def _check_schedule(stair, h, n_blocks, tiles, starts):
     # every (band, row tile, column block) exactly once
     want = sorted((b, m0, n0) for b, (lo, hi, _w) in enumerate(stair)
                   for m0 in range(0, hi - lo, core_dot.BM)
-                  for n0 in range(0, h, core_dot.BN))
+                  for n0 in range(0, h, bn))
     assert sorted(map(tuple, tiles.tolist())) == want
     # each block runs its tiles longest contraction first (steps of 64)
     length = np.array([-(-stair[b][2] // 64) for b in tiles[:, 0]])

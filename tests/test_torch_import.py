@@ -21,6 +21,7 @@ MODULES = [
     "pygim_tpu_torch.ops",
     "pygim_tpu_torch.ops._build",
     "pygim_tpu_torch.ops.core_dot",
+    "pygim_tpu_torch.ops.core_int",
     "pygim_tpu_torch.ops.ell_tail",
     "pygim_tpu_torch.ops.reference",
     "pygim_tpu_torch.ops.spmm",
@@ -32,6 +33,7 @@ MODULES = [
     "pygim_tpu_torch.utils.metrics",
     "pygim_tpu_torch.bench",
     "pygim_tpu_torch.bench.runners",
+    "pygim_tpu_torch.entry",
 ]
 
 

@@ -146,13 +146,22 @@ def test_quantized_aggregate_unfused_matches(agg_dtype):
 
 
 def test_integer_aggregate_on_hybrid_names_kint_slice():
+    """The int32 aggregate on the hybrid runs the K-int slice's fused hook
+    (``PreparedAggregate.quantized``), bit-identical to the unfused round
+    trip through ``prep.mul``; an unported dtype names itself."""
     rows, cols, vals = make_graph("multigraph")
     tp = tspmm.prepare_spmm(
         tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
         tspmm.SpmmConfig(**KW), device="cpu")
     m = make_gnn(0, "gcn", F, H, C, agg_dtype="int32", device="cpu")
-    with pytest.raises(NotImplementedError, match="K-int"):
-        m(torch.from_numpy(features()), tspmm.PreparedAggregate(tp))
+    x = torch.from_numpy(features())
+    with torch.inference_mode():
+        fused = m(x, tspmm.PreparedAggregate(tp))
+        unfused = m(x, tp.mul)
+    assert fused.shape == (N, C) and torch.isfinite(fused).all()
+    assert torch.equal(fused, unfused)
+    with pytest.raises(NotImplementedError, match="int64"):
+        tspmm.PreparedAggregate(tp).quantized(x, "int64")
 
 
 def run_captured(capsys, fn, *a, **kw):
@@ -185,7 +194,7 @@ def test_run_spmm_benchmark_cpu(capsys):
               "spmm_effective_GBps_unique", "load_sparse_time(ms)"):
         assert k in parsed, k
     with pytest.raises(NotImplementedError):
-        run_spmm_benchmark(ds, dtype="int8", device="cpu")
+        run_spmm_benchmark(ds, dtype="int64", device="cpu")
 
 
 @pytest.mark.parametrize("key,value", [("pim_time_spmm(ms)", 12.345678),

@@ -1,0 +1,285 @@
+"""The integer-quantized aggregate on the CPU: K-tail-quant's plain
+version in each payload mode against the reference's ELL bodies
+(``ell_scan_spmm_quant`` and ``ell_scan_spmm`` on integer rows), and the
+port's ``mul_quantized`` and integer ``mul`` against the JAX package's on
+stair configs. The CUDA kernels are held against the plain versions on
+the card by chip_smoke.py.
+
+Tolerances. Where the edge weights are integers and every sum stays
+under 2^24, every f32 sum is exact in any order, so the two packages are
+held bit-equal. Elsewhere (fractional weights, int32 payloads whose sums
+pass 2^24) only the f32 summation order differs: 1e-5 of each element's
+sum of |terms|, the reference's own bar for a quantized product
+(tests/test_spmm.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pygim_tpu.core import graph as jgraph
+from pygim_tpu.ops import spmm as jspmm
+from pygim_tpu.quant import symmetric_quantize as jquantize
+from pygim_tpu_torch.bench.runners import run_spmm_benchmark, spmm_model_bytes
+from pygim_tpu_torch.core import graph as tgraph
+from pygim_tpu_torch.data import load_dataset
+from pygim_tpu_torch.ops import ell_tail
+from pygim_tpu_torch.ops import spmm as tspmm
+from pygim_tpu_torch.quant import quant_scale, symmetric_quantize
+from pygim_tpu_torch.utils.metrics import parse_data_lines
+
+from test_torch_prepare import GRAPHS, KW, N, make_graph
+from test_torch_tail_grouped import ragged_graph, tables_of
+
+REL = 1e-5
+QDTYPES = ["int8", "int16", "int32"]
+
+
+def both_preps(kind):
+    rows, cols, vals = make_graph(kind)
+    jp = jspmm.prepare_spmm(
+        jgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
+        jspmm.SpmmConfig(**KW))
+    tp = tspmm.prepare_spmm(
+        tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
+        tspmm.SpmmConfig(**KW), device="cpu")
+    return (rows, cols, vals), jp, tp
+
+
+def small_features(seed, h=24):
+    """Features whose int32 quantization stays small except at one
+    element, so every int32 sum of the test graphs stays under 2^24."""
+    x = np.random.default_rng(seed).standard_normal((N, h)).astype(np.float32)
+    x *= np.float32(1e-3)
+    x[5, 3] = 1.0
+    return x
+
+
+def step_tables(seed, integer_weights):
+    rows, cols, vals = ragged_graph(300, seed)
+    if integer_weights:
+        vals = np.round(vals * 2).astype(np.float32)
+    return tables_of(rows, cols, vals, 300), 300
+
+
+def jax_tail(fn, x, tables, n, *args):
+    out = None
+    for c, v, r, d in tables:
+        out = fn(jnp.asarray(x), *args, jnp.asarray(c), jnp.asarray(v),
+                 jnp.asarray(r), r.shape[1], d, n, out=out)
+    return np.asarray(out)
+
+
+def port_tables(tables):
+    return [(*(torch.from_numpy(a) for a in t[:3]), t[3]) for t in tables]
+
+
+def magnitude(q, tables, n):
+    mag = np.zeros((n, q.shape[1]))
+    for c, v, r, d in tables:
+        terms = np.abs(q[c.reshape(-1)].astype(np.float64)) \
+            * np.abs(v.reshape(-1, 1).astype(np.float64))
+        np.add.at(mag, np.repeat(r.reshape(-1), d), terms)
+    return mag
+
+
+@pytest.mark.parametrize("integer_weights", [True, False])
+@pytest.mark.parametrize("h", [8, 41])
+def test_rounded_rows_match_ell_scan_spmm_quant(h, integer_weights):
+    """Mode (iii): f32 rows rounded to round(x / safe) in the gather."""
+    tables, n = step_tables(h, integer_weights)
+    x = (np.random.default_rng(h).standard_normal((n, h)) * 3).astype(np.float32)
+    js, _ = jquantize(jnp.asarray(x), "int32")
+    jsafe = jnp.where(js == 0, jnp.ones_like(js), js)
+    want = jax_tail(jspmm.ell_scan_spmm_quant, x, tables, n, jsafe, "int32")
+    _s, safe = quant_scale(torch.from_numpy(x), "int32")
+    assert float(safe) == float(jsafe)
+    got = ell_tail.ell_tables_plain(torch.from_numpy(x), port_tables(tables),
+                                    torch.zeros(n, h), safe).numpy()
+    if integer_weights:
+        np.testing.assert_array_equal(got, want)
+    else:
+        q = np.round(x / np.float32(float(safe)))
+        assert np.all(np.abs(got - want) <= REL * magnitude(q, tables, n)
+                      + 1e-30)
+
+
+def test_rounded_rows_half_step_ties_round_to_even():
+    """x / safe lands exactly on k + 1/2 (safe a power of two): the port's
+    rounding and the reference's agree, and both round half to even."""
+    tables, n = step_tables(3, True)
+    h = 16
+    k = np.random.default_rng(0).integers(-6, 6, (n, h))
+    safe = np.float32(2.0 ** -10)
+    x = ((k + 0.5) * safe).astype(np.float32)
+    want = jax_tail(jspmm.ell_scan_spmm_quant, x, tables, n,
+                    jnp.float32(safe), "int32")
+    tsafe = torch.tensor(safe)
+    got = ell_tail.ell_tables_plain(torch.from_numpy(x), port_tables(tables),
+                                    torch.zeros(n, h), tsafe).numpy()
+    np.testing.assert_array_equal(got, want)
+    q = torch.round(torch.from_numpy(x) / tsafe).numpy()
+    np.testing.assert_array_equal(q, np.round(k + 0.5))  # half to even
+    assert np.any(q != np.floor(k + 0.5) + 1)
+
+
+@pytest.mark.parametrize("dtype", QDTYPES)
+@pytest.mark.parametrize("integer_weights", [True, False])
+def test_integer_rows_match_ell_scan_spmm(dtype, integer_weights):
+    """Mode (ii): int8 / int16 / int32 rows widened to f32; the
+    reference's accumulation dtype on integer rows is f32 too."""
+    tables, n = step_tables(11, integer_weights)
+    h = 24
+    m = {"int8": 128, "int16": 512, "int32": 1 << 14}[dtype]
+    x = np.random.default_rng(5).integers(-m, m, (n, h)).astype(dtype)
+    want = jax_tail(jspmm.ell_scan_spmm, x, tables, n)
+    assert want.dtype == np.float32
+    got = ell_tail.ell_tables_plain(torch.from_numpy(x), port_tables(tables),
+                                    torch.zeros(n, h)).numpy()
+    if integer_weights:
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert np.all(np.abs(got - want) <= REL * magnitude(x, tables, n)
+                      + 1e-30)
+
+
+@pytest.mark.parametrize("dtype", QDTYPES)
+def test_tail_wrapper_on_cpu_is_the_plain_version(dtype):
+    tables, n = step_tables(2, False)
+    tt = port_tables(tables)
+    h = 20
+    out0 = torch.randn(n, h)
+    if dtype == "int32":  # the int32 aggregate rounds f32 rows
+        x = torch.randn(n, h) * 3
+        _s, safe = quant_scale(x, "int32")
+        kw = {"safe": safe}
+    else:
+        x = torch.randint(-100, 100, (n, h)).to(getattr(torch, dtype))
+        kw = {}
+    before = (ell_tail.launches, ell_tail.quant_launches)
+    got = ell_tail.ell_tables_add(x, tt, out0.clone(), **kw)
+    want = ell_tail.ell_tables_plain(x, tt, out0.clone(), kw.get("safe"))
+    assert torch.equal(got, want)
+    assert (ell_tail.launches, ell_tail.quant_launches) == before
+
+
+@pytest.mark.parametrize("bad", ["int_rounded", "safe_shape", "safe_dtype",
+                                 "x_int64"])
+def test_tail_wrapper_rejects_payloads(bad):
+    tables, n = step_tables(2, False)
+    tt = port_tables(tables)
+    x, out, safe = torch.randn(n, 8), torch.zeros(n, 8), torch.tensor(0.5)
+    if bad == "int_rounded":
+        x = x.to(torch.int32)
+    elif bad == "safe_shape":
+        safe = safe.reshape(1)
+    elif bad == "safe_dtype":
+        safe = safe.double()
+    else:
+        x, safe = x.long(), None
+    with pytest.raises(TypeError):
+        ell_tail.ell_tables_add(x, tt, out, safe=safe)
+
+
+@pytest.mark.parametrize("dtype", QDTYPES)
+@pytest.mark.parametrize("kind", GRAPHS)
+def test_mul_quantized_matches_jax(kind, dtype):
+    (rows, cols, vals), jp, tp = both_preps(kind)
+    x = small_features(len(kind))
+    want = np.asarray(jp.mul_quantized(jnp.asarray(x), dtype))
+    got = tp.mul_quantized(torch.from_numpy(x), dtype).numpy()
+    agg = tspmm.PreparedAggregate(tp).quantized(torch.from_numpy(x), dtype)
+    assert torch.equal(agg, torch.from_numpy(got))
+    plain = tp.mul_quantized_plain(torch.from_numpy(x), dtype)
+    assert torch.equal(plain, torch.from_numpy(got))
+    if kind != "wide":  # integer weights: every sum exact
+        np.testing.assert_array_equal(got, want)
+    else:
+        scale, q = symmetric_quantize(torch.from_numpy(x), dtype)
+        dense = np.zeros((N, N))
+        np.add.at(dense, (rows, cols), np.abs(vals.astype(np.float64)))
+        mag = dense @ np.abs(q.numpy().astype(np.float64)) * float(scale)
+        assert np.all(np.abs(got - want) <= REL * mag + 1e-30)
+
+
+@pytest.mark.parametrize("dtype", QDTYPES)
+def test_mul_quantized_is_the_unfused_round_trip(dtype):
+    """The fused path equals quantize → mul → dequantize in the port, as
+    the reference's docstring promises for its own."""
+    _g, _jp, tp = both_preps("multigraph")
+    x = torch.from_numpy(small_features(9))
+    scale, q = symmetric_quantize(x, dtype)
+    assert torch.equal(tp.mul_quantized(x, dtype), tp.mul(q) * scale)
+
+
+@pytest.mark.parametrize("dtype", QDTYPES)
+@pytest.mark.parametrize("kind", ["multigraph", "wide"])
+def test_integer_mul_matches_jax(kind, dtype):
+    """``prep.mul`` on the reference's quantized payload x_q."""
+    (rows, cols, vals), jp, tp = both_preps(kind)
+    x = small_features(3)
+    _s, jq = jquantize(jnp.asarray(x), dtype)
+    want = np.asarray(jp.mul(jq))
+    _s, q = symmetric_quantize(torch.from_numpy(x), dtype)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    got = tp.mul(q).numpy()
+    assert got.dtype == want.dtype == np.float32
+    if kind != "wide":
+        np.testing.assert_array_equal(got, want)
+    else:
+        dense = np.zeros((N, N))
+        np.add.at(dense, (rows, cols), np.abs(vals.astype(np.float64)))
+        mag = dense @ np.abs(q.numpy().astype(np.float64))
+        assert np.all(np.abs(got - want) <= REL * mag + 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "int32"])
+def test_integer_mul_full_range_matches_jax(dtype):
+    """Raw payloads over their dtype's whole range: the core's int32
+    sums wrap, in both packages alike, and the tail sums their f32
+    conversions."""
+    (rows, cols, vals), jp, tp = both_preps("multigraph")
+    info = np.iinfo(dtype)
+    q = np.random.default_rng(1).integers(info.min, info.max, (N, 8),
+                                          endpoint=True).astype(dtype)
+    want = np.asarray(jp.mul(jnp.asarray(q)))
+    got = tp.mul(torch.from_numpy(q)).numpy()
+    dense = np.zeros((N, N))
+    np.add.at(dense, (rows, cols), np.abs(vals.astype(np.float64)))
+    mag = dense @ np.abs(q.astype(np.float64))
+    assert np.all(np.abs(got - want) <= REL * mag + 1e-30)
+
+
+def test_quantized_hook_raises_on_unported_dtypes():
+    _g, _jp, tp = both_preps("multigraph")
+    agg = tspmm.PreparedAggregate(tp)
+    with pytest.raises(NotImplementedError, match="int64"):
+        agg.quantized(torch.zeros(N, 8), "int64")
+    with pytest.raises(TypeError):
+        agg.quantized(torch.zeros(N, 8, dtype=torch.float64), "int8")
+    with pytest.raises(TypeError):
+        tp.mul(torch.zeros(N, 8, dtype=torch.int64))
+    assert tp.supports_fused_quant
+
+
+@pytest.mark.parametrize("dtype", ["float32", *QDTYPES])
+def test_run_spmm_benchmark_payloads(dtype, capsys):
+    ds = load_dataset("rmat-2000-40000")
+    capsys.readouterr()
+    means = run_spmm_benchmark(ds, hidden=16, dtype=dtype,
+                               config=tspmm.SpmmConfig(**KW), repeat=1,
+                               device="cpu")
+    parsed = parse_data_lines(capsys.readouterr().out.splitlines())
+    assert parsed["verify"] == ["OK"]
+    itemsize = np.dtype(dtype).itemsize
+    dt = means["pim_time_spmm(ms)"] / 1e3
+    want = spmm_model_bytes(ds.graph.nnz, ds.graph.nrows, 16, itemsize) / dt / 1e9
+    assert means["spmm_effective_GBps"] == pytest.approx(want, rel=1e-9)
+
+
+def test_run_spmm_benchmark_rejects_unported_payloads():
+    ds = load_dataset("tiny")
+    for dtype in ("bfloat16", "int64"):
+        with pytest.raises(NotImplementedError):
+            run_spmm_benchmark(ds, dtype=dtype, device="cpu")

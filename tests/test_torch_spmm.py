@@ -97,8 +97,10 @@ def test_mul_rejects_other_payloads():
         tp.mul(torch.zeros(N, 8, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         tp.mul(torch.zeros(N - 1, 8))
-    with pytest.raises(NotImplementedError, match="K-int"):
-        tspmm.PreparedAggregate(tp).quantized(torch.zeros(N, 8), "int8")
+    with pytest.raises(TypeError):
+        tp.mul(torch.zeros(N, 8, dtype=torch.int64))
+    with pytest.raises(NotImplementedError, match="int64"):
+        tspmm.PreparedAggregate(tp).quantized(torch.zeros(N, 8), "int64")
 
 
 @pytest.mark.parametrize("oracle", ["coo", "coo_chunked", "csr"])
