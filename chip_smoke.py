@@ -10,12 +10,17 @@ each against its plain PyTorch version at the main path's shapes and at
 ragged shapes, and times both beside a PyTorch library call and the
 card's bound: K-core on the widest band, on all bands in one launch and
 on a 32768 × 65536 scale band drawn on the card; K-int (equal to its
-plain version, ``torch.equal``) on ragged shapes, an int32 wraparound
-case, the smoke bands at one to four limbs and the scale band at one and
-three; K-tail over the smoke configuration's ELL tables in one launch and
-over the whole of a reddit-sized R-MAT graph's tables (the scale-tables
-phase); K-tail-quant on integer and rounded rows, ragged, unaligned and
-on half-step ties, over the smoke and the scale tables. It checks
+plain version, ``torch.equal``) on ragged shapes, ragged cluster cases,
+an int32 wraparound case, the smoke bands at one to four limbs and the
+scale band at one, three and four; K-tail over the smoke configuration's
+ELL tables in one launch and over the whole of a reddit-sized R-MAT
+graph's tables (the scale-tables phase); K-tail-quant on integer rows
+(int8, int16, int32) and rounded rows, ragged, unaligned and on
+half-step ties, over the smoke and the scale tables, and an
+identity-table sweep of its rounding (every value within 4 ulps of each
+half step, and 2^24 random ones, held equal to ``torch.round(v /
+safe)`` for seven divisors, two of them the int32 forward's own). It
+checks
 ``prep.mul`` against ``mul_plain`` at widths the kernels' tiles do not
 divide, then drives the two main paths, each with the launch counts set
 to 0 before it and read after it — 2-layer GCN inference at hidden 256 on
@@ -308,12 +313,58 @@ def int_bound(shapes, h, limbs, peaks_):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def int_stair(shapes, gen, dev):
+    """Random int8 bands of ``shapes`` ``(r, w)`` stacked into one stair,
+    with distinct output rows spread over three times as many."""
+    import torch
+
+    stair, lo = [], 0
+    for r, w in shapes:
+        stair.append((lo, lo + r, w))
+        lo += r
+    bands = [torch.randint(-128, 128, (r, w), generator=gen,
+                           dtype=torch.int8).to(dev) for r, w in shapes]
+    rows = torch.randperm(3 * lo, generator=gen)[:lo].to(dev, torch.int32)
+    return bands, stair, rows
+
+
+def int_cluster_checks(gen, dev):
+    """K-int's clusters on ragged work, against the plain version
+    (``torch.equal``): one band of an odd count of 128-row tiles and eight
+    ragged bands in one launch, at H 41, 100 and 256, three limbs (single
+    blocks) and four (clusters of two row tiles, so an odd row-tile count
+    leaves a partner with no rows)."""
+    import torch
+
+    from pygim_tpu_torch.ops import core_int
+
+    cases = {"one band, 3 row tiles": [(293, 1296)],
+             "eight bands": [(421, 208), (37, 64), (155 * 128 - 40, 96),
+                             (15 * 128, 512), (8, 16), (177 * 128 - 1, 256),
+                             (129, 4112), (640, 768)]}
+    n = 0
+    for name, shapes in cases.items():
+        bands, stair, rows = int_stair(shapes, gen, dev)
+        w_max = max(w for _r, w in shapes)
+        for hh in (41, 100, 256):
+            for limbs in (3, 4):
+                xc = int_payload(w_max, hh, limbs, gen, dev)
+                z = torch.zeros(rows.numel() * 3, hh, device=dev)
+                want = core_int.core_int_plain(bands, xc, rows, stair,
+                                               z.clone())
+                got = core_int.core_int_scatter_add(bands, xc, rows, stair,
+                                                    z.clone(), limbs)
+                int_equal(f"K-int {name} H={hh} L={limbs}", got, want)
+                n += 1
+    return n
+
+
 def int_checks(prep, x, results, scale_band=SCALE_BAND):
     """K-int against its plain version (``torch.equal``) on ragged shapes,
-    an int32 wraparound case and the smoke bands at every limb count, and
-    on the scale band at one and three limbs; times each on the smoke
-    bands beside the bound, the plain version and, at one limb,
-    ``torch._int_mm``."""
+    ragged cluster cases, an int32 wraparound case and the smoke bands at
+    every limb count, and on the scale band at one, three and four limbs;
+    times each on the smoke bands beside the bound, the plain version and,
+    at one limb, ``torch._int_mm``."""
     import torch
 
     from pygim_tpu_torch.ops import core_int
@@ -337,6 +388,8 @@ def int_checks(prep, x, results, scale_band=SCALE_BAND):
         want = core_int.core_int_plain([band], xc, rows, [(0, r, w)],
                                        z.clone())
         int_equal(f"K-int ragged {(r, w, hh)} L={limbs}", got, want)
+    n_cluster = int_cluster_checks(g, dev)
+    print(f"K-int ragged cluster cases: {n_cluster} equal", flush=True)
     # int32 wraparound: a dense band of 127s times payloads near the top
     # of each range; every sum overflows int32
     for limbs, q in ((3, (1 << 19) - 3), (4, (1 << 31) - 7)):
@@ -402,7 +455,7 @@ def int_checks(prep, x, results, scale_band=SCALE_BAND):
     del z
     torch.cuda.empty_cache()
 
-    # the scale band at one and three limbs, sampled rows held equal
+    # the scale band at one, three and four limbs, sampled rows held equal
     r, w = scale_band
     gc = torch.Generator(device=dev).manual_seed(9)
     band = torch.randint(-128, 128, (r, w), generator=gc, dtype=torch.int8,
@@ -410,7 +463,7 @@ def int_checks(prep, x, results, scale_band=SCALE_BAND):
     rows = torch.randperm(r, generator=gc, device=dev).to(torch.int32)
     sel = torch.randperm(r, generator=gc, device=dev)[:256]
     scale = {}
-    for limbs in (1, 3):
+    for limbs in (1, 3, 4):
         xb = int_payload(w, h, limbs, g, dev)
         out = torch.zeros(r, h, device=dev)
         core_int.core_int_scatter_add([band], xb, rows, [(0, r, w)], out,
@@ -593,12 +646,34 @@ def tail_checks(prep, x, results):
     )
 
 
+# K-tail-quant's payload modes as the timed phases run them: f32 rows
+# rounded in the kernel (the int32 aggregate's tail), and the rows rounded
+# beforehand to each integer dtype's grid
+PAYLOAD_MODES = ("rounded", "int8", "int16", "int32")
+
+
+def payload_mode(x, mode):
+    """``(xq, kw, rounded)``: K-tail-quant's payload in ``mode`` from f32
+    rows ``x``, the keywords of ``ell_tables_add`` for it, and the same
+    values rounded, as f32 (the library call's input)."""
+    import torch
+
+    from pygim_tpu_torch.quant import quant_scale
+
+    _scale, safe = quant_scale(x, "int32" if mode == "rounded" else mode)
+    rounded = torch.round(x / safe)
+    if mode == "rounded":
+        return x, {"safe": safe}, rounded
+    return rounded.to(getattr(torch, mode)), {}, rounded
+
+
 def tail_quant_checks(prep, x, results):
     """K-tail-quant against its plain version: integer rows (mode (ii))
     and rounded f32 rows (mode (iii)) on the ragged tables at ragged and
-    unaligned widths, with half-step ties; then the smoke tables, timed
-    beside the bound, the plain version and torch.sparse.mm on the
-    rounded rows."""
+    unaligned widths, with half-step ties; then the smoke tables in every
+    payload mode (rounded f32 rows, int8, int16 and int32 rows of the
+    features rounded to each dtype's grid), timed beside the bound, the
+    plain version and torch.sparse.mm on the rounded rows."""
     import torch
 
     from pygim_tpu_torch.ops import ell_tail
@@ -652,7 +727,8 @@ def tail_quant_checks(prep, x, results):
     tail_close("K-tail-quant half-step ties", xs, tables, got, out0, safe)
 
     # the smoke tables: rounded f32 rows (the int32 aggregate's tail) and
-    # int8 rows (the int8 aggregate's table), one grouped call each
+    # integer rows (the int8 aggregate's table, prep.mul on an int16 or
+    # int32 payload), one grouped call each
     tables = prep.ell_tables(prep.dev_arrays)
     plan = ell_tail.tail_plan(tables)
     h = x.shape[1]
@@ -661,37 +737,130 @@ def tail_quant_checks(prep, x, results):
     a = torch.sparse_coo_tensor(torch.stack([rows_t, cols_t]), vals_t,
                                 (x.shape[0],) * 2).coalesce().to_sparse_csr()
     res = {}
-    for name in ("int32", "int8"):
-        _scale, safe = quant_scale(x, name)
-        if name == "int32":
-            xq, kw, itemsize = x, {"safe": safe}, 4
-        else:
-            xq, kw, itemsize = torch.round(x / safe).to(torch.int8), {}, 1
+    for mode in PAYLOAD_MODES:
+        xq, kw, rounded = payload_mode(x, mode)
         zero = torch.zeros_like(x)
         got = ell_tail.ell_tables_add(xq, tables, zero.clone(), plan=plan,
                                       **kw)
-        err = tail_close(f"K-tail-quant tables, {name}", xq, tables, got,
+        err = tail_close(f"K-tail-quant tables, {mode}", xq, tables, got,
                          zero, kw.get("safe"))
         del got
         ms = cuda_ms(lambda: ell_tail.ell_tables_add(xq, tables, z, plan=plan,
                                                      **kw))
         plain_ms = cuda_ms(lambda: ell_tail.ell_tables_plain(
             xq, tables, z, kw.get("safe")), iters=5)
-        rounded = xq.float() if name == "int8" else torch.round(x / safe)
         library_ms = cuda_ms(lambda: torch.sparse.mm(a, rounded))
-        b, _csr = tail_bound(tables, h, results["peaks"], itemsize)
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        b, _csr = tail_bound(tables, h, results["peaks"], xq.element_size())
+        res[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=b["bound_ms"],
                          bound_by=b["bound_by"])
+        del xq, rounded
     # the main path's K-tail-quant is the int32 aggregate's: rounded rows
-    results["K-tail-quant"] = dict(res["int32"], int8_rows=res["int8"])
+    results["K-tail-quant"] = dict(
+        res["rounded"], **{f"{m}_rows": res[m] for m in PAYLOAD_MODES[1:]})
+
+
+def sweep_values(safe, h=256):
+    """Every float within 4 ulps of each half step ``(k + 1/2) · safe``,
+    |k| <= 2^19 + 1, then 2^24 random floats of every magnitude up to
+    2^20 · safe (random bits under its own, random sign), laid out ``h``
+    wide and zero-padded; ``safe`` a 0-dim f32 tensor on the card."""
+    import torch
+
+    dev = safe.device
+    k = torch.arange(-(1 << 19) - 1, (1 << 19) + 2, device=dev,
+                     dtype=torch.float64)
+    c = ((k + 0.5) * safe.double()).float()  # the half steps, in f32
+    ulps = torch.arange(-4, 5, device=dev, dtype=torch.int32)
+    near = (c.view(torch.int32)[:, None] + ulps).view(torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    top = int((safe * 2.0 ** 20).view(torch.int32))  # bits of 2^20 · safe
+    mag = torch.randint(0, top + 1, (1 << 24,), generator=gen, device=dev,
+                        dtype=torch.int32).view(torch.float32)
+    sign = torch.randint(0, 2, (1 << 24,), generator=gen, device=dev) * 2 - 1
+    v = torch.cat([near.reshape(-1), mag * sign])
+    x = torch.zeros(-(-v.numel() // h) * h, device=dev)
+    x[:v.numel()] = v
+    return x.view(-1, h), v.numel()
+
+
+def forward_safes(gnn, xf, prep):
+    """The ``safe`` that each quantized aggregate of one forward of
+    ``gnn`` on ``xf`` rounds with, in layer order."""
+    import torch
+
+    from pygim_tpu_torch.ops.spmm import PreparedAggregate
+    from pygim_tpu_torch.quant import quant_scale
+
+    safes = []
+
+    class Recording(PreparedAggregate):
+        def quantized(self, v, agg_dtype):
+            safes.append(float(quant_scale(v, agg_dtype)[1]))
+            return super().quantized(v, agg_dtype)
+
+    with torch.inference_mode():
+        gnn(xf, Recording(prep))
+    return safes
+
+
+def tail_quant_sweep(x, results, layer_safes):
+    """K-tail-quant's rounding alone, element by element: one ELL table of
+    one slot a row, weight 1, so the output is the kernel's ``round(v /
+    safe)`` of each element of :func:`sweep_values`, held ``torch.equal``
+    to ``torch.round(v / safe)`` on the bulk-copy path (aligned) and on
+    the register path (x and out off 16-byte alignment). It runs for the
+    smoke features' int32 safe, ``layer_safes`` (those of the int32
+    forward's aggregates, :func:`forward_safes`), a power of two, an
+    all-ones mantissa, 1.0, and a safe below the reciprocal route (the
+    kernel's division route); any mismatch fails."""
+    import torch
+
+    from pygim_tpu_torch.ops import ell_tail
+    from pygim_tpu_torch.quant import quant_scale
+
+    dev = x.device
+    safes = {"smoke x": float(quant_scale(x, "int32")[1]),
+             **{f"int32 forward, layer {i + 1}": sv
+                for i, sv in enumerate(layer_safes)},
+             "2^-10": 2.0 ** -10,
+             "0x1.fffffep-8": float.fromhex("0x1.fffffep-8"), "1.0": 1.0,
+             "0x1.8p-110 (division route)": 1.5 * 2.0 ** -110}
+    tables = plan = None
+    res = {}
+    for name, sv in safes.items():
+        safe = torch.tensor(sv, dtype=torch.float32, device=dev)
+        xs, n = sweep_values(safe)
+        if plan is None:
+            ids = torch.arange(xs.shape[0], dtype=torch.int32, device=dev)
+            tables = [(ids[None], torch.ones(1, xs.shape[0], device=dev),
+                       ids[None], 1)]
+            plan = ell_tail.tail_plan(tables)
+        want = torch.round(xs / safe)
+        bad = 0
+        for xi, out in ((xs, torch.zeros_like(xs)),
+                        (off_aligned(xs), off_aligned(torch.zeros_like(xs)))):
+            got = ell_tail.ell_tables_add(xi, tables, out, plan=plan,
+                                          safe=safe)
+            bad += int((got != want).sum())
+            del got
+        print(f"K-tail-quant identity sweep, safe {name} = {sv!r}: {n} "
+              f"values x 2 paths, {bad} mismatches", flush=True)
+        res[name] = bad
+        if bad:
+            raise AssertionError(f"K-tail-quant rounding: {bad} mismatches "
+                                 f"at safe {name}")
+        del xs, want
+    del tables, plan
+    torch.cuda.empty_cache()
+    results["K-tail-quant identity sweep"] = res
 
 
 def tail_scale(results, dev, h=256):
     """K-tail on the whole of a reddit-sized R-MAT graph's ELL tables at
     the default SpmmConfig (all edges in the tail): checked against the
     plain version, timed beside it, torch.sparse.mm and the bound; then
-    K-tail-quant on the same tables with rounded f32 rows and int8 rows."""
+    K-tail-quant on the same tables in every payload mode."""
     import numpy as np
     import torch
 
@@ -703,7 +872,6 @@ def tail_scale(results, dev, h=256):
         _plan_ell_tables,
         ell_step_tables,
     )
-    from pygim_tpu_torch.quant import quant_scale
 
     t0 = time.perf_counter()
     graph, _ = merge_duplicate_edges(load_dataset(SCALE_GRAPH).graph)
@@ -738,26 +906,20 @@ def tail_scale(results, dev, h=256):
         **bound,
     )
     quant = {}
-    for name in ("int32", "int8"):
-        _scale, safe = quant_scale(x, name)
-        if name == "int32":
-            xq, kw, itemsize = x, {"safe": safe}, 4
-            rounded = torch.round(x / safe)
-        else:
-            xq, kw, itemsize = torch.round(x / safe).to(torch.int8), {}, 1
-            rounded = xq.float()
+    for mode in PAYLOAD_MODES:
+        xq, kw, rounded = payload_mode(x, mode)
         zero = torch.zeros_like(x)
         got = ell_tail.ell_tables_add(xq, tables, zero.clone(), plan=plan,
                                       **kw)
-        qerr = tail_close(f"K-tail-quant scale tables, {name}", xq, tables,
+        qerr = tail_close(f"K-tail-quant scale tables, {mode}", xq, tables,
                           got, zero, kw.get("safe"))
         del got
         qms = cuda_ms(lambda: ell_tail.ell_tables_add(xq, tables, z,
                                                       plan=plan, **kw),
                       iters=10)
         qlib = cuda_ms(lambda: torch.sparse.mm(a, rounded), iters=10)
-        b, _csr = tail_bound(tables, h, results["peaks"], itemsize)
-        quant[name] = dict(max_abs_err=qerr, ms=qms, library_ms=qlib,
+        b, _csr = tail_bound(tables, h, results["peaks"], xq.element_size())
+        quant[mode] = dict(max_abs_err=qerr, ms=qms, library_ms=qlib,
                            bound_ms=b["bound_ms"], bound_by=b["bound_by"])
         del xq, rounded, zero
     results["K-tail-quant scale tables"] = quant
@@ -954,6 +1116,16 @@ def main() -> int:
     print(f"K-tail: {results['K-tail']}", flush=True)
     tail_quant_checks(prep, x, results)
     print(f"K-tail-quant: {results['K-tail-quant']}", flush=True)
+    xf = torch.as_tensor(ds.x).cuda()
+    gnns = {agg_dtype: make_gnn(0, "gcn", ds.x.shape[1], HIDDEN,
+                                ds.num_classes, num_layers=2,
+                                agg_dtype=agg_dtype, device="cuda")
+            for agg_dtype in (None, "int32")}
+    layer_safes = forward_safes(gnns["int32"], xf, prep)
+    if len(layer_safes) != 2:
+        raise AssertionError(f"the int32 forward rounded {len(layer_safes)} "
+                             "aggregates, not 2")
+    tail_quant_sweep(x, results, layer_safes)
     del x
     torch.cuda.empty_cache()
     mul_any_width(prep, results)
@@ -995,14 +1167,8 @@ def main() -> int:
         if rep.records["verify"][-1] != "OK":
             raise AssertionError(f"{spmm_dtype} SpMM sampled-row check failed")
 
-    xf = torch.as_tensor(ds.x).cuda()
-    gnns = {}
-    for agg_dtype in (None, "int32"):
-        gnns[agg_dtype] = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN,
-                                   ds.num_classes, num_layers=2,
-                                   agg_dtype=agg_dtype, device="cuda")
-        logits_check(agg_dtype or "float", gnns[agg_dtype], xf, prep,
-                     ds.num_classes)
+    for agg_dtype, gnn in gnns.items():
+        logits_check(agg_dtype or "float", gnn, xf, prep, ds.num_classes)
 
     entry_check()
 

@@ -28,7 +28,10 @@
 // What bounds it on an H100 SXM: per band 2 * r * w * h * L int8 tensor
 // operations against r * w band bytes (plus the output rows, read and
 // written once): at h = 256 the s8 rate (1,979 TOP/s) puts L = 1 under the
-// bytes and L = 3 (the int32 path) over them.
+// bytes and L = 3 (the int32 path) over them. Inside the card a tile
+// streams its whole contraction through the L2 into shared memory: at
+// L >= 3 a 128 x 64-column tile takes 8 KB of band and 64 * L * 64 bytes
+// of limbs per 64-deep stage.
 //
 // What the design does about it:
 // - wgmma m64nNk32 .s32.s8.s8, both operands K-major from shared memory
@@ -42,16 +45,33 @@
 //   of an output element in one thread, so the recombination is in
 //   registers. N = 256 (L = 1, 2, 4: 256, 128 and 64 output columns a tile)
 //   or 192 (L = 3: 64 columns).
-// - The skeleton is K-core's (core_dot.cu): one producer thread keeps a
-//   STAGES-deep ring of TMA loads in flight (mbarrier full/empty pairs,
-//   zero fill at the ragged row and contraction edges), two consumer
-//   warpgroups of 64 band rows each, one persistent block per SM walking
-//   a host-built, longest-first tile list (ops/core_dot.py:tile_schedule)
-//   with whole contractions, so the epilogue needs no atomics. The band
-//   maps are K-core's (core_dot.cu:core_encode_band_map: 64 x 128 boxes,
-//   64-byte swizzle), and so is the xcT map's swizzle.
-// - A consumer keeps one stage's wgmmas in flight while it waits for the
-//   next stage, and releases a stage when its products have retired.
+// - At four limbs two blocks form a thread block cluster and share the limb
+//   stage: they compute row tiles m0 and m0 + 128 of the same column tile
+//   of one band, and each loads half of every 64-row limb block, multicast
+//   by TMA (.multicast::cluster) into both, so a block's L2 reads of limbs
+//   per stage halve (cluster_rows: measured faster at four limbs only,
+//   PERF.md; one to three limbs run single blocks).
+//   The clusters, not the blocks, walk a host-built, longest-first list of
+//   (band, m0, n0) (ops/core_int.py:cluster_schedule), in lockstep over
+//   the same (band, contraction) sequence; a block whose rows lie past the
+//   band's end still takes part (it consumes every stage and releases it)
+//   and stores nothing.
+// - The ring is STAGES deep: one producer thread a block issues its band
+//   box (K-core's band maps, core_dot.cu:core_encode_band_map: 64 x 128,
+//   64-byte swizzle; not loaded where the rows lie wholly past the band)
+//   and its share of the limb stage, and arrives on the full barrier of
+//   every block of its cluster with the bytes it sends there (remote
+//   arrivals through mapa), so each block's stage waits for both writers;
+//   a stage is refilled when every consumer warp of every block that reads
+//   it has arrived on the issuing block's empty barrier. Together the two
+//   keep the blocks of a cluster within one ring of each other. The zero
+//   fill takes the ragged row and contraction edges. A wait that does not
+//   complete within about 2 s traps, so a deadlock fails the launch
+//   instead of hanging the card.
+// - Two consumer warpgroups of 64 band rows each; a consumer keeps one
+//   stage's wgmmas in flight while it waits for the next stage, and
+//   releases a stage when its products have retired. Whole contractions,
+//   so the epilogue needs no atomics.
 // - The epilogue recombines the limbs, converts to f32 (round to nearest,
 //   as XLA's convert), stages each 64-column slice through shared memory
 //   and adds it into out[nodes[lo + i], :] along each row, every row's load
@@ -66,11 +86,11 @@ namespace {
 constexpr int MAX_BANDS = 16;
 constexpr int BM = 128;           // band rows per tile (2 warpgroups x 64)
 constexpr int BK = 64;            // contraction per ring stage (bytes = k)
-constexpr int STAGES = 6;
 constexpr int THREADS = 384;      // consumer WG 0, 1; producer WG 2
+constexpr int CONSUMER_WARPS = 8;
+constexpr int STAGES = 6;
 constexpr int A_STAGE = BM * BK;  // int8, 64-byte swizzle
-constexpr int B_BOX = 64 * BK;    // 64 rows (n) x BK int8, 64-byte swizzle
-constexpr int B_STAGE = 4 * B_BOX;  // up to N = 256 rows
+constexpr int B_STAGE = 256 * BK; // up to N = 256 rows (n) x BK int8
 constexpr int EPI_LD = 72;          // f32 row stride of staging
 constexpr int EPI_WG = 64 * EPI_LD * 4;
 constexpr int OFF_A = 0;
@@ -79,11 +99,98 @@ constexpr int OFF_EPI = OFF_B + STAGES * B_STAGE;
 constexpr int OFF_BAR = OFF_EPI + 2 * EPI_WG;
 constexpr int SMEM_BYTES = OFF_BAR + 2 * STAGES * 8 + 1024;  // + alignment
 
+// Row tiles (blocks) of a cluster at `limbs`: two at four limbs, one
+// elsewhere (ops/core_int.py:CLUSTER_ROWS holds the same).
+__host__ __device__ constexpr int cluster_rows(int limbs) {
+  return limbs == 4 ? 2 : 1;
+}
+
 struct __align__(64) Params {
   CUtensorMap band[MAX_BANDS];
   CUtensorMap xct;
   int lo[MAX_BANDS], r[MAX_BANDS], w[MAX_BANDS];
 };
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t cluster_index() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(v));
+  return v;
+}
+
+// every thread of every block of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Wait for phase `parity` of an mbarrier; trap after about 2^32 cycles
+// (~2 s), so a stage that never completes fails the launch instead of
+// hanging the card. One asm block: no branch of the C++ code around it.
+__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      " .reg .pred p;\n"
+      " .reg .u64 t0, t1;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @p bra.uni DONE;\n"
+      " mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @p bra.uni DONE;\n"
+      " mov.u64 t1, %%clock64;\n"
+      " sub.u64 t1, t1, t0;\n"
+      " setp.gt.u64 p, t1, 4294967296;\n"
+      " @p trap;\n"
+      " bra.uni WAIT;\n"
+      "DONE:\n"
+      "}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The shared::cluster address of the mbarrier at this CTA-relative
+// address in block `cta` of the cluster.
+__device__ __forceinline__ uint32_t in_block(uint32_t bar, uint32_t cta) {
+  uint32_t ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(ra)
+               : "r"(bar), "r"(cta));
+  return ra;
+}
+
+// arrive on a barrier of a block of the cluster (in_block address)
+__device__ __forceinline__ void arrive_at(uint32_t ra) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(ra)
+               : "memory");
+}
+
+// the same, expecting `bytes` more to land on it
+__device__ __forceinline__ void expect_at(uint32_t ra, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cluster.b64 _, [%0], %1;" ::"r"(ra),
+      "r"(bytes)
+      : "memory");
+}
+
+// One 2-D TMA box into the same CTA-relative address of every block in
+// `mask` (bit = cluster rank), completing on each one's barrier at `bar`.
+__device__ __forceinline__ void tma_load_mc(uint32_t dst, const CUtensorMap* map,
+                                           int c0, int c1, uint32_t bar,
+                                           uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
+      "h"(mask)
+      : "memory");
+}
 
 // Shared-memory matrix descriptor of a K-major int8 operand in 64-byte
 // rows, 64-byte swizzle: SBO = 8 rows x 64 B between 8-row groups (LBO is
@@ -153,53 +260,99 @@ __device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db) {
 
 template <int L>
 __global__ void __launch_bounds__(THREADS, 1)
-core_int_kernel(const __grid_constant__ Params p, const int* __restrict__ tiles,
+core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles,
                 const int* __restrict__ starts, const int* __restrict__ nodes,
                 float* __restrict__ out, int h, int h_pad, int vec) {
   constexpr int N = L == 3 ? 192 : 256;  // wgmma width: L limbs x G blocks
   constexpr int G = N / (64 * L);        // 64-column output blocks a tile
   constexpr int NACC = N / 2;            // s32 accumulators a thread
+  constexpr int CM = cluster_rows(L);    // blocks a cluster
+  constexpr bool CLUSTER = CM > 1;
+  constexpr int B_ROWS = 64 / CM;        // a block's rows of a limb block
 
   extern __shared__ uint8_t smem_raw[];
   // TMA's swizzle patterns are address-based: align the ring to 1024 B
+  // (the same offset in every block, as multicast needs)
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t s_base = smem_u32(smem);
   const uint32_t full0 = s_base + OFF_BAR;
   const uint32_t empty0 = full0 + STAGES * 8;
+  // this block's rank in its cluster: it takes row tile m0 + 128 * rank
+  const uint32_t rank = CLUSTER ? cluster_rank() : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 8);  // lane 0 of each consumer warp
+      // each block's producer arrives on each stage once, with its bytes,
+      // and each consumer warp of each block releases it once
+      mbar_init(full0 + 8 * s, CM);
+      mbar_init(empty0 + 8 * s, CONSUMER_WARPS * CM);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
-  __syncthreads();
+  // every block's barriers exist before the other uses them
+  if constexpr (CLUSTER)
+    cluster_sync();
+  else
+    __syncthreads();
 
-  const int t_begin = starts[blockIdx.x], t_end = starts[blockIdx.x + 1];
+  const int c = CLUSTER ? cluster_index() : blockIdx.x;
+  const int t_begin = starts[c], t_end = starts[c + 1];
   const int wg = threadIdx.x >> 7;
 
   if (wg == 2) {
-    // ---- producer: one thread keeps the ring full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    // ---- producer: one thread issues this block's part of each stage ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;");
     if (threadIdx.x == 256) {
+      // every block's full barriers (stage 0), this block's included
+      uint32_t full_of[CM];
+#pragma unroll
+      for (int i = 0; i < CM; ++i)
+        full_of[i] = CLUSTER ? in_block(full0, i) : full0;
       int stage = 0;
       uint32_t phase = 0;
+      // this block's share of each 64-row limb block: rows rank * B_ROWS..
+      // (the xcT map's boxes are B_ROWS high)
+      const uint32_t b_dst = s_base + OFF_B + rank * B_ROWS * BK;
       for (int t = t_begin; t < t_end; ++t) {
-        const int b = tiles[3 * t], m0 = tiles[3 * t + 1],
-                  n0 = tiles[3 * t + 2];
-        const int ng = min(G, (h - n0 + 63) / 64);  // blocks inside h
+        const int4 tile = tiles[t * CM + rank];  // band, m0, n0, live
+        const int b = tile.x, m0 = tile.y, n0 = tile.z;
+        // rows wholly past the band's end are not loaded (never stored)
+        const uint32_t a_bytes = m0 < p.r[b] ? A_STAGE : 0;
+        const int nq = max(0, min(G, (h - n0 + 63) / 64)) * L;
+        const uint32_t b_bytes = nq * B_ROWS * BK;
+        // block q = g * L + l of the limb stage: limb l of output columns
+        // n0 + 64 g
+        int brow[G * L];
+#pragma unroll
+        for (int q = 0; q < G * L; ++q)
+          brow[q] = (q % L) * h_pad + n0 + 64 * (q / L) + rank * B_ROWS;
         const CUtensorMap* amap = &p.band[b];
-        for (int k0 = 0; k0 < p.w[b]; k0 += BK) {
+        const int w = p.w[b];
+        for (int k0 = 0; k0 < w; k0 += BK) {
           const uint32_t full = full0 + 8 * stage;
-          mbar_wait(empty0 + 8 * stage, phase ^ 1);
-          mbar_expect_tx(full, A_STAGE + ng * L * B_BOX);
-          tma_load_2d(s_base + OFF_A + stage * A_STAGE, amap, k0, m0, full);
-          for (int g = 0; g < ng; ++g)
-            for (int l = 0; l < L; ++l)
-              tma_load_2d(s_base + OFF_B + stage * B_STAGE + (g * L + l) * B_BOX,
-                          &p.xct, k0, l * h_pad + n0 + 64 * g, full);
+          wait_or_trap(empty0 + 8 * stage, phase ^ 1);
+          if constexpr (CLUSTER) {
+            // both blocks' stages wait for this producer: its limb share
+            // lands in both, its band box in its own
+#pragma unroll
+            for (int i = 0; i < CM; ++i)
+              expect_at(full_of[i] + 8 * stage,
+                        (i == rank ? a_bytes : 0) + b_bytes);
+          } else {
+            mbar_expect_tx(full, a_bytes + b_bytes);
+          }
+          if (a_bytes)
+            tma_load_2d(s_base + OFF_A + stage * A_STAGE, amap, k0, m0, full);
+#pragma unroll
+          for (int q = 0; q < G * L; ++q) {
+            if (q >= nq) break;
+            const uint32_t dst = b_dst + stage * B_STAGE + q * 64 * BK;
+            if constexpr (CLUSTER)
+              tma_load_mc(dst, &p.xct, k0, brow[q], full, (1u << CM) - 1);
+            else
+              tma_load_2d(dst, &p.xct, k0, brow[q], full);
+          }
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -207,18 +360,23 @@ core_int_kernel(const __grid_constant__ Params p, const int* __restrict__ tiles,
         }
       }
     }
+    __syncwarp();
   } else {
     // ---- consumers: wgmma on a 64 x N half of the tile each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;");
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
     const int g8 = lane >> 2, t4 = lane & 3;
     float* epi = reinterpret_cast<float*>(smem + OFF_EPI + wg * EPI_WG);
+    // lane k < CM of each warp releases a stage in block k
+    const bool signals = lane < CM;
+    const uint32_t empty_k = CLUSTER && signals ? in_block(empty0, lane) : 0;
     int stage = 0;
     uint32_t phase = 0;
 
     for (int t = t_begin; t < t_end; ++t) {
-      const int b = tiles[3 * t], m0 = tiles[3 * t + 1], n0 = tiles[3 * t + 2];
+      const int4 tile = tiles[t * CM + rank];
+      const int b = tile.x, m0 = tile.y, n0 = tile.z;
       const int r = p.r[b], lo = p.lo[b], w = p.w[b];
       int acc[NACC];
 #pragma unroll
@@ -226,7 +384,7 @@ core_int_kernel(const __grid_constant__ Params p, const int* __restrict__ tiles,
 
       int held = -1;  // the stage whose wgmmas may still run
       for (int k0 = 0; k0 < w; k0 += BK) {
-        mbar_wait(full0 + 8 * stage, phase);
+        wait_or_trap(full0 + 8 * stage, phase);
         const uint64_t da =
             kmajor_desc(s_base + OFF_A + stage * A_STAGE + wg * 64 * BK);
         const uint64_t db = kmajor_desc(s_base + OFF_B + stage * B_STAGE);
@@ -236,7 +394,12 @@ core_int_kernel(const __grid_constant__ Params p, const int* __restrict__ tiles,
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         // the previous stage's group has retired: its stage is free
         asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-        if (held >= 0 && lane == 0) mbar_arrive(empty0 + 8 * held);
+        if (held >= 0 && signals) {
+          if constexpr (CLUSTER)
+            arrive_at(empty_k + 8 * held);
+          else
+            mbar_arrive(empty0 + 8 * held);
+        }
         held = stage;
         if (++stage == STAGES) {
           stage = 0;
@@ -244,7 +407,13 @@ core_int_kernel(const __grid_constant__ Params p, const int* __restrict__ tiles,
         }
       }
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      if (held >= 0 && lane == 0) mbar_arrive(empty0 + 8 * held);
+      if (held >= 0 && signals) {
+        if constexpr (CLUSTER)
+          arrive_at(empty_k + 8 * held);
+        else
+          mbar_arrive(empty0 + 8 * held);
+      }
+      if (!tile.w) continue;  // rows past the band
 
       // ---- epilogue: out[nodes[lo + row], n0 + col] += f32(P) ----
       int ids[8];  // output rows of this thread's epilogue reads
@@ -315,38 +484,94 @@ core_int_kernel(const __grid_constant__ Params p, const int* __restrict__ tiles,
       }
     }
   }
+  // the other block arrives on this block's barriers until its last stage
+  if constexpr (CLUSTER) cluster_sync();
 }
 
+// The launch configuration of n_clusters clusters of the `L` kernel.
 template <int L>
-int launch(const Params& p, const void* tiles, const void* starts, int grid,
-           const void* nodes, void* out, int h, int h_pad, int vec,
-           cudaStream_t stream) {
+struct Launch {
+  cudaLaunchAttribute attr{};
+  cudaLaunchConfig_t cfg{};
+  Launch(int n_clusters, cudaStream_t stream) {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster_rows(L);
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(n_clusters * cluster_rows(L));
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = SMEM_BYTES;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <int L>
+int max_clusters(int* n) {
   cudaError_t e = cudaFuncSetAttribute(
       core_int_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  core_int_kernel<L><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      p, static_cast<const int*>(tiles), static_cast<const int*>(starts),
-      static_cast<const int*>(nodes), static_cast<float*>(out), h, h_pad, vec);
+  Launch<L> l(1, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(n, core_int_kernel<L>, &l.cfg));
+}
+
+template <int L>
+int launch(const Params& p, const void* tiles, const void* starts,
+           int n_clusters, const void* nodes, void* out, int h, int h_pad,
+           int vec, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      core_int_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Launch<L> l(n_clusters, stream);
+  if (cluster_rows(L) == 1) l.cfg.numAttrs = 0;  // single blocks
+  e = cudaLaunchKernelEx(&l.cfg, core_int_kernel<L>, p,
+                         static_cast<const int4*>(tiles),
+                         static_cast<const int*>(starts),
+                         static_cast<const int*>(nodes),
+                         static_cast<float*>(out), h, h_pad, vec);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The most clusters (cluster_rows(limbs) blocks each) of the `limbs`
+// kernel the current card runs at once, into *n. Returns 0 or an error
+// code.
+extern "C" int core_int_max_clusters(int limbs, int* n) {
+  switch (limbs) {
+    case 1:
+      return max_clusters<1>(n);
+    case 2:
+      return max_clusters<2>(n);
+    case 3:
+      return max_clusters<3>(n);
+    case 4:
+      return max_clusters<4>(n);
+    default:
+      return ERR_ARGS;
+  }
+}
+
 // One launch over all bands: `band_maps` holds n_bands maps encoded by
 // core_dot.cu:core_encode_band_map (host), `band_info` (lo, r, w) per band
 // (host); xct is the (limbs, h_pad, k_pad) int8 limb payload; `tiles`
-// (int32 triples: band, m0, n0, n0 in steps of 64 * G columns) and `starts`
-// (grid + 1 offsets into tiles, one segment per block) are on the device.
-// vec: h % 4 == 0 and out 16-byte aligned. Returns 0 or an error code
-// (cudaError_t, or the codes of tma.cuh).
+// (int32 (n_tiles, cluster_rows(limbs), 4): each block's band, m0, n0 and
+// live flag per cluster tile, in cluster-rank order) and `starts`
+// (n_clusters + 1 offsets into the cluster tiles, one segment per
+// cluster) are on the device. vec: h % 4 == 0 and out 16-byte aligned.
+// Returns 0 or an error code (cudaError_t, or the codes of tma.cuh).
 extern "C" int core_int_scatter_add(const void* band_maps, const int* band_info,
                                     int n_bands, const void* xct,
                                     long long k_pad, int h_pad, int limbs,
                                     const void* tiles, const void* starts,
-                                    int grid, const void* nodes, void* out,
-                                    int h, int vec, void* stream) {
-  if (n_bands < 1 || n_bands > MAX_BANDS || grid < 1 || h < 1 ||
+                                    int n_clusters, const void* nodes,
+                                    void* out, int h, int vec, void* stream) {
+  if (n_bands < 1 || n_bands > MAX_BANDS || n_clusters < 1 || h < 1 ||
       h_pad % 64 || h_pad < h || k_pad % 16 || limbs < 1 || limbs > 4)
     return ERR_ARGS;
   Params p;
@@ -358,18 +583,22 @@ extern "C" int core_int_scatter_add(const void* band_maps, const int* band_info,
     p.w[i] = band_info[3 * i + 2];
   }
   int err = encode_2d(&p.xct, CU_TENSOR_MAP_DATA_TYPE_UINT8, xct, k_pad,
-                      static_cast<long long>(limbs) * h_pad, k_pad, BK, 64,
-                      CU_TENSOR_MAP_SWIZZLE_64B);
+                      static_cast<long long>(limbs) * h_pad, k_pad, BK,
+                      64 / cluster_rows(limbs), CU_TENSOR_MAP_SWIZZLE_64B);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (limbs) {
     case 1:
-      return launch<1>(p, tiles, starts, grid, nodes, out, h, h_pad, vec, s);
+      return launch<1>(p, tiles, starts, n_clusters, nodes, out, h, h_pad,
+                       vec, s);
     case 2:
-      return launch<2>(p, tiles, starts, grid, nodes, out, h, h_pad, vec, s);
+      return launch<2>(p, tiles, starts, n_clusters, nodes, out, h, h_pad,
+                       vec, s);
     case 3:
-      return launch<3>(p, tiles, starts, grid, nodes, out, h, h_pad, vec, s);
+      return launch<3>(p, tiles, starts, n_clusters, nodes, out, h, h_pad,
+                       vec, s);
     default:
-      return launch<4>(p, tiles, starts, grid, nodes, out, h, h_pad, vec, s);
+      return launch<4>(p, tiles, starts, n_clusters, nodes, out, h, h_pad,
+                       vec, s);
   }
 }

@@ -20,13 +20,33 @@
 //         payload: ell_scan_spmm on integer rows, whose accumulation dtype
 //         is f32);
 //   (iii) f32 rows rounded to the quantization grid in the consumer,
-//         rintf(__fdiv_rn(g, safe)) with safe read from the card (Quant;
-//         replaces ell_scan_spmm_quant, pygim_tpu/ops/spmm.py:452). A true
-//         division rounded to nearest and a round half to even, as the
-//         reference's round(g / scale): the library is built without
-//         --use_fast_math (ops/_build.py), on which this depends. |q| <=
-//         2^19 + 1 is exact in f32, so the reference's cast through int32
-//         changes nothing.
+//         rintf(RN(g / safe)) with safe read from the card (Quant;
+//         replaces ell_scan_spmm_quant, pygim_tpu/ops/spmm.py:452): the
+//         correctly rounded quotient and a round half to even, as the
+//         reference's round(g / scale). |q| <= 2^19 + 1 is exact in f32,
+//         so the reference's cast through int32 changes nothing. The
+//         divisor is one float for the whole launch, so the quotient is
+//         not an IEEE division per element (a MUFU reciprocal and a
+//         correction sequence with a slow path) but Markstein's
+//         correction of a product with the correctly rounded reciprocal
+//         r = RN(1 / safe), taken once a thread:
+//             y0 = RN(g * r),  y = fma(fma(-y0, safe, g), r, y0),
+//             rem = fma(-y, safe, g),  q = fma(rem, r, y).
+//         y0 can be more than an ulp off the quotient (a divisor with an
+//         all-ones mantissa can do that); one correction makes y faithful
+//         (within an ulp), so rem is exact and Markstein's theorem gives
+//         q = RN(g / safe) for every safe, where no step underflows or
+//         overflows. The tests hold a model of these steps
+//         (tests/test_torch_quant_spmm.py) and, on the card,
+//         chip_smoke.py's sweep over every value within 4 ulps of each
+//         half step to the true division. For 2^-100 <= safe <= 2^100
+//         (QuantRcp) nothing underflows for a quotient that can round
+//         away from 0: |g / safe| >= 1/4 puts g, y * safe and the
+//         residuals' last bits above the subnormal range. Any other safe (a tiny max|x|, or an
+//         inf or NaN in x) keeps __fdiv_rn (QuantDiv), a branch taken once
+//         a launch on the value read from the card. The library is built
+//         without --use_fast_math (ops/_build.py); the steps use the _rn
+//         intrinsics, which no contraction changes.
 //
 // The host plan (ops/ell_tail.py:tail_plan) gives each table a count per
 // virtual row, cnt[v] = 1 + the index of its last nonzero weight (0 if it
@@ -82,6 +102,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int WARPS = 4;         // units (one a warp) per block
@@ -100,34 +122,49 @@ struct Table {
 };
 
 // Payload modes: the element type of x's rows and how one element
-// becomes the f32 value that is weighted (safe: mode (iii)'s divisor).
+// becomes the f32 value that is weighted (d: mode (iii)'s divisor safe
+// and its reciprocal, (safe, RN(1 / safe))).
 struct AsIs {
   using In = float;
-  static constexpr bool kQuant = false;
-  __device__ __forceinline__ static float get(float v, float) { return v; }
+  __device__ __forceinline__ static float get(float v, float2) { return v; }
 };
 template <typename T>
 struct Widen {
   using In = T;
-  static constexpr bool kQuant = false;
-  __device__ __forceinline__ static float get(T v, float) {
+  __device__ __forceinline__ static float get(T v, float2) {
     return static_cast<float>(v);  // round to nearest, as XLA's convert
   }
 };
+// Mode (iii) as the host names it; each kernel picks QuantRcp or
+// QuantDiv once, from the safe it reads (divisor()).
 struct Quant {
   using In = float;
-  static constexpr bool kQuant = true;
-  __device__ __forceinline__ static float get(float v, float safe) {
-    return rintf(__fdiv_rn(v, safe));
+};
+struct QuantRcp {
+  using In = float;
+  __device__ __forceinline__ static float get(float v, float2 d) {
+    const float y0 = __fmul_rn(v, d.y);
+    const float y = __fmaf_rn(__fmaf_rn(-y0, d.x, v), d.y, y0);  // faithful
+    const float rem = __fmaf_rn(-y, d.x, v);                     // exact
+    return rintf(__fmaf_rn(rem, d.y, y));
+  }
+};
+struct QuantDiv {
+  using In = float;
+  __device__ __forceinline__ static float get(float v, float2 d) {
+    return rintf(__fdiv_rn(v, d.x));
   }
 };
 
-template <typename P>
-__device__ __forceinline__ float load_safe(const float* safe) {
-  if constexpr (P::kQuant)
-    return __ldg(safe);
-  else
-    return 0.f;
+// Mode (iii)'s divisor (safe, RN(1 / safe)), read once; the reciprocal
+// route (QuantRcp) holds where safe lies in [2^-100, 2^100], and a NaN
+// fails both tests.
+__device__ __forceinline__ float2 divisor(const float* safe_p) {
+  const float safe = __ldg(safe_p);
+  return make_float2(safe, __frcp_rn(safe));
+}
+__device__ __forceinline__ bool rcp_route(float2 d) {
+  return d.x >= 0x1p-100f && d.x <= 0x1p100f;
 }
 
 // four consecutive elements of a row, as one load
@@ -138,9 +175,9 @@ struct alignas(4 * sizeof(T)) Vec4 {
 
 template <typename P>
 __device__ __forceinline__ float4 get4(const Vec4<typename P::In>& q,
-                                       float safe) {
-  return make_float4(P::get(q.v[0], safe), P::get(q.v[1], safe),
-                     P::get(q.v[2], safe), P::get(q.v[3], safe));
+                                       float2 d) {
+  return make_float4(P::get(q.v[0], d), P::get(q.v[1], d),
+                     P::get(q.v[2], d), P::get(q.v[3], d));
 }
 
 __device__ __forceinline__ void zero(float4& a) {
@@ -301,26 +338,20 @@ __device__ __forceinline__ unsigned live_mask(int h, int col0, int lane) {
 }
 
 // Path (a): x rows read into registers, BATCH rows at a time, one element
-// a lane.
+// a lane. pk: this warp's PARK * NJ * 32 parked floats.
 template <int NJ, typename P>
-__global__ void __launch_bounds__(WARPS * 32, 4)
-tail_regs_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
-                 int n_units, const typename P::In* __restrict__ x,
-                 const float* __restrict__ safe_p, float* __restrict__ out,
-                 int h) {
+__device__ __forceinline__ void tail_regs(const Table* __restrict__ tabs,
+                                          const int2* __restrict__ units,
+                                          int u, const typename P::In* __restrict__ x,
+                                          float2 d, float* __restrict__ out,
+                                          int h, float* pk) {
   using V = float;
   using In = typename P::In;
   constexpr int SLAB = 32 * NJ;
-  __shared__ V parked[WARPS][PARK * NJ * 32];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int u = blockIdx.x * WARPS + warp;
-  if (u >= n_units) return;
+  const int lane = threadIdx.x & 31;
   const Unit U = load_unit(tabs, units, u, lane);
   const int col0 = blockIdx.y * SLAB;
   const unsigned live = live_mask<1, NJ>(h, col0, lane);
-  const float safe = load_safe<P>(safe_p);
-  V* pk = parked[warp];
 
   V acc[NJ];
 #pragma unroll
@@ -338,7 +369,7 @@ tail_regs_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           if (b + k < m && (live >> j & 1))
-            xv[k][j] = P::get(__ldg(xr + lane + 32 * j), safe);
+            xv[k][j] = P::get(__ldg(xr + lane + 32 * j), d);
           else
             zero(xv[k][j]);
         }
@@ -364,6 +395,28 @@ tail_regs_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
         n_park = 0;
       }
     }
+  }
+}
+
+template <int NJ, typename P>
+__global__ void __launch_bounds__(WARPS * 32, 4)
+tail_regs_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
+                 int n_units, const typename P::In* __restrict__ x,
+                 const float* __restrict__ safe_p, float* __restrict__ out,
+                 int h) {
+  __shared__ float parked[WARPS][PARK * NJ * 32];
+  const int warp = threadIdx.x >> 5;
+  const int u = blockIdx.x * WARPS + warp;
+  if (u >= n_units) return;
+  float* pk = parked[warp];
+  if constexpr (std::is_same_v<P, Quant>) {
+    const float2 d = divisor(safe_p);
+    if (rcp_route(d))
+      tail_regs<NJ, QuantRcp>(tabs, units, u, x, d, out, h, pk);
+    else
+      tail_regs<NJ, QuantDiv>(tabs, units, u, x, d, out, h, pk);
+  } else {
+    tail_regs<NJ, P>(tabs, units, u, x, float2{}, out, h, pk);
   }
 }
 
@@ -417,15 +470,14 @@ constexpr int bulk_smem_bytes() {
 // by the bulk-copy engine (vector widths only: 16-byte aligned rows and
 // sizes).
 template <int NJ, typename P>
-__global__ void __launch_bounds__(WARPS * 32)
-tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
-                 int n_units, const typename P::In* __restrict__ x,
-                 const float* __restrict__ safe_p, float* __restrict__ out,
-                 int h) {
+__device__ __forceinline__ void tail_bulk(const Table* __restrict__ tabs,
+                                          const int2* __restrict__ units,
+                                          int u, const typename P::In* __restrict__ x,
+                                          float2 d, float* __restrict__ out,
+                                          int h, unsigned char* smem) {
   using In = typename P::In;
   constexpr int SL4 = NJ * 32;  // groups of four elements of one slab row
   constexpr int STAGE = stage_bytes<NJ, P>();
-  extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Vec4<In>* ring =
       reinterpret_cast<const Vec4<In>*>(smem + warp * RING * STAGE);
@@ -435,14 +487,11 @@ tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
                        smem + WARPS * RING * STAGE + WARPS * PARK * SL4 * 16) +
                    warp * RING;
 
-  const int u = blockIdx.x * WARPS + warp;
-  if (u >= n_units) return;
   const Unit U = load_unit(tabs, units, u, lane);
   const int col0 = blockIdx.y * SL4 * 4;
   const unsigned live = live_mask<4, NJ>(h, col0, lane);
   const uint32_t bytes =
       static_cast<uint32_t>(min(SL4 * 4, h - col0)) * sizeof(In);
-  const float safe = load_safe<P>(safe_p);
   const uint32_t ring0 = smem_u32(ring), bar0 = smem_u32(bars);
   if (lane == 0) {
     for (int s = 0; s < RING; ++s)
@@ -478,7 +527,7 @@ tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       if (live >> j & 1)
-        xv[j] = get4<P>(ring[st * SL4 + lane + 32 * j], safe);
+        xv[j] = get4<P>(ring[st * SL4 + lane + 32 * j], d);
       else
         zero(xv[j]);
     }
@@ -508,6 +557,26 @@ tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
       flush<float4, NJ>(pk, prow, n_park, U.atomic, out, h, col0, lane, live);
       n_park = 0;
     }
+  }
+}
+
+template <int NJ, typename P>
+__global__ void __launch_bounds__(WARPS * 32)
+tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
+                 int n_units, const typename P::In* __restrict__ x,
+                 const float* __restrict__ safe_p, float* __restrict__ out,
+                 int h) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int u = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (u >= n_units) return;
+  if constexpr (std::is_same_v<P, Quant>) {
+    const float2 d = divisor(safe_p);
+    if (rcp_route(d))
+      tail_bulk<NJ, QuantRcp>(tabs, units, u, x, d, out, h, smem);
+    else
+      tail_bulk<NJ, QuantDiv>(tabs, units, u, x, d, out, h, smem);
+  } else {
+    tail_bulk<NJ, P>(tabs, units, u, x, float2{}, out, h, smem);
   }
 }
 

@@ -26,8 +26,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# No --use_fast_math: K-tail's quantized payload rounds x / scale with a
-# true division (csrc/ell_tail.cu), and the f32 sums keep IEEE rounding.
+# No --use_fast_math: K-tail's quantized payload rounds to the correctly
+# rounded x / scale (csrc/ell_tail.cu), and the f32 sums keep IEEE rounding.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -46,8 +46,11 @@ SIGNATURES = {
                                    _I, _P],
     },
     "core_int": {
+        # limbs, int out (host)
+        "core_int_max_clusters": [_I, _P],
         # band maps, band (lo, r, w) (both host), n_bands, xcT, k_pad,
-        # h_pad, limbs, tiles, starts, grid, nodes, out, h, vec, stream
+        # h_pad, limbs, tiles, starts, n_clusters, nodes, out, h, vec,
+        # stream
         "core_int_scatter_add": [_P, _P, _I, _P, _LL, _I, _I, _P, _P, _I, _P,
                                  _P, _I, _I, _P],
     },

@@ -150,6 +150,24 @@ def band_groups(stair, h: int):
     return [keep[i:i + MAX_BANDS] for i in range(0, len(keep), MAX_BANDS)]
 
 
+def band_maps(bands, stair, group):
+    """The TMA maps of the CUDA bands ``group`` (host, 64 × 128 boxes,
+    64-byte swizzle) and their ``(lo, r, w)`` (host), as one launch takes
+    them; K-int launches on the same maps."""
+    lib = _build.load("core_dot")
+    maps = (ctypes.c_uint8 * (_MAP_BYTES * len(group)))()
+    base = ctypes.addressof(maps)
+    for i, b in enumerate(group):
+        r, w = bands[b].shape
+        err = lib.core_encode_band_map(base + _MAP_BYTES * i,
+                                       bands[b].data_ptr(), r, w)
+        _build.check(err, f"core_encode_band_map (band {b}, {r}×{w})")
+    info = (ctypes.c_int * (3 * len(group)))(
+        *[v for b in group
+          for v in (stair[b][0], stair[b][1] - stair[b][0], stair[b][2])])
+    return maps, info
+
+
 @dataclasses.dataclass
 class CorePlan:
     """What one launch over a fixed group of device bands needs: the
@@ -173,27 +191,16 @@ def core_plans(bands, stair, h: int, bn: int = BN) -> list:
     one per launch (:func:`band_groups`), for tiles ``bn`` columns wide. A
     prepared operand's bands never move, so its owner builds them once per
     width and passes them to :func:`core_bands_scatter_add`: encoding the
-    maps and uploading the schedule synchronise the stream. K-int
-    (``ops/core_int.py``) launches on the same band maps."""
+    maps and uploading the schedule synchronise the stream."""
     groups = band_groups(stair, h)
     if not groups:
         return []
-    lib = _build.load("core_dot")
     dev = bands[groups[0][0]].device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     plans = []
     for group in groups:
-        maps = (ctypes.c_uint8 * (_MAP_BYTES * len(group)))()
-        base = ctypes.addressof(maps)
-        for i, b in enumerate(group):
-            r, w = bands[b].shape
-            err = lib.core_encode_band_map(base + _MAP_BYTES * i,
-                                           bands[b].data_ptr(), r, w)
-            _build.check(err, f"core_encode_band_map (band {b}, {r}×{w})")
-        sub = [stair[b] for b in group]
-        info = (ctypes.c_int * (3 * len(sub)))(
-            *[v for lo, hi, w in sub for v in (lo, hi - lo, w)])
-        tiles, starts = tile_schedule(sub, h, n_sm, bn)
+        maps, info = band_maps(bands, stair, group)
+        tiles, starts = tile_schedule([stair[b] for b in group], h, n_sm, bn)
         plans.append(CorePlan(
             group=group, ptrs=tuple(bands[b].data_ptr() for b in group), h=h,
             bn=bn, maps=maps, info=info, tiles=torch.from_numpy(tiles).to(dev),

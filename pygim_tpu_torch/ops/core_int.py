@@ -6,8 +6,9 @@ wrapped int32 product of an int8 band with an int16 or int32 payload),
 fused with the scatter of the product into the output rows as f32
 (``out.at[core_nodes[lo:hi]].add(f32(P))`` in ``_core_scatter``). The
 CUDA kernel is ``csrc/core_int.cu``: one persistent TMA + ``wgmma`` launch
-over all bands of one SpMM, on K-core's band maps and tile schedule
-(``ops/core_dot.py``).
+over all bands of one SpMM on K-core's band maps, walking a cluster
+schedule built here (:func:`cluster_schedule`); at four limbs two blocks
+of a cluster share their limb stage by TMA multicast.
 
 The payload ``xc`` is integer (int8, int16 or int32). On the card it goes
 to the kernel as ``limbs`` int8 digits (:func:`limb_split`), K-major:
@@ -35,11 +36,20 @@ aligned bands, any H; the wrapper raises otherwise.
 from __future__ import annotations
 
 import ctypes
+import heapq
 
+import numpy as np
 import torch
 
 from pygim_tpu_torch.ops import _build
-from pygim_tpu_torch.ops.core_dot import _check, core_plans, plans_match
+from pygim_tpu_torch.ops.core_dot import (
+    _EPILOGUE_COST,
+    CorePlan,
+    _check,
+    band_groups,
+    band_maps,
+    plans_match,
+)
 
 # kernel launches since the last reset (plain int; launches only)
 launches = 0
@@ -49,6 +59,13 @@ RAW_LIMBS = {torch.int8: 1, torch.int16: 3, torch.int32: 4}
 QUANT_LIMBS = {"int8": 1, "int16": 2, "int32": 3}
 
 _ROWS_PER_STEP = 4096  # band rows a plain step multiplies at once
+
+BM = 128  # band rows of one block's tile
+# Blocks (row tiles) of one K-int cluster, by limb count: at four limbs two
+# blocks share their limb stage by TMA multicast, which only there was
+# faster on an H100 (PERF.md); single blocks elsewhere.
+# csrc/core_int.cu:cluster_rows holds the same.
+CLUSTER_ROWS = {1: 1, 2: 1, 3: 1, 4: 2}
 
 
 def tile_columns(limbs: int) -> int:
@@ -126,11 +143,83 @@ def _check_kernel_contract(bands, stair) -> None:
         raise ValueError("K-int kernel needs " + "; ".join(why))
 
 
+def cluster_schedule(stair, h: int, limbs: int, n_clusters: int):
+    """The kernel's work list for bands ``stair`` at width ``h`` and
+    ``limbs``, for ``n_clusters`` clusters of ``cm =``
+    :data:`CLUSTER_ROWS` ``[limbs]`` blocks.
+
+    A cluster tile ``(band, m0, n0)`` covers ``cm`` row tiles of
+    :data:`BM` rows and one column tile of :func:`tile_columns` columns
+    of one band, each running the band's whole contraction. Block ``i`` of
+    the cluster takes row tile ``m0 + BM · i``; a block whose rows lie
+    past the band's is kept, marked not live: it still takes part in the
+    cluster's shared stages and stores nothing. The cluster tiles go
+    longest contraction first to the cluster with the least work so far
+    (greedy longest-first).
+
+    Returns ``(tiles, starts)``: ``tiles`` int32 ``(n, cm, 4)``, each
+    block's ``(band, m0, n0, live)`` per cluster tile, grouped by cluster,
+    each cluster's longest first; cluster ``c`` runs ``tiles[starts[c]:
+    starts[c + 1]]``."""
+    cm = CLUSTER_ROWS[limbs]
+    bn = tile_columns(limbs)
+    steps = [-(-w // 64) for _lo, _hi, w in stair]
+    cells = [(steps[b] + _EPILOGUE_COST, b, m0, n0)
+             for b, (lo, hi, _w) in enumerate(stair)
+             for m0 in range(0, hi - lo, BM * cm)
+             for n0 in range(0, h, bn)]
+    cells.sort(key=lambda c: -c[0])  # stable: band, m0, n0 order
+    n_clusters = max(1, min(n_clusters, len(cells)))
+    heap = [(0, i) for i in range(n_clusters)]
+    per_cluster = [[] for _ in range(n_clusters)]
+    for cost, b, m0, n0 in cells:
+        load, c = heapq.heappop(heap)
+        r = stair[b][1] - stair[b][0]
+        per_cluster[c].append([(b, m0 + BM * i, n0, int(m0 + BM * i < r))
+                               for i in range(cm)])
+        heapq.heappush(heap, (load + cost, c))
+    tiles = np.array([c for cs in per_cluster for c in cs],
+                     dtype=np.int32).reshape(-1, cm, 4)
+    starts = np.cumsum([0] + [len(cs) for cs in per_cluster]).astype(np.int32)
+    return tiles, starts
+
+
+def max_clusters(limbs: int, device) -> int:
+    """How many clusters of the ``limbs`` kernel the card runs at once
+    (``cudaOccupancyMaxActiveClusters``); raises where it runs none."""
+    n = ctypes.c_int(0)
+    lib = _build.load("core_int")
+    with torch.cuda.device(device):
+        _build.check(lib.core_int_max_clusters(limbs, ctypes.addressof(n)),
+                     "core_int_max_clusters")
+    if n.value < 1:
+        raise RuntimeError(f"the card runs no cluster of the {limbs}-limb "
+                           "K-int kernel")
+    return n.value
+
+
 def core_int_plans(bands, stair, h: int, limbs: int) -> list:
-    """K-core's plans (band maps, tile schedule) of these CUDA bands for
-    K-int's tiles at ``limbs``; a prepared operand keeps them per (H,
-    limbs)."""
-    return core_plans(bands, stair, h, bn=tile_columns(limbs))
+    """The plans of one grouped K-int call over these CUDA bands at width
+    ``h`` and ``limbs``, one per launch (``core_dot.band_groups``): K-core's
+    band maps with K-int's cluster schedule. A prepared operand keeps them
+    per (H, limbs): encoding the maps and uploading the schedule
+    synchronise the stream."""
+    groups = band_groups(stair, h)
+    if not groups:
+        return []
+    dev = bands[groups[0][0]].device
+    n_clusters = max_clusters(limbs, dev)
+    plans = []
+    for group in groups:
+        maps, info = band_maps(bands, stair, group)
+        tiles, starts = cluster_schedule([stair[b] for b in group], h, limbs,
+                                         n_clusters)
+        plans.append(CorePlan(
+            group=group, ptrs=tuple(bands[b].data_ptr() for b in group), h=h,
+            bn=tile_columns(limbs), maps=maps, info=info,
+            tiles=torch.from_numpy(tiles).to(dev),
+            starts=torch.from_numpy(starts).to(dev), grid=len(starts) - 1))
+    return plans
 
 
 def core_int_launch(bands, xct, core_nodes, stair, out, plans):
@@ -140,7 +229,9 @@ def core_int_launch(bands, xct, core_nodes, stair, out, plans):
     global launches
     limbs, h_pad, k_pad = xct.shape
     h = out.shape[1]
-    if not plans_match(plans, bands, stair, h, tile_columns(limbs)):
+    if not (plans_match(plans, bands, stair, h, tile_columns(limbs))
+            and all(p.tiles.shape[1:] == (CLUSTER_ROWS[limbs], 4)
+                    for p in plans)):
         raise ValueError("K-int plans were built for other bands, H or limbs")
     if (xct.dtype != torch.int8 or not xct.is_contiguous() or h_pad % 64
             or h_pad < h or k_pad % 16 or xct.data_ptr() % 16

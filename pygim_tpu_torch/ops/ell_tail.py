@@ -15,9 +15,11 @@ x is one of three payload modes, each weighted by the f32 vals and
 summed in f32: (i) float32 rows as they are (the float path; the tail
 does not round to bf16); (ii) int8, int16 or int32 rows widened to f32
 (``ell_scan_spmm`` on integer rows, whose accumulation dtype is f32);
-(iii) float32 rows rounded in the consumer to ``round(x / safe)``, a
-true division rounded half to even, with ``safe`` a 0-dim float32 tensor
-on x's device (``ell_scan_spmm_quant``, the int32 quantized aggregate).
+(iii) float32 rows rounded in the consumer to ``round(x / safe)``, the
+correctly rounded quotient rounded half to even, with ``safe`` a 0-dim
+float32 tensor on x's device (``ell_scan_spmm_quant``, the int32
+quantized aggregate); the kernel takes the quotient from one reciprocal
+a thread and a correction step, not a division per element.
 The kernel takes any width H. It reads only the slots up to each virtual row's last nonzero
 weight, so a non-finite x row that only pad slots (or trailing zero
 weights) reach does not spread NaN, where the plain version and the

@@ -1,13 +1,14 @@
 """K-int on the CPU: its plain version and a CPU emulation of the
 kernel's limb arithmetic against the JAX reference's integer core
 products (``_core_matmul``'s s8 branch and ``_wide_int_core_dot``), the
-limb split, the kernel's tile schedule and the wrapper's checks. The CUDA
+limb split, the kernel's cluster schedule and the wrapper's checks. The CUDA
 kernel itself is held against the plain version on the card by
 chip_smoke.py.
 
 Every comparison here is bit-equal int32: the products are exact
 integers and both packages wrap them mod 2^32."""
 
+import collections
 import types
 
 import numpy as np
@@ -19,7 +20,7 @@ import jax.numpy as jnp
 from pygim_tpu.ops import spmm as jspmm
 from pygim_tpu_torch.ops import core_dot, core_int
 
-from test_torch_core_grouped import SMOKE_STAIR, _check_schedule
+from test_torch_core_grouped import SMOKE_STAIR
 
 # (limbs, payload dtype, magnitude bound): every limb count with the
 # range it is used for — raw int8, the quantized int16 and int32 ranges,
@@ -161,13 +162,80 @@ def test_two_limbs_do_not_hold_every_int16():
     assert core_int.RAW_LIMBS[torch.int16] == 3
 
 
-@pytest.mark.parametrize("limbs,bn", [(1, 256), (2, 128), (3, 64), (4, 64)])
+def _check_cluster_schedule(stair, h, limbs, n_clusters, tiles, starts):
+    """K-int's cluster schedule: each live block tile once, the blocks of
+    a cluster tile on one band (so one contraction length) and one column
+    tile at their place in the cluster, the blocks past the band's rows
+    kept and marked not live, each cluster longest first, and the
+    clusters balanced."""
+    cm = core_int.CLUSTER_ROWS[limbs]
+    bn = core_int.tile_columns(limbs)
+    assert tiles.dtype == np.int32 and tiles.shape[1:] == (cm, 4)
+    assert starts[0] == 0 and starts[-1] == len(tiles)
+    assert np.all(np.diff(starts) >= 0)
+    cells = sum(-(-(hi - lo) // (128 * cm)) * -(-h // bn)
+                for lo, hi, _w in stair)
+    assert len(starts) - 1 == min(n_clusters, cells) == min(n_clusters,
+                                                            len(tiles))
+    live = collections.Counter()
+    dead = 0
+    for ct in tiles.tolist():
+        b, m0c, n0c, _live = ct[0]
+        lo, hi, _w = stair[b]
+        assert m0c % (128 * cm) == 0 and n0c % bn == 0
+        assert m0c < hi - lo and n0c < h  # block 0 is always live
+        for i, (bb, m0, n0, is_live) in enumerate(ct):
+            assert (bb, m0, n0) == (b, m0c + 128 * i, n0c)
+            assert is_live == int(m0 < hi - lo)
+            if is_live:
+                live[(b, m0, n0)] += 1
+            else:
+                dead += 1
+    want = {(b, m0, n0) for b, (lo, hi, _w) in enumerate(stair)
+            for m0 in range(0, hi - lo, 128) for n0 in range(0, h, bn)}
+    assert set(live) == want and set(live.values()) == {1}
+    assert dead == len(tiles) * cm - len(want)
+    length = np.array([-(-stair[b][2] // 64) for b in tiles[:, 0, 0]])
+    sizes = np.diff(starts)
+    for c in range(len(sizes)):
+        assert np.all(np.diff(length[starts[c]:starts[c + 1]]) <= 0)
+    # no cluster idles while another holds two cluster tiles more
+    assert sizes.min() > 0 or sizes.max() <= 1
+    return dead
+
+
+@pytest.mark.parametrize("limbs,bn,cm", [(1, 256, 1), (2, 128, 1),
+                                         (3, 64, 1), (4, 64, 2)])
 @pytest.mark.parametrize("h", [41, 256, 1100])
-def test_kernel_tiles_cover_every_tile_once(limbs, bn, h):
+def test_kernel_tiles_cover_every_tile_once(limbs, bn, cm, h):
     assert core_int.tile_columns(limbs) == bn
+    assert core_int.CLUSTER_ROWS[limbs] == cm
+    n = 132 // cm  # the clusters an H100's 132 SMs hold
     for stair in (SMOKE_STAIR, [(0, 37, 208), (37, 45, 64)]):
-        tiles, starts = core_dot.tile_schedule(stair, h, 132, bn)
-        _check_schedule(stair, h, 132, tiles, starts, bn=bn)
+        tiles, starts = core_int.cluster_schedule(stair, h, limbs, n)
+        _check_cluster_schedule(stair, h, limbs, n, tiles, starts)
+
+
+# a ragged stair: bands of an odd count of 128-row tiles (155, 15 and 177
+# as in the smoke stair's), bands shorter than one tile, widths that are
+# not multiples of the 64-deep stage
+RAGGED_STAIR = [(0, 155 * 128 - 40, 1296), (19800, 19800 + 15 * 128, 208),
+                (21720, 21757, 64), (21757, 21757 + 177 * 128 - 1, 96),
+                (44412, 44420, 16)]
+
+
+@pytest.mark.parametrize("n_clusters", [66, 5, 1])
+@pytest.mark.parametrize("limbs", [3, 4])
+@pytest.mark.parametrize("h", [41, 256, 1100])
+@pytest.mark.parametrize("stair", ["smoke", "ragged"])
+def test_cluster_schedule(stair, h, limbs, n_clusters):
+    stair = SMOKE_STAIR if stair == "smoke" else RAGGED_STAIR
+    tiles, starts = core_int.cluster_schedule(stair, h, limbs, n_clusters)
+    dead = _check_cluster_schedule(stair, h, limbs, n_clusters, tiles,
+                                   starts)
+    # at four limbs (two row tiles a cluster) the odd row-tile counts
+    # leave partners empty; single blocks leave none
+    assert (dead > 0) == (limbs == 4)
 
 
 def _inputs(seed=0, h=24, dtype=np.int32):
@@ -179,6 +247,27 @@ def _inputs(seed=0, h=24, dtype=np.int32):
     cn = torch.from_numpy(rng.permutation(200)[:90].astype(np.int32))
     out = torch.from_numpy(rng.standard_normal((200, h)).astype(np.float32))
     return bands, xc, cn, stair, out
+
+
+@pytest.mark.parametrize("built_for", ["k_core", "three_limbs"])
+def test_launch_rejects_plans_of_another_schedule(built_for):
+    """A launch takes only K-int's plans for its limb count: K-core's tile
+    schedule and the three-limb one have the four-limb tile width (64
+    columns), not its clusters of two row tiles."""
+    bands, xc, cn, stair, out = _inputs()
+    h = out.shape[1]
+    if built_for == "k_core":
+        tiles, starts = core_dot.tile_schedule(stair, h, 4, 64)
+    else:
+        tiles, starts = core_int.cluster_schedule(stair, h, 3, 4)
+    plan = core_dot.CorePlan(
+        group=list(range(len(stair))), ptrs=tuple(b.data_ptr() for b in bands),
+        h=h, bn=core_int.tile_columns(4), maps=None, info=None,
+        tiles=torch.from_numpy(tiles), starts=torch.from_numpy(starts),
+        grid=len(starts) - 1)
+    xct = core_int.limb_split(xc[:320], 4, 64, 320)
+    with pytest.raises(ValueError, match="plans were built"):
+        core_int.core_int_launch(bands, xct, cn, stair, out, [plan])
 
 
 @pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])

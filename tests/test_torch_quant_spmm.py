@@ -12,6 +12,8 @@ pass 2^24) only the f32 summation order differs: 1e-5 of each element's
 sum of |terms|, the reference's own bar for a quantized product
 (tests/test_spmm.py)."""
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -122,6 +124,84 @@ def test_rounded_rows_half_step_ties_round_to_even():
     q = torch.round(torch.from_numpy(x) / tsafe).numpy()
     np.testing.assert_array_equal(q, np.round(k + 0.5))  # half to even
     assert np.any(q != np.floor(k + 0.5) + 1)
+
+
+def _rn32(v: Fraction) -> np.float32:
+    """An exact rational rounded to the nearest float32, ties to even
+    (subnormals included)."""
+    if v == 0:
+        return np.float32(0)
+    a = abs(v)
+    e = a.numerator.bit_length() - a.denominator.bit_length()
+    if a < Fraction(2) ** e:
+        e -= 1  # 2^e <= a < 2^(e + 1)
+    quantum = Fraction(2) ** (max(e, -126) - 23)
+    m = round(a / quantum)  # a Fraction rounds half to even
+    return np.float32(float(m * quantum) * (1 if v > 0 else -1))
+
+
+def _fma32(a, b, c) -> np.float32:
+    """fma(a, b, c) in float32: the exact a · b + c, rounded once."""
+    return _rn32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+
+def kernel_rounding(v: np.ndarray, safe: np.float32) -> np.ndarray:
+    """K-tail-quant's rounding of f32 rows (csrc/ell_tail.cu, QuantRcp),
+    step by step: r = RN(1 / safe); y0 = RN(v · r); the correction y =
+    fma(fma(-y0, safe, v), r, y0); the residual rem = fma(-y, safe, v) and
+    q = fma(rem, r, y), each fma an exact Fraction rounded once; then half
+    to even. The model asserts what the kernel's comment claims: y lies
+    within an ulp of v / safe, so rem is exact."""
+    r = np.float32(1) / safe
+    out = np.empty_like(v)
+    for i, x in enumerate(v.tolist()):
+        x = np.float32(x)
+        y0 = x * r
+        y = _fma32(_fma32(-y0, safe, x), r, y0)
+        exact = Fraction(float(x)) - Fraction(float(y)) * Fraction(float(safe))
+        rem = _fma32(-y, safe, x)
+        assert Fraction(float(rem)) == exact, (x, safe)
+        out[i] = np.rint(_fma32(rem, r, y))
+    return out
+
+
+def _safe(kind: str) -> np.float32:
+    if kind == "quant":  # quant_scale of seeded activations
+        x = np.random.default_rng(21).standard_normal((64, 32)) * 3
+        return np.float32(float(quant_scale(
+            torch.from_numpy(x.astype(np.float32)), "int32")[1]))
+    return np.float32({"pow2": 2.0 ** -10, "ones": float.fromhex("0x1.fffffep-8"),
+                       "one": 1.0, "low": float.fromhex("0x1.7ffffep-100"),
+                       "high": float.fromhex("0x1.fffffep99")}[kind])
+
+
+@pytest.mark.parametrize("kind", ["quant", "pow2", "ones", "one", "low",
+                                  "high"])
+def test_reciprocal_rounding_is_the_true_division(kind):
+    """The kernel's division-free rounding (Markstein's correction of v ·
+    RN(1 / safe)) equals round(v / safe) of PyTorch and of the reference,
+    on random activations and on every value within 4 ulps of a few
+    hundred half-steps (k + 1/2) · safe, for a safe from quant_scale, a
+    power of two, an all-ones mantissa, 1, and the reciprocal route's
+    limits (2^-100 <= safe <= 2^100)."""
+    safe = _safe(kind)
+    rng = np.random.default_rng(len(kind))
+    k = np.r_[rng.integers(-(1 << 19) - 1, (1 << 19) + 2, 250),
+              0, -1, 1, (1 << 19), -(1 << 19) - 1, (1 << 19) + 1]
+    c = ((k + 0.5) * np.float64(safe)).astype(np.float32)  # (k + 1/2) safe
+    near = (c.view(np.int32)[:, None]
+            + np.arange(-4, 5, dtype=np.int32)).view(np.float32)
+    rand = (rng.uniform(-1, 1, 2000) * (1 << 19) * np.float64(safe))
+    v = np.r_[near.ravel(), rand.astype(np.float32)]
+    if kind == "quant":  # the activations themselves
+        x = np.random.default_rng(21).standard_normal((64, 32)) * 3
+        v = np.r_[v, x.astype(np.float32).ravel()]
+    v = v.astype(np.float32)
+    got = kernel_rounding(v, safe)
+    want = torch.round(torch.from_numpy(v) / torch.tensor(safe)).numpy()
+    np.testing.assert_array_equal(got, want)
+    ref = np.asarray(jnp.round(jnp.asarray(v) / jnp.float32(safe)))
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("dtype", QDTYPES)
