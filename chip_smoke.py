@@ -28,9 +28,24 @@ the stair-int8 hybrid SpMM, on the ogbn-arxiv stand-in, through
 ``run_inference_benchmark`` and ``run_spmm_benchmark`` — first with a
 float payload (K-core, K-tail), then with int32 aggregation and an int32
 SpMM (K-int, K-tail-quant), and holds both forwards' logits against the
-same forwards through the plain versions. Last it runs the flagship
+same forwards through the plain versions. Then it runs the flagship
 forward step, ``pygim_tpu_torch/entry.py:entry()``, on the card against
 the same step on the CPU.
+
+Then the paths of the entry scripts, on the same stand-in: the ``ell``
+backend (``mul`` on f32 and int32 rows and the fused int32
+``mul_quantized`` against their plain versions, one K-tail launch per
+SpMM, counted), the ``oracle`` backend (against the hybrid's plain
+product, and an int32 GCN forward through its unfused quantize round
+trip against the same forward on the hybrid), ``phase_times`` of the
+hybrid and ell operands, the prepare cache (built, then loaded: equal
+tables and products), and the entry scripts themselves, each in a
+process of its own with a deadline: ``bench_cuda.py`` (its JSON line,
+its sampled-row check, and K-core and K-tail launched in its timed
+calls), ``spmm_test_cuda.py`` at its defaults and with ``--version
+cpu``, and ``inference_cuda.py``. Every phase runs in a fresh prepare
+and dataset cache (a temporary ``PYGIM_TPU_TORCH_DATA``, removed at the
+end), never the user's.
 
 Its last three lines are the ``kernels`` JSON object, the card's name
 and power limit (``nvidia-smi``), and ``{"ok": true, "device": ...}``.
@@ -45,40 +60,17 @@ share.
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 DATASET = "ogbn-arxiv"
 HIDDEN = 256
 CORE_BYTES = 256 << 20
-
-# H100 / H200 peaks (NVIDIA data sheets, dense): HBM bytes/s, bf16 tensor
-# FLOP/s, f32 non-tensor FLOP/s, int8 tensor OP/s; chosen by the card's
-# name
-_PEAKS = {
-    "H200": (4.8e12, 989e12, 67e12, 1979e12),
-    "H100 NVL": (3.9e12, 835e12, 60e12, 1671e12),
-    "H100 PCIe": (2.0e12, 756e12, 51e12, 1513e12),
-    "H100": (3.35e12, 989e12, 67e12, 1979e12),  # SXM
-}
-
-
-def peaks(name: str):
-    for key, val in _PEAKS.items():
-        if key in name:
-            return val
-    raise RuntimeError(f"no peak table for card {name!r}")
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Milliseconds per call: CUDA events around ``iters`` calls."""
@@ -126,22 +118,6 @@ def check_close(name, got, want, mag, rel):
 REL_TOL = 1e-5
 
 
-def core_bound(shapes, h, peaks_):
-    """Least time of one K-core launch over bands ``(r, w)`` at width
-    ``h``: the larger of its bytes over HBM (every band, ``xc[:max w]``,
-    the row ids, and the output rows read and written, each once) and its
-    operations over the bf16 rate. The bands share the launch, so one
-    band's bytes overlap another's products. Returns (ms, "bytes" |
-    "operations")."""
-    hbm, bf16, _f32, _int8 = peaks_
-    rows = sum(r for r, _w in shapes)
-    nbytes = (sum(r * w for r, w in shapes) + max(w for _r, w in shapes)
-              * h * 2 + rows * 4 + 2 * rows * h * 4)
-    t_bytes = nbytes / hbm * 1e3
-    t_ops = sum(2 * r * w * h for r, w in shapes) / bf16 * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 SCALE_BAND = (32768, 65536)  # int8 rows × width: 2 GiB, the 8 GiB core's class
 
 
@@ -149,6 +125,7 @@ def core_checks(prep, x, results, scale_band=SCALE_BAND):
     import torch
 
     from pygim_tpu_torch.ops import core_dot
+    from pygim_tpu_torch.utils.device import core_bound
 
     dev = x.device
     h = x.shape[1]
@@ -544,41 +521,30 @@ def tail_close(name, x, tables, got, out0, safe=None):
 
 
 def tail_bound(tables, h, peaks_, itemsize=4):
-    """Least time of one grouped K-tail call: the larger of its bytes over
-    HBM (each real entry's index and value, each x row it needs at
-    ``itemsize`` bytes an element and each f32 output row it touches,
-    read and written, once) and its multiply-adds over the f32 rate;
-    beside it the per-slot model, where every stored slot reads its x row
-    from HBM. Also the library yardstick's matrix: the real entries as one
-    CSR (cuSPARSE through torch.sparse.mm)."""
+    """Least time of one grouped K-tail call (``utils/device.tail_bound``)
+    and beside it the per-slot model, where every stored slot reads its x
+    row from HBM. Also the library yardstick's matrix: the real entries
+    as one CSR (cuSPARSE through torch.sparse.mm)."""
     import torch
 
-    rows_l, cols_l, vals_l = [], [], []
-    slots = vrows = 0
-    for c, v, r, degree in tables:
-        slots += c.numel()
-        vrows += r.numel()
-        rr = r.reshape(-1).repeat_interleave(degree)
-        keep = v.reshape(-1) != 0
-        rows_l.append(rr[keep])
-        cols_l.append(c.reshape(-1)[keep])
-        vals_l.append(v.reshape(-1)[keep])
-    rows_t = torch.cat(rows_l).long()
-    cols_t = torch.cat(cols_l).long()
+    from pygim_tpu_torch.ops.ell_tail import real_entries
+    from pygim_tpu_torch.utils.device import tail_bound as bound
+
+    rows_t, cols_t, vals_t = real_entries(tables)
+    slots = sum(c.numel() for c, _v, _r, _d in tables)
+    vrows = sum(r.numel() for _c, _v, r, _d in tables)
     nnz = int(rows_t.numel())
     u_cols = int(torch.unique(cols_t).numel())
     u_rows = int(torch.unique(rows_t).numel())
-    hbm, _bf16, f32, _int8 = peaks_
-    nbytes = nnz * 8 + u_cols * h * itemsize + 2 * u_rows * h * 4
-    t_bytes, t_ops = nbytes / hbm * 1e3, 2 * nnz * h / f32 * 1e3
+    hbm = peaks_[0]
+    bound_ms, bound_by = bound(nnz, u_cols, u_rows, h, peaks_, itemsize)
     return dict(
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms=bound_ms, bound_by=bound_by,
         bound_slot_ms=(slots * (8 + itemsize * h) + vrows * 4 * h) / hbm
         * 1e3,
         nnz=nnz, slots=slots, vrows=vrows, unique_cols=u_cols,
         unique_rows=u_rows,
-    ), (rows_t, cols_t, torch.cat(vals_l))
+    ), (rows_t, cols_t, vals_t)
 
 
 def off_aligned(t):
@@ -1054,7 +1020,248 @@ def entry_check():
                                  f"{err}")
 
 
+def ell_mag(prep, q):
+    """The sum of |terms| behind each element of the ell operand's
+    product with rows ``q``."""
+    import torch
+
+    from pygim_tpu_torch.ops import ell_tail
+
+    tables = [(c, v.abs(), r, d)
+              for c, v, r, d in prep.ell_tables(prep.dev_arrays)]
+    return ell_tail.ell_tables_plain(
+        q.float().abs(), tables,
+        torch.zeros(prep.nrows, q.shape[1], device=q.device))
+
+
+def ell_backend(graph, x, results, reps: int = 3):
+    """The ``ell`` backend (the CLIs' default: the whole merged graph in
+    K-tail): ``mul`` against ``mul_plain`` on f32 rows (REL_TOL of the sum
+    of |terms|) and int32 rows (``torch.equal``: every integer sum stays
+    under 2^24, so f32 sums are exact in any order), the fused int32
+    ``mul_quantized`` against ``mul_quantized_plain`` (REL_TOL: its
+    rounded rows reach 2^30, so f32 sums are not exact), each with one
+    K-tail launch per SpMM. Returns the operand."""
+    import torch
+
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+    from pygim_tpu_torch.quant import quant_scale
+
+    t0 = time.perf_counter()
+    prep = prepare_spmm(graph, SpmmConfig(backend="ell", hidden_hint=HIDDEN),
+                        device=x.device)
+    print(f"ell backend: prepare {time.perf_counter() - t0:.1f} s, tables "
+          f"{prep.ell_meta}", flush=True)
+    xi = torch.randint(-10, 11, x.shape, dtype=torch.int32,
+                       generator=torch.Generator().manual_seed(3)).to(x.device)
+    res = {}
+    for name, xs, kind in (("f32", x, "K-tail"), ("int32", xi, "K-tail-quant")):
+        reset_launch_counts()
+        for _ in range(reps):
+            got = prep.mul(xs)
+        torch.cuda.synchronize()
+        n = launch_counts()
+        if n[kind] != reps or sum(n.values()) != reps:
+            raise AssertionError(f"ell {name} mul: launches {n}, want "
+                                 f"{reps} of {kind}")
+        want = prep.mul_plain(xs)
+        if name == "f32":
+            res[name] = check_close("ell mul f32", got, want,
+                                    ell_mag(prep, xs), REL_TOL)
+        elif not torch.equal(got, want):
+            raise AssertionError("ell mul int32 differs from mul_plain")
+        else:
+            res[name] = 0.0
+    reset_launch_counts()
+    for _ in range(reps):
+        got = prep.mul_quantized(x, "int32")
+    torch.cuda.synchronize()
+    n = launch_counts()
+    if n["K-tail-quant"] != reps or sum(n.values()) != reps:
+        raise AssertionError(f"ell mul_quantized: launches {n}")
+    want = prep.mul_quantized_plain(x, "int32")
+    scale, safe = quant_scale(x, "int32")
+    res["mul_quantized int32"] = check_close(
+        "ell mul_quantized int32", got, want,
+        ell_mag(prep, torch.round(x / safe)) * scale, REL_TOL)
+    results["ell backend"] = res
+    return prep
+
+
+def oracle_backend(graph, x, hybrid, ds, results):
+    """The ``oracle`` backend (raw edges, plain PyTorch ops): ``mul``
+    against the hybrid's ``mul_plain`` (rel 1e-2 of the sum of |terms|:
+    the int8 core rounds x to bf16), and an int32 GCN forward on it
+    (quantize round trip around the oracle, as
+    ``PreparedAggregate.quantized`` is None there) against the same
+    forward on the hybrid (fused); ``logits_check``'s bar."""
+    import torch
+
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.ops.reference import spmm_coo_oracle
+    from pygim_tpu_torch.ops.spmm import (
+        PreparedAggregate,
+        SpmmConfig,
+        prepare_spmm,
+    )
+
+    dev = x.device
+    prep = prepare_spmm(graph, SpmmConfig(backend="oracle"), device=dev)
+    agg = PreparedAggregate(prep)
+    if agg.quantized(x, "int32") is not None:
+        raise AssertionError("the oracle fused the quantization")
+    d = prep.dev_arrays
+    mag = spmm_coo_oracle(d["rows"], d["cols"], d["vals"].abs(), x.abs(),
+                          prep.nrows)
+    err = check_close("oracle mul vs hybrid mul_plain", prep.mul(x),
+                      hybrid.mul_plain(x), mag, 1e-2)
+    gnn = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
+                   num_layers=2, agg_dtype="int32", device=dev)
+    xf = torch.as_tensor(ds.x).to(dev)
+    with torch.inference_mode():
+        got = gnn(xf, agg)
+        want = gnn(xf, PreparedAggregate(hybrid))
+    scale = max(1.0, float(want.abs().max()))
+    lerr = float((got - want).abs().max())
+    print(f"oracle int32 GCN vs hybrid: max abs err {lerr} of scale {scale}",
+          flush=True)
+    if not torch.isfinite(got).all() or lerr > 1e-4 * scale:
+        raise AssertionError(f"oracle int32 GCN differs from the hybrid's: "
+                             f"{lerr}")
+    results["oracle backend"] = dict(mul_err=err, gcn_err=lerr)
+
+
+PHASE_KEYS = {"hybrid": {"mul_time(ms)", "gather_time(ms)", "tail_time(ms)",
+                         "core_time(ms)"},
+              "ell": {"mul_time(ms)", "gather_time(ms)", "tail_time(ms)"}}
+
+
+def phase_times(preps, x, results):
+    """``phase_times`` of the smoke operands: every key, each positive."""
+    out = {}
+    for name, prep in preps.items():
+        t = prep.phase_times(x, iters=10)
+        if set(t) != PHASE_KEYS[name] or not all(v > 0 for v in t.values()):
+            raise AssertionError(f"{name} phase_times: {t}")
+        print(f"phase_times, {name}: {t}", flush=True)
+        out[name] = t
+    results["phase_times"] = out
+
+
+def caches(graph, cfg, x, results):
+    """The hybrid prepare cache in a fresh directory: the first prepare
+    builds and saves, the second loads; the device tables are equal
+    (``torch.equal``), and so are the two products within REL_TOL of the
+    sum of |terms| (K-tail adds a hub row's pieces with atomics, in no
+    fixed order)."""
+    import torch
+
+    from pygim_tpu_torch.ops import core_dot, ell_tail
+    from pygim_tpu_torch.ops.spmm import prepare_spmm
+
+    root = os.environ["PYGIM_TPU_TORCH_DATA"]
+    os.environ["PYGIM_TPU_TORCH_DATA"] = tempfile.mkdtemp(dir=root)
+    try:
+        preps, secs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            preps.append(prepare_spmm(graph, cfg, device=x.device))
+            secs.append(time.perf_counter() - t0)
+    finally:
+        os.environ["PYGIM_TPU_TORCH_DATA"] = root
+    cold, warm = (p.prepare_timer.acc for p in preps)
+    if "cache_save" not in cold or "cache_load" not in warm \
+            or "core_fill" in warm:
+        raise AssertionError(f"prepare cache: phases {cold} then {warm}")
+    a, b = (p.dev_arrays for p in preps)
+    if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("prepare cache: the loaded tables differ")
+    d = a
+    bands = [d[f"stair{i}"].float().abs() for i in range(len(preps[0].stair))]
+    mag = ell_tail.ell_tables_plain(
+        x.abs(), [(c, v.abs(), r, dg)
+                  for c, v, r, dg in preps[0].ell_tables(d)],
+        torch.zeros_like(x))
+    cn = d["core_nodes"]
+    core_dot.core_bands_plain(bands, x.index_select(0, cn).to(
+        torch.bfloat16).abs(), cn, preps[0].stair, mag)
+    got, want = preps[1].mul(x), preps[0].mul(x)
+    err = check_close("mul from the cached tables", got, want, mag, REL_TOL)
+    print(f"caches: prepare {secs[0]:.2f} s cold (phases {cold}), "
+          f"{secs[1]:.2f} s from the cache (phases {warm}); products "
+          f"{'bit-equal' if torch.equal(got, want) else f'within {err}'}",
+          flush=True)
+    results["caches"] = dict(cold_s=secs[0], warm_s=secs[1], mul_err=err)
+
+
+# (what, argv, extra environment): the port's entry scripts at their
+# defaults on the smoke stand-in (pubmed, the CLIs' default dataset, for
+# the oracle), each in a process of its own
+ENTRY_POINTS = (
+    ("bench_cuda", ["bench_cuda.py"],
+     {"PYGIM_BENCH_DATASET": DATASET,
+      "PYGIM_BENCH_CORE_BYTES": str(CORE_BYTES),
+      "PYGIM_BENCH_CORE_SHAPE": "stair"}),
+    ("spmm_test_cuda", ["spmm_test_cuda.py", "--dataset", DATASET], {}),
+    ("spmm_test_cuda --version cpu", ["spmm_test_cuda.py", "--version",
+                                      "cpu"], {}),
+    ("inference_cuda", ["inference_cuda.py", "--dataset", DATASET], {}),
+)
+
+
+def entry_points(results, timeout: int = 300):
+    """Each entry script in a subprocess with a deadline; a failure, a
+    missing ``verify: OK`` where it verifies, or (bench_cuda) a JSON line
+    without every key or a main path that launched no K-core or no
+    K-tail fails the run."""
+    out = {}
+    for what, argv, env in ENTRY_POINTS:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, *argv], capture_output=True,
+                             text=True, timeout=timeout,
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             env=dict(os.environ, **env))
+        secs = time.perf_counter() - t0
+        tail = (res.stdout + res.stderr)[-3000:]
+        if res.returncode != 0:
+            raise AssertionError(f"{what}: exit {res.returncode}\n{tail}")
+        lines = res.stdout.strip().splitlines()
+        if what == "bench_cuda":
+            line = json.loads(lines[-1])
+            keys = {"metric", "value", "unit", "vs_baseline",
+                    "spmm_effective_GBps_unique", "device"}
+            launches = json.loads(re.search(
+                r"launches in the timed calls (\{.*\})", res.stderr).group(1))
+            if set(line) != keys or "verify: OK" not in res.stderr \
+                    or launches["K-core"] <= 0 or launches["K-tail"] <= 0:
+                raise AssertionError(f"{what}: {line} {launches}\n{tail}")
+            out[what] = dict(line=line, launches=launches)
+        else:
+            data = [ln for ln in lines if ln.startswith("[DATA]")]
+            want = "[DATA]infer_time(ms)" if what == "inference_cuda" \
+                else "[DATA]verify: OK"
+            if not any(ln.startswith(want) for ln in data) or not any(
+                    ln.startswith("[DATA]device: ") for ln in data):
+                raise AssertionError(f"{what}: no {want}\n{tail}")
+            out[what] = [ln for ln in data if "time(ms)" in ln
+                         or "verify" in ln or "device" in ln]
+        print(f"entry point {what}: {secs:.1f} s {out[what]}", flush=True)
+    results["entry points"] = out
+
+
 def main() -> int:
+    """Run every phase in a fresh prepare and dataset cache, removed at
+    the end: no phase reads the user's cache."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["PYGIM_TPU_TORCH_DATA"] = root
+    try:
+        return run()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1067,13 +1274,19 @@ def main() -> int:
     )
     from pygim_tpu_torch.data import load_dataset
     from pygim_tpu_torch.nn.models import make_gnn
-    from pygim_tpu_torch.ops import _build, core_dot, core_int, ell_tail
+    from pygim_tpu_torch.ops import (
+        _build,
+        launch_counts,
+        reset_launch_counts,
+    )
     from pygim_tpu_torch.ops.spmm import (
         PreparedAggregate,
         SpmmConfig,
         prepare_spmm,
     )
     from pygim_tpu_torch.utils.metrics import DataReporter
+
+    from pygim_tpu_torch.utils.device import card_line, peaks
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -1142,8 +1355,7 @@ def main() -> int:
     for agg_dtype, spmm_dtype, kernels in (
             (None, "float32", ("K-core", "K-tail")),
             ("int32", "int32", ("K-int", "K-tail-quant"))):
-        core_dot.launches = core_int.launches = 0
-        ell_tail.launches = ell_tail.quant_launches = 0
+        reset_launch_counts()
         run_inference_benchmark(
             ds, model="gcn", num_layers=2, hidden=HIDDEN, agg_dtype=agg_dtype,
             config=cfg, repeat=10, reporter=rep, prepare_fn=reuse,
@@ -1154,16 +1366,14 @@ def main() -> int:
             reporter=rep, prepare_fn=reuse, device="cuda",
         )
         torch.cuda.synchronize()
-        counts = {"K-core": core_dot.launches, "K-int": core_int.launches,
-                  "K-tail": ell_tail.launches,
-                  "K-tail-quant": ell_tail.quant_launches}
+        n = launch_counts()
         print(f"main-path launches, {agg_dtype or 'float'} aggregation: "
-              f"{counts}", flush=True)
+              f"{n}", flush=True)
         for k in kernels:
-            if counts[k] <= 0:
+            if n[k] <= 0:
                 raise AssertionError(f"{k} was never launched on the "
                                      f"{agg_dtype or 'float'} main path")
-            launches[k] = counts[k]
+            launches[k] = n[k]
         if rep.records["verify"][-1] != "OK":
             raise AssertionError(f"{spmm_dtype} SpMM sampled-row check failed")
 
@@ -1171,6 +1381,21 @@ def main() -> int:
         logits_check(agg_dtype or "float", gnn, xf, prep, ds.num_classes)
 
     entry_check()
+
+    # this slice's paths: the ell and oracle backends, phase_times, the
+    # prepare cache, and the entry scripts
+    x = torch.randn(prep.nrows, HIDDEN,
+                    generator=torch.Generator().manual_seed(4)).cuda()
+    ell = ell_backend(ds.graph, x, results)
+    print(f"ell backend, max abs err: {results['ell backend']}", flush=True)
+    oracle_backend(ds.graph, x, prep, ds, results)
+    print(f"oracle backend: {results['oracle backend']}", flush=True)
+    phase_times({"hybrid": prep, "ell": ell}, x, results)
+    del ell
+    caches(ds.graph, cfg, x, results)
+    del x
+    torch.cuda.empty_cache()
+    entry_points(results)
 
     if "--profile" in sys.argv[1:]:
         for agg_dtype, gnn in gnns.items():

@@ -84,6 +84,14 @@ class CooGraph:
         return cls(rows=rows, cols=cols, vals=vals, nrows=int(nrows),
                    ncols=int(ncols))
 
+    def sort_by_row(self) -> "CooGraph":
+        """Canonical (row, col) lexicographic order, stable."""
+        order = np.lexsort((self.cols, self.rows))
+        return CooGraph(
+            rows=self.rows[order], cols=self.cols[order],
+            vals=self.vals[order], nrows=self.nrows, ncols=self.ncols,
+        )
+
     def to_csr(self) -> "CsrGraph":
         return coo_to_csr(self)
 

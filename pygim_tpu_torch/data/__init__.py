@@ -1,8 +1,10 @@
 from pygim_tpu_torch.data.datasets import (
     DATASET_SPECS,
     GraphDataset,
+    cluster_partition,
     load_dataset,
     rmat_edges,
 )
 
-__all__ = ["DATASET_SPECS", "GraphDataset", "load_dataset", "rmat_edges"]
+__all__ = ["DATASET_SPECS", "GraphDataset", "cluster_partition", "load_dataset",
+           "rmat_edges"]

@@ -5,16 +5,25 @@ each known dataset name resolves to an R-MAT graph with the published
 node count, stored edge count, feature width and class count, with
 random features, labels and a 10% train mask. The same name and seed
 give the reference's graph, features, labels and masks, array for
-array. Real-dataset loaders and the on-disk cache come in a later slice.
+array. A spec name's stand-in is cached on disk as ``<name>-sim.npz``
+under the port's cache directory (``utils/cache.py``), the reference's
+file layout; ``rmat-<n>-<e>`` names are made anew each time, as in the
+reference. Real-dataset loaders come in a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
 from pygim_tpu_torch.core.graph import CooGraph
+from pygim_tpu_torch.utils.cache import LOAD_ERRORS, cache_dir, save_npz
+
+_log = logging.getLogger("pygim_tpu_torch")
 
 # name -> (num_nodes, num_edges(directed), feat_dim, num_classes)
 DATASET_SPECS = {
@@ -87,9 +96,39 @@ def _synthesize(name: str, spec, seed=0) -> GraphDataset:
     )
 
 
-def load_dataset(name: str, *, seed: int = 0) -> GraphDataset:
+def _save_cache(ds: GraphDataset, path: Path) -> None:
+    save_npz(path, dict(
+        rows=ds.graph.rows, cols=ds.graph.cols, x=ds.x, y=ds.y,
+        train_mask=ds.train_mask, test_mask=ds.test_mask,
+        num_classes=ds.num_classes, synthetic=ds.synthetic,
+        nrows=ds.graph.nrows,
+    ))
+
+
+def _load_cache(name: str, path: Path) -> GraphDataset:
+    """The cached stand-in. As in the reference (``_load_cache``), the
+    metric is not stored, so a cached ``ogbn-proteins`` loads with
+    ``"acc"``."""
+    with np.load(path) as z:
+        n = int(z["nrows"])
+        graph = CooGraph.from_edges(
+            z["rows"], z["cols"], nrows=n, ncols=n, dtype="float32"
+        )
+        return GraphDataset(
+            name=name, graph=graph, x=z["x"], y=z["y"],
+            train_mask=z["train_mask"], test_mask=z["test_mask"],
+            num_classes=int(z["num_classes"]),
+            synthetic=bool(z["synthetic"]),
+        )
+
+
+def load_dataset(name: str, root: Optional[str] = None, *, seed: int = 0,
+                 use_cache: bool = True) -> GraphDataset:
     """The synthetic stand-in for a spec name, or ``rmat-<n>-<e>``
-    (64 features, 16 classes) for ad-hoc sizes."""
+    (64 features, 16 classes) for ad-hoc sizes. A spec name's stand-in is
+    read from ``root`` (default: the cache directory) where it was saved,
+    else synthesized and saved there; ``use_cache=False`` does neither.
+    As in the reference, the file's name holds no seed."""
     name = name.lower()
     if name.startswith("rmat-"):
         _, ns, es = name.split("-")
@@ -99,4 +138,45 @@ def load_dataset(name: str, *, seed: int = 0) -> GraphDataset:
             f"unknown dataset {name!r}; known: {sorted(DATASET_SPECS)} "
             f"or rmat-<n>-<e>"
         )
-    return _synthesize(name, DATASET_SPECS[name], seed)
+    path = Path(cache_dir() if root is None else root) / f"{name}-sim.npz"
+    if use_cache and path.exists():
+        try:
+            return _load_cache(name, path)
+        except LOAD_ERRORS as e:
+            _log.warning("dataset cache %s unreadable (%s): synthesizing "
+                         "anew", path, e)
+    ds = _synthesize(name, DATASET_SPECS[name], seed)
+    if use_cache:
+        _save_cache(ds, path)
+    return ds
+
+
+def cluster_partition(ds: GraphDataset, part_size: int, part_idx: int = 1,
+                      method: str = "none") -> GraphDataset:
+    """Partition ``part_idx`` of ``ds`` in parts of ``part_size`` nodes,
+    the reference's ``cluster_partition`` (``inference.py`` takes part 1
+    of ~500k-node parts of amazonproducts). ``method="none"``: contiguous
+    node ranges, and the edges inside one. The clustered methods (``rcm``,
+    ``lp``, ``metis``) come with ``core/cluster.py``; they raise."""
+    if method != "none":
+        raise NotImplementedError(
+            f"cluster_partition(method={method!r}): only 'none' is ported "
+            "(the clustered orders need core/cluster.py)"
+        )
+    n = ds.num_nodes
+    nparts = max(1, -(-n // part_size))
+    part_idx = min(part_idx, nparts - 1)
+    lo = part_idx * part_size
+    hi = min(n, lo + part_size)
+    g = ds.graph
+    mask = (g.rows >= lo) & (g.rows < hi) & (g.cols >= lo) & (g.cols < hi)
+    sub = CooGraph.from_edges(
+        g.rows[mask] - lo, g.cols[mask] - lo, g.vals[mask],
+        nrows=hi - lo, ncols=hi - lo,
+    )
+    sl = slice(lo, hi)
+    return GraphDataset(
+        name=f"{ds.name}-part{part_idx}", graph=sub, x=ds.x[sl], y=ds.y[sl],
+        train_mask=ds.train_mask[sl], test_mask=ds.test_mask[sl],
+        num_classes=ds.num_classes, synthetic=ds.synthetic,
+    )

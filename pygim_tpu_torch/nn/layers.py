@@ -54,12 +54,15 @@ def quantized_aggregate(aggregate: Aggregate, x, agg_dtype=None):
     (:meth:`PreparedAggregate.quantized
     <pygim_tpu_torch.ops.spmm.PreparedAggregate.quantized>`: K-tail and
     K-int, bit-identical to the round trip); a plain callable takes the
-    unfused quantize round trip."""
+    unfused quantize round trip, as does a hook that returns None (a
+    backend that does not fuse, the oracle)."""
     if agg_dtype is not None:
         name = dtype_name(agg_dtype)
         fused = getattr(aggregate, "quantized", None)
         if fused is not None and name in _SCALE_EXP:
-            return fused(x, name).to(x.dtype)
+            out = fused(x, name)
+            if out is not None:
+                return out.to(x.dtype)
     scale, x_q = symmetric_quantize(x, agg_dtype)
     out = symmetric_dequantize(aggregate(x_q), 1.0, scale)
     return out.to(x.dtype)

@@ -141,6 +141,21 @@ def tile_schedule(stair, h: int, n_blocks: int, bn: int = BN):
     return tiles, starts
 
 
+def schedule_balance(stair, h: int, n_blocks: int, bn: int = BN) -> float:
+    """The longest block's work over the mean block's in
+    :func:`tile_schedule`'s assignment of ``stair`` at width ``h`` (1.0 is
+    perfect balance), the worst over the launches of one grouped call."""
+    worst = 1.0
+    for group in band_groups(stair, h):
+        sub = [stair[b] for b in group]
+        tiles, starts = tile_schedule(sub, h, n_blocks, bn)
+        work = np.array([-(-sub[b][2] // 64) + _EPILOGUE_COST
+                         for b in tiles[:, 0]])
+        loads = np.add.reduceat(work, starts[:-1])
+        worst = max(worst, float(loads.max() / loads.mean()))
+    return worst
+
+
 def band_groups(stair, h: int):
     """The launches of one grouped call at width ``h``: the indices of the
     bands that hold cells, in order, in groups of at most

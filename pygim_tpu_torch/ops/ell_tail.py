@@ -72,6 +72,19 @@ def ell_tables_plain(x, tables, out, safe=None):
     return out
 
 
+def real_entries(tables):
+    """``(rows, cols, vals)`` of the nonzero slots of step-layout
+    ``tables`` (the entries K-tail reads), rows and cols int64."""
+    rows_l, cols_l, vals_l = [], [], []
+    for c, v, r, degree in tables:
+        keep = v.reshape(-1) != 0
+        rows_l.append(r.reshape(-1).repeat_interleave(degree)[keep])
+        cols_l.append(c.reshape(-1)[keep])
+        vals_l.append(v.reshape(-1)[keep])
+    return (torch.cat(rows_l).long(), torch.cat(cols_l).long(),
+            torch.cat(vals_l))
+
+
 def _check_payload(x, safe, out) -> None:
     if x.dtype not in PAYLOADS or x.dim() != 2:
         raise TypeError(f"x must be 2-D float32, int8, int16 or int32, got "

@@ -1,10 +1,25 @@
 """Prepare-once / run-many SpMM on one CUDA card.
 
-Counterpart of ``pygim_tpu/ops/spmm.py`` for the slice it carries: the
-``hybrid`` backend with a staircase int8 core. :func:`prepare_spmm` plans
-on the host (duplicate merge, degree rank, staircase bands, multi-degree
-ELL tail), fills the int8 bands and the ELL tables, and moves them to the
-device; :meth:`PreparedSpmm.mul` then computes ``A @ x`` as
+Counterpart of ``pygim_tpu/ops/spmm.py`` for the backends it carries:
+
+``hybrid``  a staircase int8 core plus a multi-degree ELL tail (the
+            headline path). :func:`prepare_spmm` plans on the host in
+            NumPy (duplicate merge, degree rank, staircase bands, band
+            fill, ELL tail) and moves the tables to the device. The host
+            tables of an operand on the card are cached on disk
+            (``utils/cache.py``: the reference's key and contents under
+            the port's own directory and file prefix).
+``ell``     the whole merged graph in the same multi-degree ELL tables,
+            no core: K-tail alone.
+``oracle``  the raw edges (no merge) sorted by row, through the COO
+            oracle of ``ops/reference.py`` in plain PyTorch ops.
+
+Edge values may be float32, float64 or integer. Float64 values are
+merged and fill the core in float64, as the reference's; every ELL value
+table reaches the device as float32 (K-tail's weights), where the
+reference's ``jnp.asarray`` (x64 off) casts it.
+
+The hybrid's :meth:`PreparedSpmm.mul` computes ``A @ x`` as
 
 1. ``out = zeros(N, H)``;
 2. K-tail over every ELL table into ``out``, one launch
@@ -17,24 +32,26 @@ device; :meth:`PreparedSpmm.mul` then computes ``A @ x`` as
    K-int (``ops/core_int.py``), the exact int32 product wrapped as the
    reference's, added as f32
 
-— the order of the reference's hybrid run. :meth:`PreparedSpmm.mul_quantized`
+— the order of the reference's hybrid run; ``ell`` runs step 2 alone.
+:meth:`PreparedSpmm.mul_quantized`
 is the fused quantize → aggregate → dequantize of the reference's
 ``raw_mul_quantized``. The host tables are the reference's bit for bit.
-Other backends, core shapes and dtypes (the square, bf16 and int4
-cores), bfloat16 and int64 payloads, and the prepare cache come in later
-slices; they raise.
+The ``blocked`` and ``coo`` backends, the other core shapes and dtypes
+(the square, bf16 and int4 cores) and bfloat16 and int64 payloads come
+in later slices; they raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 from typing import Optional
 
 import numpy as np
 import torch
 
-from pygim_tpu_torch.core.graph import CooGraph, merge_duplicate_edges
+from pygim_tpu_torch.core.graph import CooGraph, CsrGraph, merge_duplicate_edges
 from pygim_tpu_torch.core.partition import (
     build_ell_rows_multi,
     choose_degrees_for_config,
@@ -59,18 +76,26 @@ from pygim_tpu_torch.ops.ell_tail import (
     ell_tables_plain,
     tail_plan,
 )
+from pygim_tpu_torch.ops.reference import (
+    spmm_coo_oracle,
+    spmm_coo_oracle_chunked,
+)
 from pygim_tpu_torch.quant import _SCALE_EXP, dtype_name, quant_scale
-from pygim_tpu_torch.utils.timers import PhaseTimer
+from pygim_tpu_torch.utils.cache import LOAD_ERRORS, cache_dir, save_npz
+from pygim_tpu_torch.utils.timers import PhaseTimer, device_time
 
 _log = logging.getLogger("pygim_tpu_torch")
+
+BACKENDS = ("hybrid", "ell", "oracle")
 
 
 @dataclasses.dataclass(frozen=True)
 class SpmmConfig:
-    """Runtime configuration: the reference's fields and defaults. This
-    slice runs ``backend="hybrid"``, ``hybrid_shape="stair"``,
-    ``hybrid_dtype="int8"``, ``hybrid_k=None`` with a positive core
-    budget; :meth:`check_supported` raises on anything else."""
+    """Runtime configuration: the reference's fields and defaults. The
+    port runs ``backend="ell"``, ``backend="oracle"``, and
+    ``backend="hybrid"`` with ``hybrid_shape="stair"``,
+    ``hybrid_dtype="int8"``, ``hybrid_k=None`` and a positive core budget;
+    :meth:`check_supported` raises on anything else."""
 
     format: str = "csr"              # csr | coo
     backend: str = "blocked"         # oracle | blocked | ell | coo | hybrid
@@ -94,6 +119,15 @@ class SpmmConfig:
     oracle_edge_chunk: Optional[int] = None
 
     def check_supported(self) -> None:
+        if self.backend in ("ell", "oracle"):
+            return
+        if self.backend not in ("hybrid", "blocked", "coo"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.backend != "hybrid":
+            raise NotImplementedError(
+                f"backend {self.backend!r}: the port runs {BACKENDS} so far "
+                "('blocked' and 'coo' are not ported)"
+            )
         want = {
             "backend": "hybrid", "hybrid_shape": "stair",
             "hybrid_dtype": "int8", "hybrid_k": None,
@@ -104,8 +138,8 @@ class SpmmConfig:
             bad["hybrid_core_bytes"] = self.hybrid_core_bytes
         if bad:
             raise NotImplementedError(
-                f"pygim_tpu_torch runs only the stair-int8 hybrid so far "
-                f"({want}, hybrid_core_bytes > 0); got {bad}"
+                f"the port's hybrid backend runs only the stair-int8 core so "
+                f"far ({want}, hybrid_core_bytes > 0); got {bad}"
             )
 
 
@@ -158,6 +192,19 @@ def _plan_ell_tables(csr, config) -> "list[tuple[int, object]]":
     return [(_ell_chunk(config, t.degree), t) for t in tables]
 
 
+def _ell_host(host: dict, tables) -> None:
+    """Planned tables ``[(chunk, EllRows)]`` into the host dict under the
+    reference's keys."""
+    host["n_ell"] = np.int64(len(tables))
+    for i, (chunk, t) in enumerate(tables):
+        sfx = _ell_suffix(i)
+        host[f"degree{sfx}"] = np.int64(t.degree)
+        host[f"chunk{sfx}"] = np.int64(chunk)
+        host[f"cols2d{sfx}"] = t.cols
+        host[f"vals2d{sfx}"] = t.vals
+        host[f"vrow_to_row{sfx}"] = t.vrow_to_row
+
+
 def _finish_hybrid_tail(host, coo, config, tail_sel, pt):
     """Build the ELL tail tables for the non-core edges, in original node
     ids (only the core touches the rank order)."""
@@ -167,15 +214,7 @@ def _finish_hybrid_tail(host, coo, config, tail_sel, pt):
         rows=coo.rows[tail_sel], cols=coo.cols[tail_sel],
         vals=coo.vals[tail_sel], nrows=n, ncols=n,
     )
-    tables = _plan_ell_tables(tail.to_csr(), config)
-    host["n_ell"] = np.int64(len(tables))
-    for i, (chunk, t) in enumerate(tables):
-        sfx = _ell_suffix(i)
-        host[f"degree{sfx}"] = np.int64(t.degree)
-        host[f"chunk{sfx}"] = np.int64(chunk)
-        host[f"cols2d{sfx}"] = t.cols
-        host[f"vals2d{sfx}"] = t.vals
-        host[f"vrow_to_row{sfx}"] = t.vrow_to_row
+    _ell_host(host, _plan_ell_tables(tail.to_csr(), config))
     pt.stop("ell_tail")
 
 
@@ -249,65 +288,180 @@ def _prepare_stair_build(coo, config, rank, order, pt) -> dict:
     return host
 
 
+_CACHE_TAG = b"prep-v4-"  # the reference's layout version
+# the port's own file prefix: a fault of the port can never feed the
+# reference (``hybrid-<key>.npz``) a table, nor the reverse
+CACHE_PREFIX = "hybrid-torch-"
+
+# The devices whose hybrid operands read and write the prepare cache: the
+# card's. An operand on the CPU (the plain versions, small test graphs)
+# is built every time, so a test sees the same phases whatever ran first.
+CACHED_DEVICES = ("cuda",)
+
+
+def prepare_cache_key(coo, config) -> str:
+    """The reference's prepare-cache key of ``coo`` under ``config``
+    (``pygim_tpu/ops/spmm.py:880-907``): sha256 over the sizes, every
+    ``nnz // 64``-th row, column and value, the value dtype, the layout
+    version and the config fields; its first 16 hex digits."""
+    h = hashlib.sha256()
+    h.update(np.asarray([coo.nrows, coo.nnz]).tobytes())
+    stride = max(1, coo.nnz // 64)
+    h.update(coo.rows[::stride].tobytes())
+    h.update(coo.cols[::stride].tobytes())
+    h.update(np.ascontiguousarray(coo.vals[::stride]).tobytes())
+    h.update(str(coo.vals.dtype).encode())
+    h.update(_CACHE_TAG)
+    h.update(
+        f"{config.hybrid_k}-{config.hybrid_core_bytes}-"
+        f"{config.hybrid_dtype}-{config.ell_degree}-"
+        f"{config.ell_tables}-"
+        f"{config.block_nnz_budget}-{config.bcsr_bytes}-"
+        f"{config.bcsr_tile}-{config.bcsr_min_edges}-"
+        f"{config.bcsr_order}-{config.bcsr_layout}-"
+        f"{config.hidden_hint}".encode()
+    )
+    if config.hybrid_shape != "square":
+        h.update(f"{config.hybrid_shape}-{config.stair_max_bands}".encode())
+    return h.hexdigest()[:16]
+
+
+def gather_only(x, cols2d):
+    """The gather-only probe of :meth:`PreparedSpmm.phase_times`: each
+    step's rows of x gathered and summed into one f32 (H,) vector, no
+    weights and no scatter (the reference's scan body, 1687-1702)."""
+    acc = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+    for c in cols2d:
+        acc += x.index_select(0, c).float().sum(0)
+    return acc
+
+
 class PreparedSpmm:
     """Device-resident prepared sparse operand: ``mul(x) = A @ x``.
 
-    ``dev_arrays`` holds the tables under the reference's key names
-    (``cols2d{sfx}``, ``vals2d{sfx}``, ``vrow_to_row{sfx}``,
-    ``stair{b}``, ``core_nodes``); ``ell_meta`` is ``[(chunk, degree)]``
-    and ``stair`` is ``[(lo, hi, w)]``."""
+    ``dev_arrays`` holds the tables under the reference's key names: for
+    ``hybrid`` and ``ell``, ``cols2d{sfx}``, ``vals2d{sfx}``,
+    ``vrow_to_row{sfx}`` (``ell_meta`` is ``[(chunk, degree)]``), and for
+    ``hybrid`` also ``stair{b}`` and ``core_nodes`` (``stair`` is ``[(lo,
+    hi, w)]``); for ``oracle``, ``rows``, ``cols``, ``vals``. Edge values
+    reach the device as the reference's ``jnp.asarray`` puts them with
+    x64 off: float64 as float32, int64 as int32; the ELL value tables are
+    float32 always (K-tail's weights). The hybrid's ``prepare_timer``
+    holds its host phases; its host tables go through the prepare cache
+    on the devices of :data:`CACHED_DEVICES`."""
 
     def __init__(self, graph, config: SpmmConfig, device="cuda"):
         config.check_supported()
         self.config = config
         self.device = torch.device(device)
-        if config.merge_duplicates:
+        backend = config.backend
+        pt = PhaseTimer()
+        if config.merge_duplicates and backend != "oracle":
+            # the oracle stays raw: an independent reference must not
+            # share the prepared path's transformations
+            pt.start("merge")
             graph, _ = merge_duplicate_edges(graph)
-        coo = graph if isinstance(graph, CooGraph) else graph.to_coo()
-        if coo.nrows != coo.ncols:
-            raise ValueError("hybrid backend requires square adjacency")
-        if not np.issubdtype(coo.vals.dtype, np.floating):
-            coo = dataclasses.replace(coo, vals=coo.vals.astype(np.float32))
-        elif coo.vals.dtype != np.float32:
-            raise TypeError(
-                f"edge values must be float32 or integer, got {coo.vals.dtype}"
-            )
-        self.nrows, self.ncols, self.nnz = coo.nrows, coo.ncols, coo.nnz
-        host = self._prepare_hybrid_build(coo, config)
-        self.hybrid_k_eff = int(host["k"])
+            pt.stop("merge")
+        coo = graph if isinstance(graph, CooGraph) else None
+        csr = graph if isinstance(graph, CsrGraph) else None
+        self.nrows, self.ncols, self.nnz = graph.nrows, graph.ncols, graph.nnz
         self._dev = {}
         self.ell_meta = []
+        self.stair = None
+        self._tail_plan = None
+        self._core_plans = {}  # H -> K-core plans of the bands
+        self._int_plans = {}   # (H, limbs) -> K-int plans of the same
+        if backend == "oracle":
+            s = (coo if coo is not None else csr.to_coo()).sort_by_row()
+            self._dev = {"rows": self._put(s.rows), "cols": self._put(s.cols),
+                         "vals": self._put(s.vals, vals=True)}
+        elif backend == "ell":
+            host: dict = {}
+            _ell_host(host, _plan_ell_tables(
+                csr if csr is not None else coo.to_csr(), config))
+            self._install_ell(host)
+        else:
+            coo = coo if coo is not None else csr.to_coo()
+            if coo.nrows != coo.ncols:
+                raise ValueError("hybrid backend requires square adjacency")
+            if not np.issubdtype(coo.vals.dtype, np.floating):
+                # integer weights ride the int8 core and an f32 tail, as
+                # the reference casts them (pygim_tpu/ops/spmm.py:848)
+                coo = dataclasses.replace(coo,
+                                          vals=coo.vals.astype(np.float32))
+            self.prepare_timer = pt
+            host = self._prepare_hybrid(coo, config, pt)
+            pt.start("upload")
+            self._install_hybrid(host)
+            pt.stop("upload")
+
+    def _put(self, arr, vals: bool = False) -> torch.Tensor:
+        """``arr`` (numpy) on the operand's device; edge values (``vals``)
+        as the class docstring says."""
+        arr = np.ascontiguousarray(arr)
+        if vals and arr.dtype == np.float64:
+            arr = arr.astype(np.float32)
+        elif vals and arr.dtype == np.int64:
+            arr = arr.astype(np.int32)
+        return torch.from_numpy(arr).to(self.device)
+
+    def _prepare_hybrid(self, coo, config, pt) -> dict:
+        """The host tables: from the prepare cache where it holds them
+        (phase ``cache_load``), else built and saved there (phase
+        ``cache_save``); built alone off :data:`CACHED_DEVICES`."""
+        if self.device.type not in CACHED_DEVICES:
+            return self._prepare_hybrid_build(coo, config)
+        key = prepare_cache_key(coo, config)
+        path = cache_dir() / f"{CACHE_PREFIX}{key}.npz"
+        if path.exists():
+            pt.start("cache_load")
+            try:
+                with np.load(path) as z:
+                    host = {k: z[k] for k in z.files}
+            except LOAD_ERRORS as e:
+                _log.warning("prepare cache %s unreadable (%s): rebuilding",
+                             path, e)
+                host = None
+            pt.stop("cache_load")
+            if host is not None:
+                return host
+        host = self._prepare_hybrid_build(coo, config)
+        pt.start("cache_save")
+        save_npz(path, host)
+        pt.stop("cache_save")
+        return host
+
+    def _install_ell(self, host: dict) -> None:
+        """The ELL tables of ``host`` to the device in step layout, their
+        ``ell_meta`` and, on the card, K-tail's plan of them."""
         tail_host = []
         for i in range(int(host["n_ell"])):
             sfx = _ell_suffix(i)
             chunk = int(host[f"chunk{sfx}"])
-            tabs = ell_step_tables(
+            c, v, r = ell_step_tables(
                 host[f"cols2d{sfx}"], host[f"vals2d{sfx}"],
                 host[f"vrow_to_row{sfx}"], chunk,
             )
-            for key, arr in zip(("cols2d", "vals2d", "vrow_to_row"), tabs):
-                self._dev[key + sfx] = self._put(arr)
+            self._dev["cols2d" + sfx] = self._put(c)
+            self._dev["vals2d" + sfx] = self._put(np.asarray(v, np.float32))
+            self._dev["vrow_to_row" + sfx] = self._put(r)
             self.ell_meta.append((chunk, int(host[f"degree{sfx}"])))
-            tail_host.append(tabs[1:])
-        # K-tail's plan of the device tables (the card only)
-        self._tail_plan = None
+            tail_host.append((v, r))
         if self.device.type == "cuda":
             self._tail_plan = tail_plan(self.ell_tables(self._dev),
                                         host=tail_host)
-        self.stair = None
-        self._core_plans = {}  # H -> K-core plans of the device bands
-        self._int_plans = {}   # (H, limbs) -> K-int plans of the same
+
+    def _install_hybrid(self, host: dict) -> None:
+        self.hybrid_k_eff = int(host["k"])
+        self._install_ell(host)
         if "stair_bands" in host:
             self.stair = [tuple(int(v) for v in b) for b in host["stair_bands"]]
             for b in range(len(self.stair)):
                 self._dev[f"stair{b}"] = self._put(host[f"stair{b}"])
             self._dev["core_nodes"] = self._put(host["core_nodes"])
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-
     def _prepare_hybrid_build(self, coo, config) -> dict:
-        pt = self.prepare_timer = PhaseTimer()
+        pt = self.prepare_timer
         n = coo.nrows
         pt.start("rank")
         deg = np.bincount(coo.rows, minlength=n).astype(np.int64)
@@ -327,11 +481,23 @@ class PreparedSpmm:
         ``x``: (ncols, H) float32, int8, int16 or int32 on the operand's
         device; the result is float32 (N, H). An integer x is exact in
         the core (the reference's wrapped int32 product) and summed in
-        f32 in the tail, as the reference's ``run``."""
+        f32 in the tail, as the reference's hybrid ``run``. The oracle
+        takes any x and returns the accumulation dtype of ``ops/reference.py``."""
         return self.raw_mul(x, self._dev)
 
     def raw_mul(self, x, dev: dict):
+        if self.config.backend == "oracle":
+            return self._oracle(x, dev)
         return self._run(x, dev)
+
+    def _oracle(self, x, dev):
+        if x.dim() != 2 or x.shape[0] != self.ncols:
+            raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
+        chunk = self.config.oracle_edge_chunk
+        args = (dev["rows"], dev["cols"], dev["vals"], x, self.nrows)
+        if chunk:
+            return spmm_coo_oracle_chunked(*args, chunk)
+        return spmm_coo_oracle(*args)
 
     def ell_tables(self, dev: dict) -> list:
         """The ELL tables of ``dev`` as ``[(cols2d, vals2d, vrow_to_row,
@@ -378,6 +544,8 @@ class PreparedSpmm:
         """The same product through the plain PyTorch versions on any
         device, at H unpadded — the yardstick the kernels are held
         against."""
+        if self.config.backend == "oracle":
+            return self._oracle(x, self._dev)
         return self._run(x, self._dev, plain=True)
 
     def _kernels(self, dev: dict, plain: bool):
@@ -392,57 +560,66 @@ class PreparedSpmm:
             return self._tail, self._core, self._core_int
         return ell_tables_add, core_any_width, core_int_scatter_add
 
+    def _check_x(self, x):
+        if x.dim() != 2 or x.shape[0] != self.ncols:
+            raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
+        if x.dtype not in PAYLOADS:
+            raise TypeError(
+                f"the {self.config.backend} product takes a float32, int8, "
+                f"int16 or int32 payload, got {x.dtype} (bfloat16 and int64 "
+                "payloads are not ported)"
+            )
+
     def _run(self, x, dev, plain=False, safe=None, limbs=None):
         """``A @ x`` into a fresh float32 (N, H). An integer x, or a
         float32 x with ``safe`` (rounded to ``round(x / safe)`` in the tail
         and the core), takes the integer core with ``limbs`` (default
         :data:`RAW_LIMBS` of x's dtype)."""
-        if x.dim() != 2 or x.shape[0] != self.ncols:
-            raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
-        if x.dtype not in PAYLOADS:
-            raise TypeError(
-                f"the hybrid product takes a float32, int8, int16 or int32 "
-                f"payload, got {x.dtype} (bfloat16 and int64 payloads are "
-                "not ported)"
-            )
+        self._check_x(x)
         tail_fn, core_fn, int_fn = self._kernels(dev, plain)
-        h = x.shape[1]
-        out = torch.zeros((self.nrows, h), dtype=torch.float32,
+        out = torch.zeros((self.nrows, x.shape[1]), dtype=torch.float32,
                           device=x.device)
         if safe is None:
             tail_fn(x, self.ell_tables(dev), out)
         else:
             tail_fn(x, self.ell_tables(dev), out, safe=safe)
         if self.stair:
-            cn = dev["core_nodes"]
-            bands = [dev[f"stair{b}"] for b in range(len(self.stair))]
-            if x.dtype == torch.float32 and safe is None:
-                xc = x.index_select(0, cn).to(torch.bfloat16)
-                core_fn(bands, xc, cn, self.stair, out)
-            else:
-                xc = x.index_select(0, cn[:max(w for *_, w in self.stair)])
-                if safe is not None:
-                    xc = torch.round(xc / safe).to(torch.int32)
-                int_fn(bands, xc, cn, self.stair, out,
-                       limbs=limbs or RAW_LIMBS[xc.dtype])
+            self._core_add(x, dev, out, core_fn, int_fn, safe, limbs)
         return out
+
+    def _core_add(self, x, dev, out, core_fn, int_fn, safe=None, limbs=None):
+        """The core tier of :meth:`_run` into ``out``: the rank gather,
+        then K-core (float32 x) or K-int (integer x, or ``safe``)."""
+        cn = dev["core_nodes"]
+        bands = [dev[f"stair{b}"] for b in range(len(self.stair))]
+        if x.dtype == torch.float32 and safe is None:
+            xc = x.index_select(0, cn).to(torch.bfloat16)
+            return core_fn(bands, xc, cn, self.stair, out)
+        xc = x.index_select(0, cn[:max(w for *_, w in self.stair)])
+        if safe is not None:
+            xc = torch.round(xc / safe).to(torch.int32)
+        return int_fn(bands, xc, cn, self.stair, out,
+                      limbs=limbs or RAW_LIMBS[xc.dtype])
 
     @property
     def supports_fused_quant(self) -> bool:
-        """True: the hybrid backend folds the quantization into the
-        aggregate (:meth:`raw_mul_quantized`)."""
-        return True
+        """True where :meth:`raw_mul_quantized` folds the quantization
+        into the aggregate: the ell and hybrid backends."""
+        return self.config.backend in ("ell", "hybrid")
 
     def raw_mul_quantized(self, x, dev: dict, agg_dtype, plain=False):
         """Fused quantize → A·x → dequantize, the reference's
         ``raw_mul_quantized``: ``scale = 2·max|x| / 2^k`` on the device,
         ``q = round(x / safe)`` (a true division, half to even), the exact
-        integer core product and the f32-summed tail, then ``out * scale``.
-        int8 and int16 round x once into an (N, H) table of that dtype,
-        which both tiers read; int32 has no table (it would be as large as
-        x) and rounds inside K-tail's gather (payload mode (iii)) and on
-        the core's gathered rows. ``x`` float32; returns float32.
+        integer core product (hybrid) and the f32-summed tail, then ``out *
+        scale``. int8 and int16 round x once into an (N, H) table of that
+        dtype, which every tier reads; int32 has no table (it would be as
+        large as x) and rounds inside K-tail's gather (payload mode (iii))
+        and on the core's gathered rows. ``x`` float32; returns float32.
         ``plain`` runs the plain versions."""
+        if not self.supports_fused_quant:
+            raise ValueError(f"fused quantization unsupported for backend "
+                             f"{self.config.backend!r}")
         name = dtype_name(agg_dtype)
         if name not in _SCALE_EXP:
             raise NotImplementedError(
@@ -469,6 +646,42 @@ class PreparedSpmm:
         """:meth:`mul_quantized` through the plain versions."""
         return self.raw_mul_quantized(x, self._dev, agg_dtype, plain=True)
 
+    def phase_times(self, x, iters: int = 3) -> dict:
+        """Device times in ms of the product's phases, each timed alone
+        with CUDA events (``utils/timers.device_time``), the reference's
+        ``phase_times`` (``pygim_tpu/ops/spmm.py:1666-1773``):
+
+        * ``mul_time`` — :meth:`mul`;
+        * ``gather_time`` — :func:`gather_only` over every ELL table's
+          column steps (ell, hybrid);
+        * ``tail_time`` — K-tail alone into a zero output (ell, hybrid);
+        * ``core_time`` — the rank gather and K-core (K-int for an integer
+          x) alone into a zero output (hybrid).
+
+        The phases overlap the product's work; they are no sum of it."""
+        d = self._dev
+        out = {"mul_time(ms)": device_time(self.mul, x, iters=iters) * 1e3}
+        if self.config.backend == "oracle":
+            return out
+        self._check_x(x)
+        tables = self.ell_tables(d)
+
+        def zeros():
+            return torch.zeros((self.nrows, x.shape[1]), dtype=torch.float32,
+                               device=x.device)
+
+        out["gather_time(ms)"] = sum(
+            device_time(gather_only, x, c, iters=iters) * 1e3
+            for c, *_ in tables)
+        out["tail_time(ms)"] = device_time(
+            lambda: self._tail(x, tables, zeros()), iters=iters) * 1e3
+        if self.stair:
+            out["core_time(ms)"] = device_time(
+                lambda: self._core_add(x, d, zeros(), self._core,
+                                       self._core_int),
+                iters=iters) * 1e3
+        return out
+
 
 class PreparedAggregate:
     """Callable aggregate ``v -> A·v`` bound to a prepared operand, with
@@ -484,7 +697,11 @@ class PreparedAggregate:
 
     def quantized(self, v, agg_dtype: str):
         """Fused quantize → aggregate → dequantize
-        (:meth:`PreparedSpmm.raw_mul_quantized`)."""
+        (:meth:`PreparedSpmm.raw_mul_quantized`), or None where the
+        backend does not fuse (the caller then quantizes around the plain
+        aggregate)."""
+        if not self.prep.supports_fused_quant:
+            return None
         return self.prep.raw_mul_quantized(v, self.dev, agg_dtype)
 
 

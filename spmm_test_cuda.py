@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""SpMM micro-benchmark of the PyTorch port on one CUDA card, the twin
+of ``spmm_test.py``: the same flags and defaults, the same ``[DATA]``
+lines. ``--version spmm|grande|spmv`` prepare the single-card ``ell``
+operand (an ``sp_parts × ds_parts`` above one prints the reference's
+``[WARN] ... running single-chip``); ``--version cpu`` runs the oracle.
+A mesh that fits more than one visible card, ``--tune`` and
+``--data_type bfloat16|int64`` are not ported and raise
+``NotImplementedError``; ``--lib_path`` and ``--nr_dpus`` are accepted
+and ignored. Runs on the card; ``main(argv, device="cpu")`` runs the
+plain versions on the CPU (the tests).
+
+    python3 spmm_test_cuda.py --dataset ogbn-arxiv
+"""
+
+import argparse
+
+UNPORTED_DTYPES = ("bfloat16", "int64")
+
+
+def get_args(argv=None):
+    from pygim_tpu_torch.compat import normalize_data_type
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--dataset", type=str, default="pubmed")
+    p.add_argument("--version", type=str, default="spmm",
+                   choices=["spmm", "grande", "spmv", "cpu"])
+    p.add_argument("--sp_format", type=str, default="coo",
+                   choices=["csr", "coo"])
+    p.add_argument("--data_type", type=normalize_data_type, default="int32")
+    p.add_argument("--sp_parts", type=int, default=1)
+    p.add_argument("--ds_parts", type=int, default=1)
+    p.add_argument("--hidden_size", type=int, default=256)
+    p.add_argument("--repeat", type=int, default=3)
+    p.add_argument("--tune", action="store_true")
+    p.add_argument("--balance", type=str, default="nnz", choices=["nnz", "row"])
+    p.add_argument("--data_root", "--datadir", type=str, default=None)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--lib_path", type=str, default=None)
+    p.add_argument("--nr_dpus", type=int, default=None)
+    return p.parse_args(argv)
+
+
+def check_ported(args) -> None:
+    """Raise on the flags the port does not run yet."""
+    if args.tune:
+        raise NotImplementedError("--tune is not ported (the autotuner comes "
+                                  "with a later slice)")
+    if args.data_type in UNPORTED_DTYPES:
+        raise NotImplementedError(
+            f"--data_type {args.data_type} is not ported (int8, int16, "
+            "int32, float32 and float64 are)")
+
+
+def main(argv=None, *, device="cuda"):
+    args = get_args(argv)
+    print(args)
+    check_ported(args)
+
+    from pygim_tpu_torch.bench.runners import run_spmm_benchmark
+    from pygim_tpu_torch.compat import prepare_for_version
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops.spmm import SpmmConfig
+
+    kw = {} if args.data_root is None else {"root": args.data_root}
+    try:
+        ds = load_dataset(args.dataset, **kw)
+    except KeyError as e:
+        raise SystemExit(f"error: {e.args[0]}")
+
+    cfg = None
+    if args.version != "cpu":
+        cfg = SpmmConfig(
+            backend="ell", format=args.sp_format, balance=args.balance,
+            hidden_hint=args.hidden_size,
+        )
+
+    def prepare_fn(graph, config):
+        return prepare_for_version(
+            args.version, graph, hidden_size=args.hidden_size,
+            sp_parts=args.sp_parts, ds_parts=args.ds_parts,
+            sp_format=args.sp_format, config=config, device=device,
+        )
+
+    dtype = args.data_type if args.data_type != "float64" else "float32"
+    return run_spmm_benchmark(
+        ds, hidden=args.hidden_size, dtype=dtype, config=cfg,
+        repeat=args.repeat, prepare_fn=prepare_fn, device=device,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
-JAX package, and no file of it (or chip_smoke.py) imports either."""
+JAX package, and no file of it (or chip_smoke.py, or the entry scripts
+bench_cuda.py, spmm_test_cuda.py, inference_cuda.py) imports either."""
 
 import ast
 import os
@@ -34,6 +35,9 @@ MODULES = [
     "pygim_tpu_torch.bench",
     "pygim_tpu_torch.bench.runners",
     "pygim_tpu_torch.entry",
+    "pygim_tpu_torch.compat",
+    "pygim_tpu_torch.utils.cache",
+    "pygim_tpu_torch.utils.device",
 ]
 
 
@@ -60,7 +64,9 @@ def test_import_loads_no_jax_and_no_reference_package():
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [
+        ROOT / f for f in ("chip_smoke.py", "bench_cuda.py",
+                           "spmm_test_cuda.py", "inference_cuda.py")]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -68,7 +68,7 @@ def test_payload_exact_in_bf16_is_exact():
 
 
 @pytest.mark.parametrize("over", [
-    dict(backend="blocked"), dict(backend="ell"), dict(hybrid_shape="square"),
+    dict(backend="blocked"), dict(backend="coo"), dict(hybrid_shape="square"),
     dict(hybrid_dtype="bfloat16"), dict(hybrid_dtype="int4"),
     dict(hybrid_dtype=None), dict(hybrid_k=256), dict(hybrid_core_bytes=0),
 ])
