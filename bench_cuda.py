@@ -20,15 +20,17 @@ The environment pins of ``bench.py``: ``PYGIM_BENCH_DATASET`` (default
 ``_CORE_DTYPE`` / ``_CORE_BYTES`` / ``_CORE_SHAPE`` (any of them pins one
 candidate), ``_MEASURE_TOP`` (1), ``_ITERS`` (5) and ``_DEADLINE_S``
 (1500). Candidates go in ``bench.py``'s order, stair int8 at 8 GiB
-first. One the port cannot run yet (``NotImplementedError``) is skipped
-with a line on stderr; an out-of-memory error on the card moves to the
+first; the square int8 and int4 candidates run too. One the port cannot
+run yet (``NotImplementedError``: the bf16 cores) is skipped with a line
+on stderr; an out-of-memory error on the card moves to the
 next; any other error fails the run with no JSON line. After timing, 256
 sampled rows of the product are checked against float64 (rtol 1e-2, an
 int8 core on a float payload); a mismatch fails the run too.
 
-Progress goes to stderr: the stair bands, the tail's edges and tables,
-the core's coverage, K-core's schedule balance, the least times of
-K-core and K-tail on this operand, the prepare phases,
+Progress goes to stderr: the core's bands (a square core: its one band),
+the tail's edges and tables, the core's coverage, K-core's schedule
+balance, the least times of K-core and K-tail on this operand
+(``pygim_tpu_torch/bench/report.py:operand_info``), the prepare phases,
 the kernels' launches in the timed calls, ``phase_times``, peak host and
 card memory, and the card's name and power limit.
 
@@ -76,40 +78,6 @@ def hbm_peak_gbps(card: str) -> float:
     return peaks(card)[0] / 1e9
 
 
-def describe(prep, hidden: int, dev) -> dict:
-    """The prepared operand's shape for stderr: stair bands, tail edges
-    (the nonzero slots of the ELL tables) and step-table shapes, the
-    core's share of the merged edges; on the card also K-core's schedule
-    balance at this width and the least times of K-core and K-tail on
-    this operand (``utils/device.py``)."""
-    import torch
-
-    from pygim_tpu_torch.ops.core_dot import schedule_balance
-    from pygim_tpu_torch.ops.ell_tail import real_entries
-    from pygim_tpu_torch.utils.device import core_bound, peaks, tail_bound
-
-    tables = prep.ell_tables(prep.dev_arrays)
-    rows, cols, _vals = real_entries(tables)
-    tail = int(rows.numel())
-    info = dict(
-        bands=prep.stair, tail_edges=tail,
-        tail_tables=[[*c.shape, d] for c, _v, _r, d in tables],
-        core_coverage=(prep.nnz - tail) / max(1, prep.nnz),
-    )
-    if dev.type == "cuda":
-        pk = peaks(torch.cuda.get_device_name(dev))
-        info["tail_bound_ms"] = tail_bound(
-            tail, int(torch.unique(cols).numel()),
-            int(torch.unique(rows).numel()), hidden, pk)
-        if prep.stair:
-            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-            info["schedule_balance"] = schedule_balance(
-                prep.stair, -(-hidden // 8) * 8, n_sm)
-            info["core_bound_ms"] = core_bound(
-                [(hi - lo, w) for lo, hi, w in prep.stair], hidden, pk)
-    return info
-
-
 def main(*, device="cuda") -> dict:
     """Run the benchmark on ``device`` and print its line. Returns the
     line, the measured candidate's prepared operand (``prep``) and
@@ -118,6 +86,7 @@ def main(*, device="cuda") -> dict:
     import numpy as np
     import torch
 
+    from pygim_tpu_torch.bench.report import operand_info
     from pygim_tpu_torch.bench.runners import (
         _verify_against_oracle,
         spmm_model_bytes,
@@ -209,7 +178,7 @@ def main(*, device="cuda") -> dict:
         raise RuntimeError("bench_cuda: no candidate could be measured")
     prep = best["prep"]
 
-    best["describe"] = describe(prep, hidden, dev)
+    best["describe"] = operand_info(prep, hidden, dev)
     log(f"operand: {best['describe']}")
     best["phase_times"] = prep.phase_times(x, iters=iters)
     log(f"phase_times (ms): {best['phase_times']}")

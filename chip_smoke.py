@@ -19,18 +19,24 @@ graph's tables (the scale-tables phase); K-tail-quant on integer rows
 half-step ties, over the smoke and the scale tables, and an
 identity-table sweep of its rounding (every value within 4 ulps of each
 half step, and 2^24 random ones, held equal to ``torch.round(v /
-safe)`` for seven divisors, two of them the int32 forward's own). It
-checks
+safe)`` for seven divisors, two of them the int32 forward's own). The
+int4 modes of K-core and K-int (nibble-packed bands): ragged packed
+bands with every nibble value, at one to four limbs; the square int4
+core of the smoke graph; and a 32768 × 65536-cell int4 scale band (1 GiB
+packed) on sampled rows. It checks
 ``prep.mul`` against ``mul_plain`` at widths the kernels' tiles do not
-divide, then drives the two main paths, each with the launch counts set
-to 0 before it and read after it — 2-layer GCN inference at hidden 256 on
-the stair-int8 hybrid SpMM, on the ogbn-arxiv stand-in, through
-``run_inference_benchmark`` and ``run_spmm_benchmark`` — first with a
-float payload (K-core, K-tail), then with int32 aggregation and an int32
-SpMM (K-int, K-tail-quant), and holds both forwards' logits against the
-same forwards through the plain versions. Then it runs the flagship
-forward step, ``pygim_tpu_torch/entry.py:entry()``, on the card against
-the same step on the CPU.
+divide, then drives the three main paths, each with the launch counts
+set to 0 before it and read after it — 2-layer GCN inference at hidden
+256, on the ogbn-arxiv stand-in, through ``run_inference_benchmark`` and
+``run_spmm_benchmark`` — on the stair-int8 hybrid first with a float
+payload (K-core, K-tail), then with int32 aggregation and an int32 SpMM
+(K-int, K-tail-quant), then tracked config 4's model, the int8 GCN, on a
+square int4 core with per-layer sampled validation (K-int int4,
+K-tail-quant) and a float32 SpMM on it (K-core int4). It runs the SpMM
+on the runners' default configuration (the blocked backend), holds the
+forwards' logits against the same forwards through the plain versions,
+and runs the flagship forward step, ``pygim_tpu_torch/entry.py:entry()``,
+on the card against the same step on the CPU.
 
 Then the paths of the entry scripts, on the same stand-in: the ``ell``
 backend (``mul`` on f32 and int32 rows and the fused int32
@@ -265,29 +271,16 @@ def int_payload(rows, h, limbs, gen, dev):
 
 def int_equal(name, got, want):
     """K-int against its plain version: every product is exact, and both
-    add each f32-converted sum once into out, so the two are equal."""
+    add each f32-converted sum once into out, so the two are equal;
+    returns the max abs difference (0 when they are)."""
     import torch
 
+    err = float((got - want).abs().max()) if got.numel() else 0.0
     if not torch.equal(got, want):
         bad = (got != want).sum()
         raise AssertionError(f"{name}: {int(bad)} elements differ, max abs "
-                             f"diff {float((got - want).abs().max())}")
-
-
-def int_bound(shapes, h, limbs, peaks_):
-    """Least time of one K-int launch over bands ``(r, w)`` at width ``h``
-    and ``limbs``: the larger of its bytes over HBM (every band, the limb
-    payload ``limbs · h · max w``, the row ids, and the output rows read
-    and written, each once) and its int8 tensor operations (``limbs · 2 ·
-    r · w · h``) over the card's int8 rate."""
-    hbm, _bf16, _f32, int8 = peaks_
-    rows = sum(r for r, _w in shapes)
-    w_max = max(w for _r, w in shapes)
-    nbytes = (sum(r * w for r, w in shapes) + limbs * h * w_max + rows * 4
-              + 2 * rows * h * 4)
-    t_bytes = nbytes / hbm * 1e3
-    t_ops = limbs * sum(2 * r * w * h for r, w in shapes) / int8 * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+                             f"diff {err}")
+    return err
 
 
 def int_stair(shapes, gen, dev):
@@ -345,6 +338,7 @@ def int_checks(prep, x, results, scale_band=SCALE_BAND):
     import torch
 
     from pygim_tpu_torch.ops import core_int
+    from pygim_tpu_torch.utils.device import int_bound
 
     dev = x.device
     h = x.shape[1]
@@ -400,7 +394,7 @@ def int_checks(prep, x, results, scale_band=SCALE_BAND):
                                             torch.zeros_like(x), limbs)
         want = core_int.core_int_plain(bands, xc, cn, prep.stair,
                                        torch.zeros_like(x))
-        int_equal(f"K-int all bands L={limbs}", got, want)
+        err = int_equal(f"K-int all bands L={limbs}", got, want)
         del got, want
         plans = core_int.core_int_plans(bands, prep.stair, h, limbs)
         xct = core_int.limb_split(xc, limbs, h_pad, k_pad)
@@ -423,12 +417,12 @@ def int_checks(prep, x, results, scale_band=SCALE_BAND):
             del xw
         bound_ms, bound_by = int_bound(shapes, h, limbs, results["peaks"])
         per_l[limbs] = dict(
-            ms=ms, split_ms=split_ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, split_ms=split_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             tops=limbs * sum(2 * r * w * h for r, w in shapes) / ms * 1e-9,
         )
     # the main path's K-int is the int32 quantized aggregate: three limbs
-    results["K-int"] = dict(per_l[3], max_abs_err=0.0, limbs=per_l)
+    results["K-int"] = dict(per_l[3], limbs=per_l)
     del z
     torch.cuda.empty_cache()
 
@@ -465,6 +459,193 @@ def int_checks(prep, x, results, scale_band=SCALE_BAND):
     del band
     torch.cuda.empty_cache()
     results["K-int scale band"] = dict(shape=[r, w, h], limbs=scale)
+
+
+def packed_band(r, w, gen, dev):
+    """A random int4 band of r rows and w cells, nibble-packed (uint8 (r,
+    w // 2)), drawn on the CPU; its first bytes run through 0..255, so
+    every nibble value -8..7 sits in both halves."""
+    import torch
+
+    band = torch.randint(0, 256, (r, w // 2), generator=gen,
+                         dtype=torch.uint8)
+    n = min(256, band.numel())
+    band.view(-1)[:n] = torch.arange(n, dtype=torch.uint8)
+    return band.to(dev)
+
+
+def int4_checks(prep4, x, results, scale_band=SCALE_BAND):
+    """K-core's and K-int's int4 modes (nibble-packed bands) against their
+    plain versions: ragged packed bands (rows not a multiple of the tile,
+    widths a multiple of 32 but not of the 64-deep stage, every nibble
+    value) at one to four limbs; the square int4 core of the smoke graph
+    (``prep4``: the one band (0, k, k)) in both, K-int at one to four
+    limbs; and an int4 scale band of ``scale_band`` cells (1 GiB packed)
+    on sampled rows. K-int is held with ``torch.equal``, K-core within
+    REL_TOL of the sum of |terms|. Times on the square core: K-core (float
+    payload) and K-int at one limb (the int8 aggregate of the int8 GCN),
+    beside the bound, the plain version and the library call on the band
+    widened in memory (bf16 ``torch.matmul``, int8 ``torch._int_mm``)."""
+    import torch
+
+    from pygim_tpu_torch.ops import core_dot, core_int
+    from pygim_tpu_torch.utils.device import core_bound, int_bound
+
+    dev = x.device
+    h = x.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(12)
+    for r, w, hh in ((37, 224, 24), (300, 1312, 256), (129, 4128, 136),
+                     (1936, 2048, 40), (500, 800, 384), (64, 32, 8)):
+        band = packed_band(r, w, g, dev)
+        xc = torch.randn(w + 5, hh, generator=g).to(dev, torch.bfloat16)
+        rows = torch.randperm(3 * r, generator=g)[:r].to(dev, torch.int32)
+        out0 = torch.randn(3 * r, hh, generator=g).to(dev)
+        got = core_dot.core_band_scatter_add(band, xc, rows, out0.clone())
+        want = core_dot.core_band_plain(band, xc, rows, out0.clone())
+        mag = out0.abs().index_add(
+            0, rows, core_dot.band_cells(band).float().abs()
+            @ xc[:w].float().abs())
+        check_close(f"K-core int4 ragged {(r, w, hh)}", got, want, mag,
+                    REL_TOL)
+    for limbs in (1, 2, 3, 4):
+        for r, w, hh in ((37, 224, 41), (300, 1312, 256), (129, 4128, 100),
+                         (500, 800, 64), (290, 96, 1100)):
+            band = packed_band(r, w, g, dev)
+            xc = int_payload(w + 5, hh, limbs, g, dev)
+            rows = torch.randperm(3 * r, generator=g)[:r].to(dev, torch.int32)
+            z = torch.zeros(3 * r, hh, device=dev)
+            got = core_int.core_int_scatter_add([band], xc, rows, [(0, r, w)],
+                                                z.clone(), limbs)
+            want = core_int.core_int_plain([band], xc, rows, [(0, r, w)],
+                                           z.clone())
+            int_equal(f"K-int int4 ragged {(r, w, hh)} L={limbs}", got, want)
+
+    # a packed band that breaks the int4 width rule (w % 32) raises on
+    # the card in both wrappers: no fallback to the plain version (CPU
+    # tensors, in a rehearsal, take the plain version by design)
+    band = packed_band(64, 48, g, dev)
+    rows = torch.arange(64, dtype=torch.int32, device=dev)
+    for name, call in (
+            ("K-core", lambda: core_dot.core_band_scatter_add(
+                band, torch.zeros(48, 8, dtype=torch.bfloat16, device=dev),
+                rows, torch.zeros(64, 8, device=dev))),
+            ("K-int", lambda: core_int.core_int_scatter_add(
+                [band], torch.zeros(48, 8, dtype=torch.int8, device=dev),
+                rows, [(0, 64, 48)], torch.zeros(64, 8, device=dev), 1))):
+        if dev.type != "cuda":
+            break
+        try:
+            call()
+        except ValueError as e:
+            print(f"{name} int4, width 48: raises ({e})", flush=True)
+        else:
+            raise AssertionError(f"{name} took a packed band of width 48")
+
+    # the square int4 core of the smoke graph: one band (0, k, k)
+    d = prep4.dev_arrays
+    cn = d["core_nodes"]
+    band = d["core"]
+    (lo, r, w), = [(lo, hi - lo, w) for lo, hi, w in prep4.stair]
+    stair, rows = [(0, r, w)], cn[:r]
+    xc = x.index_select(0, cn[:w]).to(torch.bfloat16)
+    z = torch.zeros_like(x)
+    got = core_dot.core_bands_scatter_add([band], xc, rows, stair, z.clone())
+    want = core_dot.core_bands_plain([band], xc, rows, stair, z.clone())
+    cells = core_dot.band_cells(band)
+    mag = z.index_add(0, rows, cells.float().abs() @ xc.float().abs())
+    err = check_close(f"K-core int4 square core {(r, w)}", got, want, mag,
+                      REL_TOL)
+    del got, want, mag
+    plans = core_dot.core_plans([band], stair, h)
+    ms = cuda_ms(lambda: core_dot.core_bands_scatter_add(
+        [band], xc, rows, stair, z, plans=plans))
+    plain_ms = cuda_ms(lambda: core_dot.core_bands_plain(
+        [band], xc, rows, stair, z), iters=3, warmup=1)
+    wide = cells.to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: torch.matmul(wide, xc))
+    del wide
+    bound_ms, bound_by = core_bound([(r, w)], h, results["peaks"], 0.5)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    results["K-core int4"] = dict(
+        shape=[r, w, h], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+        tflops=2 * r * w * h / ms * 1e-9,
+        schedule_balance=core_dot.schedule_balance(stair, h, n_sm))
+    h_pad, k_pad = -(-h // 64) * 64, -(-w // 16) * 16
+    per_l = {}
+    for limbs in (1, 2, 3, 4):
+        xq = int_payload(w, h, limbs, g, dev)
+        got = core_int.core_int_scatter_add([band], xq, rows, stair,
+                                            torch.zeros_like(x), limbs)
+        want = core_int.core_int_plain([band], xq, rows, stair,
+                                       torch.zeros_like(x))
+        err = int_equal(f"K-int int4 square core L={limbs}", got, want)
+        del got, want
+        plans = core_int.core_int_plans([band], stair, h, limbs)
+        xct = core_int.limb_split(xq, limbs, h_pad, k_pad)
+        per_l[limbs] = dict(max_abs_err=err, ms=cuda_ms(
+            lambda: core_int.core_int_launch([band], xct, rows, stair, z,
+                                             plans)))
+        if limbs == 1:
+            per_l[1]["plain_ms"] = cuda_ms(lambda: core_int.core_int_plain(
+                [band], xq, rows, stair, z), iters=3, warmup=1)
+            per_l[1]["library_ms"] = cuda_ms(lambda: torch._int_mm(cells, xq))
+        per_l[limbs]["bound_ms"], per_l[limbs]["bound_by"] = int_bound(
+            [(r, w)], h, limbs, results["peaks"], 0.5)
+        per_l[limbs]["tops"] = limbs * 2 * r * w * h / per_l[limbs]["ms"] \
+            * 1e-9
+        del xct, plans
+    # config 4's aggregate is int8: one limb
+    results["K-int int4"] = dict(
+        per_l[1], shape=[r, w, h], limbs=per_l,
+        schedule_balance=core_int.cluster_balance(
+            stair, h, 1, core_int.max_clusters(1, dev, packed=True)))
+    del cells, z, xc
+    torch.cuda.empty_cache()
+
+    # an int4 scale band, sampled rows
+    r, w = scale_band
+    gc = torch.Generator(device=dev).manual_seed(13)
+    band = torch.randint(0, 256, (r, w // 2), generator=gc, dtype=torch.uint8,
+                         device=dev)
+    rows = torch.randperm(r, generator=gc, device=dev).to(torch.int32)
+    sel = torch.randperm(r, generator=gc, device=dev)[:256]
+    stair = [(0, r, w)]
+    xb = torch.randn(w, h, generator=gc, device=dev).to(torch.bfloat16)
+    out = torch.zeros(r, h, device=dev)
+    core_dot.core_bands_scatter_add([band], xb, rows, stair, out)
+    cells = core_dot.band_cells(band[sel])
+    serr = check_close(f"K-core int4 scale band {scale_band} (256 sampled "
+                       "rows)", out[rows[sel].long()],
+                       cells.float() @ xb.float(),
+                       cells.float().abs() @ xb.float().abs(), REL_TOL)
+    plans = core_dot.core_plans([band], stair, h)
+    scale = {"K-core": dict(
+        max_abs_err=serr, ms=cuda_ms(lambda: core_dot.core_bands_scatter_add(
+            [band], xb, rows, stair, out, plans=plans), iters=10),
+        bound=core_bound([(r, w)], h, results["peaks"], 0.5))}
+    scale["K-core"]["tflops"] = 2 * r * w * h / scale["K-core"]["ms"] * 1e-9
+    del xb, plans
+    for limbs in (1, 3, 4):
+        xq = int_payload(w, h, limbs, g, dev)
+        want = core_int.core_band_int_plain(
+            band[sel], xq, torch.arange(256, dtype=torch.int32, device=dev),
+            torch.zeros(256, h, device=dev))
+        out.zero_()
+        core_int.core_int_scatter_add([band], xq, rows, stair, out, limbs)
+        int_equal(f"K-int int4 scale band {scale_band} L={limbs} (256 "
+                  "sampled rows)", out[rows[sel].long()], want)
+        plans = core_int.core_int_plans([band], stair, h, limbs)
+        xct = core_int.limb_split(xq, limbs, h_pad, -(-w // 16) * 16)
+        ms = cuda_ms(lambda: core_int.core_int_launch(
+            [band], xct, rows, stair, out, plans), iters=10)
+        scale[f"K-int L={limbs}"] = dict(
+            ms=ms, bound=int_bound([(r, w)], h, limbs, results["peaks"], 0.5),
+            tops=limbs * 2 * r * w * h / ms * 1e-9)
+        del xq, xct, plans
+    del band, out
+    torch.cuda.empty_cache()
+    results["int4 scale band"] = dict(shape=[r, w, h], **scale)
 
 
 SCALE_GRAPH = "rmat-232965-8000000"  # reddit's node count, 8M stored edges
@@ -921,39 +1102,6 @@ def mul_any_width(prep, results, widths=(41, 1100)):
     results["mul any width"] = errs
 
 
-def profile_forward(gnn, x, agg, iters: int = 5) -> None:
-    """Device time by kernel for one inference forward (torch.profiler),
-    and the device's busy share of the forward's wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def fwd():
-        with torch.inference_mode():
-            gnn(x, agg)
-
-    wall_ms = cuda_ms(fwd, iters=iters)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fwd()
-        torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device kernels only: a host op (aten::mm, ...) carries its kernels'
-    # time as well, and only host ops have host time of their own
-    evs = [e for e in prof.key_averages()
-           if dev_us(e) > 0 and e.self_cpu_time_total == 0]
-    busy_ms = sum(dev_us(e) for e in evs) / iters / 1e3
-    print(f"profile: forward {wall_ms:.4f} ms wall, {busy_ms:.4f} ms device "
-          f"busy ({100 * busy_ms / wall_ms:.1f}%)", flush=True)
-    for e in sorted(evs, key=dev_us, reverse=True)[:25]:
-        print(f"profile: {dev_us(e) / iters / 1e3:9.4f} ms  "
-              f"{e.count // iters:4d}x  {e.key[:90]}", flush=True)
-
-
 class PlainAggregate:
     """The aggregate of ``prep`` through the plain versions: ``mul_plain``,
     and the quantized hook on ``mul_quantized_plain``."""
@@ -1317,6 +1465,14 @@ def run() -> int:
           f"stored={ds.graph.nnz} merged={prep.nnz} bands={prep.stair} "
           f"tables={prep.ell_meta}", flush=True)
 
+    t0 = time.perf_counter()
+    cfg4 = SpmmConfig(backend="hybrid", hybrid_shape="square",
+                      hybrid_dtype="int4", hybrid_core_bytes=CORE_BYTES)
+    prep4 = prepare_spmm(ds.graph, cfg4, device="cuda")
+    print(f"prepare, square int4: {time.perf_counter() - t0:.1f} s  "
+          f"k={prep4.hybrid_k_eff} bands={prep4.stair} "
+          f"tables={prep4.ell_meta}", flush=True)
+
     x = torch.randn(prep.nrows, HIDDEN,
                     generator=torch.Generator().manual_seed(0)).cuda()
     core_checks(prep, x, results)
@@ -1324,6 +1480,9 @@ def run() -> int:
         print(f"{k}: {results[k]}", flush=True)
     int_checks(prep, x, results)
     for k in ("K-int", "K-int scale band"):
+        print(f"{k}: {results[k]}", flush=True)
+    int4_checks(prep4, x, results)
+    for k in ("K-core int4", "K-int int4", "int4 scale band"):
         print(f"{k}: {results[k]}", flush=True)
     tail_checks(prep, x, results)
     print(f"K-tail: {results['K-tail']}", flush=True)
@@ -1377,8 +1536,59 @@ def run() -> int:
         if rep.records["verify"][-1] != "OK":
             raise AssertionError(f"{spmm_dtype} SpMM sampled-row check failed")
 
+    # the third main path: config 4's model, the int8 GCN, on a square
+    # int4 core, validated per layer, and a float32 SpMM on the same
+    # operand
+    reuse4 = lambda g, c: prep4  # noqa: E731
+    reset_launch_counts()
+    run_inference_benchmark(
+        ds, model="gcn", num_layers=2, hidden=HIDDEN, agg_dtype="int8",
+        config=cfg4, repeat=10, reporter=rep, prepare_fn=reuse4,
+        validate=True, device="cuda",
+    )
+    torch.cuda.synchronize()
+    n_gcn = launch_counts()
+    run_spmm_benchmark(
+        ds, hidden=HIDDEN, dtype="float32", config=cfg4, repeat=10,
+        reporter=rep, prepare_fn=reuse4, device="cuda",
+    )
+    torch.cuda.synchronize()
+    n = launch_counts()
+    print(f"main-path launches, int8 aggregation on the square int4 core: "
+          f"{n_gcn}; with the float32 SpMM: {n}", flush=True)
+    for k, got in (("K-int int4", n_gcn["K-int int4"]),
+                   ("K-tail-quant", n_gcn["K-tail-quant"]),
+                   ("K-core int4", n["K-core int4"] - n_gcn["K-core int4"])):
+        if got <= 0:
+            raise AssertionError(f"{k} was never launched on the square int4 "
+                                 "main path")
+    launches["K-int int4"] = n_gcn["K-int int4"]
+    launches["K-core int4"] = n["K-core int4"] - n_gcn["K-core int4"]
+    if rep.records["validate"][-1] != "OK":
+        raise AssertionError("int8 GCN per-layer validation failed")
+    if rep.records["verify"][-1] != "OK":
+        raise AssertionError("square int4 SpMM sampled-row check failed")
+    print(f"square int4 path: validate {rep.records['validate'][-1]}, "
+          f"agg0/agg1 max rel err {rep.records['agg0_max_rel_err'][-1]} / "
+          f"{rep.records['agg1_max_rel_err'][-1]}", flush=True)
+
+    # the runners' default configuration: the blocked backend
+    t0 = time.perf_counter()
+    run_spmm_benchmark(ds, hidden=HIDDEN, repeat=3, reporter=rep,
+                       device="cuda")
+    if rep.records["verify"][-1] != "OK":
+        raise AssertionError("blocked (default config) SpMM check failed")
+    print(f"blocked backend (config=None): verify OK, "
+          f"{rep.records['pim_time_spmm(ms)'][-1]:.4f} ms a SpMM "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     for agg_dtype, gnn in gnns.items():
         logits_check(agg_dtype or "float", gnn, xf, prep, ds.num_classes)
+    gnn8 = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
+                    num_layers=2, agg_dtype="int8", device="cuda")
+    logits_check("int8 square-int4", gnn8, xf, prep4, ds.num_classes)
+    del gnn8, prep4
+    torch.cuda.empty_cache()
 
     entry_check()
 
@@ -1398,6 +1608,8 @@ def run() -> int:
     entry_points(results)
 
     if "--profile" in sys.argv[1:]:
+        from pygim_tpu_torch.bench.report import profile_forward
+
         for agg_dtype, gnn in gnns.items():
             print(f"profile: {agg_dtype or 'float'} aggregation", flush=True)
             profile_forward(gnn, xf, PreparedAggregate(prep))
@@ -1409,7 +1621,11 @@ def run() -> int:
                "K-int": ("cuda", "pygim_tpu_torch/csrc/core_int.cu",
                          "pygim_tpu/ops/spmm.py:520"),
                "K-tail-quant": ("cuda", "pygim_tpu_torch/csrc/ell_tail.cu",
-                                "pygim_tpu/ops/spmm.py:452")}
+                                "pygim_tpu/ops/spmm.py:452"),
+               "K-core int4": ("cuda", "pygim_tpu_torch/csrc/core_dot.cu",
+                               "pygim_tpu/ops/spmm.py:586"),
+               "K-int int4": ("cuda", "pygim_tpu_torch/csrc/core_int.cu",
+                              "pygim_tpu/ops/spmm.py:538")}
     kernels = []
     for k, (route, src, repl) in sources.items():
         res = results[k]

@@ -24,9 +24,11 @@ from pygim_tpu_torch.utils.timers import device_time
 
 
 def default_config() -> SpmmConfig:
-    """The configuration this slice runs: stair-int8 hybrid."""
-    return SpmmConfig(backend="hybrid", hybrid_shape="stair",
-                      hybrid_dtype="int8")
+    """The configuration a runner prepares when given none: the
+    reference's ``SpmmConfig()`` (``pygim_tpu/bench/runners.py:73, 211``),
+    the ``blocked`` backend. A caller that wants the hybrid passes its
+    config."""
+    return SpmmConfig()
 
 
 def spmm_model_bytes(nnz: int, nrows: int, hidden: int, dtype_bytes: int = 4):
@@ -185,12 +187,18 @@ def run_inference_benchmark(
     reporter: Optional[DataReporter] = None,
     seed: int = 0,
     prepare_fn=None,
+    validate: bool = False,
     device="cuda",
 ) -> dict:
     """End-to-end GNN inference: ``infer_time(ms)`` of the model forward
     and the test accuracy of the (untrained) model. ``agg_dtype`` defaults
     to int32-quantized aggregation, as the reference's; int8 and int16
-    quantize too, and ``None`` aggregates the float payload."""
+    quantize too, and ``None`` aggregates the float payload. With
+    ``config=None`` the operand is the reference's default configuration
+    (:func:`default_config`). ``validate`` adds the per-layer sampled
+    check of every aggregate (``bench/validate.py``), which reports
+    ``agg{i}_max_rel_err`` and ``validate`` and raises ``AssertionError``
+    when a row fails."""
     rep = reporter or DataReporter()
     rep.report("data_source", "synthetic" if ds.synthetic else "real")
     rep.report("device", device_name(device))
@@ -210,6 +218,16 @@ def run_inference_benchmark(
     rep.report("edges_per_s", graph.nnz * num_layers / dt)
     logits = fwd(x).cpu().numpy()
     rep.report("test_acc", evaluate_predictions(ds, logits))
+    del logits
+    if validate:
+        from pygim_tpu_torch.bench.validate import (
+            JittedAggregate,
+            validate_inference_sampled,
+        )
+
+        if not validate_inference_sampled(graph, gnn, x, JittedAggregate(prep),
+                                          reporter=rep):
+            raise AssertionError("per-layer validation failed")
     return rep.means()
 
 

@@ -1,10 +1,12 @@
-"""ELL tail planning: fixed-degree row-ELL tables with virtual-row splitting.
+"""Host planning of the sparse operands.
 
-Counterpart of the ELL part of ``pygim_tpu/core/partition.py``. The
-hybrid SpMM's tail (the edges outside the dense core) is packed into up
-to three tables of different fixed degree D; every row lands in exactly
-one table, and rows longer than D are split into several virtual rows
-that the run path adds back into the same output row.
+Counterpart of ``pygim_tpu/core/partition.py``: the multi-degree ELL
+planner of the hybrid's tail (the edges outside the dense core, packed
+into up to three tables of different fixed degree D; every row lands in
+exactly one table, and rows longer than D are split into several virtual
+rows that the run path adds back into the same output row), the
+row-block planner of the ``blocked`` backend, and the cell rules of the
+integer cores (range check, nibble packing).
 """
 
 from __future__ import annotations
@@ -212,3 +214,153 @@ def build_ell_rows_multi(
         chunk = 1 if row_chunk_for is None else row_chunk_for(degrees[0])
         out.append(build_ell_rows(csr, degrees[0], row_chunk=chunk))
     return out
+
+
+# ---- row-block planning of the blocked backend ----------------------------
+# NumPy copies of ``pygim_tpu/core/partition.py:33-193``.
+
+
+def plan_row_blocks(rowptr: np.ndarray, n_blocks: int,
+                    balance: str = "nnz") -> np.ndarray:
+    """Row boundaries ``bounds`` (n_blocks + 1,): block b owns rows
+    ``[bounds[b], bounds[b + 1])``. ``balance='row'``: equal row counts;
+    ``'nnz'``: each boundary where the running nnz first reaches ``b ·
+    nnz / n_blocks`` (row-granular)."""
+    nrows = rowptr.shape[0] - 1
+    if n_blocks <= 0:
+        raise ValueError("n_blocks must be positive")
+    if balance == "row":
+        bounds = np.linspace(0, nrows, n_blocks + 1).round().astype(np.int64)
+    elif balance == "nnz":
+        nnz = int(rowptr[-1])
+        targets = (np.arange(1, n_blocks, dtype=np.int64) * nnz) // n_blocks
+        cuts = np.searchsorted(rowptr[1:], targets, side="left") + 1
+        bounds = np.concatenate(([0], cuts, [nrows])).astype(np.int64)
+        bounds = np.maximum.accumulate(np.minimum(bounds, nrows))
+    else:
+        raise ValueError(f"unknown balance policy {balance!r}")
+    return bounds.astype(INDEX_DTYPE)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowBlockPlan:
+    """A static row-block partition of one CSR operand: ``bounds``
+    (n_blocks + 1,), and every block padded to ``rows_pad`` rows and
+    ``nnz_pad`` entries."""
+
+    bounds: np.ndarray
+    rows_pad: int
+    nnz_pad: int
+    balance: str
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.bounds.shape[0]) - 1
+
+    @property
+    def rows_per_block(self) -> np.ndarray:
+        return np.diff(self.bounds)
+
+
+def make_row_block_plan(csr: CsrGraph, n_blocks: int, balance: str = "nnz",
+                        *, row_align: int = 8,
+                        nnz_align: int = 8) -> RowBlockPlan:
+    """:func:`plan_row_blocks` with the blocks' static paddings: the most
+    rows and the most entries of any block, rounded up to ``row_align``
+    and ``nnz_align``."""
+    bounds = plan_row_blocks(csr.rowptr, n_blocks, balance)
+    rows_per_block = np.diff(bounds)
+    nnz_per_block = csr.rowptr[bounds[1:]] - csr.rowptr[bounds[:-1]]
+    rows_pad = round_up(max(int(rows_per_block.max(initial=0)), 1), row_align)
+    nnz_pad = round_up(max(int(nnz_per_block.max(initial=0)), 1), nnz_align)
+    return RowBlockPlan(bounds=bounds, rows_pad=rows_pad, nnz_pad=nnz_pad,
+                        balance=balance)
+
+
+def row_slot_table(plan: RowBlockPlan) -> np.ndarray:
+    """Global row r → its slot in the flattened (n_blocks, rows_pad)
+    output, so one gather recovers the (nrows, H) result."""
+    nrows = int(plan.bounds[-1])
+    slot = np.empty(nrows, dtype=INDEX_DTYPE)
+    for b in range(plan.n_blocks):
+        r0, r1 = int(plan.bounds[b]), int(plan.bounds[b + 1])
+        slot[r0:r1] = b * plan.rows_pad + np.arange(r1 - r0)
+    return slot
+
+
+def with_padding(plan: RowBlockPlan, rows_pad: int,
+                 nnz_pad: int) -> RowBlockPlan:
+    """The plan with larger static capacities (one padded shape for
+    several parts)."""
+    if rows_pad < plan.rows_pad or nnz_pad < plan.nnz_pad:
+        raise ValueError("padding can only grow")
+    return dataclasses.replace(plan, rows_pad=rows_pad, nnz_pad=nnz_pad)
+
+
+@dataclasses.dataclass(frozen=True)
+class EllBlocks:
+    """Padded per-block tables: ``colind``, ``vals``, ``rowloc``
+    (n_blocks, nnz_pad) — padding entries col 0, value 0 and the block's
+    last padded row — and ``row_start`` (n_blocks,)."""
+
+    colind: np.ndarray
+    vals: np.ndarray
+    rowloc: np.ndarray
+    row_start: np.ndarray
+    rows_pad: int
+    nnz_pad: int
+    nrows: int
+    ncols: int
+
+
+def build_ell_blocks(csr: CsrGraph, plan: RowBlockPlan) -> EllBlocks:
+    """The padded block tables of ``csr`` under ``plan``: block b holds
+    the entries of its rows in CSR order, each with its block-local row."""
+    nb = plan.n_blocks
+    colind = np.zeros((nb, plan.nnz_pad), dtype=INDEX_DTYPE)
+    vals = np.zeros((nb, plan.nnz_pad), dtype=csr.vals.dtype)
+    rowloc = np.full((nb, plan.nnz_pad), plan.rows_pad - 1, dtype=INDEX_DTYPE)
+    rowptr = csr.rowptr
+    rows_of_nnz = np.repeat(np.arange(csr.nrows, dtype=np.int64),
+                            np.diff(rowptr))
+    for b in range(nb):
+        r0, r1 = int(plan.bounds[b]), int(plan.bounds[b + 1])
+        e0, e1 = int(rowptr[r0]), int(rowptr[r1])
+        k = e1 - e0
+        colind[b, :k] = csr.colind[e0:e1]
+        vals[b, :k] = csr.vals[e0:e1]
+        rowloc[b, :k] = rows_of_nnz[e0:e1] - r0
+    return EllBlocks(
+        colind=colind, vals=vals, rowloc=rowloc,
+        row_start=plan.bounds[:-1].astype(INDEX_DTYPE),
+        rows_pad=plan.rows_pad, nnz_pad=plan.nnz_pad,
+        nrows=csr.nrows, ncols=csr.ncols,
+    )
+
+
+# ---- integer core cells (the hybrid's int8 and packed int4 cores) ---------
+
+
+def int_demote_slab(slab: np.ndarray, core_dtype: str):
+    """Round a float core slab to the exact-integer range of
+    ``core_dtype`` ([-128, 127] for int8, [-8, 7] for int4). Cells that
+    are not an integer in the range are zeroed; returns ``(rounded,
+    bad_flat)``, ``bad_flat`` their row-major flat indices (int64), so the
+    caller demotes their edges to the exact tail
+    (``pygim_tpu/core/partition.py:531-552``)."""
+    hi = 127 if core_dtype == "int8" else 7
+    r = np.round(slab)
+    bad = (r > hi) | (r < -hi - 1) | (r != slab)
+    if not bad.any():
+        return r, np.empty(0, dtype=np.int64)
+    br, bc = np.nonzero(bad)
+    return np.where(bad, 0.0, r), br.astype(np.int64) * slab.shape[1] + bc
+
+
+def pack_nibbles(slab: np.ndarray) -> np.ndarray:
+    """Nibble-pack an integer-valued slab of even width column-pairwise:
+    byte j holds cells (2j, 2j + 1), the low nibble the even column
+    (``pygim_tpu/core/partition.py:555-560``)."""
+    lo = slab[:, 0::2].astype(np.int8).astype(np.uint8) & 0xF
+    hi = slab[:, 1::2].astype(np.int8).astype(np.uint8) & 0xF
+    return lo | (hi << 4)

@@ -1,25 +1,34 @@
-// K-core: int8 staircase bands x bf16 payload, f32 accumulate, scatter-add,
-// all bands of one SpMM in one persistent launch.
+// K-core: integer hub-core bands (int8, or int4 nibble-packed two cells a
+// byte) x bf16 payload, f32 accumulate, scatter-add, all bands of one SpMM
+// in one persistent launch.
 //
 // Replaces the TPU kernel pygim_tpu/ops/pallas_core.py:_dequant_core_dot
 // (bf16(int8 core) @ bf16(x), f32 accumulation) together with the XLA
 // scatter of its product, out.at[core_nodes[lo:hi]].add(...) in
-// pygim_tpu/ops/spmm.py:_core_scatter. For every band b = (lo, hi, w) it
+// pygim_tpu/ops/spmm.py:_core_scatter, and in its int4 mode the packed
+// branch of _core_matmul (pygim_tpu/ops/spmm.py:586-597: the nibble planes
+// of _nibble_halves, dot(lo, x[0::2]) + dot(hi, x[1::2]) in bf16 with f32
+// accumulation, which is one product of the unpacked band with x). A square
+// core is the one band (0, k, k). For every band b = (lo, hi, w) it
 // computes
 //
 //     out[nodes[lo + i], :] += sum_{j < w} f32(band_b[i, j]) * f32(xc[j, :])
 //
-// with band_b int8 (hi - lo, w) row-major, xc bf16 (>= w, h) row-major,
+// with band_b int8 (hi - lo, w) row-major (int4 mode: uint8 (hi - lo, w / 2),
+// byte j of a row holding cells 2j in its low nibble and 2j + 1 in its high
+// one, each two's complement in [-8, 7]), xc bf16 (>= w, h) row-major,
 // nodes int32 (distinct over all bands: the staircase bands tile disjoint
 // row ranges, so every output element belongs to exactly one tile and a
 // whole tile needs no atomics), out f32 (N, h) row-major. Contract (the wrapper
-// checks it): w % 16 == 0 (the TMA row stride is w bytes), h % 8 == 0,
+// checks it): w % 16 == 0 (the TMA row stride is w bytes; int4: w % 32 == 0,
+// the stride w / 2 bytes), h % 8 == 0,
 // 16-byte aligned operands, at most MAX_BANDS bands per launch (the wrapper
 // launches once per group of MAX_BANDS bands).
 //
 // What bounds it on an H100 SXM: 2*r*w*h operations against r*w bytes of
-// int8 band, i.e. 2*h = 512 operations per band byte at h = 256, above the
-// card's ~295 bf16 operations per HBM byte: the bf16 tensor-core rate.
+// int8 band, i.e. 2*h = 512 operations per band byte at h = 256 (1024 for
+// int4), above the card's ~295 bf16 operations per HBM byte: the bf16
+// tensor-core rate.
 //
 // What the design does about it:
 // - wgmma (m64n256k16, bf16 in, f32 accumulate) is the only instruction
@@ -29,7 +38,14 @@
 // - A comes from registers: each consumer thread reads its fragment's
 //   int8 bytes from shared memory and widens them to bf16 with byte
 //   permutes and one f32 add per value (exact for |v| <= 128; the band is
-//   never widened in memory). B (xc) is read by wgmma straight from
+//   never widened in memory). In the int4 mode a stage's A box is 32 bytes
+//   of 128 rows, unswizzled (a thread reads its two rows whole with two
+//   16-byte loads: the eight threads of a load phase read two rows, 32
+//   bytes apart, so no bank conflicts); one packed byte is the pair of
+//   neighbouring k values that one bf16x2 fragment register holds, so a
+//   register is one byte, its nibbles spread to the two halves as
+//   136 + v in bf16 (0x4308 ^ nibble) less 136: exact, no table. B (xc)
+//   is read by wgmma straight from
 //   shared memory in its own row-major (K, N) layout, i.e. MN-major with
 //   the transpose bit, 128-byte swizzled by TMA.
 // - One producer thread keeps a 4-stage ring of TMA loads in flight
@@ -58,6 +74,7 @@ constexpr int BK = 64;              // contraction per ring stage
 constexpr int STAGES = 4;
 constexpr int THREADS = 384;        // consumer WG 0, 1; producer WG 2
 constexpr int A_STAGE = BM * BK;                // int8, 64-byte swizzle
+constexpr int A_PACKED = BM * BK / 2;           // int4 stage, unswizzled
 constexpr int B_BOX = 64 * BK * 2;              // 64 columns x BK rows bf16
 constexpr int B_STAGE = (BN / 64) * B_BOX;      // 128-byte swizzle
 constexpr int EPI_LD = 72;                      // f32 row stride of staging
@@ -150,6 +167,40 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const uint8_t* As,
   }
 }
 
+// One packed byte (bits 0-7 of b: cells 2j, 2j + 1) -> bf16x2, the even
+// cell in the lower half. Each half becomes 0x4300 | (nibble ^ 8), which
+// is 136 + v in bf16 for the nibble's value v in [-8, 7]; one bf16x2 FMA
+// takes 136 off, exactly.
+__device__ __forceinline__ uint32_t nib2_to_bf16x2(uint32_t b) {
+  const uint32_t t = ((b | (b << 12)) & 0x000F000Fu) ^ 0x43084308u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(d)
+      : "r"(t), "r"(0x3F803F80u), "r"(0xC308C308u));  // t * 1 - 136
+  return d;
+}
+
+// load_a for a packed stage (32 bytes a row, unswizzled): a[s] = {row g,
+// cells 16s + 2t4..+1}, {row g+8, same}, {row g, cells 16s + 8 + 2t4..+1},
+// {row g+8, same}, i.e. byte t4 of the row's 32-bit words 2s and 2s + 1
+__device__ __forceinline__ void load_a_packed(uint32_t (&a)[4][4],
+                                              const uint8_t* As, int ra,
+                                              int sh) {
+  const uint4* r0 = reinterpret_cast<const uint4*>(As + ra * (BK / 2));
+  const uint4* r1 = reinterpret_cast<const uint4*>(As + (ra + 8) * (BK / 2));
+  const uint4 p0 = r0[0], p1 = r0[1], q0 = r1[0], q1 = r1[1];
+  const uint32_t w0[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+  const uint32_t w1[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    a[s][0] = nib2_to_bf16x2((w0[2 * s] >> sh) & 0xFF);
+    a[s][1] = nib2_to_bf16x2((w1[2 * s] >> sh) & 0xFF);
+    a[s][2] = nib2_to_bf16x2((w0[2 * s + 1] >> sh) & 0xFF);
+    a[s][3] = nib2_to_bf16x2((w1[2 * s + 1] >> sh) & 0xFF);
+  }
+}
+
+template <bool PACKED>
 __global__ void __launch_bounds__(THREADS, 1)
 core_bands_kernel(const __grid_constant__ Params p,
                   const int* __restrict__ tiles,
@@ -190,8 +241,9 @@ core_bands_kernel(const __grid_constant__ Params p,
         for (int k0 = 0; k0 < p.w[b]; k0 += BK) {
           const uint32_t full = full0 + 8 * stage;
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
-          mbar_expect_tx(full, A_STAGE + nbox * B_BOX);
-          tma_load_2d(s_base + OFF_A + stage * A_STAGE, amap, k0, m0, full);
+          mbar_expect_tx(full, (PACKED ? A_PACKED : A_STAGE) + nbox * B_BOX);
+          tma_load_2d(s_base + OFF_A + stage * A_STAGE, amap,
+                      PACKED ? k0 / 2 : k0, m0, full);
           for (int j = 0; j < nbox; ++j)
             tma_load_2d(s_base + OFF_B + stage * B_STAGE + j * B_BOX, &p.xc,
                         n0 + 64 * j, k0, full);
@@ -213,6 +265,7 @@ core_bands_kernel(const __grid_constant__ Params p,
     const int swz = (ra >> 1) & 3;  // 64-byte swizzle: chunk ^= bits 7..8
     const int a_off0 = ra * BK + 2 * t4;
     const int a_off1 = a_off0 + 8 * BK;
+    const int sh = 8 * t4;  // int4: this thread's byte of each word
     float* epi = reinterpret_cast<float*>(smem + OFF_EPI + wg * EPI_WG);
     int stage = 0;
     uint32_t phase = 0;
@@ -229,7 +282,10 @@ core_bands_kernel(const __grid_constant__ Params p,
       // wait_group has retired it.
       uint32_t a[4][4], a_next[4][4];
       mbar_wait(full0 + 8 * stage, phase);
-      load_a(a, smem + OFF_A + stage * A_STAGE, a_off0, a_off1, swz);
+      if constexpr (PACKED)
+        load_a_packed(a, smem + OFF_A + stage * A_STAGE, ra, sh);
+      else
+        load_a(a, smem + OFF_A + stage * A_STAGE, a_off0, a_off1, swz);
       for (int k0 = 0; k0 < w; k0 += BK) {
         const uint64_t desc = b_desc(s_base + OFF_B + stage * B_STAGE);
         asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -252,7 +308,11 @@ core_bands_kernel(const __grid_constant__ Params p,
         }
         if (k0 + BK < w) {
           mbar_wait(full0 + 8 * next, next_phase);
-          load_a(a_next, smem + OFF_A + next * A_STAGE, a_off0, a_off1, swz);
+          if constexpr (PACKED)
+            load_a_packed(a_next, smem + OFF_A + next * A_STAGE, ra, sh);
+          else
+            load_a(a_next, smem + OFF_A + next * A_STAGE, a_off0, a_off1,
+                   swz);
         }
         asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
         if (lane == 0) mbar_arrive(empty0 + 8 * stage);
@@ -316,18 +376,23 @@ core_bands_kernel(const __grid_constant__ Params p,
 
 }  // namespace
 
-// Encode the TMA map of one int8 band (r, w) into `map` (128 bytes of host
-// memory). Returns 0 or an error code.
+// Encode the TMA map of one band of r rows of `row_bytes` bytes into `map`
+// (128 bytes of host memory): int8 cells in boxes of 128 rows x 64 bytes,
+// 64-byte swizzle; packed int4 (`packed`) in boxes of 128 rows x 32 bytes,
+// unswizzled. Returns 0 or an error code.
 extern "C" int core_encode_band_map(void* map, const void* band, long long r,
-                                    long long w) {
+                                    long long row_bytes, int packed) {
   CUtensorMap m;
-  const int err = encode_2d(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, band, w, r, w,
-                            BK, BM, CU_TENSOR_MAP_SWIZZLE_64B);
+  const int err = encode_2d(
+      &m, CU_TENSOR_MAP_DATA_TYPE_UINT8, band, row_bytes, r, row_bytes,
+      packed ? BK / 2 : BK, BM,
+      packed ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_64B);
   if (err == 0) memcpy(map, &m, sizeof m);
   return err;
 }
 
-// One launch over all bands: `band_maps` holds n_bands encoded maps (host),
+// One launch over all bands, all int8 or all packed int4 (`packed`):
+// `band_maps` holds n_bands encoded maps (host),
 // `band_info` (lo, r, w) per band (host); `tiles` (int32 triples: band,
 // m0, n0) and `starts` (grid + 1 offsets into tiles, one segment per block) are on
 // the device. Returns 0 or an error code (cudaError_t, or the codes above).
@@ -336,7 +401,7 @@ extern "C" int core_bands_scatter_add(const void* band_maps,
                                       const void* xc, long long n_xc,
                                       const void* tiles, const void* starts,
                                       int grid, const void* nodes, void* out,
-                                      int h, void* stream) {
+                                      int h, int packed, void* stream) {
   if (n_bands < 1 || n_bands > MAX_BANDS || grid < 1 || h % 8) return ERR_ARGS;
   Params p;
   memset(&p, 0, sizeof p);
@@ -349,12 +414,11 @@ extern "C" int core_bands_scatter_add(const void* band_maps,
   int err = encode_2d(&p.xc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xc, h, n_xc,
                       2ll * h, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
+  auto kernel = packed ? core_bands_kernel<true> : core_bands_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      core_bands_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  core_bands_kernel<<<grid, THREADS, SMEM_BYTES,
-                      static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const int*>(tiles), static_cast<const int*>(starts),
       static_cast<const int*>(nodes), static_cast<float*>(out), h);
   return static_cast<int>(cudaGetLastError());

@@ -1,12 +1,16 @@
-// K-int: int8 staircase bands x integer payload, exact int32 product
-// (mod 2^32), scatter-added as f32, all bands of one SpMM in one persistent
-// launch.
+// K-int: integer hub-core bands (int8, or int4 nibble-packed two cells a
+// byte) x integer payload, exact int32 product (mod 2^32), scatter-added as
+// f32, all bands of one SpMM in one persistent launch.
 //
 // Replaces the XLA bodies of pygim_tpu/ops/spmm.py:_core_matmul's s8 branch
 // (dot(int8 band, int8 xc) -> int32, :598-600) and _wide_int_core_dot
 // (:520-568, the wrapped int32 product of an int8 band with an int16 or
 // int32 payload), with the scatter of _core_scatter
-// (out.at[core_nodes[lo:hi]].add(f32(P))). For every band b = (lo, hi, w):
+// (out.at[core_nodes[lo:hi]].add(f32(P))); in its int4 mode the packed (uint8)
+// branches of both (:538-541, 551-555, 586-597: the nibble planes of
+// _nibble_halves, dot(lo, q[0::2]) + dot(hi, q[1::2]) in s8 or wrapped int32,
+// which is one product of the unpacked band with q). A square core is the one
+// band (0, k, k). For every band b = (lo, hi, w):
 //
 //     P[i, :] = sum_{j < w} band_b[i, j] * q[j, :]      (int32, wraps)
 //     out[nodes[lo + i], :] += f32(P[i, :])
@@ -21,7 +25,9 @@
 // break that.
 //
 // Contract (the wrapper checks it): band widths w % 16 == 0 (the TMA row
-// stride is w bytes), h_pad % 64 == 0, k_pad % 16 == 0, 16-byte aligned
+// stride is w bytes; int4: w % 32 == 0, w / 2 bytes a row, byte j holding
+// cells 2j (low nibble) and 2j + 1, two's complement in [-8, 7]),
+// h_pad % 64 == 0, k_pad % 16 == 0 (k_pad counts cells), 16-byte aligned
 // bands and xcT, at most MAX_BANDS bands a launch; any h (16-byte stores
 // where vec is set: h % 4 == 0 and out 16-byte aligned).
 //
@@ -37,7 +43,14 @@
 // - wgmma m64nNk32 .s32.s8.s8, both operands K-major from shared memory
 //   (an 8-bit wgmma has no transpose, hence the K-major xcT); the band is
 //   read by TMA as stored (row-major (r, w) is K-major already), never
-//   widened.
+//   widened. The int4 mode reads its band box (128 rows x 32 bytes,
+//   unswizzled) into registers instead: a thread reads its two rows whole
+//   (two 16-byte loads each), and each register of the s8 A fragment (four
+//   neighbouring k values, two packed bytes) is one byte permute, two
+//   masks and a multiply-or that sign-extends the four nibbles, once a
+//   stage for all limbs; the wgmma takes A from registers (the RS form).
+//   It keeps one stage's wgmmas in flight while the next stage's fragments
+//   are unpacked, as K-core does.
 // - The limbs lie along N in blocks of 64 columns: block g * L + l holds
 //   limb l of the tile's output columns 64g..64g + 63. One B stage carries
 //   every limb of the tile, A is read once for all limbs, and wgmma's
@@ -90,6 +103,7 @@ constexpr int THREADS = 384;      // consumer WG 0, 1; producer WG 2
 constexpr int CONSUMER_WARPS = 8;
 constexpr int STAGES = 6;
 constexpr int A_STAGE = BM * BK;  // int8, 64-byte swizzle
+constexpr int A_PACKED = BM * BK / 2;  // int4 stage, unswizzled
 constexpr int B_STAGE = 256 * BK; // up to N = 256 rows (n) x BK int8
 constexpr int EPI_LD = 72;          // f32 row stride of staging
 constexpr int EPI_WG = 64 * EPI_LD * 4;
@@ -258,7 +272,95 @@ __device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db) {
     wgmma_s8_n192(d, da, db);
 }
 
-template <int L>
+#define R8(i)                                                          \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),          \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d[64 x 256] (s32) += A[64 x 32] (registers, s8) @ B[32 x 256] (shared,
+// s8, K-major); integer products wrap mod 2^32
+__device__ __forceinline__ void wgmma_s8_rs_n256(int* d, const uint32_t* a,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p;\n"
+      "}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56), R8(64), R8(72), R8(80), R8(88), R8(96), R8(104), R8(112), R8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 192] (s32) += A[64 x 32] (registers, s8) @ B[32 x 192] (shared,
+// s8, K-major); integer products wrap mod 2^32
+__device__ __forceinline__ void wgmma_s8_rs_n192(int* d, const uint32_t* a,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95},"
+      " {%96, %97, %98, %99}, %100, p;\n"
+      "}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56), R8(64), R8(72), R8(80), R8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef R8
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(int* d, const uint32_t* a,
+                                            uint64_t db) {
+  if constexpr (N == 256)
+    wgmma_s8_rs_n256(d, a, db);
+  else
+    wgmma_s8_rs_n192(d, a, db);
+}
+
+// Two packed bytes (cells c0..c3, the first byte's low nibble c0) in the
+// low half of x, after a byte permute that doubles each byte: four s8
+// cells, c0 in the lowest byte. Each byte takes its nibble (0..15), and a
+// set bit 3 ORs in 0xF0 (8 * 0x1E), the nibble's sign extension.
+__device__ __forceinline__ uint32_t nib4_to_s8x4(uint32_t x, uint32_t sel) {
+  const uint32_t t = __byte_perm(x, 0, sel);  // bytes b0, b0, b1, b1
+  const uint32_t y = (t & 0x000F000Fu) | ((t >> 4) & 0x0F000F00u);
+  return y | ((y & 0x08080808u) * 0x1Eu);
+}
+
+// This thread's s8 A fragments of one packed stage (32 bytes a row,
+// unswizzled) for its two k32 steps: a[s] = {row g, cells 32s + 4t4..+3},
+// {row g+8, same}, {row g, cells 32s + 16 + 4t4..+3}, {row g+8, same}, i.e.
+// half t4 % 2 of 32-bit word t4 / 2 (and 2 + t4 / 2) of the row's 16 bytes
+// of step s (`hi_word`: t4 / 2; `sel`: the permute of half t4 % 2)
+__device__ __forceinline__ void load_a_s8(uint32_t (&a)[2][4],
+                                          const uint8_t* As, int ra,
+                                          bool hi_word, uint32_t sel) {
+  const uint4* r0 = reinterpret_cast<const uint4*>(As + ra * (BK / 2));
+  const uint4* r1 = reinterpret_cast<const uint4*>(As + (ra + 8) * (BK / 2));
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const uint4 p = r0[s], q = r1[s];
+    a[s][0] = nib4_to_s8x4(hi_word ? p.y : p.x, sel);
+    a[s][1] = nib4_to_s8x4(hi_word ? q.y : q.x, sel);
+    a[s][2] = nib4_to_s8x4(hi_word ? p.w : p.z, sel);
+    a[s][3] = nib4_to_s8x4(hi_word ? q.w : q.z, sel);
+  }
+}
+
+template <int L, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 1)
 core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles,
                 const int* __restrict__ starts, const int* __restrict__ nodes,
@@ -318,7 +420,8 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
         const int4 tile = tiles[t * CM + rank];  // band, m0, n0, live
         const int b = tile.x, m0 = tile.y, n0 = tile.z;
         // rows wholly past the band's end are not loaded (never stored)
-        const uint32_t a_bytes = m0 < p.r[b] ? A_STAGE : 0;
+        const uint32_t a_bytes =
+            m0 < p.r[b] ? (PACKED ? A_PACKED : A_STAGE) : 0;
         const int nq = max(0, min(G, (h - n0 + 63) / 64)) * L;
         const uint32_t b_bytes = nq * B_ROWS * BK;
         // block q = g * L + l of the limb stage: limb l of output columns
@@ -343,7 +446,8 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
             mbar_expect_tx(full, a_bytes + b_bytes);
           }
           if (a_bytes)
-            tma_load_2d(s_base + OFF_A + stage * A_STAGE, amap, k0, m0, full);
+            tma_load_2d(s_base + OFF_A + stage * A_STAGE, amap,
+                        PACKED ? k0 / 2 : k0, m0, full);
 #pragma unroll
           for (int q = 0; q < G * L; ++q) {
             if (q >= nq) break;
@@ -382,37 +486,72 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
 #pragma unroll
       for (int i = 0; i < NACC; ++i) acc[i] = 0;
 
-      int held = -1;  // the stage whose wgmmas may still run
-      for (int k0 = 0; k0 < w; k0 += BK) {
-        wait_or_trap(full0 + 8 * stage, phase);
-        const uint64_t da =
-            kmajor_desc(s_base + OFF_A + stage * A_STAGE + wg * 64 * BK);
-        const uint64_t db = kmajor_desc(s_base + OFF_B + stage * B_STAGE);
-        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-        wgmma_s8<N>(acc, da, db);
-        wgmma_s8<N>(acc, da + 2, db + 2);  // the second 32 bytes of k
-        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-        // the previous stage's group has retired: its stage is free
-        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      // the stage whose wgmmas may still run is released once they retire
+      int held = -1;
+      auto release_held = [&]() {
         if (held >= 0 && signals) {
           if constexpr (CLUSTER)
             arrive_at(empty_k + 8 * held);
           else
             mbar_arrive(empty0 + 8 * held);
         }
-        held = stage;
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
+      };
+      if constexpr (PACKED) {
+        // A from registers, in two sets: a stage's wgmmas read one while
+        // the next stage is unpacked into the other; one group in flight
+        const int ra = 64 * wg + 16 * warp + g8;
+        const bool hi_word = t4 >> 1;
+        const uint32_t sel = (t4 & 1) ? 0x3322u : 0x1100u;
+        uint32_t a0[2][4], a1[2][4];
+        // the stage at k0 on `cur`; once the stage before it has retired,
+        // its smem is released and `nxt` (which it read) takes k0 + BK
+        auto step = [&](uint32_t (&cur)[2][4], uint32_t (&nxt)[2][4],
+                        int k0) {
+          const uint64_t db = kmajor_desc(s_base + OFF_B + stage * B_STAGE);
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+          wgmma_s8_rs<N>(acc, cur[0], db);
+          wgmma_s8_rs<N>(acc, cur[1], db + 2);  // the second 32 cells of k
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+          release_held();
+          held = stage;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+          if (k0 + BK < w) {
+            wait_or_trap(full0 + 8 * stage, phase);
+            load_a_s8(nxt, smem + OFF_A + stage * A_STAGE, ra, hi_word, sel);
+          }
+        };
+        wait_or_trap(full0 + 8 * stage, phase);
+        load_a_s8(a0, smem + OFF_A + stage * A_STAGE, ra, hi_word, sel);
+        for (int k0 = 0; k0 < w; k0 += 2 * BK) {
+          step(a0, a1, k0);
+          if (k0 + BK < w) step(a1, a0, k0 + BK);
+        }
+      } else {  // A from shared memory, as stored
+        for (int k0 = 0; k0 < w; k0 += BK) {
+          wait_or_trap(full0 + 8 * stage, phase);
+          const uint64_t da =
+              kmajor_desc(s_base + OFF_A + stage * A_STAGE + wg * 64 * BK);
+          const uint64_t db = kmajor_desc(s_base + OFF_B + stage * B_STAGE);
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+          wgmma_s8<N>(acc, da, db);
+          wgmma_s8<N>(acc, da + 2, db + 2);  // the second 32 bytes of k
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+          // the previous stage's group has retired: its stage is free
+          asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+          release_held();
+          held = stage;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      if (held >= 0 && signals) {
-        if constexpr (CLUSTER)
-          arrive_at(empty_k + 8 * held);
-        else
-          mbar_arrive(empty0 + 8 * held);
-      }
+      release_held();
       if (!tile.w) continue;  // rows past the band
 
       // ---- epilogue: out[nodes[lo + row], n0 + col] += f32(P) ----
@@ -507,28 +646,28 @@ struct Launch {
   }
 };
 
-template <int L>
+template <int L, bool PACKED>
 int max_clusters(int* n) {
   cudaError_t e = cudaFuncSetAttribute(
-      core_int_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      core_int_kernel<L, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
   Launch<L> l(1, nullptr);
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(n, core_int_kernel<L>, &l.cfg));
+      cudaOccupancyMaxActiveClusters(n, core_int_kernel<L, PACKED>, &l.cfg));
 }
 
-template <int L>
+template <int L, bool PACKED>
 int launch(const Params& p, const void* tiles, const void* starts,
            int n_clusters, const void* nodes, void* out, int h, int h_pad,
            int vec, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      core_int_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      core_int_kernel<L, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
   Launch<L> l(n_clusters, stream);
   if (cluster_rows(L) == 1) l.cfg.numAttrs = 0;  // single blocks
-  e = cudaLaunchKernelEx(&l.cfg, core_int_kernel<L>, p,
+  e = cudaLaunchKernelEx(&l.cfg, core_int_kernel<L, PACKED>, p,
                          static_cast<const int4*>(tiles),
                          static_cast<const int*>(starts),
                          static_cast<const int*>(nodes),
@@ -537,24 +676,50 @@ int launch(const Params& p, const void* tiles, const void* starts,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// The most clusters (cluster_rows(limbs) blocks each) of the `limbs`
-// kernel the current card runs at once, into *n. Returns 0 or an error
-// code.
-extern "C" int core_int_max_clusters(int limbs, int* n) {
+template <bool PACKED>
+int max_clusters_of(int limbs, int* n) {
   switch (limbs) {
     case 1:
-      return max_clusters<1>(n);
+      return max_clusters<1, PACKED>(n);
     case 2:
-      return max_clusters<2>(n);
+      return max_clusters<2, PACKED>(n);
     case 3:
-      return max_clusters<3>(n);
+      return max_clusters<3, PACKED>(n);
     case 4:
-      return max_clusters<4>(n);
+      return max_clusters<4, PACKED>(n);
     default:
       return ERR_ARGS;
   }
+}
+
+template <bool PACKED>
+int launch_of(const Params& p, int limbs, const void* tiles,
+              const void* starts, int n_clusters, const void* nodes,
+              void* out, int h, int h_pad, int vec, cudaStream_t s) {
+  switch (limbs) {
+    case 1:
+      return launch<1, PACKED>(p, tiles, starts, n_clusters, nodes, out, h,
+                               h_pad, vec, s);
+    case 2:
+      return launch<2, PACKED>(p, tiles, starts, n_clusters, nodes, out, h,
+                               h_pad, vec, s);
+    case 3:
+      return launch<3, PACKED>(p, tiles, starts, n_clusters, nodes, out, h,
+                               h_pad, vec, s);
+    default:
+      return launch<4, PACKED>(p, tiles, starts, n_clusters, nodes, out, h,
+                               h_pad, vec, s);
+  }
+}
+
+}  // namespace
+
+// The most clusters (cluster_rows(limbs) blocks each) of the `limbs`
+// kernel (its int4 mode where `packed`) the current card runs at once, into
+// *n. Returns 0 or an error code.
+extern "C" int core_int_max_clusters(int limbs, int packed, int* n) {
+  return packed ? max_clusters_of<true>(limbs, n)
+                : max_clusters_of<false>(limbs, n);
 }
 
 // One launch over all bands: `band_maps` holds n_bands maps encoded by
@@ -564,13 +729,16 @@ extern "C" int core_int_max_clusters(int limbs, int* n) {
 // live flag per cluster tile, in cluster-rank order) and `starts`
 // (n_clusters + 1 offsets into the cluster tiles, one segment per
 // cluster) are on the device. vec: h % 4 == 0 and out 16-byte aligned.
+// packed: the bands are int4, nibble-packed (core_encode_band_map's packed
+// maps).
 // Returns 0 or an error code (cudaError_t, or the codes of tma.cuh).
 extern "C" int core_int_scatter_add(const void* band_maps, const int* band_info,
                                     int n_bands, const void* xct,
                                     long long k_pad, int h_pad, int limbs,
                                     const void* tiles, const void* starts,
                                     int n_clusters, const void* nodes,
-                                    void* out, int h, int vec, void* stream) {
+                                    void* out, int h, int vec, int packed,
+                                    void* stream) {
   if (n_bands < 1 || n_bands > MAX_BANDS || n_clusters < 1 || h < 1 ||
       h_pad % 64 || h_pad < h || k_pad % 16 || limbs < 1 || limbs > 4)
     return ERR_ARGS;
@@ -587,18 +755,8 @@ extern "C" int core_int_scatter_add(const void* band_maps, const int* band_info,
                       64 / cluster_rows(limbs), CU_TENSOR_MAP_SWIZZLE_64B);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (limbs) {
-    case 1:
-      return launch<1>(p, tiles, starts, n_clusters, nodes, out, h, h_pad,
-                       vec, s);
-    case 2:
-      return launch<2>(p, tiles, starts, n_clusters, nodes, out, h, h_pad,
-                       vec, s);
-    case 3:
-      return launch<3>(p, tiles, starts, n_clusters, nodes, out, h, h_pad,
-                       vec, s);
-    default:
-      return launch<4>(p, tiles, starts, n_clusters, nodes, out, h, h_pad,
-                       vec, s);
-  }
+  return packed ? launch_of<true>(p, limbs, tiles, starts, n_clusters, nodes,
+                                  out, h, h_pad, vec, s)
+                : launch_of<false>(p, limbs, tiles, starts, n_clusters, nodes,
+                                   out, h, h_pad, vec, s);
 }

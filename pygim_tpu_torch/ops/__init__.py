@@ -13,12 +13,15 @@ def launch_counts() -> dict:
     """Each kernel's launches since :func:`reset_launch_counts` (each
     wrapper adds one where it launches its kernel, and nowhere else)."""
     return {"K-core": core_dot.launches, "K-int": core_int.launches,
+            "K-core int4": core_dot.packed_launches,
+            "K-int int4": core_int.packed_launches,
             "K-tail": ell_tail.launches,
             "K-tail-quant": ell_tail.quant_launches}
 
 
 def reset_launch_counts() -> None:
     core_dot.launches = core_int.launches = 0
+    core_dot.packed_launches = core_int.packed_launches = 0
     ell_tail.launches = ell_tail.quant_launches = 0
 
 

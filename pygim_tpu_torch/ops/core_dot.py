@@ -1,4 +1,4 @@
-"""K-core: the staircase bands' int8 × bf16 products, scatter-added.
+"""K-core: the hub-core bands' integer × bf16 products, scatter-added.
 
 Counterpart of ``pygim_tpu/ops/pallas_core.py`` (``bf16(int8 core) @
 bf16(x)`` with f32 accumulation) fused with the scatter of its product
@@ -13,11 +13,21 @@ stay outside the kernel, as in JAX. Every int8 × bf16 product is exact
 in f32, so the kernel and :func:`core_bands_plain` differ only in the
 order of the f32 sums.
 
-On the card the kernel takes bands of width ``w % 16 == 0`` (the planner
-snaps widths to 256), ``H % 8 == 0`` and 16-byte aligned operands; the
-wrapper raises on anything else. One launch carries at most
-:data:`MAX_BANDS` bands, so a stair of more bands takes one launch per
-group of them.
+A band is int8 ``(r, w)``, or int4 nibble-packed into uint8 ``(r, w //
+2)``: byte j of a row holds cells (2j, 2j + 1), the low nibble the even
+column, each a two's-complement nibble in [-8, 7]. That is the packed
+core of the reference's ``_core_matmul`` (``pygim_tpu/ops/spmm.py:586-
+597``, ``dot(lo, x[0::2]) + dot(hi, x[1::2])`` over the nibble planes of
+``_nibble_halves``), which equals one product of the unpacked band with
+x; the kernel's int4 mode unpacks in registers and never widens the band
+in memory. A square core is the one band ``(0, k, w)``.
+
+On the card the kernel takes bands of width ``w % 16 == 0`` (int8; the
+planner snaps widths to 256) or ``w % 32 == 0`` (int4: the TMA row
+stride, ``w / 2`` bytes, is a multiple of 16), ``H % 8 == 0`` and 16-byte
+aligned operands; the wrapper raises on anything else. One launch carries
+at most :data:`MAX_BANDS` bands, all of one cell type, so a stair of more
+bands takes one launch per group of them.
 """
 
 from __future__ import annotations
@@ -31,18 +41,42 @@ import torch
 
 from pygim_tpu_torch.ops import _build
 
-# kernel launches since the last reset (plain int; launches only)
+# kernel launches since the last reset (plain ints; launches only): the
+# int8 mode and the int4 (packed) mode
 launches = 0
+packed_launches = 0
 
 BM, BN = 128, 256          # output tile of one block: band rows × columns
 MAX_BANDS = 16             # band maps one launch carries
 _MAP_BYTES = 128           # sizeof(CUtensorMap)
 
 
+def unpack_nibbles(packed):
+    """The int8 cells ``(r, 2c)`` of a nibble-packed uint8 band ``(r, c)``:
+    the sign-extended low nibble of byte j is cell 2j, the high one cell
+    2j + 1 (the reference's ``_nibble_halves``, interleaved)."""
+    lo = (packed & 0xF).to(torch.int8)
+    hi = (packed >> 4).to(torch.int8)
+    lo = lo - (lo > 7).to(torch.int8) * 16
+    hi = hi - (hi > 7).to(torch.int8) * 16
+    return torch.stack((lo, hi), dim=-1).reshape(packed.shape[0], -1)
+
+
+def band_cells(band):
+    """The band's cells as int8 ``(r, w)``: an int8 band itself, a packed
+    one unpacked."""
+    return unpack_nibbles(band) if band.dtype == torch.uint8 else band
+
+
+def cell_width(band) -> int:
+    """Cells a row of ``band``: two a byte when it is packed."""
+    return band.shape[1] * (2 if band.dtype == torch.uint8 else 1)
+
+
 def core_band_plain(band, xc, rows, out):
-    """``out[rows] += f32(band) @ f32(xc[:w])`` in plain PyTorch."""
-    w = band.shape[1]
-    return out.index_add_(0, rows, band.float() @ xc[:w].float())
+    """``out[rows] += f32(cells(band)) @ f32(xc[:w])`` in plain PyTorch."""
+    w = cell_width(band)
+    return out.index_add_(0, rows, band_cells(band).float() @ xc[:w].float())
 
 
 def core_bands_plain(bands, xc, core_nodes, stair, out):
@@ -67,12 +101,17 @@ def _check(bands, xc, core_nodes, stair, out,
         raise TypeError(f"out must be 2-D float32, got {out.dtype} {tuple(out.shape)}")
     if xc.shape[1] != out.shape[1]:
         raise ValueError(f"xc width {xc.shape[1]} != out width {out.shape[1]}")
+    if len({band.dtype for band in bands}) > 1:
+        raise TypeError("bands of one call must share their cell type")
     for band, (lo, hi, w) in zip(bands, stair):
-        if band.dtype != torch.int8 or band.dim() != 2:
-            raise TypeError(
-                f"band must be 2-D int8, got {band.dtype} {tuple(band.shape)}")
-        if tuple(band.shape) != (hi - lo, w):
-            raise ValueError(f"band {tuple(band.shape)} for stair entry {(lo, hi, w)}")
+        if band.dtype not in (torch.int8, torch.uint8) or band.dim() != 2:
+            raise TypeError(f"band must be 2-D int8 or packed uint8, got "
+                            f"{band.dtype} {tuple(band.shape)}")
+        if band.dtype == torch.uint8 and w % 2:
+            raise ValueError(f"a packed band holds an even width, got {w}")
+        if tuple(band.shape) != (hi - lo, w // (1 + (band.dtype == torch.uint8))):
+            raise ValueError(f"band {band.dtype} {tuple(band.shape)} for "
+                             f"stair entry {(lo, hi, w)}")
         if xc.shape[0] < w:
             raise ValueError(f"xc has {xc.shape[0]} rows for a band of width {w}")
         if core_nodes.shape[0] < hi:
@@ -87,14 +126,27 @@ def _check(bands, xc, core_nodes, stair, out,
             raise ValueError(f"{name} must be contiguous")
 
 
+def width_rule(packed: bool) -> int:
+    """The kernels' stored-width rule: band widths (in cells) a multiple
+    of 16 for int8 and 32 for packed int4, so each row's bytes, the TMA
+    row stride, are a multiple of 16."""
+    return 32 if packed else 16
+
+
+def is_packed(bands) -> bool:
+    """Whether the bands hold nibble-packed int4 cells."""
+    return bool(bands) and bands[0].dtype == torch.uint8
+
+
 def _check_kernel_contract(bands, xc, core_nodes, stair, out) -> None:
     h = out.shape[1]
     why = []
     if h % 8:
         why.append(f"H % 8 == 0 (H={h})")
-    bad_w = [w for _lo, _hi, w in stair if w % 16]
+    q = width_rule(is_packed(bands))
+    bad_w = [w for _lo, _hi, w in stair if w % q]
     if bad_w:
-        why.append(f"band widths % 16 == 0 (got {bad_w})")
+        why.append(f"band widths % {q} == 0 (got {bad_w})")
     ptrs = [("xc", xc), ("out", out),
             *((f"band {b}", t) for b, t in enumerate(bands))]
     mis = [name for name, t in ptrs if t.data_ptr() % 16]
@@ -166,17 +218,20 @@ def band_groups(stair, h: int):
 
 
 def band_maps(bands, stair, group):
-    """The TMA maps of the CUDA bands ``group`` (host, 64 × 128 boxes,
-    64-byte swizzle) and their ``(lo, r, w)`` (host), as one launch takes
+    """The TMA maps of the CUDA bands ``group`` (host; boxes of 128 rows
+    and 64 bytes, 64-byte swizzle, for int8; of 32 bytes, unswizzled, for
+    packed int4) and their ``(lo, r, w)`` (host), as one launch takes
     them; K-int launches on the same maps."""
     lib = _build.load("core_dot")
     maps = (ctypes.c_uint8 * (_MAP_BYTES * len(group)))()
     base = ctypes.addressof(maps)
     for i, b in enumerate(group):
-        r, w = bands[b].shape
-        err = lib.core_encode_band_map(base + _MAP_BYTES * i,
-                                       bands[b].data_ptr(), r, w)
-        _build.check(err, f"core_encode_band_map (band {b}, {r}×{w})")
+        r, nbytes = bands[b].shape
+        err = lib.core_encode_band_map(
+            base + _MAP_BYTES * i, bands[b].data_ptr(), r, nbytes,
+            int(bands[b].dtype == torch.uint8))
+        _build.check(err, f"core_encode_band_map (band {b}, {r}×{nbytes} "
+                     f"{bands[b].dtype})")
     info = (ctypes.c_int * (3 * len(group)))(
         *[v for b in group
           for v in (stair[b][0], stair[b][1] - stair[b][0], stair[b][2])])
@@ -236,12 +291,14 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
     for every band ``(lo, hi, w)`` of ``stair``, in one launch per group
     of :data:`MAX_BANDS` bands.
 
-    bands int8 ``(hi - lo, w)`` each; xc bf16 (≥ max w, H); core_nodes
+    bands int8 ``(hi - lo, w)`` or packed uint8 ``(hi - lo, w // 2)``
+    each, all alike (:data:`packed_launches` counts the packed mode's
+    launches, :data:`launches` the int8 mode's); xc bf16 (≥ max w, H); core_nodes
     int32, distinct over ``[0, hi_last)``; out f32 (N, H), updated in
     place and returned. CPU tensors take :func:`core_bands_plain`; CUDA
     tensors launch the kernel or raise. ``plans`` (:func:`core_plans` of
     these bands at this H) is built here when not given."""
-    global launches
+    global launches, packed_launches
     _check(bands, xc, core_nodes, stair, out)
     if out.device.type == "cpu":
         return core_bands_plain(bands, xc, core_nodes, stair, out)
@@ -254,27 +311,32 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
     elif not plans_match(plans, bands, stair, h, BN):
         raise ValueError("K-core plans were built for other bands or another H")
     lib = _build.load("core_dot")
+    packed = is_packed(bands)
     with torch.cuda.device(out.device):
         for plan in plans:
             err = lib.core_bands_scatter_add(
                 ctypes.addressof(plan.maps), ctypes.addressof(plan.info),
                 len(plan.group), xc.data_ptr(), xc.shape[0],
                 plan.tiles.data_ptr(), plan.starts.data_ptr(), plan.grid,
-                core_nodes.data_ptr(), out.data_ptr(), h,
+                core_nodes.data_ptr(), out.data_ptr(), h, int(packed),
                 _build.stream_of(out),
             )
             _build.check(err, "core_bands_scatter_add")
-            launches += 1
+            if packed:
+                packed_launches += 1
+            else:
+                launches += 1
     return out
 
 
 def core_band_scatter_add(band, xc, rows, out):
     """``out[rows[i]] += Σ_j f32(band[i, j]) · f32(xc[j])`` for one band:
-    the grouped kernel on a one-band list. band int8 (r, w); xc bf16
-    (≥ w, H); rows int32 (r,), distinct; out f32 (N, H)."""
+    the grouped kernel on a one-band list. band int8 (r, w) or packed
+    uint8 (r, w // 2); xc bf16 (≥ w, H); rows int32 (r,), distinct; out
+    f32 (N, H)."""
     if band.dim() != 2:
         raise TypeError(f"band must be 2-D int8, got {band.dtype} {tuple(band.shape)}")
-    r, w = band.shape
+    r, w = band.shape[0], cell_width(band)
     if rows.dim() == 1 and rows.shape[0] != r:
         raise ValueError(f"rows has {rows.shape[0]} entries for {r} band rows")
     return core_bands_scatter_add([band], xc, rows, [(0, r, w)], out)

@@ -1,4 +1,4 @@
-"""K-int: the staircase bands' exact integer products, scatter-added.
+"""K-int: the hub-core bands' exact integer products, scatter-added.
 
 Counterpart of the s8 branch of ``pygim_tpu/ops/spmm.py:_core_matmul``
 (``dot(int8 band, int8 xc) -> int32``) and of ``_wide_int_core_dot`` (the
@@ -29,8 +29,16 @@ The limb split and the transpose stay PyTorch ops, as the float path's
 gather and bf16 cast do. Every product is exact, so the kernel and
 :func:`core_int_plain` agree bit for bit on ``out``.
 
-On the card the kernel takes band widths ``w % 16 == 0`` and 16-byte
-aligned bands, any H; the wrapper raises otherwise.
+A band is int8 ``(r, w)`` or int4 nibble-packed into uint8 ``(r, w //
+2)`` (``core_dot.py``): the packed core's s8 and wide-integer products
+(the uint8 branches of ``_core_matmul`` and ``_wide_int_core_dot``,
+``pygim_tpu/ops/spmm.py:538-555, 586-597``) equal the same products of
+the unpacked band. The kernel's int4 mode unpacks each stage's nibbles
+once, in registers, into the s8 ``wgmma``'s A fragments for all limbs.
+
+On the card the kernel takes band widths ``w % 16 == 0`` (int8) or ``w %
+32 == 0`` (int4) and 16-byte aligned bands, any H; the wrapper raises
+otherwise.
 """
 
 from __future__ import annotations
@@ -46,13 +54,19 @@ from pygim_tpu_torch.ops.core_dot import (
     _EPILOGUE_COST,
     CorePlan,
     _check,
+    band_cells,
     band_groups,
     band_maps,
+    cell_width,
+    is_packed,
     plans_match,
+    width_rule,
 )
 
-# kernel launches since the last reset (plain int; launches only)
+# kernel launches since the last reset (plain ints; launches only): the
+# int8 mode and the int4 (packed) mode
 launches = 0
+packed_launches = 0
 
 INT_DTYPES = (torch.int8, torch.int16, torch.int32)
 RAW_LIMBS = {torch.int8: 1, torch.int16: 3, torch.int32: 4}
@@ -87,12 +101,12 @@ def band_product_plain(band, xc):
     halves and each half multiplied in f64, whose sums stay exact integers
     (|band| ≤ 128, so below 2^23 · w): PyTorch has no integer matmul on
     CUDA, and this one runs on any device."""
-    r, w = band.shape
+    r, w = band.shape[0], cell_width(band)
     q = xc[:w].to(torch.int64)
     hi, lo = (q >> 16).double(), (q & 0xFFFF).double()
     p = torch.empty((r, xc.shape[1]), dtype=torch.int32, device=band.device)
     for r0 in range(0, r, _ROWS_PER_STEP):
-        a = band[r0:r0 + _ROWS_PER_STEP].double()
+        a = band_cells(band[r0:r0 + _ROWS_PER_STEP]).double()
         p[r0:r0 + _ROWS_PER_STEP] = _wrap32(
             (a @ hi).to(torch.int64) * 65536 + (a @ lo).to(torch.int64))
     return p
@@ -133,9 +147,10 @@ def limb_split(q, limbs: int, h_pad: int, k_pad: int):
 
 def _check_kernel_contract(bands, stair) -> None:
     why = []
-    bad_w = [w for _lo, _hi, w in stair if w % 16]
+    q = width_rule(is_packed(bands))
+    bad_w = [w for _lo, _hi, w in stair if w % q]
     if bad_w:
-        why.append(f"band widths % 16 == 0 (got {bad_w})")
+        why.append(f"band widths % {q} == 0 (got {bad_w})")
     mis = [b for b, t in enumerate(bands) if t.data_ptr() % 16]
     if mis:
         why.append(f"16-byte aligned bands {mis}")
@@ -184,13 +199,25 @@ def cluster_schedule(stair, h: int, limbs: int, n_clusters: int):
     return tiles, starts
 
 
-def max_clusters(limbs: int, device) -> int:
-    """How many clusters of the ``limbs`` kernel the card runs at once
-    (``cudaOccupancyMaxActiveClusters``); raises where it runs none."""
+def cluster_balance(stair, h: int, limbs: int, n_clusters: int) -> float:
+    """The longest cluster's work over the mean cluster's in
+    :func:`cluster_schedule`'s assignment (1.0 is perfect balance)."""
+    tiles, starts = cluster_schedule(stair, h, limbs, n_clusters)
+    work = np.array([-(-stair[b][2] // 64) + _EPILOGUE_COST
+                     for b in tiles[:, 0, 0]])
+    loads = np.add.reduceat(work, starts[:-1])
+    return float(loads.max() / loads.mean())
+
+
+def max_clusters(limbs: int, device, packed: bool = False) -> int:
+    """How many clusters of the ``limbs`` kernel (its int4 mode where
+    ``packed``) the card runs at once (``cudaOccupancyMaxActiveClusters``);
+    raises where it runs none."""
     n = ctypes.c_int(0)
     lib = _build.load("core_int")
     with torch.cuda.device(device):
-        _build.check(lib.core_int_max_clusters(limbs, ctypes.addressof(n)),
+        _build.check(lib.core_int_max_clusters(limbs, int(packed),
+                                               ctypes.addressof(n)),
                      "core_int_max_clusters")
     if n.value < 1:
         raise RuntimeError(f"the card runs no cluster of the {limbs}-limb "
@@ -208,7 +235,7 @@ def core_int_plans(bands, stair, h: int, limbs: int) -> list:
     if not groups:
         return []
     dev = bands[groups[0][0]].device
-    n_clusters = max_clusters(limbs, dev)
+    n_clusters = max_clusters(limbs, dev, is_packed(bands))
     plans = []
     for group in groups:
         maps, info = band_maps(bands, stair, group)
@@ -226,7 +253,7 @@ def core_int_launch(bands, xct, core_nodes, stair, out, plans):
     """Launch the kernel on a limb payload ``xct`` (:func:`limb_split`)
     with ``plans`` (:func:`core_int_plans`); ``out`` f32 (N, H) on the
     card, updated in place and returned."""
-    global launches
+    global launches, packed_launches
     limbs, h_pad, k_pad = xct.shape
     h = out.shape[1]
     if not (plans_match(plans, bands, stair, h, tile_columns(limbs))
@@ -240,6 +267,7 @@ def core_int_launch(bands, xct, core_nodes, stair, out, plans):
                          f"k_pad % 16), contiguous and 16-byte aligned; got "
                          f"{xct.dtype} {tuple(xct.shape)}")
     vec = int(h % 4 == 0 and out.data_ptr() % 16 == 0)
+    packed = is_packed(bands)
     lib = _build.load("core_int")
     with torch.cuda.device(out.device):
         for plan in plans:
@@ -247,11 +275,14 @@ def core_int_launch(bands, xct, core_nodes, stair, out, plans):
                 ctypes.addressof(plan.maps), ctypes.addressof(plan.info),
                 len(plan.group), xct.data_ptr(), k_pad, h_pad, limbs,
                 plan.tiles.data_ptr(), plan.starts.data_ptr(), plan.grid,
-                core_nodes.data_ptr(), out.data_ptr(), h, vec,
+                core_nodes.data_ptr(), out.data_ptr(), h, vec, int(packed),
                 _build.stream_of(out),
             )
             _build.check(err, "core_int_scatter_add")
-            launches += 1
+            if packed:
+                packed_launches += 1
+            else:
+                launches += 1
     return out
 
 
@@ -261,8 +292,9 @@ def core_int_scatter_add(bands, xc, core_nodes, stair, out, limbs=None,
     xc[j]))`` (the sum wrapped mod 2^32) for every band ``(lo, hi, w)`` of
     ``stair``, in one launch per group of up to 16 bands.
 
-    bands int8 ``(hi - lo, w)`` each; xc int8, int16 or int32 (≥ max w,
-    H); core_nodes int32, distinct over ``[0, hi_last)``; out f32 (N, H),
+    bands int8 ``(hi - lo, w)`` or packed uint8 ``(hi - lo, w // 2)``
+    each, all alike (:data:`packed_launches` counts the packed mode's
+    launches); xc int8, int16 or int32 (≥ max w, H); core_nodes int32, distinct over ``[0, hi_last)``; out f32 (N, H),
     updated in place and returned. ``limbs`` defaults to
     :data:`RAW_LIMBS` of xc's dtype, which holds any value; a quantized
     caller passes :data:`QUANT_LIMBS`. CPU tensors take

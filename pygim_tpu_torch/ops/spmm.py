@@ -2,15 +2,21 @@
 
 Counterpart of ``pygim_tpu/ops/spmm.py`` for the backends it carries:
 
-``hybrid``  a staircase int8 core plus a multi-degree ELL tail (the
-            headline path). :func:`prepare_spmm` plans on the host in
-            NumPy (duplicate merge, degree rank, staircase bands, band
-            fill, ELL tail) and moves the tables to the device. The host
-            tables of an operand on the card are cached on disk
-            (``utils/cache.py``: the reference's key and contents under
-            the port's own directory and file prefix).
+``hybrid``  an integer hub-core plus a multi-degree ELL tail (the
+            headline path). The core is the square ``[0, k)²`` block of
+            the degree ranks or a staircase of row bands of tapering
+            width, of int8 cells or int4 cells nibble-packed two a byte.
+            :func:`prepare_spmm` plans on the host in NumPy (duplicate
+            merge, degree rank, the core's fill, ELL tail) and moves the
+            tables to the device. The host tables of an operand on the
+            card are cached on disk (``utils/cache.py``: the reference's
+            key and contents under the port's own directory and file
+            prefix).
 ``ell``     the whole merged graph in the same multi-degree ELL tables,
             no core: K-tail alone.
+``blocked`` the reference's default: nnz-balanced row blocks padded to
+            one static shape, each a gather, weight and sorted segment-sum
+            in plain PyTorch ops, one block at a time.
 ``oracle``  the raw edges (no merge) sorted by row, through the COO
             oracle of ``ops/reference.py`` in plain PyTorch ops.
 
@@ -25,7 +31,9 @@ The hybrid's :meth:`PreparedSpmm.mul` computes ``A @ x`` as
 2. K-tail over every ELL table into ``out``, one launch
    (``ops/ell_tail.py``);
 3. the core over all bands into ``out`` at ``core_nodes[lo:hi]``, one
-   launch: for a float32 x, ``xc = bf16(x[core_nodes])`` through K-core
+   launch (a square core is the one band ``(0, k, k)``, its rows
+   ``core_nodes[:k]``): for a float32 x, ``xc = bf16(x[core_nodes])``
+   through K-core
    (``ops/core_dot.py``; where H is not a multiple of 8, on ``xc`` and
    ``out`` padded with zero columns to the next multiple, cut back to H);
    for an int8, int16 or int32 x, ``xc = x[core_nodes[:max w]]`` through
@@ -36,9 +44,8 @@ The hybrid's :meth:`PreparedSpmm.mul` computes ``A @ x`` as
 :meth:`PreparedSpmm.mul_quantized`
 is the fused quantize → aggregate → dequantize of the reference's
 ``raw_mul_quantized``. The host tables are the reference's bit for bit.
-The ``blocked`` and ``coo`` backends, the other core shapes and dtypes
-(the square, bf16 and int4 cores) and bfloat16 and int64 payloads come
-in later slices; they raise.
+The ``coo`` backend, the bf16 and f32 cores, the BCSR tile tier and
+bfloat16 and int64 payloads come in later slices; they raise.
 """
 
 from __future__ import annotations
@@ -51,17 +58,24 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pygim_tpu_torch.core.banded import core_build_banded
 from pygim_tpu_torch.core.graph import CooGraph, CsrGraph, merge_duplicate_edges
 from pygim_tpu_torch.core.partition import (
+    build_ell_blocks,
     build_ell_rows_multi,
     choose_degrees_for_config,
+    int_demote_slab,
+    make_row_block_plan,
+    pack_nibbles,
     round_up,
+    row_slot_table,
 )
 from pygim_tpu_torch.core.stair import plan_staircase
 from pygim_tpu_torch.ops.core_dot import (
     core_bands_plain,
     core_bands_scatter_add,
     core_plans,
+    width_rule,
 )
 from pygim_tpu_torch.ops.core_int import (
     QUANT_LIMBS,
@@ -77,6 +91,7 @@ from pygim_tpu_torch.ops.ell_tail import (
     tail_plan,
 )
 from pygim_tpu_torch.ops.reference import (
+    accum_dtype,
     spmm_coo_oracle,
     spmm_coo_oracle_chunked,
 )
@@ -86,16 +101,19 @@ from pygim_tpu_torch.utils.timers import PhaseTimer, device_time
 
 _log = logging.getLogger("pygim_tpu_torch")
 
-BACKENDS = ("hybrid", "ell", "oracle")
+BACKENDS = ("hybrid", "ell", "blocked", "oracle")
+CORE_DTYPES = ("int8", "int4")  # the hybrid core cells the port stores
+CORE_SHAPES = ("square", "stair")
 
 
 @dataclasses.dataclass(frozen=True)
 class SpmmConfig:
     """Runtime configuration: the reference's fields and defaults. The
-    port runs ``backend="ell"``, ``backend="oracle"``, and
-    ``backend="hybrid"`` with ``hybrid_shape="stair"``,
-    ``hybrid_dtype="int8"``, ``hybrid_k=None`` and a positive core budget;
-    :meth:`check_supported` raises on anything else."""
+    port runs the backends of :data:`BACKENDS`; on ``hybrid``, a square
+    or stair core (:data:`CORE_SHAPES`) of int8 or int4 cells
+    (:data:`CORE_DTYPES`) at any budget (none at ``hybrid_core_bytes <=
+    0``) or a pinned ``hybrid_k``. :meth:`check_supported` raises on
+    anything else."""
 
     format: str = "csr"              # csr | coo
     backend: str = "blocked"         # oracle | blocked | ell | coo | hybrid
@@ -118,29 +136,47 @@ class SpmmConfig:
     merge_duplicates: bool = True
     oracle_edge_chunk: Optional[int] = None
 
+    def resolve_n_blocks(self, nnz: int) -> int:
+        """The blocked backend's block count: pinned, or one block per
+        ``block_nnz_budget`` entries."""
+        if self.n_blocks is not None:
+            return self.n_blocks
+        return max(1, -(-nnz // self.block_nnz_budget))
+
+    @property
+    def square_build(self) -> bool:
+        """Whether a hybrid prepare builds the square core: the square
+        shape, and as in the reference (``pygim_tpu/ops/spmm.py:1127``)
+        the stair shape with a pinned ``hybrid_k`` or no core budget."""
+        return (self.hybrid_shape == "square" or self.hybrid_k is not None
+                or self.hybrid_core_bytes <= 0)
+
     def check_supported(self) -> None:
-        if self.backend in ("ell", "oracle"):
+        if self.backend in ("ell", "oracle", "blocked"):
             return
-        if self.backend not in ("hybrid", "blocked", "coo"):
+        if self.backend not in ("hybrid", "coo"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.backend != "hybrid":
             raise NotImplementedError(
                 f"backend {self.backend!r}: the port runs {BACKENDS} so far "
-                "('blocked' and 'coo' are not ported)"
+                "('coo' is not ported)"
             )
-        want = {
-            "backend": "hybrid", "hybrid_shape": "stair",
-            "hybrid_dtype": "int8", "hybrid_k": None,
-        }
-        bad = {k: getattr(self, k) for k, v in want.items()
-               if getattr(self, k) != v}
-        if self.hybrid_core_bytes <= 0:
-            bad["hybrid_core_bytes"] = self.hybrid_core_bytes
-        if bad:
+        if self.hybrid_shape not in CORE_SHAPES:
+            # the reference builds a square core for any other shape; the
+            # port does not guess
             raise NotImplementedError(
-                f"the port's hybrid backend runs only the stair-int8 core so "
-                f"far ({want}, hybrid_core_bytes > 0); got {bad}"
-            )
+                f"hybrid_shape {self.hybrid_shape!r}: the port runs "
+                f"{CORE_SHAPES}")
+        if self.hybrid_dtype not in CORE_DTYPES:
+            raise NotImplementedError(
+                f"hybrid_dtype {self.hybrid_dtype!r}: the port's cores are "
+                f"{CORE_DTYPES} (None means the graph's dtype, a float32, "
+                "float64 or bfloat16 core; the bf16 and f32 cores are not "
+                "ported)")
+        if self.bcsr_bytes > 0 and self.square_build:
+            raise NotImplementedError(
+                "bcsr_bytes > 0 on a square core: the BCSR tile tier is not "
+                "ported")
 
 
 def ell_step_tables(cols2d, vals2d, vrow_to_row, chunk):
@@ -218,22 +254,30 @@ def _finish_hybrid_tail(host, coo, config, tail_sel, pt):
     pt.stop("ell_tail")
 
 
+def _core_itemsize(core_dtype: str) -> float:
+    """Stored bytes of one core cell: two int4 cells share a byte."""
+    return 0.5 if core_dtype == "int4" else 1.0
+
+
 def _prepare_stair_build(coo, config, rank, order, pt) -> dict:
-    """Staircase int8 core: ≤ ``stair_max_bands`` dense row bands of
-    tapering width in degree-rank space (core/stair.py). Cells outside a
-    band, and cells that are not an integer in [-128, 127], go to the
-    exact ELL tail. Returns the host tables."""
+    """Staircase core: ≤ ``stair_max_bands`` dense row bands of tapering
+    width in degree-rank space (core/stair.py; widths a multiple of 256,
+    512 for int4), int8 ``(rows, w)`` or nibble-packed int4 ``(rows, w //
+    2)`` uint8. Cells outside a band, and cells that are not an integer in
+    the dtype's range ([-128, 127], [-8, 7]), go to the exact ELL tail.
+    Returns the host tables."""
+    core_dtype = config.hybrid_dtype
     n = coo.nrows
-    budget_cells = int(config.hybrid_core_bytes)  # int8: one byte a cell
+    budget_cells = int(config.hybrid_core_bytes / _core_itemsize(core_dtype))
     rr = rank[coo.rows].astype(np.int64)
     cc = rank[coo.cols].astype(np.int64)
     pt.start("stair_plan")
     bands = plan_staircase(
         rr, cc, n, budget_cells, max_bands=config.stair_max_bands,
-        col_quant=256,
+        col_quant=512 if core_dtype == "int4" else 256,
     )
     pt.stop("stair_plan")
-    host: dict = {"core_dtype": np.str_("int8")}
+    host: dict = {"core_dtype": np.str_(core_dtype)}
     if config.bcsr_bytes > 0:
         _log.info("hybrid_shape='stair': bcsr_bytes ignored (bands subsume "
                   "the tile tier's coverage)")
@@ -258,7 +302,9 @@ def _prepare_stair_build(coo, config, rank, order, pt) -> dict:
     demoted = []
     for b, (lo, hi, w) in enumerate(bands):
         rows_b = hi - lo
-        store = np.empty((rows_b, w), dtype=np.int8)
+        store = np.empty((rows_b, w // 2) if core_dtype == "int4"
+                         else (rows_b, w),
+                         dtype=np.uint8 if core_dtype == "int4" else np.int8)
         # ~256 MB of f32 cells per fill chunk
         chunk_rows = max(8, ((1 << 28) // max(1, w * 4)) // 8 * 8)
         for c0 in range(0, rows_b, chunk_rows):
@@ -270,22 +316,94 @@ def _prepare_stair_build(coo, config, rank, order, pt) -> dict:
             blk = np.bincount(
                 flat, weights=vals64[eidx], minlength=(c1 - c0) * w,
             ).astype(np.float32).reshape(c1 - c0, w)
-            rb = np.round(blk)
-            bad = (rb > 127) | (rb < -128) | (rb != blk)
-            if bad.any():
-                dem = np.isin(flat, np.flatnonzero(bad.ravel()))
-                demoted.append(eidx[dem])
-                rb = np.where(bad, 0.0, rb)
-            store[c0:c1] = rb.astype(np.int8)
+            rb, bad_flat = int_demote_slab(blk, core_dtype)
+            if bad_flat.size:
+                demoted.append(eidx[np.isin(flat, bad_flat)])
+            store[c0:c1] = (pack_nibbles(rb) if core_dtype == "int4"
+                            else rb.astype(np.int8))
         host[f"stair{b}"] = store
     if demoted:
         dem = np.concatenate(demoted)
         in_core[dem] = False
-        _log.info("int8 stair core: %d edges not representable — demoted "
-                  "to the ELL tail", dem.size)
+        _log.info("%s stair core: %d edges not representable — demoted to "
+                  "the ELL tail", core_dtype, dem.size)
     pt.stop("core_fill")
     _finish_hybrid_tail(host, coo, config, ~in_core, pt)
     return host
+
+
+def square_core_k(config, n: int) -> int:
+    """The square core's size: a pinned ``hybrid_k`` (at most n), 0
+    without a budget, else the most ranks whose ``k²`` cells fit the
+    budget, a multiple of 256 (at least 256 or n); even for int4, whose
+    bytes pair columns (``pygim_tpu/ops/spmm.py:1128-1140``)."""
+    if config.hybrid_k is not None:
+        k = max(0, min(config.hybrid_k, n))
+    elif config.hybrid_core_bytes <= 0:
+        k = 0
+    else:
+        k = int(np.sqrt(config.hybrid_core_bytes
+                        / _core_itemsize(config.hybrid_dtype)))
+        k = (k // 256) * 256
+        k = min(max(k, min(256, n)), n)
+    if config.hybrid_dtype == "int4":
+        k -= k % 2
+    return k
+
+
+def _prepare_square_build(coo, config, rank, order, pt) -> dict:
+    """Square core: the ``[0, k)²`` block of the degree ranks
+    (:func:`square_core_k`), built band by band in its stored dtype
+    (``core/banded.py``); cells that are not an integer in the dtype's
+    range are zeroed and their edges demoted to the exact ELL tail, as
+    every edge outside the block goes there. Returns the host tables."""
+    core_dtype = config.hybrid_dtype
+    k = square_core_k(config, coo.nrows)
+    host: dict = {"k": np.int64(k), "core_dtype": np.str_(core_dtype)}
+    pt.start("core_fill")
+    if k == 0:
+        in_core = np.zeros(coo.nnz, dtype=bool)
+    else:
+        core, tail_mask, bad_flat = core_build_banded(
+            coo.rows, coo.cols, coo.vals.astype(np.float32), rank, k,
+            core_dtype)
+        in_core = ~tail_mask
+        if bad_flat.size:
+            idx = np.flatnonzero(in_core)
+            flat = (rank[coo.rows[idx]].astype(np.int64) * k
+                    + rank[coo.cols[idx]])
+            demote = np.isin(flat, bad_flat)
+            in_core[idx[demote]] = False
+            _log.info("%s core: %d cells (%d edges) not representable — "
+                      "demoted to the ELL tail", core_dtype, bad_flat.size,
+                      int(demote.sum()))
+        host["core"] = core
+        host["core_nodes"] = order[:k]  # rank i ↔ node order[i]
+    pt.stop("core_fill")
+    _finish_hybrid_tail(host, coo, config, ~in_core, pt)
+    return host
+
+
+def blocked_spmm(colind, vals, rowloc, row_slot, x, rows_pad: int):
+    """The blocked product (``pygim_tpu/ops/spmm.py:136-161``): for each
+    row block b, gather ``x[colind[b]]``, weight it by ``vals[b]`` and sum
+    it into the block's ``rows_pad`` rows at ``rowloc[b]``; then take each
+    row's slot (``row_slot``). One block at a time, so no (nnz, H) buffer
+    exists. Accumulates in ``accum_dtype`` of the two dtypes: float32 for
+    a float payload or float weights, int32 (wrapping) for an integer
+    one."""
+    acc = accum_dtype(torch.promote_types(vals.dtype, x.dtype))
+    h = x.shape[1]
+    if x.shape[0] == 0 or colind.shape[0] == 0:
+        # a zero-column or zero-edge operand: the padding indices would
+        # gather from an empty x; the product is exact zeros
+        return torch.zeros((row_slot.shape[0], h), dtype=acc, device=x.device)
+    out = torch.zeros((colind.shape[0] * rows_pad, h), dtype=acc,
+                      device=x.device)
+    for b in range(colind.shape[0]):
+        g = x.index_select(0, colind[b]).to(acc) * vals[b].to(acc)[:, None]
+        out[b * rows_pad:(b + 1) * rows_pad].index_add_(0, rowloc[b], g)
+    return out.index_select(0, row_slot)
 
 
 _CACHE_TAG = b"prep-v4-"  # the reference's layout version
@@ -342,8 +460,11 @@ class PreparedSpmm:
     ``dev_arrays`` holds the tables under the reference's key names: for
     ``hybrid`` and ``ell``, ``cols2d{sfx}``, ``vals2d{sfx}``,
     ``vrow_to_row{sfx}`` (``ell_meta`` is ``[(chunk, degree)]``), and for
-    ``hybrid`` also ``stair{b}`` and ``core_nodes`` (``stair`` is ``[(lo,
-    hi, w)]``); for ``oracle``, ``rows``, ``cols``, ``vals``. Edge values
+    ``hybrid`` also ``core_nodes`` and the core, ``stair{b}`` per band of
+    a staircase or ``core`` for a square (``stair`` is ``[(lo, hi, w)]``,
+    a square's one band ``(0, k, w)``); for ``blocked``, ``colind``,
+    ``vals``, ``rowloc``, ``row_slot``; for ``oracle``, ``rows``,
+    ``cols``, ``vals``. Edge values
     reach the device as the reference's ``jnp.asarray`` puts them with
     x64 off: float64 as float32, int64 as int32; the ELL value tables are
     float32 always (K-tail's weights). The hybrid's ``prepare_timer``
@@ -367,7 +488,8 @@ class PreparedSpmm:
         self.nrows, self.ncols, self.nnz = graph.nrows, graph.ncols, graph.nnz
         self._dev = {}
         self.ell_meta = []
-        self.stair = None
+        self.stair = None     # the core's stored bands [(lo, hi, w)] (a square: one)
+        self._band_keys = []  # their tables in dev_arrays
         self._tail_plan = None
         self._core_plans = {}  # H -> K-core plans of the bands
         self._int_plans = {}   # (H, limbs) -> K-int plans of the same
@@ -375,6 +497,17 @@ class PreparedSpmm:
             s = (coo if coo is not None else csr.to_coo()).sort_by_row()
             self._dev = {"rows": self._put(s.rows), "cols": self._put(s.cols),
                          "vals": self._put(s.vals, vals=True)}
+        elif backend == "blocked":
+            csr = csr if csr is not None else coo.to_csr()
+            plan = make_row_block_plan(
+                csr, config.resolve_n_blocks(csr.nnz),
+                balance=config.balance, row_align=8, nnz_align=8)
+            ell = build_ell_blocks(csr, plan)
+            self.plan, self.rows_pad = plan, plan.rows_pad
+            self._dev = {"colind": self._put(ell.colind),
+                         "vals": self._put(ell.vals, vals=True),
+                         "rowloc": self._put(ell.rowloc),
+                         "row_slot": self._put(row_slot_table(plan))}
         elif backend == "ell":
             host: dict = {}
             _ell_host(host, _plan_ell_tables(
@@ -452,13 +585,36 @@ class PreparedSpmm:
                                         host=tail_host)
 
     def _install_hybrid(self, host: dict) -> None:
+        """The host tables to the device: the ELL tail, and the core's
+        bands ``self.stair`` under ``self._band_keys`` — the stair's
+        ``stair{b}``, or the square ``core`` as the one band ``(0, k, k)``.
+        ``self.stair`` holds the stored widths, which the products run on:
+        a band whose width misses the kernels' rule (int8 cells a multiple
+        of 16, int4 of 32: a pinned ``hybrid_k``, or a stair band as wide
+        as the graph) gets zero cells appended to each row here, on the
+        host, and ``xc`` is zero-padded to match (:meth:`_xc`). The logical
+        widths stay in the host tables (``stair_bands``, ``k``)."""
         self.hybrid_k_eff = int(host["k"])
+        self.core_dtype = str(host["core_dtype"])
         self._install_ell(host)
         if "stair_bands" in host:
-            self.stair = [tuple(int(v) for v in b) for b in host["stair_bands"]]
-            for b in range(len(self.stair)):
-                self._dev[f"stair{b}"] = self._put(host[f"stair{b}"])
-            self._dev["core_nodes"] = self._put(host["core_nodes"])
+            bands = [tuple(int(v) for v in b) for b in host["stair_bands"]]
+            self._band_keys = [f"stair{b}" for b in range(len(bands))]
+        elif "core" in host:
+            k = self.hybrid_k_eff
+            bands, self._band_keys = [(0, k, k)], ["core"]
+        else:
+            return
+        packed = self.core_dtype == "int4"
+        q = width_rule(packed)
+        self.stair = []
+        for key, (lo, hi, w) in zip(self._band_keys, bands):
+            band, wq = host[key], round_up(w, q)
+            if wq != w:
+                band = np.pad(band, ((0, 0), (0, (wq - w) // (1 + packed))))
+            self.stair.append((lo, hi, wq))
+            self._dev[key] = self._put(band)
+        self._dev["core_nodes"] = self._put(host["core_nodes"])
 
     def _prepare_hybrid_build(self, coo, config) -> dict:
         pt = self.prepare_timer
@@ -470,6 +626,8 @@ class PreparedSpmm:
         rank = np.empty(n, dtype=np.int32)
         rank[order] = np.arange(n, dtype=np.int32)
         pt.stop("rank")
+        if config.square_build:
+            return _prepare_square_build(coo, config, rank, order, pt)
         return _prepare_stair_build(coo, config, rank, order, pt)
 
     @property
@@ -488,7 +646,15 @@ class PreparedSpmm:
     def raw_mul(self, x, dev: dict):
         if self.config.backend == "oracle":
             return self._oracle(x, dev)
+        if self.config.backend == "blocked":
+            return self._blocked(x, dev)
         return self._run(x, dev)
+
+    def _blocked(self, x, dev):
+        if x.dim() != 2 or x.shape[0] != self.ncols:
+            raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
+        return blocked_spmm(dev["colind"], dev["vals"], dev["rowloc"],
+                            dev["row_slot"], x, self.rows_pad)
 
     def _oracle(self, x, dev):
         if x.dim() != 2 or x.shape[0] != self.ncols:
@@ -544,8 +710,8 @@ class PreparedSpmm:
         """The same product through the plain PyTorch versions on any
         device, at H unpadded — the yardstick the kernels are held
         against."""
-        if self.config.backend == "oracle":
-            return self._oracle(x, self._dev)
+        if self.config.backend in ("oracle", "blocked"):
+            return self.raw_mul(x, self._dev)  # plain PyTorch ops already
         return self._run(x, self._dev, plain=True)
 
     def _kernels(self, dev: dict, plain: bool):
@@ -587,15 +753,24 @@ class PreparedSpmm:
             self._core_add(x, dev, out, core_fn, int_fn, safe, limbs)
         return out
 
+    def _xc(self, x, cn):
+        """The rank gather ``x[core_nodes[:max w]]``, zero rows appended
+        where a padded square core is wider than its k nodes."""
+        w_max = max(w for *_, w in self.stair)
+        xc = x.index_select(0, cn[:w_max])
+        if xc.shape[0] < w_max:
+            xc = torch.nn.functional.pad(xc, (0, 0, 0, w_max - xc.shape[0]))
+        return xc
+
     def _core_add(self, x, dev, out, core_fn, int_fn, safe=None, limbs=None):
         """The core tier of :meth:`_run` into ``out``: the rank gather,
         then K-core (float32 x) or K-int (integer x, or ``safe``)."""
         cn = dev["core_nodes"]
-        bands = [dev[f"stair{b}"] for b in range(len(self.stair))]
+        bands = [dev[k] for k in self._band_keys]
         if x.dtype == torch.float32 and safe is None:
-            xc = x.index_select(0, cn).to(torch.bfloat16)
-            return core_fn(bands, xc, cn, self.stair, out)
-        xc = x.index_select(0, cn[:max(w for *_, w in self.stair)])
+            return core_fn(bands, self._xc(x, cn).to(torch.bfloat16), cn,
+                           self.stair, out)
+        xc = self._xc(x, cn)
         if safe is not None:
             xc = torch.round(xc / safe).to(torch.int32)
         return int_fn(bands, xc, cn, self.stair, out,
@@ -661,7 +836,7 @@ class PreparedSpmm:
         The phases overlap the product's work; they are no sum of it."""
         d = self._dev
         out = {"mul_time(ms)": device_time(self.mul, x, iters=iters) * 1e3}
-        if self.config.backend == "oracle":
+        if self.config.backend in ("oracle", "blocked"):
             return out
         self._check_x(x)
         tables = self.ell_tables(d)

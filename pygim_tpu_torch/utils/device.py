@@ -38,19 +38,38 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def core_bound(shapes, h, peaks_):
+def core_bound(shapes, h, peaks_, cell_bytes: float = 1.0):
     """Least time of one K-core launch over bands ``(r, w)`` at width
-    ``h``: the larger of its bytes over HBM (every band, ``xc[:max w]``,
-    the row ids, and the output rows read and written, each once) and its
+    ``h``: the larger of its bytes over HBM (every band at ``cell_bytes``
+    a cell — 1 for int8, 0.5 for packed int4 —, ``xc[:max w]``, the row
+    ids, and the output rows read and written, each once) and its
     operations over the bf16 rate. The bands share the launch, so one
     band's bytes overlap another's products. Returns (ms, "bytes" |
     "operations")."""
     hbm, bf16, _f32, _int8 = peaks_
     rows = sum(r for r, _w in shapes)
-    nbytes = (sum(r * w for r, w in shapes) + max(w for _r, w in shapes)
-              * h * 2 + rows * 4 + 2 * rows * h * 4)
+    nbytes = (sum(r * w for r, w in shapes) * cell_bytes
+              + max(w for _r, w in shapes) * h * 2 + rows * 4
+              + 2 * rows * h * 4)
     t_bytes = nbytes / hbm * 1e3
     t_ops = sum(2 * r * w * h for r, w in shapes) / bf16 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def int_bound(shapes, h, limbs, peaks_, cell_bytes: float = 1.0):
+    """Least time of one K-int launch over bands ``(r, w)`` at width ``h``
+    and ``limbs``: the larger of its bytes over HBM (every band at
+    ``cell_bytes`` a cell, the limb payload ``limbs · h · max w``, the row
+    ids, and the output rows read and written, each once) and its int8
+    tensor operations (``limbs · 2 · r · w · h``) over the card's int8
+    rate. Returns (ms, "bytes" | "operations")."""
+    hbm, _bf16, _f32, int8 = peaks_
+    rows = sum(r for r, _w in shapes)
+    w_max = max(w for _r, w in shapes)
+    nbytes = (sum(r * w for r, w in shapes) * cell_bytes
+              + limbs * h * w_max + rows * 4 + 2 * rows * h * 4)
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = limbs * sum(2 * r * w * h for r, w in shapes) / int8 * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 

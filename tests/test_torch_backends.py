@@ -166,8 +166,7 @@ def test_oracle_does_not_fuse_quantization():
 
 
 @pytest.mark.parametrize("backend,error", [
-    ("blocked", NotImplementedError), ("coo", NotImplementedError),
-    ("no-such-backend", ValueError)])
+    ("coo", NotImplementedError), ("no-such-backend", ValueError)])
 def test_unported_backends_raise(backend, error):
     rows, cols, vals = make_graph("multigraph")
     g = tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N)
@@ -175,7 +174,7 @@ def test_unported_backends_raise(backend, error):
         tspmm.prepare_spmm(g, tspmm.SpmmConfig(backend=backend), device="cpu")
 
 
-@pytest.mark.parametrize("backend", ["ell", "oracle"])
+@pytest.mark.parametrize("backend", ["ell", "oracle", "blocked"])
 def test_ell_and_oracle_are_supported(backend):
     tspmm.SpmmConfig(backend=backend).check_supported()
     # the hybrid fields do not apply to them
@@ -203,8 +202,9 @@ F64_KW = dict(backend="hybrid", hybrid_shape="stair", hybrid_dtype="int8",
                                   "oracle"])
 def test_float64_edge_values_match_jax(cfg):
     """At the recorded budget the stair is empty (every edge in the
-    tail); at 64 KiB three bands hold edges. Both packages give the
-    float32 graph's product exactly."""
+    tail); at 64 KiB three bands hold edges, the port's stored as wide as
+    the reference's rounded up to the int8 width rule (16 cells). Both
+    packages give the float32 graph's product exactly."""
     n, rows, cols = float64_graph()
     x = np.random.default_rng(1).standard_normal((n, 16)).astype(np.float32)
     outs, stairs = {}, {}
@@ -218,7 +218,9 @@ def test_float64_edge_values_match_jax(cfg):
         for k, v in tp.dev_arrays.items():
             if k.startswith("vals"):
                 assert v.dtype == torch.float32, k
-        stairs[dtype] = (tp.stair, getattr(jp, "stair", None))
+        jstair = getattr(jp, "stair", None)
+        stairs[dtype] = (tp.stair, jstair and [
+            (lo, hi, -(-w // 16) * 16) for lo, hi, w in jstair])
         outs[dtype] = (np.asarray(jp.mul(jnp.asarray(x))),
                        tp.mul(torch.from_numpy(x)).numpy())
     assert stairs["float64"] == stairs["float32"]

@@ -244,13 +244,15 @@ def test_bench_cuda_line_has_bench_keys():
 
 
 def test_bench_cuda_skips_unported_candidates(capsys, bench_env):
-    """A pinned square core is the only candidate: it is skipped with a
-    line, and nothing is measured; unpinned, the stair candidates run."""
+    """A pinned bf16 square core is the only candidate: it is skipped with
+    a line, and nothing is measured; unpinned, the stair candidates run."""
     bench_env.setenv("PYGIM_BENCH_CORE_SHAPE", "square")
+    bench_env.setenv("PYGIM_BENCH_CORE_DTYPE", "bfloat16")
     with pytest.raises(RuntimeError, match="no candidate"):
         bench_cuda.main(device="cpu")
     assert "skipped, not ported" in capsys.readouterr().err
     bench_env.delenv("PYGIM_BENCH_CORE_SHAPE")
+    bench_env.delenv("PYGIM_BENCH_CORE_DTYPE")
     bench_env.setenv("PYGIM_BENCH_MEASURE_TOP", "2")
     res = bench_cuda.main(device="cpu")  # stair 8 GiB, then stair 12 GiB
     assert res["config"].hybrid_shape == "stair"

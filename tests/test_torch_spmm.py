@@ -68,9 +68,11 @@ def test_payload_exact_in_bf16_is_exact():
 
 
 @pytest.mark.parametrize("over", [
-    dict(backend="blocked"), dict(backend="coo"), dict(hybrid_shape="square"),
-    dict(hybrid_dtype="bfloat16"), dict(hybrid_dtype="int4"),
-    dict(hybrid_dtype=None), dict(hybrid_k=256), dict(hybrid_core_bytes=0),
+    dict(backend="coo"), dict(hybrid_shape="diagonal"),
+    dict(hybrid_dtype="bfloat16"), dict(hybrid_dtype="float32"),
+    dict(hybrid_dtype=None), dict(hybrid_shape="square", bcsr_bytes=1 << 20),
+    dict(hybrid_k=256, bcsr_bytes=1 << 20),
+    dict(hybrid_core_bytes=0, bcsr_bytes=1 << 20),
 ])
 def test_unported_configs_raise(over):
     rows, cols, vals = make_graph("multigraph")
