@@ -22,8 +22,12 @@ half step, and 2^24 random ones, held equal to ``torch.round(v /
 safe)`` for seven divisors, two of them the int32 forward's own). The
 int4 modes of K-core and K-int (nibble-packed bands): ragged packed
 bands with every nibble value, at one to four limbs; the square int4
-core of the smoke graph; and a 32768 × 65536-cell int4 scale band (1 GiB
-packed) on sampled rows. It checks
+core of the smoke graph, whose tiles split their contraction across a
+cluster (the split and its schedule balance checked, and two K-core
+launches held bit-identical); and a 32768 × 65536-cell int4 scale band
+(1 GiB packed, whole contractions) on sampled rows. Both kernels again
+with every tile split in 2 and 4 chunks, forced, on ragged shapes, int8
+and int4 bands, K-int at one to four limbs. It checks
 ``prep.mul`` against ``mul_plain`` at widths the kernels' tiles do not
 divide, then drives the three main paths, each with the launch counts
 set to 0 before it and read after it — 2-layer GCN inference at hidden
@@ -53,8 +57,10 @@ cpu``, and ``inference_cuda.py``. Every phase runs in a fresh prepare
 and dataset cache (a temporary ``PYGIM_TPU_TORCH_DATA``, removed at the
 end), never the user's.
 
-Its last three lines are the ``kernels`` JSON object, the card's name
-and power limit (``nvidia-smi``), and ``{"ok": true, "device": ...}``.
+Its last three lines are the ``kernels`` JSON object (each kernel with
+its split and schedule balance where it has a tile schedule), the card's
+name and power limit (``nvidia-smi``), and ``{"ok": true, "device":
+...}``.
 Any failure raises and exits non-zero before those lines. Without a
 CUDA card, or without the package beside it, it exits non-zero.
 
@@ -218,7 +224,9 @@ def core_checks(prep, x, results, scale_band=SCALE_BAND):
     results["K-core"] = dict(
         bands=len(shapes), max_abs_err=err, ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-        tflops=ops / ms * 1e-9,
+        tflops=ops / ms * 1e-9, split=[p.split for p in plans],
+        schedule_balance=core_dot.schedule_balance(
+            prep.stair, h, core_dot.max_clusters(dev, False)),
     )
     torch.cuda.empty_cache()
 
@@ -422,7 +430,12 @@ def int_checks(prep, x, results, scale_band=SCALE_BAND):
             tops=limbs * sum(2 * r * w * h for r, w in shapes) / ms * 1e-9,
         )
     # the main path's K-int is the int32 quantized aggregate: three limbs
-    results["K-int"] = dict(per_l[3], limbs=per_l)
+    counts = core_int.max_clusters(3, dev)
+    results["K-int"] = dict(
+        per_l[3], limbs=per_l,
+        split=[p.split for p in core_int.core_int_plans(bands, prep.stair, h,
+                                                        3)],
+        schedule_balance=core_int.cluster_balance(prep.stair, h, 3, counts))
     del z
     torch.cuda.empty_cache()
 
@@ -557,6 +570,17 @@ def int4_checks(prep4, x, results, scale_band=SCALE_BAND):
                       REL_TOL)
     del got, want, mag
     plans = core_dot.core_plans([band], stair, h)
+    # a split tile is reduced in a fixed order: two launches, equal bits
+    again = core_dot.core_bands_scatter_add([band], xc, rows, stair,
+                                            z.clone(), plans=plans)
+    if not torch.equal(again, core_dot.core_bands_scatter_add(
+            [band], xc, rows, stair, z.clone(), plans=plans)):
+        raise AssertionError("K-core int4 square core: two launches differ")
+    del again
+    print(f"K-core int4 square core, split {[p.split for p in plans]}: two "
+          "launches bit-identical; clusters the card runs a split: K-core "
+          f"{core_dot.max_clusters(dev, True)}, K-int one limb "
+          f"{core_int.max_clusters(1, dev, packed=True)}", flush=True)
     ms = cuda_ms(lambda: core_dot.core_bands_scatter_add(
         [band], xc, rows, stair, z, plans=plans))
     plain_ms = cuda_ms(lambda: core_dot.core_bands_plain(
@@ -565,12 +589,12 @@ def int4_checks(prep4, x, results, scale_band=SCALE_BAND):
     library_ms = cuda_ms(lambda: torch.matmul(wide, xc))
     del wide
     bound_ms, bound_by = core_bound([(r, w)], h, results["peaks"], 0.5)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     results["K-core int4"] = dict(
         shape=[r, w, h], max_abs_err=err, ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-        tflops=2 * r * w * h / ms * 1e-9,
-        schedule_balance=core_dot.schedule_balance(stair, h, n_sm))
+        tflops=2 * r * w * h / ms * 1e-9, split=[p.split for p in plans],
+        schedule_balance=core_dot.schedule_balance(
+            stair, h, core_dot.max_clusters(dev, True)))
     h_pad, k_pad = -(-h // 64) * 64, -(-w // 16) * 16
     per_l = {}
     for limbs in (1, 2, 3, 4):
@@ -585,7 +609,8 @@ def int4_checks(prep4, x, results, scale_band=SCALE_BAND):
         xct = core_int.limb_split(xq, limbs, h_pad, k_pad)
         per_l[limbs] = dict(max_abs_err=err, ms=cuda_ms(
             lambda: core_int.core_int_launch([band], xct, rows, stair, z,
-                                             plans)))
+                                             plans)),
+            split=[p.split for p in plans])
         if limbs == 1:
             per_l[1]["plain_ms"] = cuda_ms(lambda: core_int.core_int_plain(
                 [band], xq, rows, stair, z), iters=3, warmup=1)
@@ -600,6 +625,12 @@ def int4_checks(prep4, x, results, scale_band=SCALE_BAND):
         per_l[1], shape=[r, w, h], limbs=per_l,
         schedule_balance=core_int.cluster_balance(
             stair, h, 1, core_int.max_clusters(1, dev, packed=True)))
+    for k in ("K-core int4", "K-int int4"):
+        if results[k]["split"] == [1] or results[k]["schedule_balance"] > 1.15:
+            raise AssertionError(
+                f"{k} on the square core: split {results[k]['split']}, "
+                f"balance {results[k]['schedule_balance']} (want a split "
+                "and at most 1.15)")
     del cells, z, xc
     torch.cuda.empty_cache()
 
@@ -620,6 +651,9 @@ def int4_checks(prep4, x, results, scale_band=SCALE_BAND):
                        cells.float() @ xb.float(),
                        cells.float().abs() @ xb.float().abs(), REL_TOL)
     plans = core_dot.core_plans([band], stair, h)
+    if [p.split for p in plans] != [1]:
+        raise AssertionError(f"the int4 scale band split its contraction: "
+                             f"{[p.split for p in plans]}")
     scale = {"K-core": dict(
         max_abs_err=serr, ms=cuda_ms(lambda: core_dot.core_bands_scatter_add(
             [band], xb, rows, stair, out, plans=plans), iters=10),
@@ -636,6 +670,9 @@ def int4_checks(prep4, x, results, scale_band=SCALE_BAND):
         int_equal(f"K-int int4 scale band {scale_band} L={limbs} (256 "
                   "sampled rows)", out[rows[sel].long()], want)
         plans = core_int.core_int_plans([band], stair, h, limbs)
+        if [p.split for p in plans] != [1]:
+            raise AssertionError(f"the int4 scale band split its "
+                                 f"contraction at {limbs} limbs")
         xct = core_int.limb_split(xq, limbs, h_pad, -(-w // 16) * 16)
         ms = cuda_ms(lambda: core_int.core_int_launch(
             [band], xct, rows, stair, out, plans), iters=10)
@@ -646,6 +683,123 @@ def int4_checks(prep4, x, results, scale_band=SCALE_BAND):
     del band, out
     torch.cuda.empty_cache()
     results["int4 scale band"] = dict(shape=[r, w, h], **scale)
+
+
+def split_band(r, w, packed, gen, dev):
+    """A random int8 band, or a packed int4 one (every nibble value)."""
+    import torch
+
+    if packed:
+        return packed_band(r, w, gen, dev)
+    return torch.randint(-128, 128, (r, w), generator=gen,
+                         dtype=torch.int8).to(dev)
+
+
+def split_checks(dev, results):
+    """K-core and K-int with every tile's contraction split across the
+    blocks of a cluster (forced: ``split`` 2 and 4), int8 and int4 bands,
+    against their plain versions: ragged shapes (rows below one 128-row
+    tile and not a multiple of it, widths not a multiple of split × 64,
+    so the last chunk ends in a ragged stage), K-core at H 8, 136 and
+    264, K-int at one and two limbs at H 8, 136 and 1100 (three and four
+    limbs, which never split, on the same shapes whole), shapes of many
+    tiles a cluster (the hand-over barriers' phases across tiles), a
+    stair of several bands, and an int32 wraparound at two limbs. K-core
+    within REL_TOL of the sum of |terms|, K-int ``torch.equal``."""
+    import torch
+
+    from pygim_tpu_torch.ops import core_dot, core_int
+
+    g = torch.Generator(device="cpu").manual_seed(21)
+    n = 0
+    shapes = ((37, 1312, 8), (100, 4128, 136), (300, 800, 264),
+              (129, 288, 136), (4000, 1312, 264))
+    for packed in (False, True):
+        for split in (2, 4):
+            for r, w, hh in shapes:
+                band = split_band(r, w, packed, g, dev)
+                xc = torch.randn(w + 5, hh, generator=g).to(dev,
+                                                           torch.bfloat16)
+                rows = torch.randperm(3 * r, generator=g)[:r].to(
+                    dev, torch.int32)
+                out0 = torch.randn(3 * r, hh, generator=g).to(dev)
+                stair = [(0, r, w)]
+                plans = core_dot.core_plans([band], stair, hh, split=split)
+                got = core_dot.core_bands_scatter_add(
+                    [band], xc, rows, stair, out0.clone(), plans=plans)
+                want = core_dot.core_band_plain(band, xc, rows, out0.clone())
+                mag = out0.abs().index_add(
+                    0, rows, core_dot.band_cells(band).float().abs()
+                    @ xc[:w].float().abs())
+                check_close(f"K-core {'int4' if packed else 'int8'} split "
+                            f"{split} {(r, w, hh)}", got, want, mag, REL_TOL)
+                n += 1
+            for limbs in (1, 2, 3, 4):
+                for r, w, hh in ((37, 1312, 8), (100, 4128, 136),
+                                 (300, 800, 1100), (4000, 800, 1100)):
+                    band = split_band(r, w, packed, g, dev)
+                    xq = int_payload(w + 5, hh, limbs, g, dev)
+                    rows = torch.randperm(3 * r, generator=g)[:r].to(
+                        dev, torch.int32)
+                    z = torch.zeros(3 * r, hh, device=dev)
+                    stair = [(0, r, w)]
+                    plans = core_int.core_int_plans(
+                        [band], stair, hh, limbs,
+                        split=split if split in core_int.splits(limbs) else 1)
+                    got = core_int.core_int_scatter_add(
+                        [band], xq, rows, stair, z.clone(), limbs, plans)
+                    want = core_int.core_int_plain([band], xq, rows, stair,
+                                                   z.clone())
+                    int_equal(f"K-int {'int4' if packed else 'int8'} split "
+                              f"{plans[0].split} {(r, w, hh)} L={limbs}", got,
+                              want)
+                    n += 1
+        # several bands in one launch, each tile split in two
+        shp = [(421, 1312), (37, 256), (1300, 2080), (8, 128)]
+        bands = [split_band(r, w, packed, g, dev) for r, w in shp]
+        stair, lo = [], 0
+        for r, w in shp:
+            stair.append((lo, lo + r, w))
+            lo += r
+        rows = torch.randperm(3 * lo, generator=g)[:lo].to(dev, torch.int32)
+        xc = torch.randn(2080, 136, generator=g).to(dev, torch.bfloat16)
+        z = torch.zeros(3 * lo, 136, device=dev)
+        plans = core_dot.core_plans(bands, stair, 136, split=2)
+        got = core_dot.core_bands_scatter_add(bands, xc, rows, stair,
+                                              z.clone(), plans=plans)
+        want = core_dot.core_bands_plain(bands, xc, rows, stair, z.clone())
+        mag = core_dot.core_bands_plain(
+            [core_dot.band_cells(t).abs() for t in bands], xc.abs(), rows,
+            stair, z.clone())
+        check_close(f"K-core {'int4' if packed else 'int8'} split 2, "
+                    f"{len(shp)} bands", got, want, mag, REL_TOL)
+        xq = int_payload(2080, 136, 1, g, dev)
+        plans = core_int.core_int_plans(bands, stair, 136, 1, split=2)
+        got = core_int.core_int_scatter_add(bands, xq, rows, stair,
+                                            z.clone(), 1, plans)
+        int_equal(f"K-int {'int4' if packed else 'int8'} split 2, "
+                  f"{len(shp)} bands", got, core_int.core_int_plain(
+                      bands, xq, rows, stair, z.clone()))
+        n += 2
+    # int32 wraparound in every chunk and in total: two limbs hold payloads
+    # up to 32639, and 127 · 32639 · 4096 passes 2^31 many times over
+    r, w, hh = 96, 4096, 72
+    band = torch.full((r, w), 127, dtype=torch.int8, device=dev)
+    xq = torch.full((w, hh), 32639, dtype=torch.int32, device=dev)
+    xq[::3] = -32639
+    rows = torch.arange(r, dtype=torch.int32, device=dev)
+    z = torch.zeros(r, hh, device=dev)
+    for split in (2, 4):
+        plans = core_int.core_int_plans([band], [(0, r, w)], hh, 2,
+                                        split=split)
+        int_equal(f"K-int split {split} wraparound L=2",
+                  core_int.core_int_scatter_add(
+                      [band], xq, rows, [(0, r, w)], z.clone(), 2, plans),
+                  core_int.core_int_plain([band], xq, rows, [(0, r, w)],
+                                          z.clone()))
+        n += 1
+    results["split checks"] = n
+    torch.cuda.empty_cache()
 
 
 SCALE_GRAPH = "rmat-232965-8000000"  # reddit's node count, 8M stored edges
@@ -1453,7 +1607,8 @@ def run() -> int:
                     symbol = line.split("'")[1]
                     m = re.search(r"[a-z][a-z_]*_kernel", symbol)
                     kernel = symbol[m.start() if m else 0:][:40]
-                elif "registers" in line or "spill" in line:
+                elif ("registers" in line or "spill" in line
+                      or "serialized" in line):
                     print(f"ptxas {n} {kernel}: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
@@ -1484,6 +1639,8 @@ def run() -> int:
     int4_checks(prep4, x, results)
     for k in ("K-core int4", "K-int int4", "int4 scale band"):
         print(f"{k}: {results[k]}", flush=True)
+    split_checks(x.device, results)
+    print(f"split checks: {results['split checks']} cases held", flush=True)
     tail_checks(prep, x, results)
     print(f"K-tail: {results['K-tail']}", flush=True)
     tail_quant_checks(prep, x, results)
@@ -1635,6 +1792,8 @@ def run() -> int:
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"],
+            "schedule_balance": res.get("schedule_balance"),
+            "split": res.get("split"),
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -27,6 +27,8 @@ import time
 
 import torch
 
+from pygim_tpu_torch.utils.timers import device_time
+
 _T0 = time.time()
 
 
@@ -70,9 +72,11 @@ def operand_info(prep, hidden: int, dev, limbs=None) -> dict:
         cell = 0.5 if prep.core_dtype == "int4" else 1.0
         bands = prep.stair
         shapes = [(hi - lo, w) for lo, hi, w in bands]
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        counts = core_dot.max_clusters(dev, prep.core_dtype == "int4")
         info["schedule_balance"] = core_dot.schedule_balance(
-            bands, -(-hidden // 8) * 8, n_sm)
+            bands, -(-hidden // 8) * 8, counts)
+        info["schedule_split"] = core_dot.schedule_split(
+            bands, -(-hidden // 8) * 8, counts)
         info["core_bound_ms"] = core_bound(shapes, hidden, pk, cell)
         if limbs:
             info["int_limbs"] = limbs
@@ -83,14 +87,67 @@ def operand_info(prep, hidden: int, dev, limbs=None) -> dict:
     return info
 
 
+def square_core_calls(prep, hidden: int, dev, iters: int = 5) -> dict:
+    """K-core's and K-int's (one limb) time alone on the operand's square
+    core (its one band, at width ``hidden``), beside the PyTorch call that
+    computes the same product on the band widened in memory:
+    ``torch.matmul`` on bf16 cells, ``torch._int_mm`` on int8 cells; ms
+    a call (CUDA events), with each kernel's split and schedule balance.
+    The widened band is built in row blocks and freed before the next."""
+    from pygim_tpu_torch.ops import core_dot, core_int
+
+    (lo, hi, w), = prep.stair
+    r = hi - lo
+    band = prep.dev_arrays["core"]
+    rows = prep.dev_arrays["core_nodes"][lo:hi]
+    stair = [(0, r, w)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = torch.zeros(prep.nrows, hidden, device=dev)
+    packed = core_dot.is_packed([band])
+
+    def widened(dtype):
+        cells = torch.empty(r, w, dtype=dtype, device=dev)
+        for r0 in range(0, r, 8192):
+            cells[r0:r0 + 8192] = core_dot.band_cells(band[r0:r0 + 8192])
+        return cells
+
+    def ms(fn):
+        return device_time(fn, iters=iters) * 1e3
+
+    res = {"shape": [r, w, hidden]}
+    xc = torch.randn(w, hidden, generator=g, device=dev).to(torch.bfloat16)
+    plans = core_dot.core_plans([band], stair, hidden)
+    res["K-core_ms"] = ms(lambda: core_dot.core_bands_scatter_add(
+        [band], xc, rows, stair, out, plans=plans))
+    res["K-core_split"] = [p.split for p in plans]
+    res["K-core_balance"] = core_dot.schedule_balance(
+        stair, hidden, core_dot.max_clusters(dev, packed))
+    cells = widened(torch.bfloat16)
+    res["matmul_bf16_ms"] = ms(lambda: torch.matmul(cells, xc))
+    del cells, plans
+    torch.cuda.empty_cache()
+    xq = torch.randint(-16, 17, (w, hidden), generator=g, device=dev).to(
+        torch.int8)
+    plans = core_int.core_int_plans([band], stair, hidden, 1)
+    xct = core_int.limb_split(xq, 1, -(-hidden // 64) * 64, -(-w // 16) * 16)
+    res["K-int_ms"] = ms(lambda: core_int.core_int_launch(
+        [band], xct, rows, stair, out, plans))
+    res["K-int_split"] = [p.split for p in plans]
+    res["K-int_balance"] = core_int.cluster_balance(
+        stair, hidden, 1, core_int.max_clusters(1, dev, packed))
+    cells = widened(torch.int8)
+    res["int_mm_ms"] = ms(lambda: torch._int_mm(cells, xq))
+    del cells, plans, xct, out
+    torch.cuda.empty_cache()
+    return res
+
+
 def profile_forward(gnn, x, agg, iters: int = 5, out=None) -> dict:
     """Device time by kernel for one inference forward (torch.profiler),
     and the device's busy share of the forward's wall time; printed (to
     ``out``, default stdout) and returned as ``{"wall_ms", "busy_ms",
     "kernels": [(ms, launches, name)]}`` per forward."""
     from torch.profiler import ProfilerActivity, profile
-
-    from pygim_tpu_torch.utils.timers import device_time
 
     out = out or sys.stdout
 
@@ -207,6 +264,10 @@ def main(dataset: str = "ogbn-products", device="cuda") -> dict:
         resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
     log(f"peak card memory {res.get('peak_card_gb')} GB, peak host RSS "
         f"{res['peak_host_rss_gib']:.2f} GiB")
+    if dev.type == "cuda" and len(prep.stair) == 1:
+        res["square_core_calls"] = square_core_calls(prep, HIDDEN, dev)
+        log(f"square core, kernels and library calls: "
+            f"{res['square_core_calls']}")
     print(json.dumps(res, default=str))
     return res
 

@@ -51,14 +51,31 @@
 // - One producer thread keeps a 4-stage ring of TMA loads in flight
 //   (cp.async.bulk.tensor, mbarrier full/empty pairs). TMA's zero fill
 //   takes the ragged row and column edges; k16 steps past w are skipped.
-// - One persistent block per SM walks its share of a host-built tile list
-//   (band, m0, n0): longest contraction first, spread over the blocks by
-//   a greedy longest-first assignment, so short bands fill the SMs that
-//   the long ones leave idle. One launch covers every band, and each
-//   tile runs its whole contraction, so no epilogue needs atomics.
+// - A consumer reads and widens the next stage's A fragments while the
+//   current stage's wgmmas run, then drains them (wait_group 0) and
+//   releases the stage. A second group in flight (two A register sets,
+//   wait_group 1) was measured slower: it holds each stage one step
+//   longer, which leaves the producer two of the four stages.
+// - Persistent clusters walk their share of a host-built tile list
+//   (ops/core_dot.py:cluster_schedule): longest contraction first, spread
+//   by a greedy longest-first assignment, so short bands fill the SMs
+//   that the long ones leave idle. One launch covers every band. Where a
+//   launch has few row tiles for the SMs (a square core of 180 row tiles
+//   on 132 SMs), the host splits every tile's contraction into `split`
+//   chunks of whole stages (2 or 4), run by the blocks of one cluster; at
+//   split 1 a block is its own cluster and runs whole contractions.
 // - The epilogue stages each 64-column slice of the tile through shared
 //   memory and adds it into out[nodes[lo + i], n0:n0 + 256] with 16-byte
-//   read-modify-writes along each row.
+//   read-modify-writes along each row. In a split tile every block stages
+//   its partial slice in its own staging buffer and hands it over on the
+//   leader's (rank 0's) `ready` mbarrier; the leader reads the peers'
+//   slices through distributed shared memory (mapa, ld.shared::cluster)
+//   in chunk order, adds them to its own, frees the peers' buffers on
+//   their `free` mbarriers and alone updates out. Every output element is
+//   written by one block in a fixed order of f32 sums: no atomics, no
+//   global workspace, the same bits from run to run. The hand-over waits
+//   trap after about 2 s, so a lost arrival fails the launch instead of
+//   hanging the card.
 
 #include <cuda_bf16.h>
 #include <string.h>
@@ -73,6 +90,7 @@ constexpr int BN = 256;             // output columns per tile
 constexpr int BK = 64;              // contraction per ring stage
 constexpr int STAGES = 4;
 constexpr int THREADS = 384;        // consumer WG 0, 1; producer WG 2
+constexpr int FIELDS = 6;           // a block's tile: band, m0, n0, live, k0, k1
 constexpr int A_STAGE = BM * BK;                // int8, 64-byte swizzle
 constexpr int A_PACKED = BM * BK / 2;           // int4 stage, unswizzled
 constexpr int B_BOX = 64 * BK * 2;              // 64 columns x BK rows bf16
@@ -83,7 +101,8 @@ constexpr int OFF_A = 0;
 constexpr int OFF_B = OFF_A + STAGES * A_STAGE;
 constexpr int OFF_EPI = OFF_B + STAGES * B_STAGE;
 constexpr int OFF_BAR = OFF_EPI + 2 * EPI_WG;
-constexpr int SMEM_BYTES = OFF_BAR + 2 * STAGES * 8 + 1024;  // + alignment
+// ring full / empty, then split tiles' ready / free per consumer warpgroup
+constexpr int SMEM_BYTES = OFF_BAR + (2 * STAGES + 4) * 8 + 1024;  // + align
 
 struct __align__(64) Params {
   CUtensorMap band[MAX_BANDS];
@@ -200,7 +219,7 @@ __device__ __forceinline__ void load_a_packed(uint32_t (&a)[4][4],
   }
 }
 
-template <bool PACKED>
+template <bool PACKED, int SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
 core_bands_kernel(const __grid_constant__ Params p,
                   const int* __restrict__ tiles,
@@ -213,18 +232,33 @@ core_bands_kernel(const __grid_constant__ Params p,
   const uint32_t s_base = smem_u32(smem);
   const uint32_t full0 = s_base + OFF_BAR;
   const uint32_t empty0 = full0 + STAGES * 8;
+  // split tiles, per consumer warpgroup: the peers' partials are staged
+  // (the leader's barrier), the leader has read this block's (a peer's)
+  const uint32_t ready0 = empty0 + STAGES * 8;
+  const uint32_t free0 = ready0 + 2 * 8;
+  // this block's chunk of each tile of its cluster; rank 0 leads
+  const uint32_t rank = SPLIT > 1 ? cluster_rank() : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 8);  // lane 0 of each consumer warp
     }
+    for (int g = 0; g < 2; ++g) {
+      mbar_init(ready0 + 8 * g, SPLIT > 1 ? SPLIT - 1 : 1);  // one a peer
+      mbar_init(free0 + 8 * g, 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
-  __syncthreads();
+  // every block's barriers exist before another block arrives on them
+  if constexpr (SPLIT > 1)
+    cluster_sync();
+  else
+    __syncthreads();
 
-  const int t_begin = starts[blockIdx.x], t_end = starts[blockIdx.x + 1];
+  const int c = SPLIT > 1 ? cluster_index() : blockIdx.x;
+  const int t_begin = starts[c], t_end = starts[c + 1];
   const int wg = threadIdx.x >> 7;
 
   if (wg == 2) {
@@ -234,11 +268,11 @@ core_bands_kernel(const __grid_constant__ Params p,
       int stage = 0;
       uint32_t phase = 0;
       for (int t = t_begin; t < t_end; ++t) {
-        const int b = tiles[3 * t], m0 = tiles[3 * t + 1],
-                  n0 = tiles[3 * t + 2];
+        const int* e = tiles + (t * SPLIT + rank) * FIELDS;
+        const int b = e[0], m0 = e[1], n0 = e[2], kb = e[4], ke = e[5];
         const int nbox = min(BN / 64, (h - n0 + 63) / 64);
         const CUtensorMap* amap = &p.band[b];
-        for (int k0 = 0; k0 < p.w[b]; k0 += BK) {
+        for (int k0 = kb; k0 < ke; k0 += BK) {
           const uint32_t full = full0 + 8 * stage;
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
           mbar_expect_tx(full, (PACKED ? A_PACKED : A_STAGE) + nbox * B_BOX);
@@ -254,6 +288,7 @@ core_bands_kernel(const __grid_constant__ Params p,
         }
       }
     }
+    __syncwarp();
   } else {
     // ---- consumers: wgmma on a 64 x 256 half of the tile each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
@@ -267,37 +302,53 @@ core_bands_kernel(const __grid_constant__ Params p,
     const int a_off1 = a_off0 + 8 * BK;
     const int sh = 8 * t4;  // int4: this thread's byte of each word
     float* epi = reinterpret_cast<float*>(smem + OFF_EPI + wg * EPI_WG);
+    const uint32_t epi_s = s_base + OFF_EPI + wg * EPI_WG;
     int stage = 0;
     uint32_t phase = 0;
+    int uses = 0;  // 64-column slices this warpgroup has staged
 
     for (int t = t_begin; t < t_end; ++t) {
-      const int b = tiles[3 * t], m0 = tiles[3 * t + 1], n0 = tiles[3 * t + 2];
+      const int* e = tiles + (t * SPLIT + rank) * FIELDS;
+      const int b = e[0], m0 = e[1], n0 = e[2], kb = e[4], ke = e[5];
       const int r = p.r[b], lo = p.lo[b], w = p.w[b];
       float acc[128];
 #pragma unroll
       for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 
-      // The A fragments of stage k + 1 are read and widened while the
-      // wgmmas of stage k run; a wgmma's registers stay untouched until
-      // wait_group has retired it.
+      // A from registers: the next stage's fragments are read and widened
+      // while this stage's wgmmas run; a wgmma's registers stay untouched
+      // until wait_group has retired it
       uint32_t a[4][4], a_next[4][4];
       mbar_wait(full0 + 8 * stage, phase);
       if constexpr (PACKED)
         load_a_packed(a, smem + OFF_A + stage * A_STAGE, ra, sh);
       else
         load_a(a, smem + OFF_A + stage * A_STAGE, a_off0, a_off1, swz);
-      for (int k0 = 0; k0 < w; k0 += BK) {
+      for (int k0 = kb; k0 < ke; k0 += BK) {
         const uint64_t desc = b_desc(s_base + OFF_B + stage * B_STAGE);
         asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-        if (w - k0 >= BK) {
+        if constexpr (SPLIT == 1) {
+          if (w - k0 >= BK) {
 #pragma unroll
-          for (int s = 0; s < 4; ++s)  // 16 rows of B = 128 descriptor units
-            wgmma_m64n256k16(acc, a[s], desc + 128ull * s);
-        } else {  // the last k16 steps of a width that is not a BK multiple
-          const int ksteps = (w - k0) >> 4;
+            for (int s = 0; s < 4; ++s)  // 16 rows of B = 128 desc. units
+              wgmma_m64n256k16(acc, a[s], desc + 128ull * s);
+          } else {  // the last k16 steps of a width not a BK multiple
+            const int ksteps = (w - k0) >> 4;
 #pragma unroll
-          for (int s = 0; s < 3; ++s)
-            if (s < ksteps) wgmma_m64n256k16(acc, a[s], desc + 128ull * s);
+            for (int s = 0; s < 3; ++s)
+              if (s < ksteps) wgmma_m64n256k16(acc, a[s], desc + 128ull * s);
+          }
+        } else {
+          // Without a branch around a wgmma, which in a split kernel makes
+          // ptxas serialize them: a k16 step past w (the last stage of a
+          // width that is not a BK multiple) multiplies its zero-filled A
+          // by the stage's first rows, which lie inside w, and adds zeros
+          // (a non-finite row there makes every row of the band non-finite
+          // in the reference's product too).
+          const int ks = min(4, (w - k0) >> 4);
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma_m64n256k16(acc, a[s], desc + 128ull * (s < ks ? s : 0));
         }
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         int next = stage + 1;
@@ -306,7 +357,7 @@ core_bands_kernel(const __grid_constant__ Params p,
           next = 0;
           next_phase ^= 1;
         }
-        if (k0 + BK < w) {
+        if (k0 + BK < ke) {
           mbar_wait(full0 + 8 * next, next_phase);
           if constexpr (PACKED)
             load_a_packed(a_next, smem + OFF_A + next * A_STAGE, ra, sh);
@@ -314,6 +365,8 @@ core_bands_kernel(const __grid_constant__ Params p,
             load_a(a_next, smem + OFF_A + next * A_STAGE, a_off0, a_off1,
                    swz);
         }
+        // drained at every stage: a second group in flight holds a stage
+        // longer and, at 4 stages, starves the producer (PERF.md)
         asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
         if (lane == 0) mbar_arrive(empty0 + 8 * stage);
         stage = next;
@@ -321,20 +374,13 @@ core_bands_kernel(const __grid_constant__ Params p,
 #pragma unroll
         for (int s = 0; s < 4; ++s)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) a[s][e] = a_next[s][e];
+          for (int e2 = 0; e2 < 4; ++e2) a[s][e2] = a_next[s][e2];
       }
 
       // ---- epilogue: out[nodes[lo + row], n0 + col] += acc ----
-      int ids[8];  // output rows of this thread's epilogue reads
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int row = m0 + 64 * wg + (tid >> 4) + 8 * k;
-        ids[k] = row < r ? nodes[lo + row] : -1;
-      }
-#pragma unroll
-      for (int c4 = 0; c4 < BN / 64; ++c4) {
-        if (n0 + 64 * c4 >= h) break;
-        named_bar_sync(1 + wg);  // the previous slice's readers are done
+      // A split tile's blocks each stage their partial; the leader adds the
+      // peers' to its own in chunk order and alone updates out.
+      auto stage_slice = [&](int c4) {  // acc's 64-column slice c4 -> epi
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = 8 * j + 2 * t4;
@@ -344,15 +390,70 @@ core_bands_kernel(const __grid_constant__ Params p,
           *reinterpret_cast<float2*>(epi + (16 * warp + g + 8) * EPI_LD + col) =
               make_float2(acc[i + 2], acc[i + 3]);
         }
+      };
+      if constexpr (SPLIT > 1) {
+        if (rank != 0) {  // a peer: hand each slice to the leader
+#pragma unroll
+          for (int c4 = 0; c4 < BN / 64; ++c4) {
+            if (n0 + 64 * c4 >= h) break;
+            if (uses > 0)  // the leader has read the previous slice
+              wait_cluster_or_trap(free0 + 8 * wg, (uses - 1) & 1);
+            stage_slice(c4);
+            named_bar_sync(1 + wg);
+            if (tid == 0) arrive_release_at(in_block(ready0 + 8 * wg, 0));
+            ++uses;
+          }
+          continue;
+        }
+      }
+      int ids[8];  // output rows of this thread's epilogue reads
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int row = m0 + 64 * wg + (tid >> 4) + 8 * k;
+        ids[k] = row < r ? nodes[lo + row] : -1;
+      }
+      // this thread's 16 bytes of staged row (tid >> 4) + 8k
+      const int at = (tid >> 4) * EPI_LD + 4 * (tid & 15);
+#pragma unroll
+      for (int c4 = 0; c4 < BN / 64; ++c4) {
+        if (n0 + 64 * c4 >= h) break;
+        named_bar_sync(1 + wg);  // the previous slice's readers are done
+        stage_slice(c4);
         named_bar_sync(1 + wg);
         const int col = n0 + 64 * c4 + 4 * (tid & 15);
+        if constexpr (SPLIT > 1) {
+          // add the peers' slices to this one, in chunk order, in place
+          wait_cluster_or_trap(ready0 + 8 * wg, uses & 1);
+          ++uses;
+          if (col < h) {
+#pragma unroll 2
+            for (int k = 0; k < 8; ++k) {
+              float4* o = reinterpret_cast<float4*>(epi + at + 8 * k * EPI_LD);
+              float4 a = *o;
+#pragma unroll
+              for (int q = 1; q < SPLIT; ++q) {
+                const uint4 u = ld_cluster_u4(
+                    in_block(epi_s + 4 * (at + 8 * k * EPI_LD), q));
+                a.x += __uint_as_float(u.x);
+                a.y += __uint_as_float(u.y);
+                a.z += __uint_as_float(u.z);
+                a.w += __uint_as_float(u.w);
+              }
+              *o = a;
+            }
+          }
+          named_bar_sync(1 + wg);  // every read of the peers' slices is done
+          if (tid == 0)
+#pragma unroll
+            for (int q = 1; q < SPLIT; ++q)
+              arrive_release_at(in_block(free0 + 8 * wg, q));
+        }
         if (col < h) {  // h % 8 == 0: the whole float4 is inside
           float4 s[8], v[8];
 #pragma unroll
           for (int k = 0; k < 8; ++k)
-            s[k] = *reinterpret_cast<const float4*>(
-                epi + ((tid >> 4) + 8 * k) * EPI_LD + 4 * (tid & 15));
-          // all eight loads in flight before any store
+            s[k] = *reinterpret_cast<const float4*>(epi + at + 8 * k * EPI_LD);
+          // all eight rows' loads in flight before any store
 #pragma unroll
           for (int k = 0; k < 8; ++k)
             if (ids[k] >= 0)
@@ -372,6 +473,53 @@ core_bands_kernel(const __grid_constant__ Params p,
       }
     }
   }
+  // a peer's shared memory and barriers stay until the leader has read its
+  // last slice and freed it: every thread of the cluster meets here
+  if constexpr (SPLIT > 1) cluster_sync();
+}
+
+// The launch of n_clusters clusters of `split` blocks (single blocks,
+// without the cluster attribute, at split 1).
+struct Launch {
+  cudaLaunchAttribute attr{};
+  cudaLaunchConfig_t cfg{};
+  Launch(int n_clusters, int split, cudaStream_t stream) {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = split;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(n_clusters * split);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = SMEM_BYTES;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+typedef void (*KernelFn)(Params, const int*, const int*, const int*, float*,
+                         int);
+
+// The kernel of the cell type (`packed`) and split, with its shared memory
+// granted; nullptr for another split (or where the card refuses it).
+KernelFn kernel_of(int packed, int split) {
+  KernelFn k = nullptr;
+  switch (split) {
+    case 1:
+      k = packed ? core_bands_kernel<true, 1> : core_bands_kernel<false, 1>;
+      break;
+    case 2:
+      k = packed ? core_bands_kernel<true, 2> : core_bands_kernel<false, 2>;
+      break;
+    case 4:
+      k = packed ? core_bands_kernel<true, 4> : core_bands_kernel<false, 4>;
+      break;
+  }
+  if (k != nullptr &&
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_BYTES) != cudaSuccess)
+    k = nullptr;
+  return k;
 }
 
 }  // namespace
@@ -391,18 +539,35 @@ extern "C" int core_encode_band_map(void* map, const void* band, long long r,
   return err;
 }
 
+// The most clusters of `split` blocks of the K-core kernel (its int4 mode
+// where `packed`) the current card runs at once, into *n. Returns 0 or an
+// error code.
+extern "C" int core_max_clusters(int split, int packed, int* n) {
+  const KernelFn k = kernel_of(packed, split);
+  if (k == nullptr) return ERR_ARGS;
+  Launch l(1, split, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(n, k, &l.cfg));
+}
+
 // One launch over all bands, all int8 or all packed int4 (`packed`):
 // `band_maps` holds n_bands encoded maps (host),
-// `band_info` (lo, r, w) per band (host); `tiles` (int32 triples: band,
-// m0, n0) and `starts` (grid + 1 offsets into tiles, one segment per block) are on
-// the device. Returns 0 or an error code (cudaError_t, or the codes above).
+// `band_info` (lo, r, w) per band (host); `tiles` (int32 (n, split, 6):
+// each block's band, m0, n0, live, k0, k1 per cluster tile, in cluster-rank
+// order) and `starts` (n_clusters + 1 offsets into the cluster tiles, one
+// segment per cluster) are on the device; clusters of `split` blocks, one
+// contraction chunk each, single blocks at split 1. Returns 0 or an error
+// code (cudaError_t, or the codes above).
 extern "C" int core_bands_scatter_add(const void* band_maps,
                                       const int* band_info, int n_bands,
                                       const void* xc, long long n_xc,
                                       const void* tiles, const void* starts,
-                                      int grid, const void* nodes, void* out,
-                                      int h, int packed, void* stream) {
-  if (n_bands < 1 || n_bands > MAX_BANDS || grid < 1 || h % 8) return ERR_ARGS;
+                                      int n_clusters, int split,
+                                      const void* nodes, void* out, int h,
+                                      int packed, void* stream) {
+  const KernelFn k = kernel_of(packed, split);
+  if (n_bands < 1 || n_bands > MAX_BANDS || n_clusters < 1 || k == nullptr ||
+      h % 8)
+    return ERR_ARGS;
   Params p;
   memset(&p, 0, sizeof p);
   memcpy(p.band, band_maps, n_bands * sizeof(CUtensorMap));
@@ -414,12 +579,12 @@ extern "C" int core_bands_scatter_add(const void* band_maps,
   int err = encode_2d(&p.xc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xc, h, n_xc,
                       2ll * h, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
-  auto kernel = packed ? core_bands_kernel<true> : core_bands_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  Launch l(n_clusters, split, static_cast<cudaStream_t>(stream));
+  if (split == 1) l.cfg.numAttrs = 0;  // single blocks
+  const cudaError_t e = cudaLaunchKernelEx(
+      &l.cfg, k, p, static_cast<const int*>(tiles),
+      static_cast<const int*>(starts), static_cast<const int*>(nodes),
+      static_cast<float*>(out), h);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const int*>(tiles), static_cast<const int*>(starts),
-      static_cast<const int*>(nodes), static_cast<float*>(out), h);
   return static_cast<int>(cudaGetLastError());
 }

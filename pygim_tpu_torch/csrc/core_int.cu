@@ -83,12 +83,23 @@
 //   instead of hanging the card.
 // - Two consumer warpgroups of 64 band rows each; a consumer keeps one
 //   stage's wgmmas in flight while it waits for the next stage, and
-//   releases a stage when its products have retired. Whole contractions,
-//   so the epilogue needs no atomics.
-// - The epilogue recombines the limbs, converts to f32 (round to nearest,
-//   as XLA's convert), stages each 64-column slice through shared memory
-//   and adds it into out[nodes[lo + i], :] along each row, every row's load
-//   issued before any store.
+//   releases a stage when its products have retired.
+// - Where a launch has few tiles for the SMs (one or two limbs on a square
+//   core of 180 row tiles), the host splits every tile's contraction into
+//   `split` chunks of whole stages (2 or 4, ops/core_dot.py:choose_split),
+//   run by the blocks of one cluster; elsewhere a block runs whole
+//   contractions (at four limbs its cluster is the multicast pair, never
+//   split).
+// - The epilogue recombines the limbs in uint32, converts to f32 (round to
+//   nearest, as XLA's convert), stages each 64-column slice through shared
+//   memory and adds it into out[nodes[lo + i], :] along each row, every
+//   row's load issued before any store. In a split tile the blocks stage
+//   the uint32 sums and convert after the reduction: the peers
+//   hand their staged slices to the leader (rank 0) on its `ready`
+//   mbarrier; the leader adds them to its own as uint32, wrapping, in
+//   chunk order, before the conversion (so the sum is still the wrapped
+//   int32 product bit for bit), frees the peers' buffers on their `free`
+//   mbarriers and alone updates out: no atomics, no global workspace.
 
 #include <string.h>
 
@@ -111,7 +122,12 @@ constexpr int OFF_A = 0;
 constexpr int OFF_B = OFF_A + STAGES * A_STAGE;
 constexpr int OFF_EPI = OFF_B + STAGES * B_STAGE;
 constexpr int OFF_BAR = OFF_EPI + 2 * EPI_WG;
-constexpr int SMEM_BYTES = OFF_BAR + 2 * STAGES * 8 + 1024;  // + alignment
+// ring full / empty, then split tiles' ready / free per consumer warpgroup
+constexpr int SMEM_BYTES = OFF_BAR + (2 * STAGES + 4) * 8 + 1024;  // + align
+// limb counts whose tiles may split their contraction (2 or 4 chunks;
+// ops/core_int.py:SPLIT_LIMBS holds the same)
+constexpr int MAX_SPLIT_LIMBS = 2;
+constexpr int FIELDS = 6;         // a block's tile: band, m0, n0, live, k0, k1
 
 // Row tiles (blocks) of a cluster at `limbs`: two at four limbs, one
 // elsewhere (ops/core_int.py:CLUSTER_ROWS holds the same).
@@ -124,66 +140,6 @@ struct __align__(64) Params {
   CUtensorMap xct;
   int lo[MAX_BANDS], r[MAX_BANDS], w[MAX_BANDS];
 };
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t cluster_index() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(v));
-  return v;
-}
-
-// every thread of every block of the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n\t"
-      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// Wait for phase `parity` of an mbarrier; trap after about 2^32 cycles
-// (~2 s), so a stage that never completes fails the launch instead of
-// hanging the card. One asm block: no branch of the C++ code around it.
-__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      " .reg .pred p;\n"
-      " .reg .u64 t0, t1;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @p bra.uni DONE;\n"
-      " mov.u64 t0, %%clock64;\n"
-      "WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @p bra.uni DONE;\n"
-      " mov.u64 t1, %%clock64;\n"
-      " sub.u64 t1, t1, t0;\n"
-      " setp.gt.u64 p, t1, 4294967296;\n"
-      " @p trap;\n"
-      " bra.uni WAIT;\n"
-      "DONE:\n"
-      "}" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// The shared::cluster address of the mbarrier at this CTA-relative
-// address in block `cta` of the cluster.
-__device__ __forceinline__ uint32_t in_block(uint32_t bar, uint32_t cta) {
-  uint32_t ra;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(ra)
-               : "r"(bar), "r"(cta));
-  return ra;
-}
-
-// arrive on a barrier of a block of the cluster (in_block address)
-__device__ __forceinline__ void arrive_at(uint32_t ra) {
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(ra)
-               : "memory");
-}
 
 // the same, expecting `bytes` more to land on it
 __device__ __forceinline__ void expect_at(uint32_t ra, uint32_t bytes) {
@@ -360,16 +316,16 @@ __device__ __forceinline__ void load_a_s8(uint32_t (&a)[2][4],
   }
 }
 
-template <int L, bool PACKED>
+template <int L, bool PACKED, int SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
-core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles,
+core_int_kernel(const __grid_constant__ Params p, const int* __restrict__ tiles,
                 const int* __restrict__ starts, const int* __restrict__ nodes,
                 float* __restrict__ out, int h, int h_pad, int vec) {
   constexpr int N = L == 3 ? 192 : 256;  // wgmma width: L limbs x G blocks
   constexpr int G = N / (64 * L);        // 64-column output blocks a tile
   constexpr int NACC = N / 2;            // s32 accumulators a thread
-  constexpr int CM = cluster_rows(L);    // blocks a cluster
-  constexpr bool CLUSTER = CM > 1;
+  constexpr int CM = cluster_rows(L);    // row-tile blocks a cluster
+  constexpr bool CLUSTER = CM > 1;       // (then SPLIT == 1)
   constexpr int B_ROWS = 64 / CM;        // a block's rows of a limb block
 
   extern __shared__ uint8_t smem_raw[];
@@ -379,8 +335,14 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
   const uint32_t s_base = smem_u32(smem);
   const uint32_t full0 = s_base + OFF_BAR;
   const uint32_t empty0 = full0 + STAGES * 8;
-  // this block's rank in its cluster: it takes row tile m0 + 128 * rank
-  const uint32_t rank = CLUSTER ? cluster_rank() : 0;
+  // split tiles, per consumer warpgroup: the peers' partials are staged
+  // (the leader's barrier), the leader has read this block's (a peer's)
+  const uint32_t ready0 = empty0 + STAGES * 8;
+  const uint32_t free0 = ready0 + 2 * 8;
+  // this block's rank in its cluster: at four limbs it takes row tile
+  // m0 + 128 * rank, in a split tile chunk `rank` (rank 0 leads)
+  constexpr int NB = CM * SPLIT;  // blocks a cluster
+  const uint32_t rank = NB > 1 ? cluster_rank() : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -389,16 +351,20 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
       mbar_init(full0 + 8 * s, CM);
       mbar_init(empty0 + 8 * s, CONSUMER_WARPS * CM);
     }
+    for (int g = 0; g < 2; ++g) {
+      mbar_init(ready0 + 8 * g, SPLIT > 1 ? SPLIT - 1 : 1);  // one a peer
+      mbar_init(free0 + 8 * g, 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
-  // every block's barriers exist before the other uses them
-  if constexpr (CLUSTER)
+  // every block's barriers exist before another block arrives on them
+  if constexpr (NB > 1)
     cluster_sync();
   else
     __syncthreads();
 
-  const int c = CLUSTER ? cluster_index() : blockIdx.x;
+  const int c = NB > 1 ? cluster_index() : blockIdx.x;
   const int t_begin = starts[c], t_end = starts[c + 1];
   const int wg = threadIdx.x >> 7;
 
@@ -413,12 +379,14 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
         full_of[i] = CLUSTER ? in_block(full0, i) : full0;
       int stage = 0;
       uint32_t phase = 0;
-      // this block's share of each 64-row limb block: rows rank * B_ROWS..
-      // (the xcT map's boxes are B_ROWS high)
-      const uint32_t b_dst = s_base + OFF_B + rank * B_ROWS * BK;
+      // this block's share of each 64-row limb block: rows share * B_ROWS..
+      // (the xcT map's boxes are B_ROWS high; a split tile's blocks each
+      // load whole limb blocks of their own chunk)
+      const uint32_t share = CLUSTER ? rank : 0;
+      const uint32_t b_dst = s_base + OFF_B + share * B_ROWS * BK;
       for (int t = t_begin; t < t_end; ++t) {
-        const int4 tile = tiles[t * CM + rank];  // band, m0, n0, live
-        const int b = tile.x, m0 = tile.y, n0 = tile.z;
+        const int* e = tiles + (t * NB + rank) * FIELDS;
+        const int b = e[0], m0 = e[1], n0 = e[2], kb = e[4], ke = e[5];
         // rows wholly past the band's end are not loaded (never stored)
         const uint32_t a_bytes =
             m0 < p.r[b] ? (PACKED ? A_PACKED : A_STAGE) : 0;
@@ -429,10 +397,9 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
         int brow[G * L];
 #pragma unroll
         for (int q = 0; q < G * L; ++q)
-          brow[q] = (q % L) * h_pad + n0 + 64 * (q / L) + rank * B_ROWS;
+          brow[q] = (q % L) * h_pad + n0 + 64 * (q / L) + share * B_ROWS;
         const CUtensorMap* amap = &p.band[b];
-        const int w = p.w[b];
-        for (int k0 = 0; k0 < w; k0 += BK) {
+        for (int k0 = kb; k0 < ke; k0 += BK) {
           const uint32_t full = full0 + 8 * stage;
           wait_or_trap(empty0 + 8 * stage, phase ^ 1);
           if constexpr (CLUSTER) {
@@ -471,17 +438,22 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
     const int g8 = lane >> 2, t4 = lane & 3;
-    float* epi = reinterpret_cast<float*>(smem + OFF_EPI + wg * EPI_WG);
+    // the recombined products, staged for the reads (f32 at split 1,
+    // uint32 mod 2^32 in a split tile)
+    uint32_t* epi = reinterpret_cast<uint32_t*>(smem + OFF_EPI + wg * EPI_WG);
+    const uint32_t epi_s = s_base + OFF_EPI + wg * EPI_WG;
     // lane k < CM of each warp releases a stage in block k
     const bool signals = lane < CM;
     const uint32_t empty_k = CLUSTER && signals ? in_block(empty0, lane) : 0;
     int stage = 0;
     uint32_t phase = 0;
+    int uses = 0;  // 64-column slices this warpgroup has staged
 
     for (int t = t_begin; t < t_end; ++t) {
-      const int4 tile = tiles[t * CM + rank];
-      const int b = tile.x, m0 = tile.y, n0 = tile.z;
-      const int r = p.r[b], lo = p.lo[b], w = p.w[b];
+      const int* e = tiles + (t * NB + rank) * FIELDS;
+      const int b = e[0], m0 = e[1], n0 = e[2], live = e[3], kb = e[4],
+                ke = e[5];
+      const int r = p.r[b], lo = p.lo[b];
       int acc[NACC];
 #pragma unroll
       for (int i = 0; i < NACC; ++i) acc[i] = 0;
@@ -519,19 +491,19 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
             stage = 0;
             phase ^= 1;
           }
-          if (k0 + BK < w) {
+          if (k0 + BK < ke) {
             wait_or_trap(full0 + 8 * stage, phase);
             load_a_s8(nxt, smem + OFF_A + stage * A_STAGE, ra, hi_word, sel);
           }
         };
         wait_or_trap(full0 + 8 * stage, phase);
         load_a_s8(a0, smem + OFF_A + stage * A_STAGE, ra, hi_word, sel);
-        for (int k0 = 0; k0 < w; k0 += 2 * BK) {
+        for (int k0 = kb; k0 < ke; k0 += 2 * BK) {
           step(a0, a1, k0);
-          if (k0 + BK < w) step(a1, a0, k0 + BK);
+          if (k0 + BK < ke) step(a1, a0, k0 + BK);
         }
       } else {  // A from shared memory, as stored
-        for (int k0 = 0; k0 < w; k0 += BK) {
+        for (int k0 = kb; k0 < ke; k0 += BK) {
           wait_or_trap(full0 + 8 * stage, phase);
           const uint64_t da =
               kmajor_desc(s_base + OFF_A + stage * A_STAGE + wg * 64 * BK);
@@ -552,47 +524,110 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
       }
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
       release_held();
-      if (!tile.w) continue;  // rows past the band
+      if (!live) continue;  // rows past the band
 
       // ---- epilogue: out[nodes[lo + row], n0 + col] += f32(P) ----
+      // Each block stages its products recombined in uint32; in a split
+      // tile the leader adds the peers' (uint32, wrapping) to its own in
+      // chunk order, converts, and alone updates out.
+      // output block g -> epi: recombined in uint32, and at split 1 already
+      // converted to f32 (round to nearest, as XLA's convert)
+      auto stage_slice = [&](int g) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t v[4];
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) {
+            v[e4] = 0;
+#pragma unroll
+            for (int l = 0; l < L; ++l)
+              v[e4] += static_cast<uint32_t>(acc[32 * (g * L + l) + 4 * j + e4])
+                       << (8 * l);
+            if constexpr (SPLIT == 1)
+              v[e4] = __float_as_uint(__int2float_rn(static_cast<int>(v[e4])));
+          }
+          const int col = 8 * j + 2 * t4;
+          *reinterpret_cast<uint2*>(epi + (16 * warp + g8) * EPI_LD + col) =
+              make_uint2(v[0], v[1]);
+          *reinterpret_cast<uint2*>(epi + (16 * warp + g8 + 8) * EPI_LD + col) =
+              make_uint2(v[2], v[3]);
+        }
+      };
+      if constexpr (SPLIT > 1) {
+        if (rank != 0) {  // a peer: hand each slice to the leader
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (n0 + 64 * g >= h) break;
+            if (uses > 0)  // the leader has read the previous slice
+              wait_cluster_or_trap(free0 + 8 * wg, (uses - 1) & 1);
+            stage_slice(g);
+            named_bar_sync(1 + wg);
+            if (tid == 0) arrive_release_at(in_block(ready0 + 8 * wg, 0));
+            ++uses;
+          }
+          continue;
+        }
+      }
       int ids[8];  // output rows of this thread's epilogue reads
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const int row = m0 + 64 * wg + (tid >> 4) + 8 * k;
         ids[k] = row < r ? nodes[lo + row] : -1;
       }
+      // this thread's 16 bytes of staged row (tid >> 4) + 8k
+      const int at = (tid >> 4) * EPI_LD + 4 * (tid & 15);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         if (n0 + 64 * g >= h) break;
         named_bar_sync(1 + wg);  // the previous slice's readers are done
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float f[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            uint32_t v = 0;
-#pragma unroll
-            for (int l = 0; l < L; ++l)
-              v += static_cast<uint32_t>(acc[32 * (g * L + l) + 4 * j + e])
-                   << (8 * l);
-            f[e] = __int2float_rn(static_cast<int>(v));
-          }
-          const int col = 8 * j + 2 * t4;
-          *reinterpret_cast<float2*>(epi + (16 * warp + g8) * EPI_LD + col) =
-              make_float2(f[0], f[1]);
-          *reinterpret_cast<float2*>(epi + (16 * warp + g8 + 8) * EPI_LD + col) =
-              make_float2(f[2], f[3]);
-        }
+        stage_slice(g);
         named_bar_sync(1 + wg);
         const int col = n0 + 64 * g + 4 * (tid & 15);
+        if constexpr (SPLIT > 1) {
+          // add the peers' slices to this one (uint32, wrapping) in chunk
+          // order, in place, before any conversion
+          wait_cluster_or_trap(ready0 + 8 * wg, uses & 1);
+          ++uses;
+          if (col < h) {
+#pragma unroll 2
+            for (int k = 0; k < 8; ++k) {
+              uint4* o = reinterpret_cast<uint4*>(epi + at + 8 * k * EPI_LD);
+              uint4 a = *o;
+#pragma unroll
+              for (int q = 1; q < SPLIT; ++q) {
+                const uint4 u = ld_cluster_u4(
+                    in_block(epi_s + 4 * (at + 8 * k * EPI_LD), q));
+                a.x += u.x;
+                a.y += u.y;
+                a.z += u.z;
+                a.w += u.w;
+              }
+              *o = a;
+            }
+          }
+          named_bar_sync(1 + wg);  // every read of the peers' slices is done
+          if (tid == 0)
+#pragma unroll
+            for (int q = 1; q < SPLIT; ++q)
+              arrive_release_at(in_block(free0 + 8 * wg, q));
+        }
         if (col >= h) continue;
         float4 s[8], v[8];
 #pragma unroll
-        for (int k = 0; k < 8; ++k)
-          s[k] = *reinterpret_cast<const float4*>(
-              epi + ((tid >> 4) + 8 * k) * EPI_LD + 4 * (tid & 15));
+        for (int k = 0; k < 8; ++k) {
+          const uint4 q =
+              *reinterpret_cast<const uint4*>(epi + at + 8 * k * EPI_LD);
+          if constexpr (SPLIT == 1)  // staged as f32
+            s[k] = make_float4(__uint_as_float(q.x), __uint_as_float(q.y),
+                               __uint_as_float(q.z), __uint_as_float(q.w));
+          else  // the wrapped int32 sums to f32, round to nearest
+            s[k] = make_float4(__int2float_rn(static_cast<int>(q.x)),
+                               __int2float_rn(static_cast<int>(q.y)),
+                               __int2float_rn(static_cast<int>(q.z)),
+                               __int2float_rn(static_cast<int>(q.w)));
+        }
         if (vec) {  // h % 4 == 0: the whole float4 is inside
-          // all eight loads in flight before any store
+          // all eight rows' loads in flight before any store
 #pragma unroll
           for (int k = 0; k < 8; ++k)
             if (ids[k] >= 0)
@@ -623,21 +658,23 @@ core_int_kernel(const __grid_constant__ Params p, const int4* __restrict__ tiles
       }
     }
   }
-  // the other block arrives on this block's barriers until its last stage
-  if constexpr (CLUSTER) cluster_sync();
+  // the other block arrives on this block's barriers until its last stage;
+  // a split tile's peer keeps its shared memory and barriers until the
+  // leader has read its last slice and freed it
+  if constexpr (NB > 1) cluster_sync();
 }
 
-// The launch configuration of n_clusters clusters of the `L` kernel.
-template <int L>
+// The launch configuration of n_clusters clusters of cluster_rows(L) x
+// split blocks (split > 1 only where cluster_rows(L) == 1).
 struct Launch {
   cudaLaunchAttribute attr{};
   cudaLaunchConfig_t cfg{};
-  Launch(int n_clusters, cudaStream_t stream) {
+  Launch(int n_clusters, int blocks, cudaStream_t stream) {
     attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = cluster_rows(L);
+    attr.val.clusterDim.x = blocks;
     attr.val.clusterDim.y = 1;
     attr.val.clusterDim.z = 1;
-    cfg.gridDim = dim3(n_clusters * cluster_rows(L));
+    cfg.gridDim = dim3(n_clusters * blocks);
     cfg.blockDim = dim3(THREADS);
     cfg.dynamicSmemBytes = SMEM_BYTES;
     cfg.stream = stream;
@@ -646,101 +683,77 @@ struct Launch {
   }
 };
 
-template <int L, bool PACKED>
-int max_clusters(int* n) {
-  cudaError_t e = cudaFuncSetAttribute(
-      core_int_kernel<L, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  Launch<L> l(1, nullptr);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(n, core_int_kernel<L, PACKED>, &l.cfg));
-}
+typedef void (*KernelFn)(Params, const int*, const int*, const int*, float*,
+                         int, int, int);
 
 template <int L, bool PACKED>
-int launch(const Params& p, const void* tiles, const void* starts,
-           int n_clusters, const void* nodes, void* out, int h, int h_pad,
-           int vec, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      core_int_kernel<L, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  Launch<L> l(n_clusters, stream);
-  if (cluster_rows(L) == 1) l.cfg.numAttrs = 0;  // single blocks
-  e = cudaLaunchKernelEx(&l.cfg, core_int_kernel<L, PACKED>, p,
-                         static_cast<const int4*>(tiles),
-                         static_cast<const int*>(starts),
-                         static_cast<const int*>(nodes),
-                         static_cast<float*>(out), h, h_pad, vec);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+KernelFn kernel_split(int split) {
+  if constexpr (L <= MAX_SPLIT_LIMBS) {
+    if (split == 2) return core_int_kernel<L, PACKED, 2>;
+    if (split == 4) return core_int_kernel<L, PACKED, 4>;
+  }
+  return split == 1 ? core_int_kernel<L, PACKED, 1> : nullptr;
 }
 
-template <bool PACKED>
-int max_clusters_of(int limbs, int* n) {
+// The kernel of `limbs`, the cell type (`packed`) and `split`, with its
+// shared memory granted; nullptr for another combination (or where the
+// card refuses it).
+KernelFn kernel_of(int limbs, int packed, int split) {
+  KernelFn k = nullptr;
   switch (limbs) {
     case 1:
-      return max_clusters<1, PACKED>(n);
+      k = packed ? kernel_split<1, true>(split) : kernel_split<1, false>(split);
+      break;
     case 2:
-      return max_clusters<2, PACKED>(n);
+      k = packed ? kernel_split<2, true>(split) : kernel_split<2, false>(split);
+      break;
     case 3:
-      return max_clusters<3, PACKED>(n);
+      k = packed ? kernel_split<3, true>(split) : kernel_split<3, false>(split);
+      break;
     case 4:
-      return max_clusters<4, PACKED>(n);
-    default:
-      return ERR_ARGS;
+      k = packed ? kernel_split<4, true>(split) : kernel_split<4, false>(split);
+      break;
   }
-}
-
-template <bool PACKED>
-int launch_of(const Params& p, int limbs, const void* tiles,
-              const void* starts, int n_clusters, const void* nodes,
-              void* out, int h, int h_pad, int vec, cudaStream_t s) {
-  switch (limbs) {
-    case 1:
-      return launch<1, PACKED>(p, tiles, starts, n_clusters, nodes, out, h,
-                               h_pad, vec, s);
-    case 2:
-      return launch<2, PACKED>(p, tiles, starts, n_clusters, nodes, out, h,
-                               h_pad, vec, s);
-    case 3:
-      return launch<3, PACKED>(p, tiles, starts, n_clusters, nodes, out, h,
-                               h_pad, vec, s);
-    default:
-      return launch<4, PACKED>(p, tiles, starts, n_clusters, nodes, out, h,
-                               h_pad, vec, s);
-  }
+  if (k != nullptr &&
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_BYTES) != cudaSuccess)
+    k = nullptr;
+  return k;
 }
 
 }  // namespace
 
-// The most clusters (cluster_rows(limbs) blocks each) of the `limbs`
-// kernel (its int4 mode where `packed`) the current card runs at once, into
-// *n. Returns 0 or an error code.
-extern "C" int core_int_max_clusters(int limbs, int packed, int* n) {
-  return packed ? max_clusters_of<true>(limbs, n)
-                : max_clusters_of<false>(limbs, n);
+// The most clusters (cluster_rows(limbs) x split blocks each) of the
+// `limbs` kernel (its int4 mode where `packed`) the current card runs at
+// once, into *n. Returns 0 or an error code.
+extern "C" int core_int_max_clusters(int limbs, int packed, int split,
+                                     int* n) {
+  const KernelFn k = kernel_of(limbs, packed, split);
+  if (k == nullptr) return ERR_ARGS;
+  Launch l(1, cluster_rows(limbs) * split, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(n, k, &l.cfg));
 }
 
 // One launch over all bands: `band_maps` holds n_bands maps encoded by
 // core_dot.cu:core_encode_band_map (host), `band_info` (lo, r, w) per band
 // (host); xct is the (limbs, h_pad, k_pad) int8 limb payload; `tiles`
-// (int32 (n_tiles, cluster_rows(limbs), 4): each block's band, m0, n0 and
-// live flag per cluster tile, in cluster-rank order) and `starts`
-// (n_clusters + 1 offsets into the cluster tiles, one segment per
-// cluster) are on the device. vec: h % 4 == 0 and out 16-byte aligned.
+// (int32 (n_tiles, cluster_rows(limbs) x split, 6): each block's band, m0,
+// n0, live flag, k0 and k1 per cluster tile, in cluster-rank order) and
+// `starts` (n_clusters + 1 offsets into the cluster tiles, one segment per
+// cluster) are on the device. split: contraction chunks a tile (1, 2 or 4;
+// 1 above MAX_SPLIT_LIMBS limbs). vec: h % 4 == 0 and out 16-byte aligned.
 // packed: the bands are int4, nibble-packed (core_encode_band_map's packed
-// maps).
-// Returns 0 or an error code (cudaError_t, or the codes of tma.cuh).
+// maps). Returns 0 or an error code (cudaError_t, or the codes of tma.cuh).
 extern "C" int core_int_scatter_add(const void* band_maps, const int* band_info,
                                     int n_bands, const void* xct,
                                     long long k_pad, int h_pad, int limbs,
                                     const void* tiles, const void* starts,
-                                    int n_clusters, const void* nodes,
-                                    void* out, int h, int vec, int packed,
-                                    void* stream) {
+                                    int n_clusters, int split,
+                                    const void* nodes, void* out, int h,
+                                    int vec, int packed, void* stream) {
+  const KernelFn k = kernel_of(limbs, packed, split);
   if (n_bands < 1 || n_bands > MAX_BANDS || n_clusters < 1 || h < 1 ||
-      h_pad % 64 || h_pad < h || k_pad % 16 || limbs < 1 || limbs > 4)
+      h_pad % 64 || h_pad < h || k_pad % 16 || k == nullptr)
     return ERR_ARGS;
   Params p;
   memset(&p, 0, sizeof p);
@@ -754,9 +767,13 @@ extern "C" int core_int_scatter_add(const void* band_maps, const int* band_info,
                       static_cast<long long>(limbs) * h_pad, k_pad, BK,
                       64 / cluster_rows(limbs), CU_TENSOR_MAP_SWIZZLE_64B);
   if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return packed ? launch_of<true>(p, limbs, tiles, starts, n_clusters, nodes,
-                                  out, h, h_pad, vec, s)
-                : launch_of<false>(p, limbs, tiles, starts, n_clusters, nodes,
-                                   out, h, h_pad, vec, s);
+  Launch l(n_clusters, cluster_rows(limbs) * split,
+           static_cast<cudaStream_t>(stream));
+  if (cluster_rows(limbs) * split == 1) l.cfg.numAttrs = 0;  // single blocks
+  const cudaError_t e = cudaLaunchKernelEx(
+      &l.cfg, k, p, static_cast<const int*>(tiles),
+      static_cast<const int*>(starts), static_cast<const int*>(nodes),
+      static_cast<float*>(out), h, h_pad, vec);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -40,19 +40,21 @@ SIGNATURES = {
     "core_dot": {
         # map (host, 128 B), band, r, row bytes, packed
         "core_encode_band_map": [_P, _P, _LL, _LL, _I],
+        # split, packed, int out (host)
+        "core_max_clusters": [_I, _I, _P],
         # band maps, band (lo, r, w) (both host), n_bands, xc, xc rows,
-        # tiles, starts, grid, nodes, out, h, packed, stream
-        "core_bands_scatter_add": [_P, _P, _I, _P, _LL, _P, _P, _I, _P, _P,
-                                   _I, _I, _P],
+        # tiles, starts, clusters, split, nodes, out, h, packed, stream
+        "core_bands_scatter_add": [_P, _P, _I, _P, _LL, _P, _P, _I, _I, _P,
+                                   _P, _I, _I, _P],
     },
     "core_int": {
-        # limbs, packed, int out (host)
-        "core_int_max_clusters": [_I, _I, _P],
+        # limbs, packed, split, int out (host)
+        "core_int_max_clusters": [_I, _I, _I, _P],
         # band maps, band (lo, r, w) (both host), n_bands, xcT, k_pad,
-        # h_pad, limbs, tiles, starts, n_clusters, nodes, out, h, vec,
-        # packed, stream
-        "core_int_scatter_add": [_P, _P, _I, _P, _LL, _I, _I, _P, _P, _I, _P,
-                                 _P, _I, _I, _I, _P],
+        # h_pad, limbs, tiles, starts, n_clusters, split, nodes, out, h,
+        # vec, packed, stream
+        "core_int_scatter_add": [_P, _P, _I, _P, _LL, _I, _I, _P, _P, _I, _I,
+                                 _P, _P, _I, _I, _I, _P],
     },
     "ell_tail": {
         # tables, units, n_units, x, out, h, vec, payload, safe, stream

@@ -5,7 +5,12 @@ bf16(x)`` with f32 accumulation) fused with the scatter of its product
 into the output rows (``out.at[core_nodes[lo:hi]].add`` in
 ``pygim_tpu/ops/spmm.py:_core_scatter``). The CUDA kernel is
 ``csrc/core_dot.cu``: one persistent TMA + ``wgmma`` launch over all bands
-of one SpMM, walking a tile list built here on the host.
+of one SpMM, walking a tile list built here on the host
+(:func:`cluster_schedule`). Where a launch has few row tiles for the
+card's SMs, every tile's contraction is split into chunks run by the
+blocks of one thread block cluster (:func:`choose_split`); the leader
+adds the peers' partials in a fixed order, so the result does not
+change from run to run.
 
 ``xc`` is ``x[core_nodes]`` already rounded to bf16 (round-to-nearest-
 even, as ``xq.astype(bf16)`` in the reference); the gather and the cast
@@ -161,51 +166,155 @@ def _check_kernel_contract(bands, xc, core_nodes, stair, out) -> None:
 # much as 12 steps on an H100, which matters for the w = 256 bands' tiles
 # of 4 steps.
 _EPILOGUE_COST = 12
+# A split tile's leader reads each peer's f32 partial of its tile (128
+# rows × 1 KB) through distributed shared memory: about a third of the
+# epilogue's traffic, so 4 steps a peer.
+_REDUCE_COST = 4
+
+BK = 64                 # contraction of one ring stage (cells)
+SPLITS = (1, 2, 4)      # chunks a tile's contraction may be split into
+_FIELDS = 6             # a block's tile: band, m0, n0, live, k0, k1
 
 
-def tile_schedule(stair, h: int, n_blocks: int, bn: int = BN):
-    """The kernel's work list for bands ``stair`` at width ``h``.
+def chunk_bounds(w: int, s: int):
+    """The ``s`` contiguous chunks ``[k0, k1)`` of a contraction of ``w``
+    cells, in whole 64-deep stages (sizes differ by at most one stage; the
+    last chunk ends at ``w``, so it holds a ragged last stage)."""
+    steps = -(-w // BK)
+    cuts = [min(w, BK * (steps * c // s)) for c in range(s + 1)]
+    return list(zip(cuts[:-1], cuts[1:]))
 
-    Every ``(band, row tile m0, column block n0)`` of 128 rows and ``bn``
-    columns, each running its whole contraction over ``w``. The tiles go
-    longest contraction first to ``n_blocks`` persistent blocks, each to
-    the block with the least work so far (greedy longest-first), so the
-    short bands fill the blocks that the long ones leave idle.
 
-    Returns ``(tiles, starts)``: ``tiles`` int32 ``(n, 3)`` rows ``(band,
-    m0, n0)`` grouped by block, each block's longest first; block ``i``
-    runs ``tiles[starts[i]:starts[i + 1]]``."""
-    steps = [-(-w // 64) for _lo, _hi, w in stair]
-    cells = [(steps[b] + _EPILOGUE_COST, b, m0, n0)
-             for b, (lo, hi, _w) in enumerate(stair)
-             for m0 in range(0, hi - lo, BM) for n0 in range(0, h, bn)]
-    cells.sort(key=lambda c: -c[0])  # stable: band, m0, n0 order
-    n_blocks = max(1, min(n_blocks, len(cells)))
-    heap = [(0, i) for i in range(n_blocks)]
-    per_block = [[] for _ in range(n_blocks)]
-    for cell in cells:
+def cluster_counts(n) -> dict:
+    """``{split: clusters the card runs at once}``: ``n`` itself when it
+    is such a dict (the card's answer, :func:`max_clusters`), else the
+    blocks ``n`` split evenly into clusters of each size."""
+    return dict(n) if isinstance(n, dict) else {s: n // s for s in SPLITS}
+
+
+def _greedy(cells, n_clusters: int):
+    """Cells ``(cost, *tile)`` longest first, each to the cluster with the
+    least work so far: the clusters' tile lists and loads."""
+    cells = sorted(cells, key=lambda c: -c[0])  # stable: band, m0, n0 order
+    n_clusters = max(1, min(n_clusters, len(cells)))
+    heap = [(0, i) for i in range(n_clusters)]
+    per = [[] for _ in range(n_clusters)]
+    loads = [0] * n_clusters
+    for cost, *tile in cells:
         load, i = heapq.heappop(heap)
-        per_block[i].append(cell[1:])
-        heapq.heappush(heap, (load + cell[0], i))
-    tiles = np.array([c for cs in per_block for c in cs],
-                     dtype=np.int32).reshape(-1, 3)
-    starts = np.cumsum([0] + [len(cs) for cs in per_block]).astype(np.int32)
+        per[i].append(tile)
+        loads[i] = load + cost
+        heapq.heappush(heap, (load + cost, i))
+    return per, loads
+
+
+def _cells(stair, h: int, bn: int, rows: int, split: int):
+    """Every cluster tile ``(cost, band, m0, n0)``: ``rows`` row tiles of
+    :data:`BM` and one column tile of ``bn`` of one band, its contraction
+    split into ``split`` chunks run side by side."""
+    out = []
+    for b, (lo, hi, w) in enumerate(stair):
+        steps = max(-(-(k1 - k0) // BK) for k0, k1 in chunk_bounds(w, split))
+        cost = steps + _EPILOGUE_COST + _REDUCE_COST * (split - 1)
+        out += [(cost, b, m0, n0) for m0 in range(0, hi - lo, BM * rows)
+                for n0 in range(0, h, bn)]
+    return out
+
+
+def choose_split(stair, h: int, bn: int, clusters, rows: int = 1,
+                 splits=SPLITS) -> int:
+    """The contraction split of one launch: the smallest of ``splits``
+    whose greedy schedule's longest cluster comes within 10% of the mean
+    cluster's load (each load the tiles' longest chunk plus the epilogue
+    and the reduction), else the one whose longest cluster is shortest.
+    Clusters of ``rows`` row tiles (K-int's multicast) are not split, nor
+    is a band into chunks of no stage."""
+    counts = cluster_counts(clusters)
+    best = None
+    for s in splits if rows == 1 else (1,):
+        if counts.get(s, 0) < 1 or any(-(-w // BK) < s for *_, w in stair):
+            continue
+        _per, loads = _greedy(_cells(stair, h, bn, rows, s), counts[s])
+        if 10 * max(loads) * len(loads) <= 11 * sum(loads):
+            return s
+        if best is None or max(loads) < best[0]:
+            best = (max(loads), s)
+    return 1 if best is None else best[1]
+
+
+def cluster_schedule(stair, h: int, bn: int, clusters, rows: int = 1,
+                     split=None, splits=SPLITS):
+    """The kernels' work list for bands ``stair`` at width ``h`` over
+    clusters of ``rows`` × ``split`` blocks (``split`` chosen from
+    ``splits`` by :func:`choose_split` when not given).
+
+    A cluster tile covers ``rows`` row tiles of :data:`BM` rows and one
+    column tile of ``bn`` columns of one band; its contraction over ``w``
+    is cut into ``split`` chunks of whole stages (:func:`chunk_bounds`),
+    and block ``i · split + c`` of the cluster takes row tile ``m0 + BM ·
+    i`` and chunk ``c``. A block whose rows lie past the band's is kept,
+    marked not live: it still takes part in the cluster's shared stages
+    and stores nothing. The cluster tiles go longest first to the cluster
+    with the least work so far (greedy longest-first), so short bands
+    fill the clusters that the long ones leave idle.
+
+    Returns ``(tiles, starts)``: ``tiles`` int32 ``(n, rows · split,
+    6)``, each block's ``(band, m0, n0, live, k0, k1)`` per cluster tile,
+    grouped by cluster, each cluster's longest first; cluster ``c`` runs
+    ``tiles[starts[c]:starts[c + 1]]``."""
+    counts = cluster_counts(clusters)
+    if split is None:
+        split = choose_split(stair, h, bn, counts, rows, splits)
+    elif (split not in splits or any(-(-w // BK) < split for *_, w in stair)
+          or rows > 1 < split):
+        raise ValueError(f"cannot split {stair} into {split} chunks "
+                         f"(clusters of {rows} row tiles)")
+    per, _loads = _greedy(_cells(stair, h, bn, rows, split), counts[split])
+    blocks = rows * split
+    tiles = np.array(
+        [[(b, m0 + BM * i, n0, int(m0 + BM * i < stair[b][1] - stair[b][0]),
+           k0, k1)
+          for i in range(rows) for k0, k1 in chunk_bounds(stair[b][2], split)]
+         for ts in per for b, m0, n0 in ts],
+        dtype=np.int32).reshape(-1, blocks, _FIELDS)
+    starts = np.cumsum([0] + [len(ts) for ts in per]).astype(np.int32)
     return tiles, starts
 
 
-def schedule_balance(stair, h: int, n_blocks: int, bn: int = BN) -> float:
-    """The longest block's work over the mean block's in
+def schedule_loads(tiles, starts, rows: int = 1):
+    """Each cluster's modeled work in :func:`cluster_schedule`'s
+    ``tiles``: per tile its longest chunk in stages, the epilogue and the
+    reduction of its chunks."""
+    split = tiles.shape[1] // rows
+    steps = -(-(tiles[:, :, 5] - tiles[:, :, 4]) // BK)
+    cost = steps.max(axis=1) + _EPILOGUE_COST + _REDUCE_COST * (split - 1)
+    return np.add.reduceat(cost, starts[:-1])
+
+
+def tile_schedule(stair, h: int, clusters, bn: int = BN):
+    """K-core's work list (:func:`cluster_schedule` with single row
+    tiles): ``(tiles, starts)``, ``tiles`` int32 ``(n, split, 6)``;
+    ``clusters`` the blocks of the card, or its :func:`cluster_counts`."""
+    return cluster_schedule(stair, h, bn, clusters)
+
+
+def schedule_balance(stair, h: int, clusters, bn: int = BN) -> float:
+    """The longest cluster's work over the mean cluster's in
     :func:`tile_schedule`'s assignment of ``stair`` at width ``h`` (1.0 is
     perfect balance), the worst over the launches of one grouped call."""
     worst = 1.0
     for group in band_groups(stair, h):
-        sub = [stair[b] for b in group]
-        tiles, starts = tile_schedule(sub, h, n_blocks, bn)
-        work = np.array([-(-sub[b][2] // 64) + _EPILOGUE_COST
-                         for b in tiles[:, 0]])
-        loads = np.add.reduceat(work, starts[:-1])
+        loads = schedule_loads(*tile_schedule([stair[b] for b in group], h,
+                                              clusters, bn))
         worst = max(worst, float(loads.max() / loads.mean()))
     return worst
+
+
+def schedule_split(stair, h: int, clusters, bn: int = BN) -> list:
+    """The contraction split of each launch of :func:`tile_schedule`'s
+    grouped call."""
+    return [tile_schedule([stair[b] for b in g], h, clusters, bn)[0].shape[1]
+            for g in band_groups(stair, h)]
 
 
 def band_groups(stair, h: int):
@@ -242,8 +351,8 @@ def band_maps(bands, stair, group):
 class CorePlan:
     """What one launch over a fixed group of device bands needs: the
     bands' TMA maps and ``(lo, r, w)`` (host), the tile schedule (on the
-    device), and what it was built for (band indices, addresses, H, tile
-    width)."""
+    device), its contraction split (blocks a cluster, one chunk each) and
+    what it was built for (band indices, addresses, H, tile width)."""
 
     group: list
     ptrs: tuple
@@ -254,27 +363,50 @@ class CorePlan:
     tiles: torch.Tensor
     starts: torch.Tensor
     grid: int
+    split: int = 1
 
 
-def core_plans(bands, stair, h: int, bn: int = BN) -> list:
+def max_clusters(device, packed: bool) -> dict:
+    """``{split: clusters}``: how many clusters of each split's size the
+    card runs at once of the K-core kernel (its int4 mode where
+    ``packed``; ``cudaOccupancyMaxActiveClusters``)."""
+    lib = _build.load("core_dot")
+    out = {}
+    with torch.cuda.device(device):
+        for s in SPLITS:
+            n = ctypes.c_int(0)
+            _build.check(lib.core_max_clusters(s, int(packed),
+                                               ctypes.addressof(n)),
+                         "core_max_clusters")
+            out[s] = n.value
+    if out[1] < 1:
+        raise RuntimeError("the card runs no block of the K-core kernel")
+    return out
+
+
+def core_plans(bands, stair, h: int, bn: int = BN, split=None) -> list:
     """The plans of one grouped call over these CUDA bands at width ``h``,
-    one per launch (:func:`band_groups`), for tiles ``bn`` columns wide. A
-    prepared operand's bands never move, so its owner builds them once per
-    width and passes them to :func:`core_bands_scatter_add`: encoding the
-    maps and uploading the schedule synchronise the stream."""
+    one per launch (:func:`band_groups`), for tiles ``bn`` columns wide,
+    each with the split :func:`choose_split` chooses for the card's
+    cluster counts, or ``split`` where given. A prepared operand's bands
+    never move, so its owner builds them once per width and passes them
+    to :func:`core_bands_scatter_add`: encoding the maps and uploading the
+    schedule synchronise the stream."""
     groups = band_groups(stair, h)
     if not groups:
         return []
     dev = bands[groups[0][0]].device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    counts = max_clusters(dev, is_packed(bands))
     plans = []
     for group in groups:
         maps, info = band_maps(bands, stair, group)
-        tiles, starts = tile_schedule([stair[b] for b in group], h, n_sm, bn)
+        tiles, starts = cluster_schedule([stair[b] for b in group], h, bn,
+                                         counts, split=split)
         plans.append(CorePlan(
             group=group, ptrs=tuple(bands[b].data_ptr() for b in group), h=h,
             bn=bn, maps=maps, info=info, tiles=torch.from_numpy(tiles).to(dev),
-            starts=torch.from_numpy(starts).to(dev), grid=len(starts) - 1))
+            starts=torch.from_numpy(starts).to(dev), grid=len(starts) - 1,
+            split=tiles.shape[1]))
     return plans
 
 
@@ -308,7 +440,8 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
     h = out.shape[1]
     if plans is None:
         plans = core_plans(bands, stair, h)
-    elif not plans_match(plans, bands, stair, h, BN):
+    elif not (plans_match(plans, bands, stair, h, BN)
+              and all(p.tiles.shape[1:] == (p.split, _FIELDS) for p in plans)):
         raise ValueError("K-core plans were built for other bands or another H")
     lib = _build.load("core_dot")
     packed = is_packed(bands)
@@ -318,8 +451,8 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
                 ctypes.addressof(plan.maps), ctypes.addressof(plan.info),
                 len(plan.group), xc.data_ptr(), xc.shape[0],
                 plan.tiles.data_ptr(), plan.starts.data_ptr(), plan.grid,
-                core_nodes.data_ptr(), out.data_ptr(), h, int(packed),
-                _build.stream_of(out),
+                plan.split, core_nodes.data_ptr(), out.data_ptr(), h,
+                int(packed), _build.stream_of(out),
             )
             _build.check(err, "core_bands_scatter_add")
             if packed:

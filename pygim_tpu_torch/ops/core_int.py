@@ -8,7 +8,10 @@ fused with the scatter of the product into the output rows as f32
 CUDA kernel is ``csrc/core_int.cu``: one persistent TMA + ``wgmma`` launch
 over all bands of one SpMM on K-core's band maps, walking a cluster
 schedule built here (:func:`cluster_schedule`); at four limbs two blocks
-of a cluster share their limb stage by TMA multicast.
+of a cluster share their limb stage by TMA multicast, and at one and two
+limbs, where row tiles are few, the blocks of a cluster split each
+tile's contraction and the leader adds their products as uint32 before
+the conversion.
 
 The payload ``xc`` is integer (int8, int16 or int32). On the card it goes
 to the kernel as ``limbs`` int8 digits (:func:`limb_split`), K-major:
@@ -44,14 +47,11 @@ otherwise.
 from __future__ import annotations
 
 import ctypes
-import heapq
 
-import numpy as np
 import torch
 
-from pygim_tpu_torch.ops import _build
+from pygim_tpu_torch.ops import _build, core_dot
 from pygim_tpu_torch.ops.core_dot import (
-    _EPILOGUE_COST,
     CorePlan,
     _check,
     band_cells,
@@ -74,12 +74,21 @@ QUANT_LIMBS = {"int8": 1, "int16": 2, "int32": 3}
 
 _ROWS_PER_STEP = 4096  # band rows a plain step multiplies at once
 
-BM = 128  # band rows of one block's tile
 # Blocks (row tiles) of one K-int cluster, by limb count: at four limbs two
 # blocks share their limb stage by TMA multicast, which only there was
 # faster on an H100 (PERF.md); single blocks elsewhere.
 # csrc/core_int.cu:cluster_rows holds the same.
 CLUSTER_ROWS = {1: 1, 2: 1, 3: 1, 4: 2}
+# Contraction splits by limb count: one and two limbs (256 and 128 output
+# columns a tile) leave few tiles on a square core and may split; three
+# (64 columns) and four (the multicast pairs) do not.
+# csrc/core_int.cu:MAX_SPLIT_LIMBS holds the same.
+SPLIT_LIMBS = 2
+
+
+def splits(limbs: int) -> tuple:
+    """The contraction splits a launch at ``limbs`` may take."""
+    return core_dot.SPLITS if limbs <= SPLIT_LIMBS else (1,)
 
 
 def tile_columns(limbs: int) -> int:
@@ -158,94 +167,75 @@ def _check_kernel_contract(bands, stair) -> None:
         raise ValueError("K-int kernel needs " + "; ".join(why))
 
 
-def cluster_schedule(stair, h: int, limbs: int, n_clusters: int):
+def cluster_schedule(stair, h: int, limbs: int, clusters, split=None):
     """The kernel's work list for bands ``stair`` at width ``h`` and
-    ``limbs``, for ``n_clusters`` clusters of ``cm =``
-    :data:`CLUSTER_ROWS` ``[limbs]`` blocks.
+    ``limbs`` (``core_dot.cluster_schedule``): clusters of
+    :data:`CLUSTER_ROWS` ``[limbs]`` row tiles of :func:`tile_columns`
+    columns, each block running the band's whole contraction, at four
+    limbs; elsewhere single row tiles, whose contraction at one or two
+    limbs is split into chunks where row tiles are few
+    (``core_dot.choose_split``).
+    ``clusters``: the card's clusters of each split (:func:`max_clusters`),
+    or its blocks; ``split`` the split, where not chosen.
 
-    A cluster tile ``(band, m0, n0)`` covers ``cm`` row tiles of
-    :data:`BM` rows and one column tile of :func:`tile_columns` columns
-    of one band, each running the band's whole contraction. Block ``i`` of
-    the cluster takes row tile ``m0 + BM · i``; a block whose rows lie
-    past the band's is kept, marked not live: it still takes part in the
-    cluster's shared stages and stores nothing. The cluster tiles go
-    longest contraction first to the cluster with the least work so far
-    (greedy longest-first).
-
-    Returns ``(tiles, starts)``: ``tiles`` int32 ``(n, cm, 4)``, each
-    block's ``(band, m0, n0, live)`` per cluster tile, grouped by cluster,
-    each cluster's longest first; cluster ``c`` runs ``tiles[starts[c]:
-    starts[c + 1]]``."""
-    cm = CLUSTER_ROWS[limbs]
-    bn = tile_columns(limbs)
-    steps = [-(-w // 64) for _lo, _hi, w in stair]
-    cells = [(steps[b] + _EPILOGUE_COST, b, m0, n0)
-             for b, (lo, hi, _w) in enumerate(stair)
-             for m0 in range(0, hi - lo, BM * cm)
-             for n0 in range(0, h, bn)]
-    cells.sort(key=lambda c: -c[0])  # stable: band, m0, n0 order
-    n_clusters = max(1, min(n_clusters, len(cells)))
-    heap = [(0, i) for i in range(n_clusters)]
-    per_cluster = [[] for _ in range(n_clusters)]
-    for cost, b, m0, n0 in cells:
-        load, c = heapq.heappop(heap)
-        r = stair[b][1] - stair[b][0]
-        per_cluster[c].append([(b, m0 + BM * i, n0, int(m0 + BM * i < r))
-                               for i in range(cm)])
-        heapq.heappush(heap, (load + cost, c))
-    tiles = np.array([c for cs in per_cluster for c in cs],
-                     dtype=np.int32).reshape(-1, cm, 4)
-    starts = np.cumsum([0] + [len(cs) for cs in per_cluster]).astype(np.int32)
-    return tiles, starts
+    Returns ``(tiles, starts)``: ``tiles`` int32 ``(n, rows · split, 6)``,
+    each block's ``(band, m0, n0, live, k0, k1)`` per cluster tile."""
+    return core_dot.cluster_schedule(stair, h, tile_columns(limbs), clusters,
+                                     rows=CLUSTER_ROWS[limbs], split=split,
+                                     splits=splits(limbs))
 
 
-def cluster_balance(stair, h: int, limbs: int, n_clusters: int) -> float:
+def cluster_balance(stair, h: int, limbs: int, clusters) -> float:
     """The longest cluster's work over the mean cluster's in
     :func:`cluster_schedule`'s assignment (1.0 is perfect balance)."""
-    tiles, starts = cluster_schedule(stair, h, limbs, n_clusters)
-    work = np.array([-(-stair[b][2] // 64) + _EPILOGUE_COST
-                     for b in tiles[:, 0, 0]])
-    loads = np.add.reduceat(work, starts[:-1])
+    loads = core_dot.schedule_loads(
+        *cluster_schedule(stair, h, limbs, clusters), CLUSTER_ROWS[limbs])
     return float(loads.max() / loads.mean())
 
 
-def max_clusters(limbs: int, device, packed: bool = False) -> int:
-    """How many clusters of the ``limbs`` kernel (its int4 mode where
-    ``packed``) the card runs at once (``cudaOccupancyMaxActiveClusters``);
-    raises where it runs none."""
-    n = ctypes.c_int(0)
+def max_clusters(limbs: int, device, packed: bool = False) -> dict:
+    """``{split: clusters}``: how many clusters of the ``limbs`` kernel
+    (its int4 mode where ``packed``) the card runs at once
+    (``cudaOccupancyMaxActiveClusters``), for each contraction split it
+    may take (:func:`splits`); raises where it runs none."""
     lib = _build.load("core_int")
+    out = {}
     with torch.cuda.device(device):
-        _build.check(lib.core_int_max_clusters(limbs, int(packed),
-                                               ctypes.addressof(n)),
-                     "core_int_max_clusters")
-    if n.value < 1:
+        for s in splits(limbs):
+            n = ctypes.c_int(0)
+            _build.check(lib.core_int_max_clusters(
+                limbs, int(packed), s, ctypes.addressof(n)),
+                "core_int_max_clusters")
+            out[s] = n.value
+    if out[1] < 1:
         raise RuntimeError(f"the card runs no cluster of the {limbs}-limb "
                            "K-int kernel")
-    return n.value
+    return out
 
 
-def core_int_plans(bands, stair, h: int, limbs: int) -> list:
+def core_int_plans(bands, stair, h: int, limbs: int, split=None) -> list:
     """The plans of one grouped K-int call over these CUDA bands at width
     ``h`` and ``limbs``, one per launch (``core_dot.band_groups``): K-core's
-    band maps with K-int's cluster schedule. A prepared operand keeps them
-    per (H, limbs): encoding the maps and uploading the schedule
-    synchronise the stream."""
+    band maps with K-int's cluster schedule (its split chosen for the
+    card's cluster counts, or ``split`` where given). A prepared operand
+    keeps them per (H, limbs): encoding the maps and uploading the
+    schedule synchronise the stream."""
     groups = band_groups(stair, h)
     if not groups:
         return []
     dev = bands[groups[0][0]].device
-    n_clusters = max_clusters(limbs, dev, is_packed(bands))
+    counts = max_clusters(limbs, dev, is_packed(bands))
     plans = []
     for group in groups:
         maps, info = band_maps(bands, stair, group)
         tiles, starts = cluster_schedule([stair[b] for b in group], h, limbs,
-                                         n_clusters)
+                                         counts, split)
         plans.append(CorePlan(
             group=group, ptrs=tuple(bands[b].data_ptr() for b in group), h=h,
             bn=tile_columns(limbs), maps=maps, info=info,
             tiles=torch.from_numpy(tiles).to(dev),
-            starts=torch.from_numpy(starts).to(dev), grid=len(starts) - 1))
+            starts=torch.from_numpy(starts).to(dev), grid=len(starts) - 1,
+            split=tiles.shape[1] // CLUSTER_ROWS[limbs]))
     return plans
 
 
@@ -257,7 +247,8 @@ def core_int_launch(bands, xct, core_nodes, stair, out, plans):
     limbs, h_pad, k_pad = xct.shape
     h = out.shape[1]
     if not (plans_match(plans, bands, stair, h, tile_columns(limbs))
-            and all(p.tiles.shape[1:] == (CLUSTER_ROWS[limbs], 4)
+            and all(p.tiles.shape[1:] == (CLUSTER_ROWS[limbs] * p.split, 6)
+                    and (p.split == 1 or CLUSTER_ROWS[limbs] == 1)
                     for p in plans)):
         raise ValueError("K-int plans were built for other bands, H or limbs")
     if (xct.dtype != torch.int8 or not xct.is_contiguous() or h_pad % 64
@@ -275,7 +266,7 @@ def core_int_launch(bands, xct, core_nodes, stair, out, plans):
                 ctypes.addressof(plan.maps), ctypes.addressof(plan.info),
                 len(plan.group), xct.data_ptr(), k_pad, h_pad, limbs,
                 plan.tiles.data_ptr(), plan.starts.data_ptr(), plan.grid,
-                core_nodes.data_ptr(), out.data_ptr(), h, vec, int(packed),
+                plan.split, core_nodes.data_ptr(), out.data_ptr(), h, vec, int(packed),
                 _build.stream_of(out),
             )
             _build.check(err, "core_int_scatter_add")

@@ -22,13 +22,17 @@ from pygim_tpu_torch.core import partition as tpart
 from pygim_tpu_torch.data import load_dataset
 from pygim_tpu_torch.ops import spmm as tspmm
 
-from test_torch_prepare import GRAPHS, N, make_graph
+from test_torch_prepare import GRAPHS, N, by_row_col, make_graph
 
 REL = 1e-5
 
 
-def csrs(kind, dtype="float32"):
-    rows, cols, vals = make_graph(kind)
+def csrs(kind, dtype="float32", edges=None):
+    """Both packages' CSR of a test graph. ``make_graph`` has loaded the
+    reference's native planner (``reference_planner``), or, where none
+    can be built, ordered the edges so that the reference's fallback
+    gives the port's order."""
+    rows, cols, vals = make_graph(kind) if edges is None else edges
     vals = vals.astype(dtype)
     j = jgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N,
                                    dtype=dtype).to_csr()
@@ -41,7 +45,28 @@ def csrs(kind, dtype="float32"):
 @pytest.mark.parametrize("n_blocks", [1, 7, 64])
 @pytest.mark.parametrize("kind", GRAPHS)
 def test_plan_and_tables_byte_equal(kind, n_blocks, balance):
-    j, t = csrs(kind)
+    assert_plans_equal(*csrs(kind), n_blocks, balance)
+
+
+@pytest.mark.parametrize("balance", ["nnz", "row"])
+@pytest.mark.parametrize("kind", GRAPHS)
+def test_plan_matches_reference_without_native(kind, balance, monkeypatch):
+    """The reference without its native planner (its NumPy fallback, a
+    (row, col) sort) on (row, col)-ordered edges: the same plans and
+    tables as the port's."""
+    from pygim_tpu.core import native
+
+    edges = by_row_col(*make_graph(kind))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", True)
+    j, t = csrs(kind, edges=edges)
+    assert native.get_lib() is None
+    assert_plans_equal(j, t, 7, balance)
+
+
+def assert_plans_equal(j, t, n_blocks, balance):
+    """Row-block plans and ELL block tables of both packages' CSR ``j``,
+    ``t``, byte for byte."""
     jp = jpart.make_row_block_plan(j, n_blocks, balance=balance)
     tp = tpart.make_row_block_plan(t, n_blocks, balance=balance)
     np.testing.assert_array_equal(tp.bounds, jp.bounds)

@@ -8,6 +8,8 @@ Tolerance: as in test_torch_kernels_plain.py, 1e-5 of each element's sum
 of |terms| — every int8 × bf16 product is exact in f32, and only the
 order of the f32 sums differs between JAX and torch."""
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -66,20 +68,51 @@ def test_core_bands_plain_matches_jax_core_scatter(kind, h, monkeypatch):
     assert np.all(np.abs(got - want) <= REL * mag + 1e-30)
 
 
-def _check_schedule(stair, h, n_blocks, tiles, starts, bn=core_dot.BN):
-    assert tiles.dtype == np.int32 and tiles.shape[1] == 3
+def _check_schedule(stair, h, clusters, tiles, starts, bn=core_dot.BN,
+                    rows=1):
+    """A cluster schedule: each cluster tile's blocks on one band and one
+    column tile, at their row tile, their chunks tiling the band's
+    contraction in whole stages in rank order; every live (band, row tile,
+    column tile, chunk) exactly once; each cluster longest first. Returns
+    the split and the count of blocks past their band's rows."""
+    counts = core_dot.cluster_counts(clusters)
+    assert tiles.dtype == np.int32 and tiles.ndim == 3
+    assert tiles.shape[2] == 6 and tiles.shape[1] % rows == 0
+    split = tiles.shape[1] // rows
+    assert split in core_dot.SPLITS and (rows == 1 or split == 1)
     assert starts[0] == 0 and starts[-1] == len(tiles)
     assert np.all(np.diff(starts) >= 0)
-    assert len(starts) - 1 == min(n_blocks, len(tiles))
-    # every (band, row tile, column block) exactly once
-    want = sorted((b, m0, n0) for b, (lo, hi, _w) in enumerate(stair)
-                  for m0 in range(0, hi - lo, core_dot.BM)
-                  for n0 in range(0, h, bn))
-    assert sorted(map(tuple, tiles.tolist())) == want
-    # each block runs its tiles longest contraction first (steps of 64)
-    length = np.array([-(-stair[b][2] // 64) for b in tiles[:, 0]])
+    assert len(starts) - 1 == min(counts[split], len(tiles))
+    live, dead = collections.Counter(), 0
+    for ct in tiles.tolist():
+        b, m0c, n0c = ct[0][:3]
+        lo, hi, w = stair[b]
+        assert m0c % (core_dot.BM * rows) == 0 and m0c < hi - lo
+        assert n0c % bn == 0 and n0c < h
+        for i in range(rows):
+            blocks = ct[i * split:(i + 1) * split]
+            m0 = m0c + core_dot.BM * i
+            # the chunks tile [0, w) in whole stages, the last one ragged
+            assert blocks[0][4] == 0 and blocks[-1][5] == w
+            for c, (bb, mm, nn, is_live, k0, k1) in enumerate(blocks):
+                assert (bb, mm, nn) == (b, m0, n0c)
+                assert is_live == int(m0 < hi - lo)
+                assert k0 < k1 and k0 % 64 == 0 and (k1 % 64 == 0 or k1 == w)
+                if c:
+                    assert k0 == blocks[c - 1][5]
+                if is_live:
+                    live[(b, m0, n0c, c)] += 1
+                else:
+                    dead += 1
+    want = {(b, m0, n0, c) for b, (lo, hi, _w) in enumerate(stair)
+            for m0 in range(0, hi - lo, core_dot.BM)
+            for n0 in range(0, h, bn) for c in range(split)}
+    assert set(live) == want and set(live.values()) == {1}
+    # each cluster runs its tiles longest chunk first (steps of 64)
+    length = -(-(tiles[:, :, 5] - tiles[:, :, 4]) // 64).max(axis=1)
     for i in range(len(starts) - 1):
         assert np.all(np.diff(length[starts[i]:starts[i + 1]]) <= 0)
+    return split, dead
 
 
 @pytest.mark.parametrize("n_blocks", [132, 7])
@@ -88,6 +121,61 @@ def test_tile_schedule_covers_every_tile_once(h, n_blocks):
     for stair in (SMOKE_STAIR, SMOKE_STAIR[:1], [(0, 37, 208), (37, 45, 64)]):
         tiles, starts = core_dot.tile_schedule(stair, h, n_blocks)
         _check_schedule(stair, h, n_blocks, tiles, starts)
+
+
+# the square cores of the main paths: the smoke graph's (k = 23,040: 180
+# row tiles for 132 SMs) and config 4's (k = 113,408: 886 row tiles); the
+# cluster counts an H100 reports for clusters of 1, 2 and 4 K-core blocks
+SMOKE_SQUARE = [(0, 23040, 23040)]
+CONFIG4_SQUARE = [(0, 113408, 113408)]
+H100_CLUSTERS = {1: 132, 2: 66, 4: 32}
+
+
+@pytest.mark.parametrize("clusters", [132, H100_CLUSTERS])
+def test_split_where_row_tiles_are_few(clusters):
+    """The smoke square splits its contraction (s > 1) and balances to
+    within 15%; config 4's square and the smoke stair keep whole
+    contractions (s = 1), as does every band group of 16."""
+    tiles, starts = core_dot.tile_schedule(SMOKE_SQUARE, 256, clusters)
+    split, _ = _check_schedule(SMOKE_SQUARE, 256, clusters, tiles, starts)
+    assert split > 1
+    assert core_dot.schedule_split(SMOKE_SQUARE, 256, clusters) == [split]
+    assert core_dot.schedule_balance(SMOKE_SQUARE, 256, clusters) <= 1.15
+    # whole contractions: 1.47 of the mean
+    loads = core_dot.schedule_loads(*core_dot.cluster_schedule(
+        SMOKE_SQUARE, 256, core_dot.BN, clusters, split=1))
+    assert loads.max() / loads.mean() > 1.4
+    for stair in (CONFIG4_SQUARE, SMOKE_STAIR):
+        assert core_dot.schedule_split(stair, 256, clusters) == [1]
+        tiles, starts = core_dot.tile_schedule(stair, 256, clusters)
+        assert _check_schedule(stair, 256, clusters, tiles, starts)[0] == 1
+        assert core_dot.schedule_balance(stair, 256, clusters) < 1.1
+
+
+@pytest.mark.parametrize("split", [2, 4])
+@pytest.mark.parametrize("w", [23040, 4128, 1312, 288, 224])
+def test_split_chunks_tile_the_contraction(w, split):
+    """Chunks of whole 64-deep stages, in order, sizes one stage apart at
+    most, the last one ending at w (ragged where w % 64 != 0)."""
+    chunks = core_dot.chunk_bounds(w, split)
+    assert len(chunks) == split and chunks[0][0] == 0 and chunks[-1][1] == w
+    steps = [-(-(k1 - k0) // 64) for k0, k1 in chunks]
+    assert sum(steps) == -(-w // 64) and max(steps) - min(steps) <= 1
+    for (k0, k1), (n0, _n1) in zip(chunks, chunks[1:]):
+        assert k1 == n0 and k1 % 64 == 0 and k0 < k1
+    stair = [(0, 300, w), (300, 337, 64 * split)]
+    tiles, starts = core_dot.cluster_schedule(stair, 136, core_dot.BN, 132,
+                                              split=split)
+    assert _check_schedule(stair, 136, 132, tiles, starts)[0] == split
+
+
+def test_split_needs_a_stage_a_chunk():
+    """A band of fewer stages than chunks is never split; a launch whose
+    clusters the card cannot hold is never chosen."""
+    stair = [(0, 23040, 23040), (23040, 23100, 128)]
+    assert core_dot.choose_split(stair, 256, core_dot.BN, 132) in (1, 2)
+    assert core_dot.choose_split(SMOKE_SQUARE, 256, core_dot.BN,
+                                 {1: 132, 2: 0, 4: 0}) == 1
 
 
 @pytest.mark.parametrize("n_bands", [1, 16, 17, 40])

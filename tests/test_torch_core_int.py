@@ -8,7 +8,6 @@ chip_smoke.py.
 Every comparison here is bit-equal int32: the products are exact
 integers and both packages wrap them mod 2^32."""
 
-import collections
 import types
 
 import numpy as np
@@ -20,7 +19,12 @@ import jax.numpy as jnp
 from pygim_tpu.ops import spmm as jspmm
 from pygim_tpu_torch.ops import core_dot, core_int
 
-from test_torch_core_grouped import SMOKE_STAIR
+from test_torch_core_grouped import (
+    H100_CLUSTERS,
+    SMOKE_SQUARE,
+    SMOKE_STAIR,
+    _check_schedule,
+)
 
 # (limbs, payload dtype, magnitude bound): every limb count with the
 # range it is used for — raw int8, the quantized int16 and int32 ranges,
@@ -43,21 +47,28 @@ def jax_product(band, xc):
     return np.asarray(got)
 
 
-def emulate_limbs(band, xc, limbs):
+def emulate_limbs(band, xc, limbs, split=1):
     """The kernel's arithmetic on the CPU: split ``xc`` into int8 limbs as
-    the wrapper does, one s8 product per limb with its int32 sum wrapped,
-    then the recombination ``Σ P_l << 8l`` in uint32."""
+    the wrapper does; per contraction chunk (``split`` of them, the
+    blocks of a split tile), one s8 product per limb with its int32 sum
+    wrapped and the recombination ``Σ P_l << 8l`` in uint32; then the
+    chunks' sums added in uint32 (the leader's reduction) and read as
+    int32, before any conversion to f32."""
     r, w = band.shape
     h = xc.shape[1]
     xct = core_int.limb_split(torch.from_numpy(xc[:w]), limbs, -(-h // 64) * 64,
                               -(-w // 16) * 16)
     a = torch.from_numpy(band).to(torch.int64)
-    acc = torch.zeros((r, h), dtype=torch.int64)
-    for l in range(limbs):
-        p = a @ xct[l, :h, :w].t().to(torch.int64)
-        p = ((p + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)  # an s32 accumulator
-        acc = (acc + ((p & 0xFFFFFFFF) << (8 * l))) & 0xFFFFFFFF
-    return (((acc + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32).numpy()
+    total = torch.zeros((r, h), dtype=torch.int64)
+    for k0, k1 in core_dot.chunk_bounds(w, split):
+        acc = torch.zeros((r, h), dtype=torch.int64)
+        for l in range(limbs):
+            p = a[:, k0:k1] @ xct[l, :h, k0:k1].t().to(torch.int64)
+            p = ((p + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)  # an s32 accumulator
+            acc = (acc + ((p & 0xFFFFFFFF) << (8 * l))) & 0xFFFFFFFF
+        total = (total + acc) & 0xFFFFFFFF
+    return (((total + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(
+        torch.int32).numpy()
 
 
 @pytest.mark.parametrize("limbs,dtype,m", CASES, ids=IDS)
@@ -93,6 +104,65 @@ def test_int32_wraparound_matches_jax(limbs, q):
                                       torch.from_numpy(xc)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(emulate_limbs(band, xc, limbs), want)
+
+
+@pytest.mark.parametrize("split", [2, 4])
+@pytest.mark.parametrize("limbs,dtype,m", CASES, ids=IDS)
+@pytest.mark.parametrize("r,w,h", [(37, 1312, 41), (130, 288, 64)])
+def test_split_limb_emulation_matches_jax(limbs, dtype, m, r, w, h, split):
+    """A split tile's arithmetic: each chunk's limbs recombined in uint32,
+    the chunks added in uint32 and only then read as int32, equals the
+    reference's product bit for bit (chunks of whole stages, the last
+    ragged where w % 64 != 0)."""
+    rng = np.random.default_rng(r * w + h + limbs + split)
+    band = rng.integers(-128, 128, (r, w)).astype(np.int8)
+    xc = payload(rng, (w + 5, h), dtype, m)
+    np.testing.assert_array_equal(emulate_limbs(band, xc, limbs, split),
+                                  jax_product(band, xc))
+
+
+@pytest.mark.parametrize("split", [2, 4])
+@pytest.mark.parametrize("limbs,q", [(1, 127), (2, -(1 << 9)),
+                                     (3, (1 << 19) - 3), (3, -(1 << 19))])
+def test_split_wraparound_matches_jax(limbs, q, split):
+    """A split tile on sums that overflow int32 in every chunk and in
+    total (dense 127s, payloads at the top of each range, an int32
+    payload for the reference's wide product): the uint32 sum of the
+    chunks wraps as the reference's int32 product does."""
+    r, w, h = 24, 4096 + 32, 16
+    band = np.full((r, w), 127, np.int8)
+    xc = np.full((w, h), q, np.int64)
+    xc[::3] = -q
+    xc = xc.astype(np.int32)
+    exact = band.astype(np.int64) @ xc.astype(np.int64)
+    want = np.asarray(jspmm._wide_int_core_dot(jnp.asarray(band),
+                                               jnp.asarray(xc)))
+    np.testing.assert_array_equal(
+        want, (((exact + (1 << 31)) % (1 << 32)) - (1 << 31)).astype(np.int32))
+    if limbs == 3:
+        assert np.any(np.abs(exact) >= 1 << 31)
+    np.testing.assert_array_equal(emulate_limbs(band, xc, limbs, split), want)
+
+
+@pytest.mark.parametrize("clusters", [132, H100_CLUSTERS])
+def test_split_limbs_where_row_tiles_are_few(clusters):
+    """One limb on the smoke square splits (s > 1) and balances to within
+    15%; three limbs (720 tiles of 64 columns) and four (the multicast
+    pairs) never split."""
+    tiles, starts = core_int.cluster_schedule(SMOKE_SQUARE, 256, 1, clusters)
+    split, _ = _check_schedule(SMOKE_SQUARE, 256, clusters, tiles, starts)
+    assert split > 1
+    assert core_int.cluster_balance(SMOKE_SQUARE, 256, 1, clusters) <= 1.15
+    for limbs in (3, 4):
+        assert core_int.splits(limbs) == (1,)
+        tiles, starts = core_int.cluster_schedule(SMOKE_SQUARE, 256, limbs,
+                                                  clusters)
+        assert tiles.shape[1] == core_int.CLUSTER_ROWS[limbs]
+        _check_cluster_schedule(SMOKE_SQUARE, 256, limbs, clusters, tiles,
+                                starts)
+        with pytest.raises(ValueError, match="cannot split"):
+            core_int.cluster_schedule(SMOKE_SQUARE, 256, limbs, clusters,
+                                      split=2)
 
 
 @pytest.mark.parametrize("limbs,dtype,m", CASES, ids=IDS)
@@ -163,42 +233,21 @@ def test_two_limbs_do_not_hold_every_int16():
 
 
 def _check_cluster_schedule(stair, h, limbs, n_clusters, tiles, starts):
-    """K-int's cluster schedule: each live block tile once, the blocks of
-    a cluster tile on one band (so one contraction length) and one column
-    tile at their place in the cluster, the blocks past the band's rows
-    kept and marked not live, each cluster longest first, and the
-    clusters balanced."""
+    """K-int's cluster schedule (``_check_schedule`` of the shared
+    schedule: each live block tile and chunk once, the blocks of a cluster
+    tile on one band and one column tile at their place in the cluster,
+    the blocks past the band's rows kept and marked not live, each cluster
+    longest first), and the clusters balanced."""
     cm = core_int.CLUSTER_ROWS[limbs]
-    bn = core_int.tile_columns(limbs)
-    assert tiles.dtype == np.int32 and tiles.shape[1:] == (cm, 4)
-    assert starts[0] == 0 and starts[-1] == len(tiles)
-    assert np.all(np.diff(starts) >= 0)
-    cells = sum(-(-(hi - lo) // (128 * cm)) * -(-h // bn)
-                for lo, hi, _w in stair)
-    assert len(starts) - 1 == min(n_clusters, cells) == min(n_clusters,
-                                                            len(tiles))
-    live = collections.Counter()
-    dead = 0
-    for ct in tiles.tolist():
-        b, m0c, n0c, _live = ct[0]
-        lo, hi, _w = stair[b]
-        assert m0c % (128 * cm) == 0 and n0c % bn == 0
-        assert m0c < hi - lo and n0c < h  # block 0 is always live
-        for i, (bb, m0, n0, is_live) in enumerate(ct):
-            assert (bb, m0, n0) == (b, m0c + 128 * i, n0c)
-            assert is_live == int(m0 < hi - lo)
-            if is_live:
-                live[(b, m0, n0)] += 1
-            else:
-                dead += 1
-    want = {(b, m0, n0) for b, (lo, hi, _w) in enumerate(stair)
-            for m0 in range(0, hi - lo, 128) for n0 in range(0, h, bn)}
-    assert set(live) == want and set(live.values()) == {1}
-    assert dead == len(tiles) * cm - len(want)
-    length = np.array([-(-stair[b][2] // 64) for b in tiles[:, 0, 0]])
+    split, dead = _check_schedule(stair, h, n_clusters, tiles, starts,
+                                  bn=core_int.tile_columns(limbs), rows=cm)
+    cells = sum(-(-(hi - lo) // (128 * cm)) * -(-h // core_int.tile_columns(
+        limbs)) for lo, hi, _w in stair)
+    assert len(tiles) == cells
+    assert dead == len(tiles) * cm - sum(
+        -(-(hi - lo) // 128) * -(-h // core_int.tile_columns(limbs))
+        for lo, hi, _w in stair)
     sizes = np.diff(starts)
-    for c in range(len(sizes)):
-        assert np.all(np.diff(length[starts[c]:starts[c + 1]]) <= 0)
     # no cluster idles while another holds two cluster tiles more
     assert sizes.min() > 0 or sizes.max() <= 1
     return dead
@@ -257,7 +306,7 @@ def test_launch_rejects_plans_of_another_schedule(built_for):
     bands, xc, cn, stair, out = _inputs()
     h = out.shape[1]
     if built_for == "k_core":
-        tiles, starts = core_dot.tile_schedule(stair, h, 4, 64)
+        tiles, starts = core_dot.tile_schedule(stair, h, 4, bn=64)
     else:
         tiles, starts = core_int.cluster_schedule(stair, h, 3, 4)
     plan = core_dot.CorePlan(

@@ -1,6 +1,10 @@
 """Host prepare of the PyTorch port against the JAX reference: the same
 inputs must give bit-equal graphs, plans and device tables."""
 
+import fcntl
+import os
+import tempfile
+
 import numpy as np
 import pytest
 
@@ -22,21 +26,52 @@ KW = dict(backend="hybrid", hybrid_shape="stair", hybrid_dtype="int8",
           hybrid_core_bytes=BUDGET)
 
 
+def reference_planner() -> bool:
+    """Whether the reference's native planner is loaded in this process,
+    loading it if it is not.
+
+    The reference builds ``native/libpygim_planner.so`` at first use, in
+    place and without a lock, and tries once a process: a test worker
+    that loads the library while another worker is still writing it runs
+    the reference without its planner from then on, and the planner
+    decides the order of edges within a CSR row (row-stable with it, (row,
+    col) order without). So the build and the load happen here under an
+    exclusive lock outside the repository, and a process whose first try
+    failed tries again once the library is whole."""
+    lock = os.path.join(tempfile.gettempdir(), "pygim_tpu_native_build.lock")
+    with open(lock, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            if native._lib is None:
+                native._tried = False
+                native.get_lib()
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+    return native._lib is not None
+
+
+def by_row_col(rows, cols, vals):
+    """The edges in (row, col) order (a stable sort)."""
+    o = np.lexsort((cols, rows))
+    return rows[o], cols[o], vals[o]
+
+
 def make_graph(kind: str):
-    """(rows, cols, vals) of a test graph, numpy, from a fixed seed."""
+    """(rows, cols, vals) of a test graph, numpy, from a fixed seed.
+
+    The port's CSR keeps input order within a row; the reference does so
+    only with its native planner (:func:`reference_planner`), and sorts
+    by (row, col) without it. Where no planner can be built at all, the
+    edges come in (row, col) order, so that both orders agree."""
     rows, cols = jdata.rmat_edges(N, E, seed=3)
     vals = np.ones(rows.size, np.float32)
     if kind == "simple":
         # unique pairs in first-occurrence order: not sorted, so the CSR
-        # must keep input order within rows. The reference keeps it only
-        # with its native library; without it, feed (row, col) order.
+        # must keep input order within rows
         key = rows.astype(np.int64) * N + cols
         _, first = np.unique(key, return_index=True)
         first.sort()
         rows, cols, vals = rows[first], cols[first], vals[first]
-        if not native.native_available():
-            o = np.lexsort((cols, rows))
-            rows, cols, vals = rows[o], cols[o], vals[o]
     elif kind == "wide":
         # cells outside int8 or not integer: 300 parallel edges on a hub
         # cell and fractional weights on hub edges — demoted to the tail
@@ -46,6 +81,8 @@ def make_graph(kind: str):
         vals = np.concatenate([vals, np.ones(300, np.float32)])
         vals[rows == hub] *= np.where(np.arange((rows == hub).sum()) % 7 == 0,
                                       0.5, 1.0).astype(np.float32)
+    if not reference_planner():
+        rows, cols, vals = by_row_col(rows, cols, vals)
     return rows, cols, vals
 
 

@@ -22,7 +22,7 @@ from pygim_tpu_torch.core import banded
 from pygim_tpu_torch.core import graph as tgraph
 from pygim_tpu_torch.ops import spmm as tspmm
 
-from test_torch_prepare import GRAPHS, N, make_graph
+from test_torch_prepare import GRAPHS, N, make_graph, reference_planner
 
 REL = 1e-5
 SHAPES = ["square", "stair"]
@@ -185,8 +185,8 @@ def test_wide_graph_demotes_int4_cells():
 def test_core_build_banded_matches_native(dtype, k):
     """``core/banded.py`` against the reference's native planner, with
     bands of a few rows, so several bands and demotions are crossed."""
-    if not native.native_available():
-        pytest.skip("the reference's native planner is not built")
+    if not reference_planner():
+        pytest.skip("the reference's native planner cannot be built here")
     rng = np.random.default_rng(k)
     e = 60_000
     rows = rng.integers(0, N, e).astype(np.int32)
