@@ -57,16 +57,34 @@ cpu``, and ``inference_cuda.py``. Every phase runs in a fresh prepare
 and dataset cache (a temporary ``PYGIM_TPU_TORCH_DATA``, removed at the
 end), never the user's.
 
+Then the training path: the smoke operand's transpose is prepared,
+and ``torch.autograd.grad`` of ``(A @ x) · w`` through the kernels
+(``SpmmFunction``: K-core and K-tail on Aᵀ, their launches counted
+inside the backward, every plain version made to raise there) is held
+against ``Aᵀ @ w`` through the plain versions and against the raw
+edges' exact transpose; GCN, GIN and SAGE at hidden 256 train through
+the kernels and through the plain versions (autograd through
+``mul_plain`` on A), each twice, and through two negative controls (the
+graph cut at each aggregate; a backward on A instead of Aᵀ): every
+parameter's gradient of one step, the losses of 3 Adam steps, the
+trained model's activations, and a step split into forward, backward and
+Adam; ``train_cuda.py`` runs in a process of its own, and
+``run_training_benchmark`` trains each conv on ``ell`` and the stair
+int8 hybrid against the oracle on a learnable planted graph.
+
 Its last three lines are the ``kernels`` JSON object (each kernel with
-its split and schedule balance where it has a tile schedule), the card's
+its split and schedule balance where it has a tile schedule, and K-core
+and K-tail with their launches in one training step), the card's
 name and power limit (``nvidia-smi``), and ``{"ok": true, "device":
 ...}``.
 Any failure raises and exits non-zero before those lines. Without a
 CUDA card, or without the package beside it, it exits non-zero.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
-one inference forward of each path by kernel, and the device's busy
-share.
+one inference forward of each path and of one GCN training step by
+kernel, and the device's busy share. ``python3 chip_smoke.py
+--train-sweep`` runs only the readings the training checks' bars were
+set from (``train_sweep``), and checks nothing.
 """
 
 from __future__ import annotations
@@ -1257,8 +1275,10 @@ def mul_any_width(prep, results, widths=(41, 1100)):
 
 
 class PlainAggregate:
-    """The aggregate of ``prep`` through the plain versions: ``mul_plain``,
-    and the quantized hook on ``mul_quantized_plain``."""
+    """The aggregate of ``prep`` through the plain versions: ``mul_plain``
+    on A, whose PyTorch ops autograd follows (a backward independent of
+    ``SpmmFunction`` and of the prepared Aᵀ), and the quantized hook on
+    ``mul_quantized_plain``."""
 
     def __init__(self, prep):
         self.prep = prep
@@ -1552,12 +1572,472 @@ def entry_points(results, timeout: int = 300):
     results["entry points"] = out
 
 
+# The training phase: the backward product on the smoke operand, a few
+# steps of each conv at full width, and the training entry points on a
+# learnable planted graph (a 20,000-node stand-in of train.py's pubmed
+# run at its width: hidden 256, 2 layers, 8 classes)
+TRAIN_GRAPH = "planted-20000-240000-8"
+TRAIN_STEPS = 3
+# the 3-step loss check's learning rate and bar, and the gradient check's
+# bar, set from the readings of ``--train-sweep`` (PERF.md §6, H100): at
+# lr 1e-3 the kernels drift at most 4.3e-4 from the plain versions and
+# the plain versions 2.4e-4 from themselves, while the cut and
+# untransposed controls drift 2.3e-3 to 1.3e-2 for every conv; at 3e-3 the
+# untransposed GCN drifted only 2.9e-4, and at 3e-3 and 1e-2 the plain
+# versions drifted from themselves by 1.3e-3 and 1.0e-3 (GIN). Gradients:
+# kernels against plain at most 7.1e-3 of a leaf (SAGE), the controls 0.57
+# or more
+TRAIN_LR = 1e-3  # train.py's default
+LOSS_BAR = 1e-3
+GRAD_BAR = 2e-2
+# a leaf whose largest |grad| is below GRAD_FLOOR of the model's largest
+# is rounding noise (a bias right before a BatchNorm, 0 in exact
+# arithmetic): its error is measured against that floor
+GRAD_FLOOR = 1e-4
+SWEEP_LRS = (1e-3, 3e-3, 1e-2)
+CONVS = ("gcn", "gin", "sage")
+CONTROLS = ("cut", "untransposed")
+
+
+TRAIN_EPOCHS = 50  # run_training_benchmark's default
+
+
+class CutAggregate:
+    """A negative control: the kernels' product of a detached payload,
+    the graph cut at every aggregate (what a kernel's raw-pointer write
+    does to a gradient without ``SpmmFunction``)."""
+
+    def __init__(self, prep):
+        self.prep = prep
+
+    def __call__(self, v):
+        return self.prep.mul(v.detach())
+
+
+def untransposed(prep):
+    """A negative control: the kernels' product whose backward runs A
+    where it must run Aᵀ (the smoke graph is directed)."""
+    import torch
+
+    class Untransposed(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return prep.mul(x.contiguous())
+
+        @staticmethod
+        def backward(ctx, g):
+            return prep.mul(g.contiguous())
+
+    return Untransposed.apply
+
+
+def training_arms(prep) -> dict:
+    """The aggregates the training checks compare: the kernels, the plain
+    versions (autograd through ``mul_plain`` on A), each run twice (the
+    second run witnesses the run-to-run differences of each: K-tail's
+    atomics, ``index_add_``'s), and the two negative controls the checks
+    must reject."""
+    from pygim_tpu_torch.ops.spmm import PreparedAggregate
+
+    return {"kernels": PreparedAggregate(prep),
+            "kernels again": PreparedAggregate(prep),
+            "plain": PlainAggregate(prep), "plain again": PlainAggregate(prep),
+            "cut": CutAggregate(prep), "untransposed": untransposed(prep)}
+
+
+def leaf_grads(conv, ds, agg, inputs) -> dict:
+    """Every parameter's gradient after one training forward (dropout
+    0.5, generator seed 0) and backward of the masked loss from the seeded
+    initialisation; a leaf no gradient reached has zeros."""
+    import torch
+
+    from pygim_tpu_torch.nn.models import gnn_apply, make_gnn
+    from pygim_tpu_torch.nn.train import softmax_cross_entropy
+
+    x, labels, mask = inputs
+    model = make_gnn(0, conv, ds.x.shape[1], HIDDEN, ds.num_classes,
+                     device=x.device)
+    logits = gnn_apply(model, x, agg, training=True,
+                       generator=torch.Generator(device=x.device)
+                       .manual_seed(0))
+    softmax_cross_entropy(logits, labels, mask).backward()
+    return {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+            for k, p in model.named_parameters()}
+
+
+def leaf_errs(got: dict, want: dict) -> dict:
+    """Per leaf, ``max |got - want|`` over ``max |want|`` (at least
+    GRAD_FLOOR of the model's largest |grad|)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    return {k: float((got[k] - w).abs().max())
+            / max(float(w.abs().max()), GRAD_FLOOR * top)
+            for k, w in want.items()}
+
+
+def arm_losses(conv, ds, agg, inputs, lr, steps=TRAIN_STEPS):
+    """``steps`` steps of ``make_train_step`` (Adam at ``lr``, dropout
+    0.5 with generator seeds 0, 1, ...) from the seeded initialisation:
+    (model, losses, launches)."""
+    import torch
+
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.nn.train import make_train_step
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = inputs[0].device
+    model = make_gnn(0, conv, ds.x.shape[1], HIDDEN, ds.num_classes,
+                     device=dev)
+    step = make_train_step(model, agg, torch.optim.Adam(
+        model.parameters(), lr=lr))
+    reset_launch_counts()
+    losses = [float(step(*inputs, torch.Generator(device=dev).manual_seed(e)))
+              for e in range(steps)]
+    sync(dev)
+    return model, losses, launch_counts()
+
+
+def drift(losses, want) -> float:
+    """The largest relative difference of two runs' per-step losses."""
+    return max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+
+
+def _refuse_plain(*a, **k):
+    raise AssertionError("a plain version ran inside the kernels' backward")
+
+
+def backward_product(prep, graph, results, card):
+    """``torch.autograd.grad`` of ``(A @ x) · w`` through the kernels
+    (``SpmmFunction``: K-core and K-tail on the prepared Aᵀ) against ``Aᵀ
+    @ w`` through the plain versions on the card, within REL_TOL of the
+    sum of |terms| (both round ``w`` to bf16 at the core's rows), and
+    against the raw edges' exact transpose within 2^-8 of it (one bf16
+    rounding of a core term, 2^-9). The launches of the forward and of
+    the backward are counted apart; every plain version is replaced by
+    one that raises while the backward runs."""
+    import torch
+
+    from pygim_tpu_torch.ops import (
+        core_dot,
+        ell_tail,
+        launch_counts,
+        reset_launch_counts,
+        spmm,
+    )
+    from pygim_tpu_torch.ops.reference import spmm_coo_oracle
+
+    t0 = time.perf_counter()
+    pt = prep.transpose(graph)
+    print(f"prepare, Aᵀ: {time.perf_counter() - t0:.1f} s bands={pt.stair} "
+          f"tables={pt.ell_meta}; device bytes A {prep.device_bytes}, "
+          f"Aᵀ {pt.device_bytes}", flush=True)
+    dev = prep.device
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(prep.ncols, HIDDEN, generator=g).to(dev).requires_grad_()
+    w = torch.randn(prep.nrows, HIDDEN, generator=g).to(dev)
+    reset_launch_counts()
+    y = spmm.PreparedAggregate(prep)(x)
+    sync(dev)
+    fwd = launch_counts()
+    # on the card no plain version may run (on the CPU the wrappers take
+    # them: a rehearsal)
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (core_dot, "core_bands_plain"), (ell_tail, "ell_tables_plain"),
+        (spmm, "core_bands_plain"), (spmm, "ell_tables_plain"))
+        if dev.type == "cuda"]
+    reset_launch_counts()
+    try:
+        for m, n, _f in saved:
+            setattr(m, n, _refuse_plain)
+        (got,) = torch.autograd.grad((y * w).sum(), x)
+        sync(dev)
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    bwd = launch_counts()
+    for k in ("K-core", "K-tail"):
+        if fwd[k] <= 0 or bwd[k] <= 0:
+            raise AssertionError(f"{k} launches: forward {fwd[k]}, backward "
+                                 f"{bwd[k]}")
+    del y
+    want = pt.mul_plain(w)
+    mag = pt.mul_plain(w.abs())
+    err = check_close("backward Aᵀ w: kernels vs plain", got, want, mag,
+                      REL_TOL)
+    del want
+    rows, cols, vals = (torch.as_tensor(a).to(dev)
+                        for a in (graph.rows, graph.cols, graph.vals))
+    exact = spmm_coo_oracle(cols, rows, vals, w, prep.ncols)
+    mag = spmm_coo_oracle(cols, rows, vals.abs(), w.abs(), prep.ncols)
+    xerr = check_close("backward Aᵀ w: kernels vs the exact transpose", got,
+                       exact, mag, 2.0 ** -8)
+    del exact, mag, got, rows, cols, vals
+    xd = x.detach()
+    res = dict(
+        max_abs_err=err, exact_max_abs_err=xerr,
+        launches={"forward": fwd, "backward": bwd},
+        forward_ms=cuda_ms(lambda: prep.mul(xd)),
+        backward_ms=cuda_ms(lambda: pt.mul(w)),
+        backward_plain_ms=cuda_ms(lambda: pt.mul_plain(w), iters=3),
+        bytes={"A": prep.device_bytes, "Aᵀ": pt.device_bytes},
+    )
+    results["backward product"] = res
+    print(f"training, backward product (H {HIDDEN}): A x {res['forward_ms']:.4f}"
+          f" ms, Aᵀ g {res['backward_ms']:.4f} ms (plain "
+          f"{res['backward_plain_ms']:.4f}), max abs err {err} (exact "
+          f"{xerr}); launches forward {fwd['K-core']} K-core "
+          f"{fwd['K-tail']} K-tail, backward {bwd['K-core']} K-core "
+          f"{bwd['K-tail']} K-tail ({card})", flush=True)
+    torch.cuda.empty_cache()
+
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_steps(ds, prep, results, card):
+    """The kernels' training against the plain versions on the card, for
+    GCN, GIN and SAGE at hidden 256 (the arms of ``training_arms``):
+
+    * gradients: one training forward and backward; every leaf of the
+      kernels' within GRAD_BAR of the plain versions' (``leaf_errs``),
+      which rounds the core's gradient to bf16 after its product, where
+      K-core on Aᵀ rounds the cotangent before it (2^-9 relative a core
+      term each way, carried through the batch statistics);
+    * losses: TRAIN_STEPS steps of Adam at TRAIN_LR, per-step losses
+      within LOSS_BAR relative. Adam moves every weight by about the
+      learning rate whatever its gradient's size, so a rounding-sized
+      difference that flips a near-zero gradient's sign moves a weight by
+      twice the rate, and the losses of two runs of the same code drift
+      apart: TRAIN_LR is the swept rate at which the honest runs stay
+      inside the bar and both controls fail it;
+    * each negative control must fail both checks, so neither can pass a
+      cut or untransposed backward;
+    * the kernel-trained model's per-layer activations through the
+      kernels and through the plain versions within the hybrid's 1e-2
+      (``validate_model``'s bar, ``1e-2 + 1e-2 · max|activation|``), and
+      no kernel launched by the plain arms.
+
+    Then the GCN's step split into forward, backward and Adam
+    (``make_train_step``'s ``StepSplit``)."""
+    import numpy as np
+    import torch
+
+    from pygim_tpu_torch.bench.runners import train_inputs
+    from pygim_tpu_torch.bench.validate import layer_activations
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.nn.train import StepSplit, make_train_step
+    from pygim_tpu_torch.ops.spmm import PreparedAggregate
+
+    dev = prep.device
+    inputs = train_inputs(ds, dev)
+    arms = training_arms(prep)
+    out = {}
+    for conv in CONVS:
+        grads = {a: leaf_grads(conv, ds, agg, inputs)
+                 for a, agg in arms.items()}
+        errs = {a: leaf_errs(g, grads["plain"]) for a, g in grads.items()
+                if a != "plain"}
+        gerr = {a: max(e.values()) for a, e in errs.items()}
+        worst = sorted(errs["kernels"].items(), key=lambda kv: -kv[1])[:3]
+        del grads
+        runs = {a: arm_losses(conv, ds, agg, inputs, TRAIN_LR)
+                for a, agg in arms.items()}
+        lp = runs["plain"][1]
+        ldrift = {a: drift(r[1], lp) for a, r in runs.items() if a != "plain"}
+        mk, lk, nk = runs["kernels"]
+        print(f"training, {conv}: gradients, max leaf err against the plain "
+              f"versions {gerr} (kernels' worst {worst}); {TRAIN_STEPS} "
+              f"steps at lr {TRAIN_LR}: losses {lk} (plain {lp}), max rel "
+              f"drift {ldrift}; launches {nk}", flush=True)
+        if (gerr["kernels"] > GRAD_BAR or not np.isfinite(lk).all()
+                or ldrift["kernels"] > LOSS_BAR):
+            raise AssertionError(f"{conv}: kernels against plain, gradients "
+                                 f"{gerr['kernels']} (bar {GRAD_BAR}), "
+                                 f"losses {ldrift['kernels']} (bar "
+                                 f"{LOSS_BAR})")
+        for c in CONTROLS:
+            if gerr[c] <= GRAD_BAR or ldrift[c] <= LOSS_BAR:
+                raise AssertionError(f"{conv}: the {c} control passed "
+                                     f"(gradients {gerr[c]}, losses "
+                                     f"{ldrift[c]})")
+        plain_n = {k: v for a in ("plain", "plain again")
+                   for k, v in runs[a][2].items() if v}
+        if nk["K-core"] <= 0 or nk["K-tail"] <= 0 or plain_n:
+            raise AssertionError(f"{conv} steps: launches {nk}, plain "
+                                 f"{plain_n}")
+        # the kernel-trained model's activations through the kernels and
+        # through the plain versions, at validate_model's bar
+        acts = []
+        for a, b in zip(layer_activations(mk, inputs[0], arms["kernels"]),
+                        layer_activations(mk, inputs[0], arms["plain"])):
+            err = float(np.abs(a - b).max())
+            scale = max(1.0, float(np.abs(b).max()))
+            if not np.isfinite(a).all() or err > 1e-2 + 1e-2 * scale:
+                raise AssertionError(f"{conv} trained activations differ: "
+                                     f"{err} of scale {scale}")
+            acts.append((err, scale))
+        out[conv] = dict(grad_err=gerr, grad_worst=worst, losses=lk,
+                         plain_losses=lp, loss_drift=ldrift,
+                         layer_max_err_scale=acts, launches=nk)
+        print(f"training, {conv}: trained layers (max err, scale) {acts}",
+              flush=True)
+        del runs, mk
+        torch.cuda.empty_cache()
+    model = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
+                     device=dev)
+    split = StepSplit()
+    step = make_train_step(model, PreparedAggregate(prep), torch.optim.Adam(
+        model.parameters(), lr=TRAIN_LR), split)
+    for e in range(6):  # the first step warms up
+        step(*inputs, torch.Generator(device=dev).manual_seed(e))
+    ms = {p: float(np.mean(split.ms[p][1:])) for p in split.PHASES}
+    out["gcn step"] = dict(ms=ms, launches=split.launches)
+    print(f"training, gcn step at hidden {HIDDEN}: forward "
+          f"{ms['forward']:.4f} ms, backward {ms['backward']:.4f} ms, Adam + "
+          f"merge {ms['adam']:.4f} ms; launches forward "
+          f"{split.launches['forward']}, backward "
+          f"{split.launches['backward']} ({card})", flush=True)
+    results["train steps"] = out
+
+
+def train_sweep() -> int:
+    """``--train-sweep``: the readings TRAIN_LR, LOSS_BAR and GRAD_BAR are
+    set from, on the smoke operand: every leaf's gradient error of each
+    arm against the plain versions, then each arm's loss drift at each
+    rate of SWEEP_LRS. Prints them as JSON lines; checks nothing."""
+    import torch
+
+    from pygim_tpu_torch.bench.runners import train_inputs
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import _build
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+    from pygim_tpu_torch.utils.device import card_line
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"card: {card_line()}", flush=True)
+    _build.build()
+    ds = load_dataset(DATASET)
+    prep = prepare_spmm(ds.graph, SpmmConfig(
+        backend="hybrid", hybrid_shape="stair", hybrid_dtype="int8",
+        hybrid_core_bytes=CORE_BYTES), device="cuda")
+    prep.transpose(ds.graph)
+    inputs = train_inputs(ds, prep.device)
+    arms = training_arms(prep)
+    for conv in CONVS:
+        grads = {a: leaf_grads(conv, ds, agg, inputs)
+                 for a, agg in arms.items()}
+        scale = {k: float(g.abs().max()) for k, g in grads["plain"].items()}
+        errs = {a: leaf_errs(g, grads["plain"]) for a, g in grads.items()
+                if a != "plain"}
+        print(json.dumps({"conv": conv, "leaf_scale": scale,
+                          "leaf_errs": errs}), flush=True)
+        for lr in SWEEP_LRS:
+            runs = {a: arm_losses(conv, ds, agg, inputs, lr)[1]
+                    for a, agg in arms.items()}
+            print(json.dumps({"conv": conv, "lr": lr, "losses": runs,
+                              "drift": {a: drift(v, runs["plain"])
+                                        for a, v in runs.items()}}),
+                  flush=True)
+        torch.cuda.empty_cache()
+    return 0
+
+
+def training_entry(results, card, timeout: int = 300, device="cuda"):
+    """``train_cuda.py`` on TRAIN_GRAPH for 10 epochs at its other
+    defaults (``ell``), in a process of its own with a deadline: its
+    [DATA] lines parse and its loss falls. Then ``run_training_benchmark``
+    of each conv on the same graph on ``ell`` and on the stair-int8
+    hybrid (the smoke configuration): ``acc_delta`` against the oracle
+    arm at most 0.01 on ``ell`` and 0.03 on the hybrid (the reference's
+    ``acc_tol`` for a rounded core), ``validate`` OK, and K-core and
+    K-tail launched in the hybrid's runs."""
+    from pygim_tpu_torch.bench.runners import run_training_benchmark
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import SpmmConfig
+    from pygim_tpu_torch.utils.metrics import DataReporter, parse_data_lines
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "train_cuda.py", "--dataset", TRAIN_GRAPH,
+         "--epochs", "10"], capture_output=True, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    tail = (res.stdout + res.stderr)[-3000:]
+    if res.returncode != 0:
+        raise AssertionError(f"train_cuda.py: exit {res.returncode}\n{tail}")
+    got = parse_data_lines(res.stdout.splitlines())
+    keys = ("epoch", "train_loss", "test_acc", "train_time(ms)", "device")
+    if any(k not in got for k in keys) or got["epoch"] != [0.0, 9.0] \
+            or not got["train_loss"][-1] < got["train_loss"][0]:
+        raise AssertionError(f"train_cuda.py: {got}\n{tail}")
+    out = {"train_cuda": {k: got[k] for k in keys}}
+    print(f"training, train_cuda.py ({secs:.1f} s): "
+          f"{out['train_cuda']} ({card})", flush=True)
+
+    ds = load_dataset(TRAIN_GRAPH)
+    hybrid = SpmmConfig(backend="hybrid", hybrid_shape="stair",
+                        hybrid_dtype="int8", hybrid_core_bytes=CORE_BYTES)
+    for name, cfg, tol in (("ell", SpmmConfig(backend="ell"), 0.01),
+                           ("stair int8", hybrid, 0.03)):
+        for conv in CONVS:
+            rep = DataReporter()
+            reset_launch_counts()
+            means = run_training_benchmark(
+                ds, model=conv, hidden=HIDDEN, config=cfg,
+                epochs=TRAIN_EPOCHS, acc_tol=tol, reporter=rep,
+                device=device)
+            n = launch_counts()
+            kernels = ("K-tail",) if name == "ell" else ("K-core", "K-tail")
+            if means["acc_delta"] > tol or means["validate"] != "OK" \
+                    or any(n[k] <= 0 for k in kernels):
+                raise AssertionError(f"run_training_benchmark {conv} on "
+                                     f"{name}: {means} launches {n}")
+            keep = ("train_time(ms)", "first_epoch_time(ms)",
+                    "epoch_time(ms)", "forward_ms", "backward_ms",
+                    "adam_ms", "train_loss", "test_acc",
+                    "oracle_test_acc", "acc_delta", "validate",
+                    "operand_bytes", "transpose_bytes")
+            out[f"{conv} {name}"] = {k: means[k] for k in keep}
+            print(f"training, run_training_benchmark {conv} on {name}, "
+                  f"{TRAIN_EPOCHS} epochs: {out[f'{conv} {name}']}, "
+                  f"launches {n} ({card})", flush=True)
+    results["training entry"] = out
+
+
+def profile_train_step(ds, prep):
+    """torch.profiler breakdown of one GCN training step at hidden 256
+    through the kernels (``--profile``)."""
+    import torch
+
+    from pygim_tpu_torch.bench.report import profile_calls
+    from pygim_tpu_torch.bench.runners import train_inputs
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.nn.train import make_train_step
+    from pygim_tpu_torch.ops.spmm import PreparedAggregate
+
+    inputs = train_inputs(ds, "cuda")
+    model = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
+                     device="cuda")
+    step = make_train_step(model, PreparedAggregate(prep),
+                           torch.optim.Adam(model.parameters(), lr=TRAIN_LR))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    profile_calls(lambda: step(*inputs, gen), "training step")
+
+
 def main() -> int:
     """Run every phase in a fresh prepare and dataset cache, removed at
     the end: no phase reads the user's cache."""
     root = tempfile.mkdtemp(prefix="chip_smoke_cache_")
     os.environ["PYGIM_TPU_TORCH_DATA"] = root
     try:
+        if "--train-sweep" in sys.argv[1:]:
+            return train_sweep()
         return run()
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1764,12 +2244,20 @@ def run() -> int:
     torch.cuda.empty_cache()
     entry_points(results)
 
+    # the training path: the backward product on the prepared Aᵀ, real
+    # steps of each conv, then train_cuda.py and run_training_benchmark
+    backward_product(prep, ds.graph, results, card)
+    train_steps(ds, prep, results, card)
+    training_entry(results, card)
+    training = results["train steps"]["gcn step"]["launches"]
+
     if "--profile" in sys.argv[1:]:
         from pygim_tpu_torch.bench.report import profile_forward
 
         for agg_dtype, gnn in gnns.items():
             print(f"profile: {agg_dtype or 'float'} aggregation", flush=True)
             profile_forward(gnn, xf, PreparedAggregate(prep))
+        profile_train_step(ds, prep)
 
     sources = {"K-core": ("cuda", "pygim_tpu_torch/csrc/core_dot.cu",
                           "pygim_tpu/ops/pallas_core.py:55"),
@@ -1794,6 +2282,9 @@ def run() -> int:
             "library_ms": res["library_ms"],
             "schedule_balance": res.get("schedule_balance"),
             "split": res.get("split"),
+            "train_step_launches": {
+                part: training[part][k] for part in ("forward", "backward")
+            } if k in ("K-core", "K-tail") else None,
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,8 @@ parts, as the reference does. ``--version spmm|grande|spmv`` prepare the
 single-card ``ell`` operand (an ``sp_parts × ds_parts`` above one prints
 the reference's ``[WARN] ... running single-chip``); ``--version cpu``
 aggregates through the oracle in float. A mesh that fits more than one
-visible card, ``--tune``, ``--model sage|gin`` and ``--data_type
-bfloat16|int64`` are not ported and raise ``NotImplementedError``. Runs
+visible card, ``--tune`` and ``--data_type bfloat16|int64`` are not
+ported and raise ``NotImplementedError``. Runs
 on the card; ``main(argv, device="cpu")`` runs the plain versions on the
 CPU (the tests).
 
@@ -48,9 +48,6 @@ def main(argv=None, *, device="cuda"):
     args = get_args(argv)
     print(args)
     check_ported(args)
-    if args.model != "gcn":
-        raise NotImplementedError(f"--model {args.model} is not ported (the "
-                                  "GIN and SAGE convs come with a later slice)")
 
     from pygim_tpu_torch.bench.runners import run_inference_benchmark
     from pygim_tpu_torch.compat import prepare_for_version

@@ -142,24 +142,21 @@ def square_core_calls(prep, hidden: int, dev, iters: int = 5) -> dict:
     return res
 
 
-def profile_forward(gnn, x, agg, iters: int = 5, out=None) -> dict:
-    """Device time by kernel for one inference forward (torch.profiler),
-    and the device's busy share of the forward's wall time; printed (to
-    ``out``, default stdout) and returned as ``{"wall_ms", "busy_ms",
-    "kernels": [(ms, launches, name)]}`` per forward."""
+def profile_calls(fn, what: str, iters: int = 5, out=None) -> dict:
+    """Device time by kernel for one call of ``fn`` (torch.profiler over
+    ``iters`` calls), and the device's busy share of its wall time;
+    printed (to ``out``, default stdout) and returned as ``{"wall_ms",
+    "busy_ms", "kernels": [(ms, launches, name)]}`` per call. ``fn``
+    returns a tensor of its result, so ``device_time`` times it on the
+    card."""
     from torch.profiler import ProfilerActivity, profile
 
     out = out or sys.stdout
-
-    def fwd():  # returns the logits, so device_time times it on the card
-        with torch.inference_mode():
-            return gnn(x, agg)
-
-    wall_ms = device_time(fwd, iters=iters) * 1e3
+    wall_ms = device_time(fn, iters=iters) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            fwd()
+            fn()
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -171,7 +168,7 @@ def profile_forward(gnn, x, agg, iters: int = 5, out=None) -> dict:
     evs = [e for e in prof.key_averages()
            if dev_us(e) > 0 and e.self_cpu_time_total == 0]
     busy_ms = sum(dev_us(e) for e in evs) / iters / 1e3
-    print(f"profile: forward {wall_ms:.4f} ms wall, {busy_ms:.4f} ms device "
+    print(f"profile: {what} {wall_ms:.4f} ms wall, {busy_ms:.4f} ms device "
           f"busy ({100 * busy_ms / wall_ms:.1f}%)", file=out, flush=True)
     kernels = []
     for e in sorted(evs, key=dev_us, reverse=True)[:25]:
@@ -179,6 +176,16 @@ def profile_forward(gnn, x, agg, iters: int = 5, out=None) -> dict:
         print(f"profile: {kernels[-1][0]:9.4f} ms  {kernels[-1][1]:4d}x  "
               f"{e.key[:90]}", file=out, flush=True)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=kernels)
+
+
+def profile_forward(gnn, x, agg, iters: int = 5, out=None) -> dict:
+    """:func:`profile_calls` of one inference forward."""
+
+    def fwd():
+        with torch.inference_mode():
+            return gnn(x, agg)
+
+    return profile_calls(fwd, "forward", iters=iters, out=out)
 
 
 HIDDEN = 256

@@ -1,14 +1,17 @@
 """Benchmark bodies — counterparts of ``pygim_tpu/bench/runners.py``.
 
-Both report through the ``[DATA]`` protocol under the reference's key
+They report through the ``[DATA]`` protocol under the reference's key
 names (``pim_time_spmm(ms)``, ``prepare_pim_time(ms)``,
-``infer_time(ms)``, ``test_acc``, ...). Times come from
+``infer_time(ms)``, ``train_time(ms)``, ``test_acc``, ...). SpMM and
+inference times come from
 :func:`~pygim_tpu_torch.utils.timers.device_time` on the device the
-operands live on.
+operands live on; ``train_time(ms)`` is the host clock around each
+training epoch, synchronised at its end, summed.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Optional
@@ -18,7 +21,12 @@ import torch
 
 from pygim_tpu_torch.data import GraphDataset
 from pygim_tpu_torch.nn.models import make_gnn
-from pygim_tpu_torch.ops.spmm import PreparedAggregate, SpmmConfig, prepare_spmm
+from pygim_tpu_torch.ops.spmm import (
+    KERNEL_BACKENDS,
+    PreparedAggregate,
+    SpmmConfig,
+    prepare_spmm,
+)
 from pygim_tpu_torch.utils.metrics import DataReporter
 from pygim_tpu_torch.utils.timers import device_time
 
@@ -231,13 +239,191 @@ def run_inference_benchmark(
     return rep.means()
 
 
+def _synchronize(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_inputs(ds: GraphDataset, device) -> tuple:
+    """Features (float32), labels (int64) and the float train mask of
+    ``ds`` on ``device``."""
+    return (torch.as_tensor(ds.x, dtype=torch.float32).to(device),
+            torch.as_tensor(ds.y.astype(np.int64)).to(device),
+            torch.as_tensor(ds.train_mask.astype(np.float32)).to(device))
+
+
+def run_training_benchmark(
+    ds: GraphDataset,
+    *,
+    model: str = "gcn",
+    num_layers: int = 2,
+    hidden: int = 256,
+    config: Optional[SpmmConfig] = None,
+    epochs: int = 50,
+    lr: float = 1e-2,
+    seed: int = 0,
+    reporter: Optional[DataReporter] = None,
+    prepare_fn=None,
+    parity: bool = True,
+    acc_tol: float = 0.01,
+    oracle_chunk: Optional[int] = None,
+    device="cuda",
+) -> dict:
+    """Trained-accuracy parity (``pygim_tpu/bench/runners.py:262-391``):
+    train the same initialisation with the same dropout seeds (``seed ·
+    100003 + epoch``) twice, through the backend under test and through
+    the oracle (chunked by ``oracle_chunk`` edges), then require
+
+    * test metrics within ``acc_tol`` (``acc_delta``), and
+    * the trained model's per-layer activations under both aggregates
+      within ``validate_model``'s bar: 1e-2 on a hybrid with a rounded
+      core (bf16, int8, int4 cells), 1e-4 elsewhere (``validate``).
+
+    Reports ``train_time(ms)`` (all epochs, each synchronised),
+    ``first_epoch_time(ms)``, ``epoch_time(ms)`` (the median epoch),
+    ``train_loss``, ``test_acc``,
+    ``oracle_train_loss``, ``oracle_test_acc``, ``acc_delta``,
+    ``layer{i}_max_err`` and ``validate``, and the device bytes of the
+    operand and, on a kernel backend, of its prepared transpose
+    (``operand_bytes``, ``transpose_bytes``), which is prepared before the
+    epochs are timed (``prepare_transpose_time(ms)``). Each of the
+    backend's steps is split into its phases
+    (:class:`~pygim_tpu_torch.nn.train.StepSplit`), reported as
+    ``forward_ms``, ``backward_ms`` and ``adam_ms`` (medians, the first
+    epoch apart) and ``step_launches`` (the last step's, by phase). With
+    ``config=None`` the operand is the reference's default
+    configuration."""
+    from pygim_tpu_torch.bench.validate import JittedAggregate, validate_model
+    from pygim_tpu_torch.nn.models import gnn_apply
+    from pygim_tpu_torch.nn.train import StepSplit, make_train_step
+
+    rep = reporter or DataReporter()
+    rep.report("data_source", "synthetic" if ds.synthetic else "real")
+    rep.report("device", device_name(device))
+    graph = ds.graph
+    x, labels, train_mask = train_inputs(ds, device)
+    prep = _prepare(graph, config, prepare_fn, device, rep)
+    cfg = getattr(prep, "config", None)
+    kernels = hasattr(prep, "transpose") and cfg.backend in KERNEL_BACKENDS
+    if kernels:
+        # the backward's operand, prepared before the clock starts
+        t0 = time.perf_counter()
+        prep.transpose(graph)
+        rep.report("prepare_transpose_time(ms)",
+                   (time.perf_counter() - t0) * 1e3)
+    init = make_gnn(seed, model, ds.x.shape[1], hidden, ds.num_classes,
+                    num_layers=num_layers, device=device)
+
+    def train(prep_, times=None, split=None):
+        gnn = copy.deepcopy(init)
+        opt = torch.optim.Adam(gnn.parameters(), lr=lr)
+        step = make_train_step(gnn, PreparedAggregate(prep_), opt, split)
+        loss = None
+        for epoch in range(epochs):
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed * 100_003 + epoch)
+            loss = step(x, labels, train_mask, gen)
+            if times is not None:
+                _synchronize(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+        return gnn.eval(), float(loss)
+
+    def test_metric(gnn, aggregate):
+        with torch.no_grad():
+            logits = gnn_apply(gnn, x, aggregate, training=False)
+        return evaluate_predictions(ds, logits.cpu().numpy())
+
+    times = []
+    phases = StepSplit()
+    gnn, loss = train(prep, times, phases)
+    rep.report("train_time(ms)", sum(times))
+    if times:
+        # the first epoch warms up (cuBLAS, the kernels' plans at H)
+        rep.report("first_epoch_time(ms)", times[0])
+        rep.report("epoch_time(ms)", float(np.median(times)))
+    for p in StepSplit.PHASES:
+        if phases.ms[p]:
+            rep.report(f"{p}_ms", float(np.median(phases.ms[p][1:]
+                                                  or phases.ms[p])))
+    rep.report("step_launches", phases.launches)
+    rep.report("train_loss", loss)
+    acc = test_metric(gnn, PreparedAggregate(prep))
+    rep.report("test_acc", acc)
+    if hasattr(prep, "device_bytes"):
+        rep.report("operand_bytes", prep.device_bytes)
+    if kernels:
+        rep.report("transpose_bytes", prep.transpose().device_bytes)
+
+    if parity:
+        oracle = prepare_spmm(
+            graph, SpmmConfig(backend="oracle", oracle_edge_chunk=oracle_chunk),
+            device=device)
+        gnn_o, loss_o = train(oracle)
+        rep.report("oracle_train_loss", loss_o)
+        acc_o = test_metric(gnn_o, PreparedAggregate(oracle))
+        rep.report("oracle_test_acc", acc_o)
+        rep.report("acc_delta", abs(acc - acc_o))
+        loose = cfg is not None and cfg.backend == "hybrid" and (
+            cfg.hybrid_dtype in ("bfloat16", "int8", "int4"))
+        tol = 1e-2 if loose else 1e-4
+        ok = validate_model(gnn, x, JittedAggregate(prep), oracle.mul,
+                            reporter=rep, rtol=tol, atol=tol)
+        if not ok:
+            raise AssertionError(
+                "trained-model per-layer validation failed vs oracle")
+        if abs(acc - acc_o) > acc_tol:
+            raise AssertionError(
+                f"trained accuracy diverged: backend {acc:.4f} vs oracle "
+                f"{acc_o:.4f} (tol {acc_tol})")
+    return rep.means()
+
+
+def roc_auc_micro(y: np.ndarray, scores: np.ndarray) -> float:
+    """Micro-averaged ROC-AUC of ``scores`` (n, C) against the one-hot
+    matrix of ``y``, as ``sklearn.metrics.roc_auc_score(onehot, scores,
+    average="micro")``: the Mann-Whitney statistic over the raveled
+    matrices, tied scores given their average rank. 0.0 where one class
+    of the raveled labels is absent (sklearn raises there, and the
+    reference returns 0.0)."""
+    truth = np.eye(scores.shape[1], dtype=bool)[y].ravel()
+    s = np.asarray(scores, dtype=np.float64).ravel()
+    n_pos = int(truth.sum())
+    n_neg = truth.size - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return 0.0
+    order = np.argsort(s, kind="stable")
+    sorted_s = s[order]
+    cuts = np.flatnonzero(sorted_s[1:] != sorted_s[:-1]) + 1
+    starts = np.concatenate([[0], cuts])
+    ends = np.concatenate([cuts, [s.size]])
+    ranks = np.empty(s.size, dtype=np.float64)
+    ranks[order] = np.repeat((starts + ends + 1) / 2.0, ends - starts)
+    u = ranks[truth].sum() - n_pos * (n_pos + 1) / 2.0
+    return float(u / (n_pos * n_neg))
+
+
+def f1_micro(y: np.ndarray, pred: np.ndarray) -> float:
+    """Micro-averaged F1 of single-label predictions,
+    ``sklearn.metrics.f1_score(y, pred, average="micro")``: 2·TP / (2·TP
+    + FP + FN) summed over classes, where each miss is one FP and one
+    FN."""
+    tp = int((pred == y).sum())
+    miss = y.size - tp
+    return float(2 * tp / (2 * tp + 2 * miss)) if y.size else 0.0
+
+
 def evaluate_predictions(ds: GraphDataset, logits: np.ndarray) -> float:
-    """Accuracy on the test split."""
+    """Task metric on the test split (the reference's
+    ``evaluate_predictions``): accuracy, or the dataset's ``rocauc``
+    (:func:`roc_auc_micro`) or ``f1`` (:func:`f1_micro`), in NumPy."""
     mask = ds.test_mask
     if not mask.any():
         return 0.0
-    if getattr(ds, "metric", "acc") != "acc":
-        raise NotImplementedError(
-            f"metric {ds.metric!r}: only accuracy is ported so far"
-        )
-    return float((logits[mask].argmax(-1) == ds.y[mask]).mean())
+    y, lg = ds.y[mask], logits[mask]
+    metric = getattr(ds, "metric", "acc")
+    if metric == "rocauc":
+        return roc_auc_micro(y, lg)
+    if metric == "f1":
+        return f1_micro(y, lg.argmax(-1))
+    return float((lg.argmax(-1) == y).mean())

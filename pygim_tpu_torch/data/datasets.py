@@ -3,9 +3,10 @@
 Counterpart of ``pygim_tpu/data/datasets.py`` for the stand-ins only:
 each known dataset name resolves to an R-MAT graph with the published
 node count, stored edge count, feature width and class count, with
-random features, labels and a 10% train mask. The same name and seed
-give the reference's graph, features, labels and masks, array for
-array. A spec name's stand-in is cached on disk as ``<name>-sim.npz``
+random features, labels and a 10% train mask; ``planted-<n>-<e>-<c>``
+is a learnable planted partition (the training parity graphs). The same
+name and seed give the reference's graph, features, labels and masks,
+array for array. A spec name's stand-in is cached on disk as ``<name>-sim.npz``
 under the port's cache directory (``utils/cache.py``), the reference's
 file layout; ``rmat-<n>-<e>`` names are made anew each time, as in the
 reference. Real-dataset loaders come in a later slice.
@@ -96,6 +97,41 @@ def _synthesize(name: str, spec, seed=0) -> GraphDataset:
     )
 
 
+def _synthesize_planted(name: str, n: int, e: int, c: int, seed=0):
+    """The reference's planted partition (``_synthesize_planted``): labels
+    are ``c`` communities, 90% of the edges join two members of one class
+    (homophily), features (32) are a noisy class signature, so a 2-layer
+    GNN learns it — the graph behind the trained-accuracy parity runs."""
+    rng = np.random.default_rng(seed)
+    c = max(2, c)
+    y = rng.integers(0, c, n).astype(np.int32)
+    e_in = int(e * 0.9)
+    members = [np.where(y == k)[0] for k in range(c)]
+    sizes = np.array([len(m) for m in members])
+    ok = sizes > 0
+    probs = np.where(ok, sizes, 0) / sizes[ok].sum()
+    cls = rng.choice(c, e_in, p=probs)
+    r_in = np.empty(e_in, dtype=np.int64)
+    c_in = np.empty(e_in, dtype=np.int64)
+    for k in range(c):
+        m = cls == k
+        if m.any() and len(members[k]):
+            r_in[m] = rng.choice(members[k], m.sum())
+            c_in[m] = rng.choice(members[k], m.sum())
+    rows = np.concatenate([r_in, rng.integers(0, n, e - e_in)])
+    cols = np.concatenate([c_in, rng.integers(0, n, e - e_in)])
+    f = 32
+    sig = rng.standard_normal((c, f)).astype(np.float32)
+    x = sig[y] + 1.5 * rng.standard_normal((n, f)).astype(np.float32)
+    train = np.zeros(n, dtype=bool)
+    train[rng.choice(n, max(1, n // 10), replace=False)] = True
+    graph = CooGraph.from_edges(rows, cols, nrows=n, ncols=n, dtype="float32")
+    return GraphDataset(
+        name=name, graph=graph, x=x, y=y, train_mask=train,
+        test_mask=~train, num_classes=c, synthetic=True,
+    )
+
+
 def _save_cache(ds: GraphDataset, path: Path) -> None:
     save_npz(path, dict(
         rows=ds.graph.rows, cols=ds.graph.cols, x=ds.x, y=ds.y,
@@ -124,8 +160,9 @@ def _load_cache(name: str, path: Path) -> GraphDataset:
 
 def load_dataset(name: str, root: Optional[str] = None, *, seed: int = 0,
                  use_cache: bool = True) -> GraphDataset:
-    """The synthetic stand-in for a spec name, or ``rmat-<n>-<e>``
-    (64 features, 16 classes) for ad-hoc sizes. A spec name's stand-in is
+    """The synthetic stand-in for a spec name, ``rmat-<n>-<e>`` (64
+    features, 16 classes) for ad-hoc sizes, or ``planted-<n>-<e>-<c>``
+    (32 features, ``c`` classes); the last two are made anew each time. A spec name's stand-in is
     read from ``root`` (default: the cache directory) where it was saved,
     else synthesized and saved there; ``use_cache=False`` does neither.
     As in the reference, the file's name holds no seed."""
@@ -133,10 +170,13 @@ def load_dataset(name: str, root: Optional[str] = None, *, seed: int = 0,
     if name.startswith("rmat-"):
         _, ns, es = name.split("-")
         return _synthesize(name, (int(ns), int(es), 64, 16), seed)
+    if name.startswith("planted-"):
+        _, ns, es, cs = name.split("-")
+        return _synthesize_planted(name, int(ns), int(es), int(cs), seed)
     if name not in DATASET_SPECS:
         raise KeyError(
             f"unknown dataset {name!r}; known: {sorted(DATASET_SPECS)} "
-            f"or rmat-<n>-<e>"
+            f"or rmat-<n>-<e> or planted-<n>-<e>-<c>"
         )
     path = Path(cache_dir() if root is None else root) / f"{name}-sim.npz"
     if use_cache and path.exists():

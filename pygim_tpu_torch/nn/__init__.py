@@ -1,3 +1,9 @@
-from pygim_tpu_torch.nn.models import GNN, gnn_apply, make_gnn, params_from_jax
+from pygim_tpu_torch.nn.models import (
+    GNN,
+    gnn_apply,
+    make_gnn,
+    merge_bn_stats,
+    params_from_jax,
+)
 
-__all__ = ["GNN", "gnn_apply", "make_gnn", "params_from_jax"]
+__all__ = ["GNN", "gnn_apply", "make_gnn", "merge_bn_stats", "params_from_jax"]

@@ -165,3 +165,21 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where grad mode is on and one of ``tensors`` requires grad.
+
+    A kernel writes its result through a raw pointer, so autograd sees no
+    node: a gradient would stop at the kernel without a word. A caller
+    that needs one goes through ``ops/spmm.py:SpmmFunction``, whose
+    forward runs with grad mode off. The plain versions on CPU tensors
+    take the same rule, so a CPU run cannot pass where the card would cut
+    the graph."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an operand requires grad under grad mode; the kernel "
+            "has no autograd node (use PreparedAggregate, whose backward "
+            "runs the prepared transpose)")

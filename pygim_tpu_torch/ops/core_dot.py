@@ -432,6 +432,7 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
     these bands at this H) is built here when not given."""
     global launches, packed_launches
     _check(bands, xc, core_nodes, stair, out)
+    _build.refuse_grad("core_bands_scatter_add", xc, out)
     if out.device.type == "cpu":
         return core_bands_plain(bands, xc, core_nodes, stair, out)
     if out.device.type != "cuda":

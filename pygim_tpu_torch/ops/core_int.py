@@ -293,6 +293,7 @@ def core_int_scatter_add(bands, xc, core_nodes, stair, out, limbs=None,
     ``plans`` (:func:`core_int_plans` at this H and ``limbs``) is built
     here when not given."""
     _check(bands, xc, core_nodes, stair, out, xc_dtypes=INT_DTYPES)
+    _build.refuse_grad("core_int_scatter_add", xc, out)
     if out.device.type == "cpu":
         return core_int_plain(bands, xc, core_nodes, stair, out)
     if out.device.type != "cuda":

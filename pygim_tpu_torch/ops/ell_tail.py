@@ -280,6 +280,7 @@ def ell_tables_add(x, tables, out, plan=None, safe=None):
     given."""
     global launches, quant_launches
     _check_payload(x, safe, out)
+    _build.refuse_grad("ell_tables_add", x, out)
     for cols2d, vals2d, vrow_to_row, degree in tables:
         _check(x, cols2d, vals2d, vrow_to_row, degree, out)
     if out.device.type == "cpu":

@@ -41,6 +41,15 @@ The hybrid's :meth:`PreparedSpmm.mul` computes ``A @ x`` as
    reference's, added as f32
 
 — the order of the reference's hybrid run; ``ell`` runs step 2 alone.
+
+The kernels write through raw pointers, so autograd cannot follow them:
+:class:`SpmmFunction` is the differentiable ``A @ x`` of the ``hybrid``
+and ``ell`` backends, its backward ``Aᵀ @ g`` through the same kernels
+(K-core, K-tail) on :meth:`PreparedSpmm.transpose`, the transposed graph
+prepared once with the same configuration by the caller that trains.
+:class:`PreparedAggregate` takes it wherever grad mode is on and the
+payload requires grad; ``oracle`` and ``blocked`` run PyTorch ops, which
+autograd follows as they are.
 :meth:`PreparedSpmm.mul_quantized`
 is the fused quantize → aggregate → dequantize of the reference's
 ``raw_mul_quantized``. The host tables are the reference's bit for bit.
@@ -476,6 +485,8 @@ class PreparedSpmm:
         self.config = config
         self.device = torch.device(device)
         backend = config.backend
+        # the graph as given, to check the one transpose() is handed
+        self._source_shape = (graph.nrows, graph.ncols, graph.nnz)
         pt = PhaseTimer()
         if config.merge_duplicates and backend != "oracle":
             # the oracle stays raw: an independent reference must not
@@ -483,6 +494,7 @@ class PreparedSpmm:
             pt.start("merge")
             graph, _ = merge_duplicate_edges(graph)
             pt.stop("merge")
+        self._transpose = None
         coo = graph if isinstance(graph, CooGraph) else None
         csr = graph if isinstance(graph, CsrGraph) else None
         self.nrows, self.ncols, self.nnz = graph.nrows, graph.ncols, graph.nnz
@@ -633,6 +645,38 @@ class PreparedSpmm:
     @property
     def dev_arrays(self) -> dict:
         return self._dev
+
+    @property
+    def device_bytes(self) -> int:
+        """Bytes of the operand's device tables."""
+        return sum(t.numel() * t.element_size() for t in self._dev.values())
+
+    def transpose(self, graph=None) -> "PreparedSpmm":
+        """``Aᵀ``: ``graph``, the graph this operand was prepared from, with
+        ``rows`` and ``cols`` swapped, prepared with this operand's
+        configuration on its device and kept (one more operand of device
+        memory; its prepare-cache key differs, as its graph does). The
+        operand holds no host copy of its graph, so the first call takes
+        it and later calls return the operand prepared then. The backward
+        of :class:`SpmmFunction` runs on it: whoever trains prepares it
+        (``run_training_benchmark`` and ``train_cuda.py`` before their
+        clock), and an inference run never does."""
+        if self._transpose is None:
+            if graph is None:
+                raise ValueError(
+                    "Aᵀ is not prepared: call transpose(graph) with the graph "
+                    "this operand was prepared from")
+            if (graph.nrows, graph.ncols, graph.nnz) != self._source_shape:
+                raise ValueError(
+                    f"transpose(graph): a graph of shape ({graph.nrows}, "
+                    f"{graph.ncols}) with {graph.nnz} edges, the operand's "
+                    f"was {self._source_shape}")
+            coo = graph if isinstance(graph, CooGraph) else graph.to_coo()
+            gt = CooGraph(rows=coo.cols, cols=coo.rows, vals=coo.vals,
+                          nrows=coo.ncols, ncols=coo.nrows)
+            self._transpose = PreparedSpmm(gt, self.config,
+                                           device=self.device)
+        return self._transpose
 
     def mul(self, x):
         """``A @ x`` through the kernels (plain versions on CPU tensors).
@@ -858,23 +902,70 @@ class PreparedSpmm:
         return out
 
 
+KERNEL_BACKENDS = ("hybrid", "ell")  # the backends that run hand kernels
+
+
+class SpmmFunction(torch.autograd.Function):
+    """``A @ x`` through ``prep``'s kernels (:meth:`PreparedSpmm.mul`),
+    differentiable in x: the backward is ``Aᵀ @ g`` through the same
+    kernels on :meth:`PreparedSpmm.transpose`. The port's counterpart of
+    JAX's autodiff through the reference's ``raw_mul``.
+
+    Numerics of the core (hybrid): the reference's autodiff of
+    ``bf16(band) @ bf16(xc)`` computes each band's transposed product,
+    rounds it to bf16 and adds the bands' shares in bf16; K-core on Aᵀ
+    rounds ``g`` to bf16 once, before its product, and sums in f32. Each
+    core term stays within 2^-8 relative of the exact ``Aᵀ @ g``. The tail
+    is f32 on both sides; K-tail adds hub pieces with atomics, so two
+    backward passes on the card may differ in the last bits."""
+
+    @staticmethod
+    def forward(ctx, x, prep):
+        ctx.prep = prep
+        return prep.mul(x.contiguous())
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return ctx.prep.transpose().mul(g.contiguous()), None
+
+
 class PreparedAggregate:
     """Callable aggregate ``v -> A·v`` bound to a prepared operand, with
     ``quantized``, the fused integer-aggregate hook the conv layers probe
-    (:func:`pygim_tpu_torch.nn.layers.quantized_aggregate`)."""
+    (:func:`pygim_tpu_torch.nn.layers.quantized_aggregate`). Under grad
+    mode a payload that requires grad goes through :class:`SpmmFunction`
+    on the kernel backends, whose operand's transpose must be prepared
+    first (``prep.transpose(graph)``); ``oracle`` and ``blocked`` are
+    PyTorch ops, which autograd follows."""
 
     def __init__(self, prep, dev=None):
         self.prep = prep
         self.dev = prep.dev_arrays if dev is None else dev
 
     def __call__(self, v):
+        if (torch.is_grad_enabled() and v.requires_grad
+                and self.prep.config.backend in KERNEL_BACKENDS):
+            if self.dev is not self.prep.dev_arrays:
+                raise NotImplementedError(
+                    "a gradient through tables other than the operand's "
+                    "own: its prepared transpose is of its own graph")
+            self.prep.transpose()  # raises before the forward if unprepared
+            return SpmmFunction.apply(v, self.prep)
         return self.prep.raw_mul(v, self.dev)
 
     def quantized(self, v, agg_dtype: str):
         """Fused quantize → aggregate → dequantize
         (:meth:`PreparedSpmm.raw_mul_quantized`), or None where the
         backend does not fuse (the caller then quantizes around the plain
-        aggregate)."""
+        aggregate). Raises under grad mode on a payload that requires
+        grad: training aggregates the float payload, as the reference's
+        train step, and the port does not imitate the gradient JAX passes
+        through ``max|x|`` in the scale."""
+        if torch.is_grad_enabled() and v.requires_grad:
+            raise NotImplementedError(
+                f"a gradient through the {agg_dtype} quantized aggregate: "
+                "training aggregates the float payload (agg_dtype=None)")
         if not self.prep.supports_fused_quant:
             return None
         return self.prep.raw_mul_quantized(v, self.dev, agg_dtype)

@@ -95,15 +95,24 @@ def test_float64_runs_as_float32(capsys):
 @pytest.mark.parametrize("main,argv,what", [
     (spmm_test_cuda.main, ["--tune"], "--tune"),
     (inference_cuda.main, ["--tune"], "--tune"),
-    (inference_cuda.main, ["--model", "gin"], "--model gin"),
-    (inference_cuda.main, ["--model", "sage"], "--model sage"),
     (spmm_test_cuda.main, ["--data_type", "bfloat16"], "bfloat16"),
     (inference_cuda.main, ["--data_type", "int64"], "int64"),
-], ids=["spmm-tune", "infer-tune", "gin", "sage", "bf16", "int64"])
+], ids=["spmm-tune", "infer-tune", "bf16", "int64"])
 def test_unported_flags_raise(main, argv, what):
     with pytest.raises(NotImplementedError, match="not ported") as e:
         main(["--dataset", "tiny", *argv], device="cpu")
     assert what in str(e.value)
+
+
+@pytest.mark.parametrize("model", ["gin", "sage"])
+def test_inference_gin_and_sage(capsys, model):
+    """The GIN and SAGE convs through inference_cuda.py (int32
+    aggregation on the ell backend, its defaults)."""
+    out, got = run(capsys, inference_cuda.main,
+                   ["--dataset", "tiny", "--repeat", "1", "--model", model],
+                   device="cpu")
+    assert f"model='{model}'" in out
+    assert got["infer_time(ms)"][0] > 0 and 0.0 <= got["test_acc"][0] <= 1.0
 
 
 def parser_of(get_args):

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
 JAX package, and no file of it (or chip_smoke.py, or the entry scripts
-bench_cuda.py, spmm_test_cuda.py, inference_cuda.py) imports either."""
+bench_cuda.py, spmm_test_cuda.py, inference_cuda.py, train_cuda.py)
+imports either; train_cuda.py's main on the CPU loads neither."""
 
 import ast
 import os
@@ -30,6 +31,12 @@ MODULES = [
     "pygim_tpu_torch.nn",
     "pygim_tpu_torch.nn.layers",
     "pygim_tpu_torch.nn.models",
+    "pygim_tpu_torch.nn.train",
+    "pygim_tpu_torch.nn.checkpoint",
+    "pygim_tpu_torch.bench.validate",
+    "pygim_tpu_torch.bench.report",
+    "pygim_tpu_torch.bench.train_report",
+    "pygim_tpu_torch.data.datasets",
     "pygim_tpu_torch.utils.timers",
     "pygim_tpu_torch.utils.metrics",
     "pygim_tpu_torch.bench",
@@ -63,10 +70,31 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_train_cuda_loads_no_jax():
+    """train_cuda.py imported and run for one epoch on the CPU."""
+    code = (
+        "import sys, train_cuda\n"
+        "train_cuda.main(['--dataset', 'tiny', '--hidden_size', '16', "
+        "'--epochs', '1'], device='cpu')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'pygim_tpu' or m.startswith('pygim_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "[DATA]train_time(ms)" in res.stdout
+
+
 def _sources():
     return sorted(PKG.rglob("*.py")) + [
         ROOT / f for f in ("chip_smoke.py", "bench_cuda.py",
-                           "spmm_test_cuda.py", "inference_cuda.py")]
+                           "spmm_test_cuda.py", "inference_cuda.py",
+                           "train_cuda.py")]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -121,11 +121,22 @@ def test_make_gnn_is_seeded_glorot():
 
 
 def test_unported_model_paths_raise():
-    with pytest.raises(NotImplementedError):
-        make_gnn(0, "gin", F, H, C, device="cpu")
+    """GIN, SAGE and training mode are ported; what stays refused is an
+    unknown conv, training without a generator where dropout draws, and
+    a gradient through the quantized aggregate (training aggregates the
+    float payload)."""
+    with pytest.raises(ValueError, match="unknown conv"):
+        make_gnn(0, "gat", F, H, C, device="cpu")
     m = make_gnn(0, "gcn", F, H, C, device="cpu").train()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         gnn_apply(m, torch.zeros(5, F), lambda v: v)
+    rows, cols, vals = make_graph("multigraph")
+    tp = tspmm.prepare_spmm(
+        tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
+        tspmm.SpmmConfig(**KW), device="cpu")
+    with pytest.raises(NotImplementedError, match="float payload"):
+        tspmm.PreparedAggregate(tp).quantized(
+            torch.zeros(N, H, requires_grad=True), "int32")
 
 
 @pytest.mark.parametrize("agg_dtype", [None, "int8", "int16", "int32"])
