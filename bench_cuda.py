@@ -20,12 +20,13 @@ The environment pins of ``bench.py``: ``PYGIM_BENCH_DATASET`` (default
 ``_CORE_DTYPE`` / ``_CORE_BYTES`` / ``_CORE_SHAPE`` (any of them pins one
 candidate), ``_MEASURE_TOP`` (1), ``_ITERS`` (5) and ``_DEADLINE_S``
 (1500). Candidates go in ``bench.py``'s order, stair int8 at 8 GiB
-first; the square int8 and int4 candidates run too. One the port cannot
-run yet (``NotImplementedError``: the bf16 cores) is skipped with a line
-on stderr; an out-of-memory error on the card moves to the
-next; any other error fails the run with no JSON line. After timing, 256
-sampled rows of the product are checked against float64 (rtol 1e-2, an
-int8 core on a float payload); a mismatch fails the run too.
+first; the square int8, int4 and bf16 candidates run too (a graph whose
+values are not integers keeps only the bf16 ones, as ``bench.py``). A
+configuration the port refuses (``NotImplementedError``) is skipped with
+a line on stderr; an out-of-memory error on the card moves to the next;
+any other error fails the run with no JSON line. After timing, 256
+sampled rows of the product are checked against float64 (rtol 1e-2: the
+core rounds a float payload to bf16); a mismatch fails the run too.
 
 Progress goes to stderr: the core's bands (a square core: its one band),
 the tail's edges and tables, the core's coverage, K-core's schedule

@@ -57,6 +57,19 @@ cpu``, and ``inference_cuda.py``. Every phase runs in a fresh prepare
 and dataset cache (a temporary ``PYGIM_TPU_TORCH_DATA``, removed at the
 end), never the user's.
 
+Then this slice's cores, on the same stand-in at the same budget: the
+bf16 square (k 11,520) and stair cores and the reference's default
+hybrid core, the graph's own dtype (an f32 square, k 8,192). K-core's
+bf16 mode, K-f32 and K-tail's bf16-row mode are held against their
+plain versions at ragged shapes and at these cores, and timed; then
+their main paths run, each counted: GCN forwards (float on all three,
+int32 and int8 on the bf16 square) and SpMMs (float32, a bfloat16
+payload on the bf16 square and on the stair int8 core, int64 on the bf16
+square), the forwards' logits and the float SpMMs against the plain
+versions. The entry scripts also run a bf16 square candidate of
+``bench_cuda.py``, ``spmm_test_cuda.py --data_type bfloat16`` and
+``inference_cuda.py --data_type int64``.
+
 Then the training path: the smoke operand's transpose is prepared,
 and ``torch.autograd.grad`` of ``(A @ x) · w`` through the kernels
 (``SpmmFunction``: K-core and K-tail on Aᵀ, their launches counted
@@ -70,7 +83,11 @@ parameter's gradient of one step, the losses of 3 Adam steps, the
 trained model's activations, and a step split into forward, backward and
 Adam; ``train_cuda.py`` runs in a process of its own, and
 ``run_training_benchmark`` trains each conv on ``ell`` and the stair
-int8 hybrid against the oracle on a learnable planted graph.
+int8 hybrid against the oracle on a learnable planted graph. On the bf16
+and f32 square cores one GCN step's gradients are held to the plain
+versions' (both negative controls must fail), ``train_cuda.py --backend
+hybrid`` trains 10 epochs on its default f32 core, and
+``run_training_benchmark`` trains the GCN on the bf16 square.
 
 Its last three lines are the ``kernels`` JSON object (each kernel with
 its split and schedule balance where it has a tile schedule, and K-core
@@ -1529,14 +1546,24 @@ ENTRY_POINTS = (
     ("spmm_test_cuda --version cpu", ["spmm_test_cuda.py", "--version",
                                       "cpu"], {}),
     ("inference_cuda", ["inference_cuda.py", "--dataset", DATASET], {}),
+    ("bench_cuda bf16 square", ["bench_cuda.py"],
+     {"PYGIM_BENCH_DATASET": DATASET,
+      "PYGIM_BENCH_CORE_BYTES": str(CORE_BYTES),
+      "PYGIM_BENCH_CORE_SHAPE": "square",
+      "PYGIM_BENCH_CORE_DTYPE": "bfloat16"}),
+    ("spmm_test_cuda --data_type bfloat16",
+     ["spmm_test_cuda.py", "--dataset", DATASET, "--data_type", "bfloat16"],
+     {}),
+    ("inference_cuda --data_type int64",
+     ["inference_cuda.py", "--dataset", DATASET, "--data_type", "int64"], {}),
 )
 
 
 def entry_points(results, timeout: int = 300):
     """Each entry script in a subprocess with a deadline; a failure, a
     missing ``verify: OK`` where it verifies, or (bench_cuda) a JSON line
-    without every key or a main path that launched no K-core or no
-    K-tail fails the run."""
+    without every key or a main path that launched no K-core (its bf16
+    mode on a bf16 core) or no K-tail fails the run."""
     out = {}
     for what, argv, env in ENTRY_POINTS:
         t0 = time.perf_counter()
@@ -1549,20 +1576,22 @@ def entry_points(results, timeout: int = 300):
         if res.returncode != 0:
             raise AssertionError(f"{what}: exit {res.returncode}\n{tail}")
         lines = res.stdout.strip().splitlines()
-        if what == "bench_cuda":
+        if what.startswith("bench_cuda"):
             line = json.loads(lines[-1])
             keys = {"metric", "value", "unit", "vs_baseline",
                     "spmm_effective_GBps_unique", "device"}
             launches = json.loads(re.search(
                 r"launches in the timed calls (\{.*\})", res.stderr).group(1))
+            core = ("K-core bf16" if env.get("PYGIM_BENCH_CORE_DTYPE")
+                    == "bfloat16" else "K-core")
             if set(line) != keys or "verify: OK" not in res.stderr \
-                    or launches["K-core"] <= 0 or launches["K-tail"] <= 0:
+                    or launches[core] <= 0 or launches["K-tail"] <= 0:
                 raise AssertionError(f"{what}: {line} {launches}\n{tail}")
             out[what] = dict(line=line, launches=launches)
         else:
             data = [ln for ln in lines if ln.startswith("[DATA]")]
-            want = "[DATA]infer_time(ms)" if what == "inference_cuda" \
-                else "[DATA]verify: OK"
+            want = "[DATA]infer_time(ms)" if what.startswith(
+                "inference_cuda") else "[DATA]verify: OK"
             if not any(ln.startswith(want) for ln in data) or not any(
                     ln.startswith("[DATA]device: ") for ln in data):
                 raise AssertionError(f"{what}: no {want}\n{tail}")
@@ -2030,6 +2059,472 @@ def profile_train_step(ds, prep):
     profile_calls(lambda: step(*inputs, gen), "training step")
 
 
+# This slice's cores on the smoke stand-in at the smoke budget: the bf16
+# core in both shapes, and the reference's default hybrid core
+# (``hybrid_dtype=None``: the graph's own dtype, f32 cells on the
+# stand-in's float graph)
+FLOAT_CORES = {
+    "bf16 square": dict(hybrid_shape="square", hybrid_dtype="bfloat16"),
+    "f32 square": dict(hybrid_shape="square", hybrid_dtype=None),
+    "bf16 stair": dict(hybrid_shape="stair", hybrid_dtype="bfloat16"),
+}
+
+
+def float_core_configs() -> dict:
+    from pygim_tpu_torch.ops.spmm import SpmmConfig
+
+    return {k: SpmmConfig(backend="hybrid", hybrid_core_bytes=CORE_BYTES,
+                          **kw) for k, kw in FLOAT_CORES.items()}
+
+
+def bands_of(prep) -> list:
+    """The core's stored bands of a hybrid operand (a square: one)."""
+    d = prep.dev_arrays
+    if "core" in d:
+        return [d["core"]]
+    return [d[f"stair{b}"] for b in range(len(prep.stair))]
+
+
+def product_mag(prep, x):
+    """The sum of |terms| behind each element of ``prep``'s product with
+    ``x`` (any payload; a core's payload at the precision its cells
+    take)."""
+    import torch
+
+    from pygim_tpu_torch.ops import core_f32, ell_tail
+
+    d = prep.dev_arrays
+    tables = [(c, v.abs(), r, dg) for c, v, r, dg in prep.ell_tables(d)]
+    mag = ell_tail.ell_tables_plain(
+        x.float().abs(), tables,
+        torch.zeros(prep.nrows, x.shape[1], device=x.device))
+    if prep.stair:
+        cn = d["core_nodes"]
+        w_max = max(w for *_, w in prep.stair)
+        xc = x.index_select(0, cn[:w_max]).float().abs()
+        xc = torch.nn.functional.pad(xc, (0, 0, 0, w_max - xc.shape[0]))
+        core_f32.core_f32_plain([b.float().abs() for b in bands_of(prep)],
+                                xc, cn, prep.stair, mag)
+    return mag
+
+
+def float_core_checks(preps, x, results):
+    """This slice's kernels against their plain versions, then timed at
+    the smoke cores beside the bound, the plain version and a PyTorch
+    call:
+
+    * K-core's bf16 mode: ragged bands (rows off 128, widths multiples of
+      16 but not of the 64-deep stage, H off the 256-column tile and
+      above it), each split forced to 2 and 4; the bf16 square core (k
+      11,520, split as chosen, two launches bit-identical) and the bf16
+      stair's bands in one launch;
+    * K-f32: f32 and bf16 cells × f32, bf16, int8, int16 and int32
+      payloads at ragged shapes (any width, H 41 and 1100 as
+      ``mul_any_width``), the bf16 stair's bands with an int32 payload;
+      the f32 square core (k 8,192) with an f32 payload and the bf16
+      square with the int32 forward's payload range (|q| <= 2^19);
+    * K-tail's bf16-row mode: the ragged tables at H 36 and 41 (register
+      path), 256 and 1104 (bulk copy), 256 unaligned (register path), and
+      the bf16 square's tables.
+
+    Float products at ``check_close``'s REL_TOL of the sum of |terms|."""
+    import torch
+
+    from pygim_tpu_torch.ops import core_dot, core_f32, ell_tail
+    from pygim_tpu_torch.utils.device import core_bound, f32_bound
+
+    dev = x.device
+    h = x.shape[1]
+    pk = results["peaks"]
+    g = torch.Generator(device="cpu").manual_seed(11)
+    err = 0.0
+    for r, w, hh in ((37, 208, 24), (300, 1280, 256), (129, 4112, 136),
+                     (1936, 2048, 40), (500, 768, 384), (200, 1040, 1104)):
+        band = torch.randn(r, w, generator=g).to(dev, torch.bfloat16)
+        xc = torch.randn(w + 5, hh, generator=g).to(dev, torch.bfloat16)
+        rows = torch.randperm(3 * r, generator=g)[:r].to(dev, torch.int32)
+        out0 = torch.randn(3 * r, hh, generator=g).to(dev)
+        want = core_dot.core_band_plain(band, xc, rows, out0.clone())
+        mag = out0.abs().index_add(
+            0, rows, band.float().abs() @ xc[:w].float().abs())
+        stair = [(0, r, w)]
+        for split in (None, 2, 4):
+            plans = core_dot.core_plans([band], stair, hh, split=split)
+            got = core_dot.core_bands_scatter_add([band], xc, rows, stair,
+                                                  out0.clone(), plans=plans)
+            err = max(err, check_close(
+                f"K-core bf16 ragged {(r, w, hh)} split "
+                f"{plans[0].split}", got, want, mag, REL_TOL))
+
+    # the bf16 square core (one band, split as chosen), then the stair
+    res = {}
+    for name in ("bf16 square", "bf16 stair"):
+        prep = preps[name]
+        bands = bands_of(prep)
+        cn = prep.dev_arrays["core_nodes"]
+        w_max = max(w for *_, w in prep.stair)
+        xc = x.index_select(0, cn[:w_max]).to(torch.bfloat16)
+        xc = torch.nn.functional.pad(xc, (0, 0, 0, w_max - xc.shape[0]))
+        z = torch.zeros_like(x)
+        plans = core_dot.core_plans(bands, prep.stair, h)
+        got = core_dot.core_bands_scatter_add(bands, xc, cn, prep.stair,
+                                              z.clone(), plans=plans)
+        again = core_dot.core_bands_scatter_add(bands, xc, cn, prep.stair,
+                                                z.clone(), plans=plans)
+        if not torch.equal(got, again):
+            raise AssertionError(f"K-core bf16 {name}: two launches differ")
+        want = core_dot.core_bands_plain(bands, xc, cn, prep.stair, z.clone())
+        mag = core_dot.core_bands_plain([b.abs() for b in bands], xc.abs(),
+                                        cn, prep.stair, z.clone())
+        e = check_close(f"K-core bf16 {name}", got, want, mag, REL_TOL)
+        del got, again, want, mag
+        shapes = [(hi - lo, w) for lo, hi, w in prep.stair]
+        ms = cuda_ms(lambda: core_dot.core_bands_scatter_add(
+            bands, xc, cn, prep.stair, z, plans=plans))
+        plain_ms = cuda_ms(lambda: core_dot.core_bands_plain(
+            bands, xc, cn, prep.stair, z), iters=5)
+        xws = [xc[:w].contiguous() for _r, w in shapes]
+
+        def library():
+            for a, bb in zip(bands, xws):
+                torch.matmul(a, bb)
+
+        library_ms = cuda_ms(library)
+        bound_ms, bound_by = core_bound(shapes, h, pk, 2.0)
+        counts = core_dot.max_clusters(dev, core_dot.BF16)
+        res[name] = dict(
+            shapes=shapes, max_abs_err=e, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            tflops=sum(2 * r * w * h for r, w in shapes) / ms * 1e-9,
+            split=[p.split for p in plans],
+            schedule_balance=core_dot.schedule_balance(
+                prep.stair, h, counts, cell_bytes=2.0))
+        del xws, z, plans
+        torch.cuda.empty_cache()
+    results["K-core bf16"] = dict(res["bf16 square"], ragged_max_abs_err=err,
+                                  stair=res["bf16 stair"])
+
+    # K-f32, ragged: every cell type and payload
+    err = 0.0
+    ranges = {torch.int8: 1 << 7, torch.int16: 1 << 15, torch.int32: 1 << 19}
+    for cell in (torch.float32, torch.bfloat16):
+        for pdt in (torch.float32, torch.bfloat16, torch.int8, torch.int16,
+                    torch.int32):
+            for r, w, hh in ((37, 203, 41), (300, 1280, 256),
+                             (129, 517, 1100)):
+                band = torch.randn(r, w, generator=g).to(dev, cell)
+                if pdt in ranges:
+                    m = ranges[pdt]
+                    xc = torch.randint(-m, m, (w + 3, hh), generator=g)
+                else:
+                    xc = torch.randn(w + 3, hh, generator=g)
+                xc = xc.to(dev, pdt)
+                rows = torch.randperm(3 * r, generator=g)[:r].to(dev,
+                                                                 torch.int32)
+                out0 = torch.randn(3 * r, hh, generator=g).to(dev)
+                stair = [(0, r, w)]
+                got = core_f32.core_f32_scatter_add([band], xc, rows, stair,
+                                                    out0.clone())
+                want = core_f32.core_f32_plain([band], xc, rows, stair,
+                                               out0.clone())
+                mag = out0.abs().index_add(
+                    0, rows, band.float().abs() @ xc[:w].float().abs())
+                err = max(err, check_close(
+                    f"K-f32 ragged {cell} x {pdt} {(r, w, hh)}", got, want,
+                    mag, REL_TOL))
+    # the bf16 stair's bands, one launch, an int32 payload
+    prep = preps["bf16 stair"]
+    bands, cn = bands_of(prep), prep.dev_arrays["core_nodes"]
+    w_max = max(w for *_, w in prep.stair)
+    xq = torch.randint(-(1 << 19), 1 << 19, (w_max, h), generator=g,
+                       dtype=torch.int32).to(dev)
+    z = torch.zeros_like(x)
+    got = core_f32.core_f32_scatter_add(bands, xq, cn, prep.stair, z.clone())
+    want = core_f32.core_f32_plain(bands, xq, cn, prep.stair, z.clone())
+    mag = core_f32.core_f32_plain([b.abs() for b in bands], xq.abs(), cn,
+                                  prep.stair, z.clone())
+    err = max(err, check_close("K-f32 bf16 stair, int32 payload", got, want,
+                               mag, REL_TOL))
+    del got, want, mag
+    # timed: the f32 square with an f32 payload, the bf16 square with the
+    # int32 forward's payload range
+    res = {}
+    for name, xdt in (("f32 square", torch.float32),
+                      ("bf16 square", torch.int32)):
+        prep = preps[name]
+        bands, cn = bands_of(prep), prep.dev_arrays["core_nodes"]
+        (lo, hi, w), = prep.stair
+        if xdt == torch.int32:
+            xc = torch.randint(-(1 << 19), 1 << 19, (w, h), generator=g,
+                               dtype=torch.int32).to(dev)
+        else:
+            xc = torch.nn.functional.pad(
+                x.index_select(0, cn[:w]), (0, 0, 0, w - min(w, cn.numel())))
+        z = torch.zeros_like(x)
+        plans = core_f32.core_f32_plans(bands, prep.stair, h)
+        got = core_f32.core_f32_scatter_add(bands, xc, cn, prep.stair,
+                                            z.clone(), plans=plans)
+        want = core_f32.core_f32_plain(bands, xc, cn, prep.stair, z.clone())
+        mag = core_f32.core_f32_plain([b.abs() for b in bands], xc.abs(), cn,
+                                      prep.stair, z.clone())
+        e = check_close(f"K-f32 {name}, {xdt} payload", got, want, mag,
+                        REL_TOL)
+        del got, want, mag
+        ms = cuda_ms(lambda: core_f32.core_f32_scatter_add(
+            bands, xc, cn, prep.stair, z, plans=plans), iters=10)
+        plain_ms = cuda_ms(lambda: core_f32.core_f32_plain(
+            bands, xc, cn, prep.stair, z), iters=5)
+        # the yardstick: torch.matmul in f32 (TF32 off) and index_add_, on
+        # operands widened to f32 beforehand
+        a32, x32 = bands[0].float(), xc[:w].float()
+        rows = cn[lo:hi]
+        library_ms = cuda_ms(lambda: z.index_add_(0, rows, torch.matmul(
+            a32, x32)), iters=10)
+        del a32, x32
+        cell = bands[0].element_size()
+        bound_ms, bound_by = f32_bound([(hi - lo, w)], h, pk, cell,
+                                       xc.element_size())
+        ops = 2 * (hi - lo) * w * h
+        res[name] = dict(shape=[hi - lo, w, h], payload=str(xdt),
+                         max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, tflops=ops / ms * 1e-9,
+                         share_of_bound=bound_ms / ms)
+        del z, xc, plans
+        torch.cuda.empty_cache()
+    results["K-f32"] = dict(res["f32 square"], ragged_max_abs_err=err,
+                            bf16_int32=res["bf16 square"])
+
+    # K-tail's bf16 rows: ragged tables, then the bf16 square's tables
+    n, host = ragged_tables()
+    tables = tail_to(host, dev)
+    plan = ell_tail.tail_plan(tables)
+    for hh, unaligned in ((36, False), (41, False), (256, False),
+                          (1104, False), (256, True)):
+        xs = torch.randn(n, hh, generator=g).to(dev, torch.bfloat16)
+        out0 = torch.randn(n, hh, generator=g).to(dev)
+        if unaligned:
+            xs = off_aligned(xs)
+            got = ell_tail.ell_tables_add(xs, tables, off_aligned(out0),
+                                          plan=plan)
+        else:
+            got = ell_tail.ell_tables_add(xs, tables, out0.clone(), plan=plan)
+        tail_close(f"K-tail bf16 ragged H={hh}"
+                   f"{' unaligned' if unaligned else ''}", xs, tables, got,
+                   out0)
+    prep = preps["bf16 square"]
+    tables = prep.ell_tables(prep.dev_arrays)
+    plan = ell_tail.tail_plan(tables)
+    xb = x.to(torch.bfloat16)
+    z = torch.zeros_like(x)
+    got = ell_tail.ell_tables_add(xb, tables, z.clone(), plan=plan)
+    e = tail_close("K-tail bf16 rows, bf16 square's tables", xb, tables, got,
+                   z)
+    del got
+    ms = cuda_ms(lambda: ell_tail.ell_tables_add(xb, tables, z, plan=plan))
+    plain_ms = cuda_ms(lambda: ell_tail.ell_tables_plain(xb, tables, z),
+                       iters=5)
+    bound, (rows_t, cols_t, vals_t) = tail_bound(tables, h, pk, itemsize=2)
+    a = torch.sparse_coo_tensor(torch.stack([rows_t, cols_t]), vals_t,
+                                (x.shape[0],) * 2).coalesce().to_sparse_csr()
+    xw = xb.float()  # cuSPARSE on the rows widened beforehand
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a, xw))
+    results["K-tail bf16"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, **bound)
+    del xw, a, z
+
+
+# The float cores' main paths, each driven with the launch counts at 0
+# just before it and read just after: (name, operand, [(runner, dtype)],
+# the kernels it must launch). The runners are run_inference_benchmark
+# (agg_dtype) and run_spmm_benchmark (payload dtype)
+FLOAT_PATHS = (
+    ("bf16 stair, float", "bf16 stair",
+     (("infer", None), ("spmm", "float32")), ("K-core bf16", "K-tail")),
+    ("bf16 square, float", "bf16 square",
+     (("infer", None), ("spmm", "float32")), ("K-core bf16", "K-tail")),
+    ("bf16 square, int32", "bf16 square",
+     (("infer", "int32"), ("spmm", "int32")), ("K-f32", "K-tail-quant")),
+    ("bf16 square, int8", "bf16 square",
+     (("infer", "int8"),), ("K-core bf16", "K-tail-quant")),
+    ("f32 square, float", "f32 square",
+     (("infer", None), ("spmm", "float32")), ("K-f32", "K-tail")),
+    ("bf16 payload, stair int8", "stair int8",
+     (("spmm", "bfloat16"),), ("K-core", "K-tail bf16")),
+    ("bf16 payload, bf16 square", "bf16 square",
+     (("spmm", "bfloat16"),), ("K-core bf16", "K-tail bf16")),
+    ("int64 payload, bf16 square", "bf16 square",
+     (("spmm", "int64"),), ("K-f32", "K-tail-quant")),
+)
+# the path whose count each new kernel's ``launches`` reports
+FLOAT_PATH_OF = {"K-core bf16": "bf16 square, float",
+                 "K-f32": "f32 square, float",
+                 "K-tail bf16": "bf16 payload, bf16 square"}
+
+
+def float_core_paths(ds, preps, results, device="cuda"):
+    """The float cores' main paths (FLOAT_PATHS) through the runners:
+    2-layer GCN forwards at hidden 256 and SpMMs with their sampled-row
+    check; every listed kernel must launch, every check pass. Then each
+    forward's logits and each float SpMM against the plain versions
+    (``logits_check``; the SpMM within REL_TOL of the sum of |terms|).
+    Returns each path's launches."""
+    import torch
+
+    from pygim_tpu_torch.bench.runners import (
+        run_inference_benchmark,
+        run_spmm_benchmark,
+    )
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.utils.metrics import DataReporter
+
+    rep = DataReporter(echo=True)
+    out = {}
+    for name, key, runs, kernels in FLOAT_PATHS:
+        prep = preps[key]
+        reuse = lambda g, c, p=prep: p  # noqa: E731
+        reset_launch_counts()
+        for runner, dtype in runs:
+            if runner == "infer":
+                run_inference_benchmark(
+                    ds, model="gcn", num_layers=2, hidden=HIDDEN,
+                    agg_dtype=dtype, config=prep.config, repeat=10,
+                    reporter=rep, prepare_fn=reuse, device=device)
+            else:
+                run_spmm_benchmark(ds, hidden=HIDDEN, dtype=dtype,
+                                   config=prep.config, repeat=10,
+                                   reporter=rep, prepare_fn=reuse,
+                                   device=device)
+                if rep.records["verify"][-1] != "OK":
+                    raise AssertionError(f"{name}: {dtype} SpMM check failed")
+        sync(device)
+        n = launch_counts()
+        print(f"main-path launches, {name}: {n}", flush=True)
+        if any(n[k] <= 0 for k in kernels):
+            raise AssertionError(f"{name}: launches {n}, want {kernels}")
+        out[name] = n
+    xf = torch.as_tensor(ds.x).to(device)
+    x = torch.randn(ds.graph.nrows, HIDDEN,
+                    generator=torch.Generator().manual_seed(12)).to(device)
+    errs = {}
+    for key, agg_dtypes in (("bf16 stair", (None,)),
+                            ("bf16 square", (None, "int32", "int8")),
+                            ("f32 square", (None,))):
+        prep = preps[key]
+        errs[f"{key} SpMM"] = check_close(
+            f"{key} float SpMM vs plain", prep.mul(x), prep.mul_plain(x),
+            product_mag(prep, x), REL_TOL)
+        for agg_dtype in agg_dtypes:
+            gnn = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
+                           num_layers=2, agg_dtype=agg_dtype, device=device)
+            logits_check(f"{agg_dtype or 'float'} {key}", gnn, xf, prep,
+                         ds.num_classes)
+    results["float paths"] = dict(launches=out, spmm_err=errs)
+    return out
+
+
+def float_core_training(ds, preps, results, card):
+    """One GCN training step at hidden 256 on the bf16 and f32 square
+    cores, the aggregate's backward on each operand's prepared Aᵀ (K-core's
+    bf16 mode or K-f32, and K-tail): every leaf's gradient within GRAD_BAR
+    of autograd through ``mul_plain`` on A (``train_steps``' check), both
+    negative controls off by more, and the core's kernel launched in the
+    step."""
+    import torch
+
+    from pygim_tpu_torch.bench.runners import train_inputs
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    out = {}
+    for key, kernel in (("bf16 square", "K-core bf16"),
+                        ("f32 square", "K-f32")):
+        prep = preps[key]
+        t0 = time.perf_counter()
+        prep.transpose(ds.graph)
+        secs = time.perf_counter() - t0
+        inputs = train_inputs(ds, prep.device)
+        arms = training_arms(prep)
+        grads, n = {}, None
+        for a in ("kernels", "plain", *CONTROLS):
+            reset_launch_counts()
+            grads[a] = leaf_grads("gcn", ds, arms[a], inputs)
+            sync(prep.device)
+            if a == "kernels":
+                n = launch_counts()
+        errs = {a: max(leaf_errs(g, grads["plain"]).values())
+                for a, g in grads.items() if a != "plain"}
+        print(f"training, gcn step on the {key} core (Aᵀ prepared in "
+              f"{secs:.1f} s): max leaf gradient err against the plain "
+              f"versions {errs}; kernels' launches {n} ({card})", flush=True)
+        if errs["kernels"] > GRAD_BAR or n[kernel] < 2 or n["K-tail"] < 2:
+            raise AssertionError(f"{key} training step: gradients "
+                                 f"{errs['kernels']} (bar {GRAD_BAR}), "
+                                 f"launches {n}")
+        for c in CONTROLS:
+            if errs[c] <= GRAD_BAR:
+                raise AssertionError(f"{key}: the {c} control passed "
+                                     f"({errs[c]})")
+        out[key] = dict(grad_err=errs, launches=n)
+        del grads
+        torch.cuda.empty_cache()
+    results["float core training"] = out
+
+
+def float_core_entry(results, card, timeout: int = 300, device="cuda"):
+    """``train_cuda.py --backend hybrid`` (its default core: square f32
+    at 4 GiB, k 20,000 on TRAIN_GRAPH) for 10 epochs at hidden 256, in a
+    process of its own: the loss falls and the test accuracy passes 0.55.
+    Then ``run_training_benchmark`` of the GCN on the bf16 square core
+    at the smoke budget against the oracle arm (``acc_tol`` 0.03, the
+    reference's for a bf16 core)."""
+    from pygim_tpu_torch.bench.runners import run_training_benchmark
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.utils.metrics import DataReporter, parse_data_lines
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "train_cuda.py", "--dataset", TRAIN_GRAPH,
+         "--epochs", "10", "--backend", "hybrid"], capture_output=True,
+        text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    tail = (res.stdout + res.stderr)[-3000:]
+    if res.returncode != 0:
+        raise AssertionError(f"train_cuda.py --backend hybrid: exit "
+                             f"{res.returncode}\n{tail}")
+    got = parse_data_lines(res.stdout.splitlines())
+    keys = ("epoch", "train_loss", "test_acc", "train_time(ms)", "device")
+    if any(k not in got for k in keys) or got["epoch"] != [0.0, 9.0] \
+            or not got["train_loss"][-1] < got["train_loss"][0] \
+            or not got["test_acc"][-1] > 0.55:
+        raise AssertionError(f"train_cuda.py --backend hybrid: {got}\n{tail}")
+    out = {"train_cuda hybrid": {k: got[k] for k in keys}}
+    print(f"training, train_cuda.py --backend hybrid ({secs:.1f} s): "
+          f"{out['train_cuda hybrid']} ({card})", flush=True)
+    ds = load_dataset(TRAIN_GRAPH)
+    cfg = float_core_configs()["bf16 square"]
+    reset_launch_counts()
+    means = run_training_benchmark(ds, model="gcn", hidden=HIDDEN, config=cfg,
+                                   epochs=TRAIN_EPOCHS, acc_tol=0.03,
+                                   reporter=DataReporter(), device=device)
+    n = launch_counts()
+    if means["acc_delta"] > 0.03 or means["validate"] != "OK" \
+            or n["K-core bf16"] <= 0 or n["K-tail"] <= 0:
+        raise AssertionError(f"run_training_benchmark gcn on bf16 square: "
+                             f"{means} launches {n}")
+    keep = ("train_time(ms)", "first_epoch_time(ms)", "epoch_time(ms)",
+            "forward_ms", "backward_ms", "adam_ms", "train_loss", "test_acc",
+            "oracle_test_acc", "acc_delta", "validate", "operand_bytes",
+            "transpose_bytes")
+    out["gcn bf16 square"] = {k: means[k] for k in keep}
+    print(f"training, run_training_benchmark gcn on bf16 square, "
+          f"{TRAIN_EPOCHS} epochs: {out['gcn bf16 square']}, launches {n} "
+          f"({card})", flush=True)
+    results["float core entry"] = out
+
+
 def main() -> int:
     """Run every phase in a fresh prepare and dataset cache, removed at
     the end: no phase reads the user's cache."""
@@ -2107,6 +2602,14 @@ def run() -> int:
     print(f"prepare, square int4: {time.perf_counter() - t0:.1f} s  "
           f"k={prep4.hybrid_k_eff} bands={prep4.stair} "
           f"tables={prep4.ell_meta}", flush=True)
+    fpreps = {}
+    for key, fcfg in float_core_configs().items():
+        t0 = time.perf_counter()
+        fpreps[key] = prepare_spmm(ds.graph, fcfg, device="cuda")
+        fp = fpreps[key]
+        print(f"prepare, {key}: {time.perf_counter() - t0:.1f} s  "
+              f"core {fp.core_dtype} k={fp.hybrid_k_eff} bands={fp.stair} "
+              f"({fp.device_bytes} bytes) tables={fp.ell_meta}", flush=True)
 
     x = torch.randn(prep.nrows, HIDDEN,
                     generator=torch.Generator().manual_seed(0)).cuda()
@@ -2125,6 +2628,9 @@ def run() -> int:
     print(f"K-tail: {results['K-tail']}", flush=True)
     tail_quant_checks(prep, x, results)
     print(f"K-tail-quant: {results['K-tail-quant']}", flush=True)
+    float_core_checks(fpreps, x, results)
+    for k in ("K-core bf16", "K-f32", "K-tail bf16"):
+        print(f"{k}: {results[k]}", flush=True)
     xf = torch.as_tensor(ds.x).cuda()
     gnns = {agg_dtype: make_gnn(0, "gcn", ds.x.shape[1], HIDDEN,
                                 ds.num_classes, num_layers=2,
@@ -2227,6 +2733,13 @@ def run() -> int:
     del gnn8, prep4
     torch.cuda.empty_cache()
 
+    # this slice's main paths: the bf16 and f32 cores, the bf16 and int64
+    # payloads
+    float_launches = float_core_paths(ds, {**fpreps, "stair int8": prep},
+                                      results)
+    for k, path in FLOAT_PATH_OF.items():
+        launches[k] = float_launches[path][k]
+
     entry_check()
 
     # this slice's paths: the ell and oracle backends, phase_times, the
@@ -2250,6 +2763,9 @@ def run() -> int:
     train_steps(ds, prep, results, card)
     training_entry(results, card)
     training = results["train steps"]["gcn step"]["launches"]
+    float_core_training(ds, fpreps, results, card)
+    float_core_entry(results, card)
+    del fpreps
 
     if "--profile" in sys.argv[1:]:
         from pygim_tpu_torch.bench.report import profile_forward
@@ -2270,7 +2786,13 @@ def run() -> int:
                "K-core int4": ("cuda", "pygim_tpu_torch/csrc/core_dot.cu",
                                "pygim_tpu/ops/spmm.py:586"),
                "K-int int4": ("cuda", "pygim_tpu_torch/csrc/core_int.cu",
-                              "pygim_tpu/ops/spmm.py:538")}
+                              "pygim_tpu/ops/spmm.py:538"),
+               "K-core bf16": ("cuda", "pygim_tpu_torch/csrc/core_dot.cu",
+                               "pygim_tpu/ops/spmm.py:630"),
+               "K-f32": ("cuda", "pygim_tpu_torch/csrc/core_f32.cu",
+                         "pygim_tpu/ops/spmm.py:615"),
+               "K-tail bf16": ("cuda", "pygim_tpu_torch/csrc/ell_tail.cu",
+                               "pygim_tpu/ops/spmm.py:481")}
     kernels = []
     for k, (route, src, repl) in sources.items():
         res = results[k]

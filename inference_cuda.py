@@ -5,9 +5,11 @@ twin of ``inference.py``: the same flags and defaults, the same
 parts, as the reference does. ``--version spmm|grande|spmv`` prepare the
 single-card ``ell`` operand (an ``sp_parts × ds_parts`` above one prints
 the reference's ``[WARN] ... running single-chip``); ``--version cpu``
-aggregates through the oracle in float. A mesh that fits more than one
-visible card, ``--tune`` and ``--data_type bfloat16|int64`` are not
-ported and raise ``NotImplementedError``. Runs
+aggregates through the oracle in float. ``--data_type bfloat16`` casts
+the aggregate's payload to bf16 and ``int64`` quantizes as int32 (the
+reference with x64 off), both through the unfused round trip, as the
+reference. A mesh that fits more than one visible card and ``--tune``
+are not ported and raise ``NotImplementedError``. Runs
 on the card; ``main(argv, device="cpu")`` runs the plain versions on the
 CPU (the tests).
 

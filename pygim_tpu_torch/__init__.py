@@ -4,14 +4,20 @@ Prepare-once / run-many sparse aggregation for GNNs on one NVIDIA Hopper
 card. The module layout follows ``pygim_tpu`` so every counterpart is
 found under the same path; the JAX package stays the numeric reference.
 
-It carries 2-layer GCN inference through the staircase-int8 hybrid
-SpMM, with a float payload or with int8, int16 or int32 quantized
-aggregation (int32 by default, as the reference): host prepare
-(``core``, ``ops.spmm``), the hand-written kernels K-core
-(``ops.core_dot``), K-int (``ops.core_int``) and K-tail with its
-quantized payload modes (``ops.ell_tail``), the quantization (``quant``),
-the model (``nn``), the benchmark bodies (``bench.runners``) and the
-flagship forward step (``entry``).
+It carries prepare-once / run-many SpMM on the ``hybrid`` (a square or
+staircase hub-core of int8, int4, bf16 or f32 cells, or none, plus an
+ELL tail), ``ell``, ``blocked`` and ``oracle`` backends, with float32,
+bfloat16 and integer payloads, the fused int8, int16 and int32
+quantized aggregation, and GCN, GIN and SAGE inference and training
+(the aggregate's backward on a prepared transpose): host prepare
+(``core``, ``ops.spmm``, ``data``), the hand-written kernels K-core
+with its int8, int4 and bf16 cell modes (``ops.core_dot``), K-int
+(``ops.core_int``), K-f32 (``ops.core_f32``) and K-tail with its
+payload modes (``ops.ell_tail``), the quantization (``quant``), the
+models and their training (``nn``), the benchmark bodies and reports
+(``bench``) and the flagship forward step (``entry``); the entry scripts
+``bench_cuda.py``, ``spmm_test_cuda.py``, ``inference_cuda.py`` and
+``train_cuda.py`` sit at the repository root.
 
 The package never imports ``jax`` or ``pygim_tpu``. Entry points take an
 explicit ``device`` (default ``"cuda"``); only tests pass ``"cpu"``.
@@ -26,3 +32,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from pygim_tpu_torch.core.graph import CooGraph, CsrGraph  # noqa: E402
+
+__all__ = ["CooGraph", "CsrGraph"]

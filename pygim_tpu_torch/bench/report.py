@@ -42,11 +42,14 @@ def operand_info(prep, hidden: int, dev, limbs=None) -> dict:
     share of the merged edges; on the card also the balance of K-core's
     tile schedule and (``limbs``) of K-int's cluster schedule at this
     width, and the least times of one K-core, K-int and K-tail call on
-    this operand (``utils/device.py``)."""
+    this operand (``utils/device.py``): on a bf16 core K-core's bf16 mode
+    and K-f32 (its int16 and int32 payloads), on an f32 core K-f32
+    alone."""
     from pygim_tpu_torch.ops import core_dot, core_int
     from pygim_tpu_torch.ops.ell_tail import real_entries
     from pygim_tpu_torch.utils.device import (
         core_bound,
+        f32_bound,
         int_bound,
         peaks,
         tail_bound,
@@ -69,15 +72,25 @@ def operand_info(prep, hidden: int, dev, limbs=None) -> dict:
     info["tail_int8_bound_ms"] = tail_bound(tail, n_cols, n_rows, hidden, pk,
                                             itemsize=1)
     if prep.stair:
-        cell = 0.5 if prep.core_dtype == "int4" else 1.0
         bands = prep.stair
         shapes = [(hi - lo, w) for lo, hi, w in bands]
-        counts = core_dot.max_clusters(dev, prep.core_dtype == "int4")
+        if prep.core_dtype in ("float32", "float64"):
+            # K-f32 on f32 cells (a float64 core's are f32 too)
+            info["core_bound_ms"] = f32_bound(shapes, hidden, pk, 4.0)
+            return info
+        mode = {"int8": core_dot.INT8, "int4": core_dot.PACKED,
+                "bfloat16": core_dot.BF16}[prep.core_dtype]
+        cell = core_dot.MODE_CELL_BYTES[mode]
+        counts = core_dot.max_clusters(dev, mode)
         info["schedule_balance"] = core_dot.schedule_balance(
-            bands, -(-hidden // 8) * 8, counts)
+            bands, -(-hidden // 8) * 8, counts, cell_bytes=cell)
         info["schedule_split"] = core_dot.schedule_split(
-            bands, -(-hidden // 8) * 8, counts)
+            bands, -(-hidden // 8) * 8, counts, cell_bytes=cell)
         info["core_bound_ms"] = core_bound(shapes, hidden, pk, cell)
+        if prep.core_dtype == "bfloat16":
+            # an int16 or int32 payload on bf16 cells: K-f32
+            info["f32_bound_ms"] = f32_bound(shapes, hidden, pk, cell)
+            return info
         if limbs:
             info["int_limbs"] = limbs
             info["int_schedule_balance"] = core_int.cluster_balance(

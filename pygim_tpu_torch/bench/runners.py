@@ -70,13 +70,15 @@ def device_name(device) -> str:
     return dev.type
 
 
-_PAYLOAD_DTYPES = ("float32", "int8", "int16", "int32")
+_PAYLOAD_DTYPES = ("float32", "bfloat16", "int8", "int16", "int32", "int64")
 
 
 def _cast_graph(graph, dtype: str):
     """The graph with its values in the payload's dtype, as the
-    reference's ``_cast_graph`` (integer payloads, integer weights)."""
-    want = np.dtype(dtype)
+    reference's ``_cast_graph`` (integer payloads, integer weights; a
+    bfloat16 payload keeps float32 weights on the host,
+    ``pygim_tpu/bench/runners.py:147-150``)."""
+    want = np.dtype(dtype if dtype != "bfloat16" else "float32")
     if graph.vals.dtype == want:
         return graph
     return dataclasses.replace(graph, vals=graph.vals.astype(want))
@@ -98,16 +100,15 @@ def run_spmm_benchmark(
     """SpMM micro-benchmark: times the prepared product, checks it on
     sampled rows against a float64 CSR product and, where the one-shot
     oracle is affordable (``nnz · H <= 2^27``), times it as
-    ``ref_time(ms)``. ``dtype`` is the payload: float32 (normal
-    features), or int8, int16, int32 (integer features in [-10, 10] and
-    the graph's values cast to the dtype, as the reference).
+    ``ref_time(ms)``. ``dtype`` is the payload: float32 or bfloat16
+    (normal features), or int8, int16, int32, int64 (integer features in
+    [-10, 10] and the graph's values cast to the dtype, as the
+    reference).
     ``prepare_fn(graph, config) -> prep`` overrides the default prepare;
     ``phases`` adds :meth:`PreparedSpmm.phase_times`."""
     if dtype not in _PAYLOAD_DTYPES:
-        raise NotImplementedError(
-            f"dtype {dtype!r}: the port's payloads are {_PAYLOAD_DTYPES} "
-            "(bfloat16 and int64 are not ported)"
-        )
+        raise ValueError(
+            f"dtype {dtype!r}: the payloads are {_PAYLOAD_DTYPES}")
     rep = reporter or DataReporter()
     rep.report("data_source", "synthetic" if ds.synthetic else "real")
     rep.report("device", device_name(device))
@@ -142,12 +143,16 @@ def run_spmm_benchmark(
         / dt / 1e9,
     )
     if verify:
-        # the hybrid's int8 core rounds a float payload to bf16: rtol 1e-2,
-        # the reference's bar for a reduced-precision core; elsewhere (an
-        # integer payload, the ell and oracle backends) rtol 1e-4
+        # a reduced-precision core computes a float payload in bf16: a bf16
+        # core, and an int8 or int4 core fed floats; rtol 1e-2, the
+        # reference's bar for it (pygim_tpu/bench/runners.py:118-134);
+        # elsewhere (an integer payload on an integer core, an f32 core,
+        # the ell and oracle backends) rtol 1e-4
         cfg = getattr(prep, "config", None)
-        loose = (cfg is not None and cfg.backend == "hybrid"
-                 and x.dtype == torch.float32)
+        loose = (cfg is not None and cfg.backend == "hybrid" and (
+            cfg.hybrid_dtype == "bfloat16"
+            or (cfg.hybrid_dtype in ("int8", "int4")
+                and x.is_floating_point())))
         ok = _verify_against_oracle(graph, prep, x, rng,
                                     rtol=1e-2 if loose else 1e-4)
         rep.report("verify", "OK" if ok else "ERROR")
@@ -168,7 +173,7 @@ def _verify_against_oracle(
     sampled rows (cheap at any graph size)."""
     csr = graph.to_csr()
     out = prep.mul(x).cpu().numpy()
-    xs = x.cpu().numpy()
+    xs = (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
     rows = rng.choice(csr.nrows, min(rows_to_check, csr.nrows), replace=False)
     for r in rows:
         e0, e1 = int(csr.rowptr[r]), int(csr.rowptr[r + 1])

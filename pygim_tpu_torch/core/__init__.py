@@ -6,5 +6,7 @@ from pygim_tpu_torch.core.graph import (
     coo_to_csr,
     merge_duplicate_edges,
 )
+from pygim_tpu_torch.core.partition import RowBlockPlan, plan_row_blocks
 
-__all__ = ["CooGraph", "CsrGraph", "coo_to_csr", "merge_duplicate_edges"]
+__all__ = ["CooGraph", "CsrGraph", "RowBlockPlan", "coo_to_csr",
+           "merge_duplicate_edges", "plan_row_blocks"]

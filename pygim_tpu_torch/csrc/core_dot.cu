@@ -1,5 +1,5 @@
-// K-core: integer hub-core bands (int8, or int4 nibble-packed two cells a
-// byte) x bf16 payload, f32 accumulate, scatter-add, all bands of one SpMM
+// K-core: hub-core bands (int8, int4 nibble-packed two cells a byte, or
+// bf16) x bf16 payload, f32 accumulate, scatter-add, all bands of one SpMM
 // in one persistent launch.
 //
 // Replaces the TPU kernel pygim_tpu/ops/pallas_core.py:_dequant_core_dot
@@ -8,27 +8,32 @@
 // pygim_tpu/ops/spmm.py:_core_scatter, and in its int4 mode the packed
 // branch of _core_matmul (pygim_tpu/ops/spmm.py:586-597: the nibble planes
 // of _nibble_halves, dot(lo, x[0::2]) + dot(hi, x[1::2]) in bf16 with f32
-// accumulation, which is one product of the unpacked band with x). A square
-// core is the one band (0, k, k). For every band b = (lo, hi, w) it
-// computes
+// accumulation, which is one product of the unpacked band with x), and in
+// its bf16 mode the bf16 branch of _core_matmul (pygim_tpu/ops/spmm.py:630:
+// dot(bf16 core, bf16(x)) with f32 accumulation, the reference's default
+// core on an integer graph). A square core is the one band (0, k, k). For
+// every band b = (lo, hi, w) it computes
 //
 //     out[nodes[lo + i], :] += sum_{j < w} f32(band_b[i, j]) * f32(xc[j, :])
 //
 // with band_b int8 (hi - lo, w) row-major (int4 mode: uint8 (hi - lo, w / 2),
 // byte j of a row holding cells 2j in its low nibble and 2j + 1 in its high
-// one, each two's complement in [-8, 7]), xc bf16 (>= w, h) row-major,
+// one, each two's complement in [-8, 7]; bf16 mode: bf16 (hi - lo, w)),
+// xc bf16 (>= w, h) row-major,
 // nodes int32 (distinct over all bands: the staircase bands tile disjoint
 // row ranges, so every output element belongs to exactly one tile and a
 // whole tile needs no atomics), out f32 (N, h) row-major. Contract (the wrapper
 // checks it): w % 16 == 0 (the TMA row stride is w bytes; int4: w % 32 == 0,
-// the stride w / 2 bytes), h % 8 == 0,
+// the stride w / 2 bytes; bf16: w % 16 == 0, whole k16 steps, the stride
+// 2w bytes), h % 8 == 0,
 // 16-byte aligned operands, at most MAX_BANDS bands per launch (the wrapper
 // launches once per group of MAX_BANDS bands).
 //
 // What bounds it on an H100 SXM: 2*r*w*h operations against r*w bytes of
 // int8 band, i.e. 2*h = 512 operations per band byte at h = 256 (1024 for
-// int4), above the card's ~295 bf16 operations per HBM byte: the bf16
-// tensor-core rate.
+// int4, 256 for bf16), above the card's ~295 bf16 operations per HBM byte:
+// the bf16 tensor-core rate for int8 and int4; a bf16 band at h = 256 sits
+// just under it, so its bytes bound it by a hair.
 //
 // What the design does about it:
 // - wgmma (m64n256k16, bf16 in, f32 accumulate) is the only instruction
@@ -48,8 +53,17 @@
 //   is read by wgmma straight from
 //   shared memory in its own row-major (K, N) layout, i.e. MN-major with
 //   the transpose bit, 128-byte swizzled by TMA.
-// - One producer thread keeps a 4-stage ring of TMA loads in flight
-//   (cp.async.bulk.tensor, mbarrier full/empty pairs). TMA's zero fill
+// - bf16 mode: the cells are wgmma's own type, so a thread reads its
+//   fragment registers whole from the stage (128 rows x 128 bytes,
+//   128-byte swizzle: the 16-byte chunk c of row i sits at c ^ (i & 7),
+//   which spreads the eight rows of a load phase over all banks) and
+//   nothing is widened. The A box doubles to 16 KB a stage, so the ring
+//   holds 3 stages (3 x (16 + 32) KB + 36 KB of epilogue staging =
+//   185 KB; 4 stages would need 233 KB, past the 227 KB a block may
+//   have).
+// - One producer thread keeps a 4-stage ring (3 in bf16 mode) of TMA
+//   loads in flight (cp.async.bulk.tensor, mbarrier full/empty pairs).
+//   TMA's zero fill
 //   takes the ragged row and column edges; k16 steps past w are skipped.
 // - A consumer reads and widens the next stage's A fragments while the
 //   current stage's wgmmas run, then drains them (wait_group 0) and
@@ -88,21 +102,34 @@ constexpr int MAX_BANDS = 16;
 constexpr int BM = 128;             // band rows per tile (2 warpgroups x 64)
 constexpr int BN = 256;             // output columns per tile
 constexpr int BK = 64;              // contraction per ring stage
-constexpr int STAGES = 4;
 constexpr int THREADS = 384;        // consumer WG 0, 1; producer WG 2
 constexpr int FIELDS = 6;           // a block's tile: band, m0, n0, live, k0, k1
-constexpr int A_STAGE = BM * BK;                // int8, 64-byte swizzle
-constexpr int A_PACKED = BM * BK / 2;           // int4 stage, unswizzled
 constexpr int B_BOX = 64 * BK * 2;              // 64 columns x BK rows bf16
 constexpr int B_STAGE = (BN / 64) * B_BOX;      // 128-byte swizzle
 constexpr int EPI_LD = 72;                      // f32 row stride of staging
 constexpr int EPI_WG = 64 * EPI_LD * 4;
-constexpr int OFF_A = 0;
-constexpr int OFF_B = OFF_A + STAGES * A_STAGE;
-constexpr int OFF_EPI = OFF_B + STAGES * B_STAGE;
-constexpr int OFF_BAR = OFF_EPI + 2 * EPI_WG;
-// ring full / empty, then split tiles' ready / free per consumer warpgroup
-constexpr int SMEM_BYTES = OFF_BAR + (2 * STAGES + 4) * 8 + 1024;  // + align
+
+// cell modes (the host's `mode`)
+constexpr int INT8 = 0, PACKED = 1, BF16 = 2;
+
+// The shared-memory layout of one cell mode: the A ring (int8: BM x BK
+// bytes a stage, 64-byte swizzle; int4: half of that, unswizzled, in the
+// same spacing; bf16: BM x BK x 2 bytes, 128-byte swizzle), the B ring,
+// two warpgroups' epilogue staging, and the barriers: ring full / empty,
+// then split tiles' ready / free per consumer warpgroup.
+template <int MODE>
+struct Layout {
+  static constexpr int STAGES = MODE == BF16 ? 3 : 4;
+  static constexpr int A_STAGE = MODE == BF16 ? 2 * BM * BK : BM * BK;
+  static constexpr int A_BYTES = MODE == PACKED ? BM * BK / 2 : A_STAGE;
+  static constexpr int OFF_A = 0;
+  static constexpr int OFF_B = OFF_A + STAGES * A_STAGE;
+  static constexpr int OFF_EPI = OFF_B + STAGES * B_STAGE;
+  static constexpr int OFF_BAR = OFF_EPI + 2 * EPI_WG;
+  static constexpr int SMEM_BYTES = OFF_BAR + (2 * STAGES + 4) * 8 + 1024;
+};
+static_assert(Layout<INT8>::SMEM_BYTES <= 232448, "int8 ring too large");
+static_assert(Layout<BF16>::SMEM_BYTES <= 232448, "bf16 ring too large");
 
 struct __align__(64) Params {
   CUtensorMap band[MAX_BANDS];
@@ -219,13 +246,52 @@ __device__ __forceinline__ void load_a_packed(uint32_t (&a)[4][4],
   }
 }
 
-template <bool PACKED, int SPLIT>
+// load_a for a bf16 stage (128 bytes a row, 128-byte swizzle): a[s] =
+// {row g, cells 16s + 2t4..+1}, {row g+8, same}, {row g, cells 16s + 8 +
+// 2t4..+1}, {row g+8, same}, i.e. bytes 32s + 4t4 and 32s + 16 + 4t4 of
+// the row, the chunk index XORed with the row's low three bits (the same
+// for rows g and g + 8)
+__device__ __forceinline__ void load_a_bf16(uint32_t (&a)[4][4],
+                                            const uint8_t* As, int ra,
+                                            int t4) {
+  const uint8_t* r0 = As + ra * (2 * BK);
+  const uint8_t* r1 = As + (ra + 8) * (2 * BK);
+  const int sw = ra & 7;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int c0 = (((2 * s) ^ sw) << 4) + 4 * t4;
+    const int c1 = (((2 * s + 1) ^ sw) << 4) + 4 * t4;
+    a[s][0] = *reinterpret_cast<const uint32_t*>(r0 + c0);
+    a[s][1] = *reinterpret_cast<const uint32_t*>(r1 + c0);
+    a[s][2] = *reinterpret_cast<const uint32_t*>(r0 + c1);
+    a[s][3] = *reinterpret_cast<const uint32_t*>(r1 + c1);
+  }
+}
+
+// this thread's A fragments of one stage, in the cell mode's way
+template <int MODE>
+__device__ __forceinline__ void load_stage_a(uint32_t (&a)[4][4],
+                                             const uint8_t* As, int ra,
+                                             int a_off0, int a_off1, int swz,
+                                             int t4) {
+  if constexpr (MODE == PACKED)
+    load_a_packed(a, As, ra, 8 * t4);
+  else if constexpr (MODE == BF16)
+    load_a_bf16(a, As, ra, t4);
+  else
+    load_a(a, As, a_off0, a_off1, swz);
+}
+
+template <int MODE, int SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
 core_bands_kernel(const __grid_constant__ Params p,
                   const int* __restrict__ tiles,
                   const int* __restrict__ starts,
                   const int* __restrict__ nodes, float* __restrict__ out,
                   int h) {
+  using L = Layout<MODE>;
+  constexpr int STAGES = L::STAGES, A_STAGE = L::A_STAGE, OFF_A = L::OFF_A,
+                OFF_B = L::OFF_B, OFF_EPI = L::OFF_EPI, OFF_BAR = L::OFF_BAR;
   extern __shared__ uint8_t smem_raw[];
   // TMA's swizzle patterns are address-based: align the ring to 1024 B
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -275,9 +341,9 @@ core_bands_kernel(const __grid_constant__ Params p,
         for (int k0 = kb; k0 < ke; k0 += BK) {
           const uint32_t full = full0 + 8 * stage;
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
-          mbar_expect_tx(full, (PACKED ? A_PACKED : A_STAGE) + nbox * B_BOX);
+          mbar_expect_tx(full, L::A_BYTES + nbox * B_BOX);
           tma_load_2d(s_base + OFF_A + stage * A_STAGE, amap,
-                      PACKED ? k0 / 2 : k0, m0, full);
+                      MODE == PACKED ? k0 / 2 : k0, m0, full);
           for (int j = 0; j < nbox; ++j)
             tma_load_2d(s_base + OFF_B + stage * B_STAGE + j * B_BOX, &p.xc,
                         n0 + 64 * j, k0, full);
@@ -300,7 +366,6 @@ core_bands_kernel(const __grid_constant__ Params p,
     const int swz = (ra >> 1) & 3;  // 64-byte swizzle: chunk ^= bits 7..8
     const int a_off0 = ra * BK + 2 * t4;
     const int a_off1 = a_off0 + 8 * BK;
-    const int sh = 8 * t4;  // int4: this thread's byte of each word
     float* epi = reinterpret_cast<float*>(smem + OFF_EPI + wg * EPI_WG);
     const uint32_t epi_s = s_base + OFF_EPI + wg * EPI_WG;
     int stage = 0;
@@ -320,10 +385,8 @@ core_bands_kernel(const __grid_constant__ Params p,
       // until wait_group has retired it
       uint32_t a[4][4], a_next[4][4];
       mbar_wait(full0 + 8 * stage, phase);
-      if constexpr (PACKED)
-        load_a_packed(a, smem + OFF_A + stage * A_STAGE, ra, sh);
-      else
-        load_a(a, smem + OFF_A + stage * A_STAGE, a_off0, a_off1, swz);
+      load_stage_a<MODE>(a, smem + OFF_A + stage * A_STAGE, ra, a_off0,
+                         a_off1, swz, t4);
       for (int k0 = kb; k0 < ke; k0 += BK) {
         const uint64_t desc = b_desc(s_base + OFF_B + stage * B_STAGE);
         asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -359,14 +422,12 @@ core_bands_kernel(const __grid_constant__ Params p,
         }
         if (k0 + BK < ke) {
           mbar_wait(full0 + 8 * next, next_phase);
-          if constexpr (PACKED)
-            load_a_packed(a_next, smem + OFF_A + next * A_STAGE, ra, sh);
-          else
-            load_a(a_next, smem + OFF_A + next * A_STAGE, a_off0, a_off1,
-                   swz);
+          load_stage_a<MODE>(a_next, smem + OFF_A + next * A_STAGE, ra,
+                             a_off0, a_off1, swz, t4);
         }
         // drained at every stage: a second group in flight holds a stage
-        // longer and, at 4 stages, starves the producer (PERF.md)
+        // longer and, at 4 stages (3 for bf16), starves the producer
+        // (PERF.md)
         asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
         if (lane == 0) mbar_arrive(empty0 + 8 * stage);
         stage = next;
@@ -483,14 +544,14 @@ core_bands_kernel(const __grid_constant__ Params p,
 struct Launch {
   cudaLaunchAttribute attr{};
   cudaLaunchConfig_t cfg{};
-  Launch(int n_clusters, int split, cudaStream_t stream) {
+  Launch(int n_clusters, int split, int smem_bytes, cudaStream_t stream) {
     attr.id = cudaLaunchAttributeClusterDimension;
     attr.val.clusterDim.x = split;
     attr.val.clusterDim.y = 1;
     attr.val.clusterDim.z = 1;
     cfg.gridDim = dim3(n_clusters * split);
     cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = SMEM_BYTES;
+    cfg.dynamicSmemBytes = smem_bytes;
     cfg.stream = stream;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
@@ -500,24 +561,36 @@ struct Launch {
 typedef void (*KernelFn)(Params, const int*, const int*, const int*, float*,
                          int);
 
-// The kernel of the cell type (`packed`) and split, with its shared memory
-// granted; nullptr for another split (or where the card refuses it).
-KernelFn kernel_of(int packed, int split) {
-  KernelFn k = nullptr;
+template <int MODE>
+KernelFn kernel_of_split(int split) {
   switch (split) {
     case 1:
-      k = packed ? core_bands_kernel<true, 1> : core_bands_kernel<false, 1>;
-      break;
+      return core_bands_kernel<MODE, 1>;
     case 2:
-      k = packed ? core_bands_kernel<true, 2> : core_bands_kernel<false, 2>;
-      break;
+      return core_bands_kernel<MODE, 2>;
     case 4:
-      k = packed ? core_bands_kernel<true, 4> : core_bands_kernel<false, 4>;
-      break;
+      return core_bands_kernel<MODE, 4>;
   }
+  return nullptr;
+}
+
+// Dynamic shared memory of a cell mode's kernels
+int smem_of(int mode) {
+  return mode == BF16 ? Layout<BF16>::SMEM_BYTES
+         : mode == PACKED ? Layout<PACKED>::SMEM_BYTES
+                          : Layout<INT8>::SMEM_BYTES;
+}
+
+// The kernel of the cell mode and split, with its shared memory granted;
+// nullptr for another mode or split (or where the card refuses it).
+KernelFn kernel_of(int mode, int split) {
+  KernelFn k = mode == INT8     ? kernel_of_split<INT8>(split)
+               : mode == PACKED ? kernel_of_split<PACKED>(split)
+               : mode == BF16   ? kernel_of_split<BF16>(split)
+                                : nullptr;
   if (k != nullptr &&
       cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SMEM_BYTES) != cudaSuccess)
+                           smem_of(mode)) != cudaSuccess)
     k = nullptr;
   return k;
 }
@@ -525,31 +598,40 @@ KernelFn kernel_of(int packed, int split) {
 }  // namespace
 
 // Encode the TMA map of one band of r rows of `row_bytes` bytes into `map`
-// (128 bytes of host memory): int8 cells in boxes of 128 rows x 64 bytes,
-// 64-byte swizzle; packed int4 (`packed`) in boxes of 128 rows x 32 bytes,
-// unswizzled. Returns 0 or an error code.
+// (128 bytes of host memory): int8 cells (mode 0) in boxes of 128 rows x
+// 64 bytes, 64-byte swizzle; packed int4 (mode 1) in boxes of 128 rows x
+// 32 bytes, unswizzled; bf16 cells (mode 2) in boxes of 128 rows x 64
+// cells, 128-byte swizzle. Returns 0 or an error code.
 extern "C" int core_encode_band_map(void* map, const void* band, long long r,
-                                    long long row_bytes, int packed) {
+                                    long long row_bytes, int mode) {
   CUtensorMap m;
-  const int err = encode_2d(
-      &m, CU_TENSOR_MAP_DATA_TYPE_UINT8, band, row_bytes, r, row_bytes,
-      packed ? BK / 2 : BK, BM,
-      packed ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_64B);
+  int err;
+  if (mode == BF16)
+    err = encode_2d(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, band, row_bytes / 2,
+                    r, row_bytes, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  else if (mode == PACKED || mode == INT8)
+    err = encode_2d(
+        &m, CU_TENSOR_MAP_DATA_TYPE_UINT8, band, row_bytes, r, row_bytes,
+        mode == PACKED ? BK / 2 : BK, BM,
+        mode == PACKED ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_64B);
+  else
+    return ERR_ARGS;
   if (err == 0) memcpy(map, &m, sizeof m);
   return err;
 }
 
-// The most clusters of `split` blocks of the K-core kernel (its int4 mode
-// where `packed`) the current card runs at once, into *n. Returns 0 or an
-// error code.
-extern "C" int core_max_clusters(int split, int packed, int* n) {
-  const KernelFn k = kernel_of(packed, split);
+// The most clusters of `split` blocks of the K-core kernel in cell mode
+// `mode` the current card runs at once, into *n. Returns 0 or an error
+// code.
+extern "C" int core_max_clusters(int split, int mode, int* n) {
+  const KernelFn k = kernel_of(mode, split);
   if (k == nullptr) return ERR_ARGS;
-  Launch l(1, split, nullptr);
+  Launch l(1, split, smem_of(mode), nullptr);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(n, k, &l.cfg));
 }
 
-// One launch over all bands, all int8 or all packed int4 (`packed`):
+// One launch over all bands, all of one cell mode (`mode`: 0 int8, 1
+// packed int4, 2 bf16):
 // `band_maps` holds n_bands encoded maps (host),
 // `band_info` (lo, r, w) per band (host); `tiles` (int32 (n, split, 6):
 // each block's band, m0, n0, live, k0, k1 per cluster tile, in cluster-rank
@@ -563,8 +645,8 @@ extern "C" int core_bands_scatter_add(const void* band_maps,
                                       const void* tiles, const void* starts,
                                       int n_clusters, int split,
                                       const void* nodes, void* out, int h,
-                                      int packed, void* stream) {
-  const KernelFn k = kernel_of(packed, split);
+                                      int mode, void* stream) {
+  const KernelFn k = kernel_of(mode, split);
   if (n_bands < 1 || n_bands > MAX_BANDS || n_clusters < 1 || k == nullptr ||
       h % 8)
     return ERR_ARGS;
@@ -579,7 +661,7 @@ extern "C" int core_bands_scatter_add(const void* band_maps,
   int err = encode_2d(&p.xc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xc, h, n_xc,
                       2ll * h, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
-  Launch l(n_clusters, split, static_cast<cudaStream_t>(stream));
+  Launch l(n_clusters, split, smem_of(mode), static_cast<cudaStream_t>(stream));
   if (split == 1) l.cfg.numAttrs = 0;  // single blocks
   const cudaError_t e = cudaLaunchKernelEx(
       &l.cfg, k, p, static_cast<const int*>(tiles),

@@ -46,7 +46,11 @@
 //         inf or NaN in x) keeps __fdiv_rn (QuantDiv), a branch taken once
 //         a launch on the value read from the card. The library is built
 //         without --use_fast_math (ops/_build.py); the steps use the _rn
-//         intrinsics, which no contraction changes.
+//         intrinsics, which no contraction changes;
+//   (iv)  bf16 rows widened exactly to f32 (Bf16; ell_scan_spmm on a bf16
+//         payload, whose accumulation dtype, result_type(f32 vals, bf16),
+//         is f32: pygim_tpu/ops/spmm.py:489-493). A bf16 value is the top
+//         half of its f32, so the widen is one shift.
 //
 // The host plan (ops/ell_tail.py:tail_plan) gives each table a count per
 // virtual row, cnt[v] = 1 + the index of its last nonzero weight (0 if it
@@ -63,9 +67,10 @@
 // turn their zero weights into NaN in the rows they point at.
 //
 // What bounds it on an H100: bytes. Each counted slot moves one x row
-// slice (h elements, 1 KiB at h = 256 in f32), chosen by an index that must be read
-// first, and does one multiply-add per element, far below the card's
-// operations per byte; each touched output row is read and written once.
+// slice (h elements, 1 KiB at h = 256 in f32, 512 B in bf16), chosen by an
+// index that must be read first, and does one multiply-add per element,
+// far below the card's operations per byte; each touched output row is
+// read and written once.
 // x is larger than the 50 MB L2 on the graphs this path serves.
 //
 // What the design does about it:
@@ -76,8 +81,8 @@
 //   of cnt over its virtual rows, one per lane), so no pad slot costs a
 //   read and a D = 2 table streams x rows as densely as a D = 512 one;
 // - path (b), wherever h * sizeof(element) % 16 == 0 (h % 4 for 4-byte
-//   rows, h % 8 for int16, h % 16 for int8) and x and out are 16-byte
-//   aligned:
+//   rows, h % 8 for int16 and bf16, h % 16 for int8) and x and out are
+//   16-byte aligned:
 //   lane 0 keeps a ring of RING shared-memory stages per warp filled with
 //   cp.async.bulk row copies completed on mbarriers, the next copy issued
 //   as soon as a stage is read, and the warp applies the weights from
@@ -133,6 +138,13 @@ struct Widen {
   using In = T;
   __device__ __forceinline__ static float get(T v, float2) {
     return static_cast<float>(v);  // round to nearest, as XLA's convert
+  }
+};
+// Mode (iv): bf16 rows, held as their 16 bits
+struct Bf16 {
+  using In = uint16_t;
+  __device__ __forceinline__ static float get(uint16_t v, float2) {
+    return __uint_as_float(static_cast<uint32_t>(v) << 16);  // exact
   }
 };
 // Mode (iii) as the host names it; each kernel picks QuantRcp or
@@ -627,8 +639,9 @@ int launch(const Args& a, int vec, cudaStream_t s) {
 // degree of each table); units: int32 (n_units, 2), (first virtual row,
 // table | (count - 1) << 8 | atomic << 13). payload: 0 f32, 1 int8, 2 int16,
 // 3 int32 rows, 4 f32 rows rounded to multiples of *safe (a float on the
-// card; null otherwise). vec: h * sizeof(element) % 16 == 0 and x, out
-// 16-byte aligned (the caller checks); path (b) where it holds, else (a).
+// card; null otherwise), 5 bf16 rows. vec: h * sizeof(element) % 16 == 0
+// and x, out 16-byte aligned (the caller checks); path (b) where it holds,
+// else (a).
 // Returns 0 or an error code (cudaError_t, or 901: arguments refused).
 extern "C" int ell_tables_add(const void* tabs, const void* units, int n_units,
                               const void* x, void* out, int h, int vec,
@@ -649,6 +662,8 @@ extern "C" int ell_tables_add(const void* tabs, const void* units, int n_units,
       return launch<Widen<int32_t>>(a, vec, s);
     case 4:
       return safe ? launch<Quant>(a, vec, s) : 901;
+    case 5:
+      return launch<Bf16>(a, vec, s);
     default:
       return 901;
   }

@@ -1,6 +1,7 @@
 """Sparse products: host prepare, the hand-written kernels, the oracle."""
 
-from pygim_tpu_torch.ops import core_dot, core_int, ell_tail
+from pygim_tpu_torch.ops import core_dot, core_f32, core_int, ell_tail
+from pygim_tpu_torch.ops.reference import spmm_coo_oracle, spmm_csr_oracle
 from pygim_tpu_torch.ops.spmm import (
     PreparedAggregate,
     PreparedSpmm,
@@ -15,15 +16,20 @@ def launch_counts() -> dict:
     return {"K-core": core_dot.launches, "K-int": core_int.launches,
             "K-core int4": core_dot.packed_launches,
             "K-int int4": core_int.packed_launches,
+            "K-core bf16": core_dot.bf16_launches,
+            "K-f32": core_f32.launches,
             "K-tail": ell_tail.launches,
-            "K-tail-quant": ell_tail.quant_launches}
+            "K-tail-quant": ell_tail.quant_launches,
+            "K-tail bf16": ell_tail.bf16_launches}
 
 
 def reset_launch_counts() -> None:
     core_dot.launches = core_int.launches = 0
     core_dot.packed_launches = core_int.packed_launches = 0
-    ell_tail.launches = ell_tail.quant_launches = 0
+    core_dot.bf16_launches = core_f32.launches = 0
+    ell_tail.launches = ell_tail.quant_launches = ell_tail.bf16_launches = 0
 
 
 __all__ = ["PreparedAggregate", "PreparedSpmm", "SpmmConfig", "prepare_spmm",
-           "launch_counts", "reset_launch_counts"]
+           "spmm_coo_oracle", "spmm_csr_oracle", "launch_counts",
+           "reset_launch_counts"]

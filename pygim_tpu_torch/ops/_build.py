@@ -38,12 +38,12 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points per source: name -> argtypes (all return int)
 SIGNATURES = {
     "core_dot": {
-        # map (host, 128 B), band, r, row bytes, packed
+        # map (host, 128 B), band, r, row bytes, cell mode
         "core_encode_band_map": [_P, _P, _LL, _LL, _I],
-        # split, packed, int out (host)
+        # split, cell mode, int out (host)
         "core_max_clusters": [_I, _I, _P],
         # band maps, band (lo, r, w) (both host), n_bands, xc, xc rows,
-        # tiles, starts, clusters, split, nodes, out, h, packed, stream
+        # tiles, starts, clusters, split, nodes, out, h, cell mode, stream
         "core_bands_scatter_add": [_P, _P, _I, _P, _LL, _P, _P, _I, _I, _P,
                                    _P, _I, _I, _P],
     },
@@ -55,6 +55,12 @@ SIGNATURES = {
         # vec, packed, stream
         "core_int_scatter_add": [_P, _P, _I, _P, _LL, _I, _I, _P, _P, _I, _I,
                                  _P, _P, _I, _I, _I, _P],
+    },
+    "core_f32": {
+        # band pointers, band (lo, r, w) (both host), n_bands, cell, xc,
+        # payload, tiles, n_tiles, nodes, out, h, stream
+        "core_f32_scatter_add": [_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I,
+                                 _P],
     },
     "ell_tail": {
         # tables, units, n_units, x, out, h, vec, payload, safe, stream

@@ -1,7 +1,10 @@
-"""K-core: the hub-core bands' integer × bf16 products, scatter-added.
+"""K-core: the hub-core bands' integer or bf16 × bf16 products,
+scatter-added.
 
 Counterpart of ``pygim_tpu/ops/pallas_core.py`` (``bf16(int8 core) @
-bf16(x)`` with f32 accumulation) fused with the scatter of its product
+bf16(x)`` with f32 accumulation), and of ``_core_matmul``'s bf16 branch
+(``pygim_tpu/ops/spmm.py:630``, ``dot(bf16 core, bf16(x))``), fused with
+the scatter of its product
 into the output rows (``out.at[core_nodes[lo:hi]].add`` in
 ``pygim_tpu/ops/spmm.py:_core_scatter``). The CUDA kernel is
 ``csrc/core_dot.cu``: one persistent TMA + ``wgmma`` launch over all bands
@@ -14,12 +17,12 @@ change from run to run.
 
 ``xc`` is ``x[core_nodes]`` already rounded to bf16 (round-to-nearest-
 even, as ``xq.astype(bf16)`` in the reference); the gather and the cast
-stay outside the kernel, as in JAX. Every int8 × bf16 product is exact
-in f32, so the kernel and :func:`core_bands_plain` differ only in the
-order of the f32 sums.
+stay outside the kernel, as in JAX. Every int8 × bf16 and bf16 × bf16
+product is exact in f32, so the kernel and :func:`core_bands_plain`
+differ only in the order of the f32 sums.
 
-A band is int8 ``(r, w)``, or int4 nibble-packed into uint8 ``(r, w //
-2)``: byte j of a row holds cells (2j, 2j + 1), the low nibble the even
+A band is int8 ``(r, w)``, bf16 ``(r, w)``, or int4 nibble-packed into
+uint8 ``(r, w // 2)``: byte j of a row holds cells (2j, 2j + 1), the low nibble the even
 column, each a two's-complement nibble in [-8, 7]. That is the packed
 core of the reference's ``_core_matmul`` (``pygim_tpu/ops/spmm.py:586-
 597``, ``dot(lo, x[0::2]) + dot(hi, x[1::2])`` over the nibble planes of
@@ -28,11 +31,15 @@ x; the kernel's int4 mode unpacks in registers and never widens the band
 in memory. A square core is the one band ``(0, k, w)``.
 
 On the card the kernel takes bands of width ``w % 16 == 0`` (int8; the
-planner snaps widths to 256) or ``w % 32 == 0`` (int4: the TMA row
-stride, ``w / 2`` bytes, is a multiple of 16), ``H % 8 == 0`` and 16-byte
-aligned operands; the wrapper raises on anything else. One launch carries
-at most :data:`MAX_BANDS` bands, all of one cell type, so a stair of more
-bands takes one launch per group of them.
+planner snaps widths to 256; bf16: whole 16-deep steps, a 2w-byte row
+stride) or ``w % 32 == 0`` (int4: the TMA row stride, ``w / 2`` bytes, is
+a multiple of 16), ``H % 8 == 0`` and 16-byte aligned operands; the
+wrapper raises on anything else. One launch carries at most
+:data:`MAX_BANDS` bands, all of one cell type (its mode,
+:func:`cell_mode`), so a stair of more bands takes one launch per group
+of them. The bf16 mode's ring holds 3 stages, not 4 (its A box is twice
+the int8 one), and its schedule weighs a stage at
+:func:`step_cost` of its cell size.
 """
 
 from __future__ import annotations
@@ -47,9 +54,13 @@ import torch
 from pygim_tpu_torch.ops import _build
 
 # kernel launches since the last reset (plain ints; launches only): the
-# int8 mode and the int4 (packed) mode
+# int8 mode, the int4 (packed) mode and the bf16 mode
 launches = 0
 packed_launches = 0
+bf16_launches = 0
+
+INT8, PACKED, BF16 = 0, 1, 2   # the kernel's cell modes
+MODE_CELL_BYTES = {INT8: 1.0, PACKED: 0.5, BF16: 2.0}
 
 BM, BN = 128, 256          # output tile of one block: band rows × columns
 MAX_BANDS = 16             # band maps one launch carries
@@ -109,9 +120,10 @@ def _check(bands, xc, core_nodes, stair, out,
     if len({band.dtype for band in bands}) > 1:
         raise TypeError("bands of one call must share their cell type")
     for band, (lo, hi, w) in zip(bands, stair):
-        if band.dtype not in (torch.int8, torch.uint8) or band.dim() != 2:
-            raise TypeError(f"band must be 2-D int8 or packed uint8, got "
-                            f"{band.dtype} {tuple(band.shape)}")
+        if (band.dtype not in (torch.int8, torch.uint8, torch.bfloat16)
+                or band.dim() != 2):
+            raise TypeError(f"band must be 2-D int8, bf16 or packed uint8, "
+                            f"got {band.dtype} {tuple(band.shape)}")
         if band.dtype == torch.uint8 and w % 2:
             raise ValueError(f"a packed band holds an even width, got {w}")
         if tuple(band.shape) != (hi - lo, w // (1 + (band.dtype == torch.uint8))):
@@ -133,14 +145,32 @@ def _check(bands, xc, core_nodes, stair, out,
 
 def width_rule(packed: bool) -> int:
     """The kernels' stored-width rule: band widths (in cells) a multiple
-    of 16 for int8 and 32 for packed int4, so each row's bytes, the TMA
-    row stride, are a multiple of 16."""
+    of 16 for int8 and bf16 and 32 for packed int4, so each row's bytes,
+    the TMA row stride, are a multiple of 16 (and a bf16 band's width
+    whole 16-deep steps)."""
     return 32 if packed else 16
 
 
 def is_packed(bands) -> bool:
     """Whether the bands hold nibble-packed int4 cells."""
     return bool(bands) and bands[0].dtype == torch.uint8
+
+
+def cell_mode(bands) -> int:
+    """The kernel's cell mode of the bands: :data:`INT8`, :data:`PACKED`
+    (nibble-packed int4) or :data:`BF16`."""
+    if is_packed(bands):
+        return PACKED
+    return BF16 if bands and bands[0].dtype == torch.bfloat16 else INT8
+
+
+def step_cost(cell_bytes: float) -> float:
+    """The schedule's cost of one 64-deep stage of a band of
+    ``cell_bytes`` cells, in int8 stages: a stage takes the longer of its
+    wgmmas (alike for every cell type) and its loads, modeled as its
+    bytes, A box and B stage, over an int8 stage's, never below 1."""
+    a_bytes = BM * BK * cell_bytes
+    return max(1.0, (a_bytes + BK * BN * 2) / (BM * BK + BK * BN * 2))
 
 
 def _check_kernel_contract(bands, xc, core_nodes, stair, out) -> None:
@@ -208,25 +238,29 @@ def _greedy(cells, n_clusters: int):
     return per, loads
 
 
-def _cells(stair, h: int, bn: int, rows: int, split: int):
+def _cells(stair, h: int, bn: int, rows: int, split: int,
+           cell_bytes: float = 1.0):
     """Every cluster tile ``(cost, band, m0, n0)``: ``rows`` row tiles of
     :data:`BM` and one column tile of ``bn`` of one band, its contraction
-    split into ``split`` chunks run side by side."""
+    split into ``split`` chunks run side by side, each stage at
+    :func:`step_cost` of ``cell_bytes``."""
     out = []
+    step = step_cost(cell_bytes)
     for b, (lo, hi, w) in enumerate(stair):
         steps = max(-(-(k1 - k0) // BK) for k0, k1 in chunk_bounds(w, split))
-        cost = steps + _EPILOGUE_COST + _REDUCE_COST * (split - 1)
+        cost = steps * step + _EPILOGUE_COST + _REDUCE_COST * (split - 1)
         out += [(cost, b, m0, n0) for m0 in range(0, hi - lo, BM * rows)
                 for n0 in range(0, h, bn)]
     return out
 
 
 def choose_split(stair, h: int, bn: int, clusters, rows: int = 1,
-                 splits=SPLITS) -> int:
+                 splits=SPLITS, cell_bytes: float = 1.0) -> int:
     """The contraction split of one launch: the smallest of ``splits``
     whose greedy schedule's longest cluster comes within 10% of the mean
-    cluster's load (each load the tiles' longest chunk plus the epilogue
-    and the reduction), else the one whose longest cluster is shortest.
+    cluster's load (each load the tiles' longest chunk, its stages at
+    :func:`step_cost` of ``cell_bytes``, plus the epilogue and the
+    reduction), else the one whose longest cluster is shortest.
     Clusters of ``rows`` row tiles (K-int's multicast) are not split, nor
     is a band into chunks of no stage."""
     counts = cluster_counts(clusters)
@@ -234,7 +268,8 @@ def choose_split(stair, h: int, bn: int, clusters, rows: int = 1,
     for s in splits if rows == 1 else (1,):
         if counts.get(s, 0) < 1 or any(-(-w // BK) < s for *_, w in stair):
             continue
-        _per, loads = _greedy(_cells(stair, h, bn, rows, s), counts[s])
+        _per, loads = _greedy(_cells(stair, h, bn, rows, s, cell_bytes),
+                              counts[s])
         if 10 * max(loads) * len(loads) <= 11 * sum(loads):
             return s
         if best is None or max(loads) < best[0]:
@@ -243,10 +278,10 @@ def choose_split(stair, h: int, bn: int, clusters, rows: int = 1,
 
 
 def cluster_schedule(stair, h: int, bn: int, clusters, rows: int = 1,
-                     split=None, splits=SPLITS):
-    """The kernels' work list for bands ``stair`` at width ``h`` over
-    clusters of ``rows`` × ``split`` blocks (``split`` chosen from
-    ``splits`` by :func:`choose_split` when not given).
+                     split=None, splits=SPLITS, cell_bytes: float = 1.0):
+    """The kernels' work list for bands ``stair`` of ``cell_bytes`` cells
+    at width ``h`` over clusters of ``rows`` × ``split`` blocks (``split``
+    chosen from ``splits`` by :func:`choose_split` when not given).
 
     A cluster tile covers ``rows`` row tiles of :data:`BM` rows and one
     column tile of ``bn`` columns of one band; its contraction over ``w``
@@ -264,12 +299,13 @@ def cluster_schedule(stair, h: int, bn: int, clusters, rows: int = 1,
     ``tiles[starts[c]:starts[c + 1]]``."""
     counts = cluster_counts(clusters)
     if split is None:
-        split = choose_split(stair, h, bn, counts, rows, splits)
+        split = choose_split(stair, h, bn, counts, rows, splits, cell_bytes)
     elif (split not in splits or any(-(-w // BK) < split for *_, w in stair)
           or rows > 1 < split):
         raise ValueError(f"cannot split {stair} into {split} chunks "
                          f"(clusters of {rows} row tiles)")
-    per, _loads = _greedy(_cells(stair, h, bn, rows, split), counts[split])
+    per, _loads = _greedy(_cells(stair, h, bn, rows, split, cell_bytes),
+                          counts[split])
     blocks = rows * split
     tiles = np.array(
         [[(b, m0 + BM * i, n0, int(m0 + BM * i < stair[b][1] - stair[b][0]),
@@ -281,39 +317,46 @@ def cluster_schedule(stair, h: int, bn: int, clusters, rows: int = 1,
     return tiles, starts
 
 
-def schedule_loads(tiles, starts, rows: int = 1):
+def schedule_loads(tiles, starts, rows: int = 1, cell_bytes: float = 1.0):
     """Each cluster's modeled work in :func:`cluster_schedule`'s
-    ``tiles``: per tile its longest chunk in stages, the epilogue and the
-    reduction of its chunks."""
+    ``tiles``: per tile its longest chunk in stages (each at
+    :func:`step_cost` of ``cell_bytes``), the epilogue and the reduction
+    of its chunks."""
     split = tiles.shape[1] // rows
     steps = -(-(tiles[:, :, 5] - tiles[:, :, 4]) // BK)
-    cost = steps.max(axis=1) + _EPILOGUE_COST + _REDUCE_COST * (split - 1)
+    cost = (steps.max(axis=1) * step_cost(cell_bytes) + _EPILOGUE_COST
+            + _REDUCE_COST * (split - 1))
     return np.add.reduceat(cost, starts[:-1])
 
 
-def tile_schedule(stair, h: int, clusters, bn: int = BN):
+def tile_schedule(stair, h: int, clusters, bn: int = BN,
+                  cell_bytes: float = 1.0):
     """K-core's work list (:func:`cluster_schedule` with single row
     tiles): ``(tiles, starts)``, ``tiles`` int32 ``(n, split, 6)``;
     ``clusters`` the blocks of the card, or its :func:`cluster_counts`."""
-    return cluster_schedule(stair, h, bn, clusters)
+    return cluster_schedule(stair, h, bn, clusters, cell_bytes=cell_bytes)
 
 
-def schedule_balance(stair, h: int, clusters, bn: int = BN) -> float:
+def schedule_balance(stair, h: int, clusters, bn: int = BN,
+                     cell_bytes: float = 1.0) -> float:
     """The longest cluster's work over the mean cluster's in
     :func:`tile_schedule`'s assignment of ``stair`` at width ``h`` (1.0 is
     perfect balance), the worst over the launches of one grouped call."""
     worst = 1.0
     for group in band_groups(stair, h):
         loads = schedule_loads(*tile_schedule([stair[b] for b in group], h,
-                                              clusters, bn))
+                                              clusters, bn, cell_bytes),
+                               cell_bytes=cell_bytes)
         worst = max(worst, float(loads.max() / loads.mean()))
     return worst
 
 
-def schedule_split(stair, h: int, clusters, bn: int = BN) -> list:
+def schedule_split(stair, h: int, clusters, bn: int = BN,
+                   cell_bytes: float = 1.0) -> list:
     """The contraction split of each launch of :func:`tile_schedule`'s
     grouped call."""
-    return [tile_schedule([stair[b] for b in g], h, clusters, bn)[0].shape[1]
+    return [tile_schedule([stair[b] for b in g], h, clusters, bn,
+                          cell_bytes)[0].shape[1]
             for g in band_groups(stair, h)]
 
 
@@ -329,16 +372,18 @@ def band_groups(stair, h: int):
 def band_maps(bands, stair, group):
     """The TMA maps of the CUDA bands ``group`` (host; boxes of 128 rows
     and 64 bytes, 64-byte swizzle, for int8; of 32 bytes, unswizzled, for
-    packed int4) and their ``(lo, r, w)`` (host), as one launch takes
-    them; K-int launches on the same maps."""
+    packed int4; of 64 cells, 128-byte swizzle, for bf16) and their
+    ``(lo, r, w)`` (host), as one launch takes them; K-int launches on
+    the same maps."""
     lib = _build.load("core_dot")
     maps = (ctypes.c_uint8 * (_MAP_BYTES * len(group)))()
     base = ctypes.addressof(maps)
+    mode = cell_mode(bands)
     for i, b in enumerate(group):
-        r, nbytes = bands[b].shape
+        r = bands[b].shape[0]
+        nbytes = bands[b].shape[1] * bands[b].element_size()
         err = lib.core_encode_band_map(
-            base + _MAP_BYTES * i, bands[b].data_ptr(), r, nbytes,
-            int(bands[b].dtype == torch.uint8))
+            base + _MAP_BYTES * i, bands[b].data_ptr(), r, nbytes, mode)
         _build.check(err, f"core_encode_band_map (band {b}, {r}×{nbytes} "
                      f"{bands[b].dtype})")
     info = (ctypes.c_int * (3 * len(group)))(
@@ -366,16 +411,17 @@ class CorePlan:
     split: int = 1
 
 
-def max_clusters(device, packed: bool) -> dict:
+def max_clusters(device, mode) -> dict:
     """``{split: clusters}``: how many clusters of each split's size the
-    card runs at once of the K-core kernel (its int4 mode where
-    ``packed``; ``cudaOccupancyMaxActiveClusters``)."""
+    card runs at once of the K-core kernel in cell mode ``mode``
+    (:func:`cell_mode`; a bool reads as int8 or packed int4;
+    ``cudaOccupancyMaxActiveClusters``)."""
     lib = _build.load("core_dot")
     out = {}
     with torch.cuda.device(device):
         for s in SPLITS:
             n = ctypes.c_int(0)
-            _build.check(lib.core_max_clusters(s, int(packed),
+            _build.check(lib.core_max_clusters(s, int(mode),
                                                ctypes.addressof(n)),
                          "core_max_clusters")
             out[s] = n.value
@@ -396,12 +442,14 @@ def core_plans(bands, stair, h: int, bn: int = BN, split=None) -> list:
     if not groups:
         return []
     dev = bands[groups[0][0]].device
-    counts = max_clusters(dev, is_packed(bands))
+    mode = cell_mode(bands)
+    counts = max_clusters(dev, mode)
     plans = []
     for group in groups:
         maps, info = band_maps(bands, stair, group)
         tiles, starts = cluster_schedule([stair[b] for b in group], h, bn,
-                                         counts, split=split)
+                                         counts, split=split,
+                                         cell_bytes=MODE_CELL_BYTES[mode])
         plans.append(CorePlan(
             group=group, ptrs=tuple(bands[b].data_ptr() for b in group), h=h,
             bn=bn, maps=maps, info=info, tiles=torch.from_numpy(tiles).to(dev),
@@ -423,14 +471,15 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
     for every band ``(lo, hi, w)`` of ``stair``, in one launch per group
     of :data:`MAX_BANDS` bands.
 
-    bands int8 ``(hi - lo, w)`` or packed uint8 ``(hi - lo, w // 2)``
-    each, all alike (:data:`packed_launches` counts the packed mode's
-    launches, :data:`launches` the int8 mode's); xc bf16 (≥ max w, H); core_nodes
+    bands int8 or bf16 ``(hi - lo, w)`` or packed uint8 ``(hi - lo, w //
+    2)`` each, all alike (:data:`packed_launches` counts the packed mode's
+    launches, :data:`bf16_launches` the bf16 mode's, :data:`launches` the
+    int8 mode's); xc bf16 (≥ max w, H); core_nodes
     int32, distinct over ``[0, hi_last)``; out f32 (N, H), updated in
     place and returned. CPU tensors take :func:`core_bands_plain`; CUDA
     tensors launch the kernel or raise. ``plans`` (:func:`core_plans` of
     these bands at this H) is built here when not given."""
-    global launches, packed_launches
+    global launches, packed_launches, bf16_launches
     _check(bands, xc, core_nodes, stair, out)
     _build.refuse_grad("core_bands_scatter_add", xc, out)
     if out.device.type == "cpu":
@@ -445,7 +494,7 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
               and all(p.tiles.shape[1:] == (p.split, _FIELDS) for p in plans)):
         raise ValueError("K-core plans were built for other bands or another H")
     lib = _build.load("core_dot")
-    packed = is_packed(bands)
+    mode = cell_mode(bands)
     with torch.cuda.device(out.device):
         for plan in plans:
             err = lib.core_bands_scatter_add(
@@ -453,11 +502,13 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
                 len(plan.group), xc.data_ptr(), xc.shape[0],
                 plan.tiles.data_ptr(), plan.starts.data_ptr(), plan.grid,
                 plan.split, core_nodes.data_ptr(), out.data_ptr(), h,
-                int(packed), _build.stream_of(out),
+                mode, _build.stream_of(out),
             )
             _build.check(err, "core_bands_scatter_add")
-            if packed:
+            if mode == PACKED:
                 packed_launches += 1
+            elif mode == BF16:
+                bf16_launches += 1
             else:
                 launches += 1
     return out
@@ -465,11 +516,11 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
 
 def core_band_scatter_add(band, xc, rows, out):
     """``out[rows[i]] += Σ_j f32(band[i, j]) · f32(xc[j])`` for one band:
-    the grouped kernel on a one-band list. band int8 (r, w) or packed
-    uint8 (r, w // 2); xc bf16 (≥ w, H); rows int32 (r,), distinct; out
-    f32 (N, H)."""
+    the grouped kernel on a one-band list. band int8 or bf16 (r, w) or
+    packed uint8 (r, w // 2); xc bf16 (≥ w, H); rows int32 (r,), distinct;
+    out f32 (N, H)."""
     if band.dim() != 2:
-        raise TypeError(f"band must be 2-D int8, got {band.dtype} {tuple(band.shape)}")
+        raise TypeError(f"band must be 2-D, got {band.dtype} {tuple(band.shape)}")
     r, w = band.shape[0], cell_width(band)
     if rows.dim() == 1 and rows.shape[0] != r:
         raise ValueError(f"rows has {rows.shape[0]} entries for {r} band rows")

@@ -11,7 +11,7 @@ non-decreasing. For every virtual row ``v``::
 
     out[vrow_to_row[v]] += Σ_d vals[v, d] · x[cols[v, d]]
 
-x is one of three payload modes, each weighted by the f32 vals and
+x is one of four payload modes, each weighted by the f32 vals and
 summed in f32: (i) float32 rows as they are (the float path; the tail
 does not round to bf16); (ii) int8, int16 or int32 rows widened to f32
 (``ell_scan_spmm`` on integer rows, whose accumulation dtype is f32);
@@ -19,7 +19,9 @@ does not round to bf16); (ii) int8, int16 or int32 rows widened to f32
 correctly rounded quotient rounded half to even, with ``safe`` a 0-dim
 float32 tensor on x's device (``ell_scan_spmm_quant``, the int32
 quantized aggregate); the kernel takes the quotient from one reciprocal
-a thread and a correction step, not a division per element.
+a thread and a correction step, not a division per element; (iv)
+bfloat16 rows widened exactly to f32 (``ell_scan_spmm`` on a bf16
+payload, ``pygim_tpu/ops/spmm.py:489-493``).
 The kernel takes any width H. It reads only the slots up to each virtual row's last nonzero
 weight, so a non-finite x row that only pad slots (or trailing zero
 weights) reach does not spread NaN, where the plain version and the
@@ -36,13 +38,17 @@ import torch
 from pygim_tpu_torch.ops import _build
 
 # kernel launches since the last reset (plain ints; launches only): K-tail
-# on float32 rows, and K-tail-quant on integer or rounded rows
+# on float32 rows, K-tail-quant on integer or rounded rows, and K-tail on
+# bf16 rows
 launches = 0
 quant_launches = 0
+bf16_launches = 0
 
 # the kernel's payload codes by x dtype (mode (iii), rounded f32, is 4)
-PAYLOADS = {torch.float32: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3}
+PAYLOADS = {torch.float32: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
+            torch.bfloat16: 5}
 _QUANT = 4
+_BF16 = PAYLOADS[torch.bfloat16]
 
 UNIT_SLOTS = 128   # stored slots a work unit aims at (its rows follow D)
 UNIT_MAX_ROWS = 32  # virtual rows a unit holds at most: one per lane
@@ -87,8 +93,8 @@ def real_entries(tables):
 
 def _check_payload(x, safe, out) -> None:
     if x.dtype not in PAYLOADS or x.dim() != 2:
-        raise TypeError(f"x must be 2-D float32, int8, int16 or int32, got "
-                        f"{x.dtype} {tuple(x.shape)}")
+        raise TypeError(f"x must be 2-D float32, bfloat16, int8, int16 or "
+                        f"int32, got {x.dtype} {tuple(x.shape)}")
     if safe is None:
         return
     if x.dtype != torch.float32:
@@ -270,15 +276,16 @@ def ell_tables_add(x, tables, out, plan=None, safe=None):
     """Add every ELL table's product into ``out`` (in place; returned):
     ``tables`` is ``[(cols2d, vals2d, vrow_to_row, degree)]``, each
     ``vrow_to_row`` non-decreasing, as prepare builds them; x float32,
-    int8, int16 or int32, or float32 rounded to ``round(x / safe)`` where
-    ``safe`` is given (module docstring). CPU tensors take
+    bfloat16, int8, int16 or int32, or float32 rounded to ``round(x /
+    safe)`` where ``safe`` is given (module docstring). CPU tensors take
     :func:`ell_tables_plain`; CUDA tensors launch the kernel once for all
     tables, any H, or raise: its bulk-copy path where a row is a multiple
-    of 16 bytes (H % 4 for 4-byte elements, H % 8 for int16, H % 16 for
-    int8) and x and out are 16-byte aligned, its register path elsewhere.
+    of 16 bytes (H % 4 for 4-byte elements, H % 8 for int16 and bf16,
+    H % 16 for int8) and x and out are 16-byte aligned, its register path
+    elsewhere.
     ``plan`` (:func:`tail_plan` of these tables) is built here when not
     given."""
-    global launches, quant_launches
+    global launches, quant_launches, bf16_launches
     _check_payload(x, safe, out)
     _build.refuse_grad("ell_tables_add", x, out)
     for cols2d, vals2d, vrow_to_row, degree in tables:
@@ -305,7 +312,9 @@ def ell_tables_add(x, tables, out, plan=None, safe=None):
             None if safe is None else safe.data_ptr(), _build.stream_of(out),
         )
     _build.check(err, "ell_tables_add")
-    if payload:
+    if payload == _BF16:
+        bf16_launches += 1
+    elif payload:
         quant_launches += 1
     else:
         launches += 1

@@ -2,10 +2,12 @@
 
 Counterpart of ``pygim_tpu/ops/spmm.py`` for the backends it carries:
 
-``hybrid``  an integer hub-core plus a multi-degree ELL tail (the
-            headline path). The core is the square ``[0, k)²`` block of
-            the degree ranks or a staircase of row bands of tapering
-            width, of int8 cells or int4 cells nibble-packed two a byte.
+``hybrid``  a hub-core plus a multi-degree ELL tail (the headline
+            path). The core is the square ``[0, k)²`` block of the degree
+            ranks or a staircase of row bands of tapering width, of int8
+            cells, int4 cells nibble-packed two a byte, bf16 cells or f32
+            cells (``hybrid_dtype=None``: the graph's own float dtype, or
+            bf16 on an integer graph, as the reference).
             :func:`prepare_spmm` plans on the host in NumPy (duplicate
             merge, degree rank, the core's fill, ELL tail) and moves the
             tables to the device. The host tables of an operand on the
@@ -32,29 +34,34 @@ The hybrid's :meth:`PreparedSpmm.mul` computes ``A @ x`` as
    (``ops/ell_tail.py``);
 3. the core over all bands into ``out`` at ``core_nodes[lo:hi]``, one
    launch (a square core is the one band ``(0, k, k)``, its rows
-   ``core_nodes[:k]``): for a float32 x, ``xc = bf16(x[core_nodes])``
-   through K-core
+   ``core_nodes[:k]``), on ``xc = x[core_nodes[:max w]]``: on int8 or
+   int4 cells, for a float x ``bf16(xc)`` through K-core
    (``ops/core_dot.py``; where H is not a multiple of 8, on ``xc`` and
-   ``out`` padded with zero columns to the next multiple, cut back to H);
-   for an int8, int16 or int32 x, ``xc = x[core_nodes[:max w]]`` through
-   K-int (``ops/core_int.py``), the exact int32 product wrapped as the
-   reference's, added as f32
+   ``out`` padded with zero columns to the next multiple, cut back to H),
+   for an integer x K-int (``ops/core_int.py``), the exact int32 product
+   wrapped as the reference's, added as f32; on bf16 cells K-core's bf16
+   mode (a float or int8 x, as bf16) or K-f32 (an int16 or int32 x, both
+   operands in f32; ``ops/core_f32.py``); on f32 cells K-f32
+   (:meth:`PreparedSpmm._core_add`)
 
 — the order of the reference's hybrid run; ``ell`` runs step 2 alone.
 
 The kernels write through raw pointers, so autograd cannot follow them:
 :class:`SpmmFunction` is the differentiable ``A @ x`` of the ``hybrid``
 and ``ell`` backends, its backward ``Aᵀ @ g`` through the same kernels
-(K-core, K-tail) on :meth:`PreparedSpmm.transpose`, the transposed graph
-prepared once with the same configuration by the caller that trains.
+(K-core, K-f32, K-tail) on :meth:`PreparedSpmm.transpose`, the
+transposed graph prepared once with the same configuration by the
+caller that trains.
 :class:`PreparedAggregate` takes it wherever grad mode is on and the
 payload requires grad; ``oracle`` and ``blocked`` run PyTorch ops, which
 autograd follows as they are.
 :meth:`PreparedSpmm.mul_quantized`
 is the fused quantize → aggregate → dequantize of the reference's
 ``raw_mul_quantized``. The host tables are the reference's bit for bit.
-The ``coo`` backend, the bf16 and f32 cores, the BCSR tile tier and
-bfloat16 and int64 payloads come in later slices; they raise.
+Payloads are float32, bfloat16 (K-tail's bf16-row mode) and int8,
+int16, int32 or int64 (taken as int32, as the reference with x64 off).
+The ``coo`` backend and the BCSR tile tier come in later slices; they
+raise.
 """
 
 from __future__ import annotations
@@ -67,7 +74,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pygim_tpu_torch.core.banded import core_build_banded
+from pygim_tpu_torch.core.banded import core_build_banded, f32_to_bf16_bits
 from pygim_tpu_torch.core.graph import CooGraph, CsrGraph, merge_duplicate_edges
 from pygim_tpu_torch.core.partition import (
     build_ell_blocks,
@@ -84,7 +91,11 @@ from pygim_tpu_torch.ops.core_dot import (
     core_bands_plain,
     core_bands_scatter_add,
     core_plans,
-    width_rule,
+)
+from pygim_tpu_torch.ops.core_f32 import (
+    core_f32_plain,
+    core_f32_plans,
+    core_f32_scatter_add,
 )
 from pygim_tpu_torch.ops.core_int import (
     QUANT_LIMBS,
@@ -111,17 +122,32 @@ from pygim_tpu_torch.utils.timers import PhaseTimer, device_time
 _log = logging.getLogger("pygim_tpu_torch")
 
 BACKENDS = ("hybrid", "ell", "blocked", "oracle")
-CORE_DTYPES = ("int8", "int4")  # the hybrid core cells the port stores
+# the hybrid core cells a config may name; None means the graph's own
+# dtype (float32 or float64 cells), or bfloat16 on an integer graph
+CORE_DTYPES = ("int8", "int4", "bfloat16", "float32")
+INT_CORES = ("int8", "int4")
 CORE_SHAPES = ("square", "stair")
+# bytes of one core cell, which size the core against its budget: two
+# int4 cells share a byte; a float64 core (a float64 graph with
+# hybrid_dtype None) is sized at 8 bytes and stored as float32 cells, as
+# the reference's (pygim_tpu/ops/spmm.py:1120-1127)
+CELL_BYTES = {"int4": 0.5, "int8": 1.0, "bfloat16": 2.0, "float32": 4.0,
+              "float64": 8.0}
+# the kernels' stored-width rule of each core, in cells: every row a
+# multiple of 16 bytes (the TMA row stride of K-core and K-int; K-f32's
+# 16-byte loads), and whole 16-deep steps for K-core's bf16 wgmmas
+WIDTH_RULE = {"int4": 32, "int8": 16, "bfloat16": 16, "float32": 4,
+              "float64": 4}
 
 
 @dataclasses.dataclass(frozen=True)
 class SpmmConfig:
     """Runtime configuration: the reference's fields and defaults. The
     port runs the backends of :data:`BACKENDS`; on ``hybrid``, a square
-    or stair core (:data:`CORE_SHAPES`) of int8 or int4 cells
-    (:data:`CORE_DTYPES`) at any budget (none at ``hybrid_core_bytes <=
-    0``) or a pinned ``hybrid_k``. :meth:`check_supported` raises on
+    or stair core (:data:`CORE_SHAPES`) of int8, int4, bfloat16 or
+    float32 cells (:data:`CORE_DTYPES`), or of the graph's own dtype
+    (``hybrid_dtype=None``), at any budget (none at ``hybrid_core_bytes
+    <= 0``) or a pinned ``hybrid_k``. :meth:`check_supported` raises on
     anything else."""
 
     format: str = "csr"              # csr | coo
@@ -176,12 +202,10 @@ class SpmmConfig:
             raise NotImplementedError(
                 f"hybrid_shape {self.hybrid_shape!r}: the port runs "
                 f"{CORE_SHAPES}")
-        if self.hybrid_dtype not in CORE_DTYPES:
+        if self.hybrid_dtype is not None and self.hybrid_dtype not in CORE_DTYPES:
             raise NotImplementedError(
                 f"hybrid_dtype {self.hybrid_dtype!r}: the port's cores are "
-                f"{CORE_DTYPES} (None means the graph's dtype, a float32, "
-                "float64 or bfloat16 core; the bf16 and f32 cores are not "
-                "ported)")
+                f"{CORE_DTYPES}, or None for the graph's own dtype")
         if self.bcsr_bytes > 0 and self.square_build:
             raise NotImplementedError(
                 "bcsr_bytes > 0 on a square core: the BCSR tile tier is not "
@@ -263,21 +287,17 @@ def _finish_hybrid_tail(host, coo, config, tail_sel, pt):
     pt.stop("ell_tail")
 
 
-def _core_itemsize(core_dtype: str) -> float:
-    """Stored bytes of one core cell: two int4 cells share a byte."""
-    return 0.5 if core_dtype == "int4" else 1.0
-
-
-def _prepare_stair_build(coo, config, rank, order, pt) -> dict:
+def _prepare_stair_build(coo, config, rank, order, pt, core_dtype) -> dict:
     """Staircase core: ≤ ``stair_max_bands`` dense row bands of tapering
     width in degree-rank space (core/stair.py; widths a multiple of 256,
-    512 for int4), int8 ``(rows, w)`` or nibble-packed int4 ``(rows, w //
-    2)`` uint8. Cells outside a band, and cells that are not an integer in
-    the dtype's range ([-128, 127], [-8, 7]), go to the exact ELL tail.
-    Returns the host tables."""
-    core_dtype = config.hybrid_dtype
+    512 for int4), int8 ``(rows, w)``, nibble-packed int4 ``(rows, w //
+    2)`` uint8, bfloat16 bits ``(rows, w)`` uint16 or float32 ``(rows,
+    w)`` (also the float64 core's cells). Cells outside a band, and cells
+    of an integer core that are not an integer in the dtype's range
+    ([-128, 127], [-8, 7]), go to the exact ELL tail. Returns the host
+    tables."""
     n = coo.nrows
-    budget_cells = int(config.hybrid_core_bytes / _core_itemsize(core_dtype))
+    budget_cells = int(config.hybrid_core_bytes / CELL_BYTES[core_dtype])
     rr = rank[coo.rows].astype(np.int64)
     cc = rank[coo.cols].astype(np.int64)
     pt.start("stair_plan")
@@ -313,7 +333,9 @@ def _prepare_stair_build(coo, config, rank, order, pt) -> dict:
         rows_b = hi - lo
         store = np.empty((rows_b, w // 2) if core_dtype == "int4"
                          else (rows_b, w),
-                         dtype=np.uint8 if core_dtype == "int4" else np.int8)
+                         dtype={"int4": np.uint8, "int8": np.int8,
+                                "bfloat16": np.uint16}.get(core_dtype,
+                                                           np.float32))
         # ~256 MB of f32 cells per fill chunk
         chunk_rows = max(8, ((1 << 28) // max(1, w * 4)) // 8 * 8)
         for c0 in range(0, rows_b, chunk_rows):
@@ -325,6 +347,12 @@ def _prepare_stair_build(coo, config, rank, order, pt) -> dict:
             blk = np.bincount(
                 flat, weights=vals64[eidx], minlength=(c1 - c0) * w,
             ).astype(np.float32).reshape(c1 - c0, w)
+            if core_dtype not in INT_CORES:
+                # bf16 bits rounded to nearest even as ml_dtypes' cast, or
+                # the f32 sums themselves (float32, and the float64 core)
+                store[c0:c1] = (f32_to_bf16_bits(blk)
+                                if core_dtype == "bfloat16" else blk)
+                continue
             rb, bad_flat = int_demote_slab(blk, core_dtype)
             if bad_flat.size:
                 demoted.append(eidx[np.isin(flat, bad_flat)])
@@ -341,33 +369,35 @@ def _prepare_stair_build(coo, config, rank, order, pt) -> dict:
     return host
 
 
-def square_core_k(config, n: int) -> int:
+def square_core_k(config, n: int, core_dtype=None) -> int:
     """The square core's size: a pinned ``hybrid_k`` (at most n), 0
-    without a budget, else the most ranks whose ``k²`` cells fit the
-    budget, a multiple of 256 (at least 256 or n); even for int4, whose
-    bytes pair columns (``pygim_tpu/ops/spmm.py:1128-1140``)."""
+    without a budget, else the most ranks whose ``k²`` cells of
+    ``core_dtype`` (default ``config.hybrid_dtype``; :data:`CELL_BYTES`)
+    fit the budget, a multiple of 256 (at least 256 or n); even for int4,
+    whose bytes pair columns (``pygim_tpu/ops/spmm.py:1128-1140``)."""
+    core_dtype = core_dtype or config.hybrid_dtype
     if config.hybrid_k is not None:
         k = max(0, min(config.hybrid_k, n))
     elif config.hybrid_core_bytes <= 0:
         k = 0
     else:
-        k = int(np.sqrt(config.hybrid_core_bytes
-                        / _core_itemsize(config.hybrid_dtype)))
+        k = int(np.sqrt(config.hybrid_core_bytes / CELL_BYTES[core_dtype]))
         k = (k // 256) * 256
         k = min(max(k, min(256, n)), n)
-    if config.hybrid_dtype == "int4":
+    if core_dtype == "int4":
         k -= k % 2
     return k
 
 
-def _prepare_square_build(coo, config, rank, order, pt) -> dict:
+def _prepare_square_build(coo, config, rank, order, pt, core_dtype) -> dict:
     """Square core: the ``[0, k)²`` block of the degree ranks
     (:func:`square_core_k`), built band by band in its stored dtype
-    (``core/banded.py``); cells that are not an integer in the dtype's
-    range are zeroed and their edges demoted to the exact ELL tail, as
-    every edge outside the block goes there. Returns the host tables."""
-    core_dtype = config.hybrid_dtype
-    k = square_core_k(config, coo.nrows)
+    (``core/banded.py``; a float64 core's cells are float32, as the
+    reference's ``core_fill_native``); cells of an integer core that are
+    not an integer in the dtype's range are zeroed and their edges
+    demoted to the exact ELL tail, as every edge outside the block goes
+    there. Returns the host tables."""
+    k = square_core_k(config, coo.nrows, core_dtype)
     host: dict = {"k": np.int64(k), "core_dtype": np.str_(core_dtype)}
     pt.start("core_fill")
     if k == 0:
@@ -375,7 +405,7 @@ def _prepare_square_build(coo, config, rank, order, pt) -> dict:
     else:
         core, tail_mask, bad_flat = core_build_banded(
             coo.rows, coo.cols, coo.vals.astype(np.float32), rank, k,
-            core_dtype)
+            "float32" if core_dtype == "float64" else core_dtype)
         in_core = ~tail_mask
         if bad_flat.size:
             idx = np.flatnonzero(in_core)
@@ -463,6 +493,12 @@ def gather_only(x, cols2d):
     return acc
 
 
+def as_payload(x):
+    """``x`` as the products take it: an int64 x becomes int32 (wrapping),
+    as the reference's ``jnp.asarray`` puts it with x64 off."""
+    return x.to(torch.int32) if x.dtype == torch.int64 else x
+
+
 class PreparedSpmm:
     """Device-resident prepared sparse operand: ``mul(x) = A @ x``.
 
@@ -505,6 +541,7 @@ class PreparedSpmm:
         self._tail_plan = None
         self._core_plans = {}  # H -> K-core plans of the bands
         self._int_plans = {}   # (H, limbs) -> K-int plans of the same
+        self._f32_plans = {}   # H -> K-f32 plans of the same
         if backend == "oracle":
             s = (coo if coo is not None else csr.to_coo()).sort_by_row()
             self._dev = {"rows": self._put(s.rows), "cols": self._put(s.cols),
@@ -530,10 +567,23 @@ class PreparedSpmm:
             if coo.nrows != coo.ncols:
                 raise ValueError("hybrid backend requires square adjacency")
             if not np.issubdtype(coo.vals.dtype, np.floating):
-                # integer weights ride the int8 core and an f32 tail, as
-                # the reference casts them (pygim_tpu/ops/spmm.py:848)
+                # integer weights ride a bf16, int8 or int4 core and an f32
+                # tail; no core dtype means bf16, written back into the
+                # config (pygim_tpu/ops/spmm.py:826-850)
+                if config.hybrid_dtype not in (None, "bfloat16", *INT_CORES):
+                    raise ValueError("integer hybrid aggregation requires a "
+                                     "bfloat16, int8 or int4 core")
+                if config.hybrid_dtype is None:
+                    config = dataclasses.replace(config,
+                                                 hybrid_dtype="bfloat16")
+                    self.config = config
                 coo = dataclasses.replace(coo,
                                           vals=coo.vals.astype(np.float32))
+            elif (config.hybrid_dtype is None
+                  and str(coo.vals.dtype) not in CELL_BYTES):
+                raise NotImplementedError(
+                    f"hybrid_dtype None on a {coo.vals.dtype} graph: the "
+                    "port's float cores are float32 (and a float64 graph's)")
             self.prepare_timer = pt
             host = self._prepare_hybrid(coo, config, pt)
             pt.start("upload")
@@ -601,11 +651,13 @@ class PreparedSpmm:
         bands ``self.stair`` under ``self._band_keys`` — the stair's
         ``stair{b}``, or the square ``core`` as the one band ``(0, k, k)``.
         ``self.stair`` holds the stored widths, which the products run on:
-        a band whose width misses the kernels' rule (int8 cells a multiple
-        of 16, int4 of 32: a pinned ``hybrid_k``, or a stair band as wide
-        as the graph) gets zero cells appended to each row here, on the
-        host, and ``xc`` is zero-padded to match (:meth:`_xc`). The logical
-        widths stay in the host tables (``stair_bands``, ``k``)."""
+        a band whose width misses the kernels' rule (:data:`WIDTH_RULE`:
+        int8 and bf16 cells a multiple of 16, int4 of 32, f32 of 4: a
+        pinned ``hybrid_k``, or a stair band as wide as the graph) gets
+        zero cells appended to each row here, on the host, and ``xc`` is
+        zero-padded to match (:meth:`_xc`). The logical widths stay in the
+        host tables (``stair_bands``, ``k``). bf16 cells go up as
+        ``torch.bfloat16``, their stored uint16 bits viewed as such."""
         self.hybrid_k_eff = int(host["k"])
         self.core_dtype = str(host["core_dtype"])
         self._install_ell(host)
@@ -618,14 +670,18 @@ class PreparedSpmm:
         else:
             return
         packed = self.core_dtype == "int4"
-        q = width_rule(packed)
+        q = WIDTH_RULE[self.core_dtype]
         self.stair = []
         for key, (lo, hi, w) in zip(self._band_keys, bands):
             band, wq = host[key], round_up(w, q)
             if wq != w:
                 band = np.pad(band, ((0, 0), (0, (wq - w) // (1 + packed))))
             self.stair.append((lo, hi, wq))
-            self._dev[key] = self._put(band)
+            if self.core_dtype == "bfloat16":
+                self._dev[key] = torch.from_numpy(np.ascontiguousarray(
+                    band).view(np.int16)).view(torch.bfloat16).to(self.device)
+            else:
+                self._dev[key] = self._put(band)
         self._dev["core_nodes"] = self._put(host["core_nodes"])
 
     def _prepare_hybrid_build(self, coo, config) -> dict:
@@ -638,9 +694,10 @@ class PreparedSpmm:
         rank = np.empty(n, dtype=np.int32)
         rank[order] = np.arange(n, dtype=np.int32)
         pt.stop("rank")
-        if config.square_build:
-            return _prepare_square_build(coo, config, rank, order, pt)
-        return _prepare_stair_build(coo, config, rank, order, pt)
+        core_dtype = config.hybrid_dtype or str(coo.vals.dtype)
+        build = (_prepare_square_build if config.square_build
+                 else _prepare_stair_build)
+        return build(coo, config, rank, order, pt, core_dtype)
 
     @property
     def dev_arrays(self) -> dict:
@@ -680,14 +737,19 @@ class PreparedSpmm:
 
     def mul(self, x):
         """``A @ x`` through the kernels (plain versions on CPU tensors).
-        ``x``: (ncols, H) float32, int8, int16 or int32 on the operand's
-        device; the result is float32 (N, H). An integer x is exact in
-        the core (the reference's wrapped int32 product) and summed in
-        f32 in the tail, as the reference's hybrid ``run``. The oracle
-        takes any x and returns the accumulation dtype of ``ops/reference.py``."""
+        ``x``: (ncols, H) float32, bfloat16, int8, int16, int32 or int64
+        on the operand's device (int64 is taken as int32, wrapping, as the
+        reference's ``jnp.asarray`` with x64 off); the result is float32
+        (N, H). On an int8 or int4 core an integer x is exact (the
+        reference's wrapped int32 product); on a bf16 or f32 core the
+        product is the reference's f32 dot (:meth:`_core_add`); the tail
+        sums in f32, as the reference's hybrid ``run``. The oracle takes
+        any x and returns the accumulation dtype of
+        ``ops/reference.py``."""
         return self.raw_mul(x, self._dev)
 
     def raw_mul(self, x, dev: dict):
+        x = as_payload(x)
         if self.config.backend == "oracle":
             return self._oracle(x, dev)
         if self.config.backend == "blocked":
@@ -738,6 +800,18 @@ class PreparedSpmm:
             plans = self._core_plans[h]
         return core_any_width(bands, xc, core_nodes, stair, out, plans=plans)
 
+    def _core_f32(self, bands, xc, core_nodes, stair, out):
+        """K-f32 over this operand's own bands, with their plans built
+        once per H on the card."""
+        plans = None
+        if out.is_cuda and out.device == bands[0].device:
+            h = out.shape[1]
+            if h not in self._f32_plans:
+                self._f32_plans[h] = core_f32_plans(bands, stair, h)
+            plans = self._f32_plans[h]
+        return core_f32_scatter_add(bands, xc, core_nodes, stair, out,
+                                    plans=plans)
+
     def _core_int(self, bands, xc, core_nodes, stair, out, limbs):
         """K-int over this operand's own bands, with their plans built
         once per (H, limbs) on the card."""
@@ -756,45 +830,45 @@ class PreparedSpmm:
         against."""
         if self.config.backend in ("oracle", "blocked"):
             return self.raw_mul(x, self._dev)  # plain PyTorch ops already
-        return self._run(x, self._dev, plain=True)
+        return self._run(as_payload(x), self._dev, plain=True)
 
     def _kernels(self, dev: dict, plain: bool):
-        """The (tail, float core, integer core) functions of a run: the
-        plain versions; the kernels with the plans this operand keeps for
-        its own tables; or the kernels planning a foreign ``dev`` each
+        """The (tail, K-core, K-int, K-f32) functions of a run: the plain
+        versions; the kernels with the plans this operand keeps for its
+        own tables; or the kernels planning a foreign ``dev`` each
         call."""
         if plain:
             return (ell_tables_plain, core_bands_plain,
-                    lambda *a, limbs: core_int_plain(*a))
+                    lambda *a, limbs: core_int_plain(*a), core_f32_plain)
         if dev is self._dev:
-            return self._tail, self._core, self._core_int
-        return ell_tables_add, core_any_width, core_int_scatter_add
+            return self._tail, self._core, self._core_int, self._core_f32
+        return (ell_tables_add, core_any_width, core_int_scatter_add,
+                core_f32_scatter_add)
 
     def _check_x(self, x):
         if x.dim() != 2 or x.shape[0] != self.ncols:
             raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
         if x.dtype not in PAYLOADS:
             raise TypeError(
-                f"the {self.config.backend} product takes a float32, int8, "
-                f"int16 or int32 payload, got {x.dtype} (bfloat16 and int64 "
-                "payloads are not ported)"
-            )
+                f"the {self.config.backend} product takes a float32, "
+                f"bfloat16, int8, int16, int32 or int64 payload, got "
+                f"{x.dtype}")
 
     def _run(self, x, dev, plain=False, safe=None, limbs=None):
         """``A @ x`` into a fresh float32 (N, H). An integer x, or a
         float32 x with ``safe`` (rounded to ``round(x / safe)`` in the tail
-        and the core), takes the integer core with ``limbs`` (default
-        :data:`RAW_LIMBS` of x's dtype)."""
+        and the core), takes an int8 or int4 core's integer product with
+        ``limbs`` (default :data:`RAW_LIMBS` of x's dtype)."""
         self._check_x(x)
-        tail_fn, core_fn, int_fn = self._kernels(dev, plain)
+        kernels = self._kernels(dev, plain)
         out = torch.zeros((self.nrows, x.shape[1]), dtype=torch.float32,
                           device=x.device)
         if safe is None:
-            tail_fn(x, self.ell_tables(dev), out)
+            kernels[0](x, self.ell_tables(dev), out)
         else:
-            tail_fn(x, self.ell_tables(dev), out, safe=safe)
+            kernels[0](x, self.ell_tables(dev), out, safe=safe)
         if self.stair:
-            self._core_add(x, dev, out, core_fn, int_fn, safe, limbs)
+            self._core_add(x, dev, out, kernels, safe, limbs)
         return out
 
     def _xc(self, x, cn):
@@ -806,19 +880,41 @@ class PreparedSpmm:
             xc = torch.nn.functional.pad(xc, (0, 0, 0, w_max - xc.shape[0]))
         return xc
 
-    def _core_add(self, x, dev, out, core_fn, int_fn, safe=None, limbs=None):
-        """The core tier of :meth:`_run` into ``out``: the rank gather,
-        then K-core (float32 x) or K-int (integer x, or ``safe``)."""
+    def _core_add(self, x, dev, out, kernels, safe=None, limbs=None):
+        """The core tier of :meth:`_run` into ``out``: the rank gather
+        ``xc`` (rounded to ``round(xc / safe)`` where ``safe`` is given),
+        then the product of the reference's ``_core_matmul`` for this core
+        and payload (``pygim_tpu/ops/spmm.py:586-630``) through ``kernels``
+        (:meth:`_kernels`):
+
+        ========== ======================== =====================
+        core       payload                  kernel, product
+        ========== ======================== =====================
+        int8, int4 float32, bfloat16        K-core, ``bf16(xc)``
+        int8, int4 int8, int16, int32       K-int, exact int32
+        bfloat16   float32, bfloat16, int8  K-core bf16, ``bf16(xc)`` (exact for int8)
+        bfloat16   int16, int32             K-f32, both in f32
+        float32    any                      K-f32, ``f32(xc)``
+        ========== ======================== =====================
+
+        A float64 core (a float64 graph with ``hybrid_dtype`` None) holds
+        f32 cells, so it is the float32 row."""
+        _tail_fn, core_fn, int_fn, f32_fn = kernels
         cn = dev["core_nodes"]
         bands = [dev[k] for k in self._band_keys]
-        if x.dtype == torch.float32 and safe is None:
-            return core_fn(bands, self._xc(x, cn).to(torch.bfloat16), cn,
-                           self.stair, out)
         xc = self._xc(x, cn)
         if safe is not None:
             xc = torch.round(xc / safe).to(torch.int32)
-        return int_fn(bands, xc, cn, self.stair, out,
-                      limbs=limbs or RAW_LIMBS[xc.dtype])
+        if self.core_dtype in INT_CORES:
+            if xc.is_floating_point():
+                return core_fn(bands, xc.to(torch.bfloat16), cn, self.stair,
+                               out)
+            return int_fn(bands, xc, cn, self.stair, out,
+                          limbs=limbs or RAW_LIMBS[xc.dtype])
+        if self.core_dtype == "bfloat16" and (
+                xc.is_floating_point() or xc.dtype == torch.int8):
+            return core_fn(bands, xc.to(torch.bfloat16), cn, self.stair, out)
+        return f32_fn(bands, xc, cn, self.stair, out)
 
     @property
     def supports_fused_quant(self) -> bool:
@@ -840,10 +936,14 @@ class PreparedSpmm:
             raise ValueError(f"fused quantization unsupported for backend "
                              f"{self.config.backend!r}")
         name = dtype_name(agg_dtype)
+        if name == "int64":
+            # x64 off: int64 is int32, and its scale exponent is int32's
+            # (_SCALE_EXP.get(name, 20), pygim_tpu/ops/spmm.py:1574)
+            name = "int32"
         if name not in _SCALE_EXP:
             raise NotImplementedError(
-                f"fused quantization to {name!r}: int8, int16 and int32 are "
-                "ported (int64 and the float passthrough are not)"
+                f"fused quantization to {name!r}: int8, int16, int32 and "
+                "int64 are ported (the float passthrough is not)"
             )
         if x.dtype != torch.float32:
             raise TypeError(f"quantized aggregation takes a float32 x, got "
@@ -874,14 +974,19 @@ class PreparedSpmm:
         * ``gather_time`` — :func:`gather_only` over every ELL table's
           column steps (ell, hybrid);
         * ``tail_time`` — K-tail alone into a zero output (ell, hybrid);
-        * ``core_time`` — the rank gather and K-core (K-int for an integer
-          x) alone into a zero output (hybrid).
+          its mode follows x (f32 rows, bf16 rows, integer rows);
+        * ``core_time`` — the rank gather and the core's product alone into
+          a zero output (hybrid): K-core (int8 or int4 cells, or bf16
+          cells with a float or int8 x), K-int (int8 or int4 cells with an
+          integer x) or K-f32 (f32 cells, or bf16 cells with an int16 or
+          int32 x), as :meth:`_core_add` dispatches.
 
         The phases overlap the product's work; they are no sum of it."""
         d = self._dev
         out = {"mul_time(ms)": device_time(self.mul, x, iters=iters) * 1e3}
         if self.config.backend in ("oracle", "blocked"):
             return out
+        x = as_payload(x)
         self._check_x(x)
         tables = self.ell_tables(d)
 
@@ -895,9 +1000,9 @@ class PreparedSpmm:
         out["tail_time(ms)"] = device_time(
             lambda: self._tail(x, tables, zeros()), iters=iters) * 1e3
         if self.stair:
+            kernels = self._kernels(d, plain=False)
             out["core_time(ms)"] = device_time(
-                lambda: self._core_add(x, d, zeros(), self._core,
-                                       self._core_int),
+                lambda: self._core_add(x, d, zeros(), kernels),
                 iters=iters) * 1e3
         return out
 
@@ -911,11 +1016,13 @@ class SpmmFunction(torch.autograd.Function):
     kernels on :meth:`PreparedSpmm.transpose`. The port's counterpart of
     JAX's autodiff through the reference's ``raw_mul``.
 
-    Numerics of the core (hybrid): the reference's autodiff of
-    ``bf16(band) @ bf16(xc)`` computes each band's transposed product,
-    rounds it to bf16 and adds the bands' shares in bf16; K-core on Aᵀ
-    rounds ``g`` to bf16 once, before its product, and sums in f32. Each
-    core term stays within 2^-8 relative of the exact ``Aᵀ @ g``. The tail
+    Numerics of the core (hybrid): on int8, int4 and bf16 cells the
+    reference's autodiff of ``bf16(band) @ bf16(xc)`` computes each
+    band's transposed product, rounds it to bf16 and adds the bands'
+    shares in bf16; K-core on Aᵀ rounds ``g`` to bf16 once, before its
+    product, and sums in f32. Each core term stays within 2^-8 relative
+    of the exact ``Aᵀ @ g``. On f32 cells both sides are f32 products
+    (K-f32 on Aᵀ), differing in summation order only. The tail
     is f32 on both sides; K-tail adds hub pieces with atomics, so two
     backward passes on the card may differ in the last bits."""
 

@@ -41,9 +41,9 @@ def card_line() -> str:
 def core_bound(shapes, h, peaks_, cell_bytes: float = 1.0):
     """Least time of one K-core launch over bands ``(r, w)`` at width
     ``h``: the larger of its bytes over HBM (every band at ``cell_bytes``
-    a cell — 1 for int8, 0.5 for packed int4 —, ``xc[:max w]``, the row
-    ids, and the output rows read and written, each once) and its
-    operations over the bf16 rate. The bands share the launch, so one
+    a cell — 1 for int8, 0.5 for packed int4, 2 for bf16 —,
+    ``xc[:max w]``, the row ids, and the output rows read and written,
+    each once) and its operations over the bf16 rate. The bands share the launch, so one
     band's bytes overlap another's products. Returns (ms, "bytes" |
     "operations")."""
     hbm, bf16, _f32, _int8 = peaks_
@@ -82,4 +82,23 @@ def tail_bound(nnz, unique_cols, unique_rows, h, peaks_, itemsize=4):
     hbm, _bf16, f32, _int8 = peaks_
     nbytes = nnz * 8 + unique_cols * h * itemsize + 2 * unique_rows * h * 4
     t_bytes, t_ops = nbytes / hbm * 1e3, 2 * nnz * h / f32 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def f32_bound(shapes, h, peaks_, cell_bytes: float = 4.0,
+              x_itemsize: float = 4.0):
+    """Least time of one K-f32 launch over bands ``(r, w)`` at width ``h``:
+    the larger of its bytes over HBM (every band at ``cell_bytes`` a cell
+    — 4 for f32, 2 for bf16 —, ``xc[:max w]`` at ``x_itemsize`` bytes an
+    element, the row ids, and the output rows read and written, each
+    once) and its operations (``2 · r · w · h``) over the card's f32 rate
+    outside the tensor cores (the kernel runs no TF32). Returns (ms,
+    "bytes" | "operations")."""
+    hbm, _bf16, f32, _int8 = peaks_
+    rows = sum(r for r, _w in shapes)
+    nbytes = (sum(r * w for r, w in shapes) * cell_bytes
+              + max(w for _r, w in shapes) * h * x_itemsize + rows * 4
+              + 2 * rows * h * 4)
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = sum(2 * r * w * h for r, w in shapes) / f32 * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"

@@ -4,18 +4,17 @@ of ``spmm_test.py``: the same flags and defaults, the same ``[DATA]``
 lines. ``--version spmm|grande|spmv`` prepare the single-card ``ell``
 operand (an ``sp_parts × ds_parts`` above one prints the reference's
 ``[WARN] ... running single-chip``); ``--version cpu`` runs the oracle.
-A mesh that fits more than one visible card, ``--tune`` and
-``--data_type bfloat16|int64`` are not ported and raise
-``NotImplementedError``; ``--lib_path`` and ``--nr_dpus`` are accepted
-and ignored. Runs on the card; ``main(argv, device="cpu")`` runs the
+Every ``--data_type`` of the reference runs: ``bfloat16`` through
+K-tail's bf16-row mode, ``int64`` as int32 (the reference with x64
+off), ``float64`` as float32. A mesh that fits more than one visible
+card and ``--tune`` are not ported and raise ``NotImplementedError``;
+``--lib_path`` and ``--nr_dpus`` are accepted and ignored. Runs on the card; ``main(argv, device="cpu")`` runs the
 plain versions on the CPU (the tests).
 
     python3 spmm_test_cuda.py --dataset ogbn-arxiv
 """
 
 import argparse
-
-UNPORTED_DTYPES = ("bfloat16", "int64")
 
 
 def get_args(argv=None):
@@ -46,10 +45,6 @@ def check_ported(args) -> None:
     if args.tune:
         raise NotImplementedError("--tune is not ported (the autotuner comes "
                                   "with a later slice)")
-    if args.data_type in UNPORTED_DTYPES:
-        raise NotImplementedError(
-            f"--data_type {args.data_type} is not ported (int8, int16, "
-            "int32, float32 and float64 are)")
 
 
 def main(argv=None, *, device="cuda"):

@@ -1,8 +1,9 @@
 """The GIN and SAGE convs of the PyTorch port against the JAX package on
 the CPU: evaluation forwards of the 2-layer models through the oracle,
 ell, blocked and stair-int8 backends with the JAX parameters carried
-across, the state-dict layout of their pytrees, and the planted dataset
-the training parity runs on.
+across, with float and with int8, int16 and int32 aggregation, the
+state-dict layout of their pytrees, and the planted dataset the training
+parity runs on.
 
 Tolerance for logits: the two packages' products differ only in f32
 summation order (the hybrid's core rounds its payload to bf16 on both
@@ -53,6 +54,37 @@ def test_eval_forward_matches_jax(conv, backend):
     with torch.inference_mode():
         got = carried(jgnn, conv)(torch.from_numpy(x),
                                   tspmm.PreparedAggregate(tp)).numpy()
+    mag = max(1.0, float(np.abs(want).max()))
+    assert got.shape == want.shape == (N, C)
+    assert np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 1e-5 * mag
+
+
+@pytest.mark.parametrize("agg_dtype", ["int8", "int16", "int32"])
+@pytest.mark.parametrize("backend", list(BACKENDS))
+@pytest.mark.parametrize("conv", ["gin", "sage"])
+def test_eval_forward_quantized_matches_jax(conv, backend, agg_dtype):
+    """The same forwards with quantized aggregation: the fused hook on
+    the ell and hybrid backends, the unfused round trip on the oracle and
+    blocked ones, in both packages. A reordered f32 sum can move a
+    rounded value by one quantization step (2^-k of 2·max|h|), which the
+    dense layers carry: the same 1e-5 of the logits' magnitude."""
+    rows, cols, vals = small_graph()
+    cfg = BACKENDS[backend]
+    jp = jspmm.prepare_spmm(
+        jgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
+        jspmm.SpmmConfig(**cfg))
+    tp = tspmm.prepare_spmm(
+        tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
+        tspmm.SpmmConfig(**cfg), device="cpu")
+    jgnn = jmake_gnn(jax.random.key(4), conv, F, H, C, num_layers=2,
+                     agg_dtype=agg_dtype)
+    x = np.random.default_rng(2).standard_normal((N, F)).astype(np.float32)
+    want = np.asarray(jgnn.apply(jnp.asarray(x), jspmm.PreparedAggregate(jp)))
+    model = carried(jgnn, conv)
+    model.agg_dtype = agg_dtype
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x), tspmm.PreparedAggregate(tp)).numpy()
     mag = max(1.0, float(np.abs(want).max()))
     assert got.shape == want.shape == (N, C)
     assert np.isfinite(got).all()

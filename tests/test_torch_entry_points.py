@@ -95,10 +95,21 @@ def test_float64_runs_as_float32(capsys):
 @pytest.mark.parametrize("main,argv,what", [
     (spmm_test_cuda.main, ["--tune"], "--tune"),
     (inference_cuda.main, ["--tune"], "--tune"),
-    (spmm_test_cuda.main, ["--data_type", "bfloat16"], "bfloat16"),
-    (inference_cuda.main, ["--data_type", "int64"], "int64"),
+    (spmm_test_cuda.main, ["--data_type", "bfloat16"], None),
+    (inference_cuda.main, ["--data_type", "int64"], None),
 ], ids=["spmm-tune", "infer-tune", "bf16", "int64"])
-def test_unported_flags_raise(main, argv, what):
+def test_unported_flags_raise(capsys, main, argv, what):
+    """``--tune`` is not ported and raises, naming itself; the bfloat16
+    and int64 payloads, refused before the bf16 and f32 cores came, now
+    run (a bf16 SpMM checked against float64; an int64-quantized forward,
+    int32 as in the reference with x64 off)."""
+    if what is None:
+        out, got = run(capsys, main, ["--dataset", "tiny", "--repeat", "1",
+                                      *argv], device="cpu")
+        assert f"data_type='{argv[1]}'" in out
+        assert got.get("verify", ["OK"]) == ["OK"]
+        assert (got.get("pim_time_spmm(ms)") or got["infer_time(ms)"])[0] > 0
+        return
     with pytest.raises(NotImplementedError, match="not ported") as e:
         main(["--dataset", "tiny", *argv], device="cpu")
     assert what in str(e.value)
@@ -253,13 +264,18 @@ def test_bench_cuda_line_has_bench_keys():
 
 
 def test_bench_cuda_skips_unported_candidates(capsys, bench_env):
-    """A pinned bf16 square core is the only candidate: it is skipped with
-    a line, and nothing is measured; unpinned, the stair candidates run."""
+    """A pinned bf16 square core, skipped before the bf16 core was
+    ported, is now the one candidate measured (K-core's bf16 mode, its
+    plain version here), checked against float64; unpinned, the stair
+    candidates run."""
     bench_env.setenv("PYGIM_BENCH_CORE_SHAPE", "square")
     bench_env.setenv("PYGIM_BENCH_CORE_DTYPE", "bfloat16")
-    with pytest.raises(RuntimeError, match="no candidate"):
-        bench_cuda.main(device="cpu")
-    assert "skipped, not ported" in capsys.readouterr().err
+    res = bench_cuda.main(device="cpu")
+    assert (res["config"].hybrid_dtype, res["config"].hybrid_shape) == (
+        "bfloat16", "square")
+    assert res["prep"].dev_arrays["core"].dtype == torch.bfloat16
+    err = capsys.readouterr().err
+    assert "skipped, not ported" not in err and "verify: OK" in err
     bench_env.delenv("PYGIM_BENCH_CORE_SHAPE")
     bench_env.delenv("PYGIM_BENCH_CORE_DTYPE")
     bench_env.setenv("PYGIM_BENCH_MEASURE_TOP", "2")
@@ -270,7 +286,8 @@ def test_bench_cuda_skips_unported_candidates(capsys, bench_env):
 
 def test_bench_cuda_float_graph_has_no_candidate(bench_env, capsys):
     """A fractional-valued graph keeps only the bf16 cores (bench.py's
-    filter), which the port lacks: all skipped, no line."""
+    filter), which had no candidate the port could run; now the first of
+    them (square bf16 at 12 GiB) is measured and prints the line."""
     from pygim_tpu_torch import data
 
     real = data.load_dataset
@@ -281,10 +298,13 @@ def test_bench_cuda_float_graph_has_no_candidate(bench_env, capsys):
         return ds
 
     bench_env.setattr(data, "load_dataset", fractional)
-    with pytest.raises(RuntimeError, match="no candidate"):
-        bench_cuda.main(device="cpu")
+    res = bench_cuda.main(device="cpu")
+    cfg = res["config"]
+    assert (cfg.hybrid_dtype, cfg.hybrid_core_bytes, cfg.hybrid_shape) == (
+        "bfloat16", 12 << 30, "square")
     cap = capsys.readouterr()
-    assert cap.err.count("skipped, not ported") == 3 and cap.out == ""
+    assert "skipped" not in cap.err and "verify: OK" in cap.err
+    assert json.loads(cap.out.strip().splitlines()[-1]) == res["line"]
 
 
 def test_bench_cuda_out_of_memory_moves_on(bench_env, capsys):

@@ -1,7 +1,10 @@
-"""The PyTorch port stands alone: importing it loads neither JAX nor the
-JAX package, and no file of it (or chip_smoke.py, or the entry scripts
-bench_cuda.py, spmm_test_cuda.py, inference_cuda.py, train_cuda.py)
-imports either; train_cuda.py's main on the CPU loads neither."""
+"""The PyTorch port stands alone: importing it loads neither JAX, nor
+``ml_dtypes`` (which comes with JAX and not with the packages of the
+machine with the card), nor the JAX package, and no file of it (or
+chip_smoke.py, or the entry scripts bench_cuda.py, spmm_test_cuda.py,
+inference_cuda.py, train_cuda.py) imports any of them; train_cuda.py's
+main on the CPU loads none. The package namespaces re-export the names
+the reference's do, where the port has them."""
 
 import ast
 import os
@@ -19,11 +22,13 @@ MODULES = [
     "pygim_tpu_torch.core.graph",
     "pygim_tpu_torch.core.partition",
     "pygim_tpu_torch.core.stair",
+    "pygim_tpu_torch.core.banded",
     "pygim_tpu_torch.data",
     "pygim_tpu_torch.ops",
     "pygim_tpu_torch.ops._build",
     "pygim_tpu_torch.ops.core_dot",
     "pygim_tpu_torch.ops.core_int",
+    "pygim_tpu_torch.ops.core_f32",
     "pygim_tpu_torch.ops.ell_tail",
     "pygim_tpu_torch.ops.reference",
     "pygim_tpu_torch.ops.spmm",
@@ -50,15 +55,32 @@ MODULES = [
 
 def _forbidden(name: str) -> bool:
     return (name == "jax" or name.startswith("jax.")
+            or name == "ml_dtypes" or name.startswith("ml_dtypes.")
             or name == "pygim_tpu" or name.startswith("pygim_tpu."))
+
+
+# the reference's package-level names (pygim_tpu/__init__.py,
+# core/__init__.py, ops/__init__.py) the port defines, by namespace
+REEXPORTS = {
+    "pygim_tpu_torch": ["CooGraph", "CsrGraph"],
+    "pygim_tpu_torch.core": ["CooGraph", "CsrGraph", "coo_to_csr",
+                             "RowBlockPlan", "plan_row_blocks"],
+    "pygim_tpu_torch.ops": ["spmm_coo_oracle", "spmm_csr_oracle",
+                            "PreparedSpmm", "prepare_spmm"],
+}
 
 
 def test_import_loads_no_jax_and_no_reference_package():
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'pygim_tpu' or m.startswith('pygim_tpu.')]\n"
+        f"for ns, names in {REEXPORTS!r}.items():\n"
+        "    m = importlib.import_module(ns)\n"
+        "    missing = [n for n in names if not hasattr(m, n)]\n"
+        "    assert not missing, (ns, missing)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes',"
+        " 'pygim_tpu') or m.startswith(('jax.', 'ml_dtypes.',"
+        " 'pygim_tpu.'))]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -68,6 +90,25 @@ def test_import_loads_no_jax_and_no_reference_package():
         capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_reexports_are_the_ports_own():
+    """Queue 3 item 1: each re-exported name is the port's object, the
+    same one its defining module holds."""
+    import pygim_tpu_torch
+    from pygim_tpu_torch import core, ops
+    from pygim_tpu_torch.core import graph, partition
+    from pygim_tpu_torch.ops import reference
+
+    assert pygim_tpu_torch.CooGraph is graph.CooGraph
+    assert pygim_tpu_torch.CsrGraph is graph.CsrGraph
+    assert core.RowBlockPlan is partition.RowBlockPlan
+    assert core.plan_row_blocks is partition.plan_row_blocks
+    assert ops.spmm_coo_oracle is reference.spmm_coo_oracle
+    assert ops.spmm_csr_oracle is reference.spmm_csr_oracle
+    for ns in REEXPORTS:
+        mod = __import__(ns, fromlist=["_"])
+        assert set(REEXPORTS[ns]) <= set(dir(mod)), ns
 
 
 def test_train_cuda_loads_no_jax():

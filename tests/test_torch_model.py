@@ -159,7 +159,9 @@ def test_quantized_aggregate_unfused_matches(agg_dtype):
 def test_integer_aggregate_on_hybrid_names_kint_slice():
     """The int32 aggregate on the hybrid runs the K-int slice's fused hook
     (``PreparedAggregate.quantized``), bit-identical to the unfused round
-    trip through ``prep.mul``; an unported dtype names itself."""
+    trip through ``prep.mul``; int64 is the int32 path (x64 off, as the
+    reference), bit for bit; the float passthrough, which no entry point
+    reaches, names itself."""
     rows, cols, vals = make_graph("multigraph")
     tp = tspmm.prepare_spmm(
         tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
@@ -171,8 +173,10 @@ def test_integer_aggregate_on_hybrid_names_kint_slice():
         unfused = m(x, tp.mul)
     assert fused.shape == (N, C) and torch.isfinite(fused).all()
     assert torch.equal(fused, unfused)
-    with pytest.raises(NotImplementedError, match="int64"):
-        tspmm.PreparedAggregate(tp).quantized(x, "int64")
+    agg = tspmm.PreparedAggregate(tp)
+    assert torch.equal(agg.quantized(x, "int64"), agg.quantized(x, "int32"))
+    with pytest.raises(NotImplementedError, match="float32"):
+        agg.quantized(x, "float32")
 
 
 def run_captured(capsys, fn, *a, **kw):
@@ -204,8 +208,13 @@ def test_run_spmm_benchmark_cpu(capsys):
     for k in ("pim_time_spmm(ms)", "spmm_effective_GBps",
               "spmm_effective_GBps_unique", "load_sparse_time(ms)"):
         assert k in parsed, k
-    with pytest.raises(NotImplementedError):
-        run_spmm_benchmark(ds, dtype="int64", device="cpu")
+    # int64, refused before PR 11 ported it, runs as int32; float16,
+    # which the reference does not take either, is refused
+    assert run_spmm_benchmark(ds, dtype="int64", hidden=8,
+                              config=tspmm.SpmmConfig(**KW), repeat=1,
+                              device="cpu")["verify"] == "OK"
+    with pytest.raises(ValueError):
+        run_spmm_benchmark(ds, dtype="float16", device="cpu")
 
 
 @pytest.mark.parametrize("key,value", [("pim_time_spmm(ms)", 12.345678),

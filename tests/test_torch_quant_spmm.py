@@ -332,14 +332,21 @@ def test_integer_mul_full_range_matches_jax(dtype):
 
 
 def test_quantized_hook_raises_on_unported_dtypes():
+    """The float passthrough (a float ``agg_dtype``), which no entry
+    point reaches, and a float64 x still raise; int64, refused before
+    the int64 payload was ported, is now the int32 path (x64 off, as the
+    reference) in the hook and in ``mul``."""
     _g, _jp, tp = both_preps("multigraph")
     agg = tspmm.PreparedAggregate(tp)
-    with pytest.raises(NotImplementedError, match="int64"):
-        agg.quantized(torch.zeros(N, 8), "int64")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (N, 8)).astype(np.float32))
+    with pytest.raises(NotImplementedError, match="float32"):
+        agg.quantized(x, "float32")
+    assert torch.equal(agg.quantized(x, "int64"), agg.quantized(x, "int32"))
     with pytest.raises(TypeError):
         agg.quantized(torch.zeros(N, 8, dtype=torch.float64), "int8")
-    with pytest.raises(TypeError):
-        tp.mul(torch.zeros(N, 8, dtype=torch.int64))
+    xi = torch.randint(-99, 99, (N, 8), dtype=torch.int64)
+    assert torch.equal(tp.mul(xi), tp.mul(xi.to(torch.int32)))
     assert tp.supports_fused_quant
 
 
@@ -359,7 +366,12 @@ def test_run_spmm_benchmark_payloads(dtype, capsys):
 
 
 def test_run_spmm_benchmark_rejects_unported_payloads():
+    """bfloat16 and int64, refused before they were ported, now run with
+    their sampled-row check; a payload the reference does not take
+    (float16) is refused."""
     ds = load_dataset("tiny")
     for dtype in ("bfloat16", "int64"):
-        with pytest.raises(NotImplementedError):
-            run_spmm_benchmark(ds, dtype=dtype, device="cpu")
+        means = run_spmm_benchmark(ds, dtype=dtype, repeat=1, device="cpu")
+        assert means["verify"] == "OK"
+    with pytest.raises(ValueError, match="float16"):
+        run_spmm_benchmark(ds, dtype="float16", device="cpu")

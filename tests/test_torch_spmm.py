@@ -75,9 +75,17 @@ def test_payload_exact_in_bf16_is_exact():
     dict(hybrid_core_bytes=0, bcsr_bytes=1 << 20),
 ])
 def test_unported_configs_raise(over):
+    """The configurations the port does not run raise; the bf16, f32
+    and graph-dtype (None) cores, refused before PR 11 ported them, now
+    prepare with their cells."""
     rows, cols, vals = make_graph("multigraph")
     g = tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N)
     cfg = tspmm.SpmmConfig(**{**KW, **over})
+    if set(over) == {"hybrid_dtype"}:
+        tp = tspmm.prepare_spmm(g, cfg, device="cpu")
+        assert tp.core_dtype == (over["hybrid_dtype"] or "float32")
+        assert tp.stair
+        return
     with pytest.raises(NotImplementedError):
         tspmm.prepare_spmm(g, cfg, device="cpu")
 
@@ -91,18 +99,23 @@ def test_config_defaults_match_reference():
 
 
 def test_mul_rejects_other_payloads():
+    """A float64 or float16 x, a wrong row count and the quantized float
+    passthrough raise; the bfloat16 and int64 payloads, refused before
+    PR 11, now run (``tests/test_torch_float_payloads.py`` holds them to
+    JAX)."""
     rows, cols, vals = make_graph("multigraph")
     tp = tspmm.prepare_spmm(
         tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
         tspmm.SpmmConfig(**KW), device="cpu")
-    with pytest.raises(TypeError):
-        tp.mul(torch.zeros(N, 8, dtype=torch.bfloat16))
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(TypeError):
+            tp.mul(torch.zeros(N, 8, dtype=dtype))
     with pytest.raises(ValueError):
         tp.mul(torch.zeros(N - 1, 8))
-    with pytest.raises(TypeError):
-        tp.mul(torch.zeros(N, 8, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="int64"):
-        tspmm.PreparedAggregate(tp).quantized(torch.zeros(N, 8), "int64")
+    assert not tp.mul(torch.zeros(N, 8, dtype=torch.bfloat16)).any()
+    assert not tp.mul(torch.zeros(N, 8, dtype=torch.int64)).any()
+    with pytest.raises(NotImplementedError, match="float32"):
+        tspmm.PreparedAggregate(tp).quantized(torch.zeros(N, 8), "float32")
 
 
 @pytest.mark.parametrize("oracle", ["coo", "coo_chunked", "csr"])

@@ -225,9 +225,9 @@ def test_square_build_never_allocates_dense_f32():
 
 
 @pytest.mark.parametrize("over,error", [
-    (dict(hybrid_dtype="bfloat16"), NotImplementedError),
-    (dict(hybrid_dtype="float32"), NotImplementedError),
-    (dict(hybrid_dtype=None), NotImplementedError),
+    (dict(hybrid_dtype="bfloat16"), None),
+    (dict(hybrid_dtype="float32"), None),
+    (dict(hybrid_dtype=None), None),
     (dict(hybrid_shape="square", bcsr_bytes=1 << 20), NotImplementedError),
     (dict(hybrid_shape="stair", hybrid_k=512, bcsr_bytes=1 << 20),
      NotImplementedError),
@@ -235,8 +235,14 @@ def test_square_build_never_allocates_dense_f32():
 ], ids=["bf16", "f32", "float-None", "square-bcsr", "pinned-stair-bcsr",
         "unknown-shape"])
 def test_check_supported_raises(over, error):
+    """The configurations the port still refuses raise; the bf16, f32
+    and graph-dtype (None) cores, refused before this slice, now pass
+    (``tests/test_torch_float_cores.py`` runs them)."""
     cfg = tspmm.SpmmConfig(**{**config_kw("square", "int8", "budget"),
                               **over})
+    if error is None:
+        cfg.check_supported()
+        return
     with pytest.raises(error):
         cfg.check_supported()
 
@@ -250,10 +256,26 @@ def test_stair_ignores_bcsr_bytes():
 
 def test_integer_graph_with_no_core_dtype_raises():
     """The reference turns ``hybrid_dtype=None`` on an integer graph into
-    a bf16 core, which the port does not have."""
+    a bf16 core, written back into the operand's config; the port, which
+    refused it before it had a bf16 core, does the same, with the
+    reference's tables. A float32 core on an integer graph still raises
+    the reference's ValueError."""
     rows, cols, vals = make_graph("multigraph")
-    g = tgraph.CooGraph.from_edges(rows, cols, vals.astype(np.int32),
-                                   nrows=N, ncols=N, dtype="int32")
-    with pytest.raises(NotImplementedError):
-        tspmm.prepare_spmm(g, tspmm.SpmmConfig(backend="hybrid"),
+    kw = dict(nrows=N, ncols=N, dtype="int32")
+    g = tgraph.CooGraph.from_edges(rows, cols, vals.astype(np.int32), **kw)
+    tp = tspmm.prepare_spmm(g, tspmm.SpmmConfig(backend="hybrid"),
+                            device="cpu")
+    jp = jspmm.prepare_spmm(
+        jgraph.CooGraph.from_edges(rows, cols, vals.astype(np.int32), **kw),
+        jspmm.SpmmConfig(backend="hybrid"))
+    assert tp.config.hybrid_dtype == jp.config.hybrid_dtype == "bfloat16"
+    assert tp.core_dtype == "bfloat16"
+    assert tp.dev_arrays["core"].dtype == torch.bfloat16
+    k = jp.hybrid_k_eff
+    np.testing.assert_array_equal(
+        tp.dev_arrays["core"].view(torch.int16).numpy().view(np.uint16)[:, :k],
+        np.asarray(jp.dev_arrays["core"]).view(np.uint16))
+    with pytest.raises(ValueError, match="bfloat16, int8 or int4"):
+        tspmm.prepare_spmm(g, tspmm.SpmmConfig(backend="hybrid",
+                                               hybrid_dtype="float32"),
                            device="cpu")

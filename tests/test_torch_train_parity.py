@@ -2,11 +2,11 @@
 ``tests/test_training_parity.py``: the same initialisation trained twice
 with the same dropout seeds, through a backend under test and through
 the oracle, must learn the same function (``run_training_benchmark``,
-the reference's assertions and tolerances). The hybrid twin runs on the
-stair-int8 core, the port's rounded core (the reference's runs on a bf16
-core, which the port does not have yet), with the reference's hybrid
-``acc_tol`` of 0.03. Also: a checkpoint round trip that resumes
-training bit for bit, and ``train_cuda.py`` on the CPU."""
+the reference's assertions and tolerances). The hybrid cases here run on
+the stair-int8 core with the reference's hybrid ``acc_tol`` of 0.03; the
+twin of the reference's own hybrid case, on a bf16 core, is in
+``tests/test_torch_float_train.py``. Also: a checkpoint round trip that
+resumes training bit for bit, and ``train_cuda.py`` on the CPU."""
 
 import sys
 from pathlib import Path
@@ -174,12 +174,18 @@ def test_train_cuda_on_the_cpu(capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,what", [
     (["--sp_parts", "2"], "mesh training"),
-    (["--backend", "hybrid"], "hybrid_dtype None"),
+    (["--backend", "hybrid"], None),
 ], ids=["mesh", "hybrid-default-core"])
-def test_train_cuda_unported_raise(argv, what):
-    """A mesh, and train.py's --backend hybrid, whose default core (the
-    graph's float dtype) the port does not have: NotImplementedError
-    with the reason, no other core picked."""
+def test_train_cuda_unported_raise(capsys, argv, what):
+    """A mesh is not ported: NotImplementedError with the reason. train.py's
+    --backend hybrid, refused until the port had its default core (the
+    graph's float dtype, f32 cells), now trains on it."""
+    if what is None:
+        _out, got = run_train(capsys, ["--dataset", "tiny", "--epochs", "2",
+                                       *argv])
+        assert got["epoch"] == [0.0, 1.0]
+        assert np.isfinite(got["train_loss"]).all()
+        return
     with pytest.raises(NotImplementedError, match=what):
         train_cuda.main(["--dataset", "tiny", "--epochs", "1", *argv],
                         device="cpu")

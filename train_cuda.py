@@ -6,12 +6,12 @@ running-statistic merges and dropout 0.5, an evaluation forward every 10
 epochs and at the last, and a checkpoint where ``--checkpoint`` names a
 directory (the model's and the optimizer's state). On the ``ell`` and
 ``hybrid`` backends the aggregate's backward runs the hand kernels on
-the prepared transpose. ``--sp_parts × --ds_parts`` above one (mesh
-training) raises ``NotImplementedError``, as does ``--backend hybrid``
-on a float graph: it builds ``SpmmConfig(backend="hybrid")``, whose
-default core (``hybrid_dtype=None``, the graph's float dtype) is not
-ported. Runs on the card; ``main(argv, device="cpu")`` runs the plain
-versions on the CPU (the tests).
+the prepared transpose; ``--backend hybrid`` builds
+``SpmmConfig(backend="hybrid")``, whose default core is the graph's own
+dtype (a square f32 core at 4 GiB on a float graph: K-f32 forward and
+backward). ``--sp_parts × --ds_parts`` above one (mesh training) raises
+``NotImplementedError``. Runs on the card; ``main(argv, device="cpu")``
+runs the plain versions on the CPU (the tests).
 
     python3 train_cuda.py --dataset planted-20000-240000-8 --epochs 10
 """
