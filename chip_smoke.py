@@ -23,11 +23,13 @@ safe)`` for seven divisors, two of them the int32 forward's own). The
 int4 modes of K-core and K-int (nibble-packed bands): ragged packed
 bands with every nibble value, at one to four limbs; the square int4
 core of the smoke graph, whose tiles split their contraction across a
-cluster (the split and its schedule balance checked, and two K-core
+cluster (K-int) or across stream-K spans (K-core; the split and its
+schedule balance checked, and two K-core
 launches held bit-identical); and a 32768 × 65536-cell int4 scale band
 (1 GiB packed, whole contractions) on sampled rows. Both kernels again
-with every tile split in 2 and 4 chunks, forced, on ragged shapes, int8
-and int4 bands, K-int at one to four limbs. It checks
+on ragged shapes, int8 and int4 bands: K-int with every tile split in 2
+and 4 chunks, forced, at one to four limbs, and K-core on each of its two
+schedules, whole tiles and stream-K, forced. It checks
 ``prep.mul`` against ``mul_plain`` at widths the kernels' tiles do not
 divide, then drives the three main paths, each with the launch counts
 set to 0 before it and read after it — 2-layer GCN inference at hidden
@@ -60,11 +62,18 @@ end), never the user's.
 Then this slice's cores, on the same stand-in at the same budget: the
 bf16 square (k 11,520) and stair cores and the reference's default
 hybrid core, the graph's own dtype (an f32 square, k 8,192). K-core's
-bf16 mode, K-f32 and K-tail's bf16-row mode are held against their
-plain versions at ragged shapes and at these cores, and timed; then
-their main paths run, each counted: GCN forwards (float on all three,
-int32 and int8 on the bf16 square) and SpMMs (float32, a bfloat16
-payload on the bf16 square and on the stair int8 core, int64 on the bf16
+bf16 mode (its stream-K schedule forced on ragged bands and a ragged
+stair, two launches bit-identical, and chosen by the host model on both
+smoke cores), K-f32 on both of its routes on the tensor cores (3xTF32
+on f32 cells, payload limbs on bf16 cells; at any H, odd H included)
+and K-tail's bf16-row mode are held against their plain versions at
+ragged shapes and at these cores, and timed; K-f32's limbs are swept on
+integer bf16 × int16 and int32 sums up to and across 2^24, dense and
+sparse bands (short sums of large payloads, which reach every limb),
+bit-equal to the f32 dot below. Then their main paths run, each counted: GCN forwards
+(float on all three, int32 and int8 on the bf16 square) and SpMMs
+(float32, a float32 SpMM at H 41 on the f32 square, a bfloat16 payload
+on the bf16 square and on the stair int8 core, int64 on the bf16
 square), the forwards' logits and the float SpMMs against the plain
 versions. The entry scripts also run a bf16 square candidate of
 ``bench_cuda.py``, ``spmm_test_cuda.py --data_type bfloat16`` and
@@ -106,6 +115,7 @@ set from (``train_sweep``), and checks nothing.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -664,8 +674,8 @@ def int4_checks(prep4, x, results, scale_band=SCALE_BAND):
         if results[k]["split"] == [1] or results[k]["schedule_balance"] > 1.15:
             raise AssertionError(
                 f"{k} on the square core: split {results[k]['split']}, "
-                f"balance {results[k]['schedule_balance']} (want a split "
-                "and at most 1.15)")
+                f"balance {results[k]['schedule_balance']} (want a split, "
+                "or stream-K's split 0, and at most 1.15)")
     del cells, z, xc
     torch.cuda.empty_cache()
 
@@ -731,16 +741,18 @@ def split_band(r, w, packed, gen, dev):
 
 
 def split_checks(dev, results):
-    """K-core and K-int with every tile's contraction split across the
-    blocks of a cluster (forced: ``split`` 2 and 4), int8 and int4 bands,
-    against their plain versions: ragged shapes (rows below one 128-row
-    tile and not a multiple of it, widths not a multiple of split × 64,
-    so the last chunk ends in a ragged stage), K-core at H 8, 136 and
-    264, K-int at one and two limbs at H 8, 136 and 1100 (three and four
-    limbs, which never split, on the same shapes whole), shapes of many
-    tiles a cluster (the hand-over barriers' phases across tiles), a
-    stair of several bands, and an int32 wraparound at two limbs. K-core
-    within REL_TOL of the sum of |terms|, K-int ``torch.equal``."""
+    """K-core on each of its schedules, forced (whole tiles, split 1, and
+    stream-K, split 0, each tile cut across spans wherever they end), and
+    K-int with every tile's contraction split across the blocks of a
+    cluster (forced: ``split`` 2 and 4), int8 and int4 bands, against
+    their plain versions: ragged shapes (rows below one 128-row tile and
+    not a multiple of it, widths not a multiple of split × 64, so the
+    last chunk ends in a ragged stage), K-core at H 8, 136 and 264, K-int
+    at one and two limbs at H 8, 136 and 1100 (three and four limbs,
+    which never split, on the same shapes whole), shapes of many tiles a
+    cluster (the hand-over barriers' phases across tiles), a stair of
+    several bands, and an int32 wraparound at two limbs. K-core within
+    REL_TOL of the sum of |terms|, K-int ``torch.equal``."""
     import torch
 
     from pygim_tpu_torch.ops import core_dot, core_int
@@ -750,7 +762,7 @@ def split_checks(dev, results):
     shapes = ((37, 1312, 8), (100, 4128, 136), (300, 800, 264),
               (129, 288, 136), (4000, 1312, 264))
     for packed in (False, True):
-        for split in (2, 4):
+        for split in core_dot.SCHEDULES:
             for r, w, hh in shapes:
                 band = split_band(r, w, packed, g, dev)
                 xc = torch.randn(w + 5, hh, generator=g).to(dev,
@@ -769,6 +781,7 @@ def split_checks(dev, results):
                 check_close(f"K-core {'int4' if packed else 'int8'} split "
                             f"{split} {(r, w, hh)}", got, want, mag, REL_TOL)
                 n += 1
+        for split in (2, 4):  # K-int's cluster splits
             for limbs in (1, 2, 3, 4):
                 for r, w, hh in ((37, 1312, 8), (100, 4128, 136),
                                  (300, 800, 1100), (4000, 800, 1100)):
@@ -789,7 +802,8 @@ def split_checks(dev, results):
                               f"{plans[0].split} {(r, w, hh)} L={limbs}", got,
                               want)
                     n += 1
-        # several bands in one launch, each tile split in two
+        # several bands in one launch: K-core on each schedule, K-int with
+        # each tile split in two
         shp = [(421, 1312), (37, 256), (1300, 2080), (8, 128)]
         bands = [split_band(r, w, packed, g, dev) for r, w in shp]
         stair, lo = [], 0
@@ -799,15 +813,17 @@ def split_checks(dev, results):
         rows = torch.randperm(3 * lo, generator=g)[:lo].to(dev, torch.int32)
         xc = torch.randn(2080, 136, generator=g).to(dev, torch.bfloat16)
         z = torch.zeros(3 * lo, 136, device=dev)
-        plans = core_dot.core_plans(bands, stair, 136, split=2)
-        got = core_dot.core_bands_scatter_add(bands, xc, rows, stair,
-                                              z.clone(), plans=plans)
         want = core_dot.core_bands_plain(bands, xc, rows, stair, z.clone())
         mag = core_dot.core_bands_plain(
             [core_dot.band_cells(t).abs() for t in bands], xc.abs(), rows,
             stair, z.clone())
-        check_close(f"K-core {'int4' if packed else 'int8'} split 2, "
-                    f"{len(shp)} bands", got, want, mag, REL_TOL)
+        for split in core_dot.SCHEDULES:
+            plans = core_dot.core_plans(bands, stair, 136, split=split)
+            got = core_dot.core_bands_scatter_add(bands, xc, rows, stair,
+                                                  z.clone(), plans=plans)
+            check_close(f"K-core {'int4' if packed else 'int8'} split "
+                        f"{split}, {len(shp)} bands", got, want, mag, REL_TOL)
+            n += 1
         xq = int_payload(2080, 136, 1, g, dev)
         plans = core_int.core_int_plans(bands, stair, 136, 1, split=2)
         got = core_int.core_int_scatter_add(bands, xq, rows, stair,
@@ -815,7 +831,7 @@ def split_checks(dev, results):
         int_equal(f"K-int {'int4' if packed else 'int8'} split 2, "
                   f"{len(shp)} bands", got, core_int.core_int_plain(
                       bands, xq, rows, stair, z.clone()))
-        n += 2
+        n += 1
     # int32 wraparound in every chunk and in total: two limbs hold payloads
     # up to 32639, and 127 · 32639 · 4096 passes 2^31 many times over
     r, w, hh = 96, 4096, 72
@@ -2108,6 +2124,96 @@ def product_mag(prep, x):
     return mag
 
 
+def blocked_bound(prep, h, peaks_):
+    """Least time of one blocked SpMM (``ops/spmm.py:blocked_spmm``): the
+    larger of its bytes over HBM (every block's real entries, a column
+    index and a value each; each x row a block gathers, once a block; each
+    output row written once) and its multiply-adds over the f32 rate."""
+    import torch
+
+    hbm, _bf16, f32, _int8 = peaks_
+    d = prep.dev_arrays
+    real = d["vals"] != 0
+    rows_x = sum(int(torch.unique(c[m]).numel())
+                 for c, m in zip(d["colind"], real))
+    nnz = int(real.sum())
+    nbytes = nnz * 8 + rows_x * h * 4 + prep.nrows * h * 4
+    t_bytes, t_ops = nbytes / hbm * 1e3, 2 * nnz * h / f32 * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                entries=nnz, x_rows=rows_x)
+
+
+def launch_totals(core_f32) -> dict:
+    """K-f32's launch counters, by route."""
+    return {"3xTF32": core_f32.launches, "limbs": core_f32.limb_launches}
+
+
+def limb_sweep(dev, results):
+    """K-f32's limb route on integer sums up to and across 2^24: bf16 cells
+    of integer value in [-8, 8] × int16 and int32 payloads, column n of
+    the payload drawn from [-m_n, m_n] with m_n from 1 up to 2^31 - 1 and
+    2^15 - 1 (log-spaced), 4,096 terms a sum; a dense band, and a sparse
+    one (about four nonzero cells a row), whose short sums of large
+    payloads stay below 2^24 where the payload's top limb is not 0. Where
+    the sum of |terms| of an element stays below 2^24 every partial sum
+    is an integer below 2^24, so the reference's f32 dot
+    (``core_f32_plain``) is exact: the kernel must equal it bit for bit
+    there, whatever order the tensor cores' f32 accumulation takes;
+    elsewhere within REL_TOL of the sum of |terms|. The dense band must
+    reach both sides of 2^24, the sparse one elements below 2^24 whose
+    terms reach the top limb (the third, 2^22-scaled, for int32; the
+    second for int16)."""
+    import torch
+
+    from pygim_tpu_torch.ops import core_f32
+
+    g = torch.Generator(device="cpu").manual_seed(17)
+    r, w, hh = 512, 4096, 256
+    out = {}
+    for (pdt, top), layout in itertools.product(
+            ((torch.int16, 15), (torch.int32, 31)), ("dense", "sparse")):
+        cells = torch.randint(-8, 9, (r, w), generator=g)
+        if layout == "sparse":
+            cells *= torch.rand(r, w, generator=g) < 4 / w
+        band = cells.to(dev, torch.bfloat16)
+        m = torch.logspace(0, top * 0.30103, hh, dtype=torch.float64)
+        m = m.clamp(max=(1 << top) - 1).round().to(torch.int64)
+        xq = (torch.rand(w, hh, generator=g, dtype=torch.float64) * 2 - 1)
+        xq = (xq * m).round().to(pdt)
+        # elements with a term whose payload has a nonzero top limb
+        top_limb = core_f32.limbs(xq, core_f32.n_parts(torch.bfloat16,
+                                                       pdt))[-1] != 0
+        upper = ((cells != 0).double() @ top_limb.double() > 0).to(dev)
+        xq = xq.to(dev)
+        rows = torch.arange(r, dtype=torch.int32, device=dev)
+        z = torch.zeros(r, hh, device=dev)
+        stair = [(0, r, w)]
+        got = core_f32.core_f32_scatter_add([band], xq, rows, stair,
+                                            z.clone())
+        want = core_f32.core_f32_plain([band], xq, rows, stair, z.clone())
+        mag = band.double().abs() @ xq.double().abs()
+        below = mag < (1 << 24)
+        name = f"limb sweep {pdt} {layout}"
+        if layout == "dense" and (below.all() or not below.any()):
+            raise AssertionError(f"{name}: 2^24 not crossed")
+        if layout == "sparse" and not (below & upper).any():
+            raise AssertionError(f"{name}: no sum below 2^24 reaches the "
+                                 "top limb")
+        diff = got != want
+        if (diff & below).any():
+            raise AssertionError(
+                f"{name}: {int((diff & below).sum())} elements below 2^24 "
+                "differ from the f32 dot")
+        e = check_close(name, got, want, mag.float(), REL_TOL)
+        out[f"{pdt} {layout}"] = dict(
+            below=int(below.sum()), below_top_limb=int((below & upper).sum()),
+            above=int((~below).sum()),
+            unequal_above=int((diff & ~below).sum()), max_abs_err=e)
+    print(f"K-f32 limb sweep: {out}", flush=True)
+    results["limb sweep"] = out
+
+
 def float_core_checks(preps, x, results):
     """This slice's kernels against their plain versions, then timed at
     the smoke cores beside the bound, the plain version and a PyTorch
@@ -2115,14 +2221,16 @@ def float_core_checks(preps, x, results):
 
     * K-core's bf16 mode: ragged bands (rows off 128, widths multiples of
       16 but not of the 64-deep stage, H off the 256-column tile and
-      above it), each split forced to 2 and 4; the bf16 square core (k
-      11,520, split as chosen, two launches bit-identical) and the bf16
+      above it), as chosen and each schedule forced (whole tiles,
+      stream-K); the bf16 square core (k 11,520, schedule as chosen, two
+      launches bit-identical) and the bf16
       stair's bands in one launch;
     * K-f32: f32 and bf16 cells × f32, bf16, int8, int16 and int32
-      payloads at ragged shapes (any width, H 41 and 1100 as
-      ``mul_any_width``), the bf16 stair's bands with an int32 payload;
-      the f32 square core (k 8,192) with an f32 payload and the bf16
-      square with the int32 forward's payload range (|q| <= 2^19);
+      payloads at ragged shapes (H 41 and 1100 as ``mul_any_width``, an
+      unaligned ``out``), a band of a width TMA refuses raising, the bf16
+      stair's bands with an int32 payload; the f32 square core (k 8,192)
+      with an f32 payload, also at H 41, and the bf16 square with the
+      int32 forward's payload range (|q| <= 2^19);
     * K-tail's bf16-row mode: the ragged tables at H 36 and 41 (register
       path), 256 and 1104 (bulk copy), 256 unaligned (register path), and
       the bf16 square's tables.
@@ -2148,13 +2256,38 @@ def float_core_checks(preps, x, results):
         mag = out0.abs().index_add(
             0, rows, band.float().abs() @ xc[:w].float().abs())
         stair = [(0, r, w)]
-        for split in (None, 2, 4):
+        for split in (None, *core_dot.SCHEDULES):
             plans = core_dot.core_plans([band], stair, hh, split=split)
             got = core_dot.core_bands_scatter_add([band], xc, rows, stair,
                                                   out0.clone(), plans=plans)
             err = max(err, check_close(
                 f"K-core bf16 ragged {(r, w, hh)} split "
                 f"{plans[0].split}", got, want, mag, REL_TOL))
+            if split == core_dot.STREAM and not torch.equal(
+                    got, core_dot.core_bands_scatter_add(
+                        [band], xc, rows, stair, out0.clone(), plans=plans)):
+                raise AssertionError(f"K-core bf16 ragged {(r, w, hh)} "
+                                     "stream-K: two launches differ")
+    # a ragged stair of bf16 bands, stream-K forced: tiles cut across spans
+    shp = [(421, 5120), (37, 256), (1300, 2080), (8, 128), (176, 9984)]
+    bands = [torch.randn(r, w, generator=g).to(dev, torch.bfloat16)
+             for r, w in shp]
+    stair, lo = [], 0
+    for r, w in shp:
+        stair.append((lo, lo + r, w))
+        lo += r
+    rows = torch.randperm(3 * lo, generator=g)[:lo].to(dev, torch.int32)
+    xc = torch.randn(9984, 264, generator=g).to(dev, torch.bfloat16)
+    z = torch.zeros(3 * lo, 264, device=dev)
+    plans = core_dot.core_plans(bands, stair, 264, split=core_dot.STREAM)
+    got = core_dot.core_bands_scatter_add(bands, xc, rows, stair, z.clone(),
+                                          plans=plans)
+    want = core_dot.core_bands_plain(bands, xc, rows, stair, z.clone())
+    mag = core_dot.core_bands_plain([t.abs() for t in bands], xc.abs(), rows,
+                                    stair, z.clone())
+    err = max(err, check_close(f"K-core bf16 stream-K, {len(shp)} bands",
+                               got, want, mag, REL_TOL))
+    del bands, xc, z, got, want, mag, plans
 
     # the bf16 square core (one band, split as chosen), then the stair
     res = {}
@@ -2196,7 +2329,7 @@ def float_core_checks(preps, x, results):
             shapes=shapes, max_abs_err=e, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             tflops=sum(2 * r * w * h for r, w in shapes) / ms * 1e-9,
-            split=[p.split for p in plans],
+            split=[p.split for p in plans], grid=[p.grid for p in plans],
             schedule_balance=core_dot.schedule_balance(
                 prep.stair, h, counts, cell_bytes=2.0))
         del xws, z, plans
@@ -2204,14 +2337,21 @@ def float_core_checks(preps, x, results):
     results["K-core bf16"] = dict(res["bf16 square"], ragged_max_abs_err=err,
                                   stair=res["bf16 stair"])
 
-    # K-f32, ragged: every cell type and payload
+    # K-f32, ragged: every cell type and payload on both routes (3xTF32 on
+    # f32 cells, limbs on bf16 cells), widths on TMA's rule, odd and even H,
+    # an out whose rows are not 8-byte aligned (the element-wise epilogue)
     err = 0.0
     ranges = {torch.int8: 1 << 7, torch.int16: 1 << 15, torch.int32: 1 << 19}
+    n0 = launch_totals(core_f32)
     for cell in (torch.float32, torch.bfloat16):
+        q = core_f32.TC_WIDTH[cell]
         for pdt in (torch.float32, torch.bfloat16, torch.int8, torch.int16,
                     torch.int32):
-            for r, w, hh in ((37, 203, 41), (300, 1280, 256),
-                             (129, 517, 1100)):
+            for r, w, hh, unaligned in (
+                    (37, 50 * q, 41, False), (300, 1280, 256, False),
+                    (129, 129 * q, 1100, False), (37, 200, 42, False),
+                    (129, 520, 1102, False), (200, 4104, 8, False),
+                    (129, 65 * q, 40, True)):
                 band = torch.randn(r, w, generator=g).to(dev, cell)
                 if pdt in ranges:
                     m = ranges[pdt]
@@ -2223,15 +2363,30 @@ def float_core_checks(preps, x, results):
                                                                  torch.int32)
                 out0 = torch.randn(3 * r, hh, generator=g).to(dev)
                 stair = [(0, r, w)]
-                got = core_f32.core_f32_scatter_add([band], xc, rows, stair,
-                                                    out0.clone())
+                got = core_f32.core_f32_scatter_add(
+                    [band], xc, rows, stair,
+                    off_aligned(out0) if unaligned else out0.clone())
                 want = core_f32.core_f32_plain([band], xc, rows, stair,
                                                out0.clone())
                 mag = out0.abs().index_add(
                     0, rows, band.float().abs() @ xc[:w].float().abs())
                 err = max(err, check_close(
-                    f"K-f32 ragged {cell} x {pdt} {(r, w, hh)}", got, want,
-                    mag, REL_TOL))
+                    f"K-f32 ragged {cell} x {pdt} {(r, w, hh)}"
+                    f"{' unaligned' if unaligned else ''}", got, want, mag,
+                    REL_TOL))
+    n = launch_totals(core_f32)
+    if not all(n[k] > n0[k] for k in n):
+        raise AssertionError(f"K-f32 ragged: a route never ran ({n0} -> {n})")
+    band = torch.randn(37, 203, generator=g).to(dev)
+    try:
+        core_f32.core_f32_scatter_add(
+            [band], torch.randn(203, 41, device=dev),
+            torch.arange(37, dtype=torch.int32, device=dev), [(0, 37, 203)],
+            torch.zeros(37, 41, device=dev))
+    except ValueError as e:
+        print(f"K-f32, width 203: raises ({e})", flush=True)
+    else:
+        raise AssertionError("K-f32 took an f32 band of width 203")
     # the bf16 stair's bands, one launch, an int32 payload
     prep = preps["bf16 stair"]
     bands, cn = bands_of(prep), prep.dev_arrays["core_nodes"]
@@ -2246,22 +2401,27 @@ def float_core_checks(preps, x, results):
     err = max(err, check_close("K-f32 bf16 stair, int32 payload", got, want,
                                mag, REL_TOL))
     del got, want, mag
-    # timed: the f32 square with an f32 payload, the bf16 square with the
-    # int32 forward's payload range
+    limb_sweep(dev, results)
+    # timed: the f32 square with an f32 payload (3xTF32), the bf16 square
+    # with the int32 forward's payload range (limbs), and the f32 square at
+    # H 41 (a 41-class GCN's second aggregate: odd H)
     res = {}
-    for name, xdt in (("f32 square", torch.float32),
-                      ("bf16 square", torch.int32)):
-        prep = preps[name]
+    for name, key, xdt, hh in (("f32 square", "f32 square", torch.float32, h),
+                               ("bf16 square", "bf16 square", torch.int32, h),
+                               ("f32 square, H 41", "f32 square",
+                                torch.float32, 41)):
+        prep = preps[key]
         bands, cn = bands_of(prep), prep.dev_arrays["core_nodes"]
         (lo, hi, w), = prep.stair
         if xdt == torch.int32:
-            xc = torch.randint(-(1 << 19), 1 << 19, (w, h), generator=g,
+            xc = torch.randint(-(1 << 19), 1 << 19, (w, hh), generator=g,
                                dtype=torch.int32).to(dev)
         else:
             xc = torch.nn.functional.pad(
-                x.index_select(0, cn[:w]), (0, 0, 0, w - min(w, cn.numel())))
-        z = torch.zeros_like(x)
-        plans = core_f32.core_f32_plans(bands, prep.stair, h)
+                x[:, :hh].index_select(0, cn[:w]),
+                (0, 0, 0, w - min(w, cn.numel()))).contiguous()
+        z = torch.zeros(x.shape[0], hh, device=dev)
+        plans = core_f32.core_f32_plans(bands, prep.stair, hh)
         got = core_f32.core_f32_scatter_add(bands, xc, cn, prep.stair,
                                             z.clone(), plans=plans)
         want = core_f32.core_f32_plain(bands, xc, cn, prep.stair, z.clone())
@@ -2282,18 +2442,24 @@ def float_core_checks(preps, x, results):
             a32, x32)), iters=10)
         del a32, x32
         cell = bands[0].element_size()
-        bound_ms, bound_by = f32_bound([(hi - lo, w)], h, pk, cell,
-                                       xc.element_size())
-        ops = 2 * (hi - lo) * w * h
-        res[name] = dict(shape=[hi - lo, w, h], payload=str(xdt),
-                         max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, tflops=ops / ms * 1e-9,
+        products = core_f32.n_products(bands[0].dtype, xdt)
+        bound_ms, bound_by = f32_bound([(hi - lo, w)], hh, pk, cell,
+                                       xc.element_size(), products)
+        ffma_ms, _ = f32_bound([(hi - lo, w)], hh, pk, cell,
+                               xc.element_size(), None)
+        ops = 2 * (hi - lo) * w * hh
+        res[name] = dict(shape=[hi - lo, w, hh], payload=str(xdt),
+                         products=products, max_abs_err=e, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         ffma_bound_ms=ffma_ms, tflops=ops / ms * 1e-9,
                          share_of_bound=bound_ms / ms)
         del z, xc, plans
         torch.cuda.empty_cache()
     results["K-f32"] = dict(res["f32 square"], ragged_max_abs_err=err,
-                            bf16_int32=res["bf16 square"])
+                            h41=res["f32 square, H 41"])
+    results["K-f32 limbs"] = dict(res["bf16 square"], ragged_max_abs_err=err,
+                                  sweep=results.pop("limb sweep"))
 
     # K-tail's bf16 rows: ragged tables, then the bf16 square's tables
     n, host = ragged_tables()
@@ -2335,30 +2501,40 @@ def float_core_checks(preps, x, results):
 
 
 # The float cores' main paths, each driven with the launch counts at 0
-# just before it and read just after: (name, operand, [(runner, dtype)],
-# the kernels it must launch). The runners are run_inference_benchmark
-# (agg_dtype) and run_spmm_benchmark (payload dtype)
+# just before it and read just after: (name, operand, [(runner, dtype,
+# width)], the kernels it must launch). The runners are
+# run_inference_benchmark (agg_dtype; 2-layer GCN at HIDDEN) and
+# run_spmm_benchmark (payload dtype, at the width given). A SpMM at H 41
+# (reddit's class count: a 2-layer GCN's second aggregate) on the f32
+# square runs K-f32 at an odd H
 FLOAT_PATHS = (
     ("bf16 stair, float", "bf16 stair",
-     (("infer", None), ("spmm", "float32")), ("K-core bf16", "K-tail")),
+     (("infer", None, HIDDEN), ("spmm", "float32", HIDDEN)),
+     ("K-core bf16", "K-tail")),
     ("bf16 square, float", "bf16 square",
-     (("infer", None), ("spmm", "float32")), ("K-core bf16", "K-tail")),
+     (("infer", None, HIDDEN), ("spmm", "float32", HIDDEN)),
+     ("K-core bf16", "K-tail")),
     ("bf16 square, int32", "bf16 square",
-     (("infer", "int32"), ("spmm", "int32")), ("K-f32", "K-tail-quant")),
+     (("infer", "int32", HIDDEN), ("spmm", "int32", HIDDEN)),
+     ("K-f32 limbs", "K-tail-quant")),
     ("bf16 square, int8", "bf16 square",
-     (("infer", "int8"),), ("K-core bf16", "K-tail-quant")),
+     (("infer", "int8", HIDDEN),), ("K-core bf16", "K-tail-quant")),
     ("f32 square, float", "f32 square",
-     (("infer", None), ("spmm", "float32")), ("K-f32", "K-tail")),
+     (("infer", None, HIDDEN), ("spmm", "float32", HIDDEN)),
+     ("K-f32", "K-tail")),
+    ("f32 square, H 41", "f32 square",
+     (("spmm", "float32", 41),), ("K-f32", "K-tail")),
     ("bf16 payload, stair int8", "stair int8",
-     (("spmm", "bfloat16"),), ("K-core", "K-tail bf16")),
+     (("spmm", "bfloat16", HIDDEN),), ("K-core", "K-tail bf16")),
     ("bf16 payload, bf16 square", "bf16 square",
-     (("spmm", "bfloat16"),), ("K-core bf16", "K-tail bf16")),
+     (("spmm", "bfloat16", HIDDEN),), ("K-core bf16", "K-tail bf16")),
     ("int64 payload, bf16 square", "bf16 square",
-     (("spmm", "int64"),), ("K-f32", "K-tail-quant")),
+     (("spmm", "int64", HIDDEN),), ("K-f32 limbs", "K-tail-quant")),
 )
 # the path whose count each new kernel's ``launches`` reports
 FLOAT_PATH_OF = {"K-core bf16": "bf16 square, float",
                  "K-f32": "f32 square, float",
+                 "K-f32 limbs": "bf16 square, int32",
                  "K-tail bf16": "bf16 payload, bf16 square"}
 
 
@@ -2385,14 +2561,14 @@ def float_core_paths(ds, preps, results, device="cuda"):
         prep = preps[key]
         reuse = lambda g, c, p=prep: p  # noqa: E731
         reset_launch_counts()
-        for runner, dtype in runs:
+        for runner, dtype, width in runs:
             if runner == "infer":
                 run_inference_benchmark(
-                    ds, model="gcn", num_layers=2, hidden=HIDDEN,
+                    ds, model="gcn", num_layers=2, hidden=width,
                     agg_dtype=dtype, config=prep.config, repeat=10,
                     reporter=rep, prepare_fn=reuse, device=device)
             else:
-                run_spmm_benchmark(ds, hidden=HIDDEN, dtype=dtype,
+                run_spmm_benchmark(ds, hidden=width, dtype=dtype,
                                    config=prep.config, repeat=10,
                                    reporter=rep, prepare_fn=reuse,
                                    device=device)
@@ -2629,7 +2805,7 @@ def run() -> int:
     tail_quant_checks(prep, x, results)
     print(f"K-tail-quant: {results['K-tail-quant']}", flush=True)
     float_core_checks(fpreps, x, results)
-    for k in ("K-core bf16", "K-f32", "K-tail bf16"):
+    for k in ("K-core bf16", "K-f32", "K-f32 limbs", "K-tail bf16"):
         print(f"{k}: {results[k]}", flush=True)
     xf = torch.as_tensor(ds.x).cuda()
     gnns = {agg_dtype: make_gnn(0, "gcn", ds.x.shape[1], HIDDEN,
@@ -2721,9 +2897,12 @@ def run() -> int:
                        device="cuda")
     if rep.records["verify"][-1] != "OK":
         raise AssertionError("blocked (default config) SpMM check failed")
+    bound = blocked_bound(prepare_spmm(ds.graph, SpmmConfig(),
+                                       device="cuda"), HIDDEN,
+                          results["peaks"])
     print(f"blocked backend (config=None): verify OK, "
           f"{rep.records['pim_time_spmm(ms)'][-1]:.4f} ms a SpMM "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({time.perf_counter() - t0:.1f} s); bound {bound}", flush=True)
 
     for agg_dtype, gnn in gnns.items():
         logits_check(agg_dtype or "float", gnn, xf, prep, ds.num_classes)
@@ -2790,7 +2969,9 @@ def run() -> int:
                "K-core bf16": ("cuda", "pygim_tpu_torch/csrc/core_dot.cu",
                                "pygim_tpu/ops/spmm.py:630"),
                "K-f32": ("cuda", "pygim_tpu_torch/csrc/core_f32.cu",
-                         "pygim_tpu/ops/spmm.py:615"),
+                         "pygim_tpu/ops/spmm.py:630"),
+               "K-f32 limbs": ("cuda", "pygim_tpu_torch/csrc/core_f32.cu",
+                               "pygim_tpu/ops/spmm.py:615"),
                "K-tail bf16": ("cuda", "pygim_tpu_torch/csrc/ell_tail.cu",
                                "pygim_tpu/ops/spmm.py:481")}
     kernels = []

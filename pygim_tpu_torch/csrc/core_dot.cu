@@ -53,14 +53,14 @@
 //   is read by wgmma straight from
 //   shared memory in its own row-major (K, N) layout, i.e. MN-major with
 //   the transpose bit, 128-byte swizzled by TMA.
-// - bf16 mode: the cells are wgmma's own type, so a thread reads its
-//   fragment registers whole from the stage (128 rows x 128 bytes,
-//   128-byte swizzle: the 16-byte chunk c of row i sits at c ^ (i & 7),
-//   which spreads the eight rows of a load phase over all banks) and
-//   nothing is widened. The A box doubles to 16 KB a stage, so the ring
-//   holds 3 stages (3 x (16 + 32) KB + 36 KB of epilogue staging =
-//   185 KB; 4 stages would need 233 KB, past the 227 KB a block may
-//   have).
+// - bf16 mode: the cells are wgmma's own type, so wgmma reads A straight
+//   from the stage by descriptor (K-major, 128 rows x 128 bytes, 128-byte
+//   swizzle), as it reads B: no register fragments, nothing widened (the
+//   register form, fragments read from the stage, measured 4% slower on
+//   the smoke's bf16 square, PERF.md). The A box doubles to 16 KB a
+//   stage, so the ring holds 3 stages (3 x (16 + 32) KB + 36 KB of
+//   epilogue staging = 185 KB; 4 stages would need 233 KB, past the 227
+//   KB a block may have).
 // - One producer thread keeps a 4-stage ring (3 in bf16 mode) of TMA
 //   loads in flight (cp.async.bulk.tensor, mbarrier full/empty pairs).
 //   TMA's zero fill
@@ -70,26 +70,37 @@
 //   releases the stage. A second group in flight (two A register sets,
 //   wait_group 1) was measured slower: it holds each stage one step
 //   longer, which leaves the producer two of the four stages.
-// - Persistent clusters walk their share of a host-built tile list
-//   (ops/core_dot.py:cluster_schedule): longest contraction first, spread
-//   by a greedy longest-first assignment, so short bands fill the SMs
-//   that the long ones leave idle. One launch covers every band. Where a
-//   launch has few row tiles for the SMs (a square core of 180 row tiles
-//   on 132 SMs), the host splits every tile's contraction into `split`
-//   chunks of whole stages (2 or 4), run by the blocks of one cluster; at
-//   split 1 a block is its own cluster and runs whole contractions.
+// - Two schedules of a host-built tile list, one launch over every band.
+//   Whole tiles (split 1, ops/core_dot.py:cluster_schedule): persistent
+//   blocks walk their share, longest contraction first, spread by a
+//   greedy longest-first assignment, so short bands fill the SMs that the
+//   long ones leave idle.
+// - Stream-K (split 0, the host's choice where its model predicts a gain:
+//   ops/core_dot.py:stream_schedule): where whole tiles leave SMs idle (a
+//   square of 90 row tiles on 132 SMs) or one band's few tiles hold most
+//   of the stages (the bf16 stair's 176 x 80,640 first band), the launch's
+//   work, the sum over its tiles of their stages, is cut into one
+//   contiguous span of whole stages a block, equal within one stage, and
+//   the grid is exactly the card's resident block count. A block walks its
+//   span's pieces last first. A tile wholly inside a span is computed and
+//   scattered as above. A tile cut across spans: the block holding its
+//   leading pieces writes that piece's f32 partial (BM x BN, in the
+//   accumulators' own order, so each thread moves its 128 values
+//   coalesced) to its slot of a workspace the wrapper allocates, and
+//   raises its flag (release at GPU scope); the block holding the tile's
+//   last piece adds the earlier pieces' partials to its own, slot b - 1,
+//   then b - 2, ... (a fixed order: the same bits from run to run), resets
+//   each flag to 0 for the next launch, and scatters. Why this cannot
+//   deadlock: a block's partial is the first piece it runs, so writing it
+//   waits on nothing; a block waits only on blocks of lower index (the
+//   spans before its own), which the card starts no later than it; and
+//   all blocks are resident at once. A wait that never ends traps after
+//   about 2 s instead of hanging the card.
 // - The epilogue stages each 64-column slice of the tile through shared
 //   memory and adds it into out[nodes[lo + i], n0:n0 + 256] with 16-byte
-//   read-modify-writes along each row. In a split tile every block stages
-//   its partial slice in its own staging buffer and hands it over on the
-//   leader's (rank 0's) `ready` mbarrier; the leader reads the peers'
-//   slices through distributed shared memory (mapa, ld.shared::cluster)
-//   in chunk order, adds them to its own, frees the peers' buffers on
-//   their `free` mbarriers and alone updates out. Every output element is
-//   written by one block in a fixed order of f32 sums: no atomics, no
-//   global workspace, the same bits from run to run. The hand-over waits
-//   trap after about 2 s, so a lost arrival fails the launch instead of
-//   hanging the card.
+//   read-modify-writes along each row. Every output element is written by
+//   one block in a fixed order of f32 sums: no atomics, the same bits from
+//   run to run.
 
 #include <cuda_bf16.h>
 #include <string.h>
@@ -115,8 +126,7 @@ constexpr int INT8 = 0, PACKED = 1, BF16 = 2;
 // The shared-memory layout of one cell mode: the A ring (int8: BM x BK
 // bytes a stage, 64-byte swizzle; int4: half of that, unswizzled, in the
 // same spacing; bf16: BM x BK x 2 bytes, 128-byte swizzle), the B ring,
-// two warpgroups' epilogue staging, and the barriers: ring full / empty,
-// then split tiles' ready / free per consumer warpgroup.
+// two warpgroups' epilogue staging, and the ring's full / empty barriers.
 template <int MODE>
 struct Layout {
   static constexpr int STAGES = MODE == BF16 ? 3 : 4;
@@ -126,7 +136,7 @@ struct Layout {
   static constexpr int OFF_B = OFF_A + STAGES * A_STAGE;
   static constexpr int OFF_EPI = OFF_B + STAGES * B_STAGE;
   static constexpr int OFF_BAR = OFF_EPI + 2 * EPI_WG;
-  static constexpr int SMEM_BYTES = OFF_BAR + (2 * STAGES + 4) * 8 + 1024;
+  static constexpr int SMEM_BYTES = OFF_BAR + 2 * STAGES * 8 + 1024;
 };
 static_assert(Layout<INT8>::SMEM_BYTES <= 232448, "int8 ring too large");
 static_assert(Layout<BF16>::SMEM_BYTES <= 232448, "bf16 ring too large");
@@ -187,7 +197,38 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, const uint32_t* a,
         D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
 }
+
+// d[64 x 256] += A[64 x 16] (shared, bf16, K-major) @ B[16 x 256] (shared,
+// bf16, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_ss_m64n256k16(float* d, uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, 1, 1, 1, 0, 1;\n"
+      "}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64),
+        D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "l"(da), "l"(db));
+}
 #undef D8
+
+// Shared-memory matrix descriptor of a bf16 A stage's 64-row half: K-major,
+// 128-byte rows, 128-byte swizzle: SBO = 8 rows x 128 B between 8-row
+// groups (LBO is unused for swizzled K-major layouts), in 16-byte units.
+// Adding 2 advances 32 bytes (one k16 step) inside the swizzle atom.
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
 
 // This thread's m64k16 A fragments for the four k16 steps of one stage:
 // a[s] = {row g, cols 2t4..+1}, {row g+8, same}, {row g, cols 2t4+8..+9},
@@ -246,29 +287,7 @@ __device__ __forceinline__ void load_a_packed(uint32_t (&a)[4][4],
   }
 }
 
-// load_a for a bf16 stage (128 bytes a row, 128-byte swizzle): a[s] =
-// {row g, cells 16s + 2t4..+1}, {row g+8, same}, {row g, cells 16s + 8 +
-// 2t4..+1}, {row g+8, same}, i.e. bytes 32s + 4t4 and 32s + 16 + 4t4 of
-// the row, the chunk index XORed with the row's low three bits (the same
-// for rows g and g + 8)
-__device__ __forceinline__ void load_a_bf16(uint32_t (&a)[4][4],
-                                            const uint8_t* As, int ra,
-                                            int t4) {
-  const uint8_t* r0 = As + ra * (2 * BK);
-  const uint8_t* r1 = As + (ra + 8) * (2 * BK);
-  const int sw = ra & 7;
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int c0 = (((2 * s) ^ sw) << 4) + 4 * t4;
-    const int c1 = (((2 * s + 1) ^ sw) << 4) + 4 * t4;
-    a[s][0] = *reinterpret_cast<const uint32_t*>(r0 + c0);
-    a[s][1] = *reinterpret_cast<const uint32_t*>(r1 + c0);
-    a[s][2] = *reinterpret_cast<const uint32_t*>(r0 + c1);
-    a[s][3] = *reinterpret_cast<const uint32_t*>(r1 + c1);
-  }
-}
-
-// this thread's A fragments of one stage, in the cell mode's way
+// this thread's A fragments of one stage, in the int8 or int4 mode's way
 template <int MODE>
 __device__ __forceinline__ void load_stage_a(uint32_t (&a)[4][4],
                                              const uint8_t* As, int ra,
@@ -276,19 +295,44 @@ __device__ __forceinline__ void load_stage_a(uint32_t (&a)[4][4],
                                              int t4) {
   if constexpr (MODE == PACKED)
     load_a_packed(a, As, ra, 8 * t4);
-  else if constexpr (MODE == BF16)
-    load_a_bf16(a, As, ra, t4);
   else
     load_a(a, As, a_off0, a_off1, swz);
 }
 
-template <int MODE, int SPLIT>
+// ---- stream-K hand-over of a cut tile's partials (global memory) ----
+
+constexpr int PART_WG = 128 * 128;  // floats of one warpgroup's partial
+
+__device__ __forceinline__ void st_release_gpu(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Wait until *p != 0 (acquire at GPU scope), then set it back to 0; trap
+// after about 2^32 cycles (~2 s) instead of hanging the card.
+__device__ __forceinline__ void take_flag_or_trap(int* p) {
+  const long long t0 = clock64();
+  for (;;) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
+    if (v != 0) break;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(0)
+               : "memory");
+}
+
+template <int MODE, bool STREAM>
 __global__ void __launch_bounds__(THREADS, 1)
 core_bands_kernel(const __grid_constant__ Params p,
                   const int* __restrict__ tiles,
                   const int* __restrict__ starts,
                   const int* __restrict__ nodes, float* __restrict__ out,
-                  int h) {
+                  int h, float* __restrict__ partials,
+                  int* __restrict__ flags) {
   using L = Layout<MODE>;
   constexpr int STAGES = L::STAGES, A_STAGE = L::A_STAGE, OFF_A = L::OFF_A,
                 OFF_B = L::OFF_B, OFF_EPI = L::OFF_EPI, OFF_BAR = L::OFF_BAR;
@@ -298,33 +342,18 @@ core_bands_kernel(const __grid_constant__ Params p,
   const uint32_t s_base = smem_u32(smem);
   const uint32_t full0 = s_base + OFF_BAR;
   const uint32_t empty0 = full0 + STAGES * 8;
-  // split tiles, per consumer warpgroup: the peers' partials are staged
-  // (the leader's barrier), the leader has read this block's (a peer's)
-  const uint32_t ready0 = empty0 + STAGES * 8;
-  const uint32_t free0 = ready0 + 2 * 8;
-  // this block's chunk of each tile of its cluster; rank 0 leads
-  const uint32_t rank = SPLIT > 1 ? cluster_rank() : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 8);  // lane 0 of each consumer warp
     }
-    for (int g = 0; g < 2; ++g) {
-      mbar_init(ready0 + 8 * g, SPLIT > 1 ? SPLIT - 1 : 1);  // one a peer
-      mbar_init(free0 + 8 * g, 1);
-    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
-  // every block's barriers exist before another block arrives on them
-  if constexpr (SPLIT > 1)
-    cluster_sync();
-  else
-    __syncthreads();
+  __syncthreads();
 
-  const int c = SPLIT > 1 ? cluster_index() : blockIdx.x;
-  const int t_begin = starts[c], t_end = starts[c + 1];
+  const int t_begin = starts[blockIdx.x], t_end = starts[blockIdx.x + 1];
   const int wg = threadIdx.x >> 7;
 
   if (wg == 2) {
@@ -334,7 +363,7 @@ core_bands_kernel(const __grid_constant__ Params p,
       int stage = 0;
       uint32_t phase = 0;
       for (int t = t_begin; t < t_end; ++t) {
-        const int* e = tiles + (t * SPLIT + rank) * FIELDS;
+        const int* e = tiles + t * FIELDS;
         const int b = e[0], m0 = e[1], n0 = e[2], kb = e[4], ke = e[5];
         const int nbox = min(BN / 64, (h - n0 + 63) / 64);
         const CUtensorMap* amap = &p.band[b];
@@ -367,80 +396,125 @@ core_bands_kernel(const __grid_constant__ Params p,
     const int a_off0 = ra * BK + 2 * t4;
     const int a_off1 = a_off0 + 8 * BK;
     float* epi = reinterpret_cast<float*>(smem + OFF_EPI + wg * EPI_WG);
-    const uint32_t epi_s = s_base + OFF_EPI + wg * EPI_WG;
     int stage = 0;
     uint32_t phase = 0;
-    int uses = 0;  // 64-column slices this warpgroup has staged
 
     for (int t = t_begin; t < t_end; ++t) {
-      const int* e = tiles + (t * SPLIT + rank) * FIELDS;
+      const int* e = tiles + t * FIELDS;
       const int b = e[0], m0 = e[1], n0 = e[2], kb = e[4], ke = e[5];
       const int r = p.r[b], lo = p.lo[b], w = p.w[b];
       float acc[128];
 #pragma unroll
       for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 
-      // A from registers: the next stage's fragments are read and widened
-      // while this stage's wgmmas run; a wgmma's registers stay untouched
-      // until wait_group has retired it
-      uint32_t a[4][4], a_next[4][4];
-      mbar_wait(full0 + 8 * stage, phase);
-      load_stage_a<MODE>(a, smem + OFF_A + stage * A_STAGE, ra, a_off0,
-                         a_off1, swz, t4);
-      for (int k0 = kb; k0 < ke; k0 += BK) {
-        const uint64_t desc = b_desc(s_base + OFF_B + stage * B_STAGE);
-        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-        if constexpr (SPLIT == 1) {
-          if (w - k0 >= BK) {
-#pragma unroll
-            for (int s = 0; s < 4; ++s)  // 16 rows of B = 128 desc. units
-              wgmma_m64n256k16(acc, a[s], desc + 128ull * s);
-          } else {  // the last k16 steps of a width not a BK multiple
-            const int ksteps = (w - k0) >> 4;
-#pragma unroll
-            for (int s = 0; s < 3; ++s)
-              if (s < ksteps) wgmma_m64n256k16(acc, a[s], desc + 128ull * s);
-          }
-        } else {
-          // Without a branch around a wgmma, which in a split kernel makes
-          // ptxas serialize them: a k16 step past w (the last stage of a
-          // width that is not a BK multiple) multiplies its zero-filled A
-          // by the stage's first rows, which lie inside w, and adds zeros
-          // (a non-finite row there makes every row of the band non-finite
-          // in the reference's product too).
+      if constexpr (MODE == BF16) {
+        // bf16 cells are wgmma's own type: A is read from the stage as it
+        // is, by descriptor, with B (no register fragments). Without a
+        // branch around a wgmma: a k16 step past w multiplies its
+        // zero-filled A by the stage's first B rows, which lie inside w.
+        for (int k0 = kb; k0 < ke; k0 += BK) {
+          mbar_wait(full0 + 8 * stage, phase);
+          const uint64_t da =
+              a_desc(s_base + OFF_A + stage * A_STAGE + wg * 64 * 2 * BK);
+          const uint64_t db = b_desc(s_base + OFF_B + stage * B_STAGE);
           const int ks = min(4, (w - k0) >> 4);
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
           for (int s = 0; s < 4; ++s)
-            wgmma_m64n256k16(acc, a[s], desc + 128ull * (s < ks ? s : 0));
+            wgmma_ss_m64n256k16(acc, da + 2ull * s,
+                                db + 128ull * (s < ks ? s : 0));
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+          if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
-        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-        int next = stage + 1;
-        uint32_t next_phase = phase;
-        if (next == STAGES) {
-          next = 0;
-          next_phase ^= 1;
-        }
-        if (k0 + BK < ke) {
-          mbar_wait(full0 + 8 * next, next_phase);
-          load_stage_a<MODE>(a_next, smem + OFF_A + next * A_STAGE, ra,
-                             a_off0, a_off1, swz, t4);
-        }
-        // drained at every stage: a second group in flight holds a stage
-        // longer and, at 4 stages (3 for bf16), starves the producer
-        // (PERF.md)
-        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-        if (lane == 0) mbar_arrive(empty0 + 8 * stage);
-        stage = next;
-        phase = next_phase;
+      } else {
+        // A from registers: the next stage's fragments are read and widened
+        // while this stage's wgmmas run; a wgmma's registers stay untouched
+        // until wait_group has retired it
+        uint32_t a[4][4], a_next[4][4];
+        mbar_wait(full0 + 8 * stage, phase);
+        load_stage_a<MODE>(a, smem + OFF_A + stage * A_STAGE, ra, a_off0,
+                           a_off1, swz, t4);
+        for (int k0 = kb; k0 < ke; k0 += BK) {
+          const uint64_t desc = b_desc(s_base + OFF_B + stage * B_STAGE);
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+          if constexpr (!STREAM) {
+            if (w - k0 >= BK) {
 #pragma unroll
-        for (int s = 0; s < 4; ++s)
+              for (int s = 0; s < 4; ++s)  // 16 rows of B = 128 desc. units
+                wgmma_m64n256k16(acc, a[s], desc + 128ull * s);
+            } else {  // the last k16 steps of a width not a BK multiple
+              const int ksteps = (w - k0) >> 4;
 #pragma unroll
-          for (int e2 = 0; e2 < 4; ++e2) a[s][e2] = a_next[s][e2];
+              for (int s = 0; s < 3; ++s)
+                if (s < ksteps) wgmma_m64n256k16(acc, a[s], desc + 128ull * s);
+            }
+          } else {
+            // Without a branch around a wgmma, which in the stream-K kernel
+            // (whose divergent epilogue paths touch the accumulators) makes
+            // ptxas serialize them: a k16 step past w (the last stage
+            // of a width that is not a BK multiple) multiplies its
+            // zero-filled A by the stage's first rows, which lie inside w,
+            // and adds zeros (a non-finite row there makes every row of the
+            // band non-finite in the reference's product too).
+            const int ks = min(4, (w - k0) >> 4);
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              wgmma_m64n256k16(acc, a[s], desc + 128ull * (s < ks ? s : 0));
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+          int next = stage + 1;
+          uint32_t next_phase = phase;
+          if (next == STAGES) {
+            next = 0;
+            next_phase ^= 1;
+          }
+          if (k0 + BK < ke) {
+            mbar_wait(full0 + 8 * next, next_phase);
+            load_stage_a<MODE>(a_next, smem + OFF_A + next * A_STAGE, ra,
+                               a_off0, a_off1, swz, t4);
+          }
+          // drained at every stage: a second group in flight holds a stage
+          // longer and, at 4 stages, starves the producer (PERF.md)
+          asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+          if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+          stage = next;
+          phase = next_phase;
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+#pragma unroll
+            for (int e2 = 0; e2 < 4; ++e2) a[s][e2] = a_next[s][e2];
+        }
+      }
+
+      if constexpr (STREAM) {
+        // e[3]: 0 = a leading piece of a cut tile (hand its partial on),
+        // n >= 1 = the tile's last piece, after n - 1 earlier ones
+        const int role = e[3];
+        if (role == 0) {
+          float* dst = partials + (2ll * blockIdx.x + wg) * PART_WG + tid;
+#pragma unroll
+          for (int i = 0; i < 128; ++i) __stcg(dst + 128 * i, acc[i]);
+          __threadfence();
+          named_bar_sync(1 + wg);  // every thread's partial is written
+          if (tid == 0) st_release_gpu(flags + 2 * blockIdx.x + wg, 1);
+          continue;
+        }
+        for (int q = 1; q < role; ++q) {  // slots b - 1, b - 2, ...
+          const int slot = blockIdx.x - q;
+          if (tid == 0) take_flag_or_trap(flags + 2 * slot + wg);
+          named_bar_sync(1 + wg);
+          const float* src = partials + (2ll * slot + wg) * PART_WG + tid;
+#pragma unroll
+          for (int i = 0; i < 128; ++i) acc[i] += __ldcg(src + 128 * i);
+        }
       }
 
       // ---- epilogue: out[nodes[lo + row], n0 + col] += acc ----
-      // A split tile's blocks each stage their partial; the leader adds the
-      // peers' to its own in chunk order and alone updates out.
       auto stage_slice = [&](int c4) {  // acc's 64-column slice c4 -> epi
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -452,21 +526,6 @@ core_bands_kernel(const __grid_constant__ Params p,
               make_float2(acc[i + 2], acc[i + 3]);
         }
       };
-      if constexpr (SPLIT > 1) {
-        if (rank != 0) {  // a peer: hand each slice to the leader
-#pragma unroll
-          for (int c4 = 0; c4 < BN / 64; ++c4) {
-            if (n0 + 64 * c4 >= h) break;
-            if (uses > 0)  // the leader has read the previous slice
-              wait_cluster_or_trap(free0 + 8 * wg, (uses - 1) & 1);
-            stage_slice(c4);
-            named_bar_sync(1 + wg);
-            if (tid == 0) arrive_release_at(in_block(ready0 + 8 * wg, 0));
-            ++uses;
-          }
-          continue;
-        }
-      }
       int ids[8];  // output rows of this thread's epilogue reads
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -482,33 +541,6 @@ core_bands_kernel(const __grid_constant__ Params p,
         stage_slice(c4);
         named_bar_sync(1 + wg);
         const int col = n0 + 64 * c4 + 4 * (tid & 15);
-        if constexpr (SPLIT > 1) {
-          // add the peers' slices to this one, in chunk order, in place
-          wait_cluster_or_trap(ready0 + 8 * wg, uses & 1);
-          ++uses;
-          if (col < h) {
-#pragma unroll 2
-            for (int k = 0; k < 8; ++k) {
-              float4* o = reinterpret_cast<float4*>(epi + at + 8 * k * EPI_LD);
-              float4 a = *o;
-#pragma unroll
-              for (int q = 1; q < SPLIT; ++q) {
-                const uint4 u = ld_cluster_u4(
-                    in_block(epi_s + 4 * (at + 8 * k * EPI_LD), q));
-                a.x += __uint_as_float(u.x);
-                a.y += __uint_as_float(u.y);
-                a.z += __uint_as_float(u.z);
-                a.w += __uint_as_float(u.w);
-              }
-              *o = a;
-            }
-          }
-          named_bar_sync(1 + wg);  // every read of the peers' slices is done
-          if (tid == 0)
-#pragma unroll
-            for (int q = 1; q < SPLIT; ++q)
-              arrive_release_at(in_block(free0 + 8 * wg, q));
-        }
         if (col < h) {  // h % 8 == 0: the whole float4 is inside
           float4 s[8], v[8];
 #pragma unroll
@@ -534,42 +566,19 @@ core_bands_kernel(const __grid_constant__ Params p,
       }
     }
   }
-  // a peer's shared memory and barriers stay until the leader has read its
-  // last slice and freed it: every thread of the cluster meets here
-  if constexpr (SPLIT > 1) cluster_sync();
 }
 
-// The launch of n_clusters clusters of `split` blocks (single blocks,
-// without the cluster attribute, at split 1).
-struct Launch {
-  cudaLaunchAttribute attr{};
-  cudaLaunchConfig_t cfg{};
-  Launch(int n_clusters, int split, int smem_bytes, cudaStream_t stream) {
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = split;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.gridDim = dim3(n_clusters * split);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = smem_bytes;
-    cfg.stream = stream;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-  }
-};
-
 typedef void (*KernelFn)(Params, const int*, const int*, const int*, float*,
-                         int);
+                         int, float*, int*);
 
+// split 0 is stream-K, split 1 whole tiles
 template <int MODE>
 KernelFn kernel_of_split(int split) {
   switch (split) {
+    case 0:
+      return core_bands_kernel<MODE, true>;
     case 1:
-      return core_bands_kernel<MODE, 1>;
-    case 2:
-      return core_bands_kernel<MODE, 2>;
-    case 4:
-      return core_bands_kernel<MODE, 4>;
+      return core_bands_kernel<MODE, false>;
   }
   return nullptr;
 }
@@ -620,35 +629,46 @@ extern "C" int core_encode_band_map(void* map, const void* band, long long r,
   return err;
 }
 
-// The most clusters of `split` blocks of the K-core kernel in cell mode
-// `mode` the current card runs at once, into *n. Returns 0 or an error
-// code.
+// The most blocks of the K-core kernel in cell mode `mode` at split
+// `split` (0 stream-K, 1 whole tiles) the current card runs at once, into
+// *n. Returns 0 or an error code.
 extern "C" int core_max_clusters(int split, int mode, int* n) {
   const KernelFn k = kernel_of(mode, split);
   if (k == nullptr) return ERR_ARGS;
-  Launch l(1, split, smem_of(mode), nullptr);
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(n, k, &l.cfg));
+  cudaLaunchAttribute attr{};  // clusters of one block: single blocks
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_of(mode);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(n, k, &cfg));
 }
 
 // One launch over all bands, all of one cell mode (`mode`: 0 int8, 1
 // packed int4, 2 bf16):
 // `band_maps` holds n_bands encoded maps (host),
-// `band_info` (lo, r, w) per band (host); `tiles` (int32 (n, split, 6):
-// each block's band, m0, n0, live, k0, k1 per cluster tile, in cluster-rank
-// order) and `starts` (n_clusters + 1 offsets into the cluster tiles, one
-// segment per cluster) are on the device; clusters of `split` blocks, one
-// contraction chunk each, single blocks at split 1. Returns 0 or an error
-// code (cudaError_t, or the codes above).
+// `band_info` (lo, r, w) per band (host); `tiles` (int32 (n, 1, 6):
+// each block's band, m0, n0, live, k0, k1 per tile) and `starts` (n_blocks +
+// 1 offsets into the tiles, one segment per block) are on the device. Split
+// 1: whole tiles. Split 0 is stream-K: n_blocks blocks, no more than the
+// card holds at once, each walking its span's pieces (role in field 3);
+// `partials` (f32, n_blocks x 2 x 128 x 128) and `flags` (int32, n_blocks x
+// 2, zero before the launch and left zero after it) on the device, null at
+// split 1. Returns 0 or an error code (cudaError_t, or the codes above).
 extern "C" int core_bands_scatter_add(const void* band_maps,
                                       const int* band_info, int n_bands,
                                       const void* xc, long long n_xc,
                                       const void* tiles, const void* starts,
-                                      int n_clusters, int split,
+                                      int n_blocks, int split,
                                       const void* nodes, void* out, int h,
-                                      int mode, void* stream) {
+                                      int mode, void* partials, void* flags,
+                                      void* stream) {
   const KernelFn k = kernel_of(mode, split);
-  if (n_bands < 1 || n_bands > MAX_BANDS || n_clusters < 1 || k == nullptr ||
-      h % 8)
+  if (n_bands < 1 || n_bands > MAX_BANDS || n_blocks < 1 || k == nullptr ||
+      h % 8 || (split == 0 && (partials == nullptr || flags == nullptr)))
     return ERR_ARGS;
   Params p;
   memset(&p, 0, sizeof p);
@@ -661,12 +681,9 @@ extern "C" int core_bands_scatter_add(const void* band_maps,
   int err = encode_2d(&p.xc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xc, h, n_xc,
                       2ll * h, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
-  Launch l(n_clusters, split, smem_of(mode), static_cast<cudaStream_t>(stream));
-  if (split == 1) l.cfg.numAttrs = 0;  // single blocks
-  const cudaError_t e = cudaLaunchKernelEx(
-      &l.cfg, k, p, static_cast<const int*>(tiles),
-      static_cast<const int*>(starts), static_cast<const int*>(nodes),
-      static_cast<float*>(out), h);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  k<<<n_blocks, THREADS, smem_of(mode), static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const int*>(tiles), static_cast<const int*>(starts),
+      static_cast<const int*>(nodes), static_cast<float*>(out), h,
+      static_cast<float*>(partials), static_cast<int*>(flags));
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,6 +18,7 @@ def launch_counts() -> dict:
             "K-int int4": core_int.packed_launches,
             "K-core bf16": core_dot.bf16_launches,
             "K-f32": core_f32.launches,
+            "K-f32 limbs": core_f32.limb_launches,
             "K-tail": ell_tail.launches,
             "K-tail-quant": ell_tail.quant_launches,
             "K-tail bf16": ell_tail.bf16_launches}
@@ -27,6 +28,7 @@ def reset_launch_counts() -> None:
     core_dot.launches = core_int.launches = 0
     core_dot.packed_launches = core_int.packed_launches = 0
     core_dot.bf16_launches = core_f32.launches = 0
+    core_f32.limb_launches = 0
     ell_tail.launches = ell_tail.quant_launches = ell_tail.bf16_launches = 0
 
 

@@ -43,9 +43,10 @@ SIGNATURES = {
         # split, cell mode, int out (host)
         "core_max_clusters": [_I, _I, _P],
         # band maps, band (lo, r, w) (both host), n_bands, xc, xc rows,
-        # tiles, starts, clusters, split, nodes, out, h, cell mode, stream
+        # tiles, starts, clusters, split, nodes, out, h, cell mode,
+        # stream-K partials, flags, stream
         "core_bands_scatter_add": [_P, _P, _I, _P, _LL, _P, _P, _I, _I, _P,
-                                   _P, _I, _I, _P],
+                                   _P, _I, _I, _P, _P, _P],
     },
     "core_int": {
         # limbs, packed, split, int out (host)
@@ -57,10 +58,12 @@ SIGNATURES = {
                                  _P, _P, _I, _I, _I, _P],
     },
     "core_f32": {
-        # band pointers, band (lo, r, w) (both host), n_bands, cell, xc,
-        # payload, tiles, n_tiles, nodes, out, h, stream
-        "core_f32_scatter_add": [_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I,
-                                 _P],
+        # map (host, 128 B), band, r, w, cell
+        "core_f32_encode_band_map": [_P, _P, _LL, _LL, _I],
+        # band maps, band (lo, r, w) (both host), n_bands, cell, xcT,
+        # parts, k_pad, h_pad, tiles, n_tiles, nodes, out, h, stream
+        "core_f32_tc_scatter_add": [_P, _P, _I, _I, _P, _I, _LL, _I, _P, _I,
+                                    _P, _P, _I, _P],
     },
     "ell_tail": {
         # tables, units, n_units, x, out, h, vec, payload, safe, stream

@@ -8,12 +8,16 @@ the scatter of its product
 into the output rows (``out.at[core_nodes[lo:hi]].add`` in
 ``pygim_tpu/ops/spmm.py:_core_scatter``). The CUDA kernel is
 ``csrc/core_dot.cu``: one persistent TMA + ``wgmma`` launch over all bands
-of one SpMM, walking a tile list built here on the host
-(:func:`cluster_schedule`). Where a launch has few row tiles for the
-card's SMs, every tile's contraction is split into chunks run by the
-blocks of one thread block cluster (:func:`choose_split`); the leader
-adds the peers' partials in a fixed order, so the result does not
-change from run to run.
+of one SpMM, walking a tile list built here on the host. A launch runs
+one of two schedules (:func:`choose_schedule`): whole tiles, spread over
+the resident blocks longest first (split 1, :func:`cluster_schedule`),
+or, where the host model predicts a gain, stream-K (split 0,
+:func:`stream_schedule`): the launch's stages are cut into one equal
+span a resident block, a tile cut across spans hands its leading
+pieces' partials through a global workspace to the block that holds its
+last piece, which adds them in a fixed order, so the result does not
+change from run to run. (The cluster split of a tile's contraction,
+:func:`choose_split`, is K-int's; ``ops/core_int.py``.)
 
 ``xc`` is ``x[core_nodes]`` already rounded to bf16 (round-to-nearest-
 even, as ``xq.astype(bf16)`` in the reference); the gather and the cast
@@ -196,14 +200,29 @@ def _check_kernel_contract(bands, xc, core_nodes, stair, out) -> None:
 # much as 12 steps on an H100, which matters for the w = 256 bands' tiles
 # of 4 steps.
 _EPILOGUE_COST = 12
-# A split tile's leader reads each peer's f32 partial of its tile (128
-# rows × 1 KB) through distributed shared memory: about a third of the
-# epilogue's traffic, so 4 steps a peer.
+# A split tile's leader (K-int's cluster split) reads each peer's f32
+# partial of its tile (128 rows × 1 KB) through distributed shared memory:
+# about a third of the epilogue's traffic, so 4 steps a peer.
 _REDUCE_COST = 4
 
 BK = 64                 # contraction of one ring stage (cells)
-SPLITS = (1, 2, 4)      # chunks a tile's contraction may be split into
+SPLITS = (1, 2, 4)      # chunks K-int may split a tile's contraction into
+STREAM = 0              # the split value of a stream-K launch
+SCHEDULES = (STREAM, 1)  # K-core's: stream-K, whole tiles
 _FIELDS = 6             # a block's tile: band, m0, n0, live, k0, k1
+# A stream-K piece that ends before its tile does writes its f32 partial
+# (128 rows × 1 KB) to the workspace, and the tile's last piece reads it
+# back; each way about half the epilogue's traffic, so 6 steps each.
+_PARTIAL_COST = 6
+# The predicted gain stream-K must show over whole tiles: a launch keeps
+# whole tiles unless stream-K's longest block is at least this much
+# shorter than the longest block of whole tiles. Set from both schedules
+# forced on an H100 (PERF.md §6): where the model put stream-K at 0.76 of
+# whole tiles or less (the smoke cores) it ran faster; at 0.95 and 1.00
+# (the reddit-sim bf16 square and stair, whose blocks then read the
+# payload at scattered depths) it ran 1.36 and 1.30 times slower. The
+# margin sits in the middle of (0.05, 0.24).
+_STREAM_MARGIN = 0.15
 
 
 def chunk_bounds(w: int, s: int):
@@ -220,6 +239,13 @@ def cluster_counts(n) -> dict:
     is such a dict (the card's answer, :func:`max_clusters`), else the
     blocks ``n`` split evenly into clusters of each size."""
     return dict(n) if isinstance(n, dict) else {s: n // s for s in SPLITS}
+
+
+def stream_blocks(clusters) -> int:
+    """The blocks of a stream-K launch: the card's resident blocks of the
+    stream-K kernel (``clusters[STREAM]``), else its single blocks."""
+    counts = cluster_counts(clusters)
+    return counts.get(STREAM, counts[1])
 
 
 def _greedy(cells, n_clusters: int):
@@ -317,6 +343,112 @@ def cluster_schedule(stair, h: int, bn: int, clusters, rows: int = 1,
     return tiles, starts
 
 
+def _stream_tiles(stair, h: int, bn: int):
+    """The tiles of a stream-K launch in the order their stages are
+    laid out: ``(stages, band, m0, n0)``, the longest first (stable: band,
+    m0, n0 order among equals, so one band's row tiles stay together)."""
+    tiles = [(-(-w // BK), b, m0, n0) for b, (lo, hi, w) in enumerate(stair)
+             for m0 in range(0, hi - lo, BM) for n0 in range(0, h, bn)]
+    return sorted(tiles, key=lambda t: -t[0])
+
+
+def stream_cuts(tiles, blocks: int, cell_bytes: float = 1.0):
+    """Where a stream-K launch's spans begin and end, in stages of the
+    laid-out tiles (:func:`_stream_tiles`): the modeled work (every stage
+    at :func:`step_cost` of ``cell_bytes``, a tile's epilogue after its
+    last stage) cut into ``blocks`` equal shares, each cut moved to the
+    stage boundary at or after it; cuts that meet are merged, so every
+    span holds a stage and there may be fewer spans than ``blocks``. Span
+    i is ``[cuts[i], cuts[i + 1])``; each ends within one stage and one
+    epilogue of its share."""
+    step = step_cost(cell_bytes)
+    steps = np.array([t[0] for t in tiles], dtype=np.int64)
+    first = np.concatenate(([0], np.cumsum(steps)))  # a tile's first stage
+    cost0 = first[:-1] * step + np.arange(len(steps)) * _EPILOGUE_COST
+    total = first[-1] * step + len(steps) * _EPILOGUE_COST
+    cuts = [0]
+    for i in range(1, blocks):
+        c = total * i / blocks
+        t = int(np.searchsorted(cost0, c, side="right")) - 1
+        k = min(int(steps[t]), int(np.ceil((c - cost0[t]) / step - 1e-9)))
+        cuts.append(int(first[t]) + k)
+    cuts.append(int(first[-1]))
+    return sorted(set(cuts))
+
+
+def stream_schedule(stair, h: int, bn: int, blocks: int,
+                    cell_bytes: float = 1.0):
+    """K-core's stream-K work list for bands ``stair`` at width ``h``
+    over at most ``blocks`` blocks (the card's resident blocks,
+    :func:`max_clusters`).
+
+    Every tile's stages are laid out one after another
+    (:func:`_stream_tiles`) and the whole is cut into contiguous spans of
+    equal modeled work (:func:`stream_cuts`), one a block. Block i runs
+    the pieces of its span, the last first: ``(band, m0, n0, role, k0,
+    k1)`` with ``[k0, k1)`` the piece's cells. ``role`` 0: the piece ends
+    before its tile does; its block writes the partial to workspace slot
+    i (it is the block's first piece run, so it waits on nothing).
+    ``role`` n ≥ 1: the tile's last piece, after n - 1 earlier ones held
+    by blocks i - 1, ..., i - n + 1; block i adds their partials in that
+    order and scatters the sum. So a block waits only on blocks of lower
+    index.
+
+    Returns ``(tiles, starts)`` as :func:`cluster_schedule` (int32 ``(n,
+    1, 6)``; block i runs ``tiles[starts[i]:starts[i + 1]]``)."""
+    tiles = _stream_tiles(stair, h, bn)
+    cuts = stream_cuts(tiles, blocks, cell_bytes)
+    per = [[] for _ in range(len(cuts) - 1)]
+    s0, i = 0, 0
+    for steps, b, m0, n0 in tiles:
+        s1, w = s0 + steps, stair[b][2]
+        first = i
+        while True:
+            p0, p1 = max(s0, cuts[i]), min(s1, cuts[i + 1])
+            role = 1 + i - first if p1 == s1 else 0
+            per[i].append((b, m0, n0, role, BK * (p0 - s0),
+                           min(w, BK * (p1 - s0))))
+            if p1 == s1:
+                break
+            i += 1
+        if s1 == cuts[i + 1] and i + 2 < len(cuts):
+            i += 1
+        s0 = s1
+    tiles = np.array([t for ts in per for t in reversed(ts)],
+                     dtype=np.int32).reshape(-1, 1, _FIELDS)
+    starts = np.cumsum([0] + [len(ts) for ts in per]).astype(np.int32)
+    return tiles, starts
+
+
+def stream_loads(tiles, starts, cell_bytes: float = 1.0):
+    """Each block's modeled work in :func:`stream_schedule`'s ``tiles``:
+    its stages (each at :func:`step_cost` of ``cell_bytes``), an epilogue
+    for each tile it ends, and a partial written or read for each piece
+    handed over."""
+    t = tiles[:, 0, :]
+    steps = -(-(t[:, 5] - t[:, 4]) // BK)
+    role = t[:, 3]
+    cost = (steps * step_cost(cell_bytes) + (role > 0) * _EPILOGUE_COST
+            + _PARTIAL_COST * np.where(role > 0, role - 1, 1))
+    return np.add.reduceat(cost, starts[:-1])
+
+
+def choose_schedule(stair, h: int, bn: int, clusters,
+                    cell_bytes: float = 1.0) -> int:
+    """K-core's schedule of one launch: :data:`STREAM` where the model
+    predicts stream-K's longest block (:func:`stream_loads`) at least
+    :data:`_STREAM_MARGIN` shorter than the longest block of whole tiles
+    (split 1), else 1."""
+    counts = cluster_counts(clusters)
+    _per, loads = _greedy(_cells(stair, h, bn, 1, 1, cell_bytes), counts[1])
+    stream = stream_loads(*stream_schedule(stair, h, bn,
+                                           stream_blocks(counts), cell_bytes),
+                          cell_bytes=cell_bytes)
+    if float(stream.max()) <= (1 - _STREAM_MARGIN) * max(loads):
+        return STREAM
+    return 1
+
+
 def schedule_loads(tiles, starts, rows: int = 1, cell_bytes: float = 1.0):
     """Each cluster's modeled work in :func:`cluster_schedule`'s
     ``tiles``: per tile its longest chunk in stages (each at
@@ -330,34 +462,57 @@ def schedule_loads(tiles, starts, rows: int = 1, cell_bytes: float = 1.0):
 
 
 def tile_schedule(stair, h: int, clusters, bn: int = BN,
-                  cell_bytes: float = 1.0):
-    """K-core's work list (:func:`cluster_schedule` with single row
-    tiles): ``(tiles, starts)``, ``tiles`` int32 ``(n, split, 6)``;
+                  cell_bytes: float = 1.0, split=None):
+    """K-core's work list: ``(tiles, starts)``, ``tiles`` int32 ``(n, 1,
+    6)``, by :func:`stream_schedule` at split :data:`STREAM`, else (split
+    1) :func:`cluster_schedule` of whole tiles; ``split`` one of
+    :data:`SCHEDULES`, chosen by :func:`choose_schedule` when not given;
     ``clusters`` the blocks of the card, or its :func:`cluster_counts`."""
-    return cluster_schedule(stair, h, bn, clusters, cell_bytes=cell_bytes)
+    counts = cluster_counts(clusters)
+    if split is None:
+        split = choose_schedule(stair, h, bn, counts, cell_bytes)
+    elif split not in SCHEDULES:
+        raise ValueError(f"K-core runs split 1 or stream-K, not {split}")
+    if split == STREAM:
+        return stream_schedule(stair, h, bn, stream_blocks(counts),
+                               cell_bytes)
+    return cluster_schedule(stair, h, bn, counts, split=split,
+                            cell_bytes=cell_bytes)
+
+
+def _launch_schedules(stair, h: int, clusters, bn: int, cell_bytes: float):
+    """Each launch of one grouped call: its split and ``(tiles,
+    starts)``."""
+    counts = cluster_counts(clusters)
+    out = []
+    for group in band_groups(stair, h):
+        sub = [stair[b] for b in group]
+        split = choose_schedule(sub, h, bn, counts, cell_bytes)
+        out.append((split, tile_schedule(sub, h, counts, bn, cell_bytes,
+                                         split)))
+    return out
 
 
 def schedule_balance(stair, h: int, clusters, bn: int = BN,
                      cell_bytes: float = 1.0) -> float:
-    """The longest cluster's work over the mean cluster's in
+    """The longest block's work over the mean in
     :func:`tile_schedule`'s assignment of ``stair`` at width ``h`` (1.0 is
     perfect balance), the worst over the launches of one grouped call."""
     worst = 1.0
-    for group in band_groups(stair, h):
-        loads = schedule_loads(*tile_schedule([stair[b] for b in group], h,
-                                              clusters, bn, cell_bytes),
-                               cell_bytes=cell_bytes)
+    for split, (tiles, starts) in _launch_schedules(stair, h, clusters, bn,
+                                                    cell_bytes):
+        loads = (stream_loads(tiles, starts, cell_bytes) if split == STREAM
+                 else schedule_loads(tiles, starts, cell_bytes=cell_bytes))
         worst = max(worst, float(loads.max() / loads.mean()))
     return worst
 
 
 def schedule_split(stair, h: int, clusters, bn: int = BN,
                    cell_bytes: float = 1.0) -> list:
-    """The contraction split of each launch of :func:`tile_schedule`'s
-    grouped call."""
-    return [tile_schedule([stair[b] for b in g], h, clusters, bn,
-                          cell_bytes)[0].shape[1]
-            for g in band_groups(stair, h)]
+    """The schedule of each launch of :func:`tile_schedule`'s grouped
+    call: 1 for whole tiles, :data:`STREAM` (0) for stream-K."""
+    return [split for split, _ in _launch_schedules(stair, h, clusters, bn,
+                                                    cell_bytes)]
 
 
 def band_groups(stair, h: int):
@@ -396,8 +551,8 @@ def band_maps(bands, stair, group):
 class CorePlan:
     """What one launch over a fixed group of device bands needs: the
     bands' TMA maps and ``(lo, r, w)`` (host), the tile schedule (on the
-    device), its contraction split (blocks a cluster, one chunk each) and
-    what it was built for (band indices, addresses, H, tile width)."""
+    device), its split (1 whole tiles, :data:`STREAM`) and what it was
+    built for (band indices, addresses, H, tile width)."""
 
     group: list
     ptrs: tuple
@@ -409,23 +564,28 @@ class CorePlan:
     starts: torch.Tensor
     grid: int
     split: int = 1
+    # stream-K's workspace (split STREAM): a partial of 2 × 128 × 128 f32
+    # a block, and a flag a warpgroup, zero between launches (the kernel
+    # resets each flag it takes); launches of one plan run in stream order
+    partials: torch.Tensor = None
+    flags: torch.Tensor = None
 
 
 def max_clusters(device, mode) -> dict:
-    """``{split: clusters}``: how many clusters of each split's size the
-    card runs at once of the K-core kernel in cell mode ``mode``
-    (:func:`cell_mode`; a bool reads as int8 or packed int4;
-    ``cudaOccupancyMaxActiveClusters``)."""
+    """``{split: blocks}``: how many blocks of the K-core kernel in cell
+    mode ``mode`` (:func:`cell_mode`; a bool reads as int8 or packed int4)
+    the card runs at once at each of :data:`SCHEDULES`
+    (``cudaOccupancyMaxActiveClusters`` of clusters of one)."""
     lib = _build.load("core_dot")
     out = {}
     with torch.cuda.device(device):
-        for s in SPLITS:
+        for s in SCHEDULES:
             n = ctypes.c_int(0)
             _build.check(lib.core_max_clusters(s, int(mode),
                                                ctypes.addressof(n)),
                          "core_max_clusters")
             out[s] = n.value
-    if out[1] < 1:
+    if out[1] < 1 or out[STREAM] < 1:
         raise RuntimeError("the card runs no block of the K-core kernel")
     return out
 
@@ -433,10 +593,11 @@ def max_clusters(device, mode) -> dict:
 def core_plans(bands, stair, h: int, bn: int = BN, split=None) -> list:
     """The plans of one grouped call over these CUDA bands at width ``h``,
     one per launch (:func:`band_groups`), for tiles ``bn`` columns wide,
-    each with the split :func:`choose_split` chooses for the card's
-    cluster counts, or ``split`` where given. A prepared operand's bands
-    never move, so its owner builds them once per width and passes them
-    to :func:`core_bands_scatter_add`: encoding the maps and uploading the
+    each with the schedule :func:`choose_schedule` chooses for the card's
+    resident blocks, or ``split`` where given (1 forces whole tiles,
+    :data:`STREAM` stream-K, with its workspace). A prepared operand's bands never move,
+    so its owner builds them once per width and passes them to
+    :func:`core_bands_scatter_add`: encoding the maps and uploading the
     schedule synchronise the stream."""
     groups = band_groups(stair, h)
     if not groups:
@@ -446,15 +607,22 @@ def core_plans(bands, stair, h: int, bn: int = BN, split=None) -> list:
     counts = max_clusters(dev, mode)
     plans = []
     for group in groups:
+        sub = [stair[b] for b in group]
         maps, info = band_maps(bands, stair, group)
-        tiles, starts = cluster_schedule([stair[b] for b in group], h, bn,
-                                         counts, split=split,
-                                         cell_bytes=MODE_CELL_BYTES[mode])
-        plans.append(CorePlan(
+        s = (choose_schedule(sub, h, bn, counts, MODE_CELL_BYTES[mode])
+             if split is None else split)
+        tiles, starts = tile_schedule(sub, h, counts, bn,
+                                      MODE_CELL_BYTES[mode], s)
+        grid = len(starts) - 1
+        plan = CorePlan(
             group=group, ptrs=tuple(bands[b].data_ptr() for b in group), h=h,
             bn=bn, maps=maps, info=info, tiles=torch.from_numpy(tiles).to(dev),
-            starts=torch.from_numpy(starts).to(dev), grid=len(starts) - 1,
-            split=tiles.shape[1]))
+            starts=torch.from_numpy(starts).to(dev), grid=grid, split=s)
+        if s == STREAM:
+            plan.partials = torch.empty((grid, 2, 128, 128),
+                                        dtype=torch.float32, device=dev)
+            plan.flags = torch.zeros((grid, 2), dtype=torch.int32, device=dev)
+        plans.append(plan)
     return plans
 
 
@@ -464,6 +632,10 @@ def plans_match(plans, bands, stair, h: int, bn: int) -> bool:
     return [(p.group, p.ptrs, p.h, p.bn) for p in plans] == [
         (g, tuple(bands[b].data_ptr() for b in g), h, bn)
         for g in band_groups(stair, h)]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
@@ -491,7 +663,9 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
     if plans is None:
         plans = core_plans(bands, stair, h)
     elif not (plans_match(plans, bands, stair, h, BN)
-              and all(p.tiles.shape[1:] == (p.split, _FIELDS) for p in plans)):
+              and all(p.tiles.shape[1:] == (1, _FIELDS)
+                      and (p.split != STREAM or p.flags is not None)
+                      for p in plans)):
         raise ValueError("K-core plans were built for other bands or another H")
     lib = _build.load("core_dot")
     mode = cell_mode(bands)
@@ -502,7 +676,8 @@ def core_bands_scatter_add(bands, xc, core_nodes, stair, out, plans=None):
                 len(plan.group), xc.data_ptr(), xc.shape[0],
                 plan.tiles.data_ptr(), plan.starts.data_ptr(), plan.grid,
                 plan.split, core_nodes.data_ptr(), out.data_ptr(), h,
-                mode, _build.stream_of(out),
+                mode, _ptr(plan.partials), _ptr(plan.flags),
+                _build.stream_of(out),
             )
             _build.check(err, "core_bands_scatter_add")
             if mode == PACKED:

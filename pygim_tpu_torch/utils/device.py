@@ -2,7 +2,7 @@
 
 NVIDIA's data sheets, dense rates: HBM bytes/s, bf16 tensor FLOP/s, f32
 non-tensor FLOP/s and int8 tensor OP/s of the Hopper parts, at their full
-power limit. ``chip_smoke.py`` computes its bounds from them and
+power limit (their TF32 tensor rate is half the bf16 one). ``chip_smoke.py`` computes its bounds from them and
 ``bench_cuda.py`` its ``vs_baseline``; a card outside the table raises.
 """
 
@@ -86,19 +86,28 @@ def tail_bound(nnz, unique_cols, unique_rows, h, peaks_, itemsize=4):
 
 
 def f32_bound(shapes, h, peaks_, cell_bytes: float = 4.0,
-              x_itemsize: float = 4.0):
+              x_itemsize: float = 4.0, products=3):
     """Least time of one K-f32 launch over bands ``(r, w)`` at width ``h``:
-    the larger of its bytes over HBM (every band at ``cell_bytes`` a cell
-    — 4 for f32, 2 for bf16 —, ``xc[:max w]`` at ``x_itemsize`` bytes an
-    element, the row ids, and the output rows read and written, each
-    once) and its operations (``2 · r · w · h``) over the card's f32 rate
-    outside the tensor cores (the kernel runs no TF32). Returns (ms,
-    "bytes" | "operations")."""
-    hbm, _bf16, f32, _int8 = peaks_
+    the larger of its bytes over HBM (every band at
+    ``cell_bytes`` a cell — 4 for f32, 2 for bf16 —, ``xc[:max w]`` at
+    ``x_itemsize`` bytes an element, the row ids, and the output rows read
+    and written, each once) and its operations: ``products`` TF32
+    products a term (3 for f32 cells × an f32 or
+    wide integer payload, 3xTF32, and for bf16 cells × int32 limbs; 2 for
+    f32 cells × a bf16 or int8 payload and for bf16 cells × an f32 or
+    int16 one; 1 for bf16 × bf16 or int8), ``products · 2 · r · w · h``
+    at the TF32 tensor rate (half the bf16 rate on every Hopper part:
+    495 TFLOP/s on the H100 SXM); ``products=None`` is one FFMA a term,
+    ``2 · r · w · h`` at the f32 rate outside the tensor cores (the bound
+    of an FFMA kernel, kept as the yardstick of the earlier one). Returns
+    (ms, "bytes" | "operations")."""
+    hbm, bf16, f32, _int8 = peaks_
     rows = sum(r for r, _w in shapes)
     nbytes = (sum(r * w for r, w in shapes) * cell_bytes
               + max(w for _r, w in shapes) * h * x_itemsize + rows * 4
               + 2 * rows * h * 4)
     t_bytes = nbytes / hbm * 1e3
-    t_ops = sum(2 * r * w * h for r, w in shapes) / f32 * 1e3
+    ops = sum(2 * r * w * h for r, w in shapes)
+    t_ops = (ops / f32 if products is None
+             else products * ops / (bf16 / 2)) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"

@@ -118,14 +118,24 @@ def _check_schedule(stair, h, clusters, tiles, starts, bn=core_dot.BN,
 @pytest.mark.parametrize("n_blocks", [132, 7])
 @pytest.mark.parametrize("h", [40, 256, 384])
 def test_tile_schedule_covers_every_tile_once(h, n_blocks):
+    """Every tile once on the schedule the model picks: clusters, or
+    stream-K where it predicts a gain (the widest smoke band alone, 176
+    row tiles for 132 blocks; its contract in test_torch_core_stream)."""
     for stair in (SMOKE_STAIR, SMOKE_STAIR[:1], [(0, 37, 208), (37, 45, 64)]):
         tiles, starts = core_dot.tile_schedule(stair, h, n_blocks)
-        _check_schedule(stair, h, n_blocks, tiles, starts)
+        if core_dot.schedule_split(stair, h, n_blocks) == [core_dot.STREAM]:
+            from test_torch_core_stream import check_stream
+
+            assert stair == SMOKE_STAIR[:1]
+            check_stream(stair, h, n_blocks, 1.0, tiles, starts)
+        else:
+            _check_schedule(stair, h, n_blocks, tiles, starts)
 
 
 # the square cores of the main paths: the smoke graph's (k = 23,040: 180
 # row tiles for 132 SMs) and config 4's (k = 113,408: 886 row tiles); the
-# cluster counts an H100 reports for clusters of 1, 2 and 4 K-core blocks
+# cluster counts of clusters of 1, 2 and 4 blocks that the cluster model
+# (K-int's split) reads on an H100
 SMOKE_SQUARE = [(0, 23040, 23040)]
 CONFIG4_SQUARE = [(0, 113408, 113408)]
 H100_CLUSTERS = {1: 132, 2: 66, 4: 32}
@@ -133,13 +143,21 @@ H100_CLUSTERS = {1: 132, 2: 66, 4: 32}
 
 @pytest.mark.parametrize("clusters", [132, H100_CLUSTERS])
 def test_split_where_row_tiles_are_few(clusters):
-    """The smoke square splits its contraction (s > 1) and balances to
-    within 15%; config 4's square and the smoke stair keep whole
-    contractions (s = 1), as does every band group of 16."""
-    tiles, starts = core_dot.tile_schedule(SMOKE_SQUARE, 256, clusters)
-    split, _ = _check_schedule(SMOKE_SQUARE, 256, clusters, tiles, starts)
-    assert split > 1
-    assert core_dot.schedule_split(SMOKE_SQUARE, 256, clusters) == [split]
+    """The smoke square's best cluster schedule (the cluster model K-int
+    splits by) splits its contraction (s > 1) and balances to within 15%;
+    K-core's launch takes stream-K, which its model puts more than its margin
+    ahead of whole tiles (test_torch_core_stream), also within 15%.
+    Config 4's square and the smoke stair keep whole contractions (s =
+    1), as does every band group of 16."""
+    split = core_dot.choose_split(SMOKE_SQUARE, 256, core_dot.BN, clusters)
+    tiles, starts = core_dot.cluster_schedule(SMOKE_SQUARE, 256, core_dot.BN,
+                                              clusters)
+    assert _check_schedule(SMOKE_SQUARE, 256, clusters, tiles,
+                           starts)[0] == split > 1
+    loads = core_dot.schedule_loads(tiles, starts)
+    assert loads.max() / loads.mean() <= 1.15
+    assert core_dot.schedule_split(SMOKE_SQUARE, 256,
+                                   clusters) == [core_dot.STREAM]
     assert core_dot.schedule_balance(SMOKE_SQUARE, 256, clusters) <= 1.15
     # whole contractions: 1.47 of the mean
     loads = core_dot.schedule_loads(*core_dot.cluster_schedule(
