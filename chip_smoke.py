@@ -79,6 +79,22 @@ versions. The entry scripts also run a bf16 square candidate of
 ``bench_cuda.py``, ``spmm_test_cuda.py --data_type bfloat16`` and
 ``inference_cuda.py --data_type int64``.
 
+Then the harness: ``run_experiments`` on the card over the small sweep
+(tiny and small × blocked and ell × nnz and row), the stair int8 SpMM
+with its phases on the stand-in and on its ``-uniq`` sibling, the int32
+GCN with its per-layer check on the same core, and a ``tune`` and a
+``scaling`` point the port refuses (each leaves its ``.failed``
+record), its launch counts set to 0 before it and read after it
+(K-core, K-tail, K-int and K-tail-quant); a second sweep that skips
+everything and launches nothing; ``results_to_csv``; the refusal of a
+directory holding a copy of a TPU record; ``sweep_cuda.py run --baseline
+--dry_run`` and ``sweep_cuda.py parse`` as processes. Then every
+operand the harness ran a kernel on (the two stair cores, the sweep's
+ell operands), prepared again, its product through the kernels held to
+the plain versions on all rows. Then the real-format path: the stand-in written in OGB's raw layout, read back
+through ``load_dataset``'s parsers and held to the stand-in, and the
+float GCN on the parsed graph against the plain versions.
+
 Then the training path: the smoke operand's transpose is prepared,
 and ``torch.autograd.grad`` of ``(A @ x) · w`` through the kernels
 (``SpmmFunction``: K-core and K-tail on Aᵀ, their launches counted
@@ -99,8 +115,9 @@ hybrid`` trains 10 epochs on its default f32 core, and
 ``run_training_benchmark`` trains the GCN on the bf16 square.
 
 Its last three lines are the ``kernels`` JSON object (each kernel with
-its split and schedule balance where it has a tile schedule, and K-core
-and K-tail with their launches in one training step), the card's
+its split and schedule balance where it has a tile schedule, K-core
+and K-tail with their launches in one training step, and every kernel
+with its launches in the harness phase), the card's
 name and power limit (``nvidia-smi``), and ``{"ok": true, "device":
 ...}``.
 Any failure raises and exits non-zero before those lines. Without a
@@ -1279,31 +1296,47 @@ def tail_scale(results, dev, h=256):
     torch.cuda.empty_cache()
 
 
+def mul_mag(prep, x):
+    """The sum of |terms| behind each element of ``prep``'s product with
+    ``x`` (f32 sums of |A| |x|): its tail tables and, on a hybrid, its
+    core bands."""
+    import torch
+
+    from pygim_tpu_torch.ops import ell_tail
+
+    d = prep.dev_arrays
+    xa = x.float().abs()
+    tables = [(c, v.abs(), r, dg) for c, v, r, dg in prep.ell_tables(d)]
+    mag = ell_tail.ell_tables_plain(
+        xa, tables, torch.zeros(prep.nrows, x.shape[1], device=x.device))
+    if prep.stair:
+        cn = d["core_nodes"]
+        w_max = max(w for *_, w in prep.stair)
+        xc = xa.index_select(0, cn[:w_max])
+        xc = torch.nn.functional.pad(xc, (0, 0, 0, w_max - xc.shape[0]))
+        for b, (lo, hi, w) in enumerate(prep.stair):
+            mag.index_add_(0, cn[lo:hi].long(),
+                           d[f"stair{b}"].float().abs() @ xc[:w])
+    return mag
+
+
 def mul_any_width(prep, results, widths=(41, 1100)):
     """``prep.mul`` (K-tail at H, K-core padded to a multiple of 8)
     against ``mul_plain`` (nothing padded) at widths the kernels' tiles
     do not divide."""
     import torch
 
-    from pygim_tpu_torch.ops import core_dot, ell_tail
-
-    d = prep.dev_arrays
-    cn = d["core_nodes"]
-    bands = [d[f"stair{b}"].float().abs() for b in range(len(prep.stair))]
-    tables = [(c, v.abs(), r, dg) for c, v, r, dg in prep.ell_tables(d)]
     g = torch.Generator(device="cpu").manual_seed(7)
     errs = {}
     for h in widths:
-        x = torch.randn(prep.ncols, h, generator=g).to(cn.device)
+        x = torch.randn(prep.ncols, h, generator=g).to(prep.device)
         got = prep.mul(x)
         want = prep.mul_plain(x)
         if got.shape != (prep.nrows, h):
             raise AssertionError(f"mul at H={h}: shape {tuple(got.shape)}")
-        mag = ell_tail.ell_tables_plain(x.abs(), tables, torch.zeros_like(x))
-        xc = x.index_select(0, cn).to(torch.bfloat16).abs()
-        core_dot.core_bands_plain(bands, xc, cn, prep.stair, mag)
-        errs[h] = check_close(f"mul at H={h}", got, want, mag, REL_TOL)
-        del x, got, want, mag, xc
+        errs[h] = check_close(f"mul at H={h}", got, want, mul_mag(prep, x),
+                              REL_TOL)
+        del x, got, want
     results["mul any width"] = errs
 
 
@@ -2701,6 +2734,234 @@ def float_core_entry(results, card, timeout: int = 300, device="cuda"):
     results["float core entry"] = out
 
 
+# The harness phase: named experiments through the sweep runner into a
+# results directory under the temporary cache, on the kernels of the
+# stair int8 hybrid (float and int32 payloads) and of ell
+HARNESS_KERNELS = ("K-core", "K-tail", "K-int", "K-tail-quant")
+
+
+def harness_experiments():
+    """The sweep (``sweep_space("small")`` at one repeat: tiny and small ×
+    blocked and ell × nnz and row balance), the stair int8 SpMM with its
+    phases on the stand-in and its ``-uniq`` sibling and the int32 GCN
+    with its per-layer check on the same core, and two points the port
+    refuses (``tune``, ``kind="scaling"``)."""
+    from pygim_tpu_torch.bench import Experiment
+    from pygim_tpu_torch.bench.configs import sweep_space
+
+    core = dict(backend="hybrid", hidden=HIDDEN, hybrid_shape="stair",
+                hybrid_dtype="int8", hybrid_core_bytes=CORE_BYTES)
+    sweep = [Experiment(repeat=1, **pt) for pt in sweep_space("small")]
+    named = [Experiment(dataset=d, kind="spmm", phases=True, **core)
+             for d in (DATASET, DATASET + "-uniq")]
+    named.append(Experiment(dataset=DATASET, kind="inference", model="gcn",
+                            dtype="int32", validate=True, **core))
+    refused = [Experiment(dataset="tiny", tune=True, repeat=1),
+               Experiment(dataset="tiny", kind="scaling", backend="ell",
+                          repeat=1)]
+    return sweep, named, refused
+
+
+def harness(results, device="cuda", timeout: int = 300) -> dict:
+    """``run_experiments`` on the card, with the launch counts set to 0
+    before it and read after it: every record must hold its ``verify`` or
+    ``validate: OK`` and one ``[DATA]device`` line, K-core, K-tail, K-int
+    and K-tail-quant must have launched, and the refused points must have
+    left ``.failed`` records with their ``NotImplementedError`` while the
+    sweep went on. A second call must skip everything and launch
+    nothing; ``results_to_csv`` must give one row per record; a directory
+    holding a copy of a TPU record from ``results/`` must be refused; and
+    ``sweep_cuda.py run --baseline --dry_run`` and ``sweep_cuda.py parse``
+    must run as processes of their own. Returns the launch counts."""
+    import csv
+
+    import torch
+
+    from pygim_tpu_torch.bench import results_to_csv, run_experiments
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.utils.metrics import parse_data_lines
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.environ["PYGIM_TPU_TORCH_DATA"]
+    rdir = os.path.join(work, "results_cuda")
+    sweep, named, refused = harness_experiments()
+    ran = sweep + named
+
+    def counted(exps):
+        reset_launch_counts()
+        out = run_experiments(exps, rdir, device=device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return out, launch_counts()
+
+    t0 = time.perf_counter()
+    out, n = counted(ran + refused)
+    secs = time.perf_counter() - t0
+    for exp in ran:
+        name = exp.frozen_name()
+        if name not in out:
+            failed = os.path.join(rdir, name + ".failed")
+            tail = open(failed).read()[-3000:] if os.path.exists(failed) \
+                else ""
+            raise AssertionError(f"harness: {name} failed\n{tail}")
+        rec = parse_data_lines(
+            open(os.path.join(rdir, name + ".out")).read().splitlines())
+        check = "validate" if exp.validate else "verify"
+        if rec.get(check) != ["OK"] or len(rec.get("device", [])) != 1:
+            raise AssertionError(f"harness: {name}: {check} "
+                                 f"{rec.get(check)}, device "
+                                 f"{rec.get('device')}")
+        print(f"harness {name}: {json.dumps(out[name])}", flush=True)
+    for exp in refused:
+        failed = os.path.join(rdir, exp.frozen_name() + ".failed")
+        if exp.frozen_name() in out or not os.path.exists(failed) or \
+                "NotImplementedError" not in open(failed).read():
+            raise AssertionError(f"harness: {exp.frozen_name()} was not "
+                                 "refused with a .failed record")
+    print(f"harness launches: {n} ({secs:.1f} s)", flush=True)
+    for k in HARNESS_KERNELS:
+        if n[k] <= 0:
+            raise AssertionError(f"harness: {k} was never launched")
+
+    out2, n2 = counted(ran + refused)
+    if set(out2) != set(out) or any(n2.values()):
+        raise AssertionError(f"harness: the second sweep ran again: "
+                             f"{sorted(set(out) ^ set(out2))} {n2}")
+    with open(results_to_csv(rdir)) as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != len(ran):
+        raise AssertionError(f"harness: {len(rows)} CSV rows for "
+                             f"{len(ran)} records")
+
+    tpu = os.path.join(work, "results_tpu_copy")
+    os.makedirs(tpu, exist_ok=True)
+    src = sorted(f for f in os.listdir(os.path.join(here, "results"))
+                 if f.endswith(".out"))[0]
+    shutil.copy(os.path.join(here, "results", src), tpu)
+    try:
+        run_experiments(named[:1], tpu, device=device)
+    except ValueError as e:
+        if src not in str(e):
+            raise
+    else:
+        raise AssertionError("harness: a directory holding a TPU record "
+                             "was not refused")
+
+    for argv in (["run", "--baseline", "--dry_run", "--results",
+                  os.path.join(work, "results_dry")],
+                 ["parse", "--results", rdir]):
+        res = subprocess.run([sys.executable, "sweep_cuda.py", *argv],
+                             capture_output=True, text=True, timeout=timeout,
+                             cwd=here)
+        if res.returncode != 0:
+            raise AssertionError(f"sweep_cuda.py {argv[0]}: exit "
+                                 f"{res.returncode}\n"
+                                 f"{(res.stdout + res.stderr)[-3000:]}")
+        if argv[0] == "parse" and not res.stdout.strip().endswith(
+                "average_all.csv"):
+            raise AssertionError(f"sweep_cuda.py parse: {res.stdout}")
+    print(f"harness: {len(ran)} records, {len(refused)} refused, a second "
+          f"sweep skipped all, {len(rows)} CSV rows, the TPU record "
+          "refused, sweep_cuda.py run --dry_run and parse ran", flush=True)
+    results["harness"] = dict(launches=n, seconds=secs)
+    return n
+
+
+def harness_operands(results, device="cuda"):
+    """Every operand the harness's experiments ran kernels on, prepared
+    again from the same dataset and ``Experiment.spmm_config()`` (the
+    hybrid ones load the prepare cache the runs saved): the stair int8
+    cores of the stand-in and of its ``-uniq`` sibling, whose bands no
+    other phase checks, and the ell operands of the sweep. On all rows,
+    ``mul`` (K-core and K-tail, or K-tail alone) against ``mul_plain``,
+    and on the hybrids the fused int32 ``mul_quantized`` (K-int and
+    K-tail-quant) against ``mul_quantized_plain``, each at REL_TOL of the
+    sum of |terms|; each launch counted, so a check that skipped its
+    kernel fails."""
+    import torch
+
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import prepare_spmm
+    from pygim_tpu_torch.quant import quant_scale
+
+    sweep, named, _refused = harness_experiments()
+    operands = {}
+    for exp in sweep + named:
+        if exp.backend in ("hybrid", "ell"):
+            operands.setdefault((exp.dataset, exp.spmm_config()), exp)
+
+    def launched(fn, kernels, name):
+        reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        n = launch_counts()
+        if any(n[k] <= 0 for k in kernels):
+            raise AssertionError(f"{name}: launches {n}, want {kernels}")
+        return got
+
+    out = {}
+    for (dataset, cfg), exp in operands.items():
+        prep = prepare_spmm(load_dataset(dataset).graph, cfg, device=device)
+        name = f"{dataset} {cfg.backend} balance={cfg.balance}"
+        x = torch.randn(prep.ncols, exp.hidden,
+                        generator=torch.Generator().manual_seed(9)).to(device)
+        hybrid = cfg.backend == "hybrid"
+        got = launched(lambda: prep.mul(x),
+                       ("K-core", "K-tail") if hybrid else ("K-tail",), name)
+        res = dict(
+            bands=prep.stair, tables=prep.ell_meta,
+            mul=check_close(f"harness operand {name}: mul", got,
+                            prep.mul_plain(x), mul_mag(prep, x), REL_TOL))
+        if hybrid:
+            got = launched(lambda: prep.mul_quantized(x, "int32"),
+                           ("K-int", "K-tail-quant"), name)
+            scale, safe = quant_scale(x, "int32")
+            res["mul_quantized int32"] = check_close(
+                f"harness operand {name}: mul_quantized int32", got,
+                prep.mul_quantized_plain(x, "int32"),
+                mul_mag(prep, torch.round(x / safe)) * scale, REL_TOL)
+        print(f"harness operand {name}: {res}", flush=True)
+        out[name] = res
+        del prep, x, got
+        torch.cuda.empty_cache()
+    results["harness operands"] = out
+
+
+def real_format(results, device="cuda"):
+    """The stand-in written in OGB's raw layout (``data/real_layout.py``),
+    read back by ``load_dataset`` through the real-format parsers and
+    held to the stand-in (``verify_roundtrip``: marked real, the edges
+    equal, the features within 2e-5, labels and masks equal); then the
+    float GCN at ``HIDDEN`` on the stair int8 core of the parsed graph,
+    its logits against the plain versions (``logits_check``)."""
+    import torch
+
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.data.real_layout import verify_roundtrip, write_ogb
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+
+    ds = load_dataset(DATASET)
+    root = os.path.join(os.environ["PYGIM_TPU_TORCH_DATA"], "realdata")
+    t0 = time.perf_counter()
+    write_ogb(ds, DATASET, root)
+    t1 = time.perf_counter()
+    real = load_dataset(DATASET, root=root)
+    t2 = time.perf_counter()
+    verify_roundtrip(ds, DATASET, root, real=real)
+    cfg = SpmmConfig(backend="hybrid", hybrid_shape="stair",
+                     hybrid_dtype="int8", hybrid_core_bytes=CORE_BYTES)
+    prep = prepare_spmm(real.graph, cfg, device=device)
+    gnn = make_gnn(0, "gcn", real.x.shape[1], HIDDEN, real.num_classes,
+                   num_layers=2, agg_dtype=None, device=device)
+    logits_check("real-format float", gnn,
+                 torch.as_tensor(real.x).to(device), prep, real.num_classes)
+    results["real format"] = dict(write_s=t1 - t0, parse_s=t2 - t1,
+                                  nodes=real.num_nodes, edges=real.num_edges)
+    print(f"real format: {results['real format']}", flush=True)
+
+
 def main() -> int:
     """Run every phase in a fresh prepare and dataset cache, removed at
     the end: no phase reads the user's cache."""
@@ -2936,6 +3197,13 @@ def run() -> int:
     torch.cuda.empty_cache()
     entry_points(results)
 
+    # this slice's path: named experiments through the sweep runner, and
+    # the real-format parsers
+    harness_launches = harness(results)
+    harness_operands(results)
+    real_format(results)
+    torch.cuda.empty_cache()
+
     # the training path: the backward product on the prepared Aᵀ, real
     # steps of each conv, then train_cuda.py and run_training_benchmark
     backward_product(prep, ds.graph, results, card)
@@ -2988,6 +3256,7 @@ def run() -> int:
             "train_step_launches": {
                 part: training[part][k] for part in ("forward", "backward")
             } if k in ("K-core", "K-tail") else None,
+            "harness_launches": harness_launches[k],
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

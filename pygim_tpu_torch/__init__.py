@@ -15,9 +15,11 @@ with its int8, int4 and bf16 cell modes (``ops.core_dot``), K-int
 (``ops.core_int``), K-f32 (``ops.core_f32``) and K-tail with its
 payload modes (``ops.ell_tail``), the quantization (``quant``), the
 models and their training (``nn``), the benchmark bodies and reports
-(``bench``) and the flagship forward step (``entry``); the entry scripts
-``bench_cuda.py``, ``spmm_test_cuda.py``, ``inference_cuda.py`` and
-``train_cuda.py`` sit at the repository root.
+and the experiment harness with the named configurations (``bench``),
+the dataset names and real-format parsers (``data``) and the flagship
+forward step (``entry``); the entry scripts ``bench_cuda.py``,
+``spmm_test_cuda.py``, ``inference_cuda.py``, ``train_cuda.py`` and
+``sweep_cuda.py`` sit at the repository root.
 
 The package never imports ``jax`` or ``pygim_tpu``. Entry points take an
 explicit ``device`` (default ``"cuda"``); only tests pass ``"cpu"``.

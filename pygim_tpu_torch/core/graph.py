@@ -84,6 +84,23 @@ class CooGraph:
         return cls(rows=rows, cols=cols, vals=vals, nrows=int(nrows),
                    ncols=int(ncols))
 
+    @classmethod
+    def from_scipy(cls, mat, dtype: str = "float32") -> "CooGraph":
+        """A SciPy sparse matrix's entries, in its COO order."""
+        coo = mat.tocoo()
+        return cls.from_edges(
+            coo.row, coo.col, coo.data, nrows=coo.shape[0],
+            ncols=coo.shape[1], dtype=dtype,
+        )
+
+    def to_dense(self) -> np.ndarray:
+        """The dense matrix, duplicates summed (in float64, cast back to
+        the value dtype; int8 values widen to int32)."""
+        out = np.zeros((self.nrows, self.ncols), dtype=np.float64)
+        np.add.at(out, (self.rows, self.cols), self.vals.astype(np.float64))
+        return out.astype(self.vals.dtype if self.vals.dtype != np.int8
+                          else np.int32)
+
     def sort_by_row(self) -> "CooGraph":
         """Canonical (row, col) lexicographic order, stable."""
         order = np.lexsort((self.cols, self.rows))

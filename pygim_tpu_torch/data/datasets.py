@@ -1,21 +1,31 @@
-"""Synthetic dataset stand-ins.
+"""Datasets: real files where they are on disk, synthetic stand-ins
+otherwise.
 
-Counterpart of ``pygim_tpu/data/datasets.py`` for the stand-ins only:
-each known dataset name resolves to an R-MAT graph with the published
-node count, stored edge count, feature width and class count, with
-random features, labels and a 10% train mask; ``planted-<n>-<e>-<c>``
-is a learnable planted partition (the training parity graphs). The same
-name and seed give the reference's graph, features, labels and masks,
-array for array. A spec name's stand-in is cached on disk as ``<name>-sim.npz``
-under the port's cache directory (``utils/cache.py``), the reference's
-file layout; ``rmat-<n>-<e>`` names are made anew each time, as in the
-reference. Real-dataset loaders come in a later slice.
+Counterpart of ``pygim_tpu/data/datasets.py``. A known dataset name
+resolves, in this order, to its raw files under ``root`` read by the
+PyG-free parsers (``data/real.py``), to ``torch_geometric``'s loaders
+where that package is importable (it is optional and absent on the
+machines this port targets), and else to a synthetic stand-in: an R-MAT
+graph with the published node count, stored edge count, feature width
+and class count, random features and labels and a 10% train mask,
+cached on disk as ``<name>-sim.npz`` (the reference's file layout) under
+the port's cache directory (``utils/cache.py``).
+
+Other names: ``<name>-uniq`` (a stand-in whose edges are all distinct,
+as real datasets count them; cached as ``<name>-uniq-sim.npz``),
+``rmat-<n>-<e>`` and ``rmat-<n>-<e>-uniq`` (64 features, 16 classes),
+``brmat-<n>-<e>-<b>`` (hidden communities of ``b`` nodes),
+``planted-<n>-<e>-<c>`` (a learnable planted partition, the training
+parity graphs) and ``<file>.mtx`` (a MatrixMarket file under ``root``);
+the parametric names are made anew each time. The same name and seed
+give the reference's graph, features, labels and masks, array for array.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from pathlib import Path
 from typing import Optional
 
@@ -53,6 +63,8 @@ class GraphDataset:
     num_classes: int
     synthetic: bool
     metric: str = "acc"
+    val_mask: Optional[np.ndarray] = None  # the real loaders' validation
+                                           # split; stand-ins have none
 
     @property
     def num_nodes(self) -> int:
@@ -64,26 +76,77 @@ class GraphDataset:
 
 
 def rmat_edges(
-    n: int, e: int, *, a=0.57, b=0.19, c=0.19, seed=0
+    n: int, e: int, *, a=0.57, b=0.19, c=0.19, seed=0, unique=False
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Vectorized R-MAT edge generation (power-law degree skew), as a
-    multigraph: duplicates are kept, so ``e`` is the stored edge count."""
+    """Vectorized R-MAT edge generation (power-law degree skew). By
+    default a multigraph: duplicates are kept, so ``e`` is the stored
+    edge count. ``unique=True`` rejection-samples until ``e`` distinct
+    edges exist, in the order of their first draw (real datasets count
+    distinct pairs: real Reddit's 114.6M edges have no duplicates); it
+    raises ``ValueError`` where ``e > n²`` and ``RuntimeError`` after 8
+    batches in a row that add no new edge."""
     rng = np.random.default_rng(seed)
     scale = max(1, int(np.ceil(np.log2(max(n, 2)))))
-    rows = np.zeros(e, dtype=np.int64)
-    cols = np.zeros(e, dtype=np.int64)
-    for _ in range(scale):
-        r = rng.random(e)
-        rows = rows * 2 + (r >= a + b).astype(np.int64)
-        cols = cols * 2 + (
-            ((r >= a) & (r < a + b)) | (r >= a + b + c)
-        ).astype(np.int64)
-    return (rows % n).astype(np.int32), (cols % n).astype(np.int32)
+
+    def _draw(m: int) -> tuple[np.ndarray, np.ndarray]:
+        rows = np.zeros(m, dtype=np.int64)
+        cols = np.zeros(m, dtype=np.int64)
+        for _ in range(scale):
+            r = rng.random(m)
+            rows = rows * 2 + (r >= a + b).astype(np.int64)
+            cols = cols * 2 + (
+                ((r >= a) & (r < a + b)) | (r >= a + b + c)
+            ).astype(np.int64)
+        return (rows % n).astype(np.int32), (cols % n).astype(np.int32)
+
+    if not unique:
+        return _draw(e)
+    if e > n * n:
+        raise ValueError(f"cannot place {e} unique edges in an {n}x{n} graph")
+    seen = np.empty(0, dtype=np.int64)  # the accepted keys, sorted
+    out_r: list = []
+    out_c: list = []
+    have = 0
+    stalled = 0
+    # about 40 bytes of temporaries a drawn edge: 64M edges a batch keep
+    # one batch near 2.5 GB of host memory
+    batch_cap = 64 * 2**20
+    while have < e:
+        m = min(int((e - have) * 1.7) + 1024, batch_cap)
+        br, bc = _draw(m)
+        k = br.astype(np.int64) * n + bc
+        # first occurrence within the batch, in draw order
+        _, first = np.unique(k, return_index=True)
+        first.sort()
+        kf = k[first]
+        if seen.size:  # drop keys accepted in earlier batches
+            pos = np.searchsorted(seen, kf)
+            dup = (pos < seen.size) & (
+                seen[np.minimum(pos, seen.size - 1)] == kf)
+            first = first[~dup]
+        take = first[: e - have]
+        out_r.append(br[take])
+        out_c.append(bc[take])
+        # a linear merge of two sorted key arrays, not a sort of `seen`
+        new_sorted = np.sort(k[take])
+        seen = np.insert(seen, np.searchsorted(seen, new_sorted), new_sorted)
+        have += take.size
+        # a request near the skew's reachable cells can accept nothing
+        # batch after batch: only batches that add no edge count as stalled
+        stalled = stalled + 1 if take.size == 0 else 0
+        if stalled >= 8:
+            raise RuntimeError(
+                f"rmat_edges(unique=True) stalled at {have}/{e} unique "
+                f"edges after {stalled} zero-progress batches — the "
+                f"request saturates this R-MAT skew's reachable cells "
+                f"(a={a}, b={b}, c={c}); lower e or the skew"
+            )
+    return np.concatenate(out_r), np.concatenate(out_c)
 
 
-def _synthesize(name: str, spec, seed=0) -> GraphDataset:
+def _synthesize(name: str, spec, seed=0, unique=False) -> GraphDataset:
     n, e, f, ccount = spec
-    rows, cols = rmat_edges(n, e, seed=seed)
+    rows, cols = rmat_edges(n, e, seed=seed, unique=unique)
     rng = np.random.default_rng(seed + 1)
     x = rng.standard_normal((n, f)).astype(np.float32)
     y = rng.integers(0, ccount, n).astype(np.int32)
@@ -94,6 +157,39 @@ def _synthesize(name: str, spec, seed=0) -> GraphDataset:
     return GraphDataset(
         name=name, graph=graph, x=x, y=y, train_mask=train,
         test_mask=~train, num_classes=ccount, synthetic=True, metric=metric,
+    )
+
+
+def _synthesize_block(name: str, n: int, e: int, b: int, seed=0):
+    """The reference's block-community graph (``_synthesize_block``):
+    ``n`` nodes in ``n / b`` communities of ``b`` consecutive ids, 90% of
+    the edges inside one, the rest anywhere, then the ids scrambled by a
+    fixed permutation, so the structure is latent (a locality order must
+    recover it); 64 features, 16 classes."""
+    rng = np.random.default_rng(seed)
+    b = max(1, min(b, n))
+    e_in = int(e * 0.9)
+    comm = rng.integers(0, max(1, n // b), e_in) * b
+    rows = np.concatenate([
+        comm + rng.integers(0, b, e_in),
+        rng.integers(0, n, e - e_in),
+    ])
+    cols = np.concatenate([
+        comm + rng.integers(0, b, e_in),
+        rng.integers(0, n, e - e_in),
+    ])
+    perm = rng.permutation(n).astype(np.int64)
+    rows, cols = perm[rows], perm[cols]
+    graph = CooGraph.from_edges(rows, cols, nrows=n, ncols=n, dtype="float32")
+    f, ccount = 64, 16
+    rng2 = np.random.default_rng(seed + 1)
+    x = rng2.standard_normal((n, f)).astype(np.float32)
+    y = rng2.integers(0, ccount, n).astype(np.int32)
+    train = np.zeros(n, dtype=bool)
+    train[rng2.choice(n, max(1, n // 10), replace=False)] = True
+    return GraphDataset(
+        name=name, graph=graph, x=x, y=y, train_mask=train,
+        test_mask=~train, num_classes=ccount, synthetic=True,
     )
 
 
@@ -158,65 +254,186 @@ def _load_cache(name: str, path: Path) -> GraphDataset:
         )
 
 
-def load_dataset(name: str, root: Optional[str] = None, *, seed: int = 0,
-                 use_cache: bool = True) -> GraphDataset:
-    """The synthetic stand-in for a spec name, ``rmat-<n>-<e>`` (64
-    features, 16 classes) for ad-hoc sizes, or ``planted-<n>-<e>-<c>``
-    (32 features, ``c`` classes); the last two are made anew each time. A spec name's stand-in is
-    read from ``root`` (default: the cache directory) where it was saved,
-    else synthesized and saved there; ``use_cache=False`` does neither.
-    As in the reference, the file's name holds no seed."""
-    name = name.lower()
-    if name.startswith("rmat-"):
-        _, ns, es = name.split("-")
-        return _synthesize(name, (int(ns), int(es), 64, 16), seed)
-    if name.startswith("planted-"):
-        _, ns, es, cs = name.split("-")
-        return _synthesize_planted(name, int(ns), int(es), int(cs), seed)
-    if name not in DATASET_SPECS:
-        raise KeyError(
-            f"unknown dataset {name!r}; known: {sorted(DATASET_SPECS)} "
-            f"or rmat-<n>-<e> or planted-<n>-<e>-<c>"
+def _try_real_dataset(name: str, root: str) -> Optional[GraphDataset]:
+    """``torch_geometric``'s (and OGB's) loaders where that package is
+    importable, as the reference's ``_try_real_dataset``; None where it is
+    absent or fails (the caller then takes the stand-in)."""
+    try:
+        import torch_geometric  # noqa: F401
+    except ImportError:
+        return None
+    try:
+        from torch_geometric.datasets import Planetoid, Reddit
+
+        if name in ("cora", "citeseer", "pubmed"):
+            ds = Planetoid(root=root, name=name.capitalize())
+        elif name == "reddit":
+            ds = Reddit(root=os.path.join(root, "Reddit"))
+        elif name.startswith("ogbn-"):
+            from ogb.nodeproppred import PygNodePropPredDataset
+
+            ds = PygNodePropPredDataset(name=name, root=root)
+        else:
+            return None
+        data = ds[0]
+        ei = data.edge_index.numpy()
+        n = data.num_nodes
+        graph = CooGraph.from_edges(
+            ei[1], ei[0], nrows=n, ncols=n, dtype="float32"
+        )  # row = destination
+        y = data.y.numpy().reshape(-1).astype(np.int32)
+        train = (
+            data.train_mask.numpy()
+            if hasattr(data, "train_mask")
+            else np.ones(n, dtype=bool)
         )
-    path = Path(cache_dir() if root is None else root) / f"{name}-sim.npz"
+        test = (
+            data.test_mask.numpy()
+            if hasattr(data, "test_mask")
+            else np.ones(n, dtype=bool)
+        )
+        return GraphDataset(
+            name=name, graph=graph, x=data.x.numpy().astype(np.float32),
+            y=y, train_mask=train, test_mask=test,
+            num_classes=int(y.max()) + 1, synthetic=False,
+        )
+    except Exception as e:  # noqa: BLE001 — an optional loader's failure
+        _log.warning("torch_geometric could not load %s (%s): taking the "
+                     "stand-in", name, e)
+        return None
+
+
+def _cached_stand_in(name: str, spec, root: str, seed: int, use_cache: bool,
+                     unique: bool = False) -> GraphDataset:
+    """The stand-in of a spec, read from ``<root>/<name>-sim.npz`` where
+    it was saved, else synthesized and saved there (``use_cache=False``
+    does neither). As in the reference, the file's name holds no seed."""
+    path = Path(root) / f"{name}-sim.npz"
     if use_cache and path.exists():
         try:
             return _load_cache(name, path)
         except LOAD_ERRORS as e:
             _log.warning("dataset cache %s unreadable (%s): synthesizing "
                          "anew", path, e)
-    ds = _synthesize(name, DATASET_SPECS[name], seed)
+    ds = _synthesize(name, spec, seed, unique=unique)
     if use_cache:
         _save_cache(ds, path)
     return ds
+
+
+def load_dataset(name: str, root: Optional[str] = None, *, seed: int = 0,
+                 use_cache: bool = True) -> GraphDataset:
+    """The dataset ``name`` (module docstring): real files under ``root``
+    (default: the cache directory) where they exist, else the stand-in.
+    Raises ``KeyError`` on an unknown name."""
+    from pygim_tpu_torch.data.real import try_load_real
+
+    name = name.lower()
+    root = str(cache_dir() if root is None else root)
+    if name.endswith("-uniq"):
+        base = name[: -len("-uniq")]
+        if base.startswith("rmat-"):
+            _, ns, es = base.split("-")
+            return _synthesize(name, (int(ns), int(es), 64, 16), seed,
+                               unique=True)
+        if base not in DATASET_SPECS:
+            raise KeyError(f"unknown dataset {name!r} "
+                           f"(base {base!r} has no synthetic spec)")
+        return _cached_stand_in(name, DATASET_SPECS[base], root, seed,
+                                use_cache, unique=True)
+    if name.startswith("rmat-"):
+        _, ns, es = name.split("-")
+        return _synthesize(name, (int(ns), int(es), 64, 16), seed)
+    if name.startswith("brmat-"):
+        _, ns, es, bs = name.split("-")
+        return _synthesize_block(name, int(ns), int(es), int(bs), seed)
+    if name.startswith("planted-"):
+        _, ns, es, cs = name.split("-")
+        return _synthesize_planted(name, int(ns), int(es), int(cs), seed)
+    if name.endswith(".mtx"):
+        # the graph from the file, padded square; features and labels
+        # synthetic, sized to it
+        g = load_mtx(os.path.join(root, name))
+        if g.nrows != g.ncols:
+            n = max(g.nrows, g.ncols)
+            g = CooGraph(
+                rows=g.rows, cols=g.cols, vals=g.vals, nrows=n, ncols=n
+            )
+        rng = np.random.default_rng(seed)
+        n = g.nrows
+        return GraphDataset(
+            name=name, graph=g,
+            x=rng.standard_normal((n, 64)).astype(np.float32),
+            y=rng.integers(0, 4, n).astype(np.int32),
+            train_mask=np.zeros(n, dtype=bool),
+            test_mask=np.ones(n, dtype=bool),
+            num_classes=4, synthetic=True,
+        )
+    if name not in DATASET_SPECS:
+        raise KeyError(
+            f"unknown dataset {name!r}; known: {sorted(DATASET_SPECS)}, "
+            "<name>-uniq, rmat-<n>-<e>[-uniq], brmat-<n>-<e>-<b>, "
+            "planted-<n>-<e>-<c> or <file>.mtx"
+        )
+    real = try_load_real(name, root) or _try_real_dataset(name, root)
+    if real is not None:
+        return real
+    return _cached_stand_in(name, DATASET_SPECS[name], root, seed, use_cache)
+
+
+def load_mtx(path: str, dtype: str = "float32") -> CooGraph:
+    """A MatrixMarket file (the SuiteSparse sets) through SciPy."""
+    import scipy.io
+
+    return CooGraph.from_scipy(scipy.io.mmread(path), dtype=dtype)
+
+
+def _subgraph(ds: GraphDataset, part_idx: int, sub: CooGraph, sl):
+    return GraphDataset(
+        name=f"{ds.name}-part{part_idx}", graph=sub, x=ds.x[sl], y=ds.y[sl],
+        train_mask=ds.train_mask[sl], test_mask=ds.test_mask[sl],
+        num_classes=ds.num_classes, synthetic=ds.synthetic,
+    )
 
 
 def cluster_partition(ds: GraphDataset, part_size: int, part_idx: int = 1,
                       method: str = "none") -> GraphDataset:
     """Partition ``part_idx`` of ``ds`` in parts of ``part_size`` nodes,
     the reference's ``cluster_partition`` (``inference.py`` takes part 1
-    of ~500k-node parts of amazonproducts). ``method="none"``: contiguous
-    node ranges, and the edges inside one. The clustered methods (``rcm``,
-    ``lp``, ``metis``) come with ``core/cluster.py``; they raise."""
-    if method != "none":
+    of ~500k-node parts of amazonproducts), with the edges inside it.
+    ``method``: ``"none"``, contiguous node ranges; ``"rcm"`` or
+    ``"lp"``, ranges of a locality order (``core/cluster.py``), so each
+    part is a low-cut cluster on a graph whose ids carry no locality; its
+    nodes keep their original relative order. ``"metis"`` needs the
+    multilevel partitioner, not ported yet (ROADMAP.md, Queue 1 item 6),
+    and raises ``NotImplementedError``."""
+    if method == "metis":
         raise NotImplementedError(
-            f"cluster_partition(method={method!r}): only 'none' is ported "
-            "(the clustered orders need core/cluster.py)"
-        )
+            "cluster_partition(method='metis') needs the multilevel k-way "
+            "partitioner (partition_kway, native partition_ml.cpp), not "
+            "ported yet (ROADMAP.md, Queue 1 item 6)")
     n = ds.num_nodes
     nparts = max(1, -(-n // part_size))
     part_idx = min(part_idx, nparts - 1)
     lo = part_idx * part_size
     hi = min(n, lo + part_size)
     g = ds.graph
+    if method != "none":
+        from pygim_tpu_torch.core.cluster import locality_order
+
+        order = locality_order(g, method=method)
+        nodes = np.sort(order[lo:hi])  # this part's original node ids
+        pos = np.full(n, -1, dtype=np.int64)
+        pos[nodes] = np.arange(hi - lo)
+        mask = (pos[g.rows] >= 0) & (pos[g.cols] >= 0)
+        sub = CooGraph.from_edges(
+            pos[g.rows[mask]], pos[g.cols[mask]], g.vals[mask],
+            nrows=hi - lo, ncols=hi - lo,
+        )
+        return _subgraph(ds, part_idx, sub, nodes)
     mask = (g.rows >= lo) & (g.rows < hi) & (g.cols >= lo) & (g.cols < hi)
     sub = CooGraph.from_edges(
         g.rows[mask] - lo, g.cols[mask] - lo, g.vals[mask],
         nrows=hi - lo, ncols=hi - lo,
     )
-    sl = slice(lo, hi)
-    return GraphDataset(
-        name=f"{ds.name}-part{part_idx}", graph=sub, x=ds.x[sl], y=ds.y[sl],
-        train_mask=ds.train_mask[sl], test_mask=ds.test_mask[sl],
-        num_classes=ds.num_classes, synthetic=ds.synthetic,
-    )
+    return _subgraph(ds, part_idx, sub, slice(lo, hi))

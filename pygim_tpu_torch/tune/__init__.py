@@ -1,0 +1,6 @@
+"""Search spaces (``tune/space.py``). The tuner itself is not ported yet
+(ROADMAP.md, Queue 1 item 5)."""
+
+from pygim_tpu_torch.tune.space import Concat, For, Product, Space, Table, Unit
+
+__all__ = ["Concat", "For", "Product", "Space", "Table", "Unit"]

@@ -2,8 +2,8 @@
 ``ml_dtypes`` (which comes with JAX and not with the packages of the
 machine with the card), nor the JAX package, and no file of it (or
 chip_smoke.py, or the entry scripts bench_cuda.py, spmm_test_cuda.py,
-inference_cuda.py, train_cuda.py) imports any of them; train_cuda.py's
-main on the CPU loads none. The package namespaces re-export the names
+inference_cuda.py, train_cuda.py, sweep_cuda.py) imports any of them;
+train_cuda.py's main on the CPU loads none. The package namespaces re-export the names
 the reference's do, where the port has them."""
 
 import ast
@@ -50,6 +50,18 @@ MODULES = [
     "pygim_tpu_torch.compat",
     "pygim_tpu_torch.utils.cache",
     "pygim_tpu_torch.utils.device",
+    "pygim_tpu_torch.utils.logging",
+    "pygim_tpu_torch.utils.profiling",
+    "pygim_tpu_torch.core.transforms",
+    "pygim_tpu_torch.core.cluster",
+    "pygim_tpu_torch.data.real",
+    "pygim_tpu_torch.data.real_layout",
+    "pygim_tpu_torch.tune",
+    "pygim_tpu_torch.tune.space",
+    "pygim_tpu_torch.bench.experiment",
+    "pygim_tpu_torch.bench.configs",
+    "pygim_tpu_torch.bench.parse_results",
+    "sweep_cuda",
 ]
 
 
@@ -67,6 +79,14 @@ REEXPORTS = {
                              "RowBlockPlan", "plan_row_blocks"],
     "pygim_tpu_torch.ops": ["spmm_coo_oracle", "spmm_csr_oracle",
                             "PreparedSpmm", "prepare_spmm"],
+    "pygim_tpu_torch.bench": ["Experiment", "run_experiments",
+                              "results_to_csv", "run_inference_benchmark",
+                              "run_spmm_benchmark"],
+    "pygim_tpu_torch.data": ["DATASET_SPECS", "GraphDataset",
+                             "cluster_partition", "load_dataset", "load_mtx",
+                             "rmat_edges"],
+    "pygim_tpu_torch.tune": ["Concat", "For", "Product", "Space", "Table",
+                             "Unit"],
 }
 
 
@@ -99,6 +119,9 @@ def test_reexports_are_the_ports_own():
     from pygim_tpu_torch import core, ops
     from pygim_tpu_torch.core import graph, partition
     from pygim_tpu_torch.ops import reference
+    from pygim_tpu_torch import bench, data
+    from pygim_tpu_torch.bench import experiment, parse_results
+    from pygim_tpu_torch.data import datasets
 
     assert pygim_tpu_torch.CooGraph is graph.CooGraph
     assert pygim_tpu_torch.CsrGraph is graph.CsrGraph
@@ -106,6 +129,10 @@ def test_reexports_are_the_ports_own():
     assert core.plan_row_blocks is partition.plan_row_blocks
     assert ops.spmm_coo_oracle is reference.spmm_coo_oracle
     assert ops.spmm_csr_oracle is reference.spmm_csr_oracle
+    assert bench.Experiment is experiment.Experiment
+    assert bench.run_experiments is experiment.run_experiments
+    assert bench.results_to_csv is parse_results.results_to_csv
+    assert data.load_mtx is datasets.load_mtx
     for ns in REEXPORTS:
         mod = __import__(ns, fromlist=["_"])
         assert set(REEXPORTS[ns]) <= set(dir(mod)), ns
@@ -135,7 +162,7 @@ def _sources():
     return sorted(PKG.rglob("*.py")) + [
         ROOT / f for f in ("chip_smoke.py", "bench_cuda.py",
                            "spmm_test_cuda.py", "inference_cuda.py",
-                           "train_cuda.py")]
+                           "train_cuda.py", "sweep_cuda.py")]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
