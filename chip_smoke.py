@@ -114,6 +114,25 @@ versions' (both negative controls must fail), ``train_cuda.py --backend
 hybrid`` trains 10 epochs on its default f32 core, and
 ``run_training_benchmark`` trains the GCN on the bf16 square.
 
+Then this slice's paths. K-bcsr alone against its plain version on
+random tiers: every mode (bf16 tiles with a float32, bfloat16 or int8
+payload on the tensor cores; int16, int32 and rounded payloads and f32
+tiles in f32) in both layouts at ragged tile rows (8 to 64) and widths
+(8 to 1100), with an ``out`` at an odd offset, on a single-tile tier,
+two launches against each other, a NaN read by a pad, and the shapes it
+refuses. The three-tier hybrid on ``brmat-200000-4000000-256`` (a square
+core at 64 MiB, tiles at 256 MiB: int8 core with bf16 tiles, Tr 16 panel
+lp, Tr 16 row rcm, Tr 8 row rank; an f32 core with f32 tiles, Tr 16
+panel lp), each counted, ``mul`` on five payloads and ``mul_quantized``
+at int8 (bit-equal), int16 and int32 against the plain versions, with
+``bcsr_time``, the captured edges and K-bcsr timed against its bound and
+``torch.sparse.mm``. A 1 GiB random tier at 2,000,000 nodes, both
+layouts, timed the same way. The ``coo`` backend on the stand-in (a
+float32 SpMM, the float GCN against the oracle backend's, GIN and SAGE
+through ``run_experiments`` with ``validate``) and SDDMM against a
+float64 dot. After the training path, one GCN step through a hybrid with
+a tier, its gradients against the plain versions'.
+
 Its last three lines are the ``kernels`` JSON object (each kernel with
 its split and schedule balance where it has a tile schedule, K-core
 and K-tail with their launches in one training step, and every kernel
@@ -127,7 +146,13 @@ CUDA card, or without the package beside it, it exits non-zero.
 one inference forward of each path and of one GCN training step by
 kernel, and the device's busy share. ``python3 chip_smoke.py
 --train-sweep`` runs only the readings the training checks' bars were
-set from (``train_sweep``), and checks nothing.
+set from (``train_sweep``), and checks nothing. ``python3 chip_smoke.py
+--bcsr-full`` holds and times K-bcsr on the full-size three-tier tiers
+and prints its time at every forced number of work items a block there
+(``bcsr_full``; minutes of host prepare where the cache is cold);
+``--bcsr-sweep`` prints the same readings on the smoke and random tiers
+(``bcsr_group_sweep``): the readings ``ops/bcsr.py:work_group`` was
+checked against.
 """
 
 from __future__ import annotations
@@ -2962,9 +2987,686 @@ def real_format(results, device="cuda"):
     print(f"real format: {results['real format']}", flush=True)
 
 
+# ---- the BCSR tier (K-bcsr), the coo backend and SDDMM ----------------------
+
+# the reference's tile-capture study graph (docs/PERF.md:265-280): hidden
+# communities of 256 nodes, which the lp order recovers
+BCSR_GRAPH = "brmat-200000-4000000-256"
+BCSR_CORE_BYTES = 64 << 20
+BCSR_BYTES = 256 << 20
+BCSR_CONFIGS = {
+    "int8 Tr16 panel lp": dict(hybrid_dtype="int8", bcsr_tile=16,
+                               bcsr_layout="panel", bcsr_order="lp"),
+    "int8 Tr16 row rcm": dict(hybrid_dtype="int8", bcsr_tile=16,
+                              bcsr_layout="row", bcsr_order="rcm"),
+    # the rank order scrambles the communities: the auto cutoff (23 edges
+    # a tile at H 256) takes no tile, 3 takes about 6,900
+    "int8 Tr8 row rank": dict(hybrid_dtype="int8", bcsr_tile=8,
+                              bcsr_layout="row", bcsr_order="rank",
+                              bcsr_min_edges=3),
+    "f32 Tr16 panel lp": dict(hybrid_dtype="float32", bcsr_tile=16,
+                              bcsr_layout="panel", bcsr_order="lp"),
+}
+BCSR_TIMED = "int8 Tr16 panel lp"  # the kernels line's K-bcsr entry
+# the training check's graph: smaller, so its Aᵀ prepares in seconds
+BCSR_TRAIN_GRAPH = "brmat-20000-400000-64"
+# the modes of K-bcsr: tile dtype, payload and whether x is rounded to
+# round(x / safe); the first three run on the tensor cores
+BCSR_MODES = (("bfloat16", "float32", False), ("bfloat16", "bfloat16", False),
+              ("bfloat16", "int8", False), ("bfloat16", "int16", False),
+              ("bfloat16", "int32", False), ("bfloat16", "float32", True),
+              ("float32", "float32", False), ("float32", "bfloat16", False),
+              ("float32", "int8", False), ("float32", "int16", False),
+              ("float32", "int32", False), ("float32", "float32", True))
+BCSR_RAGGED = ((8, 41), (16, 256), (24, 8), (32, 1100), (64, 42), (24, 1100))
+
+
+def timed_phase(name, fn, *args):
+    """``fn(*args)``, its seconds on the host clock printed as a line
+    ``phase <name>: <s> s``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def free(device) -> None:
+    """Return the card's cached blocks after a large operand is gone."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def bcsr_synthetic(kind, n, slots, tr, nodes, tile_dtype, gen, dev,
+                   density=0.2):
+    """A random tier on ``dev``: ``n`` virtual blocks / panels of ``slots``
+    ``tr``-row tiles (``density`` of the cells nonzero, normal values in
+    the tile dtype) over ``nodes`` nodes, its panels and row blocks drawn
+    at random (so rows repeat across work items). The arguments of
+    ``bcsr_add`` after x."""
+    import torch
+
+    n_panels = max(1, nodes // 128)
+    n_rb = max(1, nodes // tr)
+    tiles = torch.randn(n, slots, tr, 128, generator=gen)
+    tiles *= torch.rand(n, slots, tr, 128, generator=gen) < density
+    tiles = tiles.to(getattr(torch, tile_dtype))
+    pidx = torch.randint(0, n_panels, (n, slots) if kind == "row" else (n,),
+                         generator=gen, dtype=torch.int32)
+    rb = torch.randint(0, n_rb, (n,) if kind == "row" else (n, slots),
+                       generator=gen, dtype=torch.int32)
+    pn = torch.randint(0, nodes, (n_panels * 128,), generator=gen,
+                       dtype=torch.int32)
+    rn = torch.randint(0, nodes, (n_rb * tr,), generator=gen,
+                       dtype=torch.int32)
+    return tuple([kind] + [t.to(dev) for t in (tiles, pidx, rb, pn, rn)])
+
+
+def bcsr_payload(nodes, h, dtype, gen, dev):
+    """x of ``dtype``: normal floats, or integers of the payload's range
+    (int8 in [-127, 127], so |x| stays in range)."""
+    import torch
+
+    lim = {"int8": 127, "int16": 1 << 12, "int32": 1 << 20}
+    if dtype in lim:
+        x = torch.randint(-lim[dtype], lim[dtype] + 1, (nodes, h),
+                          generator=gen)
+    else:
+        x = torch.randn(nodes, h, generator=gen)
+    return x.to(getattr(torch, dtype)).to(dev)
+
+
+def bcsr_mag(x, tables, nodes, safe=None, mag=None):
+    """The sum of |terms| behind each element of the tier's product, added
+    into ``mag`` where it is given."""
+    import torch
+
+    from pygim_tpu_torch.ops.bcsr import bcsr_plain
+
+    kind, tiles, *rest = tables
+    if mag is None:
+        mag = torch.zeros(nodes, x.shape[1], device=x.device)
+    xa = x.abs() if x.is_floating_point() else x.to(torch.int32).abs()
+    return bcsr_plain(xa, kind, tiles.abs(), *rest, mag, safe=safe)
+
+
+def bcsr_case(name, x, tables, nodes, safe=None, out=None):
+    """K-bcsr against ``bcsr_plain`` on the same inputs, within REL_TOL of
+    the sum of |terms|; ``out`` (zeros) may be given, e.g. at an odd
+    offset. Returns the max abs error."""
+    import torch
+
+    from pygim_tpu_torch.ops.bcsr import bcsr_add, bcsr_plain
+
+    if out is None:
+        out = torch.zeros(nodes, x.shape[1], device=x.device)
+    got = bcsr_add(x, *tables, out, safe=safe)
+    want = bcsr_plain(x, *tables, torch.zeros_like(got), safe=safe)
+    return check_close(name, got, want, bcsr_mag(x, tables, nodes, safe),
+                       REL_TOL)
+
+
+def bcsr_kernel_checks(results, device="cuda"):
+    """K-bcsr alone against ``bcsr_plain`` on random tiers: every mode of
+    :data:`BCSR_MODES` in both layouts at ragged (Tr, H), Tr 8 to 64 and
+    H 8 to 1100, with an ``out`` at an odd storage offset, on a
+    single-tile tier; two launches on a bf16 tier within REL_TOL (f32
+    atomics: not required bit-equal; the reading says whether they were);
+    NaN rows where the plain version has them when a pad reads a NaN x
+    row; the refusals of the wrapper (Tr past 64, misaligned tiles)."""
+    import torch
+
+    from pygim_tpu_torch.ops.bcsr import bcsr_add, bcsr_plain
+
+    gen = torch.Generator().manual_seed(21)
+    nodes = 3000
+    errs, cases = {}, 0
+    for kind in ("row", "panel"):
+        for i, (tdt, xdt, rounded) in enumerate(BCSR_MODES):
+            tr, h = BCSR_RAGGED[i % len(BCSR_RAGGED)]
+            tables = bcsr_synthetic(kind, 48, 4, tr, nodes, tdt, gen, device)
+            x = bcsr_payload(nodes, h, xdt, gen, device)
+            safe = None
+            if rounded:
+                safe = (x.abs().max() * 2 / 2 ** 20).reshape(())
+            name = (f"K-bcsr {kind} {tdt} tiles x {xdt}"
+                    f"{' rounded' if rounded else ''} Tr {tr} H {h}")
+            errs[name] = bcsr_case(name, x, tables, nodes, safe)
+            cases += 1
+            # an out at an odd offset of its storage
+            buf = torch.zeros(nodes * h + 1, device=device)
+            errs[name + " odd out"] = bcsr_case(
+                name + " odd out", x, tables, nodes, safe,
+                out=buf[1:].view(nodes, h))
+            cases += 1
+        for tdt in ("bfloat16", "float32"):
+            tables = bcsr_synthetic(kind, 1, 1, 16, 200, tdt, gen, device)
+            x = bcsr_payload(200, 64, "float32", gen, device)
+            name = f"K-bcsr {kind} {tdt} single tile"
+            errs[name] = bcsr_case(name, x, tables, 200)
+            cases += 1
+    # two launches on a bf16 tier
+    tables = bcsr_synthetic("panel", 256, 8, 16, nodes, "bfloat16", gen,
+                            device)
+    x = bcsr_payload(nodes, 256, "float32", gen, device)
+    a = bcsr_add(x, *tables, torch.zeros(nodes, 256, device=device))
+    b = bcsr_add(x, *tables, torch.zeros(nodes, 256, device=device))
+    two = check_close("K-bcsr two launches", a, b,
+                      bcsr_mag(x, tables, nodes), REL_TOL)
+    # a NaN x row that pads (and rows of zero cells) read
+    xn = x.clone()
+    xn[tables[4][0].long()] = float("nan")
+    kind, tiles, pidx, rb, pn, rn = tables
+    tiles = tiles.clone()
+    tiles[-1] = 0
+    pidx = pidx.clone()
+    pidx[-1] = 0  # a pad: zero tiles on panel 0
+    got = bcsr_add(xn, kind, tiles, pidx, rb, pn, rn,
+                   torch.zeros(nodes, 256, device=device))
+    want = bcsr_plain(xn, kind, tiles, pidx, rb, pn, rn,
+                      torch.zeros(nodes, 256, device=device))
+    if not torch.equal(got.isnan(), want.isnan()) or not want.isnan().any():
+        raise AssertionError("K-bcsr: NaN rows differ from the plain "
+                             "version's where a pad reads a NaN x row")
+    refused = 0
+    for bad in ("tr", "align"):
+        try:
+            if bad == "tr":
+                t = bcsr_synthetic("row", 2, 1, 65, 400, "bfloat16", gen,
+                                   device)
+            else:
+                big = torch.zeros(2 * 16 * 128 + 1, dtype=torch.bfloat16,
+                                  device=device)
+                t = bcsr_synthetic("row", 2, 1, 16, 400, "bfloat16", gen,
+                                   device)
+                t = (t[0], big[1:].view(2, 1, 16, 128).copy_(t[1]),
+                     *t[2:])
+            bcsr_add(bcsr_payload(400, 8, "float32", gen, device), *t,
+                     torch.zeros(400, 8, device=device))
+        except ValueError:
+            refused += 1
+    if refused != 2 and torch.device(device).type == "cuda":
+        raise AssertionError("K-bcsr took tiles of 65 rows or misaligned "
+                             "tiles")
+    results["K-bcsr checks"] = dict(
+        cases=cases, max_abs_err=max(errs.values()), two_launches_err=two,
+        two_launches_bit_equal=bool(torch.equal(a, b)), refused=refused)
+    print(f"K-bcsr checks: {results['K-bcsr checks']}", flush=True)
+
+
+def tier_edges(prep):
+    """The tier's own edges as a float32 CSR (N, N) on the card: each
+    nonzero cell at (its row node, its panel node), duplicates summed —
+    ``torch.sparse.mm``'s operand for the library time."""
+    import torch
+
+    kind, tiles, pidx, rb, pn, rn = prep.bcsr_tables(prep.dev_arrays)
+    return sparse_of(kind, tiles, pidx, rb, pn, rn, prep.nrows)
+
+
+def sparse_of(kind, tiles, pidx, rb, pn, rn, nodes):
+    import torch
+
+    n, slots, tr, tc = tiles.shape
+    w, s, r, c = (tiles != 0).nonzero(as_tuple=True)
+    vals = tiles[w, s, r, c].float()
+    panel = pidx[w, s] if kind == "row" else pidx[w]
+    block = rb[w] if kind == "row" else rb[w, s]
+    rows = rn[block.long() * tr + r].long()
+    cols = pn[panel.long() * tc + c].long()
+    a = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                (nodes, nodes)).coalesce()
+    return a.to_sparse_csr()
+
+
+def bcsr_timing(name, tables, nodes, x, peaks_, results, launches=None):
+    """K-bcsr's entry on ``tables``: its time, its plain version's,
+    ``torch.sparse.mm`` on the tier's edges (f32 x), its bound (each tile
+    cell, each distinct x row of the panels the work items read and each
+    distinct output row of the row blocks they add into once, their index
+    entries once: ``utils/device.py:bcsr_traffic``) and the work items a
+    block (``work_group``)."""
+    import torch
+
+    from pygim_tpu_torch.ops.bcsr import (
+        bcsr_add,
+        bcsr_plain,
+        compute_mode,
+        work_group,
+    )
+    from pygim_tpu_torch.utils.device import bcsr_bound, bcsr_traffic
+
+    kind, tiles = tables[:2]
+    n, slots, tr, _ = tiles.shape
+    out = torch.zeros(nodes, x.shape[1], device=x.device)
+    got = bcsr_add(x, *tables, out)
+    err = check_close(name, got, bcsr_plain(x, *tables,
+                                            torch.zeros_like(out)),
+                      bcsr_mag(x, tables, nodes), REL_TOL)
+    ms = cuda_ms(lambda: bcsr_add(x, *tables, out.zero_()))
+    plain_ms = cuda_ms(lambda: bcsr_plain(x, *tables, out.zero_()), iters=3,
+                       warmup=1)
+    a = sparse_of(*tables, nodes)
+    xf = x.float()
+    library_ms = cuda_ms(lambda: torch.sparse.mm(a, xf))
+    mma = compute_mode(tiles.dtype, x.dtype) == "bf16"
+    traffic = bcsr_traffic(*tables[1:])
+    bound, by = bcsr_bound(**traffic, h=x.shape[1], peaks_=peaks_,
+                           tile_bytes=tiles.element_size(),
+                           x_itemsize=x.element_size(), mma=mma)
+    n_panels, n_rb = tables[4].shape[0] // 128, tables[5].shape[0] // tr
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, library_ms=library_ms, share_of_bound=bound / ms,
+               kind=kind, work=n, slots=slots, tile_rows=tr, panels=n_panels,
+               row_blocks=n_rb, group=work_group(kind, n, n_panels, n_rb),
+               x_rows=traffic["x_rows"], out_rows=traffic["out_rows"],
+               tier_edges=int(a.values().numel()))
+    if launches is not None:
+        res["launches"] = launches
+    results[name] = res
+    print(f"{name}: {res}", flush=True)
+    return res
+
+
+def bcsr_paths(results, device="cuda"):
+    """The three-tier hybrid on :data:`BCSR_GRAPH` at H 256, one operand
+    per :data:`BCSR_CONFIGS` (a square core at 64 MiB, tiles at 256 MiB),
+    each counted: ``mul`` on float32, bfloat16, int8, int16 and int32
+    payloads and ``mul_quantized`` at int8, int16 and int32, each against
+    ``mul_plain`` / ``mul_quantized_plain`` on all rows within REL_TOL of
+    the sum of |terms| (the int8 table path bit-equal: every partial sum
+    an integer below 2^24), K-bcsr launched once a product; the tier's
+    tiles, captured edges and share of the merged edges, ``bcsr_time``;
+    K-bcsr timed on :data:`BCSR_TIMED`. Returns K-bcsr's launches in the
+    products of that operand."""
+    import torch
+
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+
+    t0 = time.perf_counter()
+    ds = load_dataset(BCSR_GRAPH)
+    print(f"bcsr: {BCSR_GRAPH} in {time.perf_counter() - t0:.1f} s, "
+          f"{ds.graph.nnz} stored edges", flush=True)
+    gen = torch.Generator().manual_seed(8)
+    n = ds.graph.nrows
+    xs = {dt: bcsr_payload(n, HIDDEN, dt, gen, device)
+          for dt in ("float32", "int8", "int16", "int32")}
+    xs["bfloat16"] = xs["float32"].to(torch.bfloat16)
+    out, timed_launches = {}, None
+    for key, kw in BCSR_CONFIGS.items():
+        t0 = time.perf_counter()
+        prep = prepare_spmm(ds.graph, SpmmConfig(
+            backend="hybrid", hybrid_shape="square",
+            hybrid_core_bytes=BCSR_CORE_BYTES, bcsr_bytes=BCSR_BYTES,
+            hidden_hint=HIDDEN, **kw), device=device)
+        secs = time.perf_counter() - t0
+        if not prep.has_bcsr:
+            raise AssertionError(f"bcsr {key}: no tile qualified")
+        tiles = prep.dev_arrays["tiles"]
+        info = dict(prepare_s=secs, k=prep.hybrid_k_eff,
+                    tiles=tuple(tiles.shape), tile_dtype=str(tiles.dtype),
+                    captured_edges=prep.bcsr_edges, merged_edges=prep.nnz,
+                    share=prep.bcsr_edges / prep.nnz, step=prep.bcsr_step,
+                    phases={k: round(v, 1) for k, v in
+                            prep.prepare_timer.acc.items()})
+        print(f"bcsr {key}: {info}", flush=True)
+        reset_launch_counts()
+        got = {f"mul {dt}": prep.mul(x) for dt, x in xs.items()}
+        for agg in ("int8", "int16", "int32"):
+            got[f"quantized {agg}"] = prep.mul_quantized(xs["float32"], agg)
+        sync(device)
+        n_launch = launch_counts()
+        if n_launch["K-bcsr"] != len(got):
+            raise AssertionError(f"bcsr {key}: K-bcsr launched "
+                                 f"{n_launch['K-bcsr']} times in "
+                                 f"{len(got)} products")
+        if not torch.equal(got["quantized int8"], prep.mul_quantized_plain(
+                xs["float32"], "int8")):
+            raise AssertionError(f"bcsr {key}: the int8 table path is not "
+                                 "exact")
+        errs = {"quantized int8": 0.0}
+        mags = {dt: prep_mag(prep, x) for dt, x in xs.items()
+                if dt != "bfloat16"}
+        for agg, k in (("int16", 10), ("int32", 20)):
+            x = xs["float32"]
+            scale = x.abs().max() * 2 / 2 ** k
+            mags[agg + " rounded"] = prep_mag(prep, torch.round(x / scale)
+                                              * scale)
+            errs[f"quantized {agg}"] = check_close(
+                f"bcsr {key} quantized {agg}", got[f"quantized {agg}"],
+                prep.mul_quantized_plain(x, agg), mags[agg + " rounded"],
+                REL_TOL)
+        for dt, x in xs.items():
+            errs[f"mul {dt}"] = check_close(
+                f"bcsr {key} mul {dt}", got[f"mul {dt}"], prep.mul_plain(x),
+                mags["float32" if dt == "bfloat16" else dt], REL_TOL)
+        del got, mags
+        phase = prep.phase_times(xs["float32"], iters=5)
+        info.update(max_abs_err=errs, launches=n_launch,
+                    bcsr_time_ms=phase["bcsr_time(ms)"],
+                    mul_time_ms=phase["mul_time(ms)"],
+                    core_time_ms=phase.get("core_time(ms)"),
+                    tail_time_ms=phase["tail_time(ms)"])
+        print(f"bcsr {key}: max abs errs {errs}; launches {n_launch}; "
+              f"phases {phase}", flush=True)
+        if key == BCSR_TIMED:
+            timed_launches = n_launch["K-bcsr"]
+            bcsr_timing("K-bcsr", prep.bcsr_tables(prep.dev_arrays),
+                        n, xs["float32"], results["peaks"], results,
+                        launches=timed_launches)
+        out[key] = info
+        del prep
+        free(device)
+    results["bcsr"] = out
+    return timed_launches
+
+
+def prep_mag(prep, x):
+    """``product_mag`` (tail and core) plus the tier's |terms|."""
+    return bcsr_mag(x, prep.bcsr_tables(prep.dev_arrays), prep.nrows,
+                    mag=product_mag(prep, x))
+
+
+# a tier of 1 GiB of bf16 tiles (Tr 16, 16 tiles a work item, 10% of
+# cells set) over 2,000,000 nodes at H 256: K-bcsr at scale, both layouts
+SCALE_TIER = dict(n=16384, slots=16, tr=16, nodes=2_000_000, density=0.1)
+
+
+def scale_tiers(device):
+    """Both layouts of the random tier of :data:`SCALE_TIER`, drawn on the
+    card from one seed (a prepared tier this large takes minutes of host
+    prepare): yields ``(tables, nodes, x)``, the panel layout first. The
+    tiles, the node tables and x are shared. The work items are sorted by
+    panel (panel kind) or row block (row kind), as the builders lay them
+    out, and read only a part of the tables' panels and row blocks."""
+    import torch
+
+    s = SCALE_TIER
+    gen = torch.Generator(device=device).manual_seed(3)
+    dev = torch.device(device)
+    tiles = torch.randn(s["n"], s["slots"], s["tr"], 128, generator=gen,
+                        device=dev)
+    tiles *= torch.rand(tiles.shape, generator=gen, device=dev) < s["density"]
+    tiles = tiles.to(torch.bfloat16)
+    n_panels, n_rb = s["nodes"] // 128, s["nodes"] // s["tr"]
+    pn = torch.randperm(s["nodes"], generator=gen, device=dev)[
+        :n_panels * 128].to(torch.int32)
+    rn = torch.randperm(s["nodes"], generator=gen, device=dev)[
+        :n_rb * s["tr"]].to(torch.int32)
+    x = torch.randn(s["nodes"], HIDDEN, generator=gen, device=dev)
+    ints = dict(generator=gen, device=dev, dtype=torch.int32)
+    for kind in ("panel", "row"):
+        if kind == "panel":
+            pidx = torch.sort(torch.randint(0, n_panels, (s["n"],), **ints))[0]
+            rb = torch.randint(0, n_rb, (s["n"], s["slots"]), **ints)
+        else:
+            pidx = torch.randint(0, n_panels, (s["n"], s["slots"]), **ints)
+            rb = torch.sort(torch.randint(0, n_rb, (s["n"],), **ints))[0]
+        yield (kind, tiles, pidx, rb, pn, rn), s["nodes"], x
+
+
+def bcsr_scale(results, device="cuda"):
+    """K-bcsr alone on both layouts of :func:`scale_tiers`, against
+    ``bcsr_plain`` on all rows, timed against its bound and
+    ``torch.sparse.mm`` on the tier's edges."""
+    for tables, nodes, x in scale_tiers(device):
+        bcsr_timing(f"K-bcsr scale tier, {tables[0]}", tables, nodes, x,
+                    results["peaks"], results)
+        free(device)
+
+
+def coo_sddmm(ds, results, device="cuda"):
+    """The ``coo`` backend and SDDMM on the smoke stand-in: a float32 SpMM
+    through ``run_spmm_benchmark`` (verify OK) and ``mul`` against the
+    oracle backend on all rows; the float GCN against the same forward
+    on the oracle backend (1e-4 of the logits' scale, as ``logits_check``);
+    GIN and SAGE (tracked config 3's models, without ``tune``) through
+    ``run_experiments`` with ``Experiment(sp_format="coo",
+    backend="coo", validate=True)``; ``prepare_sddmm(...).run`` against
+    a float64 dot on 4096 sampled edges."""
+    import numpy as np
+    import torch
+
+    from pygim_tpu_torch.bench import Experiment, run_experiments
+    from pygim_tpu_torch.bench.runners import run_spmm_benchmark
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.ops.reference import spmm_coo_oracle
+    from pygim_tpu_torch.ops.sddmm import prepare_sddmm
+    from pygim_tpu_torch.ops.spmm import (
+        PreparedAggregate,
+        SpmmConfig,
+        prepare_spmm,
+    )
+    from pygim_tpu_torch.utils.metrics import DataReporter
+
+    res = {}
+    t0 = time.perf_counter()
+    coo = prepare_spmm(ds.graph, SpmmConfig(backend="coo"), device=device)
+    oracle = prepare_spmm(ds.graph, SpmmConfig(backend="oracle"),
+                          device=device)
+    x = torch.randn(coo.ncols, HIDDEN,
+                    generator=torch.Generator().manual_seed(12)).to(device)
+    d = oracle.dev_arrays
+    mag = spmm_coo_oracle(d["rows"], d["cols"], d["vals"].abs(), x.abs(),
+                          oracle.nrows)
+    res["mul_err"] = check_close("coo mul", coo.mul(x), oracle.mul(x), mag,
+                                 REL_TOL)
+    res["mul_ms"] = cuda_ms(lambda: coo.mul(x), iters=5)
+    rep = DataReporter(echo=True)
+    run_spmm_benchmark(ds, hidden=HIDDEN, config=SpmmConfig(backend="coo"),
+                       repeat=3, reporter=rep, device=device)
+    if rep.records["verify"][-1] != "OK":
+        raise AssertionError("coo SpMM sampled-row check failed")
+    res["pim_time_spmm_ms"] = rep.records["pim_time_spmm(ms)"][-1]
+    xf = torch.as_tensor(ds.x).to(device)
+    gnn = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
+                   num_layers=2, device=device)
+    with torch.inference_mode():
+        logits = gnn(xf, PreparedAggregate(coo))
+        want = gnn(xf, PreparedAggregate(oracle))
+    scale = max(1.0, float(want.abs().max()))
+    res["gcn_logits_err"] = float((logits - want).abs().max())
+    res["gcn_logits_scale"] = scale
+    if not torch.isfinite(logits).all() or res["gcn_logits_err"] > 1e-4 * scale:
+        raise AssertionError(f"coo GCN logits differ from the oracle's: "
+                             f"{res['gcn_logits_err']} of {scale}")
+    del coo, oracle, x, mag
+    rdir = os.path.join(os.environ["PYGIM_TPU_TORCH_DATA"], "results_coo")
+    exps = [Experiment(dataset=DATASET, kind="inference", model=m,
+                       sp_format="coo", backend="coo", hidden=HIDDEN,
+                       validate=True, repeat=3) for m in ("gin", "sage")]
+    means = run_experiments(exps, rdir, device=device)
+    for e in exps:
+        text = open(os.path.join(rdir, f"{e.frozen_name()}.out")).read()
+        if "[DATA]validate: OK" not in text:
+            raise AssertionError(f"coo {e.model}: validate not OK")
+        res[f"{e.model}_infer_time_ms"] = means[e.frozen_name()][
+            "infer_time(ms)"]
+    sd = prepare_sddmm(ds.graph, device=device)
+    gen = torch.Generator().manual_seed(13)
+    a = torch.randn(ds.graph.nrows, 64, generator=gen)
+    b = torch.randn(ds.graph.ncols, 64, generator=gen)
+    got = sd.run(a.to(device), b.to(device)).cpu()
+    s = ds.graph.sort_by_row()
+    pick = np.random.default_rng(5).choice(s.nnz, 4096, replace=False)
+    r, c = torch.from_numpy(s.rows[pick]).long(), torch.from_numpy(
+        s.cols[pick]).long()
+    want = (a[r].double() * b[c].double()).sum(-1)
+    terms = (a[r].double() * b[c].double()).abs().sum(-1)
+    err = (got[pick].double() - want).abs()
+    if got.shape != (ds.graph.nnz,) or (err > REL_TOL * terms).any():
+        raise AssertionError(f"SDDMM off its float64 dot: {float(err.max())}")
+    res["sddmm_err"] = float(err.max())
+    res["sddmm_ms"] = cuda_ms(lambda: sd.run(a.to(device), b.to(device)),
+                              iters=5)
+    res["seconds"] = time.perf_counter() - t0
+    results["coo sddmm"] = res
+    print(f"coo and SDDMM: {res}", flush=True)
+
+
+def bcsr_training(results, card, device="cuda"):
+    """One GCN training step at hidden 256 through a hybrid with a BCSR
+    tier (an int8 square core and bf16 panel-major tiles in the lp order
+    on :data:`BCSR_TRAIN_GRAPH`), the aggregate's backward on the
+    prepared Aᵀ and its own tier: every leaf's gradient within GRAD_BAR
+    of autograd through ``mul_plain`` on A, both negative controls off by
+    more, K-bcsr launched in the forward and the backward."""
+    import torch
+
+    from pygim_tpu_torch.bench.runners import train_inputs
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+
+    ds = load_dataset(BCSR_TRAIN_GRAPH)
+    t0 = time.perf_counter()
+    prep = prepare_spmm(ds.graph, SpmmConfig(
+        backend="hybrid", hybrid_shape="square", hybrid_dtype="int8",
+        hybrid_core_bytes=4 << 20, bcsr_bytes=64 << 20, bcsr_tile=16,
+        bcsr_layout="panel", bcsr_order="lp", hidden_hint=HIDDEN),
+        device=device)
+    pt = prep.transpose(ds.graph)
+    secs = time.perf_counter() - t0
+    if not (prep.has_bcsr and pt.has_bcsr):
+        raise AssertionError("bcsr training: no tier on A or Aᵀ")
+    inputs = train_inputs(ds, prep.device)
+    arms = training_arms(prep)
+    grads, n = {}, None
+    for a in ("kernels", "plain", *CONTROLS):
+        reset_launch_counts()
+        grads[a] = leaf_grads("gcn", ds, arms[a], inputs)
+        sync(prep.device)
+        if a == "kernels":
+            n = launch_counts()
+    errs = {a: max(leaf_errs(g, grads["plain"]).values())
+            for a, g in grads.items() if a != "plain"}
+    res = dict(prepare_s=secs, captured=(prep.bcsr_edges, pt.bcsr_edges),
+               grad_err=errs, launches=n)
+    print(f"bcsr training: {res} ({card})", flush=True)
+    if errs["kernels"] > GRAD_BAR or n["K-bcsr"] < 4:
+        raise AssertionError(f"bcsr training step: gradients "
+                             f"{errs['kernels']} (bar {GRAD_BAR}), "
+                             f"launches {n}")
+    for c in CONTROLS:
+        if errs[c] <= GRAD_BAR:
+            raise AssertionError(f"bcsr training: the {c} control passed "
+                                 f"({errs[c]})")
+    results["bcsr training"] = res
+
+
+def bcsr_full() -> int:
+    """``--bcsr-full``: K-bcsr on the tiers of the full-size three-tier
+    operands (``bench/configs.py:THREE_TIER_EXPERIMENTS``, products-sim,
+    both layouts; from the user's prepare cache where the experiments ran
+    before in it), each held to ``bcsr_plain`` and timed against its
+    bound and ``torch.sparse.mm``, as the kernels line's entry, then
+    :func:`group_sweep` on it."""
+    import torch
+
+    from pygim_tpu_torch.bench.configs import THREE_TIER_EXPERIMENTS
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops.spmm import prepare_spmm
+    from pygim_tpu_torch.utils.device import card_line, peaks
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    results = {"peaks": peaks(torch.cuda.get_device_name(0))}
+    exps = THREE_TIER_EXPERIMENTS[:2]
+    ds = load_dataset(exps[0].dataset)
+    x = torch.randn(ds.graph.nrows, exps[0].hidden,
+                    generator=torch.Generator().manual_seed(0)).cuda()
+    for e in exps:
+        t0 = time.perf_counter()
+        prep = prepare_spmm(ds.graph, e.spmm_config(), device="cuda")
+        print(f"{e.bcsr_layout}: prepared in {time.perf_counter() - t0:.1f} s "
+              f"(phases {prep.prepare_timer.acc})", flush=True)
+        tables = prep.bcsr_tables(prep.dev_arrays)
+        bcsr_timing(f"K-bcsr three-tier {e.bcsr_layout}", tables,
+                    prep.nrows, x, results["peaks"], results)
+        group_sweep(f"three-tier {e.bcsr_layout}", tables, prep.nrows, x)
+        del prep, tables
+        free("cuda")
+    print(card, flush=True)
+    return 0
+
+
+BCSR_GROUPS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def group_sweep(key, tables, nodes, x) -> None:
+    """K-bcsr's time on ``tables`` with each work-items-a-block of
+    :data:`BCSR_GROUPS` forced (``ops/bcsr.py:work_group`` replaced for
+    the sweep), each product held to ``bcsr_plain``; prints them beside
+    ``work_group``'s own choice."""
+    import torch
+
+    from pygim_tpu_torch.ops import bcsr as kbcsr
+
+    kind, tiles, _, _, pn, rn = tables
+    chosen = kbcsr.work_group(kind, tiles.shape[0], pn.shape[0] // 128,
+                              rn.shape[0] // tiles.shape[2])
+    want = kbcsr.bcsr_plain(x, *tables, torch.zeros(nodes, x.shape[1],
+                                                    device=x.device))
+    mag = bcsr_mag(x, tables, nodes)
+    out = torch.zeros_like(want)
+    choose, ms = kbcsr.work_group, {}
+    try:
+        for g in BCSR_GROUPS:
+            kbcsr.work_group = lambda *args, g=g: g
+            check_close(f"{key} group {g}",
+                        kbcsr.bcsr_add(x, *tables, out.zero_()), want, mag,
+                        REL_TOL)
+            ms[g] = cuda_ms(lambda: kbcsr.bcsr_add(x, *tables, out.zero_()),
+                            iters=10)
+    finally:
+        kbcsr.work_group = choose
+    print(json.dumps({"tier": key, "work_group": chosen,
+                      "ms_by_group": ms}), flush=True)
+
+
+def bcsr_group_sweep() -> int:
+    """``--bcsr-sweep``: :func:`group_sweep` on the smoke tiers of
+    :data:`BCSR_CONFIGS` and on both layouts of :func:`scale_tiers`.
+    Prints the readings; checks only the products."""
+    import torch
+
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+    from pygim_tpu_torch.utils.device import card_line
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    ds = load_dataset(BCSR_GRAPH)
+    n = ds.graph.nrows
+    x = torch.randn(n, HIDDEN, generator=torch.Generator().manual_seed(1))
+    x = x.cuda()
+    for key, kw in BCSR_CONFIGS.items():
+        prep = prepare_spmm(ds.graph, SpmmConfig(
+            backend="hybrid", hybrid_shape="square",
+            hybrid_core_bytes=BCSR_CORE_BYTES, bcsr_bytes=BCSR_BYTES,
+            hidden_hint=HIDDEN, **kw), device="cuda")
+        group_sweep(key, prep.bcsr_tables(prep.dev_arrays), n, x)
+        del prep
+        free("cuda")
+    for tables, nodes, xs in scale_tiers("cuda"):
+        group_sweep(f"scale {tables[0]}", tables, nodes, xs)
+    return 0
+
+
 def main() -> int:
     """Run every phase in a fresh prepare and dataset cache, removed at
     the end: no phase reads the user's cache."""
+    if "--bcsr-full" in sys.argv[1:]:
+        return bcsr_full()
+    if "--bcsr-sweep" in sys.argv[1:]:
+        return bcsr_group_sweep()
     root = tempfile.mkdtemp(prefix="chip_smoke_cache_")
     os.environ["PYGIM_TPU_TORCH_DATA"] = root
     try:
@@ -3204,6 +3906,13 @@ def run() -> int:
     real_format(results)
     torch.cuda.empty_cache()
 
+    # this slice's paths: the BCSR tier (K-bcsr; its main path counted in
+    # bcsr_paths), the coo backend and SDDMM
+    timed_phase("bcsr_kernel_checks", bcsr_kernel_checks, results)
+    launches["K-bcsr"] = timed_phase("bcsr_paths", bcsr_paths, results)
+    timed_phase("bcsr_scale", bcsr_scale, results)
+    timed_phase("coo_sddmm", coo_sddmm, ds, results)
+
     # the training path: the backward product on the prepared Aᵀ, real
     # steps of each conv, then train_cuda.py and run_training_benchmark
     backward_product(prep, ds.graph, results, card)
@@ -3213,6 +3922,7 @@ def run() -> int:
     float_core_training(ds, fpreps, results, card)
     float_core_entry(results, card)
     del fpreps
+    timed_phase("bcsr_training", bcsr_training, results, card)
 
     if "--profile" in sys.argv[1:]:
         from pygim_tpu_torch.bench.report import profile_forward
@@ -3241,7 +3951,9 @@ def run() -> int:
                "K-f32 limbs": ("cuda", "pygim_tpu_torch/csrc/core_f32.cu",
                                "pygim_tpu/ops/spmm.py:615"),
                "K-tail bf16": ("cuda", "pygim_tpu_torch/csrc/ell_tail.cu",
-                               "pygim_tpu/ops/spmm.py:481")}
+                               "pygim_tpu/ops/spmm.py:481"),
+               "K-bcsr": ("cuda", "pygim_tpu_torch/csrc/bcsr.cu",
+                          "pygim_tpu/ops/spmm.py:690")}
     kernels = []
     for k, (route, src, repl) in sources.items():
         res = results[k]
@@ -3256,7 +3968,7 @@ def run() -> int:
             "train_step_launches": {
                 part: training[part][k] for part in ("forward", "backward")
             } if k in ("K-core", "K-tail") else None,
-            "harness_launches": harness_launches[k],
+            "harness_launches": harness_launches.get(k),
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

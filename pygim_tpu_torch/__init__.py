@@ -5,15 +5,17 @@ card. The module layout follows ``pygim_tpu`` so every counterpart is
 found under the same path; the JAX package stays the numeric reference.
 
 It carries prepare-once / run-many SpMM on the ``hybrid`` (a square or
-staircase hub-core of int8, int4, bf16 or f32 cells, or none, plus an
-ELL tail), ``ell``, ``blocked`` and ``oracle`` backends, with float32,
-bfloat16 and integer payloads, the fused int8, int16 and int32
-quantized aggregation, and GCN, GIN and SAGE inference and training
-(the aggregate's backward on a prepared transpose): host prepare
-(``core``, ``ops.spmm``, ``data``), the hand-written kernels K-core
-with its int8, int4 and bf16 cell modes (``ops.core_dot``), K-int
-(``ops.core_int``), K-f32 (``ops.core_f32``) and K-tail with its
-payload modes (``ops.ell_tail``), the quantization (``quant``), the
+staircase hub-core of int8, int4, bf16 or f32 cells, or none, a BCSR
+tile tier beside a square core, and an ELL tail), ``ell``, ``blocked``,
+``coo`` and ``oracle`` backends, with float32, bfloat16 and integer
+payloads, the fused int8, int16 and int32 quantized aggregation, SDDMM
+(``ops.sddmm``), and GCN, GIN and SAGE inference and training (the
+aggregate's backward on a prepared transpose): host prepare (``core``,
+``ops.spmm``, ``data``), the hand-written kernels K-core with its int8,
+int4 and bf16 cell modes (``ops.core_dot``), K-int (``ops.core_int``),
+K-f32 (``ops.core_f32``), K-tail with its payload modes
+(``ops.ell_tail``) and K-bcsr (``ops.bcsr``), the BCSR tier's probe
+(``tune.bcsr_probe``), the quantization (``quant``), the
 models and their training (``nn``), the benchmark bodies and reports
 and the experiment harness with the named configurations (``bench``),
 the dataset names and real-format parsers (``data``) and the flagship

@@ -83,6 +83,23 @@ BASELINE_EXPERIMENTS = [
 ]
 
 
+# The reference's round-2 three-tier configuration for products-shaped
+# graphs (docs/PERF.md:107, 168-172): a bf16 square core at 2 GiB, 2.5
+# GiB of BCSR tiles of 16 rows in the RCM order of the tail, H 256, on
+# the ogbn-products stand-in. The float32 SpMM with its phases in both
+# layouts, and tracked config 4's model (the int8 GCN, validated) on the
+# panel layout. Not among the reference's named sets.
+_THREE_TIER = dict(dataset="ogbn-products", hidden=256, backend="hybrid",
+                   hybrid_dtype="bfloat16", hybrid_core_bytes=2 << 30,
+                   bcsr_bytes=5 << 29, bcsr_tile=16, bcsr_order="rcm")
+THREE_TIER_EXPERIMENTS = [
+    Experiment(kind="spmm", phases=True, bcsr_layout="panel", **_THREE_TIER),
+    Experiment(kind="spmm", phases=True, bcsr_layout="row", **_THREE_TIER),
+    Experiment(kind="inference", model="gcn", dtype="int8", validate=True,
+               bcsr_layout="panel", **_THREE_TIER),
+]
+
+
 def sweep_space(datasets: str = "small"):
     """The default sweep: datasets × backends × balance."""
     return (

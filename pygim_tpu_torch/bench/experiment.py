@@ -17,8 +17,8 @@ twin of ``pygim_tpu/bench/experiment.py``.
   limit): a sweep never skips a point that another device ran.
 * Not ported yet, each refused with ``NotImplementedError`` naming its
   ROADMAP.md item (Queue 1): ``tune=True`` (item 5), a mesh
-  (``sp_parts · ds_parts > 1``) and ``kind="scaling"`` (item 6), the
-  ``coo`` backend (item 3), and ``part_method="metis"`` (item 6).
+  (``sp_parts · ds_parts > 1``) and ``kind="scaling"`` (item 6), and
+  ``part_method="metis"`` (item 6).
 """
 
 from __future__ import annotations
@@ -161,9 +161,6 @@ class Experiment:
         if self.kind == "scaling":
             return ("kind='scaling': the halo scaling benchmark is not ported "
                     "yet (ROADMAP.md, Queue 1 item 6)")
-        if self.backend == "coo":
-            return ("backend='coo': the coo backend is not ported yet "
-                    "(ROADMAP.md, Queue 1 item 3)")
         return None
 
     def run(self, results_dir, data_root: Optional[str] = None,
@@ -173,7 +170,8 @@ class Experiment:
         file is written first, then the error is raised. A hybrid
         operand's shape goes into the record too (``core_bands``,
         ``core_dtype``, ``core_coverage``, ``tail_edges``,
-        ``merged_edges``), and so do the dataset's load time (a synthesis
+        ``merged_edges``, and with a BCSR tier ``bcsr_kind``,
+        ``bcsr_tiles``, ``bcsr_edges``, ``bcsr_coverage``), and so do the dataset's load time (a synthesis
         where its cache is cold: ``load_dataset_time(ms)``), its
         ``stored_edges``, the process's peak host memory so far
         (``peak_host_rss_bytes``) and on the card the run's peak device
@@ -286,6 +284,10 @@ def _report_operand(prep, hidden: int, rep: DataReporter) -> None:
     rep.report("core_coverage", info["core_coverage"])
     rep.report("tail_edges", info["tail_edges"])
     rep.report("merged_edges", int(prep.nnz))
+    if prep.has_bcsr:
+        for k in ("bcsr_kind", "bcsr_edges", "bcsr_coverage"):
+            rep.report(k, info[k])
+        rep.report("bcsr_tiles", json.dumps(info["bcsr_tiles"]))
 
 
 def _render_record(exp: Experiment, rep: DataReporter, card: str) -> str:

@@ -58,11 +58,17 @@ def operand_info(prep, hidden: int, dev, limbs=None) -> dict:
     tables = prep.ell_tables(prep.dev_arrays)
     rows, cols, _vals = real_entries(tables)
     tail = int(rows.numel())
+    bcsr_edges = prep.bcsr_edges if prep.has_bcsr else 0
     info = dict(
         bands=prep.stair, core_dtype=getattr(prep, "core_dtype", None),
         tail_edges=tail, tail_tables=[[*c.shape, d] for c, _v, _r, d in tables],
-        core_coverage=(prep.nnz - tail) / max(1, prep.nnz),
+        core_coverage=(prep.nnz - tail - bcsr_edges) / max(1, prep.nnz),
     )
+    if prep.has_bcsr:
+        info.update(bcsr_kind=prep.bcsr_kind,
+                    bcsr_tiles=list(prep.dev_arrays["tiles"].shape),
+                    bcsr_edges=bcsr_edges,
+                    bcsr_coverage=bcsr_edges / max(1, prep.nnz))
     if dev.type != "cuda":
         return info
     pk = peaks(torch.cuda.get_device_name(dev))

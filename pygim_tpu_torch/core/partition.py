@@ -5,8 +5,9 @@ planner of the hybrid's tail (the edges outside the dense core, packed
 into up to three tables of different fixed degree D; every row lands in
 exactly one table, and rows longer than D are split into several virtual
 rows that the run path adds back into the same output row), the
-row-block planner of the ``blocked`` backend, and the cell rules of the
-integer cores (range check, nibble packing).
+row-block planner of the ``blocked`` backend, the exact-nnz chunks of
+the ``coo`` backend, and the cell rules of the integer cores (range
+check, nibble packing).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Optional
 
 import numpy as np
 
-from pygim_tpu_torch.core.graph import INDEX_DTYPE, CsrGraph
+from pygim_tpu_torch.core.graph import INDEX_DTYPE, CooGraph, CsrGraph
 
 
 def round_up(x: int, m: int) -> int:
@@ -335,6 +336,43 @@ def build_ell_blocks(csr: CsrGraph, plan: RowBlockPlan) -> EllBlocks:
         row_start=plan.bounds[:-1].astype(INDEX_DTYPE),
         rows_pad=plan.rows_pad, nnz_pad=plan.nnz_pad,
         nrows=csr.nrows, ncols=csr.ncols,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class CooChunks:
+    """Exact-nnz COO chunks of the ``coo`` backend, rows may straddle
+    chunks (``pygim_tpu/core/partition.py:459-497``).
+
+    ``rows``/``cols``/``vals``: (n_chunks, chunk_nnz), the row-sorted
+    edges padded at the end with row ``nrows - 1``, col 0 and val 0 (the
+    row stream stays sorted).
+    """
+
+    rows: np.ndarray
+    cols: np.ndarray
+    vals: np.ndarray
+    n_chunks: int
+    chunk_nnz: int
+    nrows: int
+    ncols: int
+
+
+def build_coo_chunks(coo: CooGraph, n_chunks: int, *,
+                     nnz_align: int = 8) -> CooChunks:
+    s = coo.sort_by_row()
+    chunk_nnz = round_up(max(-(-coo.nnz // n_chunks), 1), nnz_align)
+    pad = chunk_nnz * n_chunks - coo.nnz
+    rows = np.concatenate(
+        [s.rows, np.full(pad, max(coo.nrows - 1, 0), dtype=INDEX_DTYPE)])
+    cols = np.concatenate([s.cols, np.zeros(pad, dtype=INDEX_DTYPE)])
+    vals = np.concatenate([s.vals, np.zeros(pad, dtype=s.vals.dtype)])
+    return CooChunks(
+        rows=rows.reshape(n_chunks, chunk_nnz),
+        cols=cols.reshape(n_chunks, chunk_nnz),
+        vals=vals.reshape(n_chunks, chunk_nnz),
+        n_chunks=n_chunks, chunk_nnz=chunk_nnz,
+        nrows=coo.nrows, ncols=coo.ncols,
     )
 
 

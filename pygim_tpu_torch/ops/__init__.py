@@ -1,6 +1,6 @@
 """Sparse products: host prepare, the hand-written kernels, the oracle."""
 
-from pygim_tpu_torch.ops import core_dot, core_f32, core_int, ell_tail
+from pygim_tpu_torch.ops import bcsr, core_dot, core_f32, core_int, ell_tail
 from pygim_tpu_torch.ops.reference import spmm_coo_oracle, spmm_csr_oracle
 from pygim_tpu_torch.ops.spmm import (
     PreparedAggregate,
@@ -21,7 +21,8 @@ def launch_counts() -> dict:
             "K-f32 limbs": core_f32.limb_launches,
             "K-tail": ell_tail.launches,
             "K-tail-quant": ell_tail.quant_launches,
-            "K-tail bf16": ell_tail.bf16_launches}
+            "K-tail bf16": ell_tail.bf16_launches,
+            "K-bcsr": bcsr.launches}
 
 
 def reset_launch_counts() -> None:
@@ -30,6 +31,7 @@ def reset_launch_counts() -> None:
     core_dot.bf16_launches = core_f32.launches = 0
     core_f32.limb_launches = 0
     ell_tail.launches = ell_tail.quant_launches = ell_tail.bf16_launches = 0
+    bcsr.launches = 0
 
 
 __all__ = ["PreparedAggregate", "PreparedSpmm", "SpmmConfig", "prepare_spmm",

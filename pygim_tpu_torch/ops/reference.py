@@ -9,6 +9,7 @@ stays int64); bfloat16 accumulates in float32.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.int32)
@@ -52,3 +53,17 @@ def spmm_csr_oracle(rowptr, colind, vals, x, nrows: int):
         torch.diff(rowptr).long(),
     )
     return spmm_coo_oracle(rowids, colind, vals, x, nrows)
+
+
+def spmm_dense_oracle(dense_a: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """NumPy float64 ground truth for tiny cases."""
+    return dense_a.astype(np.float64) @ x.astype(np.float64)
+
+
+def sddmm_coo_oracle(rows, cols, a, b):
+    """Sampled dense-dense product ``out[k] = <a[rows[k]], b[cols[k]]>``,
+    each factor in the accumulation dtype of ``a``'s and ``b``'s (the
+    whole (nnz, D) gathers at once: small graphs only)."""
+    acc = accum_dtype(torch.promote_types(a.dtype, b.dtype))
+    return (a.index_select(0, rows).to(acc)
+            * b.index_select(0, cols).to(acc)).sum(-1, dtype=acc)

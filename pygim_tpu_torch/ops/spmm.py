@@ -2,9 +2,10 @@
 
 Counterpart of ``pygim_tpu/ops/spmm.py`` for the backends it carries:
 
-``hybrid``  a hub-core plus a multi-degree ELL tail (the headline
-            path). The core is the square ``[0, k)²`` block of the degree
-            ranks or a staircase of row bands of tapering width, of int8
+``hybrid``  a hub-core, an optional BCSR tile tier and a multi-degree
+            ELL tail (the headline path). The core is the square
+            ``[0, k)²`` block of the degree ranks or a staircase of row
+            bands of tapering width, of int8
             cells, int4 cells nibble-packed two a byte, bf16 cells or f32
             cells (``hybrid_dtype=None``: the graph's own float dtype, or
             bf16 on an integer graph, as the reference).
@@ -13,12 +14,24 @@ Counterpart of ``pygim_tpu/ops/spmm.py`` for the backends it carries:
             tables to the device. The host tables of an operand on the
             card are cached on disk (``utils/cache.py``: the reference's
             key and contents under the port's own directory and file
-            prefix).
+            prefix). With ``bcsr_bytes > 0`` a square build adds the
+            tile tier (``core/bcsr.py``): dense ``(bcsr_tile, 128)``
+            tiles of the rank-space band outside the core, row- or
+            panel-major (``bcsr_layout``), in the ``rank``, ``rcm`` or
+            ``lp`` order (``bcsr_order``); bf16 tiles beside an int8 or
+            bf16 core, f32 otherwise; its edges leave the tail. A stair
+            build ignores the budget, as the reference's.
 ``ell``     the whole merged graph in the same multi-degree ELL tables,
             no core: K-tail alone.
 ``blocked`` the reference's default: nnz-balanced row blocks padded to
             one static shape, each a gather, weight and sorted segment-sum
             in plain PyTorch ops, one block at a time.
+``coo``     the merged edges sorted by row in exact-nnz chunks
+            (``core/partition.py:build_coo_chunks``, rows may straddle
+            chunks), each chunk a gather, weight and ``index_add_`` in
+            plain PyTorch ops into an output of the accumulation dtype
+            (f32 for a float payload, int32 wrapping for an integer one);
+            one chunk's ``(chunk, H)`` gather at a time.
 ``oracle``  the raw edges (no merge) sorted by row, through the COO
             oracle of ``ops/reference.py`` in plain PyTorch ops.
 
@@ -42,7 +55,9 @@ The hybrid's :meth:`PreparedSpmm.mul` computes ``A @ x`` as
    wrapped as the reference's, added as f32; on bf16 cells K-core's bf16
    mode (a float or int8 x, as bf16) or K-f32 (an int16 or int32 x, both
    operands in f32; ``ops/core_f32.py``); on f32 cells K-f32
-   (:meth:`PreparedSpmm._core_add`)
+   (:meth:`PreparedSpmm._core_add`);
+4. the BCSR tier, where there is one: K-bcsr (``ops/bcsr.py``), one
+   launch, tiles times panels of x scatter-added at their rows
 
 — the order of the reference's hybrid run; ``ell`` runs step 2 alone.
 
@@ -60,8 +75,8 @@ is the fused quantize → aggregate → dequantize of the reference's
 ``raw_mul_quantized``. The host tables are the reference's bit for bit.
 Payloads are float32, bfloat16 (K-tail's bf16-row mode) and int8,
 int16, int32 or int64 (taken as int32, as the reference with x64 off).
-The ``coo`` backend and the BCSR tile tier come in later slices; they
-raise.
+The core↔tail interleave, the tuner and the mesh layouts are later
+slices.
 """
 
 from __future__ import annotations
@@ -75,8 +90,14 @@ import numpy as np
 import torch
 
 from pygim_tpu_torch.core.banded import core_build_banded, f32_to_bf16_bits
+from pygim_tpu_torch.core.bcsr import (
+    build_bcsr_panels,
+    build_bcsr_tiles,
+    tail_tile_order,
+)
 from pygim_tpu_torch.core.graph import CooGraph, CsrGraph, merge_duplicate_edges
 from pygim_tpu_torch.core.partition import (
+    build_coo_chunks,
     build_ell_blocks,
     build_ell_rows_multi,
     choose_degrees_for_config,
@@ -87,6 +108,7 @@ from pygim_tpu_torch.core.partition import (
     row_slot_table,
 )
 from pygim_tpu_torch.core.stair import plan_staircase
+from pygim_tpu_torch.ops.bcsr import bcsr_add, bcsr_plain
 from pygim_tpu_torch.ops.core_dot import (
     core_bands_plain,
     core_bands_scatter_add,
@@ -121,7 +143,8 @@ from pygim_tpu_torch.utils.timers import PhaseTimer, device_time
 
 _log = logging.getLogger("pygim_tpu_torch")
 
-BACKENDS = ("hybrid", "ell", "blocked", "oracle")
+BACKENDS = ("hybrid", "ell", "blocked", "coo", "oracle")
+PLAIN_BACKENDS = ("oracle", "blocked", "coo")  # plain PyTorch ops alone
 # the hybrid core cells a config may name; None means the graph's own
 # dtype (float32 or float64 cells), or bfloat16 on an integer graph
 CORE_DTYPES = ("int8", "int4", "bfloat16", "float32")
@@ -147,8 +170,8 @@ class SpmmConfig:
     or stair core (:data:`CORE_SHAPES`) of int8, int4, bfloat16 or
     float32 cells (:data:`CORE_DTYPES`), or of the graph's own dtype
     (``hybrid_dtype=None``), at any budget (none at ``hybrid_core_bytes
-    <= 0``) or a pinned ``hybrid_k``. :meth:`check_supported` raises on
-    anything else."""
+    <= 0``) or a pinned ``hybrid_k``, and on a square build the BCSR tier
+    (``bcsr_*``). :meth:`check_supported` raises on anything else."""
 
     format: str = "csr"              # csr | coo
     backend: str = "blocked"         # oracle | blocked | ell | coo | hybrid
@@ -187,15 +210,10 @@ class SpmmConfig:
                 or self.hybrid_core_bytes <= 0)
 
     def check_supported(self) -> None:
-        if self.backend in ("ell", "oracle", "blocked"):
-            return
-        if self.backend not in ("hybrid", "coo"):
+        if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.backend != "hybrid":
-            raise NotImplementedError(
-                f"backend {self.backend!r}: the port runs {BACKENDS} so far "
-                "('coo' is not ported)"
-            )
+            return
         if self.hybrid_shape not in CORE_SHAPES:
             # the reference builds a square core for any other shape; the
             # port does not guess
@@ -206,10 +224,6 @@ class SpmmConfig:
             raise NotImplementedError(
                 f"hybrid_dtype {self.hybrid_dtype!r}: the port's cores are "
                 f"{CORE_DTYPES}, or None for the graph's own dtype")
-        if self.bcsr_bytes > 0 and self.square_build:
-            raise NotImplementedError(
-                "bcsr_bytes > 0 on a square core: the BCSR tile tier is not "
-                "ported")
 
 
 def ell_step_tables(cols2d, vals2d, vrow_to_row, chunk):
@@ -419,8 +433,81 @@ def _prepare_square_build(coo, config, rank, order, pt, core_dtype) -> dict:
         host["core"] = core
         host["core_nodes"] = order[:k]  # rank i ↔ node order[i]
     pt.stop("core_fill")
-    _finish_hybrid_tail(host, coo, config, ~in_core, pt)
+    tail_sel = ~in_core
+    if config.bcsr_bytes > 0:
+        pt.start("bcsr")
+        tail_sel = _bcsr_host(host, coo, config, rank, order, k, core_dtype,
+                              tail_sel)
+        pt.stop("bcsr")
+    _finish_hybrid_tail(host, coo, config, tail_sel, pt)
     return host
+
+
+def _bcsr_host(host, coo, config, rank, order, k, core_dtype, tail_sel):
+    """The square build's BCSR tier (``pygim_tpu/ops/spmm.py:1256-1377``)
+    into ``host`` under the reference's ``bcsr_*`` keys, from the edges
+    of ``tail_sel``; returns ``tail_sel`` without the edges the tiles
+    captured. Tiles are bf16 beside an int8 or bf16 core and f32
+    otherwise (an int4, f32 or float64 core), in the degree rank or, for
+    ``bcsr_order`` "rcm" / "lp", a rank whose band outside the core is
+    re-ordered by the tail's structure. Both layouts pad their virtual
+    blocks or panels to a multiple of ``bcsr_step`` (about 8 MB of
+    panels a step of the reference's scan) with zero tiles on panel 0:
+    row-kind pads target the last row block, panel-kind pads row block 0.
+    """
+    t_idx = np.flatnonzero(tail_sel)
+    t_order, t_rank = order, rank
+    if config.bcsr_order in ("rcm", "lp") and k < coo.nrows:
+        t_order, t_rank = tail_tile_order(
+            coo.rows[t_idx], coo.cols[t_idx], order, rank, k, coo.nrows,
+            config.bcsr_order)
+    panel = config.bcsr_layout == "panel"
+    build = build_bcsr_panels if panel else build_bcsr_tiles
+    bc, in_tile = build(
+        t_rank[coo.rows[t_idx]], t_rank[coo.cols[t_idx]], coo.vals[t_idx],
+        t_order, n=coo.nrows, tile_rows=config.bcsr_tile,
+        budget_bytes=config.bcsr_bytes, hidden=config.hidden_hint,
+        dtype="bfloat16" if core_dtype in ("bfloat16", "int8")
+        else "float32",
+        min_edges=config.bcsr_min_edges)
+    if bc is None:
+        return tail_sel
+    tail_sel = tail_sel.copy()
+    tail_sel[t_idx[in_tile]] = False
+    slots = bc.tiles.shape[1]
+    n = bc.tiles.shape[0]
+    # ~8 MB of panels a scan step of the reference
+    step = max(1, (8 << 20) // max(
+        1, (1 if panel else slots) * 128 * config.hidden_hint * 4))
+    step = min(step, max(1, n))
+    n_pad = round_up(n, step)
+    tiles = np.zeros((n_pad,) + bc.tiles.shape[1:], dtype=bc.tiles.dtype)
+    tiles[:n] = bc.tiles
+    panel_idx = np.zeros((n_pad,) + bc.panel_idx.shape[1:], dtype=np.int32)
+    panel_idx[:n] = bc.panel_idx
+    if panel:
+        n_rb = bc.n_rb
+        tile_rb = np.zeros((n_pad, slots), dtype=np.int32)
+        tile_rb[:n] = bc.tile_rb
+        rb_key = {"bcsr_tile_rb": tile_rb}
+    else:
+        n_rb = bc.row_nodes.shape[0] // bc.tile_rows
+        vb_to_rb = np.full(n_pad, n_rb - 1, dtype=np.int32)
+        vb_to_rb[:n] = bc.vblock_to_rb
+        rb_key = {"bcsr_vblock_to_rb": vb_to_rb}
+    host.update(
+        bcsr_kind=np.str_("panel" if panel else "row"),
+        bcsr_tiles=tiles,
+        bcsr_dtype=np.str_(bc.dtype),
+        bcsr_panel_idx=panel_idx,
+        **rb_key,
+        bcsr_panel_nodes=bc.panel_nodes,
+        bcsr_row_nodes=bc.row_nodes,
+        bcsr_step=np.int64(step),
+        bcsr_n_rb=np.int64(n_rb),
+        bcsr_edges=np.int64(bc.n_edges),
+    )
+    return tail_sel
 
 
 def blocked_spmm(colind, vals, rowloc, row_slot, x, rows_pad: int):
@@ -507,8 +594,11 @@ class PreparedSpmm:
     ``vrow_to_row{sfx}`` (``ell_meta`` is ``[(chunk, degree)]``), and for
     ``hybrid`` also ``core_nodes`` and the core, ``stair{b}`` per band of
     a staircase or ``core`` for a square (``stair`` is ``[(lo, hi, w)]``,
-    a square's one band ``(0, k, w)``); for ``blocked``, ``colind``,
-    ``vals``, ``rowloc``, ``row_slot``; for ``oracle``, ``rows``,
+    a square's one band ``(0, k, w)``), and with a BCSR tier (``has_bcsr``)
+    ``tiles``, ``panel_idx``, ``panel_nodes``, ``row_nodes`` and
+    ``vblock_to_rb`` (``bcsr_kind`` "row") or ``tile_rb`` ("panel"); for
+    ``blocked``, ``colind``, ``vals``, ``rowloc``, ``row_slot``; for
+    ``coo`` (``(n_chunks, chunk_nnz)``) and ``oracle``, ``rows``,
     ``cols``, ``vals``. Edge values
     reach the device as the reference's ``jnp.asarray`` puts them with
     x64 off: float64 as float32, int64 as int32; the ELL value tables are
@@ -542,6 +632,7 @@ class PreparedSpmm:
         self._core_plans = {}  # H -> K-core plans of the bands
         self._int_plans = {}   # (H, limbs) -> K-int plans of the same
         self._f32_plans = {}   # H -> K-f32 plans of the same
+        self.has_bcsr = False
         if backend == "oracle":
             s = (coo if coo is not None else csr.to_coo()).sort_by_row()
             self._dev = {"rows": self._put(s.rows), "cols": self._put(s.cols),
@@ -557,6 +648,12 @@ class PreparedSpmm:
                          "vals": self._put(ell.vals, vals=True),
                          "rowloc": self._put(ell.rowloc),
                          "row_slot": self._put(row_slot_table(plan))}
+        elif backend == "coo":
+            ch = build_coo_chunks(
+                coo if coo is not None else csr.to_coo(),
+                config.resolve_n_blocks(graph.nnz))
+            self._dev = {"rows": self._put(ch.rows), "cols": self._put(ch.cols),
+                         "vals": self._put(ch.vals, vals=True)}
         elif backend == "ell":
             host: dict = {}
             _ell_host(host, _plan_ell_tables(
@@ -661,6 +758,7 @@ class PreparedSpmm:
         self.hybrid_k_eff = int(host["k"])
         self.core_dtype = str(host["core_dtype"])
         self._install_ell(host)
+        self._install_bcsr(host)
         if "stair_bands" in host:
             bands = [tuple(int(v) for v in b) for b in host["stair_bands"]]
             self._band_keys = [f"stair{b}" for b in range(len(bands))]
@@ -683,6 +781,40 @@ class PreparedSpmm:
             else:
                 self._dev[key] = self._put(band)
         self._dev["core_nodes"] = self._put(host["core_nodes"])
+
+    def _install_bcsr(self, host: dict) -> None:
+        """The BCSR tier of ``host``, where it has one, to the device under
+        the reference's names (``_install_hybrid_bcsr``,
+        ``pygim_tpu/ops/spmm.py:1081-1104``), bf16 tiles as
+        ``torch.bfloat16``, with ``bcsr_kind``, ``bcsr_step``,
+        ``bcsr_n_rb`` and ``bcsr_edges``."""
+        self.has_bcsr = "bcsr_tiles" in host
+        if not self.has_bcsr:
+            return
+        tiles = np.ascontiguousarray(host["bcsr_tiles"])
+        if str(host["bcsr_dtype"]) == "bfloat16":
+            tiles = torch.from_numpy(tiles.view(np.int16)).view(
+                torch.bfloat16).to(self.device)
+        else:
+            tiles = self._put(tiles)
+        self.bcsr_kind = str(host["bcsr_kind"])
+        self.bcsr_step = int(host["bcsr_step"])
+        self.bcsr_n_rb = int(host["bcsr_n_rb"])
+        self.bcsr_edges = int(host["bcsr_edges"])
+        rb = "tile_rb" if self.bcsr_kind == "panel" else "vblock_to_rb"
+        self._dev.update(
+            tiles=tiles, panel_idx=self._put(host["bcsr_panel_idx"]),
+            panel_nodes=self._put(host["bcsr_panel_nodes"]),
+            row_nodes=self._put(host["bcsr_row_nodes"]),
+            **{rb: self._put(host[f"bcsr_{rb}"])})
+
+    def bcsr_tables(self, dev: dict) -> tuple:
+        """The BCSR tier's ``(kind, tiles, panel_idx, rb, panel_nodes,
+        row_nodes)`` in ``dev``, the arguments of
+        :func:`~pygim_tpu_torch.ops.bcsr.bcsr_add` before x."""
+        rb = "tile_rb" if self.bcsr_kind == "panel" else "vblock_to_rb"
+        return (self.bcsr_kind, dev["tiles"], dev["panel_idx"], dev[rb],
+                dev["panel_nodes"], dev["row_nodes"])
 
     def _prepare_hybrid_build(self, coo, config) -> dict:
         pt = self.prepare_timer
@@ -743,9 +875,9 @@ class PreparedSpmm:
         (N, H). On an int8 or int4 core an integer x is exact (the
         reference's wrapped int32 product); on a bf16 or f32 core the
         product is the reference's f32 dot (:meth:`_core_add`); the tail
-        sums in f32, as the reference's hybrid ``run``. The oracle takes
-        any x and returns the accumulation dtype of
-        ``ops/reference.py``."""
+        sums in f32, as the reference's hybrid ``run``; the BCSR tier as
+        ``ops/bcsr.py`` says. The oracle and ``coo`` take any x and return
+        the accumulation dtype of ``ops/reference.py``."""
         return self.raw_mul(x, self._dev)
 
     def raw_mul(self, x, dev: dict):
@@ -754,7 +886,24 @@ class PreparedSpmm:
             return self._oracle(x, dev)
         if self.config.backend == "blocked":
             return self._blocked(x, dev)
+        if self.config.backend == "coo":
+            return self._coo(x, dev)
         return self._run(x, dev)
+
+    def _coo(self, x, dev):
+        """The ``coo`` body (``pygim_tpu/ops/spmm.py:1883-1897``): per
+        chunk, ``x[cols] · vals`` in the accumulation dtype, added by row
+        into the output."""
+        if x.dim() != 2 or x.shape[0] != self.ncols:
+            raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
+        rows, cols, vals = dev["rows"], dev["cols"], dev["vals"]
+        acc = accum_dtype(torch.promote_types(vals.dtype, x.dtype))
+        out = torch.zeros((self.nrows, x.shape[1]), dtype=acc,
+                          device=x.device)
+        for r, c, v in zip(rows, cols, vals):
+            out.index_add_(0, r, x.index_select(0, c).to(acc)
+                           * v.to(acc)[:, None])
+        return out
 
     def _blocked(self, x, dev):
         if x.dim() != 2 or x.shape[0] != self.ncols:
@@ -828,22 +977,24 @@ class PreparedSpmm:
         """The same product through the plain PyTorch versions on any
         device, at H unpadded — the yardstick the kernels are held
         against."""
-        if self.config.backend in ("oracle", "blocked"):
+        if self.config.backend in PLAIN_BACKENDS:
             return self.raw_mul(x, self._dev)  # plain PyTorch ops already
         return self._run(as_payload(x), self._dev, plain=True)
 
     def _kernels(self, dev: dict, plain: bool):
-        """The (tail, K-core, K-int, K-f32) functions of a run: the plain
-        versions; the kernels with the plans this operand keeps for its
-        own tables; or the kernels planning a foreign ``dev`` each
+        """The (tail, K-core, K-int, K-f32, K-bcsr) functions of a run: the
+        plain versions; the kernels with the plans this operand keeps for
+        its own tables; or the kernels planning a foreign ``dev`` each
         call."""
         if plain:
             return (ell_tables_plain, core_bands_plain,
-                    lambda *a, limbs: core_int_plain(*a), core_f32_plain)
+                    lambda *a, limbs: core_int_plain(*a), core_f32_plain,
+                    bcsr_plain)
         if dev is self._dev:
-            return self._tail, self._core, self._core_int, self._core_f32
+            return (self._tail, self._core, self._core_int, self._core_f32,
+                    bcsr_add)
         return (ell_tables_add, core_any_width, core_int_scatter_add,
-                core_f32_scatter_add)
+                core_f32_scatter_add, bcsr_add)
 
     def _check_x(self, x):
         if x.dim() != 2 or x.shape[0] != self.ncols:
@@ -855,10 +1006,12 @@ class PreparedSpmm:
                 f"{x.dtype}")
 
     def _run(self, x, dev, plain=False, safe=None, limbs=None):
-        """``A @ x`` into a fresh float32 (N, H). An integer x, or a
-        float32 x with ``safe`` (rounded to ``round(x / safe)`` in the tail
-        and the core), takes an int8 or int4 core's integer product with
-        ``limbs`` (default :data:`RAW_LIMBS` of x's dtype)."""
+        """``A @ x`` into a fresh float32 (N, H): the tail, the core, the
+        BCSR tier. An integer x, or a float32 x with ``safe`` (rounded to
+        ``round(x / safe)`` in every tier), takes an int8 or int4 core's
+        integer product with ``limbs`` (default :data:`RAW_LIMBS` of x's
+        dtype); the tier computes in the reference's dtype for x
+        (``ops/bcsr.py:compute_mode``)."""
         self._check_x(x)
         kernels = self._kernels(dev, plain)
         out = torch.zeros((self.nrows, x.shape[1]), dtype=torch.float32,
@@ -869,6 +1022,8 @@ class PreparedSpmm:
             kernels[0](x, self.ell_tables(dev), out, safe=safe)
         if self.stair:
             self._core_add(x, dev, out, kernels, safe, limbs)
+        if self.has_bcsr:
+            kernels[4](x, *self.bcsr_tables(dev), out, safe=safe)
         return out
 
     def _xc(self, x, cn):
@@ -899,7 +1054,7 @@ class PreparedSpmm:
 
         A float64 core (a float64 graph with ``hybrid_dtype`` None) holds
         f32 cells, so it is the float32 row."""
-        _tail_fn, core_fn, int_fn, f32_fn = kernels
+        _tail_fn, core_fn, int_fn, f32_fn, _bcsr_fn = kernels
         cn = dev["core_nodes"]
         bands = [dev[k] for k in self._band_keys]
         xc = self._xc(x, cn)
@@ -979,12 +1134,14 @@ class PreparedSpmm:
           a zero output (hybrid): K-core (int8 or int4 cells, or bf16
           cells with a float or int8 x), K-int (int8 or int4 cells with an
           integer x) or K-f32 (f32 cells, or bf16 cells with an int16 or
-          int32 x), as :meth:`_core_add` dispatches.
+          int32 x), as :meth:`_core_add` dispatches;
+        * ``bcsr_time`` — K-bcsr alone into a zero output (hybrid with a
+          tier), in the compute mode ``mul`` takes for x.
 
         The phases overlap the product's work; they are no sum of it."""
         d = self._dev
         out = {"mul_time(ms)": device_time(self.mul, x, iters=iters) * 1e3}
-        if self.config.backend in ("oracle", "blocked"):
+        if self.config.backend in PLAIN_BACKENDS:
             return out
         x = as_payload(x)
         self._check_x(x)
@@ -1003,6 +1160,10 @@ class PreparedSpmm:
             kernels = self._kernels(d, plain=False)
             out["core_time(ms)"] = device_time(
                 lambda: self._core_add(x, d, zeros(), kernels),
+                iters=iters) * 1e3
+        if self.has_bcsr:
+            out["bcsr_time(ms)"] = device_time(
+                lambda: bcsr_add(x, *self.bcsr_tables(d), zeros()),
                 iters=iters) * 1e3
         return out
 

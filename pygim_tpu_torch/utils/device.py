@@ -111,3 +111,42 @@ def f32_bound(shapes, h, peaks_, cell_bytes: float = 4.0,
     t_ops = (ops / f32 if products is None
              else products * ops / (bf16 / 2)) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bcsr_bound(cells, x_rows, out_rows, index_entries, h, peaks_,
+               tile_bytes=2, x_itemsize=4, mma=True):
+    """Least time of one K-bcsr launch over ``cells`` tile cells (every
+    slot, pads included) at width ``h``: the larger of its bytes over HBM
+    and its operations over the mode's peak. Bytes: every cell at
+    ``tile_bytes``, ``x_rows`` payload rows at ``x_itemsize``,
+    ``index_entries`` int32 table entries, and ``out_rows`` f32 output
+    rows read and written. Operations: ``2 · cells · h`` at the bf16
+    tensor rate (``mma``) or the f32 rate outside the tensor cores (the
+    FFMA mode). :func:`bcsr_traffic` gives the counts. Returns (ms,
+    "bytes" | "operations")."""
+    hbm, bf16, f32, _int8 = peaks_
+    nbytes = (cells * tile_bytes + x_rows * h * x_itemsize
+              + index_entries * 4 + 2 * out_rows * h * 4)
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = 2 * cells * h / (bf16 if mma else f32) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bcsr_traffic(tiles, panel_idx, rb, panel_nodes, row_nodes) -> dict:
+    """The counts of :func:`bcsr_bound` for one launch on these tables
+    (either kind; ``ops/bcsr.py:bcsr_add``'s arguments after x and the
+    kind): every tile cell; the distinct x rows of the panels that the
+    work items read; the distinct output rows of the row blocks they add
+    into; the index entries read once: ``panel_idx``, ``rb`` and the
+    ``panel_nodes`` / ``row_nodes`` entries of those panels and row
+    blocks. Panels and row blocks of the tables that no work item reads
+    are not counted."""
+    import torch
+
+    tr, tc = tiles.shape[2], tiles.shape[3]
+    pn = panel_nodes.long().view(-1, tc)[torch.unique(panel_idx.long())]
+    rn = row_nodes.long().view(-1, tr)[torch.unique(rb.long())]
+    return dict(cells=tiles.numel(), x_rows=int(torch.unique(pn).numel()),
+                out_rows=int(torch.unique(rn).numel()),
+                index_entries=(panel_idx.numel() + rb.numel() + pn.numel()
+                               + rn.numel()))

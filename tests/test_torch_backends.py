@@ -166,10 +166,23 @@ def test_oracle_does_not_fuse_quantization():
 
 
 @pytest.mark.parametrize("backend,error", [
-    ("coo", NotImplementedError), ("no-such-backend", ValueError)])
+    ("coo", None), ("no-such-backend", ValueError)])
 def test_unported_backends_raise(backend, error):
+    """An unknown backend raises; ``coo`` (error None), refused until its
+    slice, now prepares and equals the oracle's product."""
     rows, cols, vals = make_graph("multigraph")
     g = tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N)
+    if error is None:
+        tp = tspmm.prepare_spmm(g, tspmm.SpmmConfig(backend=backend),
+                                device="cpu")
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (N, 8)).astype(np.float32))
+        want = tspmm.prepare_spmm(g, tspmm.SpmmConfig(backend="oracle"),
+                                  device="cpu").mul(x)
+        # f32 sums in two orders: 1e-5 of the largest |output|
+        torch.testing.assert_close(tp.mul(x), want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+        return
     with pytest.raises(error):
         tspmm.prepare_spmm(g, tspmm.SpmmConfig(backend=backend), device="cpu")
 

@@ -61,6 +61,10 @@ MODULES = [
     "pygim_tpu_torch.bench.experiment",
     "pygim_tpu_torch.bench.configs",
     "pygim_tpu_torch.bench.parse_results",
+    "pygim_tpu_torch.core.bcsr",
+    "pygim_tpu_torch.ops.bcsr",
+    "pygim_tpu_torch.ops.sddmm",
+    "pygim_tpu_torch.tune.bcsr_probe",
     "sweep_cuda",
 ]
 

@@ -75,9 +75,11 @@ def test_payload_exact_in_bf16_is_exact():
     dict(hybrid_core_bytes=0, bcsr_bytes=1 << 20),
 ])
 def test_unported_configs_raise(over):
-    """The configurations the port does not run raise; the bf16, f32
-    and graph-dtype (None) cores, refused before PR 11 ported them, now
-    prepare with their cells."""
+    """The configurations the port does not run raise (a shape outside
+    square and stair); the bf16, f32 and graph-dtype (None) cores,
+    refused until their slice, now prepare with their cells; the ``coo``
+    backend and ``bcsr_bytes`` on a square build, refused until theirs,
+    prepare and equal the float64 product."""
     rows, cols, vals = make_graph("multigraph")
     g = tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N)
     cfg = tspmm.SpmmConfig(**{**KW, **over})
@@ -85,6 +87,14 @@ def test_unported_configs_raise(over):
         tp = tspmm.prepare_spmm(g, cfg, device="cpu")
         assert tp.core_dtype == (over["hybrid_dtype"] or "float32")
         assert tp.stair
+        return
+    if over.get("backend") == "coo" or "bcsr_bytes" in over:
+        tp = tspmm.prepare_spmm(g, cfg, device="cpu")
+        x = torch.from_numpy(np.random.default_rng(1).integers(
+            -8, 9, (N, 16)).astype(np.float32))
+        want = dense64(rows, cols, vals) @ x.numpy().astype(np.float64)
+        np.testing.assert_allclose(tp.mul(x).numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
         return
     with pytest.raises(NotImplementedError):
         tspmm.prepare_spmm(g, cfg, device="cpu")

@@ -228,16 +228,17 @@ def test_square_build_never_allocates_dense_f32():
     (dict(hybrid_dtype="bfloat16"), None),
     (dict(hybrid_dtype="float32"), None),
     (dict(hybrid_dtype=None), None),
-    (dict(hybrid_shape="square", bcsr_bytes=1 << 20), NotImplementedError),
-    (dict(hybrid_shape="stair", hybrid_k=512, bcsr_bytes=1 << 20),
-     NotImplementedError),
+    (dict(hybrid_shape="square", bcsr_bytes=1 << 20), None),
+    (dict(hybrid_shape="stair", hybrid_k=512, bcsr_bytes=1 << 20), None),
     (dict(hybrid_shape="diagonal"), NotImplementedError),
 ], ids=["bf16", "f32", "float-None", "square-bcsr", "pinned-stair-bcsr",
         "unknown-shape"])
 def test_check_supported_raises(over, error):
     """The configurations the port still refuses raise; the bf16, f32
-    and graph-dtype (None) cores, refused before this slice, now pass
-    (``tests/test_torch_float_cores.py`` runs them)."""
+    and graph-dtype (None) cores and the BCSR tier on a square build
+    (also a stair with a pinned k), refused before their slices, now pass
+    (``tests/test_torch_float_cores.py`` and ``test_torch_bcsr.py`` run
+    them)."""
     cfg = tspmm.SpmmConfig(**{**config_kw("square", "int8", "budget"),
                               **over})
     if error is None:
