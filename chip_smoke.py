@@ -119,18 +119,22 @@ random tiers: every mode (bf16 tiles with a float32, bfloat16 or int8
 payload on the tensor cores; int16, int32 and rounded payloads and f32
 tiles in f32) in both layouts at ragged tile rows (8 to 64) and widths
 (8 to 1100), with an ``out`` at an odd offset, on a single-tile tier,
-two launches against each other, a NaN read by a pad, and the shapes it
-refuses. The three-tier hybrid on ``brmat-200000-4000000-256`` (a square
+two launches against each other, a NaN read by a pad, a hub panel that
+its work plan splits into items, a row-kind tier that the plan reorders
+panel-major, and the shapes it refuses. The three-tier hybrid on ``brmat-200000-4000000-256`` (a square
 core at 64 MiB, tiles at 256 MiB: int8 core with bf16 tiles, Tr 16 panel
 lp, Tr 16 row rcm, Tr 8 row rank; an f32 core with f32 tiles, Tr 16
 panel lp), each counted, ``mul`` on five payloads and ``mul_quantized``
 at int8 (bit-equal), int16 and int32 against the plain versions, with
 ``bcsr_time``, the captured edges and K-bcsr timed against its bound and
-``torch.sparse.mm``. A 1 GiB random tier at 2,000,000 nodes, both
+``torch.sparse.mm`` beside its plan's items, panels staged, adds, bands
+and modelled bytes. A 1 GiB random tier at 2,000,000 nodes, both
 layouts, timed the same way. The ``coo`` backend on the stand-in (a
 float32 SpMM, the float GCN against the oracle backend's, GIN and SAGE
 through ``run_experiments`` with ``validate``) and SDDMM against a
-float64 dot. After the training path, one GCN step through a hybrid with
+float64 dot, each timed beside a bytes bound and its library call
+(``torch.sparse.mm`` on the same CSR, which the blocked backend's row
+shares; ``torch.sparse.sampled_addmm`` on the same pattern). After the training path, one GCN step through a hybrid with
 a tier, its gradients against the plain versions'.
 
 Its last three lines are the ``kernels`` JSON object (each kernel with
@@ -148,11 +152,11 @@ kernel, and the device's busy share. ``python3 chip_smoke.py
 --train-sweep`` runs only the readings the training checks' bars were
 set from (``train_sweep``), and checks nothing. ``python3 chip_smoke.py
 --bcsr-full`` holds and times K-bcsr on the full-size three-tier tiers
-and prints its time at every forced number of work items a block there
+and prints its time with its plan's bands forced off and on there
 (``bcsr_full``; minutes of host prepare where the cache is cold);
 ``--bcsr-sweep`` prints the same readings on the smoke and random tiers
-(``bcsr_group_sweep``): the readings ``ops/bcsr.py:work_group`` was
-checked against.
+(``bcsr_band_sweep``): the readings ``ops/bcsr.py:L2_ADD_COST`` and the
+plan's choice of bands are checked against.
 """
 
 from __future__ import annotations
@@ -3111,13 +3115,19 @@ def bcsr_kernel_checks(results, device="cuda"):
     """K-bcsr alone against ``bcsr_plain`` on random tiers: every mode of
     :data:`BCSR_MODES` in both layouts at ragged (Tr, H), Tr 8 to 64 and
     H 8 to 1100, with an ``out`` at an odd storage offset, on a
-    single-tile tier; two launches on a bf16 tier within REL_TOL (f32
+    single-tile tier; a hub panel its plan splits into items and a
+    row-kind tier it reorders, bf16 and f32 tiles; two launches on a bf16 tier within REL_TOL (f32
     atomics: not required bit-equal; the reading says whether they were);
     NaN rows where the plain version has them when a pad reads a NaN x
     row; the refusals of the wrapper (Tr past 64, misaligned tiles)."""
     import torch
 
-    from pygim_tpu_torch.ops.bcsr import bcsr_add, bcsr_plain
+    from pygim_tpu_torch.ops.bcsr import (
+        ITEM_TILES,
+        bcsr_add,
+        bcsr_plain,
+        bcsr_plan,
+    )
 
     gen = torch.Generator().manual_seed(21)
     nodes = 3000
@@ -3146,6 +3156,29 @@ def bcsr_kernel_checks(results, device="cuda"):
             name = f"K-bcsr {kind} {tdt} single tile"
             errs[name] = bcsr_case(name, x, tables, 200)
             cases += 1
+    # a hub panel the plan splits into items; a row-kind tier (S = 3, few
+    # row blocks, so consecutive entries share one) it reorders
+    hub_n = 3 * ITEM_TILES + 9
+    for tdt in ("bfloat16", "float32"):
+        kind, tiles, pidx, rb, pn, rn = bcsr_synthetic(
+            "panel", hub_n, 1, 16, nodes, tdt, gen, device)
+        pidx[:hub_n - 4] = 2
+        tables = (kind, tiles, torch.sort(pidx)[0], rb, pn, rn)
+        plan = bcsr_plan(kind, tables[2], rb, 16, 256)
+        if int((plan.items[:, 2] == 2).sum()) < 3:
+            raise AssertionError("K-bcsr plan: the hub panel not split")
+        x = bcsr_payload(nodes, 256, "float32", gen, device)
+        name = f"K-bcsr panel {tdt} split hub panel"
+        errs[name] = bcsr_case(name, x, tables, nodes)
+        tables = bcsr_synthetic("row", 64, 3, 16, nodes, tdt, gen, device)
+        tables = (*tables[:3], torch.sort(tables[3] % 12)[0], *tables[4:])
+        plan = bcsr_plan("row", tables[2], tables[3], 16, 256)
+        if torch.equal(plan.entries[:, 0],
+                       torch.arange(64 * 3, dtype=torch.int32)):
+            raise AssertionError("K-bcsr plan: the row tier not reordered")
+        name = f"K-bcsr row {tdt} reordered by the plan"
+        errs[name] = bcsr_case(name, x, tables, nodes)
+        cases += 2
     # two launches on a bf16 tier
     tables = bcsr_synthetic("panel", 256, 8, 16, nodes, "bfloat16", gen,
                             device)
@@ -3220,31 +3253,44 @@ def sparse_of(kind, tiles, pidx, rb, pn, rn, nodes):
     return a.to_sparse_csr()
 
 
+def plan_reading(plan) -> dict:
+    """A plan's items, panels staged, adds, bands and modelled bytes, and
+    the time those bytes take at 2 TB/s (about the rate a kernel walking
+    the tables in their own order reached)."""
+    return dict(items=plan.stages, adds=plan.adds, bands=plan.bands,
+                band_rb=plan.band_rb, model_gb=plan.model_bytes / 1e9,
+                model_parts_gb={k: v / 1e9 for k, v in plan.model.items()},
+                model_ms_at_2tbs=plan.model_bytes / 2e12 * 1e3)
+
+
 def bcsr_timing(name, tables, nodes, x, peaks_, results, launches=None):
-    """K-bcsr's entry on ``tables``: its time, its plain version's,
+    """K-bcsr's entry on ``tables``: its time on its work plan (built once,
+    as a prepared operand keeps it), its plain version's,
     ``torch.sparse.mm`` on the tier's edges (f32 x), its bound (each tile
     cell, each distinct x row of the panels the work items read and each
     distinct output row of the row blocks they add into once, their index
-    entries once: ``utils/device.py:bcsr_traffic``) and the work items a
-    block (``work_group``)."""
+    entries once: ``utils/device.py:bcsr_traffic``) and the plan's
+    readings (:func:`plan_reading`)."""
     import torch
 
     from pygim_tpu_torch.ops.bcsr import (
         bcsr_add,
         bcsr_plain,
+        bcsr_plan,
         compute_mode,
-        work_group,
     )
     from pygim_tpu_torch.utils.device import bcsr_bound, bcsr_traffic
 
-    kind, tiles = tables[:2]
+    kind, tiles, pidx, rb = tables[:4]
     n, slots, tr, _ = tiles.shape
+    plan = bcsr_plan(kind, pidx, rb, tr, x.shape[1],
+                     tile_bytes=tiles.element_size(), device=x.device)
     out = torch.zeros(nodes, x.shape[1], device=x.device)
-    got = bcsr_add(x, *tables, out)
+    got = bcsr_add(x, *tables, out, plan=plan)
     err = check_close(name, got, bcsr_plain(x, *tables,
                                             torch.zeros_like(out)),
                       bcsr_mag(x, tables, nodes), REL_TOL)
-    ms = cuda_ms(lambda: bcsr_add(x, *tables, out.zero_()))
+    ms = cuda_ms(lambda: bcsr_add(x, *tables, out.zero_(), plan=plan))
     plain_ms = cuda_ms(lambda: bcsr_plain(x, *tables, out.zero_()), iters=3,
                        warmup=1)
     a = sparse_of(*tables, nodes)
@@ -3259,7 +3305,7 @@ def bcsr_timing(name, tables, nodes, x, peaks_, results, launches=None):
     res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                bound_by=by, library_ms=library_ms, share_of_bound=bound / ms,
                kind=kind, work=n, slots=slots, tile_rows=tr, panels=n_panels,
-               row_blocks=n_rb, group=work_group(kind, n, n_panels, n_rb),
+               row_blocks=n_rb, plan=plan_reading(plan),
                x_rows=traffic["x_rows"], out_rows=traffic["out_rows"],
                tier_edges=int(a.values().numel()))
     if launches is not None:
@@ -3418,6 +3464,13 @@ def bcsr_scale(results, device="cuda"):
         free(device)
 
 
+def least_time(nbytes, ops, hbm, rate):
+    """The least time of ``nbytes`` at the HBM rate and ``ops`` at
+    ``rate``: (ms, "bytes" | "operations")."""
+    t_bytes, t_ops = nbytes / hbm * 1e3, ops / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def coo_sddmm(ds, results, device="cuda"):
     """The ``coo`` backend and SDDMM on the smoke stand-in: a float32 SpMM
     through ``run_spmm_benchmark`` (verify OK) and ``mul`` against the
@@ -3426,7 +3479,9 @@ def coo_sddmm(ds, results, device="cuda"):
     GIN and SAGE (tracked config 3's models, without ``tune``) through
     ``run_experiments`` with ``Experiment(sp_format="coo",
     backend="coo", validate=True)``; ``prepare_sddmm(...).run`` against
-    a float64 dot on 4096 sampled edges."""
+    a float64 dot on 4096 sampled edges. Both timed beside a bytes bound
+    and a library call (:func:`least_time`; ``torch.sparse.mm``,
+    ``torch.sparse.sampled_addmm``)."""
     import numpy as np
     import torch
 
@@ -3455,6 +3510,21 @@ def coo_sddmm(ds, results, device="cuda"):
     res["mul_err"] = check_close("coo mul", coo.mul(x), oracle.mul(x), mag,
                                  REL_TOL)
     res["mul_ms"] = cuda_ms(lambda: coo.mul(x), iters=5)
+    # its bytes bound (each stored entry, each x row read and each output
+    # row written once) and torch.sparse.mm on the same CSR, which is the
+    # blocked backend's library call too (the same merged edges)
+    hbm, _, f32_rate, _ = results["peaks"]
+    d = coo.dev_arrays
+    rows, cols, vals = (d[k].reshape(-1) for k in ("rows", "cols", "vals"))
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows.long(), cols.long()]), vals.float(),
+        (coo.nrows, coo.ncols)).coalesce().to_sparse_csr()
+    res["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x), iters=5)
+    res["bound_ms"], res["bound_by"] = least_time(
+        rows.numel() * 12 + (int(torch.unique(cols).numel())
+                             + int(torch.unique(rows).numel())) * HIDDEN * 4,
+        2 * rows.numel() * HIDDEN, hbm, f32_rate)
+    del csr
     rep = DataReporter(echo=True)
     run_spmm_benchmark(ds, hidden=HIDDEN, config=SpmmConfig(backend="coo"),
                        repeat=3, reporter=rep, device=device)
@@ -3500,8 +3570,25 @@ def coo_sddmm(ds, results, device="cuda"):
     if got.shape != (ds.graph.nnz,) or (err > REL_TOL * terms).any():
         raise AssertionError(f"SDDMM off its float64 dot: {float(err.max())}")
     res["sddmm_err"] = float(err.max())
-    res["sddmm_ms"] = cuda_ms(lambda: sd.run(a.to(device), b.to(device)),
-                              iters=5)
+    ad, bd = a.to(device), b.to(device)
+    res["sddmm_ms"] = cuda_ms(lambda: sd.run(ad, bd), iters=5)
+    # its bytes bound (the edge list read, one score written an edge, each
+    # a and b row read once) and torch.sparse.sampled_addmm on the same
+    # pattern (the edges as a CSR, duplicates merged)
+    er = torch.from_numpy(s.rows).to(device).long()
+    ec = torch.from_numpy(s.cols).to(device).long()
+    pattern = torch.sparse_coo_tensor(
+        torch.stack([er, ec]), torch.ones(s.nnz, device=device),
+        (ds.graph.nrows, ds.graph.ncols)).coalesce().to_sparse_csr()
+    bt = bd.t().contiguous()
+    res["sddmm_library_ms"] = cuda_ms(
+        lambda: torch.sparse.sampled_addmm(pattern, ad, bt, beta=0.0),
+        iters=5)
+    res["sddmm_bound_ms"], res["sddmm_bound_by"] = least_time(
+        s.nnz * 12 + (int(torch.unique(er).numel())
+                      + int(torch.unique(ec).numel())) * 64 * 4,
+        2 * s.nnz * 64, hbm, f32_rate)
+    del pattern, er, ec
     res["seconds"] = time.perf_counter() - t0
     results["coo sddmm"] = res
     print(f"coo and SDDMM: {res}", flush=True)
@@ -3563,7 +3650,7 @@ def bcsr_full() -> int:
     both layouts; from the user's prepare cache where the experiments ran
     before in it), each held to ``bcsr_plain`` and timed against its
     bound and ``torch.sparse.mm``, as the kernels line's entry, then
-    :func:`group_sweep` on it."""
+    :func:`band_sweep` on it."""
     import torch
 
     from pygim_tpu_torch.bench.configs import THREE_TIER_EXPERIMENTS
@@ -3588,56 +3675,55 @@ def bcsr_full() -> int:
         tables = prep.bcsr_tables(prep.dev_arrays)
         bcsr_timing(f"K-bcsr three-tier {e.bcsr_layout}", tables,
                     prep.nrows, x, results["peaks"], results)
-        group_sweep(f"three-tier {e.bcsr_layout}", tables, prep.nrows, x)
+        band_sweep(f"three-tier {e.bcsr_layout}", tables, prep.nrows, x)
         del prep, tables
         free("cuda")
     print(card, flush=True)
     return 0
 
 
-BCSR_GROUPS = (1, 2, 4, 8, 16, 32, 64)
-
-
-def group_sweep(key, tables, nodes, x) -> None:
-    """K-bcsr's time on ``tables`` with each work-items-a-block of
-    :data:`BCSR_GROUPS` forced (``ops/bcsr.py:work_group`` replaced for
-    the sweep), each product held to ``bcsr_plain``; prints them beside
-    ``work_group``'s own choice."""
+def band_sweep(key, tables, nodes, x) -> None:
+    """K-bcsr's time on ``tables`` on its plan with bands forced off and
+    on (``ops/bcsr.py:plan_tables`` at 0 and at the band of
+    :data:`~pygim_tpu_torch.ops.bcsr.L2_BAND_BYTES`), each product held to
+    ``bcsr_plain``; prints each plan's readings and time beside the
+    plan's own choice."""
     import torch
 
     from pygim_tpu_torch.ops import bcsr as kbcsr
 
-    kind, tiles, _, _, pn, rn = tables
-    chosen = kbcsr.work_group(kind, tiles.shape[0], pn.shape[0] // 128,
-                              rn.shape[0] // tiles.shape[2])
-    want = kbcsr.bcsr_plain(x, *tables, torch.zeros(nodes, x.shape[1],
+    kind, tiles, pidx, rb, _, _ = tables
+    tr, h = tiles.shape[2], x.shape[1]
+    chosen = kbcsr.bcsr_plan(kind, pidx, rb, tr, h,
+                             tile_bytes=tiles.element_size())
+    want = kbcsr.bcsr_plain(x, *tables, torch.zeros(nodes, h,
                                                     device=x.device))
     mag = bcsr_mag(x, tables, nodes)
     out = torch.zeros_like(want)
-    choose, ms = kbcsr.work_group, {}
-    try:
-        for g in BCSR_GROUPS:
-            kbcsr.work_group = lambda *args, g=g: g
-            check_close(f"{key} group {g}",
-                        kbcsr.bcsr_add(x, *tables, out.zero_()), want, mag,
-                        REL_TOL)
-            ms[g] = cuda_ms(lambda: kbcsr.bcsr_add(x, *tables, out.zero_()),
-                            iters=10)
-    finally:
-        kbcsr.work_group = choose
-    print(json.dumps({"tier": key, "work_group": chosen,
-                      "ms_by_group": ms}), flush=True)
+    readings = {}
+    for band_rb in (0, max(1, kbcsr.L2_BAND_BYTES // (tr * h * 4))):
+        plan = kbcsr.plan_tables(kind, pidx, rb, tr, h, band_rb,
+                                 tiles.element_size()).to(x.device)
+        check_close(f"{key} bands {band_rb}",
+                    kbcsr.bcsr_add(x, *tables, out.zero_(), plan=plan),
+                    want, mag, REL_TOL)
+        ms = cuda_ms(lambda: kbcsr.bcsr_add(x, *tables, out.zero_(),
+                                            plan=plan), iters=10)
+        readings[band_rb] = dict(ms=ms, **plan_reading(plan))
+    print(json.dumps({"tier": key, "chosen_band_rb": chosen.band_rb,
+                      "by_band_rb": readings}), flush=True)
 
 
-def bcsr_group_sweep() -> int:
-    """``--bcsr-sweep``: :func:`group_sweep` on the smoke tiers of
-    :data:`BCSR_CONFIGS` and on both layouts of :func:`scale_tiers`.
-    Prints the readings; checks only the products."""
+def bcsr_band_sweep() -> int:
+    """``--bcsr-sweep``: :func:`band_sweep` on the smoke tiers of
+    :data:`BCSR_CONFIGS` and on both layouts of :func:`scale_tiers`, and
+    each smoke tier's :func:`bcsr_timing` entry. Prints the readings;
+    checks only the products."""
     import torch
 
     from pygim_tpu_torch.data import load_dataset
     from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
-    from pygim_tpu_torch.utils.device import card_line
+    from pygim_tpu_torch.utils.device import card_line, peaks
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3652,11 +3738,13 @@ def bcsr_group_sweep() -> int:
             backend="hybrid", hybrid_shape="square",
             hybrid_core_bytes=BCSR_CORE_BYTES, bcsr_bytes=BCSR_BYTES,
             hidden_hint=HIDDEN, **kw), device="cuda")
-        group_sweep(key, prep.bcsr_tables(prep.dev_arrays), n, x)
+        band_sweep(key, prep.bcsr_tables(prep.dev_arrays), n, x)
+        bcsr_timing(f"K-bcsr {key}", prep.bcsr_tables(prep.dev_arrays), n, x,
+                    peaks(torch.cuda.get_device_name(0)), {})
         del prep
         free("cuda")
     for tables, nodes, xs in scale_tiers("cuda"):
-        group_sweep(f"scale {tables[0]}", tables, nodes, xs)
+        band_sweep(f"scale {tables[0]}", tables, nodes, xs)
     return 0
 
 
@@ -3666,7 +3754,7 @@ def main() -> int:
     if "--bcsr-full" in sys.argv[1:]:
         return bcsr_full()
     if "--bcsr-sweep" in sys.argv[1:]:
-        return bcsr_group_sweep()
+        return bcsr_band_sweep()
     root = tempfile.mkdtemp(prefix="chip_smoke_cache_")
     os.environ["PYGIM_TPU_TORCH_DATA"] = root
     try:

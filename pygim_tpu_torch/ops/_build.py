@@ -66,10 +66,11 @@ SIGNATURES = {
                                     _P, _P, _I, _P],
     },
     "bcsr": {
-        # tiles, tile f32, panel_idx, rb, panel_nodes, row_nodes, kind, n,
-        # slots, tr, group, x, payload, safe, mma, out, h, vec, stream
-        "bcsr_add": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
-                     _I, _P, _I, _I, _P],
+        # tiles, tile f32, tiles (n · slots), tr, plan entries, plan
+        # items, n_items, panel_nodes, row_nodes, x, payload, safe, mma,
+        # out, h, vec, stream
+        "bcsr_add": [_P, _I, _LL, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P,
+                     _I, _I, _P],
     },
     "ell_tail": {
         # tables, units, n_units, x, out, h, vec, payload, safe, stream

@@ -32,6 +32,13 @@ last rank against zero cells) all multiply x rows by zeros, so a
 non-finite x there turns rows into NaN, in the plain version and in the
 kernel alike.
 
+The kernel walks a work plan (:func:`bcsr_plan`, built once a prepared
+operand and width): every tile once, panel-major in either layout, so a
+run of one panel's tiles stages it once (once a band, where bands of row
+blocks whose output rows fit in L2 pay in its byte model), and the
+partial rows of consecutive tiles of one row block are summed before
+they are added.
+
 :func:`bcsr_plain` is the same product in plain PyTorch, in bounded
 groups (no panel table of all ``n_panels · 128`` rows and no
 ``(slots, H)`` buffer of the whole tier); the CPU tests hold it to the
@@ -42,6 +49,9 @@ reference and ``chip_smoke.py`` holds the kernel to it on the card.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from pygim_tpu_torch.core.bcsr import TILE_COLS
@@ -58,7 +68,6 @@ PAYLOADS = {torch.float32: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
             torch.bfloat16: 5}
 _QUANT = 4
 MAX_TILE_ROWS = 64  # the kernel's Tr: up to four 16-row MMA tiles
-MAX_GROUP = 32  # work items a block at most (work_group)
 GROUP_BYTES = 64 << 20  # the plain version's gather and partials a group
 
 
@@ -122,21 +131,137 @@ def bcsr_plain(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out,
     return out
 
 
-def work_group(kind, n, n_panels, n_rb) -> int:
-    """Consecutive work items a block of the kernel takes, for ``n``
-    virtual blocks (row kind) or virtual panels (panel kind) over tables of
-    ``n_panels`` panels and ``n_rb`` row blocks: the items a panel (panel
-    kind: a block keeps a staged panel while its items read it) or a row
-    block (row kind: a block sums a row block's items in registers), as
-    the power of two at or below it, from 1 to :data:`MAX_GROUP`. The
-    builders keep only the panels and row blocks in use and sort the items
-    by them, so the quotient is the mean run of items that share one;
-    fewer items a block, more blocks in flight."""
-    per = n / max(1, n_panels if kind == "panel" else n_rb)
-    g = 1
-    while g * 2 <= min(per, MAX_GROUP):
-        g *= 2
-    return g
+# The work plan (bcsr_plan): a band's output rows at f32 take at most
+# about half of the H100's 50 MB L2, so that its adds stay there; an add
+# inside such a band is modelled at L2_ADD_COST of one to HBM, fitted to
+# the full-size three-tier tiers timed with bands forced off and on
+# (chip_smoke.py --bcsr-full: they paid on the panel tier and lost on the
+# row tier; PERF.md §6); an item holds at most ITEM_TILES tiles of
+# one panel, so a hub panel is split for the persistent grid.
+L2_BAND_BYTES = 24 << 20
+L2_ADD_COST = 0.8
+ITEM_TILES = 64
+
+
+@dataclasses.dataclass
+class BcsrPlan:
+    """K-bcsr's walk of a tier's tables (:func:`bcsr_plan`).
+
+    ``entries`` int32 ``(n · slots, 2)``: every tile of the tables once,
+    pads included, as (flat tile index into ``(n · slots)``, row block),
+    in the kernel's order: band, then panel, then row block, then the
+    tables' order. ``items`` int32 ``(n_items, 4)``: (first entry, end
+    entry, panel, band), a run of one panel's entries in one band, at
+    most :data:`ITEM_TILES` long; band-major, longest first inside a
+    band. The rest is the byte model at ``h``: ``band_rb`` row blocks a
+    band (0: no bands), ``bands``, ``stages`` (panels staged: one an
+    item), ``adds`` (row-block flushes: runs of one row block inside an
+    item), ``model`` (bytes by part) and ``model_bytes`` (their sum)."""
+
+    entries: torch.Tensor
+    items: torch.Tensor
+    band_rb: int
+    bands: int
+    stages: int
+    adds: int
+    model: dict
+    model_bytes: float
+
+    def to(self, device) -> "BcsrPlan":
+        return dataclasses.replace(self, entries=self.entries.to(device),
+                                   items=self.items.to(device))
+
+
+def _host(t) -> np.ndarray:
+    """A table as int64 numpy, from a tensor on any device."""
+    if isinstance(t, torch.Tensor):
+        t = t.cpu().numpy()
+    return np.asarray(t, dtype=np.int64)
+
+
+def _flat(kind, panel_idx, rb):
+    """Every tile's (panel, row block) in the tables' flat order."""
+    pidx, rbs = _host(panel_idx), _host(rb)
+    if kind == "panel":
+        return np.repeat(pidx, rbs.shape[1]), rbs.reshape(-1)
+    return pidx.reshape(-1), np.repeat(rbs, pidx.shape[1])
+
+
+def plan_tables(kind, panel_idx, rb, tr, h, band_rb, tile_bytes=2,
+                x_itemsize=4) -> BcsrPlan:
+    """The plan of :func:`bcsr_plan` with ``band_rb`` row blocks a band
+    (0: one band of all), on the CPU. ``panel_idx`` / ``rb`` are the
+    tables of ``bcsr_add`` (numpy, or tensors on any device)."""
+    panel, rows = _flat(kind, panel_idx, rb)
+    n = panel.size
+    _, compact = np.unique(rows, return_inverse=True)
+    band = compact // band_rb if band_rb else np.zeros(n, np.int64)
+    order = np.lexsort((np.arange(n), rows, panel, band))
+    p, r, b = panel[order], rows[order], band[order]
+    # runs of one (band, panel), cut into items of at most ITEM_TILES
+    cut = np.flatnonzero((p[1:] != p[:-1]) | (b[1:] != b[:-1])) + 1
+    runs = np.diff(np.concatenate([[0], cut, [n]]))
+    starts = np.concatenate([[0], cut])
+    pieces = -(-runs // ITEM_TILES)
+    first, end = [], []
+    for s, ln, k in zip(starts.tolist(), runs.tolist(), pieces.tolist()):
+        bounds = [s + (ln * j) // k for j in range(k + 1)]
+        first += bounds[:-1]
+        end += bounds[1:]
+    first, end = np.asarray(first, np.int64), np.asarray(end, np.int64)
+    ib = b[first]
+    # band-major, longest first inside a band, then in order
+    io = np.lexsort((first, first - end, ib))
+    first, end, ib = first[io], end[io], ib[io]
+    items = np.stack([first, end, p[first], ib], axis=1)
+    # a flush wherever the row block changes inside an item
+    new_rb = np.ones(n, bool)
+    new_rb[1:] = r[1:] != r[:-1]
+    new_rb[first] = True
+    adds = int(new_rb.sum())
+    row_bytes = tr * h * 4  # a row block of out, f32
+    model = dict(tiles=n * tr * 128 * tile_bytes,
+                 stages=len(items) * 128 * h * x_itemsize,
+                 adds_hbm=0.0, adds_l2=0.0, band_rows=0)
+    n_bands = int(b.max()) + 1 if n else 0
+    band_adds = np.bincount(b[new_rb], minlength=n_bands)
+    n_rb = int(compact.max()) + 1 if n else 0
+    band_rbs = np.bincount(np.arange(n_rb) // (band_rb or max(1, n_rb)),
+                           minlength=n_bands)
+    for k in range(n_bands):
+        if band_rbs[k] * row_bytes <= L2_BAND_BYTES:
+            model["adds_l2"] += L2_ADD_COST * band_adds[k] * 2 * row_bytes
+            model["band_rows"] += int(band_rbs[k]) * 2 * row_bytes
+        else:
+            model["adds_hbm"] += float(band_adds[k]) * 2 * row_bytes
+    entries = np.stack([order, r], axis=1)
+    return BcsrPlan(
+        entries=torch.from_numpy(entries.astype(np.int32)),
+        items=torch.from_numpy(items.astype(np.int32)),
+        band_rb=int(band_rb), bands=n_bands, stages=len(items), adds=adds,
+        model=model, model_bytes=float(sum(model.values())))
+
+
+def bcsr_plan(kind, panel_idx, rb, tr, h, tile_bytes=2, x_itemsize=4,
+              device=None) -> BcsrPlan:
+    """K-bcsr's work plan for a tier's tables at width ``h`` (on
+    ``device``; built on the CPU): both layouts walked panel-major, so
+    each panel is staged once, or once a band. Bands cut the tables'
+    row blocks in use, in order, into groups whose ``h``-wide f32 output
+    rows fit in :data:`L2_BAND_BYTES`; the plan takes them where its
+    byte model (:class:`BcsrPlan`: the tiles, ``128 · h · x_itemsize`` a
+    staged panel, ``2 · tr · h · 4`` an add, an add inside a band that
+    fits in L2 at :data:`L2_ADD_COST` of that plus the band's output rows
+    read and written once) is lower than without them."""
+    panel_idx, rb = _host(panel_idx), _host(rb)
+    band_rb = max(1, L2_BAND_BYTES // (tr * h * 4))
+    plan = plan_tables(kind, panel_idx, rb, tr, h, 0, tile_bytes, x_itemsize)
+    if plan.model["adds_l2"] == 0 and np.unique(rb).size > band_rb:
+        banded = plan_tables(kind, panel_idx, rb, tr, h, band_rb, tile_bytes,
+                             x_itemsize)
+        if banded.model_bytes < plan.model_bytes:
+            plan = banded
+    return plan if device is None else plan.to(device)
 
 
 def _check(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out,
@@ -184,16 +309,17 @@ def _check(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out,
 
 
 def bcsr_add(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out,
-             safe=None):
+             safe=None, plan=None):
     """Add the tier's product into ``out`` (in place; returned): ``kind``
     "row" (``panel_idx`` ``(n, S)``, ``rb`` = ``vblock_to_rb`` ``(n,)``)
     or "panel" (``panel_idx`` ``(n,)``, ``rb`` = ``tile_rb`` ``(n, T)``);
     tiles bfloat16 or float32 ``(n, S or T, Tr, 128)``; x float32,
     bfloat16, int8, int16 or int32, or float32 rounded to ``round(x /
     safe)`` where ``safe`` is given (module docstring). CPU tensors take
-    :func:`bcsr_plain`; CUDA tensors launch the kernel once, any H and
-    ``Tr <= 64``, tiles 16-byte aligned, or raise; a block takes
-    :func:`work_group` work items."""
+    :func:`bcsr_plain`; CUDA tensors launch the kernel once on ``plan``
+    (:func:`bcsr_plan` of these tables on ``out``'s device; built here
+    where it is None), any H and ``Tr <= 64``, tiles 16-byte aligned, or
+    raise."""
     global launches
     _check(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out, safe)
     _build.refuse_grad("bcsr_add", x, out)
@@ -212,6 +338,14 @@ def bcsr_add(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out,
     h = x.shape[1]
     if n == 0 or h == 0:
         return out
+    if plan is None:
+        plan = bcsr_plan(kind, panel_idx, rb, tr, h,
+                         tile_bytes=tiles.element_size(), device=out.device)
+    if (plan.entries.shape != (n * slots, 2) or plan.entries.device
+            != out.device or plan.items.device != out.device):
+        raise ValueError(f"a plan of {tuple(plan.entries.shape)} entries on "
+                         f"{plan.entries.device} for {n * slots} tiles on "
+                         f"{out.device}")
     mma = compute_mode(tiles.dtype, x.dtype, safe) == "bf16"
     payload = PAYLOADS[x.dtype] if safe is None else _QUANT
     # the adds' width: four floats where every row of out is 16-byte
@@ -221,12 +355,10 @@ def bcsr_add(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out,
     lib = _build.load("bcsr")
     with torch.cuda.device(out.device):
         err = lib.bcsr_add(
-            tiles.data_ptr(), TILE_DTYPES[tiles.dtype], panel_idx.data_ptr(),
-            rb.data_ptr(), panel_nodes.data_ptr(), row_nodes.data_ptr(),
-            KINDS.index(kind), n, slots, tr,
-            work_group(kind, n, panel_nodes.shape[0] // TILE_COLS,
-                       row_nodes.shape[0] // tr),
-            x.data_ptr(), payload,
+            tiles.data_ptr(), TILE_DTYPES[tiles.dtype], n * slots, tr,
+            plan.entries.data_ptr(), plan.items.data_ptr(),
+            plan.items.shape[0], panel_nodes.data_ptr(),
+            row_nodes.data_ptr(), x.data_ptr(), payload,
             None if safe is None else safe.data_ptr(), int(mma),
             out.data_ptr(), h, vec, _build.stream_of(out))
     _build.check(err, "bcsr_add")

@@ -108,7 +108,7 @@ from pygim_tpu_torch.core.partition import (
     row_slot_table,
 )
 from pygim_tpu_torch.core.stair import plan_staircase
-from pygim_tpu_torch.ops.bcsr import bcsr_add, bcsr_plain
+from pygim_tpu_torch.ops.bcsr import bcsr_add, bcsr_plain, bcsr_plan
 from pygim_tpu_torch.ops.core_dot import (
     core_bands_plain,
     core_bands_scatter_add,
@@ -632,6 +632,7 @@ class PreparedSpmm:
         self._core_plans = {}  # H -> K-core plans of the bands
         self._int_plans = {}   # (H, limbs) -> K-int plans of the same
         self._f32_plans = {}   # H -> K-f32 plans of the same
+        self._bcsr_plans = {}  # H -> K-bcsr's work plan of the BCSR tier
         self.has_bcsr = False
         if backend == "oracle":
             s = (coo if coo is not None else csr.to_coo()).sort_by_row()
@@ -938,6 +939,21 @@ class PreparedSpmm:
             plan = None
         return ell_tables_add(x, tables, out, plan=plan, **kw)
 
+    def _bcsr(self, x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes,
+              out, safe=None):
+        """K-bcsr over this operand's own tier, with its work plan built
+        once per H on the card (``ops/bcsr.py:bcsr_plan``)."""
+        plan = None
+        if out.is_cuda and out.device == tiles.device:
+            h = out.shape[1]
+            if h not in self._bcsr_plans:
+                self._bcsr_plans[h] = bcsr_plan(
+                    kind, panel_idx, rb, tiles.shape[2], h,
+                    tile_bytes=tiles.element_size(), device=tiles.device)
+            plan = self._bcsr_plans[h]
+        return bcsr_add(x, kind, tiles, panel_idx, rb, panel_nodes,
+                        row_nodes, out, safe=safe, plan=plan)
+
     def _core(self, bands, xc, core_nodes, stair, out):
         """K-core over this operand's own bands at any width, with their
         plans built once per padded width on the card."""
@@ -992,7 +1008,7 @@ class PreparedSpmm:
                     bcsr_plain)
         if dev is self._dev:
             return (self._tail, self._core, self._core_int, self._core_f32,
-                    bcsr_add)
+                    self._bcsr)
         return (ell_tables_add, core_any_width, core_int_scatter_add,
                 core_f32_scatter_add, bcsr_add)
 
@@ -1163,7 +1179,7 @@ class PreparedSpmm:
                 iters=iters) * 1e3
         if self.has_bcsr:
             out["bcsr_time(ms)"] = device_time(
-                lambda: bcsr_add(x, *self.bcsr_tables(d), zeros()),
+                lambda: self._bcsr(x, *self.bcsr_tables(d), zeros()),
                 iters=iters) * 1e3
         return out
 

@@ -506,6 +506,17 @@ def test_pads_read_x_as_the_reference(layout):
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     linked = dense_of(*g)[:, int(tp.dev_arrays["panel_nodes"][0])] != 0
     assert np.isnan(got).any(axis=1)[~linked].any()  # reached by pads only
+    # the kernel's walk of its plan (test_torch_bcsr_plan.py:emulate), pads
+    # and zero-skipping adds included, has the plain version's NaN rows
+    from test_torch_bcsr_plan import emulate
+
+    tables = tp.bcsr_tables(tp.dev_arrays)
+    xt = torch.from_numpy(x)
+    plan = kbcsr.bcsr_plan(tables[0], tables[2], tables[3],
+                           tables[1].shape[2], 4)
+    walk = emulate(xt, *tables, torch.zeros(300, 4), plan)
+    plain = kbcsr.bcsr_plain(xt, *tables, torch.zeros(300, 4))
+    assert torch.equal(walk.isnan(), plain.isnan()) and walk.isnan().any()
 
 
 def test_wrapper_refuses():
@@ -528,21 +539,6 @@ def test_wrapper_refuses():
     assert kbcsr.compute_mode(torch.bfloat16, torch.float32,
                               torch.tensor(1.0)) == "f32"
     assert kbcsr.compute_mode(torch.float32, torch.int8) == "f32"
-
-
-@pytest.mark.parametrize("kind, n, n_panels, n_rb, want", [
-    ("panel", 65536, 1282, 12500, 32),  # the smoke panel tier: 51 a panel
-    ("panel", 16384, 15625, 125000, 1),  # a random tier: about one
-    ("row", 21696, 1425, 8859, 2),  # the smoke row tier: 2.4 a row block
-    ("row", 7040, 1498, 5971, 1),
-    ("panel", 1 << 20, 8, 8, 32),  # at most MAX_GROUP
-    ("row", 0, 1, 0, 1),
-])
-def test_work_group(kind, n, n_panels, n_rb, want):
-    """K-bcsr's work items a block: the mean items a panel (panel kind) or
-    row block (row kind), as the power of two at or below it, from 1 to
-    ``MAX_GROUP``."""
-    assert kbcsr.work_group(kind, n, n_panels, n_rb) == want
 
 
 @pytest.mark.parametrize("kind", ["row", "panel"])

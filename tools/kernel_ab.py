@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the hub-core kernels of two checkouts on one card, in turns.
+"""Time the hand kernels of two checkouts on one card, in turns.
 
-    python3 tools/kernel_ab.py --parent DIR [--full]
+    python3 tools/kernel_ab.py --parent DIR [--full | --bcsr]
 
 ``DIR`` is an unpacked checkout of the parent commit (``git archive``);
 the change is the checkout this script lies in. The script runs one
@@ -32,6 +32,15 @@ its shape, and the 2-layer GCN forward at hidden 256 with the per-layer
 validation), K-core bf16 on the bf16 square and stair at each schedule,
 forced (the readings stream-K's margin over whole tiles is set from),
 and the library call at the f32 square, at H 256 and 41.
+
+``--bcsr`` times K-bcsr instead, in the same turns: on the four smoke
+tiers of ``chip_smoke.py`` (``BCSR_CONFIGS``: ``brmat-200000-4000000-256``,
+an int8 square core at 64 MiB beside 256 MiB of tiles, Tr-16 panel
+``lp``, Tr-16 row ``rcm``, Tr-8 row ``rank``, and an f32 core's Tr-16
+panel ``lp``) and both layouts of its 1 GiB random tier
+(``scale_tiers``), each product checked against ``bcsr_plain`` first, at
+H 256 with an f32 x. A tree whose ``bcsr_add`` takes a work plan gets it
+built once a tier, as a prepared operand keeps it.
 
 ``--clocks`` (the change alone) runs K-core bf16 on the smoke bf16
 square at split 1 and at stream-K, each back to back for about 3 s, with
@@ -239,6 +248,49 @@ def smoke_turn(change: bool) -> dict:
     return out
 
 
+def bcsr_turn() -> dict:
+    """K-bcsr's ms on the smoke and random tiers of this turn's tree."""
+    import inspect
+
+    import torch
+
+    import chip_smoke as cs
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import bcsr as kbcsr
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+
+    planned = "plan" in inspect.signature(kbcsr.bcsr_add).parameters
+
+    def timed(tables, nodes, x):
+        kw = {}
+        if planned:
+            kw["plan"] = kbcsr.bcsr_plan(
+                tables[0], tables[2], tables[3], tables[1].shape[2],
+                x.shape[1], tile_bytes=tables[1].element_size(),
+                device=x.device)
+        out = torch.zeros(nodes, x.shape[1], device=x.device)
+        got = kbcsr.bcsr_add(x, *tables, out, **kw)
+        want = kbcsr.bcsr_plain(x, *tables, torch.zeros_like(out))
+        close("K-bcsr", got, want, cs.bcsr_mag(x, tables, nodes))
+        return cuda_ms(lambda: kbcsr.bcsr_add(x, *tables, out.zero_(), **kw))
+
+    ds = load_dataset(cs.BCSR_GRAPH)
+    n = ds.graph.nrows
+    x = torch.randn(n, H, generator=torch.Generator().manual_seed(1)).cuda()
+    ms = {}
+    for key, kw in cs.BCSR_CONFIGS.items():
+        prep = prepare_spmm(ds.graph, SpmmConfig(
+            backend="hybrid", hybrid_shape="square",
+            hybrid_core_bytes=cs.BCSR_CORE_BYTES, bcsr_bytes=cs.BCSR_BYTES,
+            hidden_hint=H, **kw), device="cuda")
+        ms[f"K-bcsr {key}"] = timed(prep.bcsr_tables(prep.dev_arrays), n, x)
+        del prep
+        torch.cuda.empty_cache()
+    for tables, nodes, xs in cs.scale_tiers("cuda"):
+        ms[f"K-bcsr scale {tables[0]}"] = timed(tables, nodes, xs)
+    return {"ms": ms, "planned": planned}
+
+
 def full_turn(change: bool) -> dict:
     import torch
 
@@ -373,7 +425,8 @@ def clocks_turn() -> dict:
     return out
 
 
-def child(tree: str, change: bool, full: bool, clocks: bool = False) -> None:
+def child(tree: str, change: bool, full: bool, clocks: bool = False,
+          bcsr: bool = False) -> None:
     sys.path.insert(0, tree)
     import pygim_tpu_torch
     import torch
@@ -386,10 +439,10 @@ def child(tree: str, change: bool, full: bool, clocks: bool = False) -> None:
         raise RuntimeError(f"imported {where}, not the tree {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build()
+    _build.build(["bcsr"] if bcsr else None)
     built = time.perf_counter() - t0
     if change:  # the compiler's report of each kernel (-Xptxas -v)
-        for name in ("core_dot", "core_f32"):
+        for name in ("bcsr",) if bcsr else ("core_dot", "core_f32"):
             log = _build.BUILD_DIR / f"{name}.log"
             kernel = ""
             for line in log.read_text().splitlines() if log.exists() else ():
@@ -401,6 +454,8 @@ def child(tree: str, change: bool, full: bool, clocks: bool = False) -> None:
                           file=sys.stderr)
     if clocks:
         res = {"clocks": clocks_turn()}
+    elif bcsr:
+        res = bcsr_turn()
     else:
         res = full_turn(change) if full else smoke_turn(change)
     print(json.dumps({"tree": tree, "change": change, "card": card_line(),
@@ -414,9 +469,10 @@ def main() -> int:
     ap.add_argument("--child")
     ap.add_argument("--change", action="store_true")
     ap.add_argument("--clocks", action="store_true")
+    ap.add_argument("--bcsr", action="store_true")
     a = ap.parse_args()
     if a.child:
-        child(a.child, a.change, a.full)
+        child(a.child, a.change, a.full, bcsr=a.bcsr)
         return 0
     if a.clocks:  # the change alone, in this process
         child(str(HERE), True, False, clocks=True)
@@ -430,7 +486,8 @@ def main() -> int:
         tree = str(HERE) if change else str(Path(a.parent).resolve())
         cmd = [sys.executable, __file__, "--parent", a.parent, "--child",
                tree, *(["--change"] if change else []),
-               *(["--full"] if a.full else [])]
+               *(["--full"] if a.full else []),
+               *(["--bcsr"] if a.bcsr else [])]
         t0 = time.time()
         res = subprocess.run(cmd, env=env, capture_output=True, text=True)
         print(f"turn {'change' if change else 'parent'}: exit "
