@@ -82,7 +82,7 @@ versions. The entry scripts also run a bf16 square candidate of
 Then the harness: ``run_experiments`` on the card over the small sweep
 (tiny and small × blocked and ell × nnz and row), the stair int8 SpMM
 with its phases on the stand-in and on its ``-uniq`` sibling, the int32
-GCN with its per-layer check on the same core, and a ``tune`` and a
+GCN with its per-layer check on the same core, and a mesh and a
 ``scaling`` point the port refuses (each leaves its ``.failed``
 record), its launch counts set to 0 before it and read after it
 (K-core, K-tail, K-int and K-tail-quant); a second sweep that skips
@@ -137,6 +137,17 @@ float64 dot, each timed beside a bytes bound and its library call
 shares; ``torch.sparse.sampled_addmm`` on the same pattern). After the training path, one GCN step through a hybrid with
 a tier, its gradients against the plain versions'.
 
+Then the tuner (the ``tune`` phase, in the script's temporary tune
+cache): ``measure_constants`` on the card (every constant finite and
+positive, no efficiency above 1.05), the fitted ELL tail beside the
+smoke tables' ``tail_time``, tracked config 3 (GIN and SAGE, ``tune=True``)
+through ``run_experiments`` with their ``[DATA]device`` and ``tuned_*``
+lines and the tuned forwards' logits against the plain versions, an
+audit of the model-mode ranking on the stand-in (the top 5 and each
+family's best: prepared, timed and held to ``mul_plain`` at the verify
+tolerance, predicted against measured ms and bytes; the pick's time at
+most 1.20 × the fastest audited) and one ``mode="measure"`` run.
+
 Its last three lines are the ``kernels`` JSON object (each kernel with
 its split and schedule balance where it has a tile schedule, K-core
 and K-tail with their launches in one training step, and every kernel
@@ -161,6 +172,7 @@ plan's choice of bands are checked against.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -2774,7 +2786,7 @@ def harness_experiments():
     blocked and ell × nnz and row balance), the stair int8 SpMM with its
     phases on the stand-in and its ``-uniq`` sibling and the int32 GCN
     with its per-layer check on the same core, and two points the port
-    refuses (``tune``, ``kind="scaling"``)."""
+    refuses (a mesh, ``kind="scaling"``)."""
     from pygim_tpu_torch.bench import Experiment
     from pygim_tpu_torch.bench.configs import sweep_space
 
@@ -2785,7 +2797,7 @@ def harness_experiments():
              for d in (DATASET, DATASET + "-uniq")]
     named.append(Experiment(dataset=DATASET, kind="inference", model="gcn",
                             dtype="int32", validate=True, **core))
-    refused = [Experiment(dataset="tiny", tune=True, repeat=1),
+    refused = [Experiment(dataset="tiny", sp_parts=2, repeat=1),
                Experiment(dataset="tiny", kind="scaling", backend="ell",
                           repeat=1)]
     return sweep, named, refused
@@ -3644,6 +3656,276 @@ def bcsr_training(results, card, device="cuda"):
     results["bcsr training"] = res
 
 
+# the tuner's phase: the candidate audit's size and the pick's bar
+TUNE_TOP = 5
+TUNE_BAR = 1.20
+TUNE_FAMILIES = ("blocked", "ell", "hybrid square", "hybrid stair",
+                 "BCSR variant")
+
+
+def tune_family(point) -> str:
+    """A candidate's family: its backend, or for a hybrid its core shape,
+    or a BCSR variant."""
+    if point.get("backend") != "hybrid":
+        return point["backend"]
+    if point.get("bcsr_bytes"):
+        return "BCSR variant"
+    return f"hybrid {point.get('hybrid_shape', 'square')}"
+
+
+def verify_rtol(cfg) -> float:
+    """``run_spmm_benchmark``'s verify tolerance for a float payload: 1e-2
+    on a bf16, int8 or int4 core (the payload rounded to bf16), 1e-4
+    elsewhere."""
+    loose = cfg.backend == "hybrid" and cfg.hybrid_dtype in (
+        "bfloat16", "int8", "int4")
+    return 1e-2 if loose else 1e-4
+
+
+def verify_close(name, got, want, rtol) -> float:
+    """``got`` against ``want`` on every row with the verify check's rule
+    (``bench/runners.py:_verify_against_oracle``: rtol, and an atol of 10
+    rtol of the row's largest |value|, at least 10 rtol). Returns the max
+    abs error."""
+    import torch
+
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    atol = 10 * rtol * want.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    err = (got - want).abs()
+    if bool((err > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"{name}: max abs err {float(err.max())} past "
+                             f"rtol {rtol}")
+    return float(err.max())
+
+
+def tune_constants(card, device="cuda"):
+    """``measure_constants`` on the card (cached in the script's temporary
+    tune cache), printed with its readings and the card line; every
+    constant must be finite and positive and no efficiency above 1.05."""
+    import math
+
+    from pygim_tpu_torch.tune import measure_constants
+    from pygim_tpu_torch.tune.cost_model import CONSTANTS_FILE, cache_dir
+
+    model = measure_constants(device)
+    saved = json.loads((cache_dir() / CONSTANTS_FILE).read_text())
+    print(f"tune constants ({card}): {json.dumps(saved['model'])}",
+          flush=True)
+    print(f"tune readings: {json.dumps(saved['readings'])}", flush=True)
+    if saved["card"] != card:
+        raise AssertionError(f"tune constants filed under {saved['card']!r}")
+    for k, v in dataclasses.asdict(model).items():
+        if isinstance(v, float) and not (math.isfinite(v) and v > 0):
+            raise AssertionError(f"tune constant {k} = {v}")
+    for k in ("gather_eff", "stream_eff", "scatter_eff", "core_eff"):
+        if getattr(model, k) > 1.05:
+            raise AssertionError(f"tune efficiency {k} = "
+                                 f"{getattr(model, k)} > 1.05")
+    return model, saved["readings"]
+
+
+def tune_tail_fit(ds, model, device="cuda"):
+    """The fit's check on real tables: the smoke stair int8 operand's
+    ``tail_time(ms)`` beside the model's tail terms for its plan (the ELL
+    issue time, the byte roofline, and the one the model prices),
+    printed."""
+    import torch
+
+    from pygim_tpu_torch.core.graph import merge_duplicate_edges
+    from pygim_tpu_torch.core.partition import ell_issue_seconds
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+    from pygim_tpu_torch.tune import plan_statistics
+
+    cfg = SpmmConfig(backend="hybrid", hybrid_shape="stair",
+                     hybrid_dtype="int8", hybrid_core_bytes=CORE_BYTES)
+    prep = prepare_spmm(ds.graph, cfg, device=device)
+    x = torch.randn(prep.ncols, HIDDEN,
+                    generator=torch.Generator().manual_seed(11)).to(device)
+    tail = prep.phase_times(x, iters=10)["tail_time(ms)"]
+    csr = merge_duplicate_edges(ds.graph)[0].to_csr()
+    st = plan_statistics(csr, HIDDEN, cfg)
+    m = model
+    issue = ell_issue_seconds(
+        st["ell_slots"], st["ell_vrows"], HIDDEN,
+        slot_ns=m.ell_slot_ns * m.ell_slot_factor,
+        vrow_fixed_ns=m.ell_vrow_fixed_ns,
+        vrow_ns_per_h=m.ell_vrow_ns_per_h) * 1e3
+    nbytes = (st["gather_bytes"] / (m.hbm_bw * m.gather_eff)
+              + st["stream_bytes"] / (m.hbm_bw * m.stream_eff)
+              + st["scatter_bytes"] / (m.hbm_bw * m.scatter_eff)) * 1e3
+    res = dict(slots=st["ell_slots"], vrows=st["ell_vrows"],
+               issue_ms=issue, bytes_ms=nbytes,
+               model_ms=max(issue, nbytes) if m.tail_roofline else issue,
+               tail_time_ms=tail)
+    print(f"tune tail fit on the smoke tables: {json.dumps(res)}",
+          flush=True)
+    return res
+
+
+def tune_config3(ds, card, device="cuda"):
+    """Tracked config 3 (``BASELINE_EXPERIMENTS``' two ``tune=True``
+    entries, GIN and SAGE on the stand-in) through ``run_experiments``:
+    each record with one ``[DATA]device`` line and the ``tuned_*`` lines,
+    then each tuned forward's logits against the plain versions
+    (:func:`logits_check`)."""
+    import torch
+
+    from pygim_tpu_torch.bench import run_experiments
+    from pygim_tpu_torch.bench.configs import BASELINE_EXPERIMENTS
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.ops.spmm import prepare_spmm
+    from pygim_tpu_torch.tune import autotune
+    from pygim_tpu_torch.utils.metrics import parse_data_lines
+
+    exps = [e for e in BASELINE_EXPERIMENTS if e.tune]
+    rdir = os.path.join(os.environ["PYGIM_TPU_TORCH_DATA"], "results_tune")
+    out = run_experiments(exps, rdir, device=device)
+    # the tuner's pick, from its cache (the key the runs filed it under)
+    cfg = autotune(ds.graph, exps[0].hidden, device=device).config
+    xf = torch.as_tensor(ds.x).to(device)
+    prep = prepare_spmm(ds.graph, cfg, device=device)
+    recs = {}
+    for exp in exps:
+        name = exp.frozen_name()
+        if name not in out:
+            failed = os.path.join(rdir, name + ".failed")
+            tail = open(failed).read()[-3000:] if os.path.exists(failed) \
+                else ""
+            raise AssertionError(f"config 3: {name} failed\n{tail}")
+        rec = parse_data_lines(
+            open(os.path.join(rdir, name + ".out")).read().splitlines())
+        tuned = {k: rec.get(k) for k in ("tuned_backend", "tuned_balance",
+                                         "tuned_block_nnz_budget")}
+        if rec.get("device") != [card] or any(
+                v is None or len(v) != 1 for v in tuned.values()):
+            raise AssertionError(f"config 3: {name}: device "
+                                 f"{rec.get('device')}, {tuned}")
+        if tuned["tuned_backend"] != [cfg.backend]:
+            raise AssertionError(f"config 3: {name} ran {tuned}, the "
+                                 f"tuner's pick is {cfg}")
+        gnn = make_gnn(0, exp.model, ds.x.shape[1], exp.hidden,
+                       ds.num_classes, num_layers=exp.num_layers,
+                       device=device)
+        logits_check(f"config 3 {exp.model}", gnn, xf, prep, ds.num_classes)
+        recs[name] = dict(infer_ms=out[name]["infer_time(ms)"], **tuned)
+        print(f"config 3 {name}: {json.dumps(recs[name])}", flush=True)
+    del prep
+    torch.cuda.empty_cache()
+    return dict(config=dataclasses.asdict(cfg), records=recs)
+
+
+def tune_audit(ds, device="cuda"):
+    """The model-mode ranking on the stand-in at H 256, held to the card:
+    the top :data:`TUNE_TOP` candidates and the best-predicted of each
+    family present (:data:`TUNE_FAMILIES`), each prepared by
+    ``prepare_tuned``, warmed, timed (``mul``, CUDA events) and held to
+    ``mul_plain`` at the verify tolerance, with its predicted and measured
+    ms, its ``device_bytes`` and the rise of the card's peak memory; one
+    JSON line each. The pick's measured time must be at most
+    :data:`TUNE_BAR` × the fastest audited."""
+    import torch
+
+    from pygim_tpu_torch.core.graph import merge_duplicate_edges
+    from pygim_tpu_torch.ops.spmm import SpmmConfig
+    from pygim_tpu_torch.tune import (
+        DistPlan,
+        TuneResult,
+        autotune,
+        plan_statistics,
+        prepare_tuned,
+    )
+
+    res = autotune(ds.graph, HIDDEN, device=device, use_cache=False)
+    cands = res.candidates
+    chosen = list(range(min(TUNE_TOP, len(cands))))
+    for fam in TUNE_FAMILIES:
+        i = next((i for i, c in enumerate(cands)
+                  if tune_family(c[0]) == fam), None)
+        if i is not None and i not in chosen:
+            chosen.append(i)
+    csr = merge_duplicate_edges(ds.graph)[0].to_csr()
+    x = torch.randn(csr.ncols, HIDDEN,
+                    generator=torch.Generator().manual_seed(12)).to(device)
+    rows = []
+    for i in chosen:
+        point, dist, pred_s, _ = cands[i]
+        cfg = SpmmConfig(**point)
+        stats = plan_statistics(csr, HIDDEN, cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        prep = prepare_tuned(ds.graph, TuneResult(cfg, DistPlan(**dist),
+                                                  pred_s, None, []),
+                             device=device)
+        prep_s = time.perf_counter() - t0
+        got = prep.mul(x)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: prep.mul(x), iters=10, warmup=1)
+        rise = torch.cuda.max_memory_allocated() - base
+        err = verify_close(f"tune audit {i}", got, prep.mul_plain(x),
+                           verify_rtol(cfg))
+        row = dict(rank=i, family=tune_family(point), point=point,
+                   predicted_ms=pred_s * 1e3, measured_ms=ms,
+                   predicted_device_bytes=stats["device_bytes"],
+                   memory_rise_bytes=rise, launches=stats["launches"],
+                   max_abs_err=err, prepare_s=prep_s)
+        print(f"tune audit: {json.dumps(row)}", flush=True)
+        rows.append(row)
+        del prep, got
+    torch.cuda.empty_cache()
+    fastest = min(r["measured_ms"] for r in rows)
+    pick = rows[0]
+    print(f"tune audit: pick {pick['point']} {pick['measured_ms']:.4f} ms, "
+          f"fastest audited {fastest:.4f} ms (ratio "
+          f"{pick['measured_ms'] / fastest:.4f}, bar {TUNE_BAR})", flush=True)
+    if pick["measured_ms"] > TUNE_BAR * fastest:
+        raise AssertionError(f"tune: the model's pick takes "
+                             f"{pick['measured_ms']} ms, {TUNE_BAR} × the "
+                             f"fastest audited {fastest} ms")
+    return dict(rows=rows, pick_ratio=pick["measured_ms"] / fastest)
+
+
+def tune_measure(ds, device="cuda"):
+    """``autotune(mode="measure")`` once on the stand-in: its pick and
+    ``skipped`` printed; a candidate skipped for anything but running out
+    of the card's memory fails."""
+    from pygim_tpu_torch.tune import autotune
+
+    res = autotune(ds.graph, HIDDEN, mode="measure", device=device,
+                   use_cache=False)
+    timed = [(c[0], c[2] * 1e3, c[3] * 1e3) for c in res.candidates
+             if c[3] is not None]
+    print(f"tune measure: pick {res.config.backend} "
+          f"{json.dumps(dataclasses.asdict(res.config))} measured "
+          f"{res.measured_s * 1e3:.4f} ms; timed (point, predicted ms, "
+          f"measured ms) {json.dumps(timed)}; skipped "
+          f"{json.dumps(res.skipped)}", flush=True)
+    bad = [s for s in res.skipped if not s[2].startswith("OutOfMemoryError")]
+    if bad or not timed:
+        raise AssertionError(f"tune measure: skipped {bad}, timed {timed}")
+    return dict(pick=dataclasses.asdict(res.config),
+                measured_ms=res.measured_s * 1e3, timed=timed,
+                skipped=res.skipped)
+
+
+def tune_phase(results, card, device="cuda"):
+    """The tuner on the card: its constants, tracked config 3, the
+    candidate audit and one measure-mode run, on the smoke stand-in."""
+    from pygim_tpu_torch.data import load_dataset
+
+    ds = load_dataset(DATASET)
+    model, readings = tune_constants(card, device)
+    fit = tune_tail_fit(ds, model, device)
+    config3 = tune_config3(ds, card, device)
+    audit = tune_audit(ds, device)
+    measure = tune_measure(ds, device)
+    results["tune"] = dict(model=dataclasses.asdict(model), readings=readings,
+                           tail_fit=fit, config3=config3, audit=audit,
+                           measure=measure)
+
+
 def bcsr_full() -> int:
     """``--bcsr-full``: K-bcsr on the tiers of the full-size three-tier
     operands (``bench/configs.py:THREE_TIER_EXPERIMENTS``, products-sim,
@@ -3757,6 +4039,7 @@ def main() -> int:
         return bcsr_band_sweep()
     root = tempfile.mkdtemp(prefix="chip_smoke_cache_")
     os.environ["PYGIM_TPU_TORCH_DATA"] = root
+    os.environ["PYGIM_TPU_TORCH_TUNE_CACHE"] = root
     try:
         if "--train-sweep" in sys.argv[1:]:
             return train_sweep()
@@ -4011,6 +4294,10 @@ def run() -> int:
     float_core_entry(results, card)
     del fpreps
     timed_phase("bcsr_training", bcsr_training, results, card)
+
+    # this slice's path: the tuner (its constants, tracked config 3, the
+    # candidate audit, measure mode)
+    timed_phase("tune", tune_phase, results, card)
 
     if "--profile" in sys.argv[1:]:
         from pygim_tpu_torch.bench.report import profile_forward

@@ -8,17 +8,19 @@ the reference's ``[WARN] ... running single-chip``); ``--version cpu``
 aggregates through the oracle in float. ``--data_type bfloat16`` casts
 the aggregate's payload to bf16 and ``int64`` quantizes as int32 (the
 reference with x64 off), both through the unfused round trip, as the
-reference. A mesh that fits more than one visible card and ``--tune``
-are not ported and raise ``NotImplementedError``. Runs
-on the card; ``main(argv, device="cpu")`` runs the plain versions on the
-CPU (the tests).
+reference. ``--tune`` runs the autotuner as ``spmm_test_cuda.py``
+does (a device budget of ``sp_parts × ds_parts`` capped by the visible
+cards; ``[DATA]tuned_plan`` and ``[DATA]tuned_constants``). A budget
+above one card, and a mesh that fits more than one visible card, are not
+ported and raise ``NotImplementedError``. Runs on the card; ``main(argv,
+device="cpu")`` runs the plain versions on the CPU (the tests).
 
     python3 inference_cuda.py --dataset ogbn-arxiv
 """
 
 import argparse
 
-from spmm_test_cuda import check_ported
+from spmm_test_cuda import tune
 
 
 def get_args(argv=None):
@@ -49,12 +51,12 @@ def get_args(argv=None):
 def main(argv=None, *, device="cuda"):
     args = get_args(argv)
     print(args)
-    check_ported(args)
 
     from pygim_tpu_torch.bench.runners import run_inference_benchmark
     from pygim_tpu_torch.compat import prepare_for_version
     from pygim_tpu_torch.data import cluster_partition, load_dataset
     from pygim_tpu_torch.ops.spmm import SpmmConfig
+    from pygim_tpu_torch.tune import prepare_tuned
 
     kw = {} if args.data_root is None else {"root": args.data_root}
     try:
@@ -65,6 +67,7 @@ def main(argv=None, *, device="cuda"):
         ds = cluster_partition(ds, part_size=500_000, part_idx=1)
 
     cfg = None
+    tuned = None
     agg_dtype = None if args.data_type in ("float32", "float64") \
         else args.data_type
     if args.version == "cpu":
@@ -72,8 +75,13 @@ def main(argv=None, *, device="cuda"):
     else:
         cfg = SpmmConfig(backend="ell", format=args.sp_format,
                          hidden_hint=args.hidden_size)
+        if args.tune:
+            tuned = tune(args, ds.graph, device)
+            cfg = tuned.config
 
     def prepare_fn(graph, config):
+        if tuned is not None:
+            return prepare_tuned(graph, tuned, device=device)
         return prepare_for_version(
             args.version, graph, hidden_size=args.hidden_size,
             sp_parts=args.sp_parts, ds_parts=args.ds_parts,

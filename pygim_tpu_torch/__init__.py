@@ -14,8 +14,9 @@ aggregate's backward on a prepared transpose): host prepare (``core``,
 ``ops.spmm``, ``data``), the hand-written kernels K-core with its int8,
 int4 and bf16 cell modes (``ops.core_dot``), K-int (``ops.core_int``),
 K-f32 (``ops.core_f32``), K-tail with its payload modes
-(``ops.ell_tail``) and K-bcsr (``ops.bcsr``), the BCSR tier's probe
-(``tune.bcsr_probe``), the quantization (``quant``), the
+(``ops.ell_tail``) and K-bcsr (``ops.bcsr``), the autotuner with the
+card's cost model and the BCSR tier's probe (``tune``), the
+quantization (``quant``), the
 models and their training (``nn``), the benchmark bodies and reports
 and the experiment harness with the named configurations (``bench``),
 the dataset names and real-format parsers (``data``) and the flagship

@@ -15,10 +15,14 @@ twin of ``pygim_tpu/bench/experiment.py``.
   done here, nor read as the port's number. ``run_experiments`` also
   refuses a record of another device (the CPU, another card or power
   limit): a sweep never skips a point that another device ran.
+* ``tune=True`` runs the autotuner (``tune/autotuner.py:autotune``, mode
+  ``model``, the card's cost model) on the loaded graph and runs its pick,
+  recording ``tuned_backend``, ``tuned_balance`` and
+  ``tuned_block_nnz_budget``. As in the reference, the pick replaces the
+  whole config, ``sp_format`` included.
 * Not ported yet, each refused with ``NotImplementedError`` naming its
-  ROADMAP.md item (Queue 1): ``tune=True`` (item 5), a mesh
-  (``sp_parts · ds_parts > 1``) and ``kind="scaling"`` (item 6), and
-  ``part_method="metis"`` (item 6).
+  ROADMAP.md item (Queue 1): a mesh (``sp_parts · ds_parts > 1``) and
+  ``kind="scaling"`` (item 6), and ``part_method="metis"`` (item 6).
 """
 
 from __future__ import annotations
@@ -151,9 +155,6 @@ class Experiment:
 
     def refusal(self) -> Optional[str]:
         """Why the port cannot run this point yet, or None."""
-        if self.tune:
-            return ("tune=True: the autotuner is not ported yet (ROADMAP.md, "
-                    "Queue 1 item 5)")
         if self.sp_parts * self.ds_parts > 1:
             return (f"sp_parts={self.sp_parts} x ds_parts={self.ds_parts}: "
                     "the mesh layouts are not ported yet (ROADMAP.md, Queue 1 "
@@ -217,6 +218,15 @@ class Experiment:
                 )
                 rep.report("part_nodes", ds.num_nodes)
                 rep.report("part_edges", ds.graph.nnz)
+            if self.tune:
+                from pygim_tpu_torch.tune import autotune
+
+                cfg = autotune(ds.graph, self.hidden, device=dev).config
+                # the frozen name carries the config before tuning: the
+                # pick is recorded here
+                rep.report("tuned_backend", cfg.backend)
+                rep.report("tuned_balance", cfg.balance)
+                rep.report("tuned_block_nnz_budget", cfg.block_nnz_budget)
             agg_dtype = None if self.dtype == "float32" else self.dtype
             if self.kind == "spmm":
                 run_spmm_benchmark(

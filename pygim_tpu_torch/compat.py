@@ -1,13 +1,17 @@
-"""Reference-compatible entry surface: ``--data_type`` tokens and the
-``--version`` routing of the CLIs, on one card.
+"""Reference-compatible entry surface on one card: the reference's
+adapters (``prepare_pim_spmm``, ``prepare_pim_spmm_grande``,
+``prepare_pim_spmv``, the ``dpu_*`` shims, ``describe_layout``), the
+``--data_type`` tokens and the ``--version`` routing of the CLIs.
 
-Counterpart of ``pygim_tpu/compat.py:30-144``. ``cpu`` prepares the
-oracle. ``spmm``, ``grande`` and ``spmv`` prepare the single-card operand
-of the version's default config (the ``ell`` backend), as the reference
-does whenever its device mesh would not fit the visible devices: an
-``sp_parts × ds_parts`` above the visible cards prints the reference's
-``[WARN] ... running single-chip`` line. A mesh that would fit on more
-than one visible card raises, since the mesh layouts are not ported.
+Counterpart of ``pygim_tpu/compat.py``. Each adapter prepares its
+reference default config (``spmm``: ``backend`` in ``sp_format``;
+``grande``: ell in csr; ``spmv``: ell in coo) on one card, as the
+reference does whenever its device mesh would not fit the visible
+devices; a mesh that would fit on more than one visible card raises,
+since the mesh layouts are not ported (ROADMAP.md, Queue 1 item 6).
+``--version cpu`` prepares the oracle; an ``sp_parts × ds_parts`` above
+the visible cards prints the reference's ``[WARN] ... running
+single-chip`` line.
 """
 
 from __future__ import annotations
@@ -58,6 +62,59 @@ def mesh_size(version: str, sp_parts: int, ds_parts: int, hidden_size: int,
     return sp_parts * ds_parts
 
 
+def _prepare(graph, n: int, config: SpmmConfig, device):
+    """``config`` prepared on ``device`` where no mesh of ``n`` devices
+    fits the visible ones; raises where one would."""
+    if 1 < n <= visible_devices(device):
+        raise NotImplementedError(
+            f"a mesh over {n} devices: the mesh layouts are not ported "
+            "(ROADMAP.md, Queue 1 item 6; one card runs single-chip)")
+    return prepare_spmm(graph, config, device=device)
+
+
+def prepare_pim_spmm(
+    adj, hidden_size: int = 256, sp_parts: int = 1, ds_parts: int = 1,
+    sp_format: str = "csr", backend: str = "ell",
+    config: Optional[SpmmConfig] = None, *, device="cuda",
+):
+    """The reference's ``prepare_pim_spmm``: ``config``, or ``backend`` in
+    ``sp_format`` at ``hidden_size``, on an ``sp_parts × ds_parts`` grid,
+    which on one card is ``prepare_spmm``."""
+    cfg = config or SpmmConfig(
+        format=sp_format, backend=backend, hidden_hint=hidden_size
+    )
+    return _prepare(adj, sp_parts * ds_parts, cfg, device)
+
+
+def prepare_pim_spmm_grande(
+    adj, hidden_size: int = 256, sp_parts: int = 2,
+    config: Optional[SpmmConfig] = None, *, device="cuda",
+):
+    """The reference's ``prepare_pim_spmm_grande``: the sparse operand
+    replicated and the features sharded over ``sp_parts`` devices (a (1,
+    sp_parts) mesh), which on one card is ``prepare_spmm`` of the ell
+    backend in csr."""
+    cfg = config or SpmmConfig(
+        format="csr", backend="ell", hidden_hint=hidden_size
+    )
+    return _prepare(adj, sp_parts, cfg, device)
+
+
+def prepare_pim_spmv(
+    adj, hidden_size: int, sp_parts: int = 1,
+    config: Optional[SpmmConfig] = None, *, device="cuda",
+):
+    """The reference's ``prepare_pim_spmv``: a column a device, ``ds`` as
+    close to ``hidden_size`` as the visible devices allow, which on one
+    card is ``prepare_spmm`` of the ell backend in coo."""
+    cfg = config or SpmmConfig(
+        format="coo", backend="ell", hidden_hint=hidden_size
+    )
+    ds = min(hidden_size,
+             max(1, visible_devices(device) // max(1, sp_parts)))
+    return _prepare(adj, sp_parts * ds, cfg, device)
+
+
 def prepare_for_version(
     version: str,
     adj,
@@ -83,16 +140,47 @@ def prepare_for_version(
     n = sp_parts * ds_parts
     if n > 1 and n > n_dev:
         warn(f"[WARN] sp×ds={n} exceeds {n_dev} devices; running single-chip")
-    m = mesh_size(version, sp_parts, ds_parts, hidden_size, n_dev)
-    if 1 < m <= n_dev:
-        raise NotImplementedError(
-            f"--version {version} over {m} devices: the mesh layouts are not "
-            "ported (one card runs single-chip)"
-        )
     if config is None:
         fmt, be = _VERSION_DEFAULTS.get(version, (sp_format, backend))
         config = SpmmConfig(format=fmt, backend=be, hidden_hint=hidden_size)
-    return prepare_spmm(adj, config, device=device)
+    return _prepare(adj, mesh_size(version, sp_parts, ds_parts, hidden_size,
+                                   n_dev), config, device)
 
 
-__all__ = ["normalize_data_type", "prepare_for_version", "mesh_size"]
+def dpu_init_ranks(nr_ranks: int = 1, groups_per_rank: int = 1, *,
+                   device="cuda") -> list:
+    """The reference's shim for ``dpu_init_ranks``: the runtime owns the
+    devices, so nothing is allocated; every "rank" sees all the visible
+    devices."""
+    return [visible_devices(device)] * max(1, int(nr_ranks))
+
+
+def dpu_init_dpus(nr_dpus: "int | None" = None, *, device="cuda") -> list:
+    """The reference's shim for ``dpu_init_dpus``: :func:`dpu_init_ranks`."""
+    return dpu_init_ranks(1, device=device)
+
+
+def dpu_release() -> None:
+    """The reference's shim for ``dpu_release``: nothing to free (the
+    card's tensors are freed with their operands)."""
+    return None
+
+
+def describe_layout(prep) -> str:
+    """The distribution of a prepared operand, in the reference's words:
+    every operand of the port is on one card."""
+    return "single-chip"
+
+
+__all__ = [
+    "prepare_pim_spmm",
+    "prepare_pim_spmm_grande",
+    "prepare_pim_spmv",
+    "prepare_for_version",
+    "describe_layout",
+    "dpu_init_ranks",
+    "dpu_init_dpus",
+    "dpu_release",
+    "normalize_data_type",
+    "mesh_size",
+]

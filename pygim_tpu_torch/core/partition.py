@@ -51,17 +51,33 @@ _ELL_DEGREE_CANDIDATES = (
 # The reference planner's cost constants, kept value for value so the
 # port plans the same tables as the reference: a per-slot gather cost,
 # and a per-virtual-row overhead with a part that grows with the dense
-# width H. The argmin below reads only their ratios. They are to be
-# recalibrated on the card, with the table shapes then allowed to differ
-# from the reference's, in the slice that ports the tuner.
+# width H. The degree chooser below reads only their ratios, and they
+# stay the reference's so the host tables stay byte-equal to its. The
+# card's own values are measured on K-tail and live in the tuner's cost
+# model (``tune/cost_model.py:CardCostModel``), which passes them to
+# :func:`ell_issue_seconds`; they never reach the planner.
 _ELL_SLOT_NS = 8.7
 _ELL_VROW_FIXED_NS = 52.0
 _ELL_VROW_NS_PER_H = 1.0 / 68.0
 
 
-def _ell_vrow_ns(hidden) -> float:
+def _ell_vrow_ns(hidden, fixed_ns: float = _ELL_VROW_FIXED_NS,
+                 ns_per_h: float = _ELL_VROW_NS_PER_H) -> float:
     h = 256 if hidden is None else int(hidden)
-    return _ELL_VROW_FIXED_NS + h * _ELL_VROW_NS_PER_H
+    return fixed_ns + h * ns_per_h
+
+
+def ell_issue_seconds(slots: int, n_virtual: int, hidden=None, *,
+                      slot_ns: float = _ELL_SLOT_NS,
+                      vrow_fixed_ns: float = _ELL_VROW_FIXED_NS,
+                      vrow_ns_per_h: float = _ELL_VROW_NS_PER_H) -> float:
+    """The ELL tail's time under the issue model: ``slot_ns`` a padded
+    slot and ``vrow_fixed_ns + H · vrow_ns_per_h`` a virtual row (H =
+    ``hidden``, 256 where None). The defaults are the planner's constants
+    (the reference's); the tuner passes the card's."""
+    return (slots * slot_ns
+            + n_virtual * _ell_vrow_ns(hidden, vrow_fixed_ns,
+                                       vrow_ns_per_h)) * 1e-9
 
 
 def choose_ell_degree(

@@ -47,15 +47,19 @@ def plan_staircase(
     row_quant: int = 8,
     col_quant: int = 256,
     grid: int = 192,
+    _grid_data=None,
 ) -> "list[tuple[int, int, int]]":
     """Choose ≤ ``max_bands`` row bands ``(row_lo, row_hi, width)`` in
     rank space, total cells ≤ ``budget_cells``, approximately maximizing
     captured edges. An edge is captured iff its row rank falls in a band
     and its col rank < that band's width. Bands tile ``[0, row_hi_last)``
-    contiguously. Returns [] when no band is worth keeping."""
+    contiguously. Returns [] when no band is worth keeping.
+    ``_grid_data``: a precomputed :func:`stair_grid` result (the tuner
+    plans many budgets on one histogram)."""
     if budget_cells <= 0 or len(rank_r) == 0:
         return []
-    redges, cedges, g = stair_grid(rank_r, rank_c, n, grid)
+    redges, cedges, g = (_grid_data if _grid_data is not None
+                         else stair_grid(rank_r, rank_c, n, grid))
     nb_r = len(redges) - 1
     cum = np.cumsum(g, axis=1)  # cum[i, j]: edges with col < cedges[j+1]
     rows_per = np.diff(redges).astype(np.int64)
@@ -127,3 +131,21 @@ def plan_staircase(
                 bands[j + 1][0] = bands[j][0]
             bands.pop(j)
     return [tuple(b) for b in bands]
+
+
+def staircase_coverage(
+    bands, rank_r: np.ndarray, rank_c: np.ndarray
+) -> int:
+    """Edges captured by ``bands`` (exact count on the edge list of rank
+    pairs ``(rank_r, rank_c)``): an edge is captured where the band that
+    holds its row has its column below the band's width."""
+    if not bands:
+        return 0
+    los = np.array([b[0] for b in bands], dtype=np.int64)
+    his = np.array([b[1] for b in bands], dtype=np.int64)
+    ws = np.array([b[2] for b in bands], dtype=np.int64)
+    # the bands tile the rows from 0: each edge's band by its row
+    idx = np.searchsorted(his, rank_r, side="right")
+    ok = idx < len(bands)
+    idx = np.minimum(idx, len(bands) - 1)
+    return int((ok & (rank_r >= los[idx]) & (rank_c < ws[idx])).sum())

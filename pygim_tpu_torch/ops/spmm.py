@@ -75,8 +75,8 @@ is the fused quantize → aggregate → dequantize of the reference's
 ``raw_mul_quantized``. The host tables are the reference's bit for bit.
 Payloads are float32, bfloat16 (K-tail's bf16-row mode) and int8,
 int16, int32 or int64 (taken as int32, as the reference with x64 off).
-The core↔tail interleave, the tuner and the mesh layouts are later
-slices.
+The tuner that picks a config per graph is ``tune/autotuner.py``; the
+core↔tail interleave and the mesh layouts are later slices.
 """
 
 from __future__ import annotations

@@ -1,7 +1,27 @@
-"""Search spaces (``tune/space.py``) and the BCSR tier's sampled probe
-(``tune/bcsr_probe.py``). The tuner itself is not ported yet
-(ROADMAP.md, Queue 1 item 5)."""
+"""Autotuning on one card: the search-space DSL (``tune/space.py``), the
+card's cost model (``tune/cost_model.py``), the per-graph autotuner
+(``tune/autotuner.py``), its distribution plans (``tune/dist.py``: one
+card) and the BCSR tier's sampled probe (``tune/bcsr_probe.py``)."""
 
+from pygim_tpu_torch.tune.autotuner import (
+    DEFAULT_SPACE,
+    HYBRID_SPACE,
+    TuneResult,
+    autotune,
+    plan_statistics,
+    prepare_tuned,
+)
+from pygim_tpu_torch.tune.cost_model import (
+    CardCostModel,
+    calibrate_from_phases,
+    measure_constants,
+    predict_spmm_time,
+)
+from pygim_tpu_torch.tune.dist import DistPlan, enumerate_dist
 from pygim_tpu_torch.tune.space import Concat, For, Product, Space, Table, Unit
 
-__all__ = ["Concat", "For", "Product", "Space", "Table", "Unit"]
+__all__ = ["CardCostModel", "Concat", "DEFAULT_SPACE", "DistPlan", "For",
+           "HYBRID_SPACE", "Product", "Space", "Table", "TuneResult", "Unit",
+           "autotune", "calibrate_from_phases", "enumerate_dist",
+           "measure_constants", "plan_statistics", "predict_spmm_time",
+           "prepare_tuned"]

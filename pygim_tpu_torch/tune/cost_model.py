@@ -1,0 +1,503 @@
+"""The card's cost model for SpMM configuration search: the port's twin of
+``pygim_tpu/tune/cost_model.py``, priced with this card's own constants.
+
+:func:`predict_spmm_time` keeps the reference's phase structure on the
+statistics of :func:`pygim_tpu_torch.tune.autotuner.plan_statistics`:
+
+    bytes = gather_bytes / (hbm · gather_eff) + stream_bytes / (hbm ·
+            stream_eff) + scatter_bytes / (hbm · scatter_eff)
+    tail  = bytes (blocked), or max(bytes, ELL issue time) for an ELL tail
+            (the ELL issue time alone where ``tail_roofline`` is off)
+    core  = max(core_bytes / (hbm · stream_eff), core_flops / core rate)
+            / core_eff
+    bcsr  = max(bcsr_stream_bytes / (hbm · stream_eff), bcsr_flops / tile rate)
+    + collective volume, n_dispatch · fixed_us        # none on one card
+    + launches · launch_us                            # the port's own term
+
+The ELL issue time is ``slots · ell_slot_ns · ell_slot_factor + vrows ·
+(ell_vrow_fixed_ns + H · ell_vrow_ns_per_h)`` (the reference reads these
+constants from its planner; here they are fields). Fitted to K-tail on the
+card, it is K-tail's whole time, bytes included, and the measured model
+prices the tail by it alone (``tail_roofline`` False): the byte roofline
+reads every slot's row from HBM at the rate of a gather without reuse,
+where K-tail on a real graph finds many rows in the L2. The core's rate
+follows its cells as the port runs them: bf16 ``wgmma`` for int8, int4
+and bf16 cells (K-core), three TF32 products at half that rate for f32
+cells (K-f32); ``core_eff`` is the share of that roofline K-core reaches.
+A BCSR tier's bf16 tiles run at the bf16 rate, its f32 tiles at the FFMA
+rate. ``scatter_eff`` prices the ``blocked`` body's ``index_add_``
+(``scatter_bytes``). ``launches`` counts the PyTorch ops and kernel
+launches the port's run path dispatches.
+
+Where the constants come from (``provenance``):
+
+* :meth:`CardCostModel.default` — this card's measured constants where
+  they are cached for this card and power limit, else the data sheet of
+  the visible card (or of the H100 SXM where none is visible), with every
+  efficiency 1 and the ELL issue, launch and dispatch terms 0:
+  uncalibrated.
+* :func:`measure_constants` — measured on the card with CUDA events
+  (:func:`~pygim_tpu_torch.utils.timers.device_time`): a stream copy and
+  a row gather (PyTorch ops: they read the memory, not a kernel of the
+  port), K-tail on uniform ELL tables at two degrees and two widths (the
+  ELL issue constants), the ``blocked`` body on tiny blocks (``launch_us``)
+  and on one block of 2^17 entries (``scatter_eff``), a tiny ``ell``
+  product (``fixed_us``) and K-core on a 1 GiB int8 band (``core_eff``).
+  No efficiency is clipped: one above 1 is a measurement to question.
+  Cached as ``card_constants.json`` under
+  ``$PYGIM_TPU_TORCH_TUNE_CACHE`` (default ``~/.cache/pygim_tpu_torch``)
+  with the card's ``nvidia-smi`` line: a file of another card or power
+  limit is not read.
+
+The mesh's per-collective constants (``measure_ici_constants``,
+``for_topology``) wait for the mesh layouts (ROADMAP.md, Queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from pathlib import Path
+from typing import Optional
+
+from pygim_tpu_torch.core.partition import ell_issue_seconds
+
+CONSTANTS_FILE = "card_constants.json"
+# the card assumed for the data sheet where none is visible: the H100 SXM,
+# as torch names it
+DEFAULT_CARD = "NVIDIA H100 80GB HBM3"
+# NVLink 4 on the H100 SXM, one direction (NVIDIA's data sheet: 900 GB/s
+# both ways). No single-card plan moves a byte over it (psum_bytes 0).
+NVLINK_BW = 450e9
+
+
+def cache_dir() -> Path:
+    """The tuner's cache: ``$PYGIM_TPU_TORCH_TUNE_CACHE``, default
+    ``~/.cache/pygim_tpu_torch`` (never the reference's)."""
+    return Path(os.environ.get(
+        "PYGIM_TPU_TORCH_TUNE_CACHE",
+        os.path.join(os.path.expanduser("~"), ".cache", "pygim_tpu_torch"),
+    ))
+
+
+@dataclasses.dataclass(frozen=True)
+class CardCostModel:
+    """The reference's fields (``tensor_bf16`` is its ``mxu_bf16``), the
+    ELL issue constants it reads from its planner, the rates of f32 core
+    cells and f32 tiles, the scatter's and the core's efficiencies, the
+    launch cost, and whether the tail takes its byte roofline as a floor.
+    With the reference's constants, ``scatter_eff = stream_eff``,
+    ``core_eff = 1``, ``launch_us = 0`` and ``tail_roofline`` on, it is
+    the reference's model."""
+
+    hbm_bw: float            # bytes/s
+    ici_bw: float            # bytes/s a link direction
+    gather_eff: float        # random-row gather rate / hbm_bw
+    stream_eff: float        # streaming rate / hbm_bw
+    scatter_eff: float       # blocked's index_add_ rate / hbm_bw
+    fixed_us: float          # one product's fixed cost beyond its launches
+    tensor_bf16: float       # FLOP/s: int8, int4, bf16 core cells, bf16 tiles
+    tensor_f32: float        # FLOP/s of f32 core cells (K-f32's 3xTF32)
+    simt_f32: float          # FLOP/s of f32 tiles (K-bcsr's FFMA mode)
+    ell_slot_ns: float
+    ell_vrow_fixed_ns: float
+    ell_vrow_ns_per_h: float
+    launch_us: float = 0.0   # one dispatched PyTorch op or kernel launch
+    core_eff: float = 1.0    # K-core's share of the core's roofline
+    tail_roofline: bool = True  # the tail at least its byte roofline
+    coll: Optional[dict] = None
+    ell_slot_factor: float = 1.0
+    provenance: str = "datasheet"
+
+    @classmethod
+    def default(cls) -> "CardCostModel":
+        """This card's measured constants where cached, else its data
+        sheet (uncalibrated)."""
+        card = visible_card()
+        if card is not None:
+            cached = load_measured(card)
+            if cached is not None:
+                return cached
+        return datasheet(card)
+
+    @classmethod
+    def measured(cls, device="cuda") -> "CardCostModel":
+        """The cached constants of this card, or measured now and cached
+        (:func:`measure_constants`; raises without a card)."""
+        card = visible_card()
+        cached = load_measured(card) if card is not None else None
+        return cached if cached is not None else measure_constants(device)
+
+
+def visible_card() -> Optional[str]:
+    """The first card's ``nvidia-smi`` line, or None without a card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    from pygim_tpu_torch.utils.device import card_line
+
+    return card_line()
+
+
+def datasheet(card: Optional[str] = None) -> CardCostModel:
+    """The data sheet of the visible card (``card``: its ``nvidia-smi``
+    line) or, where none is visible, of the H100 SXM: HBM and tensor
+    rates at full power, efficiencies 1, no issue, launch or dispatch
+    cost."""
+    from pygim_tpu_torch.utils.device import peaks
+
+    if card is None:
+        name, where = DEFAULT_CARD, "no card visible"
+    else:
+        # nvidia-smi's line: "<name>, <power limit>"
+        name, where = card.rsplit(",", 1)[0].strip(), card
+    hbm, bf16, f32, _int8 = peaks(name)
+    return CardCostModel(
+        hbm_bw=hbm, ici_bw=NVLINK_BW, gather_eff=1.0, stream_eff=1.0,
+        scatter_eff=1.0, fixed_us=0.0, tensor_bf16=bf16, tensor_f32=bf16 / 6,
+        simt_f32=f32,
+        ell_slot_ns=0.0, ell_vrow_fixed_ns=0.0, ell_vrow_ns_per_h=0.0,
+        provenance=f"datasheet:{name} ({where}; uncalibrated)",
+    )
+
+
+def load_measured(card: str) -> Optional[CardCostModel]:
+    """The cached measured constants where the file is this card's
+    (``card``, its ``nvidia-smi`` line), else None."""
+    path = cache_dir() / CONSTANTS_FILE
+    if not path.exists():
+        return None
+    try:
+        d = json.loads(path.read_text())
+    except (OSError, ValueError):
+        return None
+    if d.get("card") != card:
+        return None
+    return CardCostModel(**d["model"])
+
+
+def save_measured(model: CardCostModel, card: str,
+                  readings: Optional[dict] = None) -> Path:
+    path = cache_dir() / CONSTANTS_FILE
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps({"card": card,
+                                "model": dataclasses.asdict(model),
+                                "readings": readings or {}}, indent=1))
+    return path
+
+
+def _core_rate(m: CardCostModel, cell: Optional[str]) -> float:
+    return m.tensor_f32 if cell == "float32" else m.tensor_bf16
+
+
+def predict_spmm_time(stats: dict,
+                      model: Optional[CardCostModel] = None) -> float:
+    """Predicted seconds of one SpMM under a plan's statistics (module
+    docstring). On the reference's statistics with its constants and
+    ``launch_us = 0`` it is the reference's ``predict_spmm_time``."""
+    m = model or CardCostModel.default()
+    tail_bw = (
+        stats["gather_bytes"] / (m.hbm_bw * m.gather_eff)
+        + stats["stream_bytes"] / (m.hbm_bw * m.stream_eff)
+        + stats.get("scatter_bytes", 0) / (m.hbm_bw * m.scatter_eff)
+    )
+    if stats.get("ell_slots") is not None:
+        issue = ell_issue_seconds(
+            stats["ell_slots"], stats.get("ell_vrows") or 0,
+            stats.get("ell_hidden"),
+            slot_ns=m.ell_slot_ns * m.ell_slot_factor,
+            vrow_fixed_ns=m.ell_vrow_fixed_ns,
+            vrow_ns_per_h=m.ell_vrow_ns_per_h,
+        )
+        tail_bw = max(tail_bw, issue) if m.tail_roofline else issue
+    t = tail_bw
+    t += max(
+        stats.get("core_bytes", 0) / (m.hbm_bw * m.stream_eff),
+        stats.get("core_flops", 0) / _core_rate(m, stats.get("core_cell")),
+    ) / m.core_eff
+    tile_rate = (m.simt_f32 if stats.get("bcsr_tile_dtype") == "float32"
+                 else m.tensor_bf16)
+    t += max(
+        stats.get("bcsr_stream_bytes", 0) / (m.hbm_bw * m.stream_eff),
+        stats.get("bcsr_flops", 0) / tile_rate,
+    )
+    cname = stats.get("collective")
+    cinfo = (m.coll or {}).get(cname) if cname else None
+    if cinfo is not None:
+        t += stats["psum_bytes"] / max(1.0, cinfo["bw"])
+        t += stats["n_dispatch"] * cinfo["fixed_us"] * 1e-6
+        t += m.fixed_us * 1e-6
+    else:
+        t += stats["psum_bytes"] / m.ici_bw
+        t += stats["n_dispatch"] * m.fixed_us * 1e-6
+    t += stats.get("launches", 0) * m.launch_us * 1e-6
+    return t
+
+
+def calibrate_from_phases(
+    stats: dict,
+    phases_ms: dict,
+    base: Optional[CardCostModel] = None,
+    save: bool = False,
+) -> CardCostModel:
+    """Fit the gather and stream efficiencies from measured run-path phase
+    times (:meth:`PreparedSpmm.phase_times`: ``gather_time(ms)``, the
+    gather probe, and ``tail_time(ms)``, K-tail) and the plan's
+    statistics, as the reference does. ``save`` caches the result as this
+    card's constants (raises without a card)."""
+    m = base or CardCostModel.default()
+    kw = dataclasses.asdict(m)
+    g = phases_ms.get("gather_time(ms)")
+    t = phases_ms.get("tail_time(ms)")
+    stream = stats["stream_bytes"] + stats.get("scatter_bytes", 0)
+    if g and t and g >= t:
+        # the gather probe slower than the whole tail: one effective
+        # efficiency from the tail phase
+        eff = max(
+            1e-4,
+            min(1.0, (stats["gather_bytes"] + stream) / (t * 1e-3)
+                / kw["hbm_bw"]),
+        )
+        kw["gather_eff"] = kw["stream_eff"] = eff
+    else:
+        if g and g > 0 and stats.get("gather_bytes"):
+            kw["gather_eff"] = max(
+                1e-4,
+                min(1.0, stats["gather_bytes"] / (g * 1e-3) / kw["hbm_bw"]),
+            )
+        if t and g is not None and t > g:
+            kw["stream_eff"] = max(
+                1e-4,
+                min(1.0, stream / ((t - g) * 1e-3) / kw["hbm_bw"]),
+            )
+    model = CardCostModel(**kw)
+    if save:
+        card = visible_card()
+        if card is None:
+            raise RuntimeError("calibrate_from_phases(save=True): no CUDA "
+                               "card to file the constants under")
+        save_measured(model, card)
+    return model
+
+
+# K-tail's fit: uniform tables of TAIL_VROWS virtual rows, one output row
+# each, over a TAIL_XROWS-row payload (1 GiB at H 256: no reuse in the
+# 50 MB L2), at two degrees and two widths
+TAIL_VROWS = 1 << 18
+TAIL_XROWS = 1 << 20
+TAIL_DEGREES = (4, 32)
+TAIL_WIDTHS = (32, 256)
+# K-core's efficiency: one int8 band of 1 GiB (the space's smallest core
+# budget) at H 256, where it is bound by operations
+CORE_BAND = 32768
+# the launch probe: the blocked body on tiny blocks
+LAUNCH_BLOCKS = 512
+# the scatter probe: one block of SCATTER_NNZ entries over SCATTER_ROWS
+# rows (sorted by row, as the planner's blocks) at H 256
+SCATTER_NNZ = 1 << 17
+SCATTER_ROWS = 1 << 14
+
+
+def fit_tail(times_ns: dict) -> dict:
+    """The ELL issue constants from K-tail's time a virtual row,
+    ``times_ns[(D, H)]`` in ns, at the two degrees and two widths:
+    ``slot_ns`` from the degrees at the narrow width, the per-row cost
+    ``V(H) = fixed + H · per_h`` from both widths at the small degree;
+    the fourth point is the fit's check (``check_ns`` against
+    ``times_ns``)."""
+    (d1, d2), (h1, h2) = TAIL_DEGREES, TAIL_WIDTHS
+    slot = (times_ns[(d2, h1)] - times_ns[(d1, h1)]) / (d2 - d1)
+    v1 = times_ns[(d1, h1)] - d1 * slot
+    v2 = times_ns[(d1, h2)] - d1 * slot
+    per_h = (v2 - v1) / (h2 - h1)
+    fixed = v1 - h1 * per_h
+    return {"ell_slot_ns": slot, "ell_vrow_fixed_ns": fixed,
+            "ell_vrow_ns_per_h": per_h,
+            "check_ns": d2 * slot + fixed + h2 * per_h,
+            "check_point": [d2, h2]}
+
+
+def _card_device(device):
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"measure_constants: device {device!r}, but the "
+                           "constants are measured on a CUDA card")
+    return dev
+
+
+def _tail_ns(dev, degree: int, h: int, gen) -> float:
+    """K-tail's time a virtual row (ns) on a uniform table."""
+    import numpy as np
+    import torch
+
+    from pygim_tpu_torch.ops.ell_tail import ell_tables_add, tail_plan
+    from pygim_tpu_torch.utils.timers import device_time
+
+    nvr, slots = TAIL_VROWS, TAIL_VROWS * degree
+    x = torch.randn((TAIL_XROWS, h), device=dev, generator=gen)
+    cols = torch.randint(0, TAIL_XROWS, (1, slots), device=dev,
+                         generator=gen, dtype=torch.int32)
+    vals = torch.ones((1, slots), device=dev)
+    vrow = torch.arange(nvr, dtype=torch.int32, device=dev).view(1, nvr)
+    tables = [(cols, vals, vrow, degree)]
+    plan = tail_plan(tables, host=[(np.ones((1, slots), np.float32),
+                                    np.arange(nvr, dtype=np.int32)[None])])
+    out = torch.zeros((nvr, h), device=dev)
+    t = device_time(lambda: ell_tables_add(x, tables, out, plan=plan),
+                    iters=10)
+    return t * 1e9 / nvr
+
+
+def _launch_us(dev) -> float:
+    """One op of the blocked body (µs): ``blocked_spmm`` on
+    :data:`LAUNCH_BLOCKS` blocks of 8 entries and 8 rows at H 8, over the
+    ops it dispatches."""
+    import torch
+
+    from pygim_tpu_torch.ops.spmm import blocked_spmm
+    from pygim_tpu_torch.tune.autotuner import blocked_launches
+    from pygim_tpu_torch.utils.timers import device_time
+
+    nb = LAUNCH_BLOCKS
+    colind = torch.zeros((nb, 8), dtype=torch.int32, device=dev)
+    vals = torch.ones((nb, 8), device=dev)
+    rowloc = torch.zeros((nb, 8), dtype=torch.int32, device=dev)
+    row_slot = torch.arange(nb * 8, dtype=torch.int32, device=dev)
+    x = torch.ones((8, 8), device=dev)
+    t = device_time(lambda: blocked_spmm(colind, vals, rowloc, row_slot, x,
+                                         8), iters=5)
+    return t * 1e6 / blocked_launches(nb)
+
+
+def _blocked_seconds(dev, gen) -> float:
+    """The blocked body on one block of :data:`SCATTER_NNZ` entries over
+    :data:`SCATTER_ROWS` rows at H 256, gathering from as many x rows
+    (s)."""
+    import torch
+
+    from pygim_tpu_torch.ops.spmm import blocked_spmm
+    from pygim_tpu_torch.utils.timers import device_time
+
+    nnz, rows = SCATTER_NNZ, SCATTER_ROWS
+    x = torch.randn((nnz, 256), device=dev, generator=gen)
+    colind = torch.randint(0, nnz, (1, nnz), device=dev, generator=gen,
+                           dtype=torch.int32)
+    vals = torch.ones((1, nnz), device=dev)
+    rowloc = torch.sort(torch.randint(0, rows, (1, nnz), device=dev,
+                                      generator=gen)).values.to(torch.int32)
+    row_slot = torch.arange(rows, dtype=torch.int32, device=dev)
+    return device_time(lambda: blocked_spmm(colind, vals, rowloc, row_slot,
+                                            x, rows), iters=5)
+
+
+def _fixed_us(dev, launch_us: float) -> float:
+    """One tiny ``ell`` product's time beyond its launches (µs)."""
+    import numpy as np
+    import torch
+
+    from pygim_tpu_torch.core.graph import CooGraph
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+    from pygim_tpu_torch.tune.autotuner import RUN_OPS
+    from pygim_tpu_torch.utils.timers import device_time
+
+    rng = np.random.default_rng(0)
+    n = 256
+    g = CooGraph.from_edges(rng.integers(0, n, 2048), rng.integers(0, n, 2048),
+                            nrows=n, ncols=n)
+    prep = prepare_spmm(g, SpmmConfig(backend="ell", hidden_hint=8),
+                        device=dev)
+    x = torch.ones((n, 8), device=dev)
+    t = device_time(prep.mul, x, iters=100)
+    return max(0.0, t * 1e6 - RUN_OPS * launch_us)
+
+
+def _core_seconds(dev, gen) -> float:
+    """K-core on one int8 band of :data:`CORE_BAND` rows and columns at H
+    256 (s)."""
+    import torch
+
+    from pygim_tpu_torch.ops.core_dot import core_bands_scatter_add, core_plans
+    from pygim_tpu_torch.utils.timers import device_time
+
+    r = w = CORE_BAND
+    band = torch.randint(-8, 8, (r, w), device=dev, generator=gen,
+                         dtype=torch.int8)
+    xc = torch.randn((w, 256), device=dev, generator=gen).to(torch.bfloat16)
+    rows = torch.arange(r, dtype=torch.int32, device=dev)
+    out = torch.zeros((r, 256), device=dev)
+    stair = [(0, r, w)]
+    plans = core_plans([band], stair, 256)
+    return device_time(lambda: core_bands_scatter_add(
+        [band], xc, rows, stair, out, plans=plans), iters=10)
+
+
+def measure_constants(device="cuda", save: bool = True, n: int = 1 << 21,
+                      h: int = 256, g: int = 2_000_000) -> CardCostModel:
+    """Measure the card's constants (module docstring) with CUDA events and
+    cache them with the card's line (``save``). Raises without a card."""
+    import torch
+
+    from pygim_tpu_torch.tune.autotuner import blocked_launches
+    from pygim_tpu_torch.utils.device import card_line, peaks
+    from pygim_tpu_torch.utils.timers import device_time
+
+    dev = _card_device(device)
+    card = card_line()
+    name = torch.cuda.get_device_name(dev)
+    hbm, bf16, f32, _int8 = peaks(name)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    readings: dict = {}
+
+    x = torch.ones((n, h), device=dev)
+    stream_bw = 2 * n * h * 4 / device_time(lambda: x * 1.0000001, iters=5)
+    idx = torch.randint(0, n, (g,), device=dev, generator=gen)
+    gather_bw = 2 * g * h * 4 / device_time(
+        lambda: x.index_select(0, idx), iters=5)
+    del x, idx
+    readings.update(stream_GBps=stream_bw * 1e-9, gather_GBps=gather_bw * 1e-9)
+
+    tail_ns = {(d, w): _tail_ns(dev, d, w, gen)
+               for d in TAIL_DEGREES for w in TAIL_WIDTHS}
+    fit = fit_tail(tail_ns)
+    readings["tail_ns_per_vrow"] = {f"D{d} H{w}": v
+                                    for (d, w), v in tail_ns.items()}
+    readings["tail_fit"] = fit
+
+    gather_eff, stream_eff = gather_bw / hbm, stream_bw / hbm
+    launch_us = _launch_us(dev)
+    fixed_us = _fixed_us(dev, launch_us)
+    # the blocked body's scatter: its time less its gather, its streams
+    # and its ops, over the scatter bytes plan_statistics counts
+    nnz, rows = SCATTER_NNZ, SCATTER_ROWS
+    t_blocked = _blocked_seconds(dev, gen)
+    t_scatter = (t_blocked - nnz * 256 * 4 / (hbm * gather_eff)
+                 - (nnz * 8 + rows * 256 * 4) / (hbm * stream_eff)
+                 - blocked_launches(1) * launch_us * 1e-6)
+    scatter_eff = 2 * nnz * 256 * 4 / (hbm * t_scatter)
+    # K-core's share of its band's roofline (bytes at the stream rate,
+    # operations at the bf16 rate)
+    t_core = _core_seconds(dev, gen)
+    roof = max(CORE_BAND * CORE_BAND / (hbm * stream_eff),
+               2 * CORE_BAND * CORE_BAND * 256 / bf16)
+    readings.update(launch_us=launch_us, fixed_us=fixed_us,
+                    blocked_ms=t_blocked * 1e3, core_ms=t_core * 1e3,
+                    core_roofline_ms=roof * 1e3)
+    torch.cuda.empty_cache()
+
+    model = CardCostModel(
+        hbm_bw=hbm, ici_bw=NVLINK_BW, gather_eff=gather_eff,
+        stream_eff=stream_eff, scatter_eff=scatter_eff, fixed_us=fixed_us,
+        tensor_bf16=bf16, tensor_f32=bf16 / 6, simt_f32=f32,
+        ell_slot_ns=fit["ell_slot_ns"],
+        ell_vrow_fixed_ns=fit["ell_vrow_fixed_ns"],
+        ell_vrow_ns_per_h=fit["ell_vrow_ns_per_h"], launch_us=launch_us,
+        core_eff=roof / t_core, tail_roofline=False,
+        provenance=f"measured:{card}",
+    )
+    if save:
+        save_measured(model, card, readings)
+    return model

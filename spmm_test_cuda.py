@@ -6,10 +6,14 @@ operand (an ``sp_parts × ds_parts`` above one prints the reference's
 ``[WARN] ... running single-chip``); ``--version cpu`` runs the oracle.
 Every ``--data_type`` of the reference runs: ``bfloat16`` through
 K-tail's bf16-row mode, ``int64`` as int32 (the reference with x64
-off), ``float64`` as float32. A mesh that fits more than one visible
-card and ``--tune`` are not ported and raise ``NotImplementedError``;
-``--lib_path`` and ``--nr_dpus`` are accepted and ignored. Runs on the card; ``main(argv, device="cpu")`` runs the
-plain versions on the CPU (the tests).
+off), ``float64`` as float32. ``--tune`` runs the autotuner
+(``pygim_tpu_torch/tune``) over a device budget of ``sp_parts ×
+ds_parts`` capped by the visible cards, prints ``[DATA]tuned_plan`` and
+``[DATA]tuned_constants`` and prepares its pick; a budget above one card,
+and a mesh that fits more than one visible card, are not ported and
+raise ``NotImplementedError``. ``--lib_path`` and ``--nr_dpus`` are
+accepted and ignored. Runs on the card; ``main(argv, device="cpu")``
+runs the plain versions on the CPU (the tests).
 
     python3 spmm_test_cuda.py --dataset ogbn-arxiv
 """
@@ -40,22 +44,31 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """Raise on the flags the port does not run yet."""
-    if args.tune:
-        raise NotImplementedError("--tune is not ported (the autotuner comes "
-                                  "with a later slice)")
+def tune(args, graph, device):
+    """``--tune``: the autotuner's pick for ``graph`` at ``--hidden_size``
+    over a budget of ``sp_parts × ds_parts`` devices capped by the
+    visible cards (the reference's budget), its plan and constants
+    printed as ``[DATA]`` lines."""
+    from pygim_tpu_torch.compat import visible_devices
+    from pygim_tpu_torch.tune import autotune
+
+    nd = min(max(1, args.sp_parts * args.ds_parts), visible_devices(device))
+    tuned = autotune(graph, args.hidden_size, n_devices=nd,
+                     layouts=("single", "2d", "halo"), device=device)
+    print(f"[DATA]tuned_plan: {tuned.plan.describe()}")
+    print(f"[DATA]tuned_constants: {tuned.constants}")
+    return tuned
 
 
 def main(argv=None, *, device="cuda"):
     args = get_args(argv)
     print(args)
-    check_ported(args)
 
     from pygim_tpu_torch.bench.runners import run_spmm_benchmark
     from pygim_tpu_torch.compat import prepare_for_version
     from pygim_tpu_torch.data import load_dataset
     from pygim_tpu_torch.ops.spmm import SpmmConfig
+    from pygim_tpu_torch.tune import prepare_tuned
 
     kw = {} if args.data_root is None else {"root": args.data_root}
     try:
@@ -64,13 +77,19 @@ def main(argv=None, *, device="cuda"):
         raise SystemExit(f"error: {e.args[0]}")
 
     cfg = None
+    tuned = None
     if args.version != "cpu":
         cfg = SpmmConfig(
             backend="ell", format=args.sp_format, balance=args.balance,
             hidden_hint=args.hidden_size,
         )
+        if args.tune:
+            tuned = tune(args, ds.graph, device)
+            cfg = tuned.config
 
     def prepare_fn(graph, config):
+        if tuned is not None:
+            return prepare_tuned(graph, tuned, device=device)
         return prepare_for_version(
             args.version, graph, hidden_size=args.hidden_size,
             sp_parts=args.sp_parts, ds_parts=args.ds_parts,

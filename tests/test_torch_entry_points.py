@@ -93,26 +93,42 @@ def test_float64_runs_as_float32(capsys):
 
 
 @pytest.mark.parametrize("main,argv,what", [
-    (spmm_test_cuda.main, ["--tune"], "--tune"),
-    (inference_cuda.main, ["--tune"], "--tune"),
+    (spmm_test_cuda.main, ["--tune"], "tune"),
+    (inference_cuda.main, ["--tune"], "tune"),
     (spmm_test_cuda.main, ["--data_type", "bfloat16"], None),
     (inference_cuda.main, ["--data_type", "int64"], None),
 ], ids=["spmm-tune", "infer-tune", "bf16", "int64"])
-def test_unported_flags_raise(capsys, main, argv, what):
-    """``--tune`` is not ported and raises, naming itself; the bfloat16
-    and int64 payloads, refused before the bf16 and f32 cores came, now
-    run (a bf16 SpMM checked against float64; an int64-quantized forward,
-    int32 as in the reference with x64 off)."""
+def test_unported_flags_raise(capsys, main, argv, what, tmp_path,
+                              monkeypatch):
+    """Flags refused in earlier slices that now run: ``--tune`` (the
+    autotuner on one device: the ``tuned_plan`` and ``tuned_constants``
+    lines, then its pick's run), and the bfloat16 and int64 payloads (a
+    bf16 SpMM checked against float64; an int64-quantized forward, int32
+    as in the reference with x64 off)."""
+    monkeypatch.setenv("PYGIM_TPU_TORCH_TUNE_CACHE", str(tmp_path / "tune"))
+    out, got = run(capsys, main, ["--dataset", "tiny", "--repeat", "1",
+                                  *argv], device="cpu")
     if what is None:
-        out, got = run(capsys, main, ["--dataset", "tiny", "--repeat", "1",
-                                      *argv], device="cpu")
         assert f"data_type='{argv[1]}'" in out
-        assert got.get("verify", ["OK"]) == ["OK"]
-        assert (got.get("pim_time_spmm(ms)") or got["infer_time(ms)"])[0] > 0
-        return
-    with pytest.raises(NotImplementedError, match="not ported") as e:
-        main(["--dataset", "tiny", *argv], device="cpu")
-    assert what in str(e.value)
+    else:
+        assert "tune=True" in out
+        assert got["tuned_plan"] == ["single-chip"]
+        assert got["tuned_constants"][0].startswith("datasheet:")
+        assert got["layout"] == ["single-chip"]
+    assert got.get("verify", ["OK"]) == ["OK"]
+    assert (got.get("pim_time_spmm(ms)") or got["infer_time(ms)"])[0] > 0
+
+
+@pytest.mark.parametrize("main", [spmm_test_cuda.main, inference_cuda.main],
+                         ids=["spmm", "infer"])
+def test_tune_above_one_card_raises(main, tmp_path, monkeypatch):
+    """``--tune`` over a budget of more than one visible card: the mesh
+    layouts are not ported (ROADMAP.md, Queue 1 item 6)."""
+    monkeypatch.setenv("PYGIM_TPU_TORCH_TUNE_CACHE", str(tmp_path / "tune"))
+    monkeypatch.setattr(compat, "visible_devices", lambda device: 2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        main(["--dataset", "tiny", "--tune", "--sp_parts", "2",
+              "--ds_parts", "1"], device="cpu")
 
 
 @pytest.mark.parametrize("model", ["gin", "sage"])

@@ -288,26 +288,33 @@ def test_training_kind(tmp_path):
 
 
 @pytest.mark.parametrize("fields,item", [
-    (dict(tune=True), "Queue 1 item 5"),
+    (dict(tune=True), None),
     (dict(kind="scaling", backend="ell"), "Queue 1 item 6"),
     (dict(sp_parts=2), "Queue 1 item 6"),
     (dict(ds_parts=2), "Queue 1 item 6"),
     (dict(backend="coo"), None),
     (dict(part_size=400, part_method="metis"), "Queue 1 item 6"),
 ])
-def test_not_ported_settings_raise(fields, item, tmp_path):
+def test_not_ported_settings_raise(fields, item, tmp_path, monkeypatch):
     """Each refused setting raises ``NotImplementedError`` naming its
     item, after the ``.failed`` record is written; a sweep goes on past
-    it. The ``coo`` backend (item None), refused until its slice, now
-    runs to a verified record."""
+    it. Settings refused until their slice (item None) now run to a
+    verified record: the ``coo`` backend, and ``tune=True``, whose record
+    holds the tuner's pick (``tuned_backend``, ``tuned_balance``,
+    ``tuned_block_nnz_budget``)."""
+    monkeypatch.setenv("PYGIM_TPU_TORCH_TUNE_CACHE", str(tmp_path / "tune"))
     exp = Experiment(dataset="tiny", repeat=1, **fields)
     if item is None:
         means = exp.run(tmp_path / "a", data_root=str(tmp_path / "data"),
                         device="cpu")
         assert means["pim_time_spmm(ms)"] > 0
         assert exp.status_at(tmp_path / "a") == "done"
-        assert "[DATA]verify: OK" in (
-            tmp_path / "a" / f"{exp.frozen_name()}.out").read_text()
+        rec = (tmp_path / "a" / f"{exp.frozen_name()}.out").read_text()
+        assert "[DATA]verify: OK" in rec
+        if exp.tune:
+            for k in ("tuned_backend", "tuned_balance",
+                      "tuned_block_nnz_budget"):
+                assert rec.count(f"[DATA]{k}: ") == 1, k
         return
     with pytest.raises(NotImplementedError, match=item):
         exp.run(tmp_path / "a", data_root=str(tmp_path / "data"),

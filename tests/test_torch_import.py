@@ -65,6 +65,10 @@ MODULES = [
     "pygim_tpu_torch.ops.bcsr",
     "pygim_tpu_torch.ops.sddmm",
     "pygim_tpu_torch.tune.bcsr_probe",
+    "pygim_tpu_torch.tune.dist",
+    "pygim_tpu_torch.tune.cost_model",
+    "pygim_tpu_torch.tune.autotuner",
+    "pygim_tpu_torch.utils",
     "sweep_cuda",
 ]
 
@@ -76,7 +80,8 @@ def _forbidden(name: str) -> bool:
 
 
 # the reference's package-level names (pygim_tpu/__init__.py,
-# core/__init__.py, ops/__init__.py) the port defines, by namespace
+# core/__init__.py, ops/__init__.py, tune/, utils/, nn/, compat.py) the
+# port defines, by namespace
 REEXPORTS = {
     "pygim_tpu_torch": ["CooGraph", "CsrGraph"],
     "pygim_tpu_torch.core": ["CooGraph", "CsrGraph", "coo_to_csr",
@@ -90,7 +95,20 @@ REEXPORTS = {
                              "cluster_partition", "load_dataset", "load_mtx",
                              "rmat_edges"],
     "pygim_tpu_torch.tune": ["Concat", "For", "Product", "Space", "Table",
-                             "Unit"],
+                             "Unit", "DEFAULT_SPACE", "HYBRID_SPACE",
+                             "TuneResult", "autotune", "plan_statistics",
+                             "prepare_tuned", "calibrate_from_phases",
+                             "measure_constants", "predict_spmm_time",
+                             "DistPlan", "enumerate_dist", "CardCostModel"],
+    "pygim_tpu_torch.utils": ["DataReporter", "data_print",
+                              "parse_data_lines", "PhaseTimer",
+                              "device_time"],
+    "pygim_tpu_torch.nn": ["GNN", "make_gnn", "linear_apply",
+                           "batchnorm_apply", "quantized_aggregate"],
+    "pygim_tpu_torch.compat": ["prepare_pim_spmm", "prepare_pim_spmm_grande",
+                               "prepare_pim_spmv", "prepare_for_version",
+                               "describe_layout", "dpu_init_ranks",
+                               "dpu_init_dpus", "dpu_release"],
 }
 
 
@@ -137,6 +155,25 @@ def test_reexports_are_the_ports_own():
     assert bench.run_experiments is experiment.run_experiments
     assert bench.results_to_csv is parse_results.results_to_csv
     assert data.load_mtx is datasets.load_mtx
+    from pygim_tpu_torch import nn, tune, utils
+    from pygim_tpu_torch.nn import layers
+    from pygim_tpu_torch.tune import autotuner, cost_model, dist
+    from pygim_tpu_torch.utils import metrics, timers
+
+    for name in ("DEFAULT_SPACE", "HYBRID_SPACE", "TuneResult", "autotune",
+                 "plan_statistics", "prepare_tuned"):
+        assert getattr(tune, name) is getattr(autotuner, name)
+    for name in ("CardCostModel", "calibrate_from_phases",
+                 "measure_constants", "predict_spmm_time"):
+        assert getattr(tune, name) is getattr(cost_model, name)
+    assert tune.DistPlan is dist.DistPlan
+    assert tune.enumerate_dist is dist.enumerate_dist
+    for name in ("DataReporter", "data_print", "parse_data_lines"):
+        assert getattr(utils, name) is getattr(metrics, name)
+    assert utils.PhaseTimer is timers.PhaseTimer
+    assert utils.device_time is timers.device_time
+    for name in ("linear_apply", "batchnorm_apply", "quantized_aggregate"):
+        assert getattr(nn, name) is getattr(layers, name)
     for ns in REEXPORTS:
         mod = __import__(ns, fromlist=["_"])
         assert set(REEXPORTS[ns]) <= set(dir(mod)), ns
