@@ -82,9 +82,9 @@ versions. The entry scripts also run a bf16 square candidate of
 Then the harness: ``run_experiments`` on the card over the small sweep
 (tiny and small × blocked and ell × nnz and row), the stair int8 SpMM
 with its phases on the stand-in and on its ``-uniq`` sibling, the int32
-GCN with its per-layer check on the same core, and a mesh and a
-``scaling`` point the port refuses (each leaves its ``.failed``
-record), its launch counts set to 0 before it and read after it
+GCN with its per-layer check on the same core, and the points the port
+refuses (mesh training, a ``scaling`` point, and an spmm mesh of more
+cards than are visible: each leaves its ``.failed`` record), its launch counts set to 0 before it and read after it
 (K-core, K-tail, K-int and K-tail-quant); a second sweep that skips
 everything and launches nothing; ``results_to_csv``; the refusal of a
 directory holding a copy of a TPU record; ``sweep_cuda.py run --baseline
@@ -148,6 +148,26 @@ family's best: prepared, timed and held to ``mul_plain`` at the verify
 tolerance, predicted against measured ms and bytes; the pick's time at
 most 1.20 × the fastest audited) and one ``mode="measure"`` run.
 
+Then the core↔tail interleave (the ``interleave`` phase): the
+stand-in's square int8 and int4 cores prepared with
+``PYGIM_HYBRID_INTERLEAVE`` unset and set; float32 SpMMs and the fused
+int8 aggregate through the interleaved operand, each counted, the stream
+of every launch read (the core on the operand's second stream, K-tail on
+the caller's), held to the serial operand and to the plain versions
+(float within REL_TOL of the sum of |terms|, int8 bit-equal), the int32
+aggregate kept on one stream; serial and interleaved times, each kernel
+alone, the pair's bound, and the interleaved call with the core's grid
+capped at a half and a quarter of the resident blocks. Then the 2D mesh
+(the ``mesh`` phase): virtual (2, 2), (4, 2) and (1, 8) meshes of the
+card, each with ``ell`` and square int8, int4, bf16 and f32 cores at 64
+MiB a shard, the (2, 2) one also with a BCSR tier and with
+``scatter_output``; every operand multiplies a float32 and an int32
+payload, counted (K-tail, K-tail-quant, K-core in each mode, K-int,
+K-f32, K-bcsr at shard shapes), held to its plain version and to the
+single-card operand of its configuration, and reports ``phase_times``
+(``local_time``, ``psum_time``); then the float and int32 GCN forwards
+over a (2, 2) mesh of f32 cores against the single-card ones.
+
 Its last three lines are the ``kernels`` JSON object (each kernel with
 its split and schedule balance where it has a tile schedule, K-core
 and K-tail with their launches in one training step, and every kernel
@@ -167,7 +187,14 @@ and prints its time with its plan's bands forced off and on there
 (``bcsr_full``; minutes of host prepare where the cache is cold);
 ``--bcsr-sweep`` prints the same readings on the smoke and random tiers
 (``bcsr_band_sweep``): the readings ``ops/bcsr.py:L2_ADD_COST`` and the
-plan's choice of bands are checked against.
+plan's choice of bands are checked against. ``--interleave-full`` runs
+tracked config 4 at full size with ``PYGIM_HYBRID_INTERLEAVE`` unset and
+then set (``interleave_full``); ``--mesh-full`` runs reddit-sim's
+2-layer GCN and a float32 SpMM on a (2, 2) virtual mesh of ``ell`` and
+on one card (``mesh_full``). Both take minutes of host prepare where
+the caches are cold. ``--mesh-cards``, on a machine with four or more
+cards, runs the ``mesh`` phase over the cards themselves
+(``mesh_cards``).
 """
 
 from __future__ import annotations
@@ -2785,8 +2812,10 @@ def harness_experiments():
     """The sweep (``sweep_space("small")`` at one repeat: tiny and small ×
     blocked and ell × nnz and row balance), the stair int8 SpMM with its
     phases on the stand-in and its ``-uniq`` sibling and the int32 GCN
-    with its per-layer check on the same core, and two points the port
-    refuses (a mesh, ``kind="scaling"``)."""
+    with its per-layer check on the same core, and three points the port
+    refuses: training over a mesh and ``kind="scaling"`` (not ported),
+    and an spmm mesh of two cards (``make_mesh``'s ``ValueError`` where
+    fewer are visible, as the reference's on one chip)."""
     from pygim_tpu_torch.bench import Experiment
     from pygim_tpu_torch.bench.configs import sweep_space
 
@@ -2797,9 +2826,11 @@ def harness_experiments():
              for d in (DATASET, DATASET + "-uniq")]
     named.append(Experiment(dataset=DATASET, kind="inference", model="gcn",
                             dtype="int32", validate=True, **core))
-    refused = [Experiment(dataset="tiny", sp_parts=2, repeat=1),
+    refused = [Experiment(dataset="tiny", sp_parts=2, kind="training",
+                          backend="ell", repeat=1),
                Experiment(dataset="tiny", kind="scaling", backend="ell",
-                          repeat=1)]
+                          repeat=1),
+               Experiment(dataset="tiny", sp_parts=2, repeat=1)]
     return sweep, named, refused
 
 
@@ -2827,6 +2858,10 @@ def harness(results, device="cuda", timeout: int = 300) -> dict:
     rdir = os.path.join(work, "results_cuda")
     sweep, named, refused = harness_experiments()
     ran = sweep + named
+    visible = (torch.cuda.device_count() if torch.device(device).type == "cuda"
+               else 1 << 30)  # the CPU lays a mesh over copies of itself
+    refused = [e for e in refused
+               if e.kind != "spmm" or e.sp_parts * e.ds_parts > visible]
 
     def counted(exps):
         reset_launch_counts()
@@ -2855,10 +2890,14 @@ def harness(results, device="cuda", timeout: int = 300) -> dict:
         print(f"harness {name}: {json.dumps(out[name])}", flush=True)
     for exp in refused:
         failed = os.path.join(rdir, exp.frozen_name() + ".failed")
+        # a mesh above the visible cards: make_mesh's ValueError, as the
+        # reference's on one chip; the rest are not ported
+        why = ("ValueError: need" if exp.kind == "spmm"
+               else "NotImplementedError")
         if exp.frozen_name() in out or not os.path.exists(failed) or \
-                "NotImplementedError" not in open(failed).read():
+                why not in open(failed).read():
             raise AssertionError(f"harness: {exp.frozen_name()} was not "
-                                 "refused with a .failed record")
+                                 f"refused with a .failed record ({why})")
     print(f"harness launches: {n} ({secs:.1f} s)", flush=True)
     for k in HARNESS_KERNELS:
         if n[k] <= 0:
@@ -4030,6 +4069,587 @@ def bcsr_band_sweep() -> int:
     return 0
 
 
+# ---- the core↔tail interleave and the 2D mesh ----------------------------
+
+INTERLEAVE_CORES = ("int8", "int4")  # square cores on the smoke stand-in
+INTERLEAVE_CAPS = (0.5, 0.25)  # K-core / K-int grids tried beside K-tail
+# the kernel families by the wrapper that asks for the launch's stream
+LAUNCHERS = {"ell_tables_add": "tail", "core_bands_scatter_add": "core",
+             "core_int_launch": "core", "core_f32_scatter_add": "core",
+             "bcsr_add": "bcsr"}
+
+
+class StreamLog:
+    """Records, for each kernel launch inside it, the family of the
+    wrapper that launched it (:data:`LAUNCHERS`) and the raw handle of
+    the stream it went on: every wrapper asks ``_build.stream_of`` for
+    its stream right at the launch."""
+
+    def __enter__(self):
+        from pygim_tpu_torch.ops import _build
+
+        self._build, self._orig = _build, _build.stream_of
+        self.launches = []
+
+        def stream_of(t):
+            handle = self._orig(t)
+            caller = sys._getframe(1).f_code.co_name
+            self.launches.append((LAUNCHERS.get(caller, caller), handle))
+            return handle
+
+        _build.stream_of = stream_of
+        return self
+
+    def __exit__(self, *exc):
+        self._build.stream_of = self._orig
+        return False
+
+    def streams(self, family) -> set:
+        return {h for f, h in self.launches if f == family}
+
+
+def interleave_preps(graph, core_dtype, device="cuda"):
+    """(serial, interleaved): the square ``core_dtype`` operand of
+    ``graph`` at ``CORE_BYTES`` prepared with ``PYGIM_HYBRID_INTERLEAVE``
+    unset, then set to 1 (the second loads the prepare cache the first
+    saved: the host tables are the same)."""
+    from pygim_tpu_torch.ops.spmm import INTERLEAVE_ENV, SpmmConfig, prepare_spmm
+
+    cfg = SpmmConfig(backend="hybrid", hybrid_dtype=core_dtype,
+                     hybrid_core_bytes=CORE_BYTES)
+    old = os.environ.pop(INTERLEAVE_ENV, None)
+    try:
+        serial = prepare_spmm(graph, cfg, device=device)
+        os.environ[INTERLEAVE_ENV] = "1"
+        inter = prepare_spmm(graph, cfg, device=device)
+    finally:
+        os.environ.pop(INTERLEAVE_ENV, None)
+        if old is not None:
+            os.environ[INTERLEAVE_ENV] = old
+    if serial.interleave is not None or inter.interleave is None:
+        raise AssertionError(f"{core_dtype} square: the interleave plan is "
+                             f"{serial.interleave} unset, {inter.interleave} "
+                             "set")
+    return serial, inter
+
+
+class capped_core:
+    """Inside it, K-core's and K-int's plans on ``prep`` are built for
+    ``frac`` of the card's resident blocks (their schedules spread over a
+    grid that leaves the rest of the SMs to K-tail); the plans are
+    dropped on entry and exit."""
+
+    def __init__(self, prep, frac):
+        self.prep, self.frac = prep, frac
+
+    def __enter__(self):
+        from pygim_tpu_torch.ops import core_dot, core_int
+
+        self.saved = (core_dot, core_dot.max_clusters, core_int,
+                      core_int.max_clusters)
+        frac = self.frac
+
+        def cap(fn):
+            return lambda *a, **k: {s: max(1, int(c * frac))
+                                    for s, c in fn(*a, **k).items()}
+
+        core_dot.max_clusters = cap(core_dot.max_clusters)
+        core_int.max_clusters = cap(core_int.max_clusters)
+        self._drop()
+        return self
+
+    def _drop(self):
+        self.prep._core_plans.clear()
+        self.prep._int_plans.clear()
+
+    def __exit__(self, *exc):
+        core_dot, dot_mc, core_int, int_mc = self.saved
+        core_dot.max_clusters, core_int.max_clusters = dot_mc, int_mc
+        self._drop()
+        return False
+
+
+def stream_check(name, log, side, main, families):
+    """Each of ``families`` launched, the core on ``side`` only and
+    everything else on ``main``; returns the launches by family."""
+    got = {}
+    for fam in families:
+        n = sum(1 for f, _h in log.launches if f == fam)
+        if n == 0:
+            raise AssertionError(f"{name}: no {fam} launch")
+        want = side if fam == "core" else main
+        if log.streams(fam) != {want}:
+            raise AssertionError(f"{name}: {fam} launched on streams "
+                                 f"{log.streams(fam)}, not {{{want}}}")
+        got[fam] = n
+    if side == main:
+        raise AssertionError(f"{name}: one stream for both")
+    return got
+
+
+def interleave_phase(ds, results, device="cuda"):
+    """The core↔tail interleave on the stand-in's square int8 and int4
+    cores at H 256: float32 SpMMs and the fused int8 aggregate with the
+    gate off (serial) and on (interleaved), the launch counts set to 0
+    before each interleaved call and read after it, and the stream of
+    every launch recorded: the core (K-core / K-int) on the operand's
+    second stream, K-tail on the caller's. The interleaved products are
+    held to the serial ones and to the plain versions (float: REL_TOL of
+    the sum of |terms|, K-tail's atomics order hub sums differently a
+    call; int8: bit-equal); the int32 aggregate must stay on one stream
+    (and within REL_TOL of the serial operand's: its f32 sums of
+    integers up to 2^19 are not exact either).
+    Times: each operand's SpMM and int8 aggregate serial and
+    interleaved, the SpMM through the plain versions, each kernel alone
+    (``phase_times``), the pair's bound (the larger of the two
+    kernels'), and the interleaved SpMM with the core's grid capped at
+    :data:`INTERLEAVE_CAPS` of the card's resident blocks."""
+    import torch
+
+    from pygim_tpu_torch.bench.report import operand_info
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.quant import quant_scale
+
+    dev = torch.device(device)
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(ds.graph.nrows, HIDDEN, generator=g).to(dev)
+    mag = abs_magnitude(ds.graph, x, dev)
+    _scale, safe = quant_scale(x, "int8")
+    xq = torch.round(x / safe).to(torch.int8)
+    out = {}
+    for core_dtype in INTERLEAVE_CORES:
+        key = f"{core_dtype} square"
+        serial, inter = interleave_preps(ds.graph, core_dtype, device)
+        slabs, steps, k = inter.interleave
+        rec = {"k": k, "slabs": slabs, "steps": steps}
+        main = torch.cuda.current_stream(dev).cuda_stream
+
+        reset_launch_counts()
+        with StreamLog() as log:
+            got = inter.mul(x)
+            torch.cuda.synchronize()
+        rec["float launches"] = launch_counts()
+        side = inter._side[x.device].cuda_stream
+        rec["float streams"] = stream_check(f"{key} float", log, side, main,
+                                            ("tail", "core"))
+        rec["float err vs serial"] = check_close(
+            f"{key} interleaved vs serial", got, serial.mul(x), mag, REL_TOL)
+        rec["float err vs plain"] = check_close(
+            f"{key} interleaved vs plain", got, inter.mul_plain(x), mag,
+            REL_TOL)
+
+        reset_launch_counts()
+        with StreamLog() as log:
+            gq = inter.mul_quantized(x, "int8")
+            torch.cuda.synchronize()
+        rec["int8 launches"] = launch_counts()
+        rec["int8 streams"] = stream_check(f"{key} int8", log, side, main,
+                                           ("tail", "core"))
+        for what, want in (("serial", serial.mul_quantized(x, "int8")),
+                           ("plain", inter.mul_quantized_plain(x, "int8"))):
+            if not torch.equal(gq, want):
+                raise AssertionError(f"{key} int8 interleaved vs {what}: "
+                                     f"max abs err "
+                                     f"{float((gq - want).abs().max())}")
+        with StreamLog() as log:
+            g32 = inter.mul_quantized(x, "int32")
+            torch.cuda.synchronize()
+        if {h for _f, h in log.launches} != {main}:
+            raise AssertionError(f"{key}: the int32 aggregate left the "
+                                 "caller's stream")
+        # |q| reaches 2^19: the f32 sums of hub rows depend on the order
+        # K-tail's atomics land in, so the bar is REL_TOL, not equality
+        check_close(f"{key} int32", g32, serial.mul_quantized(x, "int32"),
+                    mag, REL_TOL)
+        del got, gq, g32
+
+        rec["float ms serial"] = cuda_ms(lambda: serial.mul(x))
+        rec["float ms interleaved"] = cuda_ms(lambda: inter.mul(x))
+        rec["float ms plain"] = cuda_ms(lambda: inter.mul_plain(x), iters=3)
+        rec["int8 ms serial"] = cuda_ms(
+            lambda: serial.mul_quantized(x, "int8"))
+        rec["int8 ms interleaved"] = cuda_ms(
+            lambda: inter.mul_quantized(x, "int8"))
+        ph, phq = serial.phase_times(x, iters=10), serial.phase_times(
+            xq, iters=10)
+        rec["float alone"] = {k_: ph[k_] for k_ in ("tail_time(ms)",
+                                                     "core_time(ms)")}
+        rec["int8 alone"] = {k_: phq[k_] for k_ in ("tail_time(ms)",
+                                                     "core_time(ms)")}
+        info = operand_info(serial, HIDDEN, dev, limbs=1)
+        rec["float bound ms"] = max(info["core_bound_ms"],
+                                    info["tail_bound_ms"])
+        rec["int8 bound ms"] = max(info["int_bound_ms"],
+                                   info["tail_int8_bound_ms"])
+        for frac in INTERLEAVE_CAPS:
+            with capped_core(inter, frac):
+                check_close(f"{key} capped {frac}", inter.mul(x),
+                            serial.mul(x), mag, REL_TOL)
+                rec[f"float ms interleaved, core at {frac}"] = cuda_ms(
+                    lambda: inter.mul(x))
+                rec[f"int8 ms interleaved, core at {frac}"] = cuda_ms(
+                    lambda: inter.mul_quantized(x, "int8"))
+        print(f"interleave {key}: {json.dumps(rec)}", flush=True)
+        out[key] = rec
+        del serial, inter
+        free(dev)
+    results["interleave"] = out
+    return out
+
+
+def interleave_full(dataset="ogbn-products", device="cuda") -> int:
+    """``--interleave-full``: tracked config 4 at full size (PERF.md §4:
+    the int8 GCN on products-sim, square int4 core at 6 GiB, validated,
+    H 256) with ``PYGIM_HYBRID_INTERLEAVE`` unset and then set at
+    prepare, each time ``infer_time``, ``validate`` and a float32 SpMM's
+    ``pim_time_spmm``, ``core_time`` and ``tail_time`` (the second
+    prepare loads the cache the first saved), and ``mul`` and the fused
+    int8 aggregate timed in this process, with the gate set also with the
+    core's grid capped at :data:`INTERLEAVE_FULL_CAPS` of the resident
+    blocks."""
+    import torch
+
+    from pygim_tpu_torch.bench.report import config
+    from pygim_tpu_torch.bench.runners import (
+        run_inference_benchmark,
+        run_spmm_benchmark,
+    )
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import INTERLEAVE_ENV, prepare_spmm
+    from pygim_tpu_torch.utils.device import card_line
+    from pygim_tpu_torch.utils.metrics import DataReporter
+    from pygim_tpu_torch.utils.timers import device_time
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 1
+        print(f"card: {card_line()}", flush=True)
+        _build.build()
+    t0 = time.perf_counter()
+    ds = load_dataset(dataset)
+    print(f"load: {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = config()
+    res = {}
+    for gate in ("unset", "1"):
+        os.environ.pop(INTERLEAVE_ENV, None)
+        if gate == "1":
+            os.environ[INTERLEAVE_ENV] = "1"
+        t0 = time.perf_counter()
+        prep = prepare_spmm(ds.graph, cfg, device=device)
+        prep_s = time.perf_counter() - t0
+        rep = DataReporter(echo=False)
+        reuse = lambda g, c: prep  # noqa: E731
+        reset_launch_counts()
+        run_inference_benchmark(ds, hidden=HIDDEN, agg_dtype="int8",
+                                config=cfg, repeat=10, reporter=rep,
+                                prepare_fn=reuse, validate=True,
+                                device=device)
+        n_inf = launch_counts()
+        run_spmm_benchmark(ds, hidden=HIDDEN, dtype="float32", config=cfg,
+                           repeat=10, reporter=rep, prepare_fn=reuse,
+                           phases=True, device=device)
+        keys = ("infer_time(ms)", "validate", "pim_time_spmm(ms)", "verify",
+                "tail_time(ms)", "core_time(ms)")
+        res[gate] = {"prepare_s": prep_s, "interleave": prep.interleave and
+                     [len(prep.interleave[0]), prep.interleave[2]],
+                     "launches": n_inf,
+                     **{k: rep.records[k][-1] for k in keys}}
+        x = torch.randn(prep.ncols, HIDDEN,
+                        generator=torch.Generator().manual_seed(3)).to(device)
+        for frac in (None,) + (INTERLEAVE_FULL_CAPS if gate == "1" else ()):
+            with capped_core(prep, frac or 1.0):
+                tag = "" if frac is None else f", core at {frac}"
+                res[gate][f"mul ms{tag}"] = device_time(
+                    prep.mul, x, iters=10) * 1e3
+                res[gate][f"int8 ms{tag}"] = device_time(
+                    lambda: prep.mul_quantized(x, "int8"), iters=10) * 1e3
+        del x
+        print(f"config 4, {INTERLEAVE_ENV} {gate}: {json.dumps(res[gate])}",
+              flush=True)
+        if res[gate]["validate"] != "OK" or res[gate]["verify"] != "OK":
+            raise AssertionError(f"config 4 with the gate {gate} failed its "
+                                 "checks")
+        del prep
+        free(device)
+    if res["1"]["interleave"] is None:
+        raise AssertionError("config 4: the interleave did not engage")
+    os.environ.pop(INTERLEAVE_ENV, None)
+    print(json.dumps(res))
+    if on_card:
+        print(card_line())
+    return 0
+
+
+INTERLEAVE_FULL_CAPS = (0.5, 0.35)  # config 4: the core's modelled share
+
+MESH_SHAPES = ((2, 2), (4, 2), (1, 8))
+MESH_CORE_BYTES = 64 << 20  # a shard's core budget (the 2D rule)
+MESH_CORES = ("int8", "int4", "bfloat16", "float32")
+# (float payload, int32 payload) kernels of each mesh operand's shards
+MESH_KERNELS = {
+    "ell": (("K-tail",), ("K-tail-quant",)),
+    "hybrid int8": (("K-core", "K-tail"), ("K-int", "K-tail-quant")),
+    "hybrid int4": (("K-core int4", "K-tail"), ("K-int int4", "K-tail-quant")),
+    "hybrid bfloat16": (("K-core bf16", "K-tail"),
+                        ("K-f32 limbs", "K-tail-quant")),
+    "hybrid float32": (("K-f32", "K-tail"), ("K-f32", "K-tail-quant")),
+    "bcsr": (("K-core", "K-tail", "K-bcsr"),
+             ("K-int", "K-tail-quant", "K-bcsr")),
+}
+MESH_BCSR = dict(bcsr_bytes=64 << 20, bcsr_tile=16, bcsr_min_edges=2)
+# a float payload through a rounded core (bf16, int8, int4 cells) on
+# either side: the runners' verify bar (PERF.md §2)
+MESH_LOOSE = 1e-2
+
+
+def mesh_configs(shape):
+    """``{name: (SpmmConfig, scatter_output)}`` run on a mesh of
+    ``shape``: ell and the four hybrid cores everywhere; the BCSR tier and
+    ``scatter_output`` on (2, 2)."""
+    from pygim_tpu_torch.ops.spmm import SpmmConfig
+
+    cfgs = {"ell": (SpmmConfig(backend="ell"), False)}
+    for c in MESH_CORES:
+        cfgs[f"hybrid {c}"] = (SpmmConfig(
+            backend="hybrid", hybrid_dtype=c,
+            hybrid_core_bytes=MESH_CORE_BYTES), False)
+    if shape == (2, 2):
+        cfgs["bcsr"] = (SpmmConfig(
+            backend="hybrid", hybrid_dtype="int8",
+            hybrid_core_bytes=MESH_CORE_BYTES, **MESH_BCSR), False)
+        cfgs["ell scatter"] = (SpmmConfig(backend="ell"), True)
+        cfgs["hybrid int8 scatter"] = (cfgs["hybrid int8"][0], True)
+    return cfgs
+
+
+def abs_magnitude(graph, x, device):
+    """The sum of |terms| behind each element of ``graph @ x``: the plain
+    ell product of |A| and |x|."""
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+
+    a = dataclasses.replace(graph, vals=abs(graph.vals).astype("float32"))
+    return prepare_spmm(a, SpmmConfig(backend="ell"), device=device) \
+        .mul_plain(x.float().abs())
+
+
+def mesh_phase(ds, results, device="cuda", cards=False):
+    """The 2D mesh on virtual meshes of :data:`MESH_SHAPES` over one
+    device (the card repeated), or with ``cards`` on those of them that
+    fit the visible cards, over the cards: on the stand-in at H 256, every operand of
+    :func:`mesh_configs` multiplies a float32 and an int32 payload, each
+    with the launch counts set to 0 before and read after (the kernels of
+    :data:`MESH_KERNELS` must have launched at shard shapes), held to its
+    plain version (float: REL_TOL of the sum of |terms|; int32: equal)
+    and to the single-card operand of the same configuration (int32:
+    equal; float: REL_TOL, or :data:`MESH_LOOSE` where a rounded core
+    takes the float payload on either side); its ``phase_times``
+    (``mul_time``, ``local_time``, ``psum_time``) beside the merge's
+    least bytes and their time at the card's HBM rate. Then the float and
+    the int32 GCN forwards over a (2, 2) mesh of f32 cores against the
+    same forwards on the single-card f32 core (within 1e-4 of the
+    logits' scale), their launches counted."""
+    import torch
+
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import PreparedAggregate, prepare_spmm
+    from pygim_tpu_torch.parallel import make_mesh, prepare_spmm_2d
+
+    dev = torch.device(device)
+    graph = ds.graph
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn(graph.ncols, HIDDEN, generator=g).to(dev)
+    xi = torch.randint(-9, 10, (graph.ncols, HIDDEN), generator=g,
+                       dtype=torch.int32).to(dev)
+    mags = (abs_magnitude(graph, x, dev), abs_magnitude(graph, xi, dev))
+    singles, out = {}, {}
+    n_cards = torch.cuda.device_count() if cards else 0
+
+    def grid(sp, ds_):
+        return make_mesh(sp, ds_, None if cards else [dev] * (sp * ds_))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for shape in MESH_SHAPES:
+        if cards and shape[0] * shape[1] > n_cards:
+            continue
+        mesh = grid(*shape)
+        for name, (cfg, scatter) in mesh_configs(shape).items():
+            key = f"{shape[0]}x{shape[1]} {name}"
+            t0 = time.perf_counter()
+            op = prepare_spmm_2d(graph, mesh, cfg, scatter_output=scatter)
+            rec = {"prepare_s": time.perf_counter() - t0,
+                   "k": op.hybrid_k_eff, "tables": op.ell_meta,
+                   "bcsr_edges": op.bcsr_edges,
+                   "device_bytes": op.device_bytes}
+            if name.startswith("bcsr") and not op.has_bcsr:
+                raise AssertionError(f"{key}: no tile captured")
+            base = name.replace(" scatter", "")
+            if base not in singles:
+                singles[base] = prepare_spmm(graph, cfg, device=dev)
+            single = singles[base]
+            for (label, payload), mag, kernels in zip(
+                    (("float", x), ("int32", xi)), mags, MESH_KERNELS[base]):
+                reset_launch_counts()
+                got = op.mul(payload)
+                sync()
+                n = launch_counts()
+                for k_ in kernels:
+                    if n[k_] <= 0:
+                        raise AssertionError(f"{key} {label}: {k_} was never "
+                                             "launched")
+                rec[f"{label} launches"] = {k_: v for k_, v in n.items() if v}
+                plain, one = op.mul_plain(payload), single.mul(payload)
+                if label == "int32":
+                    for what, want in (("plain", plain), ("single", one)):
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"{key} int32 vs {what}: max abs err "
+                                f"{float((got - want).abs().max())}")
+                    continue
+                rec["float err vs plain"] = check_close(
+                    f"{key} vs plain", got, plain, mag, REL_TOL)
+                loose = cfg.backend == "hybrid" and cfg.hybrid_dtype in (
+                    "int8", "int4", "bfloat16")
+                rec["float err vs single"] = check_close(
+                    f"{key} vs single-card", got, one, mag,
+                    MESH_LOOSE if loose else REL_TOL)
+                del got, plain, one
+            rec["phase_times"] = op.phase_times(x, iters=5)
+            # the merge's least bytes: each sp partial read once and each
+            # column's sum written once, (rows, H / ds) f32 a shard
+            hd = -(-HIDDEN // shape[1])
+            merge_bytes = 4 * op.nrows_pad * hd * (shape[0] + 1) * shape[1]
+            rec["psum bytes"] = merge_bytes
+            if "peaks" in results:
+                rec["psum bound ms"] = merge_bytes / results["peaks"][0] * 1e3
+            print(f"mesh {key}: {json.dumps(rec)}", flush=True)
+            out[key] = rec
+            del op
+            free(dev)
+
+    mesh = grid(2, 2)
+    cfg = mesh_configs((2, 2))["hybrid float32"][0]
+    op = prepare_spmm_2d(graph, mesh, cfg)
+    single = singles["hybrid float32"]
+    xf = torch.as_tensor(ds.x).to(dev)
+    gcn = {}
+    for agg_dtype, kernels in ((None, ("K-f32", "K-tail")),
+                               ("int32", ("K-f32", "K-tail-quant"))):
+        gnn = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
+                       num_layers=2, agg_dtype=agg_dtype, device=dev)
+        reset_launch_counts()
+        with torch.inference_mode():
+            got = gnn(xf, PreparedAggregate(op))
+            sync()
+            n = launch_counts()
+            want = gnn(xf, PreparedAggregate(single))
+        for k_ in kernels:
+            if n[k_] <= 0:
+                raise AssertionError(f"2x2 GCN {agg_dtype}: {k_} was never "
+                                     "launched")
+        scale = max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or err > 1e-4 * scale:
+            raise AssertionError(f"2x2 GCN {agg_dtype or 'float'}: logits off "
+                                 f"by {err} (scale {scale})")
+        with torch.inference_mode():
+            gcn[agg_dtype or "float"] = {
+                "max_abs_err": err, "scale": scale,
+                "launches": {k_: v for k_, v in n.items() if v},
+                "ms": cuda_ms(lambda: gnn(xf, PreparedAggregate(op)),
+                              iters=5),
+                "single_ms": cuda_ms(
+                    lambda: gnn(xf, PreparedAggregate(single)), iters=5)}
+        print(f"mesh 2x2 GCN {agg_dtype or 'float'}: "
+              f"{json.dumps(gcn[agg_dtype or 'float'])}", flush=True)
+    out["gcn"] = gcn
+    results["mesh"] = out
+    return out
+
+
+def mesh_cards() -> int:
+    """``--mesh-cards``: the ``mesh`` phase over the visible cards (the
+    shapes of :data:`MESH_SHAPES` that fit them, at least (2, 2): four
+    cards), each shard's tables and partial on its own card and the
+    partials moved to ``cuda:0`` for the merge."""
+    import torch
+
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import _build
+    from pygim_tpu_torch.utils.device import peaks
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        print("chip_smoke --mesh-cards: needs four CUDA cards",
+              file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    _build.build()
+    results = {"peaks": peaks(torch.cuda.get_device_name(0))}
+    timed_phase("mesh over the cards", mesh_phase, load_dataset(DATASET),
+                results, "cuda:0", True)
+    print(json.dumps({"count": torch.cuda.device_count()}))
+    return 0
+
+
+def mesh_full(dataset="reddit", device="cuda") -> int:
+    """``--mesh-full``: reddit-sim's 2-layer GCN at H 256 (float and int32
+    aggregation) and a float32 SpMM with its phases on a (2, 2) virtual
+    mesh of ``ell`` on the card, beside the single-card ``ell``
+    operand's."""
+    import torch
+
+    from pygim_tpu_torch.bench.runners import (
+        run_inference_benchmark,
+        run_spmm_benchmark,
+    )
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import _build
+    from pygim_tpu_torch.ops.spmm import SpmmConfig
+    from pygim_tpu_torch.parallel import make_mesh
+    from pygim_tpu_torch.utils.device import card_line
+    from pygim_tpu_torch.utils.metrics import DataReporter
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 1
+        print(f"card: {card_line()}", flush=True)
+        _build.build()
+        dev = torch.device("cuda", 0)
+    ds = load_dataset(dataset)
+    cfg = SpmmConfig(backend="ell")
+    res = {}
+    for layout, mesh in (("mesh 2x2", make_mesh(2, 2, [dev] * 4)),
+                         ("single-chip", None)):
+        rep = DataReporter(echo=False)
+        run_spmm_benchmark(ds, hidden=HIDDEN, config=cfg, repeat=5,
+                           reporter=rep, phases=True, device=dev, mesh=mesh)
+        for agg in (None, "int32"):
+            run_inference_benchmark(ds, hidden=HIDDEN, agg_dtype=agg,
+                                    config=cfg, repeat=5, reporter=rep,
+                                    device=dev, mesh=mesh)
+        res[layout] = {k: v for k, v in rep.records.items()
+                       if k.endswith("(ms)") or k in ("verify", "layout")}
+        print(f"{dataset} {layout}: {json.dumps(res[layout])}", flush=True)
+        if rep.records["verify"][-1] != "OK":
+            raise AssertionError(f"{dataset} {layout}: SpMM check failed")
+        free(dev)
+    print(json.dumps(res))
+    if on_card:
+        print(card_line())
+    return 0
+
+
 def main() -> int:
     """Run every phase in a fresh prepare and dataset cache, removed at
     the end: no phase reads the user's cache."""
@@ -4037,12 +4657,18 @@ def main() -> int:
         return bcsr_full()
     if "--bcsr-sweep" in sys.argv[1:]:
         return bcsr_band_sweep()
+    if "--interleave-full" in sys.argv[1:]:
+        return interleave_full()
+    if "--mesh-full" in sys.argv[1:]:
+        return mesh_full()
     root = tempfile.mkdtemp(prefix="chip_smoke_cache_")
     os.environ["PYGIM_TPU_TORCH_DATA"] = root
     os.environ["PYGIM_TPU_TORCH_TUNE_CACHE"] = root
     try:
         if "--train-sweep" in sys.argv[1:]:
             return train_sweep()
+        if "--mesh-cards" in sys.argv[1:]:
+            return mesh_cards()
         return run()
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4298,6 +4924,12 @@ def run() -> int:
     # this slice's path: the tuner (its constants, tracked config 3, the
     # candidate audit, measure mode)
     timed_phase("tune", tune_phase, results, card)
+
+    # this slice's paths: the core↔tail interleave (each interleaved call
+    # counted and its streams read) and the 2D mesh on virtual meshes of
+    # the card (each operand's products counted)
+    timed_phase("interleave", interleave_phase, ds, results)
+    timed_phase("mesh", mesh_phase, ds, results)
 
     if "--profile" in sys.argv[1:]:
         from pygim_tpu_torch.bench.report import profile_forward

@@ -3,16 +3,19 @@
 twin of ``inference.py``: the same flags and defaults, the same
 ``[DATA]`` lines. AmazonProducts is cut to its partition 1 of ~500k-node
 parts, as the reference does. ``--version spmm|grande|spmv`` prepare the
-single-card ``ell`` operand (an ``sp_parts × ds_parts`` above one prints
-the reference's ``[WARN] ... running single-chip``); ``--version cpu``
+``ell`` operand over the reference's 2D mesh where it needs more than one
+device and no more than the visible cards (the quantized aggregate then
+takes the round trip around the mesh product), and on one card otherwise
+(an ``sp_parts × ds_parts`` above the visible cards prints the
+reference's ``[WARN] ... running single-chip``); ``--version cpu``
 aggregates through the oracle in float. ``--data_type bfloat16`` casts
 the aggregate's payload to bf16 and ``int64`` quantizes as int32 (the
 reference with x64 off), both through the unfused round trip, as the
 reference. ``--tune`` runs the autotuner as ``spmm_test_cuda.py``
 does (a device budget of ``sp_parts × ds_parts`` capped by the visible
 cards; ``[DATA]tuned_plan`` and ``[DATA]tuned_constants``). A budget
-above one card, and a mesh that fits more than one visible card, are not
-ported and raise ``NotImplementedError``. Runs on the card; ``main(argv,
+above one card is not ported (the tuner's mesh plans) and raises
+``NotImplementedError``. Runs on the card; ``main(argv,
 device="cpu")`` runs the plain versions on the CPU (the tests).
 
     python3 inference_cuda.py --dataset ogbn-arxiv

@@ -20,9 +20,14 @@ twin of ``pygim_tpu/bench/experiment.py``.
   recording ``tuned_backend``, ``tuned_balance`` and
   ``tuned_block_nnz_budget``. As in the reference, the pick replaces the
   whole config, ``sp_format`` included.
+* ``sp_parts · ds_parts > 1`` runs the spmm and inference kinds over a
+  2D mesh (``parallel/spmm_2d.py``): on the card over the visible cards
+  (one card raises ``ValueError``, as the reference on one chip), on
+  ``device="cpu"`` over ``sp · ds`` copies of the CPU device.
 * Not ported yet, each refused with ``NotImplementedError`` naming its
-  ROADMAP.md item (Queue 1): a mesh (``sp_parts · ds_parts > 1``) and
-  ``kind="scaling"`` (item 6), and ``part_method="metis"`` (item 6).
+  ROADMAP.md item (Queue 1): ``kind="scaling"`` and
+  ``part_method="metis"`` (item 6b), and training over a mesh (item
+  6c).
 """
 
 from __future__ import annotations
@@ -155,13 +160,13 @@ class Experiment:
 
     def refusal(self) -> Optional[str]:
         """Why the port cannot run this point yet, or None."""
-        if self.sp_parts * self.ds_parts > 1:
-            return (f"sp_parts={self.sp_parts} x ds_parts={self.ds_parts}: "
-                    "the mesh layouts are not ported yet (ROADMAP.md, Queue 1 "
-                    "item 6)")
+        if self.sp_parts * self.ds_parts > 1 and self.kind == "training":
+            return (f"sp_parts={self.sp_parts} x ds_parts={self.ds_parts} "
+                    "training: mesh training is not ported yet (ROADMAP.md, "
+                    "Queue 1 item 6c)")
         if self.kind == "scaling":
             return ("kind='scaling': the halo scaling benchmark is not ported "
-                    "yet (ROADMAP.md, Queue 1 item 6)")
+                    "yet (ROADMAP.md, Queue 1 item 6b)")
         return None
 
     def run(self, results_dir, data_root: Optional[str] = None,
@@ -193,8 +198,15 @@ class Experiment:
         rep = DataReporter(echo=False)
         prepared = []
 
+        mesh = None
+
         def prepare(graph, config):
-            prep = prepare_spmm(graph, config, device=dev)
+            if mesh is not None:
+                from pygim_tpu_torch.parallel import prepare_spmm_2d
+
+                prep = prepare_spmm_2d(graph, mesh, config)
+            else:
+                prep = prepare_spmm(graph, config, device=dev)
             prepared.append(prep)
             return prep
 
@@ -202,6 +214,12 @@ class Experiment:
             why = self.refusal()
             if why is not None:
                 raise NotImplementedError(why)
+            n_mesh = self.sp_parts * self.ds_parts
+            if n_mesh > 1:
+                from pygim_tpu_torch.parallel import make_mesh
+
+                mesh = make_mesh(self.sp_parts, self.ds_parts,
+                                 None if dev.type == "cuda" else [dev] * n_mesh)
             cfg = self.spmm_config()
             cfg.check_supported()
             if dev.type == "cuda":
@@ -251,7 +269,7 @@ class Experiment:
                 )
             else:
                 raise ValueError(f"unknown kind {self.kind!r}")
-            if prepared and cfg.backend == "hybrid":
+            if prepared and cfg.backend == "hybrid" and mesh is None:
                 _report_operand(prepared[0], self.hidden, rep)
             # ru_maxrss is in KiB on Linux
             rep.report("peak_host_rss_bytes", resource.getrusage(

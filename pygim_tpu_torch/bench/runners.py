@@ -46,10 +46,17 @@ def spmm_model_bytes(nnz: int, nrows: int, hidden: int, dtype_bytes: int = 4):
         + nrows * hidden * dtype_bytes
 
 
-def _prepare(graph, config, prepare_fn, device, rep):
+def _prepare(graph, config, prepare_fn, device, rep, mesh=None):
+    """The operand: ``prepare_fn(graph, config)`` where given, else over
+    ``mesh`` (``parallel/spmm_2d.py``) where given, else on ``device``;
+    its prepare time, host phases and ``layout``."""
     t0 = time.perf_counter()
     if prepare_fn is not None:
         prep = prepare_fn(graph, config)
+    elif mesh is not None:
+        from pygim_tpu_torch.parallel import prepare_spmm_2d
+
+        prep = prepare_spmm_2d(graph, mesh, config or default_config())
     else:
         prep = prepare_spmm(graph, config or default_config(), device=device)
     rep.report("prepare_pim_time(ms)", (time.perf_counter() - t0) * 1e3)
@@ -57,7 +64,9 @@ def _prepare(graph, config, prepare_fn, device, rep):
         getattr(prep, "prepare_timer", None), "acc", {}
     ).items():
         rep.report(f"prepare_{ph}_time(ms)", sec * 1e3)
-    rep.report("layout", "single-chip")
+    from pygim_tpu_torch.compat import describe_layout
+
+    rep.report("layout", describe_layout(prep))
     return prep
 
 
@@ -96,6 +105,7 @@ def run_spmm_benchmark(
     prepare_fn=None,
     phases: bool = False,
     device="cuda",
+    mesh=None,
 ) -> dict:
     """SpMM micro-benchmark: times the prepared product, checks it on
     sampled rows against a float64 CSR product and, where the one-shot
@@ -105,7 +115,9 @@ def run_spmm_benchmark(
     [-10, 10] and the graph's values cast to the dtype, as the
     reference).
     ``prepare_fn(graph, config) -> prep`` overrides the default prepare;
-    ``phases`` adds :meth:`PreparedSpmm.phase_times`."""
+    ``mesh`` (``parallel/mesh.py:make_mesh``) prepares over a 2D mesh,
+    whose product comes back on the mesh's first device; ``phases`` adds
+    the operand's ``phase_times``."""
     if dtype not in _PAYLOAD_DTYPES:
         raise ValueError(
             f"dtype {dtype!r}: the payloads are {_PAYLOAD_DTYPES}")
@@ -120,7 +132,7 @@ def run_spmm_benchmark(
         x_np = rng.standard_normal((graph.ncols, hidden))
     x = torch.as_tensor(x_np, dtype=getattr(torch, dtype)).to(device)
     graph = _cast_graph(graph, dtype)
-    prep = _prepare(graph, config, prepare_fn, device, rep)
+    prep = _prepare(graph, config, prepare_fn, device, rep, mesh)
     # the sparse operand moved to the device inside prepare; runs never
     # re-copy it
     rep.report("load_sparse_time(ms)", 0.0)
@@ -202,6 +214,7 @@ def run_inference_benchmark(
     prepare_fn=None,
     validate: bool = False,
     device="cuda",
+    mesh=None,
 ) -> dict:
     """End-to-end GNN inference: ``infer_time(ms)`` of the model forward
     and the test accuracy of the (untrained) model. ``agg_dtype`` defaults
@@ -211,13 +224,16 @@ def run_inference_benchmark(
     (:func:`default_config`). ``validate`` adds the per-layer sampled
     check of every aggregate (``bench/validate.py``), which reports
     ``agg{i}_max_rel_err`` and ``validate`` and raises ``AssertionError``
-    when a row fails."""
+    when a row fails. ``mesh`` prepares over a 2D mesh (the model and x
+    on ``device``, the mesh's first device); its aggregate does not fuse
+    the quantization, so an integer ``agg_dtype`` takes the quantize
+    round trip around the mesh product."""
     rep = reporter or DataReporter()
     rep.report("data_source", "synthetic" if ds.synthetic else "real")
     rep.report("device", device_name(device))
     graph = ds.graph
     x = torch.as_tensor(ds.x, dtype=torch.float32).to(device)
-    prep = _prepare(graph, config, prepare_fn, device, rep)
+    prep = _prepare(graph, config, prepare_fn, device, rep, mesh)
     gnn = make_gnn(seed, model, ds.x.shape[1], hidden, ds.num_classes,
                    num_layers=num_layers, agg_dtype=agg_dtype, device=device)
     agg = PreparedAggregate(prep)
@@ -273,6 +289,7 @@ def run_training_benchmark(
     acc_tol: float = 0.01,
     oracle_chunk: Optional[int] = None,
     device="cuda",
+    mesh=None,
 ) -> dict:
     """Trained-accuracy parity (``pygim_tpu/bench/runners.py:262-391``):
     train the same initialisation with the same dropout seeds (``seed ·
@@ -291,7 +308,9 @@ def run_training_benchmark(
     ``layer{i}_max_err`` and ``validate``, and the device bytes of the
     operand and, on a kernel backend, of its prepared transpose
     (``operand_bytes``, ``transpose_bytes``), which is prepared before the
-    epochs are timed (``prepare_transpose_time(ms)``). Each of the
+    epochs are timed (``prepare_transpose_time(ms)``). A ``mesh``
+    raises ``NotImplementedError``: mesh training is not ported
+    (ROADMAP.md, Queue 1 item 6c). Each of the
     backend's steps is split into its phases
     (:class:`~pygim_tpu_torch.nn.train.StepSplit`), reported as
     ``forward_ms``, ``backward_ms`` and ``adam_ms`` (medians, the first
@@ -302,6 +321,10 @@ def run_training_benchmark(
     from pygim_tpu_torch.nn.models import gnn_apply
     from pygim_tpu_torch.nn.train import StepSplit, make_train_step
 
+    if mesh is not None:
+        raise NotImplementedError(
+            "training over a mesh: mesh training is not ported (ROADMAP.md, "
+            "Queue 1 item 6c)")
     rep = reporter or DataReporter()
     rep.report("data_source", "synthetic" if ds.synthetic else "real")
     rep.report("device", device_name(device))

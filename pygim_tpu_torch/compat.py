@@ -1,17 +1,19 @@
-"""Reference-compatible entry surface on one card: the reference's
-adapters (``prepare_pim_spmm``, ``prepare_pim_spmm_grande``,
-``prepare_pim_spmv``, the ``dpu_*`` shims, ``describe_layout``), the
-``--data_type`` tokens and the ``--version`` routing of the CLIs.
+"""Reference-compatible entry surface: the reference's adapters
+(``prepare_pim_spmm``, ``prepare_pim_spmm_grande``, ``prepare_pim_spmv``,
+the ``dpu_*`` shims, ``describe_layout``), the ``--data_type`` tokens and
+the ``--version`` routing of the CLIs.
 
 Counterpart of ``pygim_tpu/compat.py``. Each adapter prepares its
 reference default config (``spmm``: ``backend`` in ``sp_format``;
-``grande``: ell in csr; ``spmv``: ell in coo) on one card, as the
-reference does whenever its device mesh would not fit the visible
-devices; a mesh that would fit on more than one visible card raises,
-since the mesh layouts are not ported (ROADMAP.md, Queue 1 item 6).
-``--version cpu`` prepares the oracle; an ``sp_parts × ds_parts`` above
-the visible cards prints the reference's ``[WARN] ... running
-single-chip`` line.
+``grande``: ell in csr; ``spmv``: ell in coo) over the reference's mesh
+(``spmm``: ``sp_parts × ds_parts``; ``grande``: ``(1, sp_parts)``;
+``spmv``: ``ds`` as close to ``hidden_size`` as the devices allow) where
+``1 < sp · ds <=`` the visible devices — the 2D mesh of
+``parallel/spmm_2d.py``, over the visible cards (on the CPU, over as many
+copies of the CPU device as :func:`visible_devices` counts) — and on
+one device otherwise, as the reference. ``--version cpu`` prepares the
+oracle; an ``sp_parts × ds_parts`` above the visible devices prints the
+reference's ``[WARN] ... running single-chip`` line.
 """
 
 from __future__ import annotations
@@ -26,9 +28,6 @@ _DTYPE_ALIASES = {"flt32": "float32", "dbl64": "float64"}
 _KNOWN_DTYPES = (
     "int8", "int16", "int32", "int64", "float32", "float64", "bfloat16"
 )
-
-# (format, backend) of each version's default config
-_VERSION_DEFAULTS = {"grande": ("csr", "ell"), "spmv": ("coo", "ell")}
 
 
 def normalize_data_type(s: str) -> str:
@@ -62,13 +61,19 @@ def mesh_size(version: str, sp_parts: int, ds_parts: int, hidden_size: int,
     return sp_parts * ds_parts
 
 
-def _prepare(graph, n: int, config: SpmmConfig, device):
-    """``config`` prepared on ``device`` where no mesh of ``n`` devices
-    fits the visible ones; raises where one would."""
-    if 1 < n <= visible_devices(device):
-        raise NotImplementedError(
-            f"a mesh over {n} devices: the mesh layouts are not ported "
-            "(ROADMAP.md, Queue 1 item 6; one card runs single-chip)")
+def _prepare(graph, sp_parts: int, ds_parts: int, config: SpmmConfig,
+             device):
+    """``config`` prepared over an ``(sp_parts, ds_parts)`` mesh where
+    ``1 < sp_parts · ds_parts <=`` the visible devices of ``device``
+    (``pygim_tpu/compat.py:42-57``), else on ``device``."""
+    n_vis = visible_devices(device)
+    if 1 < sp_parts * ds_parts <= n_vis:
+        from pygim_tpu_torch.parallel import make_mesh, prepare_spmm_2d
+
+        dev = torch.device(device)
+        mesh = make_mesh(sp_parts, ds_parts,
+                         None if dev.type == "cuda" else [dev] * n_vis)
+        return prepare_spmm_2d(graph, mesh, config)
     return prepare_spmm(graph, config, device=device)
 
 
@@ -78,41 +83,40 @@ def prepare_pim_spmm(
     config: Optional[SpmmConfig] = None, *, device="cuda",
 ):
     """The reference's ``prepare_pim_spmm``: ``config``, or ``backend`` in
-    ``sp_format`` at ``hidden_size``, on an ``sp_parts × ds_parts`` grid,
-    which on one card is ``prepare_spmm``."""
+    ``sp_format`` at ``hidden_size``, on an ``sp_parts × ds_parts`` grid
+    (:func:`_prepare`)."""
     cfg = config or SpmmConfig(
         format=sp_format, backend=backend, hidden_hint=hidden_size
     )
-    return _prepare(adj, sp_parts * ds_parts, cfg, device)
+    return _prepare(adj, sp_parts, ds_parts, cfg, device)
 
 
 def prepare_pim_spmm_grande(
     adj, hidden_size: int = 256, sp_parts: int = 2,
     config: Optional[SpmmConfig] = None, *, device="cuda",
 ):
-    """The reference's ``prepare_pim_spmm_grande``: the sparse operand
-    replicated and the features sharded over ``sp_parts`` devices (a (1,
-    sp_parts) mesh), which on one card is ``prepare_spmm`` of the ell
-    backend in csr."""
+    """The reference's ``prepare_pim_spmm_grande``: the ell backend in
+    csr, the sparse operand replicated and the features sharded over
+    ``sp_parts`` devices, a ``(1, sp_parts)`` mesh (:func:`_prepare`)."""
     cfg = config or SpmmConfig(
         format="csr", backend="ell", hidden_hint=hidden_size
     )
-    return _prepare(adj, sp_parts, cfg, device)
+    return _prepare(adj, 1, sp_parts, cfg, device)
 
 
 def prepare_pim_spmv(
     adj, hidden_size: int, sp_parts: int = 1,
     config: Optional[SpmmConfig] = None, *, device="cuda",
 ):
-    """The reference's ``prepare_pim_spmv``: a column a device, ``ds`` as
-    close to ``hidden_size`` as the visible devices allow, which on one
-    card is ``prepare_spmm`` of the ell backend in coo."""
+    """The reference's ``prepare_pim_spmv``: the ell backend in coo, a
+    feature column a device, ``ds`` as close to ``hidden_size`` as the
+    visible devices allow (:func:`_prepare`)."""
     cfg = config or SpmmConfig(
         format="coo", backend="ell", hidden_hint=hidden_size
     )
     ds = min(hidden_size,
              max(1, visible_devices(device) // max(1, sp_parts)))
-    return _prepare(adj, sp_parts * ds, cfg, device)
+    return _prepare(adj, sp_parts, ds, cfg, device)
 
 
 def prepare_for_version(
@@ -140,11 +144,15 @@ def prepare_for_version(
     n = sp_parts * ds_parts
     if n > 1 and n > n_dev:
         warn(f"[WARN] sp×ds={n} exceeds {n_dev} devices; running single-chip")
-    if config is None:
-        fmt, be = _VERSION_DEFAULTS.get(version, (sp_format, backend))
-        config = SpmmConfig(format=fmt, backend=be, hidden_hint=hidden_size)
-    return _prepare(adj, mesh_size(version, sp_parts, ds_parts, hidden_size,
-                                   n_dev), config, device)
+    if version == "grande":
+        return prepare_pim_spmm_grande(adj, hidden_size, sp_parts=n,
+                                       config=config, device=device)
+    if version == "spmv":
+        return prepare_pim_spmv(adj, hidden_size, sp_parts=sp_parts,
+                                config=config, device=device)
+    return prepare_pim_spmm(adj, hidden_size, sp_parts=sp_parts,
+                            ds_parts=ds_parts, sp_format=sp_format,
+                            backend=backend, config=config, device=device)
 
 
 def dpu_init_ranks(nr_ranks: int = 1, groups_per_rank: int = 1, *,
@@ -168,8 +176,12 @@ def dpu_release() -> None:
 
 def describe_layout(prep) -> str:
     """The distribution of a prepared operand, in the reference's words:
-    every operand of the port is on one card."""
-    return "single-chip"
+    ``mesh sp=… ds=…`` for a 2D mesh operand, else ``single-chip``."""
+    mesh = getattr(prep, "mesh", None)
+    if mesh is None:
+        return "single-chip"
+    shape = dict(mesh.shape)
+    return f"mesh sp={shape.get('sp', 1)} ds={shape.get('ds', 1)}"
 
 
 __all__ = [

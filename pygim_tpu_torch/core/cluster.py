@@ -13,7 +13,7 @@
 An order maps new position → original node id; :func:`relabel` applies
 it to a graph. The multilevel k-way partitioner (``partition_kway``,
 ``partition_order``, ``edge_cut_fraction``), which needs the native
-``partition_ml.cpp``, is not ported yet (ROADMAP.md, Queue 1 item 6).
+``partition_ml.cpp``, is not ported yet (ROADMAP.md, Queue 1 item 6b).
 """
 
 from __future__ import annotations

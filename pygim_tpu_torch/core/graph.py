@@ -112,6 +112,20 @@ class CooGraph:
     def to_csr(self) -> "CsrGraph":
         return coo_to_csr(self)
 
+    def col_split(self, nparts: int) -> "list[CooGraph]":
+        """``nparts`` contiguous column ranges (:func:`column_split_bounds`,
+        the last part takes the remainder), each part's columns rebased to
+        its range: the ``sp_parts`` split of the 2D mesh."""
+        if nparts <= 0:
+            raise ValueError("nparts must be positive")
+        parts = []
+        for lo, hi in column_split_bounds(self.ncols, nparts):
+            mask = (self.cols >= lo) & (self.cols < hi)
+            parts.append(CooGraph(
+                rows=self.rows[mask], cols=self.cols[mask] - lo,
+                vals=self.vals[mask], nrows=self.nrows, ncols=hi - lo))
+        return parts
+
 
 @dataclasses.dataclass(frozen=True)
 class CsrGraph:
@@ -142,6 +156,33 @@ class CsrGraph:
             rows=rows, cols=self.colind.copy(), vals=self.vals.copy(),
             nrows=self.nrows, ncols=self.ncols,
         )
+
+    def col_split(self, nparts: int) -> "list[CsrGraph]":
+        """:meth:`CooGraph.col_split` in CSR, each row's entries in their
+        order."""
+        rows = np.repeat(np.arange(self.nrows, dtype=np.int64),
+                         self.row_lengths)
+        parts = []
+        for lo, hi in column_split_bounds(self.ncols, nparts):
+            mask = (self.colind >= lo) & (self.colind < hi)
+            counts = np.bincount(rows[mask], minlength=self.nrows)
+            rowptr = np.zeros(self.nrows + 1, dtype=INDEX_DTYPE)
+            np.cumsum(counts, out=rowptr[1:])
+            parts.append(CsrGraph(
+                rowptr=rowptr,
+                colind=(self.colind[mask] - lo).astype(INDEX_DTYPE),
+                vals=self.vals[mask], ncols=hi - lo))
+        return parts
+
+
+def column_split_bounds(ncols: int, nparts: int) -> "list[tuple[int, int]]":
+    """``nparts`` equal column ranges ``(lo, hi)``, the remainder in the
+    last; raises where a part would be empty."""
+    w = ncols // nparts
+    if w == 0:
+        raise ValueError(f"cannot split {ncols} columns into {nparts} parts")
+    return [(i * w, (i + 1) * w if i < nparts - 1 else ncols)
+            for i in range(nparts)]
 
 
 def coo_to_csr(coo: CooGraph) -> CsrGraph:

@@ -6,8 +6,9 @@ into up to three tables of different fixed degree D; every row lands in
 exactly one table, and rows longer than D are split into several virtual
 rows that the run path adds back into the same output row), the
 row-block planner of the ``blocked`` backend, the exact-nnz chunks of
-the ``coo`` backend, and the cell rules of the integer cores (range
-check, nibble packing).
+the ``coo`` backend, the cell rules of the integer cores (range
+check, nibble packing), and the 2D mesh's splits (columns over ``sp``,
+features over ``ds``, :func:`strip_csr`).
 """
 
 from __future__ import annotations
@@ -18,7 +19,12 @@ from typing import Optional
 
 import numpy as np
 
-from pygim_tpu_torch.core.graph import INDEX_DTYPE, CooGraph, CsrGraph
+from pygim_tpu_torch.core.graph import (
+    INDEX_DTYPE,
+    CooGraph,
+    CsrGraph,
+    column_split_bounds,
+)
 
 
 def round_up(x: int, m: int) -> int:
@@ -203,10 +209,13 @@ def build_ell_rows_multi(
     degrees: "tuple[int, ...]",
     hidden: Optional[int] = None,
     row_chunk_for=None,
+    keep_empty: bool = False,
 ) -> "list[EllRows]":
     """Multi-degree ELL tables: each row's edges land in exactly one
     table (:func:`assign_ell_tables`), so the tables' adds into the
-    output touch disjoint rows. A degree nobody picked is dropped.
+    output touch disjoint rows. A degree nobody picked is dropped, unless
+    ``keep_empty``, which builds every degree's table (possibly of no
+    virtual row), so that the shards of a mesh hold tables alike.
     ``row_chunk_for(D)`` supplies each table's step size (default 1)."""
     lens = csr.row_lengths
     pick = assign_ell_tables(lens, degrees, hidden)
@@ -215,7 +224,7 @@ def build_ell_rows_multi(
     out: "list[EllRows]" = []
     for gi, D in enumerate(degrees):
         rmask = pick == gi
-        if not rmask.any():
+        if not rmask.any() and not keep_empty:
             continue
         sub_lens = np.where(rmask, deg64, 0)
         rowptr = np.zeros(csr.nrows + 1, dtype=np.int64)
@@ -418,3 +427,29 @@ def pack_nibbles(slab: np.ndarray) -> np.ndarray:
     lo = slab[:, 0::2].astype(np.int8).astype(np.uint8) & 0xF
     hi = slab[:, 1::2].astype(np.int8).astype(np.uint8) & 0xF
     return lo | (hi << 4)
+
+
+def split_columns(graph, sp_parts: int):
+    """The sparse-dimension split (``sp_parts``): A by columns
+    (:meth:`CsrGraph.col_split`); the parts' products are summed."""
+    return graph.col_split(sp_parts)
+
+
+def split_features(hidden: int, ds_parts: int) -> "list[tuple[int, int]]":
+    """The feature split (``ds_parts``): equal widths, the remainder in the
+    last part."""
+    return column_split_bounds(hidden, ds_parts)
+
+
+def strip_csr(p: CsrGraph, keep: np.ndarray, rows_of=None) -> CsrGraph:
+    """``p`` keeping only the entries ``keep`` selects (a mask in storage
+    order): the core's and the tile tier's edges leave a shard's tail
+    this way. ``rows_of``: each entry's row, where the caller has it."""
+    if rows_of is None:
+        rows_of = np.repeat(np.arange(p.nrows, dtype=np.int64),
+                            np.diff(p.rowptr))
+    counts = np.bincount(rows_of[keep], minlength=p.nrows)
+    rowptr = np.zeros(p.nrows + 1, dtype=np.int32)
+    np.cumsum(counts, out=rowptr[1:])
+    return CsrGraph(rowptr=rowptr, colind=p.colind[keep], vals=p.vals[keep],
+                    ncols=p.ncols)

@@ -405,13 +405,13 @@ def cluster_partition(ds: GraphDataset, part_size: int, part_idx: int = 1,
     ``"lp"``, ranges of a locality order (``core/cluster.py``), so each
     part is a low-cut cluster on a graph whose ids carry no locality; its
     nodes keep their original relative order. ``"metis"`` needs the
-    multilevel partitioner, not ported yet (ROADMAP.md, Queue 1 item 6),
+    multilevel partitioner, not ported yet (ROADMAP.md, Queue 1 item 6b),
     and raises ``NotImplementedError``."""
     if method == "metis":
         raise NotImplementedError(
             "cluster_partition(method='metis') needs the multilevel k-way "
             "partitioner (partition_kway, native partition_ml.cpp), not "
-            "ported yet (ROADMAP.md, Queue 1 item 6)")
+            "ported yet (ROADMAP.md, Queue 1 item 6b)")
     n = ds.num_nodes
     nparts = max(1, -(-n // part_size))
     part_idx = min(part_idx, nparts - 1)

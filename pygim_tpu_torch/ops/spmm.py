@@ -75,8 +75,19 @@ is the fused quantize → aggregate → dequantize of the reference's
 ``raw_mul_quantized``. The host tables are the reference's bit for bit.
 Payloads are float32, bfloat16 (K-tail's bf16-row mode) and int8,
 int16, int32 or int64 (taken as int32, as the reference with x64 off).
-The tuner that picks a config per graph is ``tune/autotuner.py``; the
-core↔tail interleave and the mesh layouts are later slices.
+The tuner that picks a config per graph is ``tune/autotuner.py``.
+
+With ``PYGIM_HYBRID_INTERLEAVE=1`` at prepare, a square core that the
+reference would interleave with its tail (:func:`interleave_plan`, kept
+as ``PreparedSpmm.interleave``) runs beside the tail on the card: the
+core's product goes on a second CUDA stream into a compact ``(k, H)``
+f32 buffer while K-tail writes ``out`` on the caller's stream, and after
+the join the buffer is added at ``core_nodes`` — the reference's order,
+tail first, then ``out.at[core_nodes].add``
+(:meth:`PreparedSpmm._interleaved`). The int32 quantized path (a
+``safe`` divisor, no table) stays serial, as the reference's. The 2D
+``sp × ds`` mesh is ``parallel/spmm_2d.py``; its shards are operands of
+this class built from host tables (:meth:`PreparedSpmm.from_host`).
 """
 
 from __future__ import annotations
@@ -84,6 +95,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import logging
+import os
 from typing import Optional
 
 import numpy as np
@@ -226,6 +238,33 @@ class SpmmConfig:
                 f"{CORE_DTYPES}, or None for the graph's own dtype")
 
 
+# read at prepare: "1" plans the core↔tail interleave, as the reference's
+# gate (pygim_tpu/ops/spmm.py:994)
+INTERLEAVE_ENV = "PYGIM_HYBRID_INTERLEAVE"
+
+
+def interleave_plan(steps, k: int):
+    """The reference's core↔tail interleave plan (``_install_core``,
+    ``pygim_tpu/ops/spmm.py:965-1026``) for ELL tables of ``steps`` scan
+    steps each and a square core of ``k`` rows: one row slab of ``k //
+    Σ steps`` rows a step, the deficit given to the table with the most
+    steps; ``(slabs, steps, k)``, or None where a slab would hold fewer
+    than 8 rows (or there is no step). On the card the plan records that
+    the interleave engages; the core stays 2-D there and runs on its own
+    stream (module docstring)."""
+    steps = [int(n) for n in steps]
+    total = sum(steps)
+    slab = k // max(1, total)
+    if total == 0 or slab < 8:
+        return None
+    slabs = [slab] * len(steps)
+    deficit = k - slab * total
+    if deficit:
+        j = int(np.argmax(steps))
+        slabs[j] += -(-deficit // steps[j])
+    return (slabs, steps, int(k))
+
+
 def ell_step_tables(cols2d, vals2d, vrow_to_row, chunk):
     """Repack (nvr_pad, D) ELL tables into the step layout the run path
     reads: ``(n_steps, chunk·D)`` slots and ``(n_steps, chunk)`` rows."""
@@ -273,6 +312,55 @@ def _plan_ell_tables(csr, config) -> "list[tuple[int, object]]":
         row_chunk_for=lambda D: _ell_chunk(config, D),
     )
     return [(_ell_chunk(config, t.degree), t) for t in tables]
+
+
+def plan_shared_ell_tables(parts, config, vfill: int):
+    """Multi-degree ELL tables of one shape on every shard of a mesh
+    (``pygim_tpu/ops/spmm.py:277-330``): the degrees from the combined
+    row-length histogram of ``parts`` (CSR), every part building every
+    table (``keep_empty``), each table's virtual rows padded to the most
+    over the parts (a multiple of its chunk) with val 0 and vrow
+    ``vfill``. Returns ``(stacked, meta)``: ``stacked["cols2d{sfx}"]``,
+    ``vals2d{sfx}``, ``vrow_to_row{sfx}`` numpy arrays in step layout with
+    a leading part dimension, and ``meta`` ``[(chunk, degree)]``."""
+    all_len = np.concatenate([p.row_lengths for p in parts])
+    degrees = choose_degrees_for_config(all_len, config)
+    per_part = [
+        build_ell_rows_multi(
+            p, degrees, hidden=config.hidden_hint,
+            row_chunk_for=lambda D: _ell_chunk(config, D), keep_empty=True)
+        for p in parts
+    ]
+    stacked, meta = {}, []
+    for i, D in enumerate(degrees):
+        chunk = _ell_chunk(config, D)
+        nvr = round_up(max(tabs[i].cols.shape[0] for tabs in per_part), chunk)
+
+        def pad(a, fill=0):
+            out = np.full((nvr,) + a.shape[1:], fill, dtype=a.dtype)
+            out[: a.shape[0]] = a
+            return out
+
+        steps = [ell_step_tables(pad(tabs[i].cols), pad(tabs[i].vals),
+                                 pad(tabs[i].vrow_to_row, vfill), chunk)
+                 for tabs in per_part]
+        sfx = _ell_suffix(i)
+        stacked[f"cols2d{sfx}"] = np.stack([t[0] for t in steps])
+        stacked[f"vals2d{sfx}"] = np.stack([t[1] for t in steps])
+        stacked[f"vrow_to_row{sfx}"] = np.stack([t[2] for t in steps])
+        meta.append((chunk, D))
+    return stacked, meta
+
+
+def shared_ell_keys(meta, prefix: str = "") -> "list[str]":
+    """The table keys of ``meta`` in order: ``cols2d``, ``vals2d``,
+    ``vrow_to_row`` of each table."""
+    keys = []
+    for i in range(len(meta)):
+        sfx = _ell_suffix(i)
+        keys += [f"{prefix}cols2d{sfx}", f"{prefix}vals2d{sfx}",
+                 f"{prefix}vrow_to_row{sfx}"]
+    return keys
 
 
 def _ell_host(host: dict, tables) -> None:
@@ -608,8 +696,7 @@ class PreparedSpmm:
 
     def __init__(self, graph, config: SpmmConfig, device="cuda"):
         config.check_supported()
-        self.config = config
-        self.device = torch.device(device)
+        self._init_state(config, device)
         backend = config.backend
         # the graph as given, to check the one transpose() is handed
         self._source_shape = (graph.nrows, graph.ncols, graph.nnz)
@@ -620,20 +707,9 @@ class PreparedSpmm:
             pt.start("merge")
             graph, _ = merge_duplicate_edges(graph)
             pt.stop("merge")
-        self._transpose = None
         coo = graph if isinstance(graph, CooGraph) else None
         csr = graph if isinstance(graph, CsrGraph) else None
         self.nrows, self.ncols, self.nnz = graph.nrows, graph.ncols, graph.nnz
-        self._dev = {}
-        self.ell_meta = []
-        self.stair = None     # the core's stored bands [(lo, hi, w)] (a square: one)
-        self._band_keys = []  # their tables in dev_arrays
-        self._tail_plan = None
-        self._core_plans = {}  # H -> K-core plans of the bands
-        self._int_plans = {}   # (H, limbs) -> K-int plans of the same
-        self._f32_plans = {}   # H -> K-f32 plans of the same
-        self._bcsr_plans = {}  # H -> K-bcsr's work plan of the BCSR tier
-        self.has_bcsr = False
         if backend == "oracle":
             s = (coo if coo is not None else csr.to_coo()).sort_by_row()
             self._dev = {"rows": self._put(s.rows), "cols": self._put(s.cols),
@@ -687,6 +763,44 @@ class PreparedSpmm:
             pt.start("upload")
             self._install_hybrid(host)
             pt.stop("upload")
+
+    def _init_state(self, config, device) -> None:
+        self.config = config
+        self.device = torch.device(device)
+        self._transpose = None
+        self._dev = {}
+        self.ell_meta = []
+        self.stair = None     # the core's stored bands [(lo, hi, w)] (a square: one)
+        self._band_keys = []  # their tables in dev_arrays
+        self._tail_plan = None
+        self._core_plans = {}  # H -> K-core plans of the bands
+        self._int_plans = {}   # (H, limbs) -> K-int plans of the same
+        self._f32_plans = {}   # H -> K-f32 plans of the same
+        self._bcsr_plans = {}  # H -> K-bcsr's work plan of the BCSR tier
+        self.has_bcsr = False
+        self.interleave = None  # interleave_plan's tuple where it engages
+        self._side = {}         # device -> the interleave's second stream
+
+    @classmethod
+    def from_host(cls, host: dict, config: SpmmConfig, nrows: int,
+                  ncols: int, device="cuda", nnz: int = 0) -> "PreparedSpmm":
+        """An ``nrows × ncols`` operand of ``config.backend`` ("hybrid" or
+        "ell") from host tables in the layout of the hybrid's build (the
+        ELL tail under ``n_ell`` and the table keys, ``k``,
+        ``core_dtype``, a square ``core`` of any width with
+        ``core_nodes``, and the BCSR tier's ``bcsr_*`` keys), on
+        ``device``, with nothing planned from a graph: a shard of
+        ``parallel/spmm_2d.py``. A ``core_rows`` key gathers the core's
+        payload rows ``x[core_rows]`` where the product scatters to
+        ``core_nodes`` (:meth:`_xc`). It never interleaves and has no
+        transpose."""
+        config.check_supported()
+        self = cls.__new__(cls)
+        self._init_state(config, device)
+        self._source_shape = None
+        self.nrows, self.ncols, self.nnz = nrows, ncols, nnz
+        self._install_hybrid(host, interleave=False)
+        return self
 
     def _put(self, arr, vals: bool = False) -> torch.Tensor:
         """``arr`` (numpy) on the operand's device; edge values (``vals``)
@@ -744,7 +858,7 @@ class PreparedSpmm:
             self._tail_plan = tail_plan(self.ell_tables(self._dev),
                                         host=tail_host)
 
-    def _install_hybrid(self, host: dict) -> None:
+    def _install_hybrid(self, host: dict, interleave: bool = True) -> None:
         """The host tables to the device: the ELL tail, and the core's
         bands ``self.stair`` under ``self._band_keys`` — the stair's
         ``stair{b}``, or the square ``core`` as the one band ``(0, k, k)``.
@@ -755,20 +869,28 @@ class PreparedSpmm:
         zero cells appended to each row here, on the host, and ``xc`` is
         zero-padded to match (:meth:`_xc`). The logical widths stay in the
         host tables (``stair_bands``, ``k``). bf16 cells go up as
-        ``torch.bfloat16``, their stored uint16 bits viewed as such."""
+        ``torch.bfloat16``, their stored uint16 bits viewed as such.
+        ``core_rows`` (a mesh shard's gather rows) is padded with row 0
+        to the stored width, as its zero cells. With ``interleave`` a
+        square core plans the core↔tail interleave where
+        :data:`INTERLEAVE_ENV` is "1" (:func:`interleave_plan`)."""
         self.hybrid_k_eff = int(host["k"])
         self.core_dtype = str(host["core_dtype"])
         self._install_ell(host)
         self._install_bcsr(host)
+        packed = self.core_dtype == "int4"
         if "stair_bands" in host:
             bands = [tuple(int(v) for v in b) for b in host["stair_bands"]]
             self._band_keys = [f"stair{b}" for b in range(len(bands))]
-        elif "core" in host:
+        elif "core" in host and self.hybrid_k_eff > 0:
             k = self.hybrid_k_eff
-            bands, self._band_keys = [(0, k, k)], ["core"]
+            w = host["core"].shape[1] * (1 + packed)
+            bands, self._band_keys = [(0, k, w)], ["core"]
+            if interleave and os.environ.get(INTERLEAVE_ENV, "0") == "1":
+                self.interleave = interleave_plan(
+                    [c.shape[0] for c, *_ in self.ell_tables(self._dev)], k)
         else:
             return
-        packed = self.core_dtype == "int4"
         q = WIDTH_RULE[self.core_dtype]
         self.stair = []
         for key, (lo, hi, w) in zip(self._band_keys, bands):
@@ -782,6 +904,10 @@ class PreparedSpmm:
             else:
                 self._dev[key] = self._put(band)
         self._dev["core_nodes"] = self._put(host["core_nodes"])
+        if "core_rows" in host:
+            rows = np.asarray(host["core_rows"], np.int32)
+            self._dev["core_rows"] = self._put(
+                np.pad(rows, (0, self.stair[0][2] - rows.shape[0])))
 
     def _install_bcsr(self, host: dict) -> None:
         """The BCSR tier of ``host``, where it has one, to the device under
@@ -1032,30 +1158,69 @@ class PreparedSpmm:
         kernels = self._kernels(dev, plain)
         out = torch.zeros((self.nrows, x.shape[1]), dtype=torch.float32,
                           device=x.device)
-        if safe is None:
-            kernels[0](x, self.ell_tables(dev), out)
+        if self.interleave is not None and safe is None and not plain:
+            self._interleaved(x, dev, out, kernels, limbs)
         else:
-            kernels[0](x, self.ell_tables(dev), out, safe=safe)
-        if self.stair:
-            self._core_add(x, dev, out, kernels, safe, limbs)
+            if safe is None:
+                kernels[0](x, self.ell_tables(dev), out)
+            else:
+                kernels[0](x, self.ell_tables(dev), out, safe=safe)
+            if self.stair:
+                self._core_add(x, dev, out, kernels, safe, limbs)
         if self.has_bcsr:
             kernels[4](x, *self.bcsr_tables(dev), out, safe=safe)
         return out
 
-    def _xc(self, x, cn):
+    def _interleaved(self, x, dev, out, kernels, limbs=None):
+        """The tail and the core of :meth:`_run` under the interleave: the
+        core's product (:meth:`_core_add`) into a zeroed compact ``(k,
+        H)`` f32 buffer at rows ``arange(k)``, on the operand's second
+        stream on the card, while the tail runs into ``out`` on the
+        caller's stream; after the join the buffer is added at
+        ``core_nodes[:k]``. The sums are those of the serial order (tail,
+        then ``out[r] += core[r]``): the buffer holds ``0 + core[r]``
+        exactly. On the CPU the same steps run one after the other."""
+        k = self.hybrid_k_eff
+        cn = dev["core_nodes"]
+        key = out.device
+        rows = torch.arange(k, dtype=torch.int32, device=key)
+        buf = torch.zeros((k, out.shape[1]), dtype=torch.float32,
+                          device=key)
+        if not out.is_cuda:
+            kernels[0](x, self.ell_tables(dev), out)
+            self._core_add(x, dev, buf, kernels, limbs=limbs, rows=rows)
+            return out.index_add_(0, cn[:k], buf)
+        if key not in self._side:
+            self._side[key] = torch.cuda.Stream(device=key)
+        main, side = torch.cuda.current_stream(key), self._side[key]
+        side.wait_stream(main)  # x, rows, buf's zeros
+        with torch.cuda.stream(side):
+            self._core_add(x, dev, buf, kernels, limbs=limbs, rows=rows)
+        for t in (x, rows, buf):  # made on the caller's stream, read on the side
+            t.record_stream(side)
+        kernels[0](x, self.ell_tables(dev), out)
+        main.wait_stream(side)
+        return out.index_add_(0, cn[:k], buf)
+
+    def _xc(self, x, cn, dev=None):
         """The rank gather ``x[core_nodes[:max w]]``, zero rows appended
-        where a padded square core is wider than its k nodes."""
+        where a padded square core is wider than its k nodes; a mesh
+        shard's ``x[core_rows]`` where ``dev`` holds them."""
+        if dev is not None and "core_rows" in dev:
+            return x.index_select(0, dev["core_rows"])
         w_max = max(w for *_, w in self.stair)
         xc = x.index_select(0, cn[:w_max])
         if xc.shape[0] < w_max:
             xc = torch.nn.functional.pad(xc, (0, 0, 0, w_max - xc.shape[0]))
         return xc
 
-    def _core_add(self, x, dev, out, kernels, safe=None, limbs=None):
-        """The core tier of :meth:`_run` into ``out``: the rank gather
-        ``xc`` (rounded to ``round(xc / safe)`` where ``safe`` is given),
-        then the product of the reference's ``_core_matmul`` for this core
-        and payload (``pygim_tpu/ops/spmm.py:586-630``) through ``kernels``
+    def _core_add(self, x, dev, out, kernels, safe=None, limbs=None,
+                  rows=None):
+        """The core tier of :meth:`_run` into ``out`` at ``core_nodes`` (or
+        ``rows``): the rank gather ``xc`` (rounded to ``round(xc / safe)``
+        where ``safe`` is given), then the product of the reference's
+        ``_core_matmul`` for this core and payload
+        (``pygim_tpu/ops/spmm.py:586-630``) through ``kernels``
         (:meth:`_kernels`):
 
         ========== ======================== =====================
@@ -1071,9 +1236,9 @@ class PreparedSpmm:
         A float64 core (a float64 graph with ``hybrid_dtype`` None) holds
         f32 cells, so it is the float32 row."""
         _tail_fn, core_fn, int_fn, f32_fn, _bcsr_fn = kernels
-        cn = dev["core_nodes"]
+        cn = dev["core_nodes"] if rows is None else rows
         bands = [dev[k] for k in self._band_keys]
-        xc = self._xc(x, cn)
+        xc = self._xc(x, dev["core_nodes"], dev)
         if safe is not None:
             xc = torch.round(xc / safe).to(torch.int32)
         if self.core_dtype in INT_CORES:

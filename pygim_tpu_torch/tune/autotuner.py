@@ -21,7 +21,7 @@ Results are cached per (graph fingerprint, width, devices, mode, space,
 memory cap, the model's provenance) under the tuner's cache
 (``tune/cost_model.py:cache_dir``). One card: a budget above it, and the
 ``2d`` and ``halo`` plans, raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1 item 6).
+Queue 1 item 6d).
 """
 
 from __future__ import annotations
@@ -156,14 +156,14 @@ def plan_statistics(
     """One candidate's counters on one card (module docstring): the
     reference's single-chip statistics and the port's keys. ``_memo``
     caches graph-level intermediates across one :func:`autotune` call.
-    A plan of more than one device raises (the mesh layouts are not
-    ported)."""
+    A plan of more than one device raises (the tuner's mesh plans are
+    not ported)."""
     if plan is None:
         plan = DistPlan("single", sp, ds)
     if plan.layout != "single" or plan.n_devices > 1:
         raise NotImplementedError(
-            f"plan_statistics of {plan.describe()}: the mesh layouts are not "
-            f"ported ({MESH_ITEM})")
+            f"plan_statistics of {plan.describe()}: the tuner's mesh plans "
+            f"are not ported ({MESH_ITEM})")
     memo = _memo if _memo is not None else {}
     h_local = hidden
     nb = config.resolve_n_blocks(max(1, csr.nnz))
@@ -487,11 +487,11 @@ class TuneResult:
 
 def prepare_tuned(graph, result: TuneResult, device="cuda"):
     """The tuned config prepared on ``device``: a single-card plan is
-    ``prepare_spmm``; any other plan raises (the mesh layouts are not
-    ported)."""
+    ``prepare_spmm``; any other plan raises (the tuner's mesh plans are
+    not ported)."""
     if result.plan.layout != "single" or result.plan.n_devices > 1:
         raise NotImplementedError(
-            f"prepare_tuned of {result.plan.describe()}: the mesh layouts "
+            f"prepare_tuned of {result.plan.describe()}: the tuner's mesh plans "
             f"are not ported ({MESH_ITEM})")
     from pygim_tpu_torch.ops.spmm import prepare_spmm
 

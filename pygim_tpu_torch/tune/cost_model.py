@@ -50,7 +50,8 @@ Where the constants come from (``provenance``):
   limit is not read.
 
 The mesh's per-collective constants (``measure_ici_constants``,
-``for_topology``) wait for the mesh layouts (ROADMAP.md, Queue 1 item 6).
+``for_topology``) wait for the tuner's mesh plans (ROADMAP.md, Queue 1
+item 6d).
 """
 
 from __future__ import annotations

@@ -4,17 +4,18 @@
 A :class:`DistPlan` is one point on the distribution axes: ``single``
 (one card: every single-card backend applies), ``2d`` (an sp × ds rank
 grid) or ``halo`` (a 1-D row partition with a halo exchange). The port
-runs on one card: :func:`enumerate_dist` gives the single-card plan, and
-a budget above one card, or a search without the single layout, raises,
-as the mesh layouts and their statistics (``halo_statistics``, the
-``metis`` order) are not ported (ROADMAP.md, Queue 1 item 6).
+tunes for one card: :func:`enumerate_dist` gives the single-card plan,
+and a budget above one card, or a search without the single layout,
+raises, as the tuner's ``2d`` and ``halo`` plans and their statistics
+(``halo_statistics``, the ``metis`` order) are not ported (ROADMAP.md,
+Queue 1 item 6d; the 2D mesh itself runs, ``parallel/spmm_2d.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-MESH_ITEM = "ROADMAP.md, Queue 1 item 6"
+MESH_ITEM = "ROADMAP.md, Queue 1 item 6d"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,10 +59,10 @@ def enumerate_dist(
     without ``"single"``."""
     if n_devices > 1:
         raise NotImplementedError(
-            f"a tuning budget of {n_devices} devices: the mesh layouts are "
-            f"not ported ({MESH_ITEM})")
+            f"a tuning budget of {n_devices} devices: the tuner's mesh "
+            f"plans are not ported ({MESH_ITEM})")
     if "single" not in layouts:
         raise NotImplementedError(
-            f"layouts {tuple(layouts)} without 'single': the mesh layouts "
-            f"are not ported ({MESH_ITEM})")
+            f"layouts {tuple(layouts)} without 'single': the tuner's mesh "
+            f"plans are not ported ({MESH_ITEM})")
     return [DistPlan()]

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """SpMM micro-benchmark of the PyTorch port on one CUDA card, the twin
 of ``spmm_test.py``: the same flags and defaults, the same ``[DATA]``
-lines. ``--version spmm|grande|spmv`` prepare the single-card ``ell``
-operand (an ``sp_parts × ds_parts`` above one prints the reference's
-``[WARN] ... running single-chip``); ``--version cpu`` runs the oracle.
+lines. ``--version spmm|grande|spmv`` prepare the ``ell`` operand over
+the reference's 2D mesh (``pygim_tpu_torch/compat.py``) where it needs
+more than one device and no more than the visible cards, and on one card
+otherwise (an ``sp_parts × ds_parts`` above the visible cards prints the
+reference's ``[WARN] ... running single-chip``); ``--version cpu`` runs
+the oracle.
 Every ``--data_type`` of the reference runs: ``bfloat16`` through
 K-tail's bf16-row mode, ``int64`` as int32 (the reference with x64
 off), ``float64`` as float32. ``--tune`` runs the autotuner
 (``pygim_tpu_torch/tune``) over a device budget of ``sp_parts ×
 ds_parts`` capped by the visible cards, prints ``[DATA]tuned_plan`` and
-``[DATA]tuned_constants`` and prepares its pick; a budget above one card,
-and a mesh that fits more than one visible card, are not ported and
-raise ``NotImplementedError``. ``--lib_path`` and ``--nr_dpus`` are
+``[DATA]tuned_constants`` and prepares its pick; a budget above one card
+is not ported (the tuner's mesh plans) and raises
+``NotImplementedError``. ``--lib_path`` and ``--nr_dpus`` are
 accepted and ignored. Runs on the card; ``main(argv, device="cpu")``
 runs the plain versions on the CPU (the tests).
 

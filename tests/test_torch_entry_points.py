@@ -122,8 +122,8 @@ def test_unported_flags_raise(capsys, main, argv, what, tmp_path,
 @pytest.mark.parametrize("main", [spmm_test_cuda.main, inference_cuda.main],
                          ids=["spmm", "infer"])
 def test_tune_above_one_card_raises(main, tmp_path, monkeypatch):
-    """``--tune`` over a budget of more than one visible card: the mesh
-    layouts are not ported (ROADMAP.md, Queue 1 item 6)."""
+    """``--tune`` over a budget of more than one visible card: the tuner's
+    mesh plans are not ported (ROADMAP.md, Queue 1 item 6d)."""
     monkeypatch.setenv("PYGIM_TPU_TORCH_TUNE_CACHE", str(tmp_path / "tune"))
     monkeypatch.setattr(compat, "visible_devices", lambda device: 2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
@@ -180,16 +180,28 @@ def test_mesh_size_is_the_reference_layout(version, sp, ds, n_dev, size):
     assert compat.mesh_size(version, sp, ds, 256, n_dev) == size
 
 
-def test_fitting_mesh_raises(monkeypatch):
+def test_fitting_mesh_raises(monkeypatch, capsys):
     """Where the reference would lay a mesh over visible devices, the
-    port raises: the mesh layouts are not ported."""
+    port lays its 2D mesh (``parallel/spmm_2d.py``; until it was ported
+    this raised): four visible devices (copies of the CPU here) take the
+    ``spmm`` version's (2, 2) grid and the ``spmv`` version's (1, 4), and
+    report it as the reference's ``layout`` line; the int32 GCN of
+    ``inference_cuda.py`` runs over the (2, 2) grid."""
     monkeypatch.setattr(compat, "visible_devices", lambda device: 4)
-    with pytest.raises(NotImplementedError, match="mesh layouts"):
-        spmm_test_cuda.main(["--dataset", "tiny", "--sp_parts", "2",
-                             "--ds_parts", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh layouts"):
-        spmm_test_cuda.main(["--dataset", "tiny", "--version", "spmv"],
-                            device="cpu")
+    out, got = run(capsys, spmm_test_cuda.main,
+                   ["--dataset", "tiny", "--repeat", "1", "--sp_parts", "2",
+                    "--ds_parts", "2"], device="cpu")
+    assert "[WARN]" not in out
+    assert got["layout"] == ["mesh sp=2 ds=2"] and got["verify"] == ["OK"]
+    out, got = run(capsys, spmm_test_cuda.main,
+                   ["--dataset", "tiny", "--repeat", "1", "--version",
+                    "spmv"], device="cpu")
+    assert got["layout"] == ["mesh sp=1 ds=4"] and got["verify"] == ["OK"]
+    out, got = run(capsys, inference_cuda.main,
+                   ["--dataset", "tiny", "--version", "spmm", "--sp_parts",
+                    "2", "--ds_parts", "2"], device="cpu")
+    assert got["layout"] == ["mesh sp=2 ds=2"]
+    assert 0.0 <= got["test_acc"][0] <= 1.0
 
 
 @pytest.mark.parametrize("argv", [["--lib_path", "/nowhere", "--nr_dpus",

@@ -290,8 +290,8 @@ def test_training_kind(tmp_path):
 @pytest.mark.parametrize("fields,item", [
     (dict(tune=True), None),
     (dict(kind="scaling", backend="ell"), "Queue 1 item 6"),
-    (dict(sp_parts=2), "Queue 1 item 6"),
-    (dict(ds_parts=2), "Queue 1 item 6"),
+    (dict(sp_parts=2, kind="training"), "Queue 1 item 6"),
+    (dict(ds_parts=2, kind="training"), "Queue 1 item 6"),
     (dict(backend="coo"), None),
     (dict(part_size=400, part_method="metis"), "Queue 1 item 6"),
 ])
@@ -301,7 +301,9 @@ def test_not_ported_settings_raise(fields, item, tmp_path, monkeypatch):
     it. Settings refused until their slice (item None) now run to a
     verified record: the ``coo`` backend, and ``tune=True``, whose record
     holds the tuner's pick (``tuned_backend``, ``tuned_balance``,
-    ``tuned_block_nnz_budget``)."""
+    ``tuned_block_nnz_budget``). A mesh runs its spmm and inference
+    kinds (``tests/test_torch_mesh.py``); it stays refused for training
+    (mesh training, item 6c)."""
     monkeypatch.setenv("PYGIM_TPU_TORCH_TUNE_CACHE", str(tmp_path / "tune"))
     exp = Experiment(dataset="tiny", repeat=1, **fields)
     if item is None:

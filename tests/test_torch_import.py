@@ -69,6 +69,10 @@ MODULES = [
     "pygim_tpu_torch.tune.cost_model",
     "pygim_tpu_torch.tune.autotuner",
     "pygim_tpu_torch.utils",
+    "pygim_tpu_torch.parallel",
+    "pygim_tpu_torch.parallel.mesh",
+    "pygim_tpu_torch.parallel.collectives",
+    "pygim_tpu_torch.parallel.spmm_2d",
     "sweep_cuda",
 ]
 
@@ -105,6 +109,8 @@ REEXPORTS = {
                               "device_time"],
     "pygim_tpu_torch.nn": ["GNN", "make_gnn", "linear_apply",
                            "batchnorm_apply", "quantized_aggregate"],
+    "pygim_tpu_torch.parallel": ["make_mesh", "PreparedSpmm2D",
+                                 "prepare_spmm_2d"],
     "pygim_tpu_torch.compat": ["prepare_pim_spmm", "prepare_pim_spmm_grande",
                                "prepare_pim_spmv", "prepare_for_version",
                                "describe_layout", "dpu_init_ranks",
@@ -120,6 +126,28 @@ def test_import_loads_no_jax_and_no_reference_package():
         "    m = importlib.import_module(ns)\n"
         "    missing = [n for n in names if not hasattr(m, n)]\n"
         "    assert not missing, (ns, missing)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes',"
+        " 'pygim_tpu') or m.startswith(('jax.', 'ml_dtypes.',"
+        " 'pygim_tpu.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("module", ["pygim_tpu_torch",
+                                    "pygim_tpu_torch.parallel"])
+def test_package_alone_loads_no_jax(module):
+    """``import pygim_tpu_torch`` and ``import pygim_tpu_torch.parallel``,
+    each alone in a fresh process, leave ``jax``, ``ml_dtypes`` and every
+    ``pygim_tpu`` module out of ``sys.modules``."""
+    code = (
+        f"import sys, {module}\n"
         "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes',"
         " 'pygim_tpu') or m.startswith(('jax.', 'ml_dtypes.',"
         " 'pygim_tpu.'))]\n"

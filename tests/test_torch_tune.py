@@ -467,7 +467,10 @@ def test_compat_adapters_match_reference(name):
 def test_compat_shims_and_mesh_refusal(monkeypatch):
     """The ``dpu_*`` shims answer as the reference's (a list a rank of the
     visible devices, nothing to release); a mesh that fits several
-    visible cards raises."""
+    visible devices is the reference's 2D mesh (until it was ported the
+    port refused it): ``spmm`` (2, 1), ``grande`` (1, 2), ``spmv`` (1, 4)
+    over four copies of the CPU, each product equal to the single-card
+    operand's within 1e-5."""
     jg, tg = graph_pair("rmat", merged=False)
     assert tcompat.describe_layout(tspmm.prepare_spmm(
         tg, tspmm.SpmmConfig(backend="ell"), device="cpu")) == \
@@ -479,13 +482,21 @@ def test_compat_shims_and_mesh_refusal(monkeypatch):
     assert tcompat.dpu_release() is None and jcompat.dpu_release() is None
     monkeypatch.setattr(tcompat, "visible_devices", lambda device: 4)
     assert tcompat.dpu_init_ranks(2, device="cpu") == [4, 4]
-    for call in (lambda: tcompat.prepare_pim_spmm(tg, 16, sp_parts=2,
-                                                  device="cpu"),
-                 lambda: tcompat.prepare_pim_spmm_grande(tg, 16,
-                                                         device="cpu"),
-                 lambda: tcompat.prepare_pim_spmv(tg, 16, device="cpu")):
-        with pytest.raises(NotImplementedError, match=ITEM):
-            call()
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (tg.ncols, 16)).astype(np.float32))
+    single = tspmm.prepare_spmm(tg, tspmm.SpmmConfig(backend="ell"),
+                                device="cpu").mul(x).numpy()
+    for call, layout in (
+            (lambda: tcompat.prepare_pim_spmm(tg, 16, sp_parts=2,
+                                              device="cpu"), "sp=2 ds=1"),
+            (lambda: tcompat.prepare_pim_spmm_grande(tg, 16, device="cpu"),
+             "sp=1 ds=2"),
+            (lambda: tcompat.prepare_pim_spmv(tg, 16, device="cpu"),
+             "sp=1 ds=4")):
+        got = call()
+        assert tcompat.describe_layout(got) == f"mesh {layout}"
+        np.testing.assert_allclose(got.mul(x).numpy(), single, rtol=1e-5,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("hidden", [None, 64, 256])

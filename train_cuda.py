@@ -9,8 +9,8 @@ directory (the model's and the optimizer's state). On the ``ell`` and
 the prepared transpose; ``--backend hybrid`` builds
 ``SpmmConfig(backend="hybrid")``, whose default core is the graph's own
 dtype (a square f32 core at 4 GiB on a float graph: K-f32 forward and
-backward). ``--sp_parts × --ds_parts`` above one (mesh training) raises
-``NotImplementedError``. Runs on the card; ``main(argv, device="cpu")``
+backward). ``--sp_parts × --ds_parts`` above one (mesh training,
+ROADMAP.md Queue 1 item 6c) raises ``NotImplementedError``. Runs on the card; ``main(argv, device="cpu")``
 runs the plain versions on the CPU (the tests).
 
     python3 train_cuda.py --dataset planted-20000-240000-8 --epochs 10
@@ -44,7 +44,7 @@ def main(argv=None, *, device="cuda"):
     if args.sp_parts * args.ds_parts > 1:
         raise NotImplementedError(
             f"--sp_parts {args.sp_parts} × --ds_parts {args.ds_parts}: mesh "
-            "training is not ported")
+            "training is not ported (ROADMAP.md, Queue 1 item 6c)")
 
     import numpy as np
     import torch
