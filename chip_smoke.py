@@ -82,9 +82,9 @@ versions. The entry scripts also run a bf16 square candidate of
 Then the harness: ``run_experiments`` on the card over the small sweep
 (tiny and small × blocked and ell × nnz and row), the stair int8 SpMM
 with its phases on the stand-in and on its ``-uniq`` sibling, the int32
-GCN with its per-layer check on the same core, and the points the port
-refuses (mesh training, a ``scaling`` point, and an spmm mesh of more
-cards than are visible: each leaves its ``.failed`` record), its launch counts set to 0 before it and read after it
+GCN with its per-layer check on the same core, a ``scaling`` point, and
+training and spmm points on a mesh of more cards than are visible (each
+leaves its ``.failed`` record with ``make_mesh``'s ``ValueError``), its launch counts set to 0 before it and read after it
 (K-core, K-tail, K-int and K-tail-quant); a second sweep that skips
 everything and launches nothing; ``results_to_csv``; the refusal of a
 directory holding a copy of a TPU record; ``sweep_cuda.py run --baseline
@@ -166,7 +166,21 @@ payload, counted (K-tail, K-tail-quant, K-core in each mode, K-int,
 K-f32, K-bcsr at shard shapes), held to its plain version and to the
 single-card operand of its configuration, and reports ``phase_times``
 (``local_time``, ``psum_time``); then the float and int32 GCN forwards
-over a (2, 2) mesh of f32 cores against the single-card ones.
+over a (2, 2) mesh of f32 cores against the single-card ones. Then the
+halo layout (the ``halo`` phase): virtual node meshes of 2, 4 and 8 on
+the card, every exchange (``all_gather``, ``all_to_all``, ``ring``) with
+``ell``, the int8, int4, bf16 and f32 slabs and the int8 slab with a
+BCSR tier at nd 4 (``ell`` and the int8 slab at nd 2 and 8), and the
+``rcm``, ``metis`` and ``auto`` orders at nd 4; every operand multiplies a
+float32 and an int32 payload, counted, held to its plain version and to
+the single-card operand, with ``phase_times`` and its exchange alone
+beside the exchange's bytes bound at nd 4; then
+``run_scaling_benchmark`` on ``cuda:0`` four times (``virtual_mesh``).
+Then training over the meshes (``mesh train``): a (2, 2) 2D mesh and a
+4-way halo, each of ``ell`` and an int8 square core, their transposes
+prepared, the GCN's gradients and 3 Adam steps through the kernels held
+to the plain versions' while both negative controls fail. Then
+``entry.py:dryrun_multichip(8)``, the twin of ``__graft_entry__``'s.
 
 Its last three lines are the ``kernels`` JSON object (each kernel with
 its split and schedule balance where it has a tile schedule, K-core
@@ -194,7 +208,10 @@ then set (``interleave_full``); ``--mesh-full`` runs reddit-sim's
 on one card (``mesh_full``). Both take minutes of host prepare where
 the caches are cold. ``--mesh-cards``, on a machine with four or more
 cards, runs the ``mesh`` phase over the cards themselves
-(``mesh_cards``).
+(``mesh_cards``); ``--halo-cards`` the ``halo`` phase likewise
+(``halo_cards``). ``--halo-full`` runs tracked config 5's four entries
+on a virtual node mesh of eight on one card (``halo_full``: edges/s and
+the halo's request and buffer rows; no scaling measured).
 """
 
 from __future__ import annotations
@@ -2812,10 +2829,11 @@ def harness_experiments():
     """The sweep (``sweep_space("small")`` at one repeat: tiny and small ×
     blocked and ell × nnz and row balance), the stair int8 SpMM with its
     phases on the stand-in and its ``-uniq`` sibling and the int32 GCN
-    with its per-layer check on the same core, and three points the port
-    refuses: training over a mesh and ``kind="scaling"`` (not ported),
-    and an spmm mesh of two cards (``make_mesh``'s ``ValueError`` where
-    fewer are visible, as the reference's on one chip)."""
+    with its per-layer check on the same core, a ``scaling`` point (on
+    one card a single count, ``edges_per_s_n1``), and two points of two
+    cards, training and spmm over a (2, 1) mesh: refused with
+    ``make_mesh``'s ``ValueError`` where fewer are visible, as the
+    reference's on one chip."""
     from pygim_tpu_torch.bench import Experiment
     from pygim_tpu_torch.bench.configs import sweep_space
 
@@ -2826,10 +2844,10 @@ def harness_experiments():
              for d in (DATASET, DATASET + "-uniq")]
     named.append(Experiment(dataset=DATASET, kind="inference", model="gcn",
                             dtype="int32", validate=True, **core))
+    named.append(Experiment(dataset="tiny", kind="scaling", backend="ell",
+                            repeat=1))
     refused = [Experiment(dataset="tiny", sp_parts=2, kind="training",
                           backend="ell", repeat=1),
-               Experiment(dataset="tiny", kind="scaling", backend="ell",
-                          repeat=1),
                Experiment(dataset="tiny", sp_parts=2, repeat=1)]
     return sweep, named, refused
 
@@ -2837,10 +2855,10 @@ def harness_experiments():
 def harness(results, device="cuda", timeout: int = 300) -> dict:
     """``run_experiments`` on the card, with the launch counts set to 0
     before it and read after it: every record must hold its ``verify`` or
-    ``validate: OK`` and one ``[DATA]device`` line, K-core, K-tail, K-int
-    and K-tail-quant must have launched, and the refused points must have
-    left ``.failed`` records with their ``NotImplementedError`` while the
-    sweep went on. A second call must skip everything and launch
+    ``validate: OK`` (a scaling record its ``edges_per_s_n1``) and one
+    ``[DATA]device`` line, K-core, K-tail, K-int and K-tail-quant must
+    have launched, and the refused points must have left ``.failed``
+    records with their ``ValueError`` while the sweep went on. A second call must skip everything and launch
     nothing; ``results_to_csv`` must give one row per record; a directory
     holding a copy of a TPU record from ``results/`` must be refused; and
     ``sweep_cuda.py run --baseline --dry_run`` and ``sweep_cuda.py parse``
@@ -2860,8 +2878,7 @@ def harness(results, device="cuda", timeout: int = 300) -> dict:
     ran = sweep + named
     visible = (torch.cuda.device_count() if torch.device(device).type == "cuda"
                else 1 << 30)  # the CPU lays a mesh over copies of itself
-    refused = [e for e in refused
-               if e.kind != "spmm" or e.sp_parts * e.ds_parts > visible]
+    refused = [e for e in refused if e.sp_parts * e.ds_parts > visible]
 
     def counted(exps):
         reset_launch_counts()
@@ -2883,7 +2900,11 @@ def harness(results, device="cuda", timeout: int = 300) -> dict:
         rec = parse_data_lines(
             open(os.path.join(rdir, name + ".out")).read().splitlines())
         check = "validate" if exp.validate else "verify"
-        if rec.get(check) != ["OK"] or len(rec.get("device", [])) != 1:
+        if exp.kind == "scaling":
+            ok = rec.get("edges_per_s_n1", [0])[0] > 0
+        else:
+            ok = rec.get(check) == ["OK"]
+        if not ok or len(rec.get("device", [])) != 1:
             raise AssertionError(f"harness: {name}: {check} "
                                  f"{rec.get(check)}, device "
                                  f"{rec.get('device')}")
@@ -2891,9 +2912,8 @@ def harness(results, device="cuda", timeout: int = 300) -> dict:
     for exp in refused:
         failed = os.path.join(rdir, exp.frozen_name() + ".failed")
         # a mesh above the visible cards: make_mesh's ValueError, as the
-        # reference's on one chip; the rest are not ported
-        why = ("ValueError: need" if exp.kind == "spmm"
-               else "NotImplementedError")
+        # reference's on one chip
+        why = "ValueError: need"
         if exp.frozen_name() in out or not os.path.exists(failed) or \
                 why not in open(failed).read():
             raise AssertionError(f"harness: {exp.frozen_name()} was not "
@@ -4650,6 +4670,330 @@ def mesh_full(dataset="reddit", device="cuda") -> int:
     return 0
 
 
+HALO_SIZES = (2, 4, 8)
+HALO_EXCHANGES = ("all_gather", "all_to_all", "ring")
+HALO_CORE_BYTES = 16 << 20  # a shard's slab budget
+# (float payload, int32 payload) kernels of each halo operand's shards
+HALO_KERNELS = {
+    "ell": MESH_KERNELS["ell"],
+    "hybrid int8": MESH_KERNELS["hybrid int8"],
+    "hybrid int4": MESH_KERNELS["hybrid int4"],
+    "hybrid bfloat16": MESH_KERNELS["hybrid bfloat16"],
+    "hybrid float32": MESH_KERNELS["hybrid float32"],
+    "bcsr": MESH_KERNELS["bcsr"],
+}
+HALO_ORDERS = ("rcm", "metis", "auto")
+# the configurations run at every node count; the rest only at nd 4
+HALO_EVERY_SIZE = ("ell", "hybrid int8")
+
+
+def halo_configs():
+    """``{name: SpmmConfig}`` of the halo phase: ell, the four slab cell
+    types, and the int8 slab with a BCSR tier."""
+    from pygim_tpu_torch.ops.spmm import SpmmConfig
+
+    cfgs = {"ell": SpmmConfig(backend="ell")}
+    for c in MESH_CORES:
+        cfgs[f"hybrid {c}"] = SpmmConfig(backend="hybrid", hybrid_dtype=c,
+                                         hybrid_core_bytes=HALO_CORE_BYTES)
+    cfgs["bcsr"] = SpmmConfig(backend="hybrid", hybrid_dtype="int8",
+                              hybrid_core_bytes=HALO_CORE_BYTES, **MESH_BCSR)
+    return cfgs
+
+
+def halo_cases():
+    """``(nd, exchange, config name, order)`` of the halo phase: at nd 4
+    every exchange × every configuration; at the other node counts (a
+    shard with no rows at 8, a ring of one shift at 2) every exchange ×
+    :data:`HALO_EVERY_SIZE`; then the orders rcm, metis and auto at nd 4
+    on all_to_all with ell (none everywhere else)."""
+    cases = [(nd, e, c, None) for nd in HALO_SIZES for e in HALO_EXCHANGES
+             for c in halo_configs() if nd == 4 or c in HALO_EVERY_SIZE]
+    cases += [(4, "all_to_all", "ell", o) for o in HALO_ORDERS]
+    return cases
+
+
+def exchange_rows(op) -> int:
+    """Rows the exchange of one product writes, summed over the shards:
+    all of x once a distinct device (all_gather; shards on one device
+    share it), ``nd`` slots of ``halo_k`` (all_to_all), the ring's blocks
+    (ring)."""
+    if op.exchange == "all_gather":
+        return len(set(op.mesh.devices)) * op.n_pad
+    if op.exchange == "all_to_all":
+        return op.nd * op.nd * op.halo_k
+    return op.nd * (op.halo_k if op.nd > 1 else 0)
+
+
+def halo_phase(ds, results, device="cuda", cards=False):
+    """The halo layout on node meshes of :data:`HALO_SIZES` over one
+    device (the card repeated: virtual meshes), or with ``cards`` on
+    those that fit the visible cards: on the stand-in at H 256, each case
+    of :func:`halo_cases` multiplies a float32 and an int32 payload, each
+    with the launch counts set to 0 before and read after (the kernels of
+    :data:`HALO_KERNELS` must have launched at shard shapes), held to its
+    plain version (float: REL_TOL of the sum of |terms|; int32: equal)
+    and to the single-card operand of the same configuration (int32:
+    equal; float: REL_TOL, or :data:`MESH_LOOSE` where a rounded core
+    takes the float payload on either side). At nd 4 each operand's
+    ``phase_times`` and its exchange alone are timed beside the
+    exchange's least time: the rows it delivers read and written once at
+    the card's HBM rate. Then ``run_scaling_benchmark`` over ``cuda:0``
+    four times, which must report ``virtual_mesh``."""
+    import torch
+
+    from pygim_tpu_torch.bench.scaling import run_scaling_benchmark
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import prepare_spmm
+    from pygim_tpu_torch.parallel import make_node_mesh, prepare_spmm_halo
+    from pygim_tpu_torch.utils.metrics import DataReporter
+
+    dev = torch.device(device)
+    graph = ds.graph
+    g = torch.Generator().manual_seed(29)
+    x = torch.randn(graph.ncols, HIDDEN, generator=g).to(dev)
+    xi = torch.randint(-9, 10, (graph.ncols, HIDDEN), generator=g,
+                       dtype=torch.int32).to(dev)
+    mags = (abs_magnitude(graph, x, dev), abs_magnitude(graph, xi, dev))
+    n_cards = torch.cuda.device_count() if cards else 0
+    cfgs = halo_configs()
+    singles, out = {}, {}
+    for nd, exchange, name, order in halo_cases():
+        if cards and nd > n_cards:
+            continue
+        mesh = make_node_mesh(nd, None if cards else [dev] * nd)
+        key = f"nd{nd} {exchange} {name}" + (f" {order}" if order else "")
+        t0 = time.perf_counter()
+        op = prepare_spmm_halo(graph, mesh, cfgs[name], exchange=exchange,
+                               order=order)
+        rec = {"prepare_s": time.perf_counter() - t0, "k": op.hybrid_k_eff,
+               "halo_k": op.halo_k, "request_rows": op.request_rows,
+               "order": op.order_choice, "bcsr_edges": op.bcsr_edges,
+               "device_bytes": op.device_bytes}
+        if name == "bcsr" and not op.has_bcsr:
+            raise AssertionError(f"{key}: no tile captured")
+        if name not in singles:
+            singles[name] = prepare_spmm(graph, cfgs[name], device=dev)
+        single = singles[name]
+        first = mesh.devices[0]
+        for (label, payload), mag, kernels in zip(
+                (("float", x), ("int32", xi)), mags, HALO_KERNELS[name]):
+            reset_launch_counts()
+            got = op.mul(payload)
+            sync(first)
+            n = launch_counts()
+            for k_ in kernels:
+                if n[k_] <= 0:
+                    raise AssertionError(f"{key} {label}: {k_} was never "
+                                         "launched")
+            rec[f"{label} launches"] = {k_: v for k_, v in n.items() if v}
+            plain, one = op.mul_plain(payload), single.mul(payload)
+            if label == "int32":
+                for what, want in (("plain", plain), ("single", one)):
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"{key} int32 vs {what}: max abs err "
+                            f"{float((got - want).abs().max())}")
+                continue
+            rec["float err vs plain"] = check_close(
+                f"{key} vs plain", got, plain, mag, REL_TOL)
+            loose = name != "ell" and name != "hybrid float32"
+            rec["float err vs single"] = check_close(
+                f"{key} vs single-card", got, one, mag,
+                MESH_LOOSE if loose else REL_TOL)
+            del got, plain, one
+        if nd == 4 and order is None:
+            rec["phase_times"] = op.phase_times(x, iters=5)
+            x_loc = op._x_loc(x, op.dev_arrays)
+            rec["exchange ms"] = cuda_ms(
+                lambda: op._received(x_loc, op.dev_arrays), iters=5)
+            rows = exchange_rows(op)
+            rec["exchange rows"] = rows
+            rec["exchange bound ms"] = (2 * 4 * rows * HIDDEN
+                                        / results["peaks"][0] * 1e3)
+            del x_loc
+        print(f"halo {key}: {json.dumps(rec)}", flush=True)
+        out[key] = rec
+        del op
+        free(dev)
+    del singles
+    free(dev)
+    means = run_scaling_benchmark(
+        ds, [1, 2, 4], hidden=HIDDEN, exchange="all_to_all", repeat=5,
+        reporter=DataReporter(echo=False),
+        devices=None if cards else [dev] * 4)
+    print(f"halo scaling benchmark ({'cards' if cards else 'virtual'}): "
+          f"{json.dumps(means)}", flush=True)
+    if bool(means["virtual_mesh"]) == cards:
+        raise AssertionError(f"virtual_mesh {means['virtual_mesh']} on "
+                             f"{'the cards' if cards else 'one card'}")
+    out["scaling"] = means
+    results["halo"] = out
+    return out
+
+
+MESH_TRAIN_OPERANDS = {
+    "2x2 ell": ("2d", "ell"), "2x2 hybrid int8": ("2d", "hybrid int8"),
+    "halo 4 ell all_to_all": ("all_to_all", "ell"),
+    "halo 4 hybrid int8 ring": ("ring", "hybrid int8"),
+}
+
+
+def mesh_train_phase(ds, results, card, device="cuda"):
+    """Training over the meshes: a (2, 2) 2D mesh and a 4-way halo, each
+    of ``ell`` and of a square int8 core (virtual meshes of the card),
+    their transposes prepared; the GCN at hidden 256 trains through the
+    kernels (``SpmmFunction`` on the mesh's Aᵀ), through the plain
+    versions (autograd through ``mul_plain`` on A) and through the two
+    negative controls: every leaf's gradient of one step within GRAD_BAR
+    of the plain arm's and the losses of TRAIN_STEPS Adam steps within
+    LOSS_BAR, both controls failing both, the kernels' launches counted
+    and none in the plain arm."""
+    import numpy as np
+    import torch
+
+    from pygim_tpu_torch.bench.runners import train_inputs
+    from pygim_tpu_torch.ops.spmm import PreparedAggregate
+    from pygim_tpu_torch.parallel import (
+        make_mesh,
+        make_node_mesh,
+        prepare_spmm_2d,
+        prepare_spmm_halo,
+    )
+
+    dev = torch.device(device)
+    inputs = train_inputs(ds, dev)
+    cfgs = halo_configs()
+    out = {}
+    for key, (layout, name) in MESH_TRAIN_OPERANDS.items():
+        t0 = time.perf_counter()
+        if layout == "2d":
+            op = prepare_spmm_2d(ds.graph, make_mesh(2, 2, [dev] * 4),
+                                 cfgs[name])
+        else:
+            op = prepare_spmm_halo(ds.graph, make_node_mesh(4, [dev] * 4),
+                                   cfgs[name], exchange=layout)
+        op.transpose(ds.graph)
+        prep_s = time.perf_counter() - t0
+        arms = {"kernels": PreparedAggregate(op), "plain": PlainAggregate(op),
+                "cut": CutAggregate(op), "untransposed": untransposed(op)}
+        grads = {a: leaf_grads("gcn", ds, agg, inputs)
+                 for a, agg in arms.items()}
+        gerr = {a: max(leaf_errs(g, grads["plain"]).values())
+                for a, g in grads.items() if a != "plain"}
+        del grads
+        runs = {a: arm_losses("gcn", ds, agg, inputs, TRAIN_LR)
+                for a, agg in arms.items()}
+        lp = runs["plain"][1]
+        ldrift = {a: drift(r[1], lp) for a, r in runs.items() if a != "plain"}
+        nk = runs["kernels"][2]
+        rec = dict(prepare_s=prep_s, grad_err=gerr, loss_drift=ldrift,
+                   losses=runs["kernels"][1], plain_losses=lp,
+                   launches={k_: v for k_, v in nk.items() if v})
+        print(f"mesh train {key}: {json.dumps(rec)} ({card})", flush=True)
+        if (gerr["kernels"] > GRAD_BAR or ldrift["kernels"] > LOSS_BAR
+                or not np.isfinite(runs["kernels"][1]).all()):
+            raise AssertionError(f"mesh train {key}: kernels against plain, "
+                                 f"gradients {gerr['kernels']}, losses "
+                                 f"{ldrift['kernels']}")
+        for c in CONTROLS:
+            if gerr[c] <= GRAD_BAR or ldrift[c] <= LOSS_BAR:
+                raise AssertionError(f"mesh train {key}: the {c} control "
+                                     f"passed ({gerr[c]}, {ldrift[c]})")
+        want = HALO_KERNELS[name][0]
+        plain_n = {k_: v for k_, v in runs["plain"][2].items() if v}
+        if any(nk[k_] <= 0 for k_ in want) or plain_n:
+            raise AssertionError(f"mesh train {key}: launches {nk}, plain "
+                                 f"{plain_n}")
+        out[key] = rec
+        del runs, arms, op
+        free(dev)
+    results["mesh train"] = out
+    return out
+
+
+def dryrun_phase(results, device="cuda"):
+    """``pygim_tpu_torch/entry.py:dryrun_multichip(8)`` on the card (a
+    virtual mesh where fewer than eight cards are visible)."""
+    from pygim_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dryrun_multichip(8, device=device)
+    results["dryrun"] = time.perf_counter() - t0
+    print(f"dryrun_multichip(8): passed in {results['dryrun']:.1f} s",
+          flush=True)
+
+
+def halo_full(device="cuda") -> int:
+    """``--halo-full``: tracked config 5's four entries
+    (``bench/configs.py``) through ``run_scaling_benchmark`` on a virtual
+    node mesh of eight (``cuda:0`` repeated) at counts 1, 2, 4 and 8:
+    ``edges_per_s`` and the halo request and buffer rows. One card runs
+    every shard in turn, so these measure no scaling."""
+    import torch
+
+    from pygim_tpu_torch.bench.configs import BASELINE_EXPERIMENTS
+    from pygim_tpu_torch.bench.scaling import run_scaling_benchmark
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import _build
+    from pygim_tpu_torch.utils.device import card_line
+    from pygim_tpu_torch.utils.metrics import DataReporter
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"card: {card_line()}", flush=True)
+    _build.build()
+    dev = torch.device(device, 0)
+    res = {}
+    for exp in (e for e in BASELINE_EXPERIMENTS if e.kind == "scaling"):
+        t0 = time.perf_counter()
+        ds = load_dataset(exp.dataset)
+        means = run_scaling_benchmark(
+            ds, [1, 2, 4, 8], hidden=exp.hidden, exchange=exp.exchange,
+            config=exp.spmm_config(), repeat=exp.repeat,
+            reporter=DataReporter(echo=False),
+            model=exp.model if exp.scale_model else None,
+            num_layers=exp.num_layers,
+            agg_dtype=None if exp.dtype == "float32" else exp.dtype,
+            order=exp.cluster or None, devices=[dev] * 8)
+        means["seconds"] = time.perf_counter() - t0
+        res[exp.frozen_name()] = means
+        print(f"config 5 {exp.frozen_name()} (virtual mesh of 8 on one card, "
+              f"no scaling measured): {json.dumps(means)}", flush=True)
+        del ds
+        free(dev)
+    print(json.dumps(res))
+    print(card_line())
+    return 0
+
+
+def halo_cards() -> int:
+    """``--halo-cards``: the ``halo`` phase over the visible cards (the
+    node meshes of :data:`HALO_SIZES` that fit them, at least 4 cards),
+    each shard's tables and products on its own card, the exchanges peer
+    copies."""
+    import torch
+
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import _build
+    from pygim_tpu_torch.utils.device import peaks
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        print("chip_smoke --halo-cards: needs four CUDA cards",
+              file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    _build.build()
+    results = {"peaks": peaks(torch.cuda.get_device_name(0))}
+    timed_phase("halo over the cards", halo_phase, load_dataset(DATASET),
+                results, "cuda:0", True)
+    print(json.dumps({"count": torch.cuda.device_count()}))
+    return 0
+
+
 def main() -> int:
     """Run every phase in a fresh prepare and dataset cache, removed at
     the end: no phase reads the user's cache."""
@@ -4661,6 +5005,8 @@ def main() -> int:
         return interleave_full()
     if "--mesh-full" in sys.argv[1:]:
         return mesh_full()
+    if "--halo-full" in sys.argv[1:]:
+        return halo_full()
     root = tempfile.mkdtemp(prefix="chip_smoke_cache_")
     os.environ["PYGIM_TPU_TORCH_DATA"] = root
     os.environ["PYGIM_TPU_TORCH_TUNE_CACHE"] = root
@@ -4669,6 +5015,8 @@ def main() -> int:
             return train_sweep()
         if "--mesh-cards" in sys.argv[1:]:
             return mesh_cards()
+        if "--halo-cards" in sys.argv[1:]:
+            return halo_cards()
         return run()
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4930,6 +5278,13 @@ def run() -> int:
     # the card (each operand's products counted)
     timed_phase("interleave", interleave_phase, ds, results)
     timed_phase("mesh", mesh_phase, ds, results)
+
+    # this slice's paths: the halo layout on virtual node meshes of the
+    # card (every exchange, slab and order, each product counted), training
+    # over the 2D and halo meshes, and the multi-device dry run
+    timed_phase("halo", halo_phase, ds, results)
+    timed_phase("mesh train", mesh_train_phase, ds, results, card)
+    timed_phase("dryrun", dryrun_phase, results)
 
     if "--profile" in sys.argv[1:]:
         from pygim_tpu_torch.bench.report import profile_forward

@@ -2,8 +2,8 @@
 reference's budget and dataset sets, the BASELINE.md tracked
 configurations (``BASELINE_EXPERIMENTS``, entry for entry and field for
 field, so each has the reference's frozen name) and the default sweep.
-The port runs the points its modules cover; the others are refused with
-the ROADMAP.md item that brings them (``Experiment.refusal``)."""
+The port runs every point, tracked config 5's four halo scaling entries
+included (``bench/scaling.py``)."""
 
 from __future__ import annotations
 

@@ -20,14 +20,18 @@ twin of ``pygim_tpu/bench/experiment.py``.
   recording ``tuned_backend``, ``tuned_balance`` and
   ``tuned_block_nnz_budget``. As in the reference, the pick replaces the
   whole config, ``sp_format`` included.
-* ``sp_parts · ds_parts > 1`` runs the spmm and inference kinds over a
-  2D mesh (``parallel/spmm_2d.py``): on the card over the visible cards
-  (one card raises ``ValueError``, as the reference on one chip), on
+* ``sp_parts · ds_parts > 1`` runs the spmm, inference and training
+  kinds over a 2D mesh (``parallel/spmm_2d.py``; training through its
+  prepared transpose): on the card over the visible cards (one card
+  raises ``ValueError``, as the reference on one chip), on
   ``device="cpu"`` over ``sp · ds`` copies of the CPU device.
-* Not ported yet, each refused with ``NotImplementedError`` naming its
-  ROADMAP.md item (Queue 1): ``kind="scaling"`` and
-  ``part_method="metis"`` (item 6b), and training over a mesh (item
-  6c).
+* ``kind="scaling"`` runs ``bench/scaling.py:run_scaling_benchmark`` with
+  ``exchange``, ``cluster`` (the node order), ``device_counts`` and
+  ``scale_model``: on the card over the visible cards, on
+  ``device="cpu"`` over as many copies of the CPU device as the largest
+  count (a virtual mesh, ``virtual_mesh`` true).
+* ``part_method="metis"`` takes a part of the multilevel k-way partition
+  (``data/datasets.py:cluster_partition``).
 """
 
 from __future__ import annotations
@@ -159,14 +163,9 @@ class Experiment:
         return "todo"
 
     def refusal(self) -> Optional[str]:
-        """Why the port cannot run this point yet, or None."""
-        if self.sp_parts * self.ds_parts > 1 and self.kind == "training":
-            return (f"sp_parts={self.sp_parts} x ds_parts={self.ds_parts} "
-                    "training: mesh training is not ported yet (ROADMAP.md, "
-                    "Queue 1 item 6c)")
-        if self.kind == "scaling":
-            return ("kind='scaling': the halo scaling benchmark is not ported "
-                    "yet (ROADMAP.md, Queue 1 item 6b)")
+        """Why the port cannot run this point, or None: every field
+        setting of the reference's runs now (the tuner's multi-card plans,
+        ROADMAP.md Queue 1 item 6d, are refused inside ``tune/``)."""
         return None
 
     def run(self, results_dir, data_root: Optional[str] = None,
@@ -211,9 +210,6 @@ class Experiment:
             return prep
 
         try:
-            why = self.refusal()
-            if why is not None:
-                raise NotImplementedError(why)
             n_mesh = self.sp_parts * self.ds_parts
             if n_mesh > 1:
                 from pygim_tpu_torch.parallel import make_mesh
@@ -259,6 +255,22 @@ class Experiment:
                     repeat=self.repeat, reporter=rep, prepare_fn=prepare,
                     validate=self.validate, device=dev,
                 )
+            elif self.kind == "scaling":
+                from pygim_tpu_torch.bench.scaling import (
+                    run_scaling_benchmark,
+                )
+
+                counts = ([int(c) for c in self.device_counts.split(",")]
+                          if self.device_counts else None)
+                run_scaling_benchmark(
+                    ds, device_counts=counts, hidden=self.hidden,
+                    exchange=self.exchange, config=cfg, repeat=self.repeat,
+                    reporter=rep,
+                    model=self.model if self.scale_model else None,
+                    num_layers=self.num_layers, agg_dtype=agg_dtype,
+                    order=self.cluster or None,
+                    devices=(None if dev.type == "cuda"
+                             else [dev] * max(counts or [1])))
             elif self.kind == "training":
                 run_training_benchmark(
                     ds, model=self.model, num_layers=self.num_layers,

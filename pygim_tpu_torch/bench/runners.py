@@ -22,10 +22,10 @@ import torch
 from pygim_tpu_torch.data import GraphDataset
 from pygim_tpu_torch.nn.models import make_gnn
 from pygim_tpu_torch.ops.spmm import (
-    KERNEL_BACKENDS,
     PreparedAggregate,
     SpmmConfig,
     prepare_spmm,
+    runs_kernels,
 )
 from pygim_tpu_torch.utils.metrics import DataReporter
 from pygim_tpu_torch.utils.timers import device_time
@@ -48,15 +48,22 @@ def spmm_model_bytes(nnz: int, nrows: int, hidden: int, dtype_bytes: int = 4):
 
 def _prepare(graph, config, prepare_fn, device, rep, mesh=None):
     """The operand: ``prepare_fn(graph, config)`` where given, else over
-    ``mesh`` (``parallel/spmm_2d.py``) where given, else on ``device``;
+    ``mesh`` where given (``parallel/spmm_2d.py``, or ``parallel/halo.py``
+    for a node line), else on ``device``;
     its prepare time, host phases and ``layout``."""
     t0 = time.perf_counter()
     if prepare_fn is not None:
         prep = prepare_fn(graph, config)
     elif mesh is not None:
-        from pygim_tpu_torch.parallel import prepare_spmm_2d
+        from pygim_tpu_torch.parallel import (
+            NodeMesh,
+            prepare_spmm_2d,
+            prepare_spmm_halo,
+        )
 
-        prep = prepare_spmm_2d(graph, mesh, config or default_config())
+        prepare_mesh = (prepare_spmm_halo if isinstance(mesh, NodeMesh)
+                        else prepare_spmm_2d)
+        prep = prepare_mesh(graph, mesh, config or default_config())
     else:
         prep = prepare_spmm(graph, config or default_config(), device=device)
     rep.report("prepare_pim_time(ms)", (time.perf_counter() - t0) * 1e3)
@@ -306,11 +313,13 @@ def run_training_benchmark(
     ``train_loss``, ``test_acc``,
     ``oracle_train_loss``, ``oracle_test_acc``, ``acc_delta``,
     ``layer{i}_max_err`` and ``validate``, and the device bytes of the
-    operand and, on a kernel backend, of its prepared transpose
+    operand and, on a kernel backend or a mesh, of its prepared transpose
     (``operand_bytes``, ``transpose_bytes``), which is prepared before the
-    epochs are timed (``prepare_transpose_time(ms)``). A ``mesh``
-    raises ``NotImplementedError``: mesh training is not ported
-    (ROADMAP.md, Queue 1 item 6c). Each of the
+    epochs are timed (``prepare_transpose_time(ms)``). A ``mesh`` (the 2D
+    :class:`~pygim_tpu_torch.parallel.Mesh` or a node line,
+    :class:`~pygim_tpu_torch.parallel.NodeMesh`, whose operand is the
+    halo layout's) trains over it, its backward on the mesh's own Aᵀ;
+    ``device`` is then the mesh's first device. Each of the
     backend's steps is split into its phases
     (:class:`~pygim_tpu_torch.nn.train.StepSplit`), reported as
     ``forward_ms``, ``backward_ms`` and ``adam_ms`` (medians, the first
@@ -321,18 +330,14 @@ def run_training_benchmark(
     from pygim_tpu_torch.nn.models import gnn_apply
     from pygim_tpu_torch.nn.train import StepSplit, make_train_step
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a mesh: mesh training is not ported (ROADMAP.md, "
-            "Queue 1 item 6c)")
     rep = reporter or DataReporter()
     rep.report("data_source", "synthetic" if ds.synthetic else "real")
     rep.report("device", device_name(device))
     graph = ds.graph
     x, labels, train_mask = train_inputs(ds, device)
-    prep = _prepare(graph, config, prepare_fn, device, rep)
+    prep = _prepare(graph, config, prepare_fn, device, rep, mesh)
     cfg = getattr(prep, "config", None)
-    kernels = hasattr(prep, "transpose") and cfg.backend in KERNEL_BACKENDS
+    kernels = hasattr(prep, "transpose") and runs_kernels(prep)
     if kernels:
         # the backward's operand, prepared before the clock starts
         t0 = time.perf_counter()

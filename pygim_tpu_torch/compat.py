@@ -176,11 +176,14 @@ def dpu_release() -> None:
 
 def describe_layout(prep) -> str:
     """The distribution of a prepared operand, in the reference's words:
-    ``mesh sp=… ds=…`` for a 2D mesh operand, else ``single-chip``."""
+    ``halo nd=…`` for a halo operand, ``mesh sp=… ds=…`` for a 2D mesh
+    operand, else ``single-chip``."""
     mesh = getattr(prep, "mesh", None)
     if mesh is None:
         return "single-chip"
     shape = dict(mesh.shape)
+    if "nodes" in shape:
+        return f"halo nd={shape['nodes']}"
     return f"mesh sp={shape.get('sp', 1)} ds={shape.get('ds', 1)}"
 
 

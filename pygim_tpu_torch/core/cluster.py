@@ -11,9 +11,14 @@
   is id-correlated already).
 
 An order maps new position → original node id; :func:`relabel` applies
-it to a graph. The multilevel k-way partitioner (``partition_kway``,
-``partition_order``, ``edge_cut_fraction``), which needs the native
-``partition_ml.cpp``, is not ported yet (ROADMAP.md, Queue 1 item 6b).
+it to a graph.
+
+The multilevel k-way partitioner (``pygim_tpu/core/cluster.py:84-135``):
+:func:`partition_kway` runs ``csrc/partition_ml.cpp`` (heavy-edge
+matching, greedy growing, boundary refinement; ``core/native.py`` builds
+it with ``g++``), :func:`partition_order` sorts the nodes by part, so the
+halo layout's contiguous row ranges become the parts, and
+:func:`edge_cut_fraction` measures a membership's cut.
 """
 
 from __future__ import annotations
@@ -75,6 +80,50 @@ def _label_prop_order(csr: CsrGraph, rounds: int = 3) -> np.ndarray:
             break
         labels = new
     return np.argsort(labels, kind="stable").astype(np.int64)
+
+
+def partition_kway(graph, nparts: int, tol: float = 0.03,
+                   seed: int = 0) -> np.ndarray:
+    """Multilevel k-way partition membership (int32, one part id a node)
+    under a ``tol`` balance constraint, from the native library. Under
+    ``core/native.py:NO_NATIVE_ENV`` it takes the reference's fallback:
+    label-propagation communities packed in order into ``nparts`` equal
+    bins (much weaker cuts, the same interface)."""
+    from pygim_tpu_torch.core.native import partition_kway_native
+
+    csr = graph if isinstance(graph, CsrGraph) else graph.to_csr()
+    if nparts <= 1:
+        return np.zeros(csr.nrows, dtype=np.int32)
+    res = partition_kway_native(csr.rowptr, csr.colind, nparts, tol=tol,
+                                seed=seed)
+    if res is not None:
+        return res[0]
+    order = _label_prop_order(csr)
+    n = csr.nrows
+    target = -(-n // nparts)
+    part = np.empty(n, dtype=np.int32)
+    part[order] = np.arange(n, dtype=np.int64) // target
+    return part
+
+
+def partition_order(graph, nparts: int, tol: float = 0.02,
+                    seed: int = 0) -> np.ndarray:
+    """Node order (position → original id) sorting the nodes by their
+    k-way part: contiguous equal ranges of the reordered graph then
+    coincide with the parts (up to the ``tol`` imbalance)."""
+    part = partition_kway(graph, nparts, tol=tol, seed=seed)
+    return np.argsort(part, kind="stable").astype(np.int64)
+
+
+def edge_cut_fraction(graph, part: np.ndarray) -> float:
+    """Share of the (directed, non-self-loop) edges whose endpoints lie in
+    different parts."""
+    coo = graph if isinstance(graph, CooGraph) else graph.to_coo()
+    off = coo.rows != coo.cols
+    m = int(off.sum())
+    if m == 0:
+        return 0.0
+    return float((part[coo.rows[off]] != part[coo.cols[off]]).sum() / m)
 
 
 def relabel(graph, order: np.ndarray) -> CooGraph:

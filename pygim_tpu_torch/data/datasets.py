@@ -404,20 +404,28 @@ def cluster_partition(ds: GraphDataset, part_size: int, part_idx: int = 1,
     ``method``: ``"none"``, contiguous node ranges; ``"rcm"`` or
     ``"lp"``, ranges of a locality order (``core/cluster.py``), so each
     part is a low-cut cluster on a graph whose ids carry no locality; its
-    nodes keep their original relative order. ``"metis"`` needs the
-    multilevel partitioner, not ported yet (ROADMAP.md, Queue 1 item 6b),
-    and raises ``NotImplementedError``."""
-    if method == "metis":
-        raise NotImplementedError(
-            "cluster_partition(method='metis') needs the multilevel k-way "
-            "partitioner (partition_kway, native partition_ml.cpp), not "
-            "ported yet (ROADMAP.md, Queue 1 item 6b)")
+    nodes keep their original relative order. ``"metis"``: part
+    ``part_idx`` of the multilevel k-way partition into ``ceil(n /
+    part_size)`` parts (``core/cluster.py:partition_kway``)."""
     n = ds.num_nodes
     nparts = max(1, -(-n // part_size))
     part_idx = min(part_idx, nparts - 1)
     lo = part_idx * part_size
     hi = min(n, lo + part_size)
     g = ds.graph
+    if method == "metis" and nparts > 1:
+        from pygim_tpu_torch.core.cluster import partition_kway
+
+        part = partition_kway(g, nparts)
+        nodes = np.flatnonzero(part == part_idx)
+        pos = np.full(n, -1, dtype=np.int64)
+        pos[nodes] = np.arange(nodes.size)
+        mask = (pos[g.rows] >= 0) & (pos[g.cols] >= 0)
+        sub = CooGraph.from_edges(
+            pos[g.rows[mask]], pos[g.cols[mask]], g.vals[mask],
+            nrows=nodes.size, ncols=nodes.size,
+        )
+        return _subgraph(ds, part_idx, sub, nodes)
     if method != "none":
         from pygim_tpu_torch.core.cluster import locality_order
 

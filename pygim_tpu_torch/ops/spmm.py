@@ -658,6 +658,28 @@ def prepare_cache_key(coo, config) -> str:
     return h.hexdigest()[:16]
 
 
+def transpose_graph(graph) -> CooGraph:
+    """``graph`` with ``rows`` and ``cols`` swapped: Aᵀ."""
+    coo = graph if isinstance(graph, CooGraph) else graph.to_coo()
+    return CooGraph(rows=coo.cols, cols=coo.rows, vals=coo.vals,
+                    nrows=coo.ncols, ncols=coo.nrows)
+
+
+def check_transpose_graph(graph, source_shape) -> None:
+    """Raise unless ``graph`` has the shape and edge count of the graph an
+    operand was prepared from (``source_shape``): ``transpose(graph)``
+    prepares Aᵀ from it once."""
+    if graph is None:
+        raise ValueError(
+            "Aᵀ is not prepared: call transpose(graph) with the graph "
+            "this operand was prepared from")
+    if (graph.nrows, graph.ncols, graph.nnz) != source_shape:
+        raise ValueError(
+            f"transpose(graph): a graph of shape ({graph.nrows}, "
+            f"{graph.ncols}) with {graph.nnz} edges, the operand's "
+            f"was {source_shape}")
+
+
 def gather_only(x, cols2d):
     """The gather-only probe of :meth:`PreparedSpmm.phase_times`: each
     step's rows of x gathered and summed into one f32 (H,) vector, no
@@ -978,20 +1000,9 @@ class PreparedSpmm:
         (``run_training_benchmark`` and ``train_cuda.py`` before their
         clock), and an inference run never does."""
         if self._transpose is None:
-            if graph is None:
-                raise ValueError(
-                    "Aᵀ is not prepared: call transpose(graph) with the graph "
-                    "this operand was prepared from")
-            if (graph.nrows, graph.ncols, graph.nnz) != self._source_shape:
-                raise ValueError(
-                    f"transpose(graph): a graph of shape ({graph.nrows}, "
-                    f"{graph.ncols}) with {graph.nnz} edges, the operand's "
-                    f"was {self._source_shape}")
-            coo = graph if isinstance(graph, CooGraph) else graph.to_coo()
-            gt = CooGraph(rows=coo.cols, cols=coo.rows, vals=coo.vals,
-                          nrows=coo.ncols, ncols=coo.nrows)
-            self._transpose = PreparedSpmm(gt, self.config,
-                                           device=self.device)
+            check_transpose_graph(graph, self._source_shape)
+            self._transpose = PreparedSpmm(transpose_graph(graph),
+                                           self.config, device=self.device)
         return self._transpose
 
     def mul(self, x):
@@ -1215,11 +1226,12 @@ class PreparedSpmm:
         return xc
 
     def _core_add(self, x, dev, out, kernels, safe=None, limbs=None,
-                  rows=None):
+                  rows=None, xc=None):
         """The core tier of :meth:`_run` into ``out`` at ``core_nodes`` (or
-        ``rows``): the rank gather ``xc`` (rounded to ``round(xc / safe)``
-        where ``safe`` is given), then the product of the reference's
-        ``_core_matmul`` for this core and payload
+        ``rows``): the rank gather ``xc`` (or the caller's ``xc``, as wide
+        as the stored band: a halo shard's hub buffer), rounded to
+        ``round(xc / safe)`` where ``safe`` is given, then the product of
+        the reference's ``_core_matmul`` for this core and payload
         (``pygim_tpu/ops/spmm.py:586-630``) through ``kernels``
         (:meth:`_kernels`):
 
@@ -1238,7 +1250,8 @@ class PreparedSpmm:
         _tail_fn, core_fn, int_fn, f32_fn, _bcsr_fn = kernels
         cn = dev["core_nodes"] if rows is None else rows
         bands = [dev[k] for k in self._band_keys]
-        xc = self._xc(x, dev["core_nodes"], dev)
+        if xc is None:
+            xc = self._xc(x, dev["core_nodes"], dev)
         if safe is not None:
             xc = torch.round(xc / safe).to(torch.int32)
         if self.core_dtype in INT_CORES:
@@ -1352,11 +1365,23 @@ class PreparedSpmm:
 KERNEL_BACKENDS = ("hybrid", "ell")  # the backends that run hand kernels
 
 
+def runs_kernels(prep) -> bool:
+    """Whether ``prep``'s products run hand kernels, which autograd cannot
+    follow: a mesh operand (``parallel/``: its shards are ell or hybrid
+    whatever the backend named) or a single-card operand of
+    :data:`KERNEL_BACKENDS`."""
+    return (getattr(prep, "mesh", None) is not None
+            or prep.config.backend in KERNEL_BACKENDS)
+
+
 class SpmmFunction(torch.autograd.Function):
     """``A @ x`` through ``prep``'s kernels (:meth:`PreparedSpmm.mul`),
     differentiable in x: the backward is ``Aᵀ @ g`` through the same
     kernels on :meth:`PreparedSpmm.transpose`. The port's counterpart of
-    JAX's autodiff through the reference's ``raw_mul``.
+    JAX's autodiff through the reference's ``raw_mul``. Any operand with
+    ``mul`` and a prepared ``transpose()`` serves: the mesh operands
+    (``parallel/spmm_2d.py``, ``parallel/halo.py``) run ``Aᵀ g`` on their
+    own layout's kernels, their product landing on x's device.
 
     Numerics of the core (hybrid): on int8, int4 and bf16 cells the
     reference's autodiff of ``bf16(band) @ bf16(xc)`` computes each
@@ -1385,8 +1410,8 @@ class PreparedAggregate:
     (:func:`pygim_tpu_torch.nn.layers.quantized_aggregate`). Under grad
     mode a payload that requires grad goes through :class:`SpmmFunction`
     on the kernel backends, whose operand's transpose must be prepared
-    first (``prep.transpose(graph)``); ``oracle`` and ``blocked`` are
-    PyTorch ops, which autograd follows."""
+    first (``prep.transpose(graph)``), as on a mesh operand; ``oracle`` and
+    ``blocked`` are PyTorch ops, which autograd follows."""
 
     def __init__(self, prep, dev=None):
         self.prep = prep
@@ -1394,7 +1419,7 @@ class PreparedAggregate:
 
     def __call__(self, v):
         if (torch.is_grad_enabled() and v.requires_grad
-                and self.prep.config.backend in KERNEL_BACKENDS):
+                and runs_kernels(self.prep)):
             if self.dev is not self.prep.dev_arrays:
                 raise NotImplementedError(
                     "a gradient through tables other than the operand's "

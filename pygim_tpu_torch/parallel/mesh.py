@@ -1,5 +1,6 @@
 """The ``(sp, ds)`` device grid of the 2D mesh, the port's copy of
-``pygim_tpu/parallel/mesh.py``.
+``pygim_tpu/parallel/mesh.py``, and the 1-D ``nodes`` line of the halo
+layout (:class:`NodeMesh`, made by ``parallel/halo.py:make_node_mesh``).
 
 Rank ``r`` of the reference's grid is tile ``(r // ds, r % ds)``; here
 the grid is a :class:`Mesh` of ``torch.device`` s, the ``sp`` axis (the
@@ -26,6 +27,27 @@ class Mesh:
     @property
     def shape(self) -> dict:
         return {"sp": len(self.devices), "ds": len(self.devices[0])}
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeMesh:
+    """``devices[d]``: the device of node shard ``d``."""
+
+    devices: tuple
+    axis_names: tuple = ("nodes",)
+
+    @property
+    def shape(self) -> dict:
+        return {"nodes": len(self.devices)}
+
+
+def is_virtual(devices) -> bool:
+    """Whether ``devices`` is a virtual mesh: one device repeated, or
+    devices that are not cards (a CPU mesh shares one host's cores). Such
+    a mesh checks every shard's work but measures no scaling."""
+    devices = [torch.device(d) for d in devices]
+    return (len(set(devices)) < len(devices)
+            or any(d.type != "cuda" for d in devices))
 
 
 def visible_cards() -> list:

@@ -20,8 +20,11 @@ as one float32 ``(nrows, h)`` tensor on the grid's first device. The
 host tables are the reference's byte for byte (``host_arrays``, under
 its key names).
 
-A gradient through the mesh is mesh training, not ported (ROADMAP.md,
-Queue 1 item 6c): a payload that requires grad under grad mode raises.
+Training over the mesh: :meth:`PreparedSpmm2D.transpose` prepares Aᵀ
+on the same mesh with the same configuration, and
+``ops/spmm.py:SpmmFunction`` runs the backward ``Aᵀ g`` on it, every
+shard through its kernels. The core is the reference's square
+column-sharded slab (the 2D path builds no staircase).
 """
 
 from __future__ import annotations
@@ -46,21 +49,94 @@ from pygim_tpu_torch.ops.spmm import (
     SpmmConfig,
     _ell_suffix,
     as_payload,
+    check_transpose_graph,
     plan_shared_ell_tables,
+    transpose_graph,
 )
 from pygim_tpu_torch.parallel.collectives import psum, psum_scatter
 from pygim_tpu_torch.parallel.mesh import Mesh
 from pygim_tpu_torch.utils.timers import device_time
 
-MESH_TRAINING = "ROADMAP.md, Queue 1 item 6c"
-# bytes of a core cell under the 2D rule (the reference's, :121-123)
-_ITEMSIZE = {"bfloat16": 2, "int8": 1, "int4": 0.5}
+# bytes of a core cell under the mesh budget rules (the reference's,
+# spmm_2d.py:121-123 and halo.py:229-231); other cells are 4
+MESH_CELL_BYTES = {"bfloat16": 2, "int8": 1, "int4": 0.5}
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
+def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and 16-byte aligned (K-tail's bulk path)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def shard_ell_host(h: dict, meta, s: int, prefix: str = "") -> dict:
+    """Shard ``s``'s ELL tables of the stacked ``h`` (keys
+    ``{prefix}cols2d{sfx}``, ...) in the layout ``PreparedSpmm.from_host``
+    takes, without a core."""
+    host = {"n_ell": np.int64(len(meta)), "k": np.int64(0),
+            "core_dtype": np.str_("float32")}
+    for i, (chunk, degree) in enumerate(meta):
+        sfx = _ell_suffix(i)
+        host[f"degree{sfx}"] = np.int64(degree)
+        host[f"chunk{sfx}"] = np.int64(chunk)
+        for k in ("cols2d", "vals2d"):
+            host[f"{k}{sfx}"] = h[f"{prefix}{k}{sfx}"][s].reshape(-1, degree)
+        host[f"vrow_to_row{sfx}"] = h[f"{prefix}vrow_to_row{sfx}"][s].reshape(-1)
+    return host
+
+
+def stack_bcsr(bcs: list, config: SpmmConfig, row_fill: int,
+               panel_base=None) -> tuple:
+    """The shards' BCSR tiles (``bcs[s]``: a ``BcsrTiles`` or None) padded
+    to one shape and stacked, the reference's layout
+    (``pygim_tpu/parallel/spmm_2d.py:290-336``, ``halo.py:410-449``): pad
+    vblocks hold zero tiles and point at the last row block, pad row nodes
+    are ``row_fill``, shard ``s``'s panel nodes less ``panel_base[s]``.
+    Returns ``({tiles, panel_idx, vblock_to_rb, panel_nodes, row_nodes},
+    step)``."""
+    tr, tc = config.bcsr_tile, TILE_COLS
+    built = [bc for bc in bcs if bc is not None]
+    s_max = max(bc.tiles_per_vblock for bc in built)
+    step = max(1, (8 << 20) // max(1, s_max * tc * config.hidden_hint * 4))
+    n_vb_max = max((bc.tiles.shape[0] for bc in built), default=1)
+    step = min(step, n_vb_max)
+    n_vb_pad = round_up(n_vb_max, step)
+    np_max = max((bc.panel_nodes.shape[0] for bc in built), default=tc)
+    nr_max = max((bc.row_nodes.shape[0] for bc in built), default=tr)
+    n = len(bcs)
+    tiles = np.zeros((n, n_vb_pad, s_max, tr, tc), dtype=built[0].tiles.dtype)
+    pidx = np.zeros((n, n_vb_pad, s_max), dtype=np.int32)
+    vb2rb = np.zeros((n, n_vb_pad), dtype=np.int32)
+    pnodes = np.zeros((n, np_max), dtype=np.int32)
+    rnodes = np.full((n, nr_max), row_fill, dtype=np.int32)
+    for s, bc in enumerate(bcs):
+        if bc is None:
+            continue
+        nv, sv = bc.tiles.shape[0], bc.tiles_per_vblock
+        tiles[s, :nv, :sv] = bc.tiles
+        pidx[s, :nv, :sv] = bc.panel_idx
+        vb2rb[s] = bc.row_nodes.shape[0] // tr - 1  # pads: the last rb
+        vb2rb[s, :nv] = bc.vblock_to_rb
+        base = 0 if panel_base is None else panel_base[s]
+        pnodes[s, : bc.panel_nodes.shape[0]] = bc.panel_nodes - base
+        rnodes[s, : bc.row_nodes.shape[0]] = bc.row_nodes
+    return dict(tiles=tiles, panel_idx=pidx, vblock_to_rb=vb2rb,
+                panel_nodes=pnodes, row_nodes=rnodes), step
+
+
+def shard_bcsr_host(op, s: int, prefix: str = "") -> dict:
+    """Shard ``s``'s row-kind BCSR tables of ``op.host_arrays`` (keys
+    ``{prefix}tiles``, ...; :func:`stack_bcsr`'s) in ``from_host``'s
+    layout."""
+    h = op.host_arrays
+    return dict(
+        bcsr_kind=np.str_("row"), bcsr_dtype=np.str_(op.bcsr_dtype),
+        bcsr_step=np.int64(op.bcsr_step),
+        bcsr_n_rb=np.int64(h[f"{prefix}row_nodes"].shape[1]
+                           // op.config.bcsr_tile),
+        bcsr_edges=np.int64(op.bcsr_edges),
+        **{f"bcsr_{k}": h[f"{prefix}{k}"][s] for k in (
+            "tiles", "panel_idx", "vblock_to_rb", "panel_nodes",
+            "row_nodes")})
 
 
 class PreparedSpmm2D:
@@ -78,6 +154,9 @@ class PreparedSpmm2D:
                  *, scatter_output: bool = False):
         config = config or SpmmConfig()
         config.check_supported()
+        # the graph as given, to check the one transpose() is handed
+        self._source_shape = (graph.nrows, graph.ncols, graph.nnz)
+        self._transpose = None
         if config.merge_duplicates:
             graph, _ = merge_duplicate_edges(graph)
         self.mesh = mesh
@@ -121,7 +200,7 @@ class PreparedSpmm2D:
         rank = np.empty(n, dtype=np.int32)
         rank[order] = np.arange(n, dtype=np.int32)
         core_dtype = config.hybrid_dtype or "float32"
-        itemsize = _ITEMSIZE.get(core_dtype, 4)
+        itemsize = MESH_CELL_BYTES.get(core_dtype, 4)
         if config.hybrid_k is not None:
             k = max(1, min(config.hybrid_k, n))
         else:
@@ -201,7 +280,7 @@ class PreparedSpmm2D:
                 np.concatenate([e[0] for e in part_edges]),
                 np.concatenate([e[1] for e in part_edges]),
                 t_order, rank, k, n, config.bcsr_order)
-        tr, tc = config.bcsr_tile, TILE_COLS
+        tr = config.bcsr_tile
         bcs, captured = [], 0
         for s, p in enumerate(parts):
             rows_of, cols_g, vals = part_edges[s]
@@ -223,32 +302,9 @@ class PreparedSpmm2D:
             bcs.append(bc)
         if captured == 0:
             return
-        built = [bc for bc in bcs if bc is not None]
-        s_max = max(bc.tiles_per_vblock for bc in built)
-        step = max(1, (8 << 20) // max(1, s_max * tc * config.hidden_hint * 4))
-        n_vb_max = max((bc.tiles.shape[0] for bc in built), default=1)
-        step = min(step, n_vb_max)
-        n_vb_pad = round_up(n_vb_max, step)
-        np_max = max((bc.panel_nodes.shape[0] for bc in built), default=tc)
-        nr_max = max((bc.row_nodes.shape[0] for bc in built), default=tr)
-        tiles = np.zeros((sp, n_vb_pad, s_max, tr, tc), dtype=built[0].tiles.dtype)
-        pidx = np.zeros((sp, n_vb_pad, s_max), dtype=np.int32)
-        vb2rb = np.zeros((sp, n_vb_pad), dtype=np.int32)
-        pnodes = np.zeros((sp, np_max), dtype=np.int32)
-        rnodes = np.full((sp, nr_max), n - 1, dtype=np.int32)
-        for s, bc in enumerate(bcs):
-            if bc is None:
-                continue
-            nv, sv = bc.tiles.shape[0], bc.tiles_per_vblock
-            tiles[s, :nv, :sv] = bc.tiles
-            pidx[s, :nv, :sv] = bc.panel_idx
-            vb2rb[s] = bc.row_nodes.shape[0] // tr - 1  # pads: the last rb
-            vb2rb[s, :nv] = bc.vblock_to_rb
-            # panels gather the shard's own block of x
-            pnodes[s, : bc.panel_nodes.shape[0]] = bc.panel_nodes - s * w
-            rnodes[s, : bc.row_nodes.shape[0]] = bc.row_nodes
-        self.host_arrays.update(tiles=tiles, panel_idx=pidx, vblock_to_rb=vb2rb,
-                                panel_nodes=pnodes, row_nodes=rnodes)
+        tables, step = stack_bcsr(bcs, config, n - 1,
+                                  [s * w for s in range(sp)])
+        self.host_arrays.update(tables)
         self.has_bcsr = True
         self.bcsr_step = step
         self.bcsr_edges = captured
@@ -258,31 +314,14 @@ class PreparedSpmm2D:
         """Shard s's host tables in the layout ``PreparedSpmm.from_host``
         takes."""
         h = self.host_arrays
-        host = {"n_ell": np.int64(len(self.ell_meta)),
-                "k": np.int64(self.hybrid_k_eff),
-                "core_dtype": np.str_(self.core_dtype or "float32")}
-        for i, (chunk, degree) in enumerate(self.ell_meta):
-            sfx = _ell_suffix(i)
-            host[f"degree{sfx}"] = np.int64(degree)
-            host[f"chunk{sfx}"] = np.int64(chunk)
-            host[f"cols2d{sfx}"] = h[f"cols2d{sfx}"][s].reshape(-1, degree)
-            host[f"vals2d{sfx}"] = h[f"vals2d{sfx}"][s].reshape(-1, degree)
-            host[f"vrow_to_row{sfx}"] = h[f"vrow_to_row{sfx}"][s].reshape(-1)
+        host = shard_ell_host(h, self.ell_meta, s)
+        host["core_dtype"] = np.str_(self.core_dtype or "float32")
         if self.hybrid_k_eff > 0:
-            host.update(core=h["core"][s], core_rows=h["core_rows"][s],
+            host.update(k=np.int64(self.hybrid_k_eff), core=h["core"][s],
+                        core_rows=h["core_rows"][s],
                         core_nodes=h["core_nodes"])
         if self.has_bcsr:
-            tr = self.config.bcsr_tile
-            host.update(
-                bcsr_kind=np.str_("row"), bcsr_tiles=h["tiles"][s],
-                bcsr_dtype=np.str_(self.bcsr_dtype),
-                bcsr_panel_idx=h["panel_idx"][s],
-                bcsr_vblock_to_rb=h["vblock_to_rb"][s],
-                bcsr_panel_nodes=h["panel_nodes"][s],
-                bcsr_row_nodes=h["row_nodes"][s],
-                bcsr_step=np.int64(self.bcsr_step),
-                bcsr_n_rb=np.int64(h["row_nodes"].shape[1] // tr),
-                bcsr_edges=np.int64(self.bcsr_edges))
+            host.update(shard_bcsr_host(self, s))
         return host
 
     def _install(self) -> None:
@@ -313,20 +352,23 @@ class PreparedSpmm2D:
     def out_device(self) -> torch.device:
         return self.mesh.devices[0][0]
 
-    def transpose(self, graph=None):
-        raise NotImplementedError(
-            f"Aᵀ of a 2D mesh operand: mesh training is not ported "
-            f"({MESH_TRAINING})")
+    def transpose(self, graph=None) -> "PreparedSpmm2D":
+        """``Aᵀ`` on the same mesh, configuration and output mode:
+        ``graph``, the graph this operand was prepared from, transposed
+        and prepared at the first call and kept (later calls return it).
+        The backward of ``ops/spmm.py:SpmmFunction`` runs on it."""
+        if self._transpose is None:
+            check_transpose_graph(graph, self._source_shape)
+            self._transpose = PreparedSpmm2D(
+                transpose_graph(graph), self.mesh, self.config,
+                scatter_output=self.scatter_output)
+        return self._transpose
 
     def _local(self, x, dev: dict, plain: bool = False) -> dict:
         """Every shard's partial product, ``{(s, d): (nrows_pad, h_pad /
         ds) f32}`` on its device."""
         if x.dim() != 2 or x.shape[0] != self.ncols:
             raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                f"a gradient through the 2D mesh: mesh training is not "
-                f"ported ({MESH_TRAINING})")
         x = as_payload(x)
         h = x.shape[1]
         h_pad = round_up(h, self.ds)
@@ -339,7 +381,7 @@ class PreparedSpmm2D:
             for d in range(self.ds):
                 device = self.mesh.devices[s][d]
                 op = self._shards[s, device]
-                xl = _aligned(x[s * w:(s + 1) * w, d * hd:(d + 1) * hd]
+                xl = aligned(x[s * w:(s + 1) * w, d * hd:(d + 1) * hd]
                               .to(device))
                 parts[s, d] = op._run(xl, dev[s, device], plain=plain)
         return parts

@@ -179,12 +179,28 @@ def test_clustered_part_keeps_more_edges(tmp_path):
         assert clus.x.shape == flat.x.shape
 
 
-def test_cluster_partition_metis_not_ported(tmp_path):
-    ds = tdata.load_dataset("tiny", root=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tdata.cluster_partition(ds, part_size=300, method="metis")
+def test_cluster_partition_metis_not_ported(tmp_path, monkeypatch):
+    """``method="metis"``, refused until the multilevel partitioner was
+    ported (ROADMAP.md Queue 1 item 6b), takes the reference's part of its
+    k-way partition (where the reference has no native library, both take
+    the label-propagation packing); an unknown method raises as in the
+    reference."""
+    from pygim_tpu_torch.core import native as tnative
+    from test_torch_prepare import reference_planner
+
+    if not reference_planner():
+        monkeypatch.setenv(tnative.NO_NATIVE_ENV, "1")
+    j = sorted_dataset(jdata, "tiny", tmp_path)
+    t = sorted_dataset(tdata, "tiny", tmp_path)
+    for part_idx in (1, 3):
+        want = jdata.cluster_partition(j, part_size=300, part_idx=part_idx,
+                                       method="metis")
+        got = tdata.cluster_partition(t, part_size=300, part_idx=part_idx,
+                                      method="metis")
+        assert_same_dataset(want, got)
+        assert 0 < got.num_nodes <= 300 * 1.1
     with pytest.raises(ValueError):
-        tdata.cluster_partition(ds, part_size=300, method="bogus")
+        tdata.cluster_partition(t, part_size=300, method="bogus")
 
 
 def fake_pyg(monkeypatch, n=20):

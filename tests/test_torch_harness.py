@@ -296,38 +296,45 @@ def test_training_kind(tmp_path):
     (dict(part_size=400, part_method="metis"), "Queue 1 item 6"),
 ])
 def test_not_ported_settings_raise(fields, item, tmp_path, monkeypatch):
-    """Each refused setting raises ``NotImplementedError`` naming its
-    item, after the ``.failed`` record is written; a sweep goes on past
-    it. Settings refused until their slice (item None) now run to a
-    verified record: the ``coo`` backend, and ``tune=True``, whose record
-    holds the tuner's pick (``tuned_backend``, ``tuned_balance``,
-    ``tuned_block_nnz_budget``). A mesh runs its spmm and inference
-    kinds (``tests/test_torch_mesh.py``); it stays refused for training
-    (mesh training, item 6c)."""
+    """Each setting once refused until its slice now runs to a record:
+    the ``coo`` backend and ``tune=True`` (item None), whose record holds
+    the tuner's pick (``tuned_backend``, ``tuned_balance``,
+    ``tuned_block_nnz_budget``), and those of ROADMAP.md Queue 1 items
+    6b and 6c (``item``): ``kind="scaling"`` (on the CPU one device, so
+    ``edges_per_s_n1``), training over a 2D mesh (its parity with the
+    oracle and ``validate: OK``) and ``part_method="metis"`` (the SpMM of
+    one part of the k-way partition, verified). A sweep takes their
+    records like any other point's."""
     monkeypatch.setenv("PYGIM_TPU_TORCH_TUNE_CACHE", str(tmp_path / "tune"))
     exp = Experiment(dataset="tiny", repeat=1, **fields)
-    if item is None:
-        means = exp.run(tmp_path / "a", data_root=str(tmp_path / "data"),
-                        device="cpu")
+    if exp.kind == "training":
+        exp = dataclasses.replace(exp, hidden=16, epochs=3)
+    means = exp.run(tmp_path / "a", data_root=str(tmp_path / "data"),
+                    device="cpu")
+    assert exp.status_at(tmp_path / "a") == "done"
+    rec = (tmp_path / "a" / f"{exp.frozen_name()}.out").read_text()
+    if exp.kind == "scaling":
+        assert means["edges_per_s_n1"] > 0 and "[DATA]virtual_mesh: " in rec
+    elif exp.kind == "training":
+        assert "[DATA]validate: OK" in rec and "acc_delta" in means
+        n = exp.sp_parts * exp.ds_parts
+        assert f"[DATA]layout: mesh sp={exp.sp_parts} ds={exp.ds_parts}" \
+            in rec and n == 2
+    else:
         assert means["pim_time_spmm(ms)"] > 0
-        assert exp.status_at(tmp_path / "a") == "done"
-        rec = (tmp_path / "a" / f"{exp.frozen_name()}.out").read_text()
         assert "[DATA]verify: OK" in rec
-        if exp.tune:
-            for k in ("tuned_backend", "tuned_balance",
-                      "tuned_block_nnz_budget"):
-                assert rec.count(f"[DATA]{k}: ") == 1, k
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        exp.run(tmp_path / "a", data_root=str(tmp_path / "data"),
-                device="cpu")
-    failed = (tmp_path / "a" / f"{exp.frozen_name()}.failed").read_text()
-    assert "NotImplementedError" in failed and item in failed
+    if exp.part_method == "metis":
+        assert 0 < means["part_nodes"] <= 400 * 1.1
+    if exp.tune:
+        for k in ("tuned_backend", "tuned_balance",
+                  "tuned_block_nnz_budget"):
+            assert rec.count(f"[DATA]{k}: ") == 1, k
+    # the sweep skips it as done, with its recorded means
     ok = Experiment(dataset="tiny", hidden=8, repeat=1)
-    out = run_experiments([exp, ok], tmp_path / "b", device="cpu",
+    out = run_experiments([exp, ok], tmp_path / "a", device="cpu",
                           data_root=str(tmp_path / "data"))
-    assert list(out) == [ok.frozen_name()]
-    assert exp.status_at(tmp_path / "b") == "failed"
+    assert list(out) == [exp.frozen_name(), ok.frozen_name()]
+    assert out[exp.frozen_name()] == means
 
 
 def test_results_to_csv_matches_jax(tmp_path):

@@ -73,6 +73,9 @@ MODULES = [
     "pygim_tpu_torch.parallel.mesh",
     "pygim_tpu_torch.parallel.collectives",
     "pygim_tpu_torch.parallel.spmm_2d",
+    "pygim_tpu_torch.parallel.halo",
+    "pygim_tpu_torch.bench.scaling",
+    "pygim_tpu_torch.core.native",
     "sweep_cuda",
 ]
 
@@ -110,7 +113,8 @@ REEXPORTS = {
     "pygim_tpu_torch.nn": ["GNN", "make_gnn", "linear_apply",
                            "batchnorm_apply", "quantized_aggregate"],
     "pygim_tpu_torch.parallel": ["make_mesh", "PreparedSpmm2D",
-                                 "prepare_spmm_2d"],
+                                 "prepare_spmm_2d", "make_node_mesh",
+                                 "prepare_spmm_halo", "PreparedSpmmHalo"],
     "pygim_tpu_torch.compat": ["prepare_pim_spmm", "prepare_pim_spmm_grande",
                                "prepare_pim_spmv", "prepare_for_version",
                                "describe_layout", "dpu_init_ranks",

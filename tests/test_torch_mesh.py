@@ -373,6 +373,8 @@ def test_collectives_sum_in_shard_order():
 
 
 def test_phase_times_and_grad_refusal():
+    """phase_times' keys; a gradient through the mesh before and after
+    its Aᵀ is prepared."""
     edges = random_edges(96, 96, 700, seed=19)
     _jg, _jp, tp = both(edges, 4, 2, scatter=True, backend="hybrid",
                         hybrid_k=16)
@@ -381,11 +383,23 @@ def test_phase_times_and_grad_refusal():
     ph = tp.phase_times(x, iters=1)
     assert set(ph) == {"mul_time(ms)", "local_time(ms)", "psum_time(ms)"}
     assert ph["psum_time(ms)"] >= 0 and ph["local_time(ms)"] > 0
+    # training over the mesh: a gradient needs the prepared Aᵀ, then runs
+    # through it (against autograd through the plain versions on A, both
+    # f32 here on an f32 core, within 1e-5 of the largest |grad|)
     xg = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 6c"):
+    with pytest.raises(ValueError, match="not prepared"):
         tspmm.PreparedAggregate(tp)(xg)
-    with pytest.raises(NotImplementedError, match="item 6c"):
+    with pytest.raises(ValueError, match="not prepared"):
         tp.transpose()
+    tt = tp.transpose(graphs(edges)[1])
+    assert tp.transpose() is tt and tt.mesh == tp.mesh
+    assert tt.scatter_output and tt.config == tp.config
+    w = torch.randn(96, 8, generator=torch.Generator().manual_seed(0))
+    y = tspmm.PreparedAggregate(tp)(xg)
+    (ga,) = torch.autograd.grad((y * w).sum(), xg)
+    xb = x.clone().requires_grad_()
+    (gb,) = torch.autograd.grad((tp.mul_plain(xb) * w).sum(), xb)
+    assert float((ga - gb).abs().max()) <= 1e-5 * float(gb.abs().max())
     assert tp.supports_fused_quant is False
     assert tspmm.PreparedAggregate(tp).quantized(x, "int32") is None
 
@@ -444,9 +458,12 @@ def test_runners_mesh(tmp_path, monkeypatch):
     run_inference_benchmark(ds, hidden=16, repeat=1, reporter=rep,
                             device="cpu", mesh=mesh, validate=True)
     assert rep.records["validate"] == ["OK"]
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        run_training_benchmark(ds, hidden=16, epochs=1, device="cpu",
-                               mesh=mesh)
+    # training over the mesh (ROADMAP.md Queue 1 item 6c): its backward
+    # on the mesh's Aᵀ, the trained model against the oracle's
+    res = run_training_benchmark(ds, hidden=16, epochs=2, device="cpu",
+                                 mesh=mesh, reporter=rep)
+    assert rep.records["validate"][-1] == "OK" and res["acc_delta"] <= 0.01
+    assert rep.records["layout"][-1] == "mesh sp=2 ds=2"
 
 
 def test_merge_duplicates_off():

@@ -177,18 +177,20 @@ def test_train_cuda_on_the_cpu(capsys, tmp_path):
     (["--backend", "hybrid"], None),
 ], ids=["mesh", "hybrid-default-core"])
 def test_train_cuda_unported_raise(capsys, argv, what):
-    """A mesh is not ported: NotImplementedError with the reason. train.py's
-    --backend hybrid, refused until the port had its default core (the
-    graph's float dtype, f32 cells), now trains on it."""
-    if what is None:
-        _out, got = run_train(capsys, ["--dataset", "tiny", "--epochs", "2",
-                                       *argv])
-        assert got["epoch"] == [0.0, 1.0]
-        assert np.isfinite(got["train_loss"]).all()
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        train_cuda.main(["--dataset", "tiny", "--epochs", "1", *argv],
-                        device="cpu")
+    """Settings refused until their slice now train: train.py's --backend
+    hybrid, on the port's default core (the graph's float dtype, f32
+    cells), and a mesh (``what``, ROADMAP.md Queue 1 item 6c): --sp_parts
+    2 trains over a (2, 1) mesh of CPU devices, with the single device's
+    losses (the same parameters and dropout draws; f32 sums in another
+    order)."""
+    _out, got = run_train(capsys, ["--dataset", "tiny", "--epochs", "2",
+                                   *argv])
+    assert got["epoch"] == [0.0, 1.0]
+    assert np.isfinite(got["train_loss"]).all()
+    if what is not None:
+        _out, one = run_train(capsys, ["--dataset", "tiny", "--epochs", "2"])
+        np.testing.assert_allclose(got["train_loss"], one["train_loss"],
+                                   rtol=1e-4)
 
 
 def test_train_cuda_flags_match_train_py():

@@ -9,9 +9,12 @@ directory (the model's and the optimizer's state). On the ``ell`` and
 the prepared transpose; ``--backend hybrid`` builds
 ``SpmmConfig(backend="hybrid")``, whose default core is the graph's own
 dtype (a square f32 core at 4 GiB on a float graph: K-f32 forward and
-backward). ``--sp_parts × --ds_parts`` above one (mesh training,
-ROADMAP.md Queue 1 item 6c) raises ``NotImplementedError``. Runs on the card; ``main(argv, device="cpu")``
-runs the plain versions on the CPU (the tests).
+backward). ``--sp_parts × --ds_parts`` above one trains over the 2D
+mesh (``parallel/spmm_2d.py``, its backward on the mesh's prepared Aᵀ):
+on the card over the visible cards (fewer raise ``ValueError``, as
+``train.py`` on one chip), on the CPU over copies of the CPU device.
+Runs on the card; ``main(argv, device="cpu")`` runs the plain versions
+on the CPU (the tests).
 
     python3 train_cuda.py --dataset planted-20000-240000-8 --epochs 10
 """
@@ -41,10 +44,6 @@ def get_args(argv=None):
 def main(argv=None, *, device="cuda"):
     args = get_args(argv)
     print(args)
-    if args.sp_parts * args.ds_parts > 1:
-        raise NotImplementedError(
-            f"--sp_parts {args.sp_parts} × --ds_parts {args.ds_parts}: mesh "
-            "training is not ported (ROADMAP.md, Queue 1 item 6c)")
 
     import numpy as np
     import torch
@@ -57,10 +56,10 @@ def main(argv=None, *, device="cuda"):
         make_train_step_threaded,
     )
     from pygim_tpu_torch.ops.spmm import (
-        KERNEL_BACKENDS,
         PreparedAggregate,
         SpmmConfig,
         prepare_spmm,
+        runs_kernels,
     )
     from pygim_tpu_torch.utils.metrics import data_print
 
@@ -69,9 +68,19 @@ def main(argv=None, *, device="cuda"):
         ds = load_dataset(args.dataset, **kw)
     except KeyError as e:
         raise SystemExit(f"error: {e.args[0]}")
-    prep = prepare_spmm(ds.graph, SpmmConfig(backend=args.backend),
-                        device=device)
-    if args.backend in KERNEL_BACKENDS:
+    cfg = SpmmConfig(backend=args.backend)
+    n_mesh = args.sp_parts * args.ds_parts
+    if n_mesh > 1:
+        from pygim_tpu_torch.parallel import make_mesh, prepare_spmm_2d
+
+        dev = torch.device(device)
+        mesh = make_mesh(args.sp_parts, args.ds_parts,
+                         None if dev.type == "cuda" else [dev] * n_mesh)
+        prep = prepare_spmm_2d(ds.graph, mesh, cfg)
+        device = mesh.devices[0][0]
+    else:
+        prep = prepare_spmm(ds.graph, cfg, device=device)
+    if runs_kernels(prep):
         prep.transpose(ds.graph)  # the backward's operand, before the clock
     data_print("device", device_name(device))
 
