@@ -146,7 +146,23 @@ lines and the tuned forwards' logits against the plain versions, an
 audit of the model-mode ranking on the stand-in (the top 5 and each
 family's best: prepared, timed and held to ``mul_plain`` at the verify
 tolerance, predicted against measured ms and bytes; the pick's time at
-most 1.20 × the fastest audited) and one ``mode="measure"`` run.
+most 1.20 × the fastest audited) and one ``mode="measure"`` run. Then
+the tuner over a budget of four devices (the ``tune mesh`` phase), on a
+virtual mesh of the card, ``cuda:0`` four times, which checks every
+shard's work and measures no scaling: the port's collectives timed and
+fitted (``measure_ici_constants``: every ``bw`` and ``fixed_us`` with
+the mesh's tag), the model-mode ranking with
+``CardCostModel.for_topology`` (the best candidate of each layout with
+its predicted ms, ``psum_bytes``, ``launches`` and ``device_bytes``),
+the best 2d and halo candidates and the pick prepared by
+``prepare_tuned`` (each product held to its plain version and to the
+single card's, an int32 payload equal to both, its kernels counted
+beside the statistics' launches, its virtual ms beside the predicted ms
+and the card's peak-memory rise beside ``device_bytes``), and the float
+passthrough (``mul_quantized(x, "float32")`` on the stair int8, square
+int4, bf16 and f32 cores and an int8 core with a BCSR tier, counted, on
+the float kernels only, held to its plain version within 1e-4 of the
+output's largest magnitude and timed beside the float ``mul``).
 
 Then the core↔tail interleave (the ``interleave`` phase): the
 stand-in's square int8 and int4 cores prepared with
@@ -209,9 +225,13 @@ on one card (``mesh_full``). Both take minutes of host prepare where
 the caches are cold. ``--mesh-cards``, on a machine with four or more
 cards, runs the ``mesh`` phase over the cards themselves
 (``mesh_cards``); ``--halo-cards`` the ``halo`` phase likewise
-(``halo_cards``). ``--halo-full`` runs tracked config 5's four entries
-on a virtual node mesh of eight on one card (``halo_full``: edges/s and
-the halo's request and buffer rows; no scaling measured).
+(``halo_cards``), and ``--tune-cards`` measure-mode ``autotune`` over
+four cards with the ``tune mesh`` audit and the pick within 1.20 × the
+fastest audited (``tune_cards``). ``--halo-full`` runs tracked config
+5's four entries on a virtual node mesh of eight on one card
+(``halo_full``: edges/s and the halo's request and buffer rows; no
+scaling measured) and a model-mode ``autotune`` at a budget of eight on
+its graph beside them.
 """
 
 from __future__ import annotations
@@ -3985,6 +4005,307 @@ def tune_phase(results, card, device="cuda"):
                            measure=measure)
 
 
+TUNE_MESH_ND = 4  # the tuner's device budget in the tune mesh phase
+# the float passthrough against its plain version: both round x to the
+# same integers, then sum in f32 in other orders (and a bf16-rounded core
+# takes the same bf16 payload): 1e-4 of the output's largest magnitude
+PASSTHROUGH_BAR = 1e-4
+# (config, the kernels its float passthrough must launch)
+PASSTHROUGH_KERNELS = {
+    "stair int8": ("K-core", "K-tail"),
+    "square int4": ("K-core int4", "K-tail"),
+    "bf16 square": ("K-core bf16", "K-tail"),
+    "f32 square": ("K-f32", "K-tail"),
+    "bcsr": ("K-core", "K-tail", "K-bcsr"),
+}
+
+
+def tune_mesh_constants(devices, card):
+    """``measure_ici_constants`` over ``devices``: every collective's
+    ``bw`` and ``fixed_us`` printed with the card line and the mesh's tag;
+    a non-finite value, a ``bw`` not above 0 or a ``fixed_us`` below 0
+    (the fit's floor is 0) fails."""
+    import math
+
+    from pygim_tpu_torch.tune import measure_ici_constants
+    from pygim_tpu_torch.tune.cost_model import COLLECTIVES
+
+    coll = measure_ici_constants(devices)
+    meta = coll["__meta"]
+    for name in COLLECTIVES:
+        bw, fixed = coll[name]["bw"], coll[name]["fixed_us"]
+        print(f"tune mesh ici {name} ({card}; {meta['platform']} x"
+              f"{meta['n_devices']}, virtual {meta['virtual']}): bw "
+              f"{bw:.6g} B/s, fixed_us {fixed:.6g}, readings "
+              f"{json.dumps(meta['readings'][name])}", flush=True)
+        if not (math.isfinite(bw) and math.isfinite(fixed) and bw > 0
+                and fixed >= 0):
+            raise AssertionError(f"ici constants of {name}: {coll[name]}")
+    return coll
+
+
+def tune_mesh_ranking(ds, devices, model, label):
+    """Model-mode ``autotune`` at a budget of ``len(devices)`` over
+    ``devices`` with ``model``: the best candidate of each layout (single,
+    each 2d shape, each halo exchange × order) printed with its predicted
+    ms and its statistics' ``psum_bytes``, ``launches`` and
+    ``device_bytes``. Returns the result and the rows."""
+    from pygim_tpu_torch.core.graph import merge_duplicate_edges
+    from pygim_tpu_torch.ops.spmm import SpmmConfig
+    from pygim_tpu_torch.tune import DistPlan, autotune, plan_statistics
+
+    t0 = time.perf_counter()
+    res = autotune(ds.graph, HIDDEN, n_devices=len(devices), devices=devices,
+                   model=model, use_cache=False, device=devices[0])
+    plan_s = time.perf_counter() - t0
+    csr = merge_duplicate_edges(ds.graph)[0].to_csr()
+    memo, best = {}, {}
+    for i, (_p, d, _t, _m) in enumerate(res.candidates):
+        best.setdefault(DistPlan(**d).describe(), i)
+    rows = []
+    for layout, i in best.items():
+        p, d, t, _ = res.candidates[i]
+        st = plan_statistics(csr, HIDDEN, SpmmConfig(**p),
+                             plan=DistPlan(**d), _memo=memo)
+        row = dict(layout=layout, rank=i, point=p, predicted_ms=t * 1e3,
+                   psum_bytes=st["psum_bytes"], launches=st["launches"],
+                   device_bytes=st["device_bytes"])
+        print(f"tune mesh ranking ({label}): {json.dumps(row)}", flush=True)
+        rows.append(row)
+    print(f"tune mesh ranking ({label}): pick {res.plan.describe()} "
+          f"{json.dumps(res.candidates[0][0])}, {len(res.candidates)} "
+          f"candidates, constants {res.constants}, host planning "
+          f"{plan_s:.2f} s", flush=True)
+    return res, rows
+
+
+def tune_mesh_audit(ds, res, devices, label, bar=None):
+    """``prepare_tuned`` over ``devices`` of the best ``2d`` and the best
+    ``halo`` candidate of ``res``, and of its pick if it is neither: each
+    float product held to ``mul_plain`` at REL_TOL of the sum of |terms|
+    and to the single-card product (REL_TOL, or MESH_LOOSE where a
+    rounded core takes the float payload), an int32 payload equal to the
+    plain arm's and to the single card's; its kernels counted by
+    ``launch_counts()`` beside the statistics' ``launches`` (which count
+    the PyTorch ops too), its ms (CUDA events) beside the predicted ms,
+    the cards' peak-memory rise beside ``device_bytes`` (a shard's). Times
+    are labelled ``label`` ("virtual" on one card). With ``bar`` the
+    pick's ms must be at most ``bar`` × the fastest audited."""
+    import torch
+
+    from pygim_tpu_torch.core.graph import merge_duplicate_edges
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+    from pygim_tpu_torch.tune import (
+        DistPlan,
+        TuneResult,
+        plan_statistics,
+        prepare_tuned,
+    )
+
+    dev = devices[0]
+    cands = res.candidates
+    chosen = []
+    for layout in ("2d", "halo"):
+        i = next((i for i, c in enumerate(cands) if c[1]["layout"] == layout),
+                 None)
+        if i is not None:
+            chosen.append(i)
+    pick = 0 if res.measured_s is None else next(
+        i for i, c in enumerate(cands) if c[3] == res.measured_s
+        and c[1] == dataclasses.asdict(res.plan))
+    if pick not in chosen:
+        chosen.append(pick)
+    graph = ds.graph
+    csr = merge_duplicate_edges(graph)[0].to_csr()
+    g = torch.Generator().manual_seed(31)
+    x = torch.randn(graph.ncols, HIDDEN, generator=g).to(dev)
+    xi = torch.randint(-9, 10, (graph.ncols, HIDDEN), generator=g,
+                       dtype=torch.int32).to(dev)
+    mag = abs_magnitude(graph, x, dev)
+    cards = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
+    rows = []
+    for i in chosen:
+        p, d, t, _ = cands[i]
+        cfg, plan = SpmmConfig(**p), DistPlan(**d)
+        st = plan_statistics(csr, HIDDEN, cfg, plan=plan)
+        for c in cards:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(c)
+        base = {c: torch.cuda.memory_allocated(c) for c in cards}
+        t0 = time.perf_counter()
+        prep = prepare_tuned(graph, TuneResult(cfg, plan, t, None, []),
+                             device=dev, devices=devices)
+        prep_s = time.perf_counter() - t0
+        reset_launch_counts()
+        got = prep.mul(x)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        n = launch_counts()
+        rise = max((torch.cuda.max_memory_allocated(c) - base[c]
+                    for c in cards), default=None)
+        key = f"{label} #{i} {plan.describe()} {json.dumps(p)}"
+        ms = cuda_ms(lambda: prep.mul(x), iters=5, warmup=1)
+        err_plain = check_close(f"tune mesh {key} vs plain", got,
+                                prep.mul_plain(x), mag, REL_TOL)
+        single = prepare_spmm(graph, cfg, device=dev)
+        loose = cfg.backend == "hybrid" and cfg.hybrid_dtype in (
+            "int8", "int4", "bfloat16")
+        err_single = check_close(f"tune mesh {key} vs single-card", got,
+                                 single.mul(x), mag,
+                                 MESH_LOOSE if loose else REL_TOL)
+        gi = prep.mul(xi)
+        for what, want in (("plain", prep.mul_plain(xi)),
+                           ("single", single.mul(xi))):
+            if not torch.equal(gi, want):
+                raise AssertionError(f"tune mesh {key} int32 vs {what}: max "
+                                     f"abs err {float((gi - want).abs().max())}")
+        row = dict(rank=i, plan=plan.describe(), point=p,
+                   predicted_ms=t * 1e3, measured_ms=ms, timing=label,
+                   launches_stat=st["launches"],
+                   kernel_launches={k: v for k, v in n.items() if v},
+                   device_bytes=st["device_bytes"],
+                   shards_a_card=max(1, plan.n_devices // max(1, len(cards))),
+                   memory_rise_bytes=rise, err_vs_plain=err_plain,
+                   err_vs_single=err_single, prepare_s=prep_s)
+        print(f"tune mesh audit: {json.dumps(row)}", flush=True)
+        rows.append(row)
+        del prep, single, got, gi
+        free(dev)
+    out = {"rows": rows}
+    if bar is not None:
+        fastest = min(r["measured_ms"] for r in rows)
+        ratio = next(r["measured_ms"] for r in rows
+                     if r["rank"] == pick) / fastest
+        print(f"tune mesh audit ({label}): pick ratio {ratio:.4f} (bar "
+              f"{bar})", flush=True)
+        if ratio > bar:
+            raise AssertionError(f"tune mesh: the pick takes {ratio} × the "
+                                 f"fastest audited")
+        out["pick_ratio"] = ratio
+    return out
+
+
+def float_passthrough(ds, results, device="cuda"):
+    """``mul_quantized(x, "float32")`` on the smoke stair int8, square
+    int4, bf16 and f32 operands and an int8 core with a BCSR tier, each
+    launch counted (its float kernels, of :data:`PASSTHROUGH_KERNELS`, and
+    neither K-int nor K-tail-quant: the float path), held to
+    ``mul_quantized_plain`` within :data:`PASSTHROUGH_BAR` of the output's
+    largest magnitude, and timed beside the float ``mul``."""
+    import torch
+
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+
+    dev = torch.device(device)
+    cfgs = {"stair int8": SpmmConfig(backend="hybrid", hybrid_shape="stair",
+                                     hybrid_dtype="int8",
+                                     hybrid_core_bytes=CORE_BYTES),
+            "square int4": SpmmConfig(backend="hybrid", hybrid_shape="square",
+                                      hybrid_dtype="int4",
+                                      hybrid_core_bytes=CORE_BYTES)}
+    fcfgs = float_core_configs()
+    cfgs.update({k: fcfgs[k] for k in ("bf16 square", "f32 square")})
+    cfgs["bcsr"] = SpmmConfig(backend="hybrid", hybrid_dtype="int8",
+                              hybrid_core_bytes=MESH_CORE_BYTES, **MESH_BCSR)
+    x = torch.randn(ds.graph.ncols, HIDDEN,
+                    generator=torch.Generator().manual_seed(37)).to(dev)
+    out = {}
+    for name, cfg in cfgs.items():
+        prep = prepare_spmm(ds.graph, cfg, device=dev)
+        if name == "bcsr" and not prep.has_bcsr:
+            raise AssertionError("float passthrough: no tile captured")
+        reset_launch_counts()
+        got = prep.mul_quantized(x, "float32")
+        sync(dev)
+        n = launch_counts()
+        missing = [k for k in PASSTHROUGH_KERNELS[name] if n[k] <= 0]
+        if missing or n["K-int"] or n["K-int int4"] or n["K-tail-quant"]:
+            raise AssertionError(f"float passthrough {name}: launches {n}")
+        want = prep.mul_quantized_plain(x, "float32")
+        mag = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not (torch.isfinite(got).all() and err <= PASSTHROUGH_BAR * mag):
+            raise AssertionError(f"float passthrough {name}: max abs err "
+                                 f"{err}, largest magnitude {mag}")
+        rec = dict(max_abs_err=err, magnitude=mag,
+                   ms=cuda_ms(lambda: prep.mul_quantized(x, "float32"),
+                              iters=10),
+                   float_mul_ms=cuda_ms(lambda: prep.mul(x), iters=10),
+                   launches={k: v for k, v in n.items() if v})
+        print(f"float passthrough {name}: {json.dumps(rec)}", flush=True)
+        out[name] = rec
+        del prep, got, want
+        free(dev)
+    results["float passthrough"] = out
+    return out
+
+
+def tune_mesh_phase(ds, results, card, device="cuda"):
+    """The tuner over a budget of :data:`TUNE_MESH_ND` devices on a
+    virtual mesh of the card (``cuda:0`` repeated; it checks every shard's
+    work and measures no scaling): the collectives' constants, the
+    model-mode ranking with ``CardCostModel.for_topology``, the audit of
+    the best 2d and halo candidates and the pick, and the float
+    passthrough."""
+    import torch
+
+    from pygim_tpu_torch.tune import CardCostModel
+
+    devices = [torch.device(device, 0)] * TUNE_MESH_ND
+    coll = tune_mesh_constants(devices, card)
+    model = CardCostModel.for_topology(TUNE_MESH_ND, devices)
+    res, ranking = tune_mesh_ranking(ds, devices, model, "virtual")
+    audit = tune_mesh_audit(ds, res, devices, "virtual")
+    passthrough = float_passthrough(ds, results, device)
+    results["tune mesh"] = dict(coll=coll, ranking=ranking, audit=audit,
+                                passthrough=passthrough,
+                                constants=res.constants)
+
+
+def tune_cards() -> int:
+    """``--tune-cards``: over four real cards, the collectives' constants,
+    measure-mode ``autotune(n_devices=4)`` (its three best timed over the
+    cards) and the audit of :func:`tune_mesh_audit`, the pick within
+    :data:`TUNE_BAR` of the fastest audited. Fewer than four cards exit
+    1."""
+    import torch
+
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import _build
+    from pygim_tpu_torch.parallel.mesh import visible_cards
+    from pygim_tpu_torch.tune import autotune
+    from pygim_tpu_torch.utils.device import card_line
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        print("chip_smoke --tune-cards: needs four CUDA cards",
+              file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card, flush=True)
+    _build.build()
+    ds = load_dataset(DATASET)
+    devices = visible_cards()[:TUNE_MESH_ND]
+    t0 = time.perf_counter()
+    tune_mesh_constants(devices, card)
+    res = autotune(ds.graph, HIDDEN, n_devices=TUNE_MESH_ND, mode="measure",
+                   devices=devices, use_cache=False, device=devices[0])
+    timed = [(c[0], c[1], c[2] * 1e3, c[3] * 1e3) for c in res.candidates
+             if c[3] is not None]
+    print(f"tune cards: pick {res.plan.describe()} "
+          f"{json.dumps(dataclasses.asdict(res.config))}, constants "
+          f"{res.constants}; timed (point, plan, predicted ms, measured ms) "
+          f"{json.dumps(timed)}; skipped {json.dumps(res.skipped)}",
+          flush=True)
+    if res.skipped or not timed:
+        raise AssertionError(f"tune cards: skipped {res.skipped}")
+    tune_mesh_audit(ds, res, devices, "cards", bar=TUNE_BAR)
+    print(f"phase tune cards: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"count": torch.cuda.device_count()}))
+    return 0
+
+
 def bcsr_full() -> int:
     """``--bcsr-full``: K-bcsr on the tiers of the full-size three-tier
     operands (``bench/configs.py:THREE_TIER_EXPERIMENTS``, products-sim,
@@ -4924,12 +5245,50 @@ def dryrun_phase(results, device="cuda"):
           flush=True)
 
 
+def halo_full_tune(ds, hidden, res, dev) -> dict:
+    """The tuner at a budget of eight on config 5's graph at ``hidden``:
+    model-mode ``autotune`` with ``CardCostModel.for_topology`` over the
+    virtual mesh, its host planning's seconds, and the best predicted
+    ``ell`` plan of the halo ``all_to_all`` and ``ring`` exchanges (order
+    none) and of one card beside the ``mul_time`` the scaling runs
+    measured at nd 8 and on one card (``res``: their means by
+    exchange)."""
+    from pygim_tpu_torch.tune import CardCostModel, autotune
+
+    devices = [dev] * 8
+    model = CardCostModel.for_topology(8, devices)
+    t0 = time.perf_counter()
+    tuned = autotune(ds.graph, hidden, n_devices=8, devices=devices,
+                     model=model, use_cache=False, device=dev)
+    out = {"host_planning_s": time.perf_counter() - t0,
+           "pick": tuned.plan.describe(), "constants": tuned.constants}
+    nnz = ds.graph.nnz
+    for exchange in ("all_to_all", "ring", "single"):
+        pred = next((c[2] for c in tuned.candidates
+                    if c[0]["backend"] == "ell" and (
+                        c[1]["layout"] == "single" if exchange == "single"
+                        else (c[1]["layout"] == "halo"
+                              and c[1]["exchange"] == exchange
+                              and c[1]["order"] == "none"))), None)
+        means = res.get("ring" if exchange == "single" else exchange, {})
+        n = 1 if exchange == "single" else 8
+        eps = means.get(f"edges_per_s_n{n}")
+        out[exchange] = {"predicted_ms": None if pred is None else pred * 1e3,
+                         "virtual_mul_ms": nnz / eps * 1e3 if eps else None}
+    print(f"config 5 tuner at a budget of 8 (virtual mesh; the mesh "
+          f"predictions are per device as if the cards ran at once, the "
+          f"measured times of one card running every shard): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def halo_full(device="cuda") -> int:
     """``--halo-full``: tracked config 5's four entries
     (``bench/configs.py``) through ``run_scaling_benchmark`` on a virtual
     node mesh of eight (``cuda:0`` repeated) at counts 1, 2, 4 and 8:
     ``edges_per_s`` and the halo request and buffer rows. One card runs
-    every shard in turn, so these measure no scaling."""
+    every shard in turn, so these measure no scaling. Then the tuner at
+    a budget of eight on the same graph (:func:`halo_full_tune`)."""
     import torch
 
     from pygim_tpu_torch.bench.configs import BASELINE_EXPERIMENTS
@@ -4945,7 +5304,7 @@ def halo_full(device="cuda") -> int:
     print(f"card: {card_line()}", flush=True)
     _build.build()
     dev = torch.device(device, 0)
-    res = {}
+    res, ell_means = {}, {}
     for exp in (e for e in BASELINE_EXPERIMENTS if e.kind == "scaling"):
         t0 = time.perf_counter()
         ds = load_dataset(exp.dataset)
@@ -4961,8 +5320,13 @@ def halo_full(device="cuda") -> int:
         res[exp.frozen_name()] = means
         print(f"config 5 {exp.frozen_name()} (virtual mesh of 8 on one card, "
               f"no scaling measured): {json.dumps(means)}", flush=True)
+        if exp.backend == "ell" and not exp.scale_model:
+            ell_means[exp.exchange] = means
+            hidden = exp.hidden
         del ds
         free(dev)
+    res["tuner"] = halo_full_tune(load_dataset(exp.dataset), hidden,
+                                  ell_means, dev)
     print(json.dumps(res))
     print(card_line())
     return 0
@@ -5017,6 +5381,8 @@ def main() -> int:
             return mesh_cards()
         if "--halo-cards" in sys.argv[1:]:
             return halo_cards()
+        if "--tune-cards" in sys.argv[1:]:
+            return tune_cards()
         return run()
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5272,6 +5638,10 @@ def run() -> int:
     # this slice's path: the tuner (its constants, tracked config 3, the
     # candidate audit, measure mode)
     timed_phase("tune", tune_phase, results, card)
+    # this slice's paths: the tuner over a budget of four devices on a
+    # virtual mesh of the card (the collectives' constants, the ranking,
+    # the audit of its mesh candidates) and the float passthrough
+    timed_phase("tune mesh", tune_mesh_phase, ds, results, card)
 
     # this slice's paths: the core↔tail interleave (each interleaved call
     # counted and its streams read) and the 2D mesh on virtual meshes of

@@ -13,10 +13,10 @@ the aggregate's payload to bf16 and ``int64`` quantizes as int32 (the
 reference with x64 off), both through the unfused round trip, as the
 reference. ``--tune`` runs the autotuner as ``spmm_test_cuda.py``
 does (a device budget of ``sp_parts × ds_parts`` capped by the visible
-cards; ``[DATA]tuned_plan`` and ``[DATA]tuned_constants``). A budget
-above one card is not ported (the tuner's mesh plans) and raises
-``NotImplementedError``. Runs on the card; ``main(argv,
-device="cpu")`` runs the plain versions on the CPU (the tests).
+devices; ``[DATA]tuned_plan`` and ``[DATA]tuned_constants``) and runs
+its pick, on one card or over a mesh of those devices. Runs on the
+card; ``main(argv, device="cpu")`` runs the plain versions on the CPU
+(the tests).
 
     python3 inference_cuda.py --dataset ogbn-arxiv
 """
@@ -70,7 +70,7 @@ def main(argv=None, *, device="cuda"):
         ds = cluster_partition(ds, part_size=500_000, part_idx=1)
 
     cfg = None
-    tuned = None
+    tuned = devices = None
     agg_dtype = None if args.data_type in ("float32", "float64") \
         else args.data_type
     if args.version == "cpu":
@@ -79,12 +79,13 @@ def main(argv=None, *, device="cuda"):
         cfg = SpmmConfig(backend="ell", format=args.sp_format,
                          hidden_hint=args.hidden_size)
         if args.tune:
-            tuned = tune(args, ds.graph, device)
+            tuned, devices = tune(args, ds.graph, device)
             cfg = tuned.config
 
     def prepare_fn(graph, config):
         if tuned is not None:
-            return prepare_tuned(graph, tuned, device=device)
+            return prepare_tuned(graph, tuned, device=device,
+                                 devices=devices)
         return prepare_for_version(
             args.version, graph, hidden_size=args.hidden_size,
             sp_parts=args.sp_parts, ds_parts=args.ds_parts,

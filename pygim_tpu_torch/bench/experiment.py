@@ -164,8 +164,10 @@ class Experiment:
 
     def refusal(self) -> Optional[str]:
         """Why the port cannot run this point, or None: every field
-        setting of the reference's runs now (the tuner's multi-card plans,
-        ROADMAP.md Queue 1 item 6d, are refused inside ``tune/``)."""
+        setting of the reference's runs. ``tune=True`` tunes for one
+        card, as the reference's (``autotune(graph, hidden)``); the
+        tuner's multi-card plans are reached through ``autotune(...,
+        n_devices=)`` and the entry scripts' ``--tune``."""
         return None
 
     def run(self, results_dir, data_root: Optional[str] = None,

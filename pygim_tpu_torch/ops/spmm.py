@@ -1279,8 +1279,17 @@ class PreparedSpmm:
         scale``. int8 and int16 round x once into an (N, H) table of that
         dtype, which every tier reads; int32 has no table (it would be as
         large as x) and rounds inside K-tail's gather (payload mode (iii))
-        and on the core's gathered rows. ``x`` float32; returns float32.
-        ``plain`` runs the plain versions."""
+        and on the core's gathered rows.
+
+        A float ``agg_dtype`` ("float32", "bfloat16", "float16",
+        "float64": the reference keeps x's float32 for each) is the float
+        passthrough: ``k = 20``, x rounded once to ``round(x / safe)`` in
+        float32, and that float payload through the float path (K-tail's
+        f32 rows; an int8, int4 or bf16 core rounds it to bf16 in K-core,
+        an f32 core takes it in K-f32; the tier in its float compute
+        dtype), then ``out * scale``. Rounding before the gathers gives the
+        reference's values, which rounds after them. ``x`` float32;
+        returns float32. ``plain`` runs the plain versions."""
         if not self.supports_fused_quant:
             raise ValueError(f"fused quantization unsupported for backend "
                              f"{self.config.backend!r}")
@@ -1289,15 +1298,18 @@ class PreparedSpmm:
             # x64 off: int64 is int32, and its scale exponent is int32's
             # (_SCALE_EXP.get(name, 20), pygim_tpu/ops/spmm.py:1574)
             name = "int32"
-        if name not in _SCALE_EXP:
-            raise NotImplementedError(
-                f"fused quantization to {name!r}: int8, int16, int32 and "
-                "int64 are ported (the float passthrough is not)"
-            )
+        passthrough = name not in _SCALE_EXP
+        kind = getattr(torch, name, None)
+        if passthrough and not (isinstance(kind, torch.dtype)
+                                and kind.is_floating_point):
+            raise ValueError(f"fused quantization to {name!r}: int8, int16, "
+                             "int32, int64 or a float dtype")
         if x.dtype != torch.float32:
             raise TypeError(f"quantized aggregation takes a float32 x, got "
                             f"{x.dtype}")
         scale, safe = quant_scale(x, name)
+        if passthrough:
+            return self._run(torch.round(x / safe), dev, plain) * scale
         limbs = QUANT_LIMBS[name]
         if name == "int32":
             out = self._run(x, dev, plain, safe=safe, limbs=limbs)
@@ -1406,8 +1418,9 @@ class SpmmFunction(torch.autograd.Function):
 
 class PreparedAggregate:
     """Callable aggregate ``v -> A·v`` bound to a prepared operand, with
-    ``quantized``, the fused integer-aggregate hook the conv layers probe
-    (:func:`pygim_tpu_torch.nn.layers.quantized_aggregate`). Under grad
+    ``quantized``, the fused quantized-aggregate hook the conv layers
+    probe (:func:`pygim_tpu_torch.nn.layers.quantized_aggregate`): the
+    integer dtypes and the float passthrough. Under grad
     mode a payload that requires grad goes through :class:`SpmmFunction`
     on the kernel backends, whose operand's transpose must be prepared
     first (``prep.transpose(graph)``), as on a mesh operand; ``oracle`` and

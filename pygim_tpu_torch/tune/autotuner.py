@@ -1,27 +1,33 @@
-"""The per-graph autotuner on one card, the port of
-``pygim_tpu/tune/autotuner.py``.
+"""The per-graph autotuner, the port of ``pygim_tpu/tune/autotuner.py``.
 
 * :func:`plan_statistics` — per-candidate counters from the host plans
-  (no device): the reference's keys value for value, except
-  ``device_bytes``, which reckons the port's residency (its tables, K-tail's
-  plan, K-core's and K-f32's working set and stream-K workspace, K-bcsr's
-  plan), and three keys of the port's own: ``launches`` (the PyTorch ops
-  and kernel launches of the port's run path), ``core_cell`` and
-  ``bcsr_tile_dtype`` (which rate prices the core's and the tier's work).
-* :func:`autotune` — ``mode='model'`` ranks the candidates by
-  :func:`~pygim_tpu_torch.tune.cost_model.predict_spmm_time` with the
-  card's cost model; ``mode='measure'`` also times the three best on the
-  device (CUDA events after a warm call) and picks the fastest. The
-  search space, its gating, the stair candidates and the BCSR second stage
-  are the reference's.
-* :func:`prepare_tuned` — the tuned config prepared on the caller's
-  device.
+  (no device), per device of a :class:`~pygim_tpu_torch.tune.dist.DistPlan`
+  (one card, an sp × ds grid or a halo partition): the reference's keys
+  value for value, except ``device_bytes``, which reckons the port's
+  residency on the largest shard (its tables, K-tail's plan, K-core's and
+  K-f32's working set and stream-K workspace, K-bcsr's plan, its x block or
+  exchange buffers and its output), and three keys of the port's own:
+  ``launches`` (the PyTorch ops and kernel launches the one process issues
+  for the whole product: every shard's, and the merge's or the
+  exchange's), ``core_cell`` and ``bcsr_tile_dtype`` (which rate prices
+  the core's and the tier's work).
+* :func:`autotune` — ``mode='model'`` ranks the candidates of every
+  distribution plan within ``n_devices`` by
+  :func:`~pygim_tpu_torch.tune.cost_model.predict_spmm_time`, priced per
+  device as if the devices ran at once; ``mode='measure'`` also times the
+  three best that fit the given devices (CUDA events after a warm call)
+  and picks the fastest. The search space, its gating, the stair
+  candidates, the mesh candidates' rules and the BCSR second stage are
+  the reference's.
+* :func:`prepare_tuned` — the tuned plan prepared: one card, the 2D mesh
+  or the halo layout over the given devices.
 
+A virtual mesh (one card repeated) runs its shards one after another, so
+a mesh candidate measures about ``nd`` times its prediction there and
+measure mode picks ``single``; such a pick says nothing of real cards.
 Results are cached per (graph fingerprint, width, devices, mode, space,
 memory cap, the model's provenance) under the tuner's cache
-(``tune/cost_model.py:cache_dir``). One card: a budget above it, and the
-``2d`` and ``halo`` plans, raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1 item 6d).
+(``tune/cost_model.py:cache_dir``).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from pygim_tpu_torch.tune.cost_model import (
     cache_dir,
     predict_spmm_time,
 )
-from pygim_tpu_torch.tune.dist import MESH_ITEM, DistPlan, enumerate_dist
+from pygim_tpu_torch.tune.dist import DistPlan, enumerate_dist, halo_statistics
 from pygim_tpu_torch.tune.space import For, Space
 
 _log = logging.getLogger("pygim_tpu_torch.tune")
@@ -143,6 +149,48 @@ def _core_cell(config: SpmmConfig, csr: CsrGraph) -> str:
     return "bfloat16"
 
 
+def mesh_launches(plan: DistPlan, shard: int, core: bool) -> int:
+    """The ops and launches one process issues for a mesh product: every
+    shard's ``shard`` (its zeros, K-tail, core and tier, as on one card)
+    and those of the layout around them (``parallel/spmm_2d.py``,
+    ``parallel/halo.py``, ``parallel/collectives.py``), a ``.to`` across
+    devices counted as one op:
+
+    * 2d: a copy of each shard's x block onto its device; the ``sp``
+      merge, an add and a transfer a partial beyond the first of each ds
+      column (``scatter_output``: of each of the sp row blocks, then the
+      blocks' transfers and a cat); the ds columns' cat.
+    * halo: each shard's x rows (and the order's gather); ``all_gather``:
+      every shard receives every shard's rows and cats them;
+      ``all_to_all``: a send gather a shard, then every shard receives a
+      slot of every shard, cats and aligns them; ``ring``: a send gather
+      and a transfer a shard a shift, a cat a shard; the halo tables'
+      K-tail (not ``all_gather``); off ``all_gather``, a core's hub rows
+      all_gathered and padded; the outputs' transfers, their cat and the
+      order's inverse gather.
+    """
+    if plan.layout == "2d":
+        sp, ds = plan.sp, plan.ds
+        n = sp * ds * (shard + 1)
+        if plan.scatter_output:
+            n += ds * (2 * sp * (sp - 1) + sp + 1)
+        else:
+            n += ds * 2 * (sp - 1)
+        return n + (1 if ds > 1 else 0)
+    nd = plan.sp
+    order = 2 if plan.order != "none" else 0
+    n = nd * (shard + 1) + order + nd + 1
+    if plan.exchange == "all_gather":
+        n += nd * (nd + 1)
+    elif plan.exchange == "all_to_all":
+        n += nd + nd * (nd + 1) + nd + nd  # send gathers, slots, aligns
+    else:
+        n += 2 * nd * (nd - 1) + nd + nd  # shifts, cats, halo K-tail
+    if core and plan.exchange != "all_gather":
+        n += nd * (nd + 1) + nd
+    return n
+
+
 def plan_statistics(
     csr: CsrGraph,
     hidden: int,
@@ -151,22 +199,23 @@ def plan_statistics(
     ds: int = 1,
     dtype_bytes: int = 4,
     plan: Optional[DistPlan] = None,
+    halo_stats: Optional[dict] = None,
     _memo: Optional[dict] = None,
 ) -> dict:
-    """One candidate's counters on one card (module docstring): the
-    reference's single-chip statistics and the port's keys. ``_memo``
-    caches graph-level intermediates across one :func:`autotune` call.
-    A plan of more than one device raises (the tuner's mesh plans are
-    not ported)."""
+    """One candidate's counters per device (module docstring): the
+    reference's statistics and the port's keys. Byte counters are per
+    device (the plans are balanced, so one device's time is the
+    product's); ``psum_bytes`` is a device's volume of the plan's
+    collective. ``halo_stats`` gives the halo cut
+    (:func:`~pygim_tpu_torch.tune.dist.halo_statistics`) instead of
+    measuring it; ``_memo`` caches graph-level intermediates across one
+    :func:`autotune` call."""
     if plan is None:
-        plan = DistPlan("single", sp, ds)
-    if plan.layout != "single" or plan.n_devices > 1:
-        raise NotImplementedError(
-            f"plan_statistics of {plan.describe()}: the tuner's mesh plans "
-            f"are not ported ({MESH_ITEM})")
+        plan = DistPlan() if sp * ds == 1 else DistPlan("2d", sp, ds)
+    sp, ds = plan.sp, plan.ds
     memo = _memo if _memo is not None else {}
-    h_local = hidden
-    nb = config.resolve_n_blocks(max(1, csr.nnz))
+    h_local = -(-hidden // ds)
+    nb = config.resolve_n_blocks(max(1, csr.nnz // max(1, sp)))
     plan_rb = memo.get(("rbplan", nb, config.balance))
     if plan_rb is None:
         plan_rb = make_row_block_plan(csr, nb, balance=config.balance)
@@ -193,11 +242,13 @@ def plan_statistics(
         deg = memo["deg"]
         launches = RUN_OPS
         if config.backend == "hybrid":
-            # hub-core coverage: the degree-ranked top-k × top-k
+            # hub-core coverage: the degree-ranked top-k × top-k; a 2d
+            # plan shards the core by columns, so a device's budget buys
+            # a √sp larger core
             itemsize = {"bfloat16": 2, "int8": 1, "int4": 0.5}.get(
                 config.hybrid_dtype, dtype_bytes
             )
-            budget_eff = config.hybrid_core_bytes
+            budget_eff = config.hybrid_core_bytes * max(1, sp)
             k = config.hybrid_k or min(
                 csr.nrows,
                 (int(np.sqrt(budget_eff / itemsize)) // 256) * 256,
@@ -244,7 +295,7 @@ def plan_statistics(
                 core_bytes = int(cells * itemsize)
                 k = stair_bands[-1][1] if stair_bands else 0
             else:
-                core_bytes = int(k * k * itemsize)
+                core_bytes = int(k * k * itemsize) // max(1, sp)
             k_hybrid = k
             tkey = (
                 ("tail_deg_stair", tuple(map(tuple, stair_bands)))
@@ -295,7 +346,11 @@ def plan_statistics(
             deg = tail_deg
             if config.bcsr_bytes > 0 and stair_bands is None:
                 # the BCSR tier, priced by the sampled structure probe;
-                # captured edges leave the tail uniformly in the model
+                # captured edges leave the tail uniformly in the model. A
+                # 2d tier splits about the same tiles over sp shards; the
+                # halo tier mines in-band tiles only, which the global
+                # probe over-credits on an unordered partition (the
+                # reference's estimate, kept)
                 from pygim_tpu_torch.tune.bcsr_probe import bcsr_statistics
 
                 # bf16 tiles beside a bf16 or int8 core, f32 otherwise
@@ -344,8 +399,8 @@ def plan_statistics(
         )
         ell_vrows = int(n_vr_total * ell_scale)
         # vrow_to_row and K-tail's plan: a slot count a virtual row and a
-        # unit's two words
-        extra_bytes += 8 * n_vr_total + 8 * units
+        # unit's two words, split over the shards
+        extra_bytes += (8 * n_vr_total + 8 * units) // max(1, sp)
     else:
         ell_vrows = None
         padded_nnz = nb * plan_rb.nnz_pad
@@ -363,8 +418,12 @@ def plan_statistics(
     if core_bytes > 0:
         core_cell = _core_cell(config, csr)
         n_bands = len(stair_bands) if stair_bands is not None else 1
-        w_max = (max(w for *_, w in stair_bands) if stair_bands
-                 else k_hybrid)
+        if stair_bands:
+            w_max = max(w for *_, w in stair_bands)
+        elif plan.layout == "2d":
+            w_max = -(-k_hybrid // sp)  # a shard's slab columns
+        else:
+            w_max = k_hybrid  # one card's core, a halo shard's hub buffer
         launches += CORE_OPS + -(-n_bands // MAX_BANDS)
         # core_nodes, the rank gather xc (f32) and its cast
         extra_bytes += 4 * csr.nrows + w_max * h_local * 6
@@ -375,50 +434,139 @@ def plan_statistics(
         else:
             extra_bytes += STREAM_K_BYTES
 
-    nnz_dev = padded_nnz
-    out_rows_dev = csr.nrows
+    # per device: the 2d column split and the halo row split both divide
+    # the edges about evenly over sp devices
+    nnz_dev = padded_nnz // max(1, sp)
+    scatter_dev = scatter_bytes // max(1, sp)
+    out_rows_dev = (
+        -(-csr.nrows // sp)
+        if plan.layout == "halo" or plan.scatter_output
+        else csr.nrows
+    )
     gather_bytes = nnz_dev * h_local * dtype_bytes
     stream_bytes = (
         nnz_dev * (4 + dtype_bytes) + out_rows_dev * h_local * dtype_bytes
     )
 
+    # the collective's volume a device
+    n_collectives = 1
+    collective = None
+    psum_bytes = 0
+    recv_rows = 0  # the rows a halo shard's exchange delivers
+    if plan.layout == "2d" and sp > 1:
+        collective = "psum"
+        merge_rows = csr.nrows * h_local * dtype_bytes
+        frac = (sp - 1) / sp
+        # psum ≈ reduce-scatter + all-gather; scatter_output keeps only
+        # the reduce-scatter half
+        psum_bytes = int(
+            merge_rows * frac * (1 if plan.scatter_output else 2)
+        )
+    elif plan.layout == "halo":
+        # the hub core's edges leave before the exchange is planned
+        # (parallel/halo.py:_plan_core_halo), so a hybrid's cut is the
+        # stripped tail's; only the small stats dict is memoized, per
+        # (sp, order[, k])
+        hkey = ("halo", sp, plan.order)
+        if k_hybrid and core_bytes > 0:
+            hkey = ("halo", sp, plan.order, k_hybrid)
+        if halo_stats is None:
+            halo_stats = memo.get(hkey)
+            if halo_stats is None:
+                keep = (
+                    ~_in_core_mask(memo, csr, k_hybrid)
+                    if k_hybrid and core_bytes > 0
+                    else None
+                )
+                dev_of = None
+                if plan.order == "metis":
+                    # one partitioner run per device count, shared by
+                    # every (config, exchange) candidate at this nd
+                    dev_of = memo.get(("metis_part", sp))
+                    if dev_of is None:
+                        from pygim_tpu_torch.core.cluster import (
+                            partition_kway,
+                        )
+
+                        dev_of = partition_kway(csr, sp)
+                        memo[("metis_part", sp)] = dev_of
+                halo_stats = halo_statistics(
+                    csr, sp, keep=keep, dev_of=dev_of
+                )
+                memo[hkey] = halo_stats
+        recv_rows = {
+            "all_to_all": halo_stats["a2a_recv_rows"],
+            "ring": halo_stats["ring_recv_rows"],
+            "all_gather": halo_stats["ag_recv_rows"],
+        }[plan.exchange]
+        psum_bytes = recv_rows * hidden * dtype_bytes
+        n_collectives = sp - 1 if plan.exchange == "ring" else 1
+        collective = plan.exchange
+        if k_hybrid and core_bytes > 0 and plan.exchange != "all_gather":
+            # the hub core's features: every shard receives the ~k hub
+            # rows by one small all_gather (all_gather's exchange takes
+            # them from the x it already holds)
+            psum_bytes += int(k_hybrid * hidden * dtype_bytes)
+
     # BCSR middle tier (probed estimates): the tile store, its panels
-    # read and partials added, and the tile products
+    # read and partials added, and the tile products, a device's share
     bcsr_stream = bcsr_flops = bcsr_store = 0
     bcsr_tile_dtype = None
     if bcsr is not None and bcsr["n_tiles"]:
         tr, tc = config.bcsr_tile, 128
         slots, n_vb = bcsr["slots"], bcsr["n_vb"]
-        bcsr_store = slots * tr * tc * bcsr_item
+        bcsr_store = slots * tr * tc * bcsr_item // max(1, sp)
         bcsr_stream = (
             bcsr_store
-            + slots * tc * h_local * dtype_bytes
-            + 2 * n_vb * tr * h_local * dtype_bytes
+            + (slots * tc * h_local * dtype_bytes) // max(1, sp)
+            + (2 * n_vb * tr * h_local * dtype_bytes) // max(1, sp)
         )
-        bcsr_flops = 2 * slots * tr * tc * h_local
+        bcsr_flops = 2 * slots * tr * tc * h_local // max(1, sp)
         bcsr_tile_dtype = "bfloat16" if bcsr_item == 2 else "float32"
         launches += BCSR_OPS
         # K-bcsr's plan (an entry a tile), the panel and row-block index
         # tables and their node lists
         extra_bytes += (16 * slots + 4 * tc * bcsr["n_panels"]
-                        + 4 * tr * bcsr["n_rb"])
+                        + 4 * tr * bcsr["n_rb"]) // max(1, sp)
 
-    # the port's residency: its tables (vals f32), the core, the tile
-    # store, x and the output, and the run path's plans and temporaries
+    # the port's residency on the largest device: its tables (vals f32),
+    # the core, the tile store, the run path's plans and temporaries, and
+    # its x and output. On a mesh the first device also holds the
+    # caller's x and the gathered (nrows, hidden) f32 product.
+    x_all = csr.ncols * hidden * dtype_bytes
+    if plan.layout == "single":
+        io_bytes = (csr.ncols * h_local * dtype_bytes
+                    + out_rows_dev * h_local * dtype_bytes)
+    elif plan.layout == "2d":
+        # its x block and its (nrows, h_local) f32 partial
+        io_bytes = (x_all + (-(-csr.ncols // sp)) * h_local * dtype_bytes
+                    + csr.nrows * h_local * 4)
+        if ds > 1 or plan.scatter_output:
+            io_bytes += csr.nrows * hidden * 4
+    else:
+        # its x rows, its exchange buffer (all_gather: all of x), its f32
+        # output rows, and x in the partition's order
+        buf_rows = recv_rows + (out_rows_dev if plan.exchange
+                                == "all_gather" else 0)
+        io_bytes = (x_all + csr.nrows * hidden * 4
+                    + out_rows_dev * hidden * (dtype_bytes + 4)
+                    + buf_rows * hidden * dtype_bytes
+                    + (x_all if plan.order != "none" else 0))
     device_bytes = (
         nnz_dev * (4 + dtype_bytes)
         + core_bytes
         + bcsr_store
-        + csr.ncols * h_local * dtype_bytes
-        + out_rows_dev * h_local * dtype_bytes
+        + io_bytes
         + extra_bytes
     )
+    if plan.layout != "single":
+        launches = mesh_launches(plan, launches, core_bytes > 0)
 
     return {
-        "scatter_bytes": scatter_bytes,
+        "scatter_bytes": scatter_dev,
         "core_bytes": core_bytes,
-        # 2 flops a cell a column (int4's unpack priced at 1.25×, the
-        # reference's)
+        # 2 flops a cell a local column (int4's unpack priced at 1.25×,
+        # the reference's)
         "core_flops": int(
             2 * h_local
             * (core_bytes / {"bfloat16": 2, "int8": 1, "int4": 0.5}.get(
@@ -431,20 +579,22 @@ def plan_statistics(
         "bcsr_captured": 0 if bcsr is None else bcsr["captured_edges"],
         "bcsr_tile_dtype": bcsr_tile_dtype,
         "gather_bytes": gather_bytes,
-        # the ELL tail's padded slots and virtual rows (None for blocked)
-        # and the width that sets its per-row cost
+        # the ELL tail's padded slots and virtual rows a device (None for
+        # blocked) and the width that sets its per-row cost
         "ell_slots": nnz_dev if ell_vrows is not None else None,
-        "ell_vrows": ell_vrows,
+        "ell_vrows": (
+            ell_vrows // max(1, sp) if ell_vrows is not None else None
+        ),
         "ell_hidden": h_local,
         "stream_bytes": stream_bytes,
-        "psum_bytes": 0,
-        "collective": None,
+        "psum_bytes": psum_bytes,
+        "collective": collective,
         "device_bytes": device_bytes,
         "max_nnz_per_block": int(nnz_per_block.max(initial=0)),
         "mean_nnz_per_block": float(nnz_per_block.mean()) if nb else 0.0,
         "pad_fraction": float(padded_nnz / max(1, csr.nnz)) - 1.0,
         "n_blocks": nb,
-        "n_dispatch": 1,
+        "n_dispatch": n_collectives,
         "rows_pad": plan_rb.rows_pad,
         "nnz_pad": plan_rb.nnz_pad,
         "launches": launches,
@@ -485,17 +635,53 @@ class TuneResult:
     skipped: list = dataclasses.field(default_factory=list)
 
 
-def prepare_tuned(graph, result: TuneResult, device="cuda"):
-    """The tuned config prepared on ``device``: a single-card plan is
-    ``prepare_spmm``; any other plan raises (the tuner's mesh plans are
-    not ported)."""
-    if result.plan.layout != "single" or result.plan.n_devices > 1:
-        raise NotImplementedError(
-            f"prepare_tuned of {result.plan.describe()}: the tuner's mesh plans "
-            f"are not ported ({MESH_ITEM})")
-    from pygim_tpu_torch.ops.spmm import prepare_spmm
+def default_devices(device, n_devices: int) -> list:
+    """The devices a tuned plan may span: the visible cards for a CUDA
+    ``device``, else ``[device] * n_devices`` (copies of the CPU, as
+    ``compat.py`` lays a CPU mesh). A list may repeat a device: a virtual
+    mesh."""
+    import torch
 
-    return prepare_spmm(graph, result.config, device=device)
+    from pygim_tpu_torch.parallel.mesh import visible_cards
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return visible_cards()
+    return [dev] * max(1, n_devices)
+
+
+def prepare_tuned(graph, result: TuneResult, device="cuda", devices=None):
+    """The tuned (config, plan) prepared: a single-card plan on
+    ``device`` (``prepare_spmm``), a ``2d`` plan on
+    ``make_mesh(sp, ds, devices)`` (``prepare_spmm_2d`` with its
+    ``scatter_output``), a ``halo`` plan on ``make_node_mesh(nd,
+    devices)`` (``prepare_spmm_halo`` with its exchange and order).
+    ``devices`` defaults to :func:`default_devices`; fewer than the plan
+    spans raise ``ValueError``."""
+    plan = result.plan
+    if plan.layout == "single":
+        from pygim_tpu_torch.ops.spmm import prepare_spmm
+
+        return prepare_spmm(graph, result.config, device=device)
+    if devices is None:
+        devices = default_devices(device, plan.n_devices)
+    if len(devices) < plan.n_devices:
+        raise ValueError(f"{plan.describe()} spans {plan.n_devices} "
+                         f"devices, {len(devices)} given")
+    if plan.layout == "2d":
+        from pygim_tpu_torch.parallel.mesh import make_mesh
+        from pygim_tpu_torch.parallel.spmm_2d import prepare_spmm_2d
+
+        return prepare_spmm_2d(graph, make_mesh(plan.sp, plan.ds, devices),
+                               result.config,
+                               scatter_output=plan.scatter_output)
+    from pygim_tpu_torch.parallel.halo import make_node_mesh, prepare_spmm_halo
+
+    return prepare_spmm_halo(
+        graph, make_node_mesh(plan.sp, devices), result.config,
+        exchange=plan.exchange,
+        order=None if plan.order == "none" else plan.order,
+    )
 
 
 def default_hbm_budget(device) -> Optional[int]:
@@ -507,6 +693,22 @@ def default_hbm_budget(device) -> Optional[int]:
     if dev.type != "cuda":
         return None
     return int(torch.cuda.mem_get_info(dev)[1] * HBM_FRACTION)
+
+
+def mesh_hbm_budget(devices) -> Optional[int]:
+    """The default cap of a shard of a mesh over ``devices``: each card's
+    :func:`default_hbm_budget` over the shards it holds (a virtual mesh
+    puts them all on one card), the least of them; none off CUDA."""
+    import torch
+
+    devices = [torch.device(d) for d in devices]
+    caps = []
+    for d in dict.fromkeys(devices):
+        cap = default_hbm_budget(d)
+        if cap is None:
+            return None
+        caps.append(cap // devices.count(d))
+    return min(caps) if caps else None
 
 
 def autotune(
@@ -523,25 +725,44 @@ def autotune(
     dtype_bytes: int = 4,
     hbm_budget_bytes: Optional[int] = None,
     device="cuda",
+    devices=None,
 ) -> TuneResult:
     """Pick the best (SpmmConfig, DistPlan) for ``graph`` × width ``hidden``
-    on ``device``.
+    within a budget of ``n_devices`` devices.
 
-    ``mode='model'`` ranks by the cost model (``model``, default
-    :meth:`CardCostModel.default`); ``mode='measure'`` (default model
-    :meth:`CardCostModel.measured`) also times the three best-predicted
-    candidates on ``device`` and picks the fastest; a candidate that
-    raises is recorded in ``skipped``. ``hbm_budget_bytes`` caps a
-    candidate's ``device_bytes`` (default :func:`default_hbm_budget`).
-    ``n_devices`` above one, or ``layouts`` without ``"single"``, raise.
-    A CUDA ``device`` without a card raises."""
+    ``mode='model'`` ranks every candidate of every plan of
+    :func:`~pygim_tpu_torch.tune.dist.enumerate_dist` by the cost model
+    (``model``, default :meth:`CardCostModel.default`), a mesh priced per
+    device as if its devices ran at once. ``mode='measure'`` (default
+    model :meth:`CardCostModel.measured`, and above one device
+    :meth:`CardCostModel.for_topology`, which adds the collectives'
+    constants measured over ``devices``) also prepares and times the three
+    best-predicted candidates that fit ``devices`` and picks the fastest;
+    a candidate that raises is recorded in ``skipped``. The candidates
+    follow the reference's rules: halo plans only on a square graph,
+    ``2d`` and ``halo`` plans only for ``ell`` and ``hybrid``, stair
+    cores on one card only, int8 and int4 cores only on integer-valued
+    graphs, and the BCSR variants of the best single-card square hybrid.
+
+    ``devices``: what a plan spans (default :func:`default_devices`: the
+    visible cards, or ``[device] * n_devices`` off CUDA); it may repeat a
+    device. ``hbm_budget_bytes`` caps a candidate's ``device_bytes``, a
+    device's residency; its default is the card's
+    (:func:`default_hbm_budget`) and, for a mesh plan, that cap over the
+    shards each card of ``devices`` holds (:func:`mesh_hbm_budget`), so a
+    virtual mesh admits only what its one card holds. A CUDA ``device``
+    without a card raises."""
     import torch
 
     from pygim_tpu_torch.core.graph import merge_duplicate_edges
+    from pygim_tpu_torch.parallel.mesh import is_virtual
 
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"autotune: device {device!r} but no CUDA card")
+    if devices is None:
+        devices = default_devices(dev, n_devices)
+    devices = [torch.device(d) for d in devices]
     dists = enumerate_dist(n_devices, layouts)
     # price the merged graph, which every prepare path runs on
     graph, _ = merge_duplicate_edges(graph)
@@ -561,11 +782,21 @@ def autotune(
                 seen.add(j)
                 pts.append(p)
         space = pts
-    if hbm_budget_bytes is None:
-        hbm_budget_bytes = default_hbm_budget(dev)
+    # the memory cap of a device of each plan's size
+    caps = {}
+    for dist in dists:
+        nd = dist.n_devices
+        if nd not in caps:
+            caps[nd] = (hbm_budget_bytes if hbm_budget_bytes is not None
+                        else default_hbm_budget(dev) if nd == 1
+                        else mesh_hbm_budget(devices[:nd]))
     if model is None:
-        model = (CardCostModel.measured(dev) if mode == "measure"
-                 else CardCostModel.default())
+        if mode != "measure":
+            model = CardCostModel.default()
+        elif n_devices > 1:
+            model = CardCostModel.for_topology(n_devices, devices)
+        else:
+            model = CardCostModel.measured(dev)
     # every candidate carries the tuned width: prepare's ELL planner reads
     # hidden_hint
     points = [
@@ -577,13 +808,21 @@ def autotune(
             json.dumps(points, sort_keys=True).encode()
         ).hexdigest()[:8]
         model_h = hashlib.sha256(model.provenance.encode()).hexdigest()[:8]
+        cap_tag = "_".join(str(caps[nd]) for nd in sorted(caps)
+                           if caps[nd])
         key = (
             _fingerprint(csr, hidden)
             + f"-{mode}-nd{n_devices}-{'.'.join(sorted(layouts))}"
             + f"-sp{space_h}-db{dtype_bytes}"
-            + (f"-hbm{hbm_budget_bytes}" if hbm_budget_bytes else "")
+            + (f"-hbm{cap_tag}" if cap_tag else "")
             + f"-c{model_h}"
         )
+        if n_devices > 1:
+            # what the mesh plans span: a virtual mesh's pick is never
+            # served for real cards
+            span = devices[:n_devices]
+            key += (f"-{span[0].type}{len(span)}"
+                    + ("v" if is_virtual(span) else ""))
         path = cache_dir() / f"tune-{key}.json"
         if path.exists():
             try:
@@ -602,26 +841,33 @@ def autotune(
                              path, e)
 
     square = csr.nrows == csr.ncols
+    integer = _integer_valued(csr)
     memo: dict = {}
     scored = []
     for dist in dists:
+        if dist.layout == "halo" and not square:
+            continue
+        cap = caps[dist.n_devices]
         for point in points:
             cfg = SpmmConfig(**point)
+            # the mesh layouts run ell and hybrid shards, with the square
+            # core only
+            if dist.layout != "single" and cfg.backend not in (
+                    "ell", "hybrid"):
+                continue
             if cfg.backend == "hybrid" and not square:
+                continue
+            if cfg.hybrid_shape == "stair" and dist.layout != "single":
                 continue
             # int8 and int4 cores hold exact small integers: offered for
             # integer-valued graphs only
-            if cfg.hybrid_dtype in ("int8", "int4") \
-                    and not _integer_valued(csr):
+            if cfg.hybrid_dtype in ("int8", "int4") and not integer:
                 continue
             stats = plan_statistics(
                 csr, hidden, cfg, plan=dist, dtype_bytes=dtype_bytes,
                 _memo=memo,
             )
-            if (
-                hbm_budget_bytes is not None
-                and stats["device_bytes"] > hbm_budget_bytes
-            ):
+            if cap is not None and stats["device_bytes"] > cap:
                 continue
             scored.append((point, dist, predict_spmm_time(stats, model)))
     if not scored:
@@ -631,12 +877,14 @@ def autotune(
     scored.sort(key=lambda s: s[2])
 
     # second stage: BCSR tier variants (tile budget × order) of the best
-    # square hybrid, priced by the sampled probe for that one core
+    # single-card square hybrid, priced by the sampled probe for that one
+    # core
     base = next(
         (
             (p, d)
             for p, d, _ in scored
-            if p.get("backend") == "hybrid"
+            if d.layout == "single"
+            and p.get("backend") == "hybrid"
             and not p.get("bcsr_bytes")
             and p.get("hybrid_shape", "square") != "stair"
         ),
@@ -652,10 +900,8 @@ def autotune(
                     csr, hidden, cfg, plan=bd, dtype_bytes=dtype_bytes,
                     _memo=memo,
                 )
-                if (
-                    hbm_budget_bytes is not None
-                    and stats["device_bytes"] > hbm_budget_bytes
-                ):
+                cap = caps[bd.n_devices]
+                if cap is not None and stats["device_bytes"] > cap:
                     continue
                 if stats["bcsr_captured"] == 0:
                     continue  # no qualifying tiles: the base itself
@@ -672,8 +918,10 @@ def autotune(
     measured: dict = {}
     skipped: list = []
     if mode == "measure":
-        measured, skipped = _measure(csr, hidden, scored[:3], repeats, dev,
-                                     _mkey)
+        cands = [(p, d) for p, d, _ in scored
+                 if d.n_devices <= len(devices)][:3]
+        measured, skipped = _measure(csr, hidden, cands, repeats, dev,
+                                     devices, _mkey)
 
     if measured:
         best_point, best_dist = min(
@@ -716,13 +964,16 @@ def autotune(
     return result
 
 
-def _measure(csr, hidden, cands, repeats, dev, mkey):
-    """Seconds a ``mul`` of each candidate (``[(point, dist, _)]``) on
-    ``dev``: prepared, one warm call (which builds the kernels' per-width
-    plans), then ``repeats`` calls timed by
-    :func:`~pygim_tpu_torch.utils.timers.device_time`. A candidate that
-    raises (out of memory included) goes into the skipped list with its
-    message, and the card's cached blocks are freed."""
+def _measure(csr, hidden, cands, repeats, dev, devices, mkey):
+    """Seconds a ``mul`` of each candidate (``[(point, dist)]``): prepared
+    by :func:`prepare_tuned` on ``dev`` or over ``devices``, ``repeats``
+    warm calls (the first builds the kernels' per-width plans; over four
+    cards a single warm call left the first candidate timed 5-20× its
+    steady time), then ``repeats`` calls timed by
+    :func:`~pygim_tpu_torch.utils.timers.device_time` on the product's
+    device. A candidate that raises (out of memory included)
+    goes into the skipped list with its message, and the cards' cached
+    blocks are freed."""
     import torch
 
     from pygim_tpu_torch.utils.timers import device_time
@@ -732,13 +983,13 @@ def _measure(csr, hidden, cands, repeats, dev, mkey):
         np.random.default_rng(0).standard_normal((csr.ncols, hidden)),
         dtype=torch.float32,
     ).to(dev)
-    for point, dist, _t in cands:
+    for point, dist in cands:
         shim = TuneResult(SpmmConfig(**point), dist, 0.0, None, [])
         prep = None
         try:
-            prep = prepare_tuned(csr, shim, device=dev)
+            prep = prepare_tuned(csr, shim, device=dev, devices=devices)
             measured[mkey(point, dist)] = device_time(
-                prep.mul, x, iters=repeats, warmup=1)
+                prep.mul, x, iters=repeats, warmup=max(1, repeats))
         except Exception as e:  # noqa: BLE001 — recorded, never dropped
             err = f"{type(e).__name__}: {e}"
             _log.warning("measure-mode candidate skipped: %s %s: %s",
@@ -746,6 +997,6 @@ def _measure(csr, hidden, cands, repeats, dev, mkey):
             skipped.append((point, dataclasses.asdict(dist), err))
         finally:
             del prep
-            if dev.type == "cuda":
+            if torch.cuda.is_available():
                 torch.cuda.empty_cache()
     return measured, skipped

@@ -49,9 +49,20 @@ Where the constants come from (``provenance``):
   with the card's ``nvidia-smi`` line: a file of another card or power
   limit is not read.
 
-The mesh's per-collective constants (``measure_ici_constants``,
-``for_topology``) wait for the tuner's mesh plans (ROADMAP.md, Queue 1
-item 6d).
+* :func:`measure_ici_constants` — each collective of the port's meshes
+  (``parallel/collectives.py``: ``psum``, ``all_gather``, ``all_to_all``,
+  ``ppermute`` as the ``ring``'s one shift) timed over the given devices
+  at two payloads and fitted to ``{"bw", "fixed_us"}`` in the volume units
+  of ``plan_statistics`` (:func:`fit_collective`,
+  :func:`collective_volume`), with the host clock and every device
+  synchronized around the timed calls (one card's CUDA events do not wait
+  for another card). :meth:`CardCostModel.for_topology` adds them to the
+  measured model and ``+ici:<tag>x<n>`` to its provenance: the tag is
+  ``cuda`` (distinct cards), ``cuda-virtual`` (one card repeated: the
+  transfers are no-ops and the fit prices on-card index copies, not
+  NVLink) or ``cpu``. Cached as ``ici-<tag>-n<n>.json`` under the same
+  directory, with the card's line and the tag in its ``__meta``: a file
+  of another card, or of a virtual mesh for real cards, is not read.
 """
 
 from __future__ import annotations
@@ -130,6 +141,30 @@ class CardCostModel:
         cached = load_measured(card) if card is not None else None
         return cached if cached is not None else measure_constants(device)
 
+    @classmethod
+    def for_topology(cls, n_devices: int, devices=None) -> "CardCostModel":
+        """:meth:`measured` with the collectives' constants measured over
+        the first ``n_devices`` of ``devices`` (default: the visible
+        cards; :func:`measure_ici_constants`) and ``+ici:<tag>x<n>`` added
+        to its provenance. One device, or fewer devices than
+        ``n_devices`` (no mesh to time), gives :meth:`measured` alone: its
+        collectives priced at ``ici_bw``."""
+        import torch
+
+        from pygim_tpu_torch.parallel.mesh import visible_cards
+
+        devices = [torch.device(d) for d in (
+            visible_cards() if devices is None else devices)]
+        base = cls.measured(devices[0] if devices else "cuda")
+        if n_devices <= 1 or len(devices) < n_devices:
+            return base
+        coll = measure_ici_constants(devices[:n_devices], save=True)
+        meta = coll["__meta"]
+        return dataclasses.replace(
+            base, coll=coll,
+            provenance=(f"{base.provenance}+ici:{meta['platform']}"
+                        f"x{meta['n_devices']}"))
+
 
 def visible_card() -> Optional[str]:
     """The first card's ``nvidia-smi`` line, or None without a card."""
@@ -187,6 +222,132 @@ def save_measured(model: CardCostModel, card: str,
                                 "model": dataclasses.asdict(model),
                                 "readings": readings or {}}, indent=1))
     return path
+
+
+COLLECTIVES = ("psum", "all_gather", "all_to_all", "ring")
+
+
+def collective_volume(name: str, nd: int, rows: int, h: int) -> float:
+    """Bytes of one ``name`` over ``nd`` devices with ``rows`` f32 rows of
+    width ``h`` a device, in ``plan_statistics``' units (the reference's):
+    ``psum`` ``rows·h·4·(nd−1)/nd·2``, ``all_gather`` ``(nd−1)·rows·h·4``,
+    ``all_to_all`` the whole ``nd·rows·h·4`` buffer, ``ring`` one shift,
+    ``rows·h·4``."""
+    b = rows * h * 4
+    return {"psum": b * (nd - 1) / nd * 2,
+            "all_gather": (nd - 1) * b,
+            "all_to_all": nd * b,
+            "ring": b}[name]
+
+
+def fit_collective(t1: float, t2: float, v1: float, v2: float) -> dict:
+    """The reference's two-point fit of a collective timed ``t1`` s at
+    volume ``v1`` and ``t2`` s at ``v2``: ``bw`` from the slope and
+    ``fixed_us`` the small call's rest (at least 0); where the large call
+    is not slower, ``bw = v2 / t2`` and no fixed cost."""
+    if t2 > t1:
+        bw = (v2 - v1) / (t2 - t1)
+        fixed = max(0.0, t1 - v1 / bw)
+    else:
+        bw = v2 / max(1e-9, t2)
+        fixed = 0.0
+    return {"bw": float(bw), "fixed_us": float(fixed * 1e6)}
+
+
+def mesh_tag(devices) -> str:
+    """``cpu``, ``cuda`` (distinct cards) or ``cuda-virtual`` (a card
+    repeated)."""
+    import torch
+
+    from pygim_tpu_torch.parallel.mesh import is_virtual
+
+    devices = [torch.device(d) for d in devices]
+    if any(d.type != "cuda" for d in devices):
+        return "cpu"
+    return "cuda-virtual" if is_virtual(devices) else "cuda"
+
+
+def _ici_path(tag: str, nd: int, rows: int, h: int) -> Path:
+    suffix = "" if (rows, h) == (4096, 256) else f"-r{rows}-h{h}"
+    return cache_dir() / f"ici-{tag}-n{nd}{suffix}.json"
+
+
+def _host_time(fn, devices, iters: int = 5) -> float:
+    """Seconds a call of ``fn()`` on the host clock, every distinct device
+    synchronized before and after the ``iters`` timed calls (after one
+    warm call)."""
+    import time
+
+    import torch
+
+    cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / iters
+
+
+def measure_ici_constants(devices, save: bool = True, rows: int = 4096,
+                          h: int = 256) -> dict:
+    """Per-collective ``{"bw": bytes/s, "fixed_us": µs}`` of the port's
+    collectives over ``devices`` (module docstring): each timed with 8 and
+    ``rows`` rows a device at width ``h`` (:func:`_host_time`) and fitted
+    by :func:`fit_collective` on :func:`collective_volume`, plus an
+    ``__meta`` entry (``platform``: :func:`mesh_tag`, ``n_devices``,
+    ``card``, ``virtual``). Cached per tag, device count and card
+    (``save``)."""
+    import torch
+
+    from pygim_tpu_torch.parallel import collectives as coll
+    from pygim_tpu_torch.parallel.mesh import is_virtual
+
+    devices = [torch.device(d) for d in devices]
+    nd = len(devices)
+    tag = mesh_tag(devices)
+    card = visible_card() if tag != "cpu" else "cpu"
+    path = _ici_path(tag, nd, rows, h)
+    if save and path.exists():
+        try:
+            d = json.loads(path.read_text())
+            if d.get("__meta", {}).get("card") == card:
+                return d
+        except (OSError, ValueError):
+            pass
+
+    def case(name, r):
+        parts = [torch.ones((r, h), device=d) for d in devices]
+        if name == "psum":
+            return lambda: coll.psum(parts, devices[0])
+        if name == "all_gather":
+            return lambda: coll.all_gather(parts, devices)
+        if name == "all_to_all":
+            send = [torch.ones((nd, r, h), device=d) for d in devices]
+            return lambda: coll.all_to_all(send, devices)
+        return lambda: coll.ppermute(parts, 1, devices)
+
+    out: dict = {}
+    readings = {}
+    for name in COLLECTIVES:
+        t1 = _host_time(case(name, 8), devices)
+        t2 = _host_time(case(name, rows), devices)
+        out[name] = fit_collective(t1, t2, collective_volume(name, nd, 8, h),
+                                   collective_volume(name, nd, rows, h))
+        readings[name] = {"small_us": t1 * 1e6, "large_us": t2 * 1e6}
+    out["__meta"] = {"platform": tag, "n_devices": nd, "card": card,
+                     "virtual": is_virtual(devices), "rows": rows, "h": h,
+                     "readings": readings}
+    if save:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(out, indent=1))
+    return out
 
 
 def _core_rate(m: CardCostModel, cell: Optional[str]) -> float:

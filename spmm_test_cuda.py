@@ -11,10 +11,11 @@ Every ``--data_type`` of the reference runs: ``bfloat16`` through
 K-tail's bf16-row mode, ``int64`` as int32 (the reference with x64
 off), ``float64`` as float32. ``--tune`` runs the autotuner
 (``pygim_tpu_torch/tune``) over a device budget of ``sp_parts ×
-ds_parts`` capped by the visible cards, prints ``[DATA]tuned_plan`` and
-``[DATA]tuned_constants`` and prepares its pick; a budget above one card
-is not ported (the tuner's mesh plans) and raises
-``NotImplementedError``. ``--lib_path`` and ``--nr_dpus`` are
+ds_parts`` capped by the visible devices (the cards; on the CPU, as
+many copies of the CPU as ``compat.visible_devices`` counts), prints
+``[DATA]tuned_plan`` and ``[DATA]tuned_constants`` and runs its pick:
+one card, or a ``2d`` or ``halo`` plan over those devices, whose
+``[DATA]layout`` line names its mesh. ``--lib_path`` and ``--nr_dpus`` are
 accepted and ignored. Runs on the card; ``main(argv, device="cpu")``
 runs the plain versions on the CPU (the tests).
 
@@ -50,17 +51,25 @@ def get_args(argv=None):
 def tune(args, graph, device):
     """``--tune``: the autotuner's pick for ``graph`` at ``--hidden_size``
     over a budget of ``sp_parts × ds_parts`` devices capped by the
-    visible cards (the reference's budget), its plan and constants
-    printed as ``[DATA]`` lines."""
-    from pygim_tpu_torch.compat import visible_devices
+    visible devices (the reference's budget), its plan and constants
+    printed as ``[DATA]`` lines. Returns the result and the devices a
+    mesh pick spans (None on CUDA: the visible cards; on the CPU, copies
+    of it, as ``compat.prepare_for_version`` lays a CPU mesh)."""
+    import torch
+
+    from pygim_tpu_torch import compat
     from pygim_tpu_torch.tune import autotune
 
-    nd = min(max(1, args.sp_parts * args.ds_parts), visible_devices(device))
+    nd = min(max(1, args.sp_parts * args.ds_parts),
+             compat.visible_devices(device))
+    dev = torch.device(device)
+    devices = None if dev.type == "cuda" else [dev] * nd
     tuned = autotune(graph, args.hidden_size, n_devices=nd,
-                     layouts=("single", "2d", "halo"), device=device)
+                     layouts=("single", "2d", "halo"), device=device,
+                     devices=devices)
     print(f"[DATA]tuned_plan: {tuned.plan.describe()}")
     print(f"[DATA]tuned_constants: {tuned.constants}")
-    return tuned
+    return tuned, devices
 
 
 def main(argv=None, *, device="cuda"):
@@ -80,19 +89,20 @@ def main(argv=None, *, device="cuda"):
         raise SystemExit(f"error: {e.args[0]}")
 
     cfg = None
-    tuned = None
+    tuned = devices = None
     if args.version != "cpu":
         cfg = SpmmConfig(
             backend="ell", format=args.sp_format, balance=args.balance,
             hidden_hint=args.hidden_size,
         )
         if args.tune:
-            tuned = tune(args, ds.graph, device)
+            tuned, devices = tune(args, ds.graph, device)
             cfg = tuned.config
 
     def prepare_fn(graph, config):
         if tuned is not None:
-            return prepare_tuned(graph, tuned, device=device)
+            return prepare_tuned(graph, tuned, device=device,
+                                 devices=devices)
         return prepare_for_version(
             args.version, graph, hidden_size=args.hidden_size,
             sp_parts=args.sp_parts, ds_parts=args.ds_parts,

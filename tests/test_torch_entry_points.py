@@ -119,18 +119,6 @@ def test_unported_flags_raise(capsys, main, argv, what, tmp_path,
     assert (got.get("pim_time_spmm(ms)") or got["infer_time(ms)"])[0] > 0
 
 
-@pytest.mark.parametrize("main", [spmm_test_cuda.main, inference_cuda.main],
-                         ids=["spmm", "infer"])
-def test_tune_above_one_card_raises(main, tmp_path, monkeypatch):
-    """``--tune`` over a budget of more than one visible card: the tuner's
-    mesh plans are not ported (ROADMAP.md, Queue 1 item 6d)."""
-    monkeypatch.setenv("PYGIM_TPU_TORCH_TUNE_CACHE", str(tmp_path / "tune"))
-    monkeypatch.setattr(compat, "visible_devices", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        main(["--dataset", "tiny", "--tune", "--sp_parts", "2",
-              "--ds_parts", "1"], device="cpu")
-
-
 @pytest.mark.parametrize("model", ["gin", "sage"])
 def test_inference_gin_and_sage(capsys, model):
     """The GIN and SAGE convs through inference_cuda.py (int32

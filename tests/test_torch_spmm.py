@@ -109,14 +109,18 @@ def test_config_defaults_match_reference():
 
 
 def test_mul_rejects_other_payloads():
-    """A float64 or float16 x, a wrong row count and the quantized float
-    passthrough raise; the bfloat16 and int64 payloads, refused before
-    PR 11, now run (``tests/test_torch_float_payloads.py`` holds them to
-    JAX)."""
+    """A float64 or float16 x and a wrong row count raise; the bfloat16
+    and int64 payloads, refused before PR 11, now run
+    (``tests/test_torch_float_payloads.py`` holds them to JAX), and so
+    does the quantized float passthrough, refused until it was ported:
+    the reference's within 1e-5 of its largest magnitude."""
     rows, cols, vals = make_graph("multigraph")
     tp = tspmm.prepare_spmm(
         tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
         tspmm.SpmmConfig(**KW), device="cpu")
+    jp = jspmm.prepare_spmm(
+        jgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
+        jspmm.SpmmConfig(**KW))
     for dtype in (torch.float64, torch.float16):
         with pytest.raises(TypeError):
             tp.mul(torch.zeros(N, 8, dtype=dtype))
@@ -124,8 +128,13 @@ def test_mul_rejects_other_payloads():
         tp.mul(torch.zeros(N - 1, 8))
     assert not tp.mul(torch.zeros(N, 8, dtype=torch.bfloat16)).any()
     assert not tp.mul(torch.zeros(N, 8, dtype=torch.int64)).any()
-    with pytest.raises(NotImplementedError, match="float32"):
-        tspmm.PreparedAggregate(tp).quantized(torch.zeros(N, 8), "float32")
+    x = np.random.default_rng(6).standard_normal((N, 8)).astype(np.float32)
+    want = np.asarray(jp.raw_mul_quantized(jnp.asarray(x), jp.dev_arrays,
+                                           "bfloat16"))
+    got = tspmm.PreparedAggregate(tp).quantized(torch.from_numpy(x),
+                                                "bfloat16").numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("oracle", ["coo", "coo_chunked", "csr"])

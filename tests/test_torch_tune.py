@@ -4,10 +4,9 @@
 with the reference's constants (``launch_us = 0``) within 1e-12, the
 same ``autotune`` pick, candidates, order and predictions,
 ``calibrate_from_phases`` and ``_fingerprint``; measure mode's skipped
-list, the cache, the refusals above one card, ``Experiment(tune=True)``'s
-``tuned_*`` lines, the compat adapters, ``ell_issue_seconds`` and
-``staircase_coverage``. The reference's constants are read from it at run
-time."""
+list, the cache, ``Experiment(tune=True)``'s ``tuned_*`` lines, the
+compat adapters, ``ell_issue_seconds`` and ``staircase_coverage``. The reference's constants are read from it at run
+time. The budgets above one card are ``tests/test_torch_tune_mesh.py``'s."""
 
 import dataclasses
 import json
@@ -31,8 +30,6 @@ from pygim_tpu_torch.ops import spmm as tspmm
 from pygim_tpu_torch.tune import autotuner as ttune
 from pygim_tpu_torch.tune import cost_model as tcost
 from pygim_tpu_torch.tune import dist as tdist
-
-ITEM = "Queue 1 item 6"
 
 
 @pytest.fixture(autouse=True)
@@ -267,11 +264,11 @@ def test_measure_mode_records_a_raising_candidate(monkeypatch):
     bad = ranked[0][0]
     real = ttune.prepare_tuned
 
-    def prepare(graph, result, device="cuda"):
+    def prepare(graph, result, device="cuda", devices=None):
         if dataclasses.asdict(result.config) == dataclasses.asdict(
                 tspmm.SpmmConfig(**bad)):
             raise ValueError("made to fail")
-        return real(graph, result, device=device)
+        return real(graph, result, device=device, devices=devices)
 
     monkeypatch.setattr(ttune, "prepare_tuned", prepare)
     res = ttune.autotune(tg, 16, mode="measure", model=reference_model(),
@@ -353,26 +350,6 @@ def test_fit_tail_recovers_its_constants():
     assert fit["ell_vrow_ns_per_h"] == pytest.approx(p)
     d2, h2 = fit["check_point"]
     assert fit["check_ns"] == pytest.approx(times[(d2, h2)])
-
-
-@pytest.mark.parametrize("call", [
-    lambda: tdist.enumerate_dist(2),
-    lambda: tdist.enumerate_dist(1, layouts=("2d", "halo")),
-    lambda: ttune.plan_statistics(graph_pair("rmat")[1], 16,
-                                  tspmm.SpmmConfig(), sp=2),
-    lambda: ttune.plan_statistics(graph_pair("rmat")[1], 16,
-                                  tspmm.SpmmConfig(),
-                                  plan=tdist.DistPlan("halo", 4, 1)),
-    lambda: ttune.prepare_tuned(graph_pair("rmat")[1], ttune.TuneResult(
-        tspmm.SpmmConfig(), tdist.DistPlan("2d", 2, 2), 0.0, None, []),
-        device="cpu"),
-    lambda: ttune.autotune(graph_pair("rmat")[1], 16, n_devices=4,
-                           model=reference_model(), device="cpu"),
-], ids=["enumerate-2", "no-single", "stats-sp2", "stats-halo",
-        "prepare-2d", "autotune-4"])
-def test_above_one_card_raises(call):
-    with pytest.raises(NotImplementedError, match=ITEM):
-        call()
 
 
 def test_one_card_plan_matches_reference():
