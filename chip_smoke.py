@@ -198,6 +198,22 @@ prepared, the GCN's gradients and 3 Adam steps through the kernels held
 to the plain versions' while both negative controls fail. Then
 ``entry.py:dryrun_multichip(8)``, the twin of ``__graft_entry__``'s.
 
+The blocked and coo backends run K-rows (``csrc/seg_rows.cu``, one
+launch over a backend's row-sorted tables). The runners' default path (a
+float32 SpMM and the float and int32 GCN forwards with ``config=None``)
+and the coo path (its SpMM, the GCN, GIN and SAGE) are counted. The
+``rows_checks`` phase holds K-rows against its plain versions on the
+stand-in's blocked and coo operands at H 256, 41 and 1100, with
+bfloat16 and int32 payloads; on the stand-in's edges with integer
+weights, int8, int16, int32 (the sums wrapping) and int64 payloads bit
+for bit; on pads that land on a full block's last row and on coo's last
+row, with a NaN in x[0]; on a zero-edge operand and a hub of 20,000
+entries; and times each mode beside its plain version,
+``torch.sparse.mm`` on the same merged CSR and its bound.
+``rows_training`` holds one GCN step's gradients on each (the backward
+on Aᵀ through K-rows) to the plain versions' while both controls fail,
+and ``run_training_benchmark`` trains the GCN with ``config=None``.
+
 Its last three lines are the ``kernels`` JSON object (each kernel with
 its split and schedule balance where it has a tile schedule, K-core
 and K-tail with their launches in one training step, and every kernel
@@ -2135,10 +2151,11 @@ def training_entry(results, card, timeout: int = 300, device="cuda"):
     defaults (``ell``), in a process of its own with a deadline: its
     [DATA] lines parse and its loss falls. Then ``run_training_benchmark``
     of each conv on the same graph on ``ell`` and on the stair-int8
-    hybrid (the smoke configuration): ``acc_delta`` against the oracle
-    arm at most 0.01 on ``ell`` and 0.03 on the hybrid (the reference's
-    ``acc_tol`` for a rounded core), ``validate`` OK, and K-core and
-    K-tail launched in the hybrid's runs."""
+    hybrid (the smoke configuration), and of the GCN with ``config=None``
+    (``blocked``, K-rows): ``acc_delta`` against the oracle arm at most
+    0.01 on ``ell`` and ``blocked`` and 0.03 on the hybrid (the
+    reference's ``acc_tol`` for a rounded core), ``validate`` OK, and
+    each backend's kernels launched in its runs."""
     from pygim_tpu_torch.bench.runners import run_training_benchmark
     from pygim_tpu_torch.data import load_dataset
     from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -2166,9 +2183,11 @@ def training_entry(results, card, timeout: int = 300, device="cuda"):
     ds = load_dataset(TRAIN_GRAPH)
     hybrid = SpmmConfig(backend="hybrid", hybrid_shape="stair",
                         hybrid_dtype="int8", hybrid_core_bytes=CORE_BYTES)
-    for name, cfg, tol in (("ell", SpmmConfig(backend="ell"), 0.01),
-                           ("stair int8", hybrid, 0.03)):
-        for conv in CONVS:
+    for name, cfg, tol, convs, kernels in (
+            ("ell", SpmmConfig(backend="ell"), 0.01, CONVS, ("K-tail",)),
+            ("stair int8", hybrid, 0.03, CONVS, ("K-core", "K-tail")),
+            ("blocked", None, 0.01, ("gcn",), ("K-rows",))):
+        for conv in convs:
             rep = DataReporter()
             reset_launch_counts()
             means = run_training_benchmark(
@@ -2176,7 +2195,6 @@ def training_entry(results, card, timeout: int = 300, device="cuda"):
                 epochs=TRAIN_EPOCHS, acc_tol=tol, reporter=rep,
                 device=device)
             n = launch_counts()
-            kernels = ("K-tail",) if name == "ell" else ("K-core", "K-tail")
             if means["acc_delta"] > tol or means["validate"] != "OK" \
                     or any(n[k] <= 0 for k in kernels):
                 raise AssertionError(f"run_training_benchmark {conv} on "
@@ -2262,20 +2280,23 @@ def product_mag(prep, x):
     return mag
 
 
-def blocked_bound(prep, h, peaks_):
-    """Least time of one blocked SpMM (``ops/spmm.py:blocked_spmm``): the
-    larger of its bytes over HBM (every block's real entries, a column
-    index and a value each; each x row a block gathers, once a block; each
-    output row written once) and its multiply-adds over the f32 rate."""
+def rows_bound(prep, h, peaks_):
+    """Least time of one ``A @ x`` of a blocked or coo operand, one bound
+    for both layouts of the same product: the larger of its least bytes
+    over HBM (every stored entry that is not a pad, at a column index and
+    a weight, as CSR holds it, with a row offset a row; each distinct x
+    row those entries read, once; every output row written once, the
+    rows without entries too) and its multiply-adds over the f32 rate."""
     import torch
 
     hbm, _bf16, f32, _int8 = peaks_
     d = prep.dev_arrays
+    cols = d["colind"] if prep.config.backend == "blocked" else d["cols"]
     real = d["vals"] != 0
-    rows_x = sum(int(torch.unique(c[m]).numel())
-                 for c, m in zip(d["colind"], real))
+    rows_x = int(torch.unique(cols[real]).numel())
     nnz = int(real.sum())
-    nbytes = nnz * 8 + rows_x * h * 4 + prep.nrows * h * 4
+    nbytes = (nnz * (4 + d["vals"].element_size()) + (prep.nrows + 1) * 4
+              + rows_x * h * 4 + prep.nrows * h * 4)
     t_bytes, t_ops = nbytes / hbm * 1e3, 2 * nnz * h / f32 * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -3579,6 +3600,7 @@ def coo_sddmm(ds, results, device="cuda"):
     from pygim_tpu_torch.bench import Experiment, run_experiments
     from pygim_tpu_torch.bench.runners import run_spmm_benchmark
     from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
     from pygim_tpu_torch.ops.reference import spmm_coo_oracle
     from pygim_tpu_torch.ops.sddmm import prepare_sddmm
     from pygim_tpu_torch.ops.spmm import (
@@ -3601,21 +3623,20 @@ def coo_sddmm(ds, results, device="cuda"):
     res["mul_err"] = check_close("coo mul", coo.mul(x), oracle.mul(x), mag,
                                  REL_TOL)
     res["mul_ms"] = cuda_ms(lambda: coo.mul(x), iters=5)
-    # its bytes bound (each stored entry, each x row read and each output
-    # row written once) and torch.sparse.mm on the same CSR, which is the
-    # blocked backend's library call too (the same merged edges)
-    hbm, _, f32_rate, _ = results["peaks"]
+    # its bound (rows_bound, as the blocked backend's) and torch.sparse.mm
+    # on the same CSR, which is the blocked backend's library call too (the
+    # same merged edges)
     d = coo.dev_arrays
     rows, cols, vals = (d[k].reshape(-1) for k in ("rows", "cols", "vals"))
     csr = torch.sparse_coo_tensor(
         torch.stack([rows.long(), cols.long()]), vals.float(),
         (coo.nrows, coo.ncols)).coalesce().to_sparse_csr()
     res["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x), iters=5)
-    res["bound_ms"], res["bound_by"] = least_time(
-        rows.numel() * 12 + (int(torch.unique(cols).numel())
-                             + int(torch.unique(rows).numel())) * HIDDEN * 4,
-        2 * rows.numel() * HIDDEN, hbm, f32_rate)
+    b = rows_bound(coo, HIDDEN, results["peaks"])
+    res["bound_ms"], res["bound_by"] = b["bound_ms"], b["bound_by"]
     del csr
+    # the coo main path, counted: the SpMM, the GCN, GIN and SAGE
+    reset_launch_counts()
     rep = DataReporter(echo=True)
     run_spmm_benchmark(ds, hidden=HIDDEN, config=SpmmConfig(backend="coo"),
                        repeat=3, reporter=rep, device=device)
@@ -3646,6 +3667,12 @@ def coo_sddmm(ds, results, device="cuda"):
             raise AssertionError(f"coo {e.model}: validate not OK")
         res[f"{e.model}_infer_time_ms"] = means[e.frozen_name()][
             "infer_time(ms)"]
+    sync(device)
+    n = launch_counts()
+    res["launches"] = n["K-rows coo"]
+    if torch.device(device).type == "cuda" and n["K-rows coo"] <= 0:
+        raise AssertionError(f"K-rows was never launched on the coo path: "
+                             f"{n}")
     sd = prepare_sddmm(ds.graph, device=device)
     gen = torch.Generator().manual_seed(13)
     a = torch.randn(ds.graph.nrows, 64, generator=gen)
@@ -3675,6 +3702,7 @@ def coo_sddmm(ds, results, device="cuda"):
     res["sddmm_library_ms"] = cuda_ms(
         lambda: torch.sparse.sampled_addmm(pattern, ad, bt, beta=0.0),
         iters=5)
+    hbm, _, f32_rate, _ = results["peaks"]
     res["sddmm_bound_ms"], res["sddmm_bound_by"] = least_time(
         s.nnz * 12 + (int(torch.unique(er).numel())
                       + int(torch.unique(ec).numel())) * 64 * 4,
@@ -3683,6 +3711,235 @@ def coo_sddmm(ds, results, device="cuda"):
     res["seconds"] = time.perf_counter() - t0
     results["coo sddmm"] = res
     print(f"coo and SDDMM: {res}", flush=True)
+    return res["launches"]
+
+
+ROWS_WIDTHS = (41, 1100)  # ragged widths K-rows is held at
+
+
+def rows_mag(prep, x):
+    """The sum of |terms| behind each element of a blocked or coo
+    operand's product with ``x``: the plain version on |vals| and |x|."""
+    from pygim_tpu_torch.ops import seg_rows
+
+    d = prep.dev_arrays
+    xa = x.float().abs()
+    if prep.config.backend == "blocked":
+        return seg_rows.blocked_spmm(d["colind"], d["vals"].float().abs(),
+                                     d["rowloc"], d["row_slot"], xa,
+                                     prep.rows_pad)
+    return seg_rows.coo_plain(d["rows"], d["cols"], d["vals"].float().abs(),
+                              xa, prep.nrows)
+
+
+def rows_plan(prep):
+    """A blocked or coo operand's K-rows plan: the one built at prepare on
+    the card, else one built here from its tables (a CPU rehearsal)."""
+    from pygim_tpu_torch.ops import seg_rows
+
+    if prep._seg_plan is not None:
+        return prep._seg_plan
+    d = {k: v.cpu().numpy() for k, v in prep.dev_arrays.items()}
+    if prep.config.backend == "blocked":
+        return seg_rows.blocked_plan(d["rowloc"], d["row_slot"],
+                                     prep.rows_pad, d["colind"], d["vals"])
+    return seg_rows.coo_plan(d["rows"], prep.nrows)
+
+
+def rows_close(name, prep, x):
+    """``prep.mul(x)`` (K-rows) against ``mul_plain``: bit-equal where
+    both weights and payload are integers (int32 wrapping), else within
+    REL_TOL of the sum of |terms|. Returns the max abs error."""
+    import torch
+
+    got, want = prep.mul(x), prep.mul_plain(x)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}")
+    if not want.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: integer product differs; max abs "
+                                 f"err {int((got - want).abs().max())}")
+        return 0.0
+    return check_close(name, got, want, rows_mag(prep, x), REL_TOL)
+
+
+def nan_rows_check(name, prep, n):
+    """A NaN in x[0] (the column of every pad) gives NaN in exactly the
+    plain version's rows, and the other rows agree."""
+    import torch
+
+    x = torch.randn(n, 64, generator=torch.Generator().manual_seed(8)).to(
+        prep.device)
+    x[0] = float("nan")
+    got, want = prep.mul(x), prep.mul_plain(x)
+    if not torch.equal(torch.isnan(got), torch.isnan(want)) \
+            or not torch.isnan(want).any():
+        raise AssertionError(f"{name}: NaN rows differ from the plain "
+                             "version's")
+    ok = ~torch.isnan(want)
+    xm = torch.nan_to_num(x)
+    check_close(name, got[ok], want[ok], rows_mag(prep, xm)[ok], REL_TOL)
+
+
+def rows_edge_graphs():
+    """Small graphs whose pads and hubs K-rows must place as the plain
+    version does: ``full`` (64 rows in row-balanced blocks of 8: every
+    block fills rows_pad, so its pads land on its last row), ``hub`` (a
+    row of 20,000 entries beside rows of one and empty rows), ``empty``
+    (no edge). ``(graph, config overrides)`` each, float32 weights."""
+    import numpy as np
+
+    from pygim_tpu_torch.core.graph import CooGraph
+
+    rng = np.random.default_rng(11)
+    out = {}
+    for kind, n, rows, cfg in (
+            ("full", 64, np.sort(rng.integers(0, 64, 300)),
+             dict(n_blocks=8, balance="row")),
+            ("hub", 3000, np.sort(np.r_[np.full(20000, 7),
+                                        np.arange(0, 3000, 3)]),
+             dict(block_nnz_budget=4096)),
+            ("empty", 40, np.zeros(0, np.int64), {})):
+        cols = rng.integers(0, n, rows.size)
+        vals = rng.standard_normal(rows.size).astype(np.float32)
+        out[kind] = (CooGraph.from_edges(rows, cols, vals, nrows=n, ncols=n),
+                     cfg)
+    return out
+
+
+def rows_checks(ds, results, device="cuda"):
+    """K-rows (``csrc/seg_rows.cu``) against its plain versions
+    (``ops/seg_rows.py:blocked_spmm``, ``coo_plain``) on the card: the
+    stand-in's ``blocked`` operand at the runners' default
+    (``SpmmConfig()``) and its ``coo`` operand at H 256, at the ragged
+    widths :data:`ROWS_WIDTHS`, with bfloat16 and int32 payloads; the
+    stand-in's edges with integer weights in [-5, 5] and int8, int16 and
+    int32 payloads, bit-equal, the int32 sums wrapping; the NaN-pad case
+    and a zero-edge operand on small graphs (:func:`rows_edge_graphs`),
+    and a hub of 20,000 entries. Each mode timed at H 256 beside its
+    plain version, ``torch.sparse.mm`` on the same merged CSR and its
+    bound (:func:`rows_bound`, the same for both modes), and its
+    plan's units and hub rows printed."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from pygim_tpu_torch.core.graph import merge_duplicate_edges
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(ds.graph.ncols, HIDDEN, generator=g).to(device)
+    xi = torch.randint(-(1 << 30), 1 << 30, (ds.graph.ncols, 64),
+                       generator=g, dtype=torch.int32).to(device)
+    ints = dc.replace(ds.graph, vals=np.random.default_rng(3).integers(
+        -5, 6, ds.graph.nnz).astype(np.int32))
+    csr = None
+    for mode, key in (("blocked", "K-rows"), ("coo", "K-rows coo")):
+        res = {}
+        prep = prepare_spmm(ds.graph, SpmmConfig(backend=mode), device=device)
+        plan = rows_plan(prep)
+        res["units"] = plan.n_units
+        res["hub_rows"] = int(plan.hub_rows.size)
+        res["max_abs_err"] = rows_close(f"{key} H {HIDDEN}", prep, x)
+        for h in ROWS_WIDTHS:
+            res[f"err H {h}"] = rows_close(f"{key} H {h}", prep,
+                                           x[:, :h].contiguous())
+        res["err bf16"] = rows_close(f"{key} bf16", prep,
+                                     x.to(torch.bfloat16))
+        res["err int32 payload"] = rows_close(f"{key} int32 payload", prep,
+                                              xi)
+        pi = prepare_spmm(ints, SpmmConfig(backend=mode), device=device)
+        for dt, hi in ((torch.int8, 127), (torch.int16, 1 << 14)):
+            rows_close(f"{key} integer weights, {dt}", pi,
+                       torch.randint(-hi, hi + 1, (ds.graph.ncols, 41),
+                                     generator=g, dtype=dt).to(device))
+        rows_close(f"{key} integer weights, int32", pi, xi)
+        exact = pi.mul_plain(xi.long())  # int64 is taken as int32
+        if not torch.equal(pi.mul(xi.long()), exact):
+            raise AssertionError(f"{key}: int64 payload")
+        d = pi.dev_arrays
+        v = d["vals"].reshape(-1).long()
+        idx = (d["colind"] if mode == "blocked" else d["cols"]).reshape(-1)
+        wide = v[:, None] * xi.long()[idx.long(), :1]
+        if not (wide.abs() >= 1 << 31).any():
+            raise AssertionError(f"{key}: no product past 2^31")
+        del pi, d, v, idx, wide, exact
+        for kind, (graph, cfg) in rows_edge_graphs().items():
+            small = prepare_spmm(graph, SpmmConfig(backend=mode, **cfg),
+                                 device=device)
+            xs = torch.randn(graph.ncols, 64, generator=g).to(device)
+            rows_close(f"{key} {kind}", small, xs)
+            nan_rows_check(f"{key} {kind} NaN x[0]", small, graph.ncols)
+            if kind == "hub" and rows_plan(small).hub_rows.tolist() != [7]:
+                raise AssertionError(f"{key}: the hub row was not cut")
+        if csr is None:
+            mg = merge_duplicate_edges(ds.graph)[0]
+            csr = torch.sparse_coo_tensor(
+                torch.stack([torch.from_numpy(mg.rows).long(),
+                             torch.from_numpy(mg.cols).long()]),
+                torch.from_numpy(mg.vals.astype(np.float32)),
+                (mg.nrows, mg.ncols)).coalesce().to_sparse_csr().to(device)
+        res["ms"] = cuda_ms(lambda: prep.mul(x), iters=20)
+        res["plain_ms"] = cuda_ms(lambda: prep.mul_plain(x), iters=3)
+        res["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x), iters=20)
+        b = rows_bound(prep, HIDDEN, results["peaks"])
+        res["bound_ms"], res["bound_by"] = b["bound_ms"], b["bound_by"]
+        res["bound_entries"], res["bound_x_rows"] = b["entries"], b["x_rows"]
+        results[key] = res
+        print(f"{key}: {json.dumps(res)}", flush=True)
+        del prep
+        free(device)
+    del csr
+
+
+def rows_training(ds, results, card, device="cuda"):
+    """One GCN training step at hidden 256 on the stand-in's ``blocked``
+    operand (the runners' default) and its ``coo`` operand, the
+    aggregate's backward on each one's prepared Aᵀ (K-rows): every leaf's
+    gradient within GRAD_BAR of autograd through ``mul_plain`` on A
+    (``train_steps``' check), both negative controls off by more, and
+    K-rows launched in the forward and the backward of the step."""
+    import torch
+
+    from pygim_tpu_torch.bench.runners import train_inputs
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+
+    out = {}
+    for mode, kernel in (("blocked", "K-rows"), ("coo", "K-rows coo")):
+        prep = prepare_spmm(ds.graph, SpmmConfig(backend=mode), device=device)
+        t0 = time.perf_counter()
+        prep.transpose(ds.graph)
+        secs = time.perf_counter() - t0
+        inputs = train_inputs(ds, prep.device)
+        arms = training_arms(prep)
+        grads, n = {}, None
+        for a in ("kernels", "plain", *CONTROLS):
+            reset_launch_counts()
+            grads[a] = leaf_grads("gcn", ds, arms[a], inputs)
+            sync(prep.device)
+            if a == "kernels":
+                n = launch_counts()
+        errs = {a: max(leaf_errs(g, grads["plain"]).values())
+                for a, g in grads.items() if a != "plain"}
+        print(f"training, gcn step on {mode} (Aᵀ prepared in {secs:.1f} s): "
+              f"max leaf gradient err against the plain versions {errs}; "
+              f"kernels' launches {n} ({card})", flush=True)
+        if errs["kernels"] > GRAD_BAR or n[kernel] < 4:
+            raise AssertionError(f"{mode} training step: gradients "
+                                 f"{errs['kernels']} (bar {GRAD_BAR}), "
+                                 f"launches {n}")
+        for c in CONTROLS:
+            if errs[c] <= GRAD_BAR:
+                raise AssertionError(f"{mode}: the {c} control passed "
+                                     f"({errs[c]})")
+        out[mode] = dict(grad_err=errs, launches=n[kernel],
+                         transpose_s=secs)
+        del grads, prep
+        free(device)
+    results["rows training"] = out
 
 
 def bcsr_training(results, card, device="cuda"):
@@ -5565,18 +5822,37 @@ def run() -> int:
           f"agg0/agg1 max rel err {rep.records['agg0_max_rel_err'][-1]} / "
           f"{rep.records['agg1_max_rel_err'][-1]}", flush=True)
 
-    # the runners' default configuration: the blocked backend
+    # the runners' default configuration: the blocked backend on K-rows,
+    # counted: a float32 SpMM, then the float and the int32 (default)
+    # GCN forwards, each with config=None
     t0 = time.perf_counter()
+    reset_launch_counts()
     run_spmm_benchmark(ds, hidden=HIDDEN, repeat=3, reporter=rep,
                        device="cuda")
     if rep.records["verify"][-1] != "OK":
         raise AssertionError("blocked (default config) SpMM check failed")
-    bound = blocked_bound(prepare_spmm(ds.graph, SpmmConfig(),
+    spmm_ms = rep.records["pim_time_spmm(ms)"][-1]
+    infer_ms = {}
+    for agg_dtype in (None, "int32"):
+        run_inference_benchmark(ds, model="gcn", num_layers=2, hidden=HIDDEN,
+                                agg_dtype=agg_dtype, repeat=10, reporter=rep,
+                                device="cuda")
+        infer_ms[agg_dtype or "float"] = rep.records["infer_time(ms)"][-1]
+    torch.cuda.synchronize()
+    n = launch_counts()
+    if n["K-rows"] <= 0:
+        raise AssertionError(f"K-rows was never launched on the runners' "
+                             f"default path: {n}")
+    launches["K-rows"] = n["K-rows"]
+    bound = rows_bound(prepare_spmm(ds.graph, SpmmConfig(),
                                        device="cuda"), HIDDEN,
                           results["peaks"])
-    print(f"blocked backend (config=None): verify OK, "
-          f"{rep.records['pim_time_spmm(ms)'][-1]:.4f} ms a SpMM "
+    print(f"blocked backend (config=None): verify OK, {spmm_ms:.4f} ms a "
+          f"SpMM, infer_time float / int32 {infer_ms} ms; launches {n} "
           f"({time.perf_counter() - t0:.1f} s); bound {bound}", flush=True)
+    results["runners default"] = dict(pim_time_spmm_ms=spmm_ms,
+                                      infer_time_ms=infer_ms)
+    timed_phase("rows_checks", rows_checks, ds, results)
 
     for agg_dtype, gnn in gnns.items():
         logits_check(agg_dtype or "float", gnn, xf, prep, ds.num_classes)
@@ -5622,7 +5898,7 @@ def run() -> int:
     timed_phase("bcsr_kernel_checks", bcsr_kernel_checks, results)
     launches["K-bcsr"] = timed_phase("bcsr_paths", bcsr_paths, results)
     timed_phase("bcsr_scale", bcsr_scale, results)
-    timed_phase("coo_sddmm", coo_sddmm, ds, results)
+    launches["K-rows coo"] = timed_phase("coo_sddmm", coo_sddmm, ds, results)
 
     # the training path: the backward product on the prepared Aᵀ, real
     # steps of each conv, then train_cuda.py and run_training_benchmark
@@ -5634,6 +5910,7 @@ def run() -> int:
     float_core_entry(results, card)
     del fpreps
     timed_phase("bcsr_training", bcsr_training, results, card)
+    timed_phase("rows_training", rows_training, ds, results, card)
 
     # this slice's path: the tuner (its constants, tracked config 3, the
     # candidate audit, measure mode)
@@ -5685,7 +5962,11 @@ def run() -> int:
                "K-tail bf16": ("cuda", "pygim_tpu_torch/csrc/ell_tail.cu",
                                "pygim_tpu/ops/spmm.py:481"),
                "K-bcsr": ("cuda", "pygim_tpu_torch/csrc/bcsr.cu",
-                          "pygim_tpu/ops/spmm.py:690")}
+                          "pygim_tpu/ops/spmm.py:690"),
+               "K-rows": ("cuda", "pygim_tpu_torch/csrc/seg_rows.cu",
+                          "pygim_tpu/ops/spmm.py:136"),
+               "K-rows coo": ("cuda", "pygim_tpu_torch/csrc/seg_rows.cu",
+                              "pygim_tpu/ops/spmm.py:1883")}
     kernels = []
     for k, (route, src, repl) in sources.items():
         res = results[k]

@@ -7,8 +7,8 @@ Full-graph node classification: masked softmax cross-entropy, Adam
 the training forward merged into the model after the optimizer's step.
 Training aggregates the float payload (``agg_dtype=None``): ``round()``
 has no gradient, and the reference quantizes for inference only. On the
-``hybrid`` and ``ell`` backends the aggregate's backward runs the hand
-kernels on the prepared transpose
+``hybrid``, ``ell``, ``blocked`` and ``coo`` backends the aggregate's
+backward runs the hand kernels on the prepared transpose
 (:class:`~pygim_tpu_torch.ops.spmm.SpmmFunction`).
 
 A step mutates the model and the optimizer in place and returns the loss,

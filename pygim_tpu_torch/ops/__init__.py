@@ -1,6 +1,13 @@
 """Sparse products: host prepare, the hand-written kernels, the oracle."""
 
-from pygim_tpu_torch.ops import bcsr, core_dot, core_f32, core_int, ell_tail
+from pygim_tpu_torch.ops import (
+    bcsr,
+    core_dot,
+    core_f32,
+    core_int,
+    ell_tail,
+    seg_rows,
+)
 from pygim_tpu_torch.ops.reference import spmm_coo_oracle, spmm_csr_oracle
 from pygim_tpu_torch.ops.spmm import (
     PreparedAggregate,
@@ -22,7 +29,9 @@ def launch_counts() -> dict:
             "K-tail": ell_tail.launches,
             "K-tail-quant": ell_tail.quant_launches,
             "K-tail bf16": ell_tail.bf16_launches,
-            "K-bcsr": bcsr.launches}
+            "K-bcsr": bcsr.launches,
+            "K-rows": seg_rows.launches,
+            "K-rows coo": seg_rows.coo_launches}
 
 
 def reset_launch_counts() -> None:
@@ -32,6 +41,7 @@ def reset_launch_counts() -> None:
     core_f32.limb_launches = 0
     ell_tail.launches = ell_tail.quant_launches = ell_tail.bf16_launches = 0
     bcsr.launches = 0
+    seg_rows.launches = seg_rows.coo_launches = 0
 
 
 __all__ = ["PreparedAggregate", "PreparedSpmm", "SpmmConfig", "prepare_spmm",

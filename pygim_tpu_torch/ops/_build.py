@@ -76,6 +76,13 @@ SIGNATURES = {
         # tables, units, n_units, x, out, h, vec, payload, safe, stream
         "ell_tables_add": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
     },
+    "seg_rows": {
+        # units, n_units, hub rows, n_hub, cols, vals, val code, keys, inv,
+        # nnz_pad, rows_pad, x, x code, int accumulation, out, h, vec,
+        # stream
+        "seg_rows": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _LL, _I, _P, _I, _I,
+                     _P, _I, _I, _P],
+    },
 }
 
 _libs: dict = {}

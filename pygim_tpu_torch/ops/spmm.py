@@ -24,14 +24,15 @@ Counterpart of ``pygim_tpu/ops/spmm.py`` for the backends it carries:
 ``ell``     the whole merged graph in the same multi-degree ELL tables,
             no core: K-tail alone.
 ``blocked`` the reference's default: nnz-balanced row blocks padded to
-            one static shape, each a gather, weight and sorted segment-sum
-            in plain PyTorch ops, one block at a time.
+            one static shape (``colind``, ``vals``, ``rowloc``,
+            ``row_slot``), every block's rows summed by K-rows
+            (``ops/seg_rows.py``) in one launch into an output of the
+            accumulation dtype (f32 for a float payload or weights, int32
+            wrapping for integer ones).
 ``coo``     the merged edges sorted by row in exact-nnz chunks
             (``core/partition.py:build_coo_chunks``, rows may straddle
-            chunks), each chunk a gather, weight and ``index_add_`` in
-            plain PyTorch ops into an output of the accumulation dtype
-            (f32 for a float payload, int32 wrapping for an integer one);
-            one chunk's ``(chunk, H)`` gather at a time.
+            chunks), the whole row-sorted stream summed by K-rows in one
+            launch, in the same accumulation dtype.
 ``oracle``  the raw edges (no merge) sorted by row, through the COO
             oracle of ``ops/reference.py`` in plain PyTorch ops.
 
@@ -62,14 +63,14 @@ The hybrid's :meth:`PreparedSpmm.mul` computes ``A @ x`` as
 — the order of the reference's hybrid run; ``ell`` runs step 2 alone.
 
 The kernels write through raw pointers, so autograd cannot follow them:
-:class:`SpmmFunction` is the differentiable ``A @ x`` of the ``hybrid``
-and ``ell`` backends, its backward ``Aᵀ @ g`` through the same kernels
-(K-core, K-f32, K-tail) on :meth:`PreparedSpmm.transpose`, the
-transposed graph prepared once with the same configuration by the
-caller that trains.
+:class:`SpmmFunction` is the differentiable ``A @ x`` of the ``hybrid``,
+``ell``, ``blocked`` and ``coo`` backends, its backward ``Aᵀ @ g``
+through the same kernels (K-core, K-f32, K-tail, K-rows) on
+:meth:`PreparedSpmm.transpose`, the transposed graph prepared once with
+the same configuration by the caller that trains.
 :class:`PreparedAggregate` takes it wherever grad mode is on and the
-payload requires grad; ``oracle`` and ``blocked`` run PyTorch ops, which
-autograd follows as they are.
+payload requires grad; ``oracle`` runs PyTorch ops, which autograd
+follows as they are.
 :meth:`PreparedSpmm.mul_quantized`
 is the fused quantize → aggregate → dequantize of the reference's
 ``raw_mul_quantized``. The host tables are the reference's bit for bit.
@@ -145,9 +146,16 @@ from pygim_tpu_torch.ops.ell_tail import (
     tail_plan,
 )
 from pygim_tpu_torch.ops.reference import (
-    accum_dtype,
     spmm_coo_oracle,
     spmm_coo_oracle_chunked,
+)
+from pygim_tpu_torch.ops.seg_rows import (
+    blocked_plan,
+    blocked_rows,
+    blocked_spmm,
+    coo_plain,
+    coo_plan,
+    coo_rows,
 )
 from pygim_tpu_torch.quant import _SCALE_EXP, dtype_name, quant_scale
 from pygim_tpu_torch.utils.cache import LOAD_ERRORS, cache_dir, save_npz
@@ -156,7 +164,6 @@ from pygim_tpu_torch.utils.timers import PhaseTimer, device_time
 _log = logging.getLogger("pygim_tpu_torch")
 
 BACKENDS = ("hybrid", "ell", "blocked", "coo", "oracle")
-PLAIN_BACKENDS = ("oracle", "blocked", "coo")  # plain PyTorch ops alone
 # the hybrid core cells a config may name; None means the graph's own
 # dtype (float32 or float64 cells), or bfloat16 on an integer graph
 CORE_DTYPES = ("int8", "int4", "bfloat16", "float32")
@@ -598,28 +605,6 @@ def _bcsr_host(host, coo, config, rank, order, k, core_dtype, tail_sel):
     return tail_sel
 
 
-def blocked_spmm(colind, vals, rowloc, row_slot, x, rows_pad: int):
-    """The blocked product (``pygim_tpu/ops/spmm.py:136-161``): for each
-    row block b, gather ``x[colind[b]]``, weight it by ``vals[b]`` and sum
-    it into the block's ``rows_pad`` rows at ``rowloc[b]``; then take each
-    row's slot (``row_slot``). One block at a time, so no (nnz, H) buffer
-    exists. Accumulates in ``accum_dtype`` of the two dtypes: float32 for
-    a float payload or float weights, int32 (wrapping) for an integer
-    one."""
-    acc = accum_dtype(torch.promote_types(vals.dtype, x.dtype))
-    h = x.shape[1]
-    if x.shape[0] == 0 or colind.shape[0] == 0:
-        # a zero-column or zero-edge operand: the padding indices would
-        # gather from an empty x; the product is exact zeros
-        return torch.zeros((row_slot.shape[0], h), dtype=acc, device=x.device)
-    out = torch.zeros((colind.shape[0] * rows_pad, h), dtype=acc,
-                      device=x.device)
-    for b in range(colind.shape[0]):
-        g = x.index_select(0, colind[b]).to(acc) * vals[b].to(acc)[:, None]
-        out[b * rows_pad:(b + 1) * rows_pad].index_add_(0, rowloc[b], g)
-    return out.index_select(0, row_slot)
-
-
 _CACHE_TAG = b"prep-v4-"  # the reference's layout version
 # the port's own file prefix: a fault of the port can never feed the
 # reference (``hybrid-<key>.npz``) a table, nor the reverse
@@ -743,16 +728,23 @@ class PreparedSpmm:
                 balance=config.balance, row_align=8, nnz_align=8)
             ell = build_ell_blocks(csr, plan)
             self.plan, self.rows_pad = plan, plan.rows_pad
+            row_slot = row_slot_table(plan)
             self._dev = {"colind": self._put(ell.colind),
                          "vals": self._put(ell.vals, vals=True),
                          "rowloc": self._put(ell.rowloc),
-                         "row_slot": self._put(row_slot_table(plan))}
+                         "row_slot": self._put(row_slot)}
+            if self.device.type == "cuda":
+                self._seg_plan = blocked_plan(ell.rowloc, row_slot,
+                                              plan.rows_pad, ell.colind,
+                                              ell.vals)
         elif backend == "coo":
             ch = build_coo_chunks(
                 coo if coo is not None else csr.to_coo(),
                 config.resolve_n_blocks(graph.nnz))
             self._dev = {"rows": self._put(ch.rows), "cols": self._put(ch.cols),
                          "vals": self._put(ch.vals, vals=True)}
+            if self.device.type == "cuda":
+                self._seg_plan = coo_plan(ch.rows, graph.nrows)
         elif backend == "ell":
             host: dict = {}
             _ell_host(host, _plan_ell_tables(
@@ -795,6 +787,7 @@ class PreparedSpmm:
         self.stair = None     # the core's stored bands [(lo, hi, w)] (a square: one)
         self._band_keys = []  # their tables in dev_arrays
         self._tail_plan = None
+        self._seg_plan = None  # K-rows' plan (blocked, coo; on the card)
         self._core_plans = {}  # H -> K-core plans of the bands
         self._int_plans = {}   # (H, limbs) -> K-int plans of the same
         self._f32_plans = {}   # H -> K-f32 plans of the same
@@ -1014,8 +1007,10 @@ class PreparedSpmm:
         reference's wrapped int32 product); on a bf16 or f32 core the
         product is the reference's f32 dot (:meth:`_core_add`); the tail
         sums in f32, as the reference's hybrid ``run``; the BCSR tier as
-        ``ops/bcsr.py`` says. The oracle and ``coo`` take any x and return
-        the accumulation dtype of ``ops/reference.py``."""
+        ``ops/bcsr.py`` says. The oracle, ``blocked`` and ``coo`` return the
+        accumulation dtype of ``ops/reference.py`` (the oracle takes any x;
+        K-rows on the card the weights and payloads of
+        ``ops/seg_rows.py``)."""
         return self.raw_mul(x, self._dev)
 
     def raw_mul(self, x, dev: dict):
@@ -1028,26 +1023,36 @@ class PreparedSpmm:
             return self._coo(x, dev)
         return self._run(x, dev)
 
-    def _coo(self, x, dev):
-        """The ``coo`` body (``pygim_tpu/ops/spmm.py:1883-1897``): per
-        chunk, ``x[cols] · vals`` in the accumulation dtype, added by row
-        into the output."""
-        if x.dim() != 2 or x.shape[0] != self.ncols:
-            raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
-        rows, cols, vals = dev["rows"], dev["cols"], dev["vals"]
-        acc = accum_dtype(torch.promote_types(vals.dtype, x.dtype))
-        out = torch.zeros((self.nrows, x.shape[1]), dtype=acc,
-                          device=x.device)
-        for r, c, v in zip(rows, cols, vals):
-            out.index_add_(0, r, x.index_select(0, c).to(acc)
-                           * v.to(acc)[:, None])
-        return out
+    def _rows_plan(self, dev):
+        """K-rows' plan where ``dev`` is this operand's own tables (built
+        at prepare on the card), else None (a launch on the card then
+        raises: the plan is of the operand's own tables)."""
+        return self._seg_plan if dev is self._dev else None
 
-    def _blocked(self, x, dev):
+    def _coo(self, x, dev, plain=False):
+        """The ``coo`` body (``pygim_tpu/ops/spmm.py:1883-1897``): every
+        row's ``Σ x[cols] · vals`` in the accumulation dtype, by K-rows
+        (:func:`~pygim_tpu_torch.ops.seg_rows.coo_rows`) or, with
+        ``plain``, its plain version."""
         if x.dim() != 2 or x.shape[0] != self.ncols:
             raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
-        return blocked_spmm(dev["colind"], dev["vals"], dev["rowloc"],
-                            dev["row_slot"], x, self.rows_pad)
+        args = (dev["rows"], dev["cols"], dev["vals"], x.contiguous(),
+                self.nrows)
+        if plain:
+            return coo_plain(*args)
+        return coo_rows(*args, plan=self._rows_plan(dev))
+
+    def _blocked(self, x, dev, plain=False):
+        """The blocked body (``pygim_tpu/ops/spmm.py:136-161``) by K-rows
+        (:func:`~pygim_tpu_torch.ops.seg_rows.blocked_rows`) or, with
+        ``plain``, its plain version."""
+        if x.dim() != 2 or x.shape[0] != self.ncols:
+            raise ValueError(f"x shape {tuple(x.shape)} != ({self.ncols}, H)")
+        args = (dev["colind"], dev["vals"], dev["rowloc"], dev["row_slot"],
+                x.contiguous(), self.rows_pad)
+        if plain:
+            return blocked_spmm(*args)
+        return blocked_rows(*args, plan=self._rows_plan(dev))
 
     def _oracle(self, x, dev):
         if x.dim() != 2 or x.shape[0] != self.ncols:
@@ -1130,8 +1135,13 @@ class PreparedSpmm:
         """The same product through the plain PyTorch versions on any
         device, at H unpadded — the yardstick the kernels are held
         against."""
-        if self.config.backend in PLAIN_BACKENDS:
+        backend = self.config.backend
+        if backend == "oracle":
             return self.raw_mul(x, self._dev)  # plain PyTorch ops already
+        if backend == "blocked":
+            return self._blocked(as_payload(x), self._dev, plain=True)
+        if backend == "coo":
+            return self._coo(as_payload(x), self._dev, plain=True)
         return self._run(as_payload(x), self._dev, plain=True)
 
     def _kernels(self, dev: dict, plain: bool):
@@ -1329,7 +1339,8 @@ class PreparedSpmm:
     def phase_times(self, x, iters: int = 3) -> dict:
         """Device times in ms of the product's phases, each timed alone
         with CUDA events (``utils/timers.device_time``), the reference's
-        ``phase_times`` (``pygim_tpu/ops/spmm.py:1666-1773``):
+        ``phase_times`` (``pygim_tpu/ops/spmm.py:1666-1773``; the oracle,
+        ``blocked`` and ``coo`` have ``mul_time`` alone):
 
         * ``mul_time`` — :meth:`mul`;
         * ``gather_time`` — :func:`gather_only` over every ELL table's
@@ -1347,7 +1358,7 @@ class PreparedSpmm:
         The phases overlap the product's work; they are no sum of it."""
         d = self._dev
         out = {"mul_time(ms)": device_time(self.mul, x, iters=iters) * 1e3}
-        if self.config.backend in PLAIN_BACKENDS:
+        if self.config.backend not in ("ell", "hybrid"):
             return out
         x = as_payload(x)
         self._check_x(x)
@@ -1374,7 +1385,8 @@ class PreparedSpmm:
         return out
 
 
-KERNEL_BACKENDS = ("hybrid", "ell")  # the backends that run hand kernels
+# the backends that run hand kernels (blocked and coo: K-rows)
+KERNEL_BACKENDS = ("hybrid", "ell", "blocked", "coo")
 
 
 def runs_kernels(prep) -> bool:
@@ -1403,7 +1415,9 @@ class SpmmFunction(torch.autograd.Function):
     of the exact ``Aᵀ @ g``. On f32 cells both sides are f32 products
     (K-f32 on Aᵀ), differing in summation order only. The tail
     is f32 on both sides; K-tail adds hub pieces with atomics, so two
-    backward passes on the card may differ in the last bits."""
+    backward passes on the card may differ in the last bits. ``blocked``
+    and ``coo`` (K-rows on Aᵀ): f32 on both sides, summation order only,
+    K-rows' hub pieces added with atomics."""
 
     @staticmethod
     def forward(ctx, x, prep):
@@ -1423,8 +1437,8 @@ class PreparedAggregate:
     integer dtypes and the float passthrough. Under grad
     mode a payload that requires grad goes through :class:`SpmmFunction`
     on the kernel backends, whose operand's transpose must be prepared
-    first (``prep.transpose(graph)``), as on a mesh operand; ``oracle`` and
-    ``blocked`` are PyTorch ops, which autograd follows."""
+    first (``prep.transpose(graph)``), as on a mesh operand; ``oracle``
+    is PyTorch ops, which autograd follows."""
 
     def __init__(self, prep, dev=None):
         self.prep = prep

@@ -42,6 +42,7 @@ import numpy as np
 
 from pygim_tpu_torch.core.graph import CsrGraph
 from pygim_tpu_torch.core.partition import make_row_block_plan
+from pygim_tpu_torch.ops.seg_rows import UNIT_ENTRIES
 from pygim_tpu_torch.ops.spmm import SpmmConfig
 from pygim_tpu_torch.tune.cost_model import (
     CardCostModel,
@@ -81,11 +82,9 @@ HBM_FRACTION = 0.9
 
 # The PyTorch ops and kernel launches of the port's run path
 # (ops/spmm.py), each priced at CardCostModel.launch_us:
-# blocked_spmm dispatches five ops a block (the gather, two dtype casts,
-# the weight product, index_add_) and two more (the output's zeros, the
-# row-slot gather);
-BLOCKED_OPS_PER_BLOCK = 5
-BLOCKED_OPS = 2
+# blocked: K-rows' one launch whatever the block count, and one more that
+# zeroes the hub rows where a row holds more than a unit's entries
+# (ops/seg_rows.py);
 # ell and hybrid: the output's zeros and K-tail's one launch;
 RUN_OPS = 2
 # a core: the rank gather, the payload's cast, and a launch a group of
@@ -101,9 +100,10 @@ BCSR_OPS = 1
 STREAM_K_BYTES = 132 * 2 * 128 * 128 * 4
 
 
-def blocked_launches(n_blocks: int) -> int:
-    """Ops the blocked body dispatches for ``n_blocks`` blocks."""
-    return BLOCKED_OPS_PER_BLOCK * n_blocks + BLOCKED_OPS
+def blocked_launches(max_row_nnz: int) -> int:
+    """Launches of the blocked body (K-rows) on a graph whose longest row
+    holds ``max_row_nnz`` entries."""
+    return 1 + int(max_row_nnz > UNIT_ENTRIES)
 
 
 def _stair_mask(memo: dict, csr: CsrGraph, bands) -> np.ndarray:
@@ -404,15 +404,16 @@ def plan_statistics(
     else:
         ell_vrows = None
         padded_nnz = nb * plan_rb.nnz_pad
-        # blocked materializes each block's gathered contribution and
-        # scatter-reads it
+        # the reference's blocked materializes each block's gathered
+        # contribution and scatter-reads it (K-rows does neither)
         scatter_bytes = 2 * padded_nnz * h_local * dtype_bytes
-        launches = blocked_launches(nb)
-        # rowloc a slot, row_slot a row, the padded block output, and one
-        # block's gather and product
+        launches = blocked_launches(int(np.diff(csr.rowptr).max(initial=0)))
+        # rowloc a slot, row_slot a row, and K-rows' plan: the inverse slot
+        # map and a unit's four words about every UNIT_ENTRIES entries
         extra_bytes += (4 * padded_nnz + 4 * csr.nrows
-                        + nb * plan_rb.rows_pad * h_local * 4
-                        + 2 * plan_rb.nnz_pad * h_local * 4)
+                        + 4 * nb * plan_rb.rows_pad
+                        + 16 * (-(-padded_nnz // UNIT_ENTRIES) + csr.nrows
+                                // 64))
 
     core_cell = None
     if core_bytes > 0:

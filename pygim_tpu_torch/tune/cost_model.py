@@ -7,7 +7,10 @@ statistics of :func:`pygim_tpu_torch.tune.autotuner.plan_statistics`:
     bytes = gather_bytes / (hbm · gather_eff) + stream_bytes / (hbm ·
             stream_eff) + scatter_bytes / (hbm · scatter_eff)
     tail  = bytes (blocked), or max(bytes, ELL issue time) for an ELL tail
-            (the ELL issue time alone where ``tail_roofline`` is off)
+            (the ELL issue time alone where ``tail_roofline`` is off);
+            blocked with ``rows_factor`` > 0 (the measured model):
+            K-rows, rows_factor × the ELL issue time of its entries
+            (n_blocks · nnz_pad) and rows (n_blocks · rows_pad)
     core  = max(core_bytes / (hbm · stream_eff), core_flops / core rate)
             / core_eff
     bcsr  = max(bcsr_stream_bytes / (hbm · stream_eff), bcsr_flops / tile rate)
@@ -25,9 +28,18 @@ follows its cells as the port runs them: bf16 ``wgmma`` for int8, int4
 and bf16 cells (K-core), three TF32 products at half that rate for f32
 cells (K-f32); ``core_eff`` is the share of that roofline K-core reaches.
 A BCSR tier's bf16 tiles run at the bf16 rate, its f32 tiles at the FFMA
-rate. ``scatter_eff`` prices the ``blocked`` body's ``index_add_``
-(``scatter_bytes``). ``launches`` counts the PyTorch ops and kernel
-launches the port's run path dispatches.
+rate. ``scatter_bytes`` is the reference's materialized gather of the
+``blocked`` body; the port's ``blocked`` runs K-rows
+(``ops/seg_rows.py``), which gathers each entry's x row into registers
+and writes each output row once: K-tail's work on one-entry slots. So
+the measured model prices it as K-tail's fitted issue time of its
+entries and rows times ``rows_factor``: K-rows' time on an R-MAT graph
+over that issue time there. K-rows walks rows in their own order, and a
+power-law graph's neighbouring rows share x rows in the L2, which a
+uniform table (K-tail's fit) never does: the factor carries that reuse.
+Its ``scatter_eff`` is ``stream_eff`` (the reference's convention: no
+pass of the port reads the scatter bytes). ``launches`` counts the PyTorch
+ops and kernel launches the port's run path dispatches.
 
 Where the constants come from (``provenance``):
 
@@ -40,10 +52,14 @@ Where the constants come from (``provenance``):
   (:func:`~pygim_tpu_torch.utils.timers.device_time`): a stream copy and
   a row gather (PyTorch ops: they read the memory, not a kernel of the
   port), K-tail on uniform ELL tables at two degrees and two widths (the
-  ELL issue constants), the ``blocked`` body on tiny blocks (``launch_us``)
-  and on one block of 2^17 entries (``scatter_eff``), a tiny ``ell``
-  product (``fixed_us``) and K-core on a 1 GiB int8 band (``core_eff``).
-  No efficiency is clipped: one above 1 is a measurement to question.
+  ELL issue constants), K-rows' C entry point on a tiny table, called
+  back to back (``launch_us``: a launch with nothing to do), the
+  ``blocked`` product (K-rows) on an R-MAT graph of :data:`ROWS_GRAPH`
+  at H 256 (``rows_factor``: its time over the fitted ELL issue time of
+  its entries and rows, a ratio of two positive times), a tiny ``ell``
+  product (``fixed_us``) and K-core on a 1 GiB int8 band
+  (``core_eff``). No efficiency is clipped: one above 1 is a
+  measurement to question.
   Cached as ``card_constants.json`` under
   ``$PYGIM_TPU_TORCH_TUNE_CACHE`` (default ``~/.cache/pygim_tpu_torch``)
   with the card's ``nvidia-smi`` line: a file of another card or power
@@ -76,6 +92,11 @@ from typing import Optional
 from pygim_tpu_torch.core.partition import ell_issue_seconds
 
 CONSTANTS_FILE = "card_constants.json"
+# the layout of the measured constants: 2 since the blocked family runs on
+# K-rows (``rows_factor``; ``launch_us`` and ``scatter_eff`` read afresh).
+# A file of another version was fitted on other bodies and is measured
+# again.
+CONSTANTS_VERSION = 2
 # the card assumed for the data sheet where none is visible: the H100 SXM,
 # as torch names it
 DEFAULT_CARD = "NVIDIA H100 80GB HBM3"
@@ -100,14 +121,14 @@ class CardCostModel:
     cells and f32 tiles, the scatter's and the core's efficiencies, the
     launch cost, and whether the tail takes its byte roofline as a floor.
     With the reference's constants, ``scatter_eff = stream_eff``,
-    ``core_eff = 1``, ``launch_us = 0`` and ``tail_roofline`` on, it is
-    the reference's model."""
+    ``core_eff = 1``, ``launch_us = 0``, ``tail_roofline`` on and
+    ``rows_factor = 0``, it is the reference's model."""
 
     hbm_bw: float            # bytes/s
     ici_bw: float            # bytes/s a link direction
     gather_eff: float        # random-row gather rate / hbm_bw
     stream_eff: float        # streaming rate / hbm_bw
-    scatter_eff: float       # blocked's index_add_ rate / hbm_bw
+    scatter_eff: float       # the reference's scatter pass / hbm_bw
     fixed_us: float          # one product's fixed cost beyond its launches
     tensor_bf16: float       # FLOP/s: int8, int4, bf16 core cells, bf16 tiles
     tensor_f32: float        # FLOP/s of f32 core cells (K-f32's 3xTF32)
@@ -118,6 +139,7 @@ class CardCostModel:
     launch_us: float = 0.0   # one dispatched PyTorch op or kernel launch
     core_eff: float = 1.0    # K-core's share of the core's roofline
     tail_roofline: bool = True  # the tail at least its byte roofline
+    rows_factor: float = 0.0  # K-rows / the ELL issue time (0: the bytes)
     coll: Optional[dict] = None
     ell_slot_factor: float = 1.0
     provenance: str = "datasheet"
@@ -201,7 +223,8 @@ def datasheet(card: Optional[str] = None) -> CardCostModel:
 
 def load_measured(card: str) -> Optional[CardCostModel]:
     """The cached measured constants where the file is this card's
-    (``card``, its ``nvidia-smi`` line), else None."""
+    (``card``, its ``nvidia-smi`` line) and of :data:`CONSTANTS_VERSION`,
+    else None."""
     path = cache_dir() / CONSTANTS_FILE
     if not path.exists():
         return None
@@ -209,7 +232,7 @@ def load_measured(card: str) -> Optional[CardCostModel]:
         d = json.loads(path.read_text())
     except (OSError, ValueError):
         return None
-    if d.get("card") != card:
+    if d.get("card") != card or d.get("version") != CONSTANTS_VERSION:
         return None
     return CardCostModel(**d["model"])
 
@@ -218,7 +241,7 @@ def save_measured(model: CardCostModel, card: str,
                   readings: Optional[dict] = None) -> Path:
     path = cache_dir() / CONSTANTS_FILE
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(json.dumps({"card": card,
+    path.write_text(json.dumps({"card": card, "version": CONSTANTS_VERSION,
                                 "model": dataclasses.asdict(model),
                                 "readings": readings or {}}, indent=1))
     return path
@@ -360,11 +383,21 @@ def predict_spmm_time(stats: dict,
     docstring). On the reference's statistics with its constants and
     ``launch_us = 0`` it is the reference's ``predict_spmm_time``."""
     m = model or CardCostModel.default()
-    tail_bw = (
-        stats["gather_bytes"] / (m.hbm_bw * m.gather_eff)
-        + stats["stream_bytes"] / (m.hbm_bw * m.stream_eff)
-        + stats.get("scatter_bytes", 0) / (m.hbm_bw * m.scatter_eff)
-    )
+    if stats.get("ell_slots") is None and m.rows_factor > 0:
+        # blocked on K-rows: K-tail's issue time of one-entry slots (the
+        # entries) and virtual rows (the rows), scaled to K-rows
+        tail_bw = m.rows_factor * ell_issue_seconds(
+            stats["n_blocks"] * stats["nnz_pad"],
+            stats["n_blocks"] * stats["rows_pad"], stats.get("ell_hidden"),
+            slot_ns=m.ell_slot_ns * m.ell_slot_factor,
+            vrow_fixed_ns=m.ell_vrow_fixed_ns,
+            vrow_ns_per_h=m.ell_vrow_ns_per_h)
+    else:
+        tail_bw = (
+            stats["gather_bytes"] / (m.hbm_bw * m.gather_eff)
+            + stats["stream_bytes"] / (m.hbm_bw * m.stream_eff)
+            + stats.get("scatter_bytes", 0) / (m.hbm_bw * m.scatter_eff)
+        )
     if stats.get("ell_slots") is not None:
         issue = ell_issue_seconds(
             stats["ell_slots"], stats.get("ell_vrows") or 0,
@@ -454,12 +487,9 @@ TAIL_WIDTHS = (32, 256)
 # K-core's efficiency: one int8 band of 1 GiB (the space's smallest core
 # budget) at H 256, where it is bound by operations
 CORE_BAND = 32768
-# the launch probe: the blocked body on tiny blocks
-LAUNCH_BLOCKS = 512
-# the scatter probe: one block of SCATTER_NNZ entries over SCATTER_ROWS
-# rows (sorted by row, as the planner's blocks) at H 256
-SCATTER_NNZ = 1 << 17
-SCATTER_ROWS = 1 << 14
+# K-rows' probe: the blocked product of an R-MAT graph (nodes, stored
+# edges, seed; the generator of the port's stand-ins) at H 256
+ROWS_GRAPH = (1 << 18, 1 << 21, 1)
 
 
 def fit_tail(times_ns: dict) -> dict:
@@ -515,45 +545,62 @@ def _tail_ns(dev, degree: int, h: int, gen) -> float:
 
 
 def _launch_us(dev) -> float:
-    """One op of the blocked body (µs): ``blocked_spmm`` on
-    :data:`LAUNCH_BLOCKS` blocks of 8 entries and 8 rows at H 8, over the
-    ops it dispatches."""
+    """One kernel launch (µs): K-rows' C entry point called back to back
+    on a tiny table (8 entries, 8 rows, H 8), its arguments prepared
+    once: the cost of issuing a kernel, with nothing for it to do."""
+    import numpy as np
     import torch
 
-    from pygim_tpu_torch.ops.spmm import blocked_spmm
-    from pygim_tpu_torch.tune.autotuner import blocked_launches
+    from pygim_tpu_torch.ops import _build
+    from pygim_tpu_torch.ops.seg_rows import coo_plan
     from pygim_tpu_torch.utils.timers import device_time
 
-    nb = LAUNCH_BLOCKS
-    colind = torch.zeros((nb, 8), dtype=torch.int32, device=dev)
-    vals = torch.ones((nb, 8), device=dev)
-    rowloc = torch.zeros((nb, 8), dtype=torch.int32, device=dev)
-    row_slot = torch.arange(nb * 8, dtype=torch.int32, device=dev)
+    rows = torch.arange(8, dtype=torch.int32, device=dev)
+    cols = torch.zeros(8, dtype=torch.int32, device=dev)
+    vals = torch.ones(8, device=dev)
     x = torch.ones((8, 8), device=dev)
-    t = device_time(lambda: blocked_spmm(colind, vals, rowloc, row_slot, x,
-                                         8), iters=5)
-    return t * 1e6 / blocked_launches(nb)
+    out = torch.empty((8, 8), device=dev)
+    plan = coo_plan(np.arange(8, dtype=np.int32), 8)
+    d = plan.to(dev)
+    lib = _build.load("seg_rows")
+    args = (d["units"].data_ptr(), plan.n_units, d["hub_rows"].data_ptr(), 0,
+            cols.data_ptr(), vals.data_ptr(), 0, rows.data_ptr(), None, 0, 0,
+            x.data_ptr(), 0, 0, out.data_ptr(), 8, 1, _build.stream_of(x))
+
+    def launch():
+        _build.check(lib.seg_rows(*args), "seg_rows")
+        return out
+
+    with torch.cuda.device(dev):
+        return device_time(launch, iters=100) * 1e6
 
 
-def _blocked_seconds(dev, gen) -> float:
-    """The blocked body on one block of :data:`SCATTER_NNZ` entries over
-    :data:`SCATTER_ROWS` rows at H 256, gathering from as many x rows
-    (s)."""
+def _rows_factor(dev, fit: dict) -> "tuple[float, float]":
+    """The blocked product (K-rows) of the R-MAT graph :data:`ROWS_GRAPH`
+    at H 256: ``(its time (s), that time over the ELL issue time of its
+    entries and rows under the fitted constants`` ``fit`` (:func:`fit_tail`)
+    ``)``."""
     import torch
 
-    from pygim_tpu_torch.ops.spmm import blocked_spmm
+    from pygim_tpu_torch.core.graph import CooGraph
+    from pygim_tpu_torch.core.partition import ell_issue_seconds
+    from pygim_tpu_torch.data.datasets import rmat_edges
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
     from pygim_tpu_torch.utils.timers import device_time
 
-    nnz, rows = SCATTER_NNZ, SCATTER_ROWS
-    x = torch.randn((nnz, 256), device=dev, generator=gen)
-    colind = torch.randint(0, nnz, (1, nnz), device=dev, generator=gen,
-                           dtype=torch.int32)
-    vals = torch.ones((1, nnz), device=dev)
-    rowloc = torch.sort(torch.randint(0, rows, (1, nnz), device=dev,
-                                      generator=gen)).values.to(torch.int32)
-    row_slot = torch.arange(rows, dtype=torch.int32, device=dev)
-    return device_time(lambda: blocked_spmm(colind, vals, rowloc, row_slot,
-                                            x, rows), iters=5)
+    n, e, seed = ROWS_GRAPH
+    rows, cols = rmat_edges(n, e, seed=seed)
+    prep = prepare_spmm(CooGraph.from_edges(rows, cols, nrows=n, ncols=n),
+                        SpmmConfig(), device=dev)
+    x = torch.randn((n, 256), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    t = device_time(prep.mul, x, iters=10)
+    plan = prep.plan
+    issue = ell_issue_seconds(
+        plan.n_blocks * plan.nnz_pad, plan.n_blocks * plan.rows_pad, 256,
+        slot_ns=fit["ell_slot_ns"], vrow_fixed_ns=fit["ell_vrow_fixed_ns"],
+        vrow_ns_per_h=fit["ell_vrow_ns_per_h"])
+    return t, t / issue
 
 
 def _fixed_us(dev, launch_us: float) -> float:
@@ -603,7 +650,6 @@ def measure_constants(device="cuda", save: bool = True, n: int = 1 << 21,
     cache them with the card's line (``save``). Raises without a card."""
     import torch
 
-    from pygim_tpu_torch.tune.autotuner import blocked_launches
     from pygim_tpu_torch.utils.device import card_line, peaks
     from pygim_tpu_torch.utils.timers import device_time
 
@@ -632,32 +678,27 @@ def measure_constants(device="cuda", save: bool = True, n: int = 1 << 21,
     gather_eff, stream_eff = gather_bw / hbm, stream_bw / hbm
     launch_us = _launch_us(dev)
     fixed_us = _fixed_us(dev, launch_us)
-    # the blocked body's scatter: its time less its gather, its streams
-    # and its ops, over the scatter bytes plan_statistics counts
-    nnz, rows = SCATTER_NNZ, SCATTER_ROWS
-    t_blocked = _blocked_seconds(dev, gen)
-    t_scatter = (t_blocked - nnz * 256 * 4 / (hbm * gather_eff)
-                 - (nnz * 8 + rows * 256 * 4) / (hbm * stream_eff)
-                 - blocked_launches(1) * launch_us * 1e-6)
-    scatter_eff = 2 * nnz * 256 * 4 / (hbm * t_scatter)
+    # K-rows on an R-MAT graph against the ELL issue time of its tables
+    t_rows, rows_factor = _rows_factor(dev, fit)
     # K-core's share of its band's roofline (bytes at the stream rate,
     # operations at the bf16 rate)
     t_core = _core_seconds(dev, gen)
     roof = max(CORE_BAND * CORE_BAND / (hbm * stream_eff),
                2 * CORE_BAND * CORE_BAND * 256 / bf16)
     readings.update(launch_us=launch_us, fixed_us=fixed_us,
-                    blocked_ms=t_blocked * 1e3, core_ms=t_core * 1e3,
+                    rows_ms=t_rows * 1e3, core_ms=t_core * 1e3,
                     core_roofline_ms=roof * 1e3)
     torch.cuda.empty_cache()
 
     model = CardCostModel(
         hbm_bw=hbm, ici_bw=NVLINK_BW, gather_eff=gather_eff,
-        stream_eff=stream_eff, scatter_eff=scatter_eff, fixed_us=fixed_us,
+        stream_eff=stream_eff, scatter_eff=stream_eff, fixed_us=fixed_us,
         tensor_bf16=bf16, tensor_f32=bf16 / 6, simt_f32=f32,
         ell_slot_ns=fit["ell_slot_ns"],
         ell_vrow_fixed_ns=fit["ell_vrow_fixed_ns"],
         ell_vrow_ns_per_h=fit["ell_vrow_ns_per_h"], launch_us=launch_us,
         core_eff=roof / t_core, tail_roofline=False,
+        rows_factor=rows_factor,
         provenance=f"measured:{card}",
     )
     if save:

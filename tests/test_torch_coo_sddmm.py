@@ -167,13 +167,23 @@ def test_gin_and_sage_forwards_on_coo_match_jax(conv, agg_dtype):
 
 
 def test_coo_gradient_is_autograd_through_the_ops():
+    """The coo aggregate's gradient (the name is the old route's: autograd
+    through the plain ops) now runs K-rows' backward, ``SpmmFunction`` on
+    the prepared Aᵀ: the aggregate refuses a gradient before Aᵀ is
+    prepared, then equals the dense ``Aᵀ w``."""
     rows, cols, vals = random_edges(60, 60, 400, seed=1)
     _jg, tg = both_graphs(rows, cols, vals, 60, 60)
     tp = tspmm.prepare_spmm(tg, tspmm.SpmmConfig(backend="coo", n_blocks=3),
                             device="cpu")
     x = torch.randn(60, 5, dtype=torch.float32, requires_grad=True)
     w = torch.randn(60, 5)
-    (g,) = torch.autograd.grad((tspmm.PreparedAggregate(tp)(x) * w).sum(), x)
+    agg = tspmm.PreparedAggregate(tp)
+    with pytest.raises(ValueError, match="not prepared"):
+        agg(x)
+    tp.transpose(tg)
+    y = agg(x)
+    assert "SpmmFunction" in y.grad_fn.name()
+    (g,) = torch.autograd.grad((y * w).sum(), x)
     want = torch.from_numpy(tg.to_dense().T.astype(np.float32)) @ w
     torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5)
 

@@ -5,7 +5,7 @@ the GIN quirk of the reference, the prepared transpose the aggregate's
 backward runs on, and the guards that keep a gradient from being dropped
 at a kernel.
 
-Tolerances. Float backends (oracle, ell, blocked) differ from JAX only
+Tolerances. Float backends (oracle, ell, blocked, coo) differ from JAX only
 in the order of f32 sums, carried through BatchNorm and the dense
 layers: 1e-5 of the magnitude for forwards and losses, and 1e-4 of each
 leaf's largest |grad| for gradients (readings here: at most 2.1e-5 on
@@ -72,6 +72,7 @@ BACKENDS = {
     "oracle": dict(backend="oracle"),
     "ell": dict(backend="ell"),
     "blocked": dict(backend="blocked", n_blocks=3),
+    "coo": dict(backend="coo", n_blocks=3),
     "stair-int8": dict(backend="hybrid", hybrid_shape="stair",
                        hybrid_dtype="int8", hybrid_core_bytes=64 << 10),
 }
@@ -102,8 +103,9 @@ def inputs(seed=1):
 
 def both_aggregates(backend, transpose=True):
     """Both packages' aggregates of the small graph on ``backend``, and
-    the port's operand; on ell and the hybrid its Aᵀ is prepared
-    (training needs it) unless ``transpose`` is False."""
+    the port's operand; on the kernel backends (ell, the hybrid, blocked,
+    coo) its Aᵀ is prepared (training needs it) unless ``transpose`` is
+    False."""
     rows, cols, vals = small_graph()
     cfg = BACKENDS[backend]
     jp = jspmm.prepare_spmm(
@@ -392,13 +394,14 @@ def test_transpose_tables_match_reference(kind, backend):
         np.testing.assert_array_equal(got, v, err_msg=k)
 
 
-@pytest.mark.parametrize("backend", ["stair-int8", "ell"])
+@pytest.mark.parametrize("backend", ["stair-int8", "ell", "blocked", "coo"])
 def test_spmm_function_gradient_matches_plain_autograd(backend):
     """The aggregate's gradient through SpmmFunction (backward: the
     kernels' plain versions on the CPU, on Aᵀ) against autograd through
-    mul_plain on A. ell: f32 on both sides, 1e-5 of the sum of |terms|;
-    the hybrid's core rounds to bf16 (comment below). The aggregate
-    refuses a gradient before Aᵀ is prepared, and inference needs none."""
+    mul_plain on A. ell, blocked, coo: f32 on both sides, 1e-5 of the sum
+    of |terms|; the hybrid's core rounds to bf16 (comment below). The
+    aggregate refuses a gradient before Aᵀ is prepared, and inference
+    needs none."""
     _, agg, tp = both_aggregates(backend, transpose=False)
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.standard_normal((N, H)).astype(np.float32))
@@ -420,7 +423,7 @@ def test_spmm_function_gradient_matches_plain_autograd(backend):
     torch.testing.assert_close(y.detach(), tp.mul_plain(x), rtol=0,
                                atol=1e-5 * float(tp.mul_plain(x.abs()).max()))
     mag = tp.transpose().mul_plain(w.abs())
-    if backend == "ell":
+    if backend != "stair-int8":
         assert bool(((ga - gb).abs() <= 1e-5 * mag + 1e-6).all())
     else:
         # SpmmFunction: one bf16 rounding of each core term's cotangent

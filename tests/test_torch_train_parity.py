@@ -86,6 +86,11 @@ def test_training_parity_divergence_detected(planted):
         def mul(self, v):
             return self._p.mul(v) * 2.0
 
+        def transpose(self, graph=None):
+            # the default backend runs a kernel (K-rows): its backward is
+            # the prepared Aᵀ's product
+            return self._p.transpose(graph)
+
     with pytest.raises(AssertionError):
         run_training_benchmark(
             planted, hidden=32, epochs=10,

@@ -26,6 +26,7 @@ from pygim_tpu_torch import compat as tcompat
 from pygim_tpu_torch.core import graph as tgraph
 from pygim_tpu_torch.core import partition as tpart
 from pygim_tpu_torch.core import stair as tstair
+from pygim_tpu_torch.ops import seg_rows as tseg
 from pygim_tpu_torch.ops import spmm as tspmm
 from pygim_tpu_torch.tune import autotuner as ttune
 from pygim_tpu_torch.tune import cost_model as tcost
@@ -176,16 +177,45 @@ def test_autotune_matches_reference(kind):
 
 
 def test_launch_term_prices_blocked():
-    """With a launch cost, the blocked candidates with many blocks move
-    down: each block's five ops are priced, the fewer ops of ell and the
-    hybrids barely move."""
+    """With a launch cost, a blocked candidate pays K-rows' one launch,
+    and one more that zeroes the hub rows where a row holds more than a
+    unit's entries, whatever its block count."""
     _, tcsr = graph_pair("rmat")
     cfg = tspmm.SpmmConfig(backend="blocked", block_nnz_budget=1 << 10)
     st = ttune.plan_statistics(tcsr, 64, cfg)
-    assert st["launches"] == ttune.blocked_launches(st["n_blocks"])
+    longest = int(np.diff(tcsr.rowptr).max())
+    assert longest > tseg.UNIT_ENTRIES and st["n_blocks"] > 2
+    assert st["launches"] == ttune.blocked_launches(longest) == 2
+    assert ttune.blocked_launches(tseg.UNIT_ENTRIES) == 1
     base = tcost.predict_spmm_time(st, reference_model())
     priced = tcost.predict_spmm_time(st, reference_model(launch_us=10.0))
     assert priced - base == pytest.approx(st["launches"] * 1e-5, rel=1e-9)
+
+
+def test_rows_factor_prices_blocked_as_k_rows():
+    """With ``rows_factor`` (the measured model) a blocked candidate costs
+    that factor times K-tail's fitted issue time of its entries and rows,
+    no scatter pass; ell and the hybrids do not move; ``rows_factor = 0``
+    is the reference's bytes."""
+    _, tcsr = graph_pair("skewed")
+    m = reference_model(rows_factor=0.75)
+    blocked = ttune.plan_statistics(tcsr, 64, tspmm.SpmmConfig())
+    issue = tpart.ell_issue_seconds(
+        blocked["n_blocks"] * blocked["nnz_pad"],
+        blocked["n_blocks"] * blocked["rows_pad"], 64,
+        slot_ns=m.ell_slot_ns * m.ell_slot_factor,
+        vrow_fixed_ns=m.ell_vrow_fixed_ns,
+        vrow_ns_per_h=m.ell_vrow_ns_per_h)
+    assert issue > 0 and blocked["scatter_bytes"] > 0
+    assert tcost.predict_spmm_time(blocked, m) == pytest.approx(
+        0.75 * issue + m.fixed_us * 1e-6)
+    for cfg in (dict(backend="ell"), dict(backend="hybrid",
+                                          hybrid_dtype="int8",
+                                          hybrid_core_bytes=1 << 20)):
+        st = ttune.plan_statistics(tcsr, 64, tspmm.SpmmConfig(**cfg))
+        assert tcost.predict_spmm_time(st, m) == \
+            tcost.predict_spmm_time(st, reference_model())
+    assert reference_model().rows_factor == 0.0
 
 
 def test_fitted_tail_is_priced_by_its_fit():
@@ -336,6 +366,32 @@ def test_constants_file_of_another_card_is_not_read(monkeypatch):
     assert (sheet.hbm_bw, sheet.tensor_bf16) == peaks(tcost.DEFAULT_CARD)[:2]
     with pytest.raises(RuntimeError, match="CUDA card"):
         tcost.CardCostModel.measured("cpu")
+
+
+def test_constants_file_before_k_rows_is_measured_again(monkeypatch):
+    """A constants file written before the blocked family ran on K-rows
+    (no ``version``, no ``rows_factor``; ``scatter_eff`` and ``launch_us``
+    fitted on the plain blocked body) is not read, though its card line
+    matches: ``load_measured`` gives None and ``default`` the data sheet.
+    The file ``save_measured`` writes now is read back."""
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    old = dataclasses.asdict(tcost.datasheet(None))
+    del old["rows_factor"]
+    old.update(scatter_eff=0.226, launch_us=9.8, provenance=f"measured:{card}")
+    path = tcost.cache_dir() / tcost.CONSTANTS_FILE
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps({"card": card, "model": old, "readings": {}}))
+    monkeypatch.setattr(tcost, "visible_card", lambda: card)
+    assert tcost.load_measured(card) is None
+    assert "uncalibrated" in tcost.CardCostModel.default().provenance
+    path.write_text(json.dumps({"card": card, "version": 1, "model": old,
+                                "readings": {}}))
+    assert tcost.load_measured(card) is None
+    now = dataclasses.replace(tcost.datasheet(None), rows_factor=0.19,
+                              provenance=f"measured:{card}")
+    tcost.save_measured(now, card)
+    assert json.loads(path.read_text())["version"] == tcost.CONSTANTS_VERSION
+    assert tcost.load_measured(card) == now
 
 
 def test_fit_tail_recovers_its_constants():
