@@ -115,11 +115,13 @@ hybrid`` trains 10 epochs on its default f32 core, and
 ``run_training_benchmark`` trains the GCN on the bf16 square.
 
 Then this slice's paths. K-bcsr alone against its plain version on
-random tiers: every mode (bf16 tiles with a float32, bfloat16 or int8
-payload on the tensor cores; int16, int32 and rounded payloads and f32
-tiles in f32) in both layouts at ragged tile rows (8 to 64) and widths
-(8 to 1100), with an ``out`` at an odd offset, on a single-tile tier,
-two launches against each other, a NaN read by a pad, a hub panel that
+random tiers: every case, each on its tensor-core route (bf16 tiles
+with a float32, bfloat16 or int8 payload or one rounded for int8 as
+bf16; int16, int32 and payloads rounded for them as two or three bf16
+parts; f32 tiles as 3xTF32) in both layouts at ragged tile rows (8 to
+64) and widths (8 to 1100), with an ``out`` at an odd offset, bit-equal
+on integer cells and payloads, on a single-tile tier, two launches
+against each other, a NaN read by a pad on every float route, a hub panel that
 its work plan splits into items, a row-kind tier that the plan reorders
 panel-major, and the shapes it refuses. The three-tier hybrid on ``brmat-200000-4000000-256`` (a square
 core at 64 MiB, tiles at 256 MiB: int8 core with bf16 tiles, Tr 16 panel
@@ -128,7 +130,8 @@ panel lp), each counted, ``mul`` on five payloads and ``mul_quantized``
 at int8 (bit-equal), int16 and int32 against the plain versions, with
 ``bcsr_time``, the captured edges and K-bcsr timed against its bound and
 ``torch.sparse.mm`` beside its plan's items, panels staged, adds, bands
-and modelled bytes. A 1 GiB random tier at 2,000,000 nodes, both
+and modelled bytes, and each of its other routes likewise, with its
+launches on the counted products. A 1 GiB random tier at 2,000,000 nodes, both
 layouts, timed the same way. The ``coo`` backend on the stand-in (a
 float32 SpMM, the float GCN against the oracle backend's, GIN and SAGE
 through ``run_experiments`` with ``validate``) and SDDMM against a
@@ -247,7 +250,12 @@ fastest audited (``tune_cards``). ``--halo-full`` runs tracked config
 5's four entries on a virtual node mesh of eight on one card
 (``halo_full``: edges/s and the halo's request and buffer rows; no
 scaling measured) and a model-mode ``autotune`` at a budget of eight on
-its graph beside them.
+its graph beside them. ``--rows-full`` runs the runners' default
+(``blocked`` on K-rows) on reddit-sim: the plan's readings, K-rows
+beside ``rows_bound`` and ``torch.sparse.mm``, ``pim_time_spmm`` and
+the float and int32 forwards, then the host's µs of each step of a
+K-rows wrapper call on a small operand (``rows_full``; minutes of
+dataset synthesis and host prepare where the cache is cold).
 """
 
 from __future__ import annotations
@@ -3126,14 +3134,26 @@ BCSR_CONFIGS = {
 BCSR_TIMED = "int8 Tr16 panel lp"  # the kernels line's K-bcsr entry
 # the training check's graph: smaller, so its Aᵀ prepares in seconds
 BCSR_TRAIN_GRAPH = "brmat-20000-400000-64"
-# the modes of K-bcsr: tile dtype, payload and whether x is rounded to
-# round(x / safe); the first three run on the tensor cores
+# the cases of K-bcsr: tile dtype, payload and whether x is rounded to
+# round(x / safe) at the int32 quantized aggregate's scale; every case
+# runs on the tensor cores (ops/bcsr.py:kernel_route)
 BCSR_MODES = (("bfloat16", "float32", False), ("bfloat16", "bfloat16", False),
               ("bfloat16", "int8", False), ("bfloat16", "int16", False),
               ("bfloat16", "int32", False), ("bfloat16", "float32", True),
               ("float32", "float32", False), ("float32", "bfloat16", False),
               ("float32", "int8", False), ("float32", "int16", False),
               ("float32", "int32", False), ("float32", "float32", True))
+# the routes of the kernels line beside the K-bcsr entry (the bf16 route
+# on BCSR_TIMED): (route key, the tier, payload, rounded), on the bf16
+# tiles of BCSR_TIMED and the f32 tiles of BCSR_F32; the bcsr path's
+# products take every one (the port rounds x in the tier for int32 alone:
+# int8 and int16 go through their integer tables)
+BCSR_F32 = "f32 Tr16 panel lp"
+BCSR_ROUTES = (("bf16x2", BCSR_TIMED, "int16", False),
+               ("bf16x3", BCSR_TIMED, "int32", False),
+               ("bf16x3 rounded", BCSR_TIMED, "float32", True),
+               ("tf32x3", BCSR_F32, "float32", False),
+               ("tf32x2", BCSR_F32, "int8", False))
 BCSR_RAGGED = ((8, 41), (16, 256), (24, 8), (32, 1100), (64, 42), (24, 1100))
 
 
@@ -3152,6 +3172,14 @@ def free(device) -> None:
 
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
+
+
+def rounded_safe(x):
+    """``safe`` of the int32 quantized aggregate's scale
+    (``quant/__init__.py:quant_scale``) as a 0-dim tensor."""
+    from pygim_tpu_torch.quant import quant_scale
+
+    return quant_scale(x, "int32")[1].reshape(())
 
 
 def bcsr_synthetic(kind, n, slots, tr, nodes, tile_dtype, gen, dev,
@@ -3207,10 +3235,11 @@ def bcsr_mag(x, tables, nodes, safe=None, mag=None):
     return bcsr_plain(xa, kind, tiles.abs(), *rest, mag, safe=safe)
 
 
-def bcsr_case(name, x, tables, nodes, safe=None, out=None):
+def bcsr_case(name, x, tables, nodes, safe=None, out=None, exact=False):
     """K-bcsr against ``bcsr_plain`` on the same inputs, within REL_TOL of
-    the sum of |terms|; ``out`` (zeros) may be given, e.g. at an odd
-    offset. Returns the max abs error."""
+    the sum of |terms|, or ``torch.equal`` where ``exact`` (every partial
+    sum an integer below 2^24); ``out`` (zeros) may be given, e.g. at an
+    odd offset. Returns the max abs error."""
     import torch
 
     from pygim_tpu_torch.ops.bcsr import bcsr_add, bcsr_plain
@@ -3219,19 +3248,29 @@ def bcsr_case(name, x, tables, nodes, safe=None, out=None):
         out = torch.zeros(nodes, x.shape[1], device=x.device)
     got = bcsr_add(x, *tables, out, safe=safe)
     want = bcsr_plain(x, *tables, torch.zeros_like(got), safe=safe)
+    if exact:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: not bit-equal to the plain "
+                                 f"version, max abs err "
+                                 f"{float((got - want).abs().max())}")
+        return 0.0
     return check_close(name, got, want, bcsr_mag(x, tables, nodes, safe),
                        REL_TOL)
 
 
 def bcsr_kernel_checks(results, device="cuda"):
-    """K-bcsr alone against ``bcsr_plain`` on random tiers: every mode of
+    """K-bcsr alone against ``bcsr_plain`` on random tiers: every case of
     :data:`BCSR_MODES` in both layouts at ragged (Tr, H), Tr 8 to 64 and
-    H 8 to 1100, with an ``out`` at an odd storage offset, on a
-    single-tile tier; a hub panel its plan splits into items and a
-    row-kind tier it reorders, bf16 and f32 tiles; two launches on a bf16 tier within REL_TOL (f32
-    atomics: not required bit-equal; the reading says whether they were);
-    NaN rows where the plain version has them when a pad reads a NaN x
-    row; the refusals of the wrapper (Tr past 64, misaligned tiles)."""
+    H 8 to 1100, with an ``out`` at an odd storage offset, and bit-equal
+    on integer cells where its payload is an integer; bit-equal on
+    integers of 18 bits (an int32 x and a rounded x), which need
+    ``bf16x3``'s third part; on a single-tile tier; a hub panel its plan
+    splits into items and a row-kind tier it reorders, bf16 and f32
+    tiles; two launches on a bf16 tier within
+    REL_TOL (f32 atomics: not required bit-equal; the reading says
+    whether they were); NaN rows where the plain version has them when a
+    pad reads a NaN x row, on every route a float x takes; the refusals
+    of the wrapper (Tr past 64, misaligned tiles)."""
     import torch
 
     from pygim_tpu_torch.ops.bcsr import (
@@ -3249,9 +3288,7 @@ def bcsr_kernel_checks(results, device="cuda"):
             tr, h = BCSR_RAGGED[i % len(BCSR_RAGGED)]
             tables = bcsr_synthetic(kind, 48, 4, tr, nodes, tdt, gen, device)
             x = bcsr_payload(nodes, h, xdt, gen, device)
-            safe = None
-            if rounded:
-                safe = (x.abs().max() * 2 / 2 ** 20).reshape(())
+            safe = rounded_safe(x) if rounded else None
             name = (f"K-bcsr {kind} {tdt} tiles x {xdt}"
                     f"{' rounded' if rounded else ''} Tr {tr} H {h}")
             errs[name] = bcsr_case(name, x, tables, nodes, safe)
@@ -3261,6 +3298,45 @@ def bcsr_kernel_checks(results, device="cuda"):
             errs[name + " odd out"] = bcsr_case(
                 name + " odd out", x, tables, nodes, safe,
                 out=buf[1:].view(nodes, h))
+            cases += 1
+            # integer cells (|c| <= 3) and an integer payload of at most
+            # 2^12: every partial sum an integer below 2^24, so the
+            # routes' exact products give the plain version's sums bit
+            # for bit
+            if xdt.startswith("int"):
+                cells = torch.randint(-3, 4, tables[1].shape, generator=gen)
+                itables = (kind, (cells.to(device) * (tables[1] != 0)).to(
+                    tables[1].dtype), *tables[2:])
+                xi = x
+                if x.dtype != torch.int8:
+                    xi = x.clamp(-(1 << 12), 1 << 12)
+                errs[name + " integer cells"] = bcsr_case(
+                    name + " integer cells", xi, itables, nodes, exact=True)
+                cases += 1
+        # bf16x3's third part: integers of 18 bits (|q| in [2^17, 2^18),
+        # which two bf16 parts do not hold) on cells in {-1, 0, 1} at most
+        # 48 terms a row, so every partial sum is an integer below 2^24:
+        # an int32 x and an x rounded to them, bit-equal
+        tables = bcsr_synthetic(kind, 12, 2, 16, nodes, "bfloat16", gen,
+                                device, density=0.02)
+        cells = torch.randint(-1, 2, tables[1].shape, generator=gen)
+        tables = (kind, (cells.to(device) * (tables[1] != 0)).to(
+            torch.bfloat16), *tables[2:])
+        terms = bcsr_plain(torch.ones(nodes, 1, device=device), kind,
+                           tables[1].abs(), *tables[2:],
+                           torch.zeros(nodes, 1, device=device))
+        if not 1 <= float(terms.max()) <= 48:
+            raise AssertionError(f"K-bcsr three parts: {float(terms.max())} "
+                                 "terms a row")
+        mag = torch.randint(1 << 17, 1 << 18, (nodes, 24), generator=gen)
+        q = mag * (torch.randint(0, 2, (nodes, 24), generator=gen) * 2 - 1)
+        noise = torch.rand(nodes, 24, generator=gen) * 0.8 - 0.4
+        half = torch.tensor(0.5, device=device)
+        for xdt, x, safe in (
+                ("int32", q.to(torch.int32).to(device), None),
+                ("float32 rounded", ((q + noise) * 0.5).to(device), half)):
+            name = f"K-bcsr {kind} bfloat16 tiles x {xdt} three parts"
+            errs[name] = bcsr_case(name, x, tables, nodes, safe, exact=True)
             cases += 1
         for tdt in ("bfloat16", "float32"):
             tables = bcsr_synthetic(kind, 1, 1, 16, 200, tdt, gen, device)
@@ -3299,21 +3375,30 @@ def bcsr_kernel_checks(results, device="cuda"):
     b = bcsr_add(x, *tables, torch.zeros(nodes, 256, device=device))
     two = check_close("K-bcsr two launches", a, b,
                       bcsr_mag(x, tables, nodes), REL_TOL)
-    # a NaN x row that pads (and rows of zero cells) read
+    # a NaN x row that pads (and rows of zero cells) read, on every route
+    # that takes a float x: bf16 tiles as bf16 and rounded (bf16x3), f32
+    # tiles as tf32x3 and rounded
     xn = x.clone()
     xn[tables[4][0].long()] = float("nan")
-    kind, tiles, pidx, rb, pn, rn = tables
-    tiles = tiles.clone()
-    tiles[-1] = 0
-    pidx = pidx.clone()
-    pidx[-1] = 0  # a pad: zero tiles on panel 0
-    got = bcsr_add(xn, kind, tiles, pidx, rb, pn, rn,
-                   torch.zeros(nodes, 256, device=device))
-    want = bcsr_plain(xn, kind, tiles, pidx, rb, pn, rn,
-                      torch.zeros(nodes, 256, device=device))
-    if not torch.equal(got.isnan(), want.isnan()) or not want.isnan().any():
-        raise AssertionError("K-bcsr: NaN rows differ from the plain "
-                             "version's where a pad reads a NaN x row")
+    safe_n = (x.abs().max() * 2 / 2 ** 20).reshape(())
+    for tdt, rounded in (("bfloat16", False), ("bfloat16", True),
+                         ("float32", False), ("float32", True)):
+        kind, tiles, pidx, rb, pn, rn = tables
+        tiles = tiles.to(getattr(torch, tdt))
+        tiles[-1] = 0
+        pidx = pidx.clone()
+        pidx[-1] = 0  # a pad: zero tiles on panel 0
+        safe = safe_n if rounded else None
+        got = bcsr_add(xn, kind, tiles, pidx, rb, pn, rn,
+                       torch.zeros(nodes, 256, device=device), safe=safe)
+        want = bcsr_plain(xn, kind, tiles, pidx, rb, pn, rn,
+                          torch.zeros(nodes, 256, device=device), safe)
+        if (not torch.equal(got.isnan(), want.isnan())
+                or not want.isnan().any()):
+            raise AssertionError(f"K-bcsr {tdt} tiles, rounded {rounded}: "
+                                 "NaN rows differ from the plain version's "
+                                 "where a pad reads a NaN x row")
+        cases += 1
     refused = 0
     for bad in ("tr", "align"):
         try:
@@ -3375,47 +3460,58 @@ def plan_reading(plan) -> dict:
                 model_ms_at_2tbs=plan.model_bytes / 2e12 * 1e3)
 
 
-def bcsr_timing(name, tables, nodes, x, peaks_, results, launches=None):
+def bcsr_timing(name, tables, nodes, x, peaks_, results, launches=None,
+                safe=None, sparse=None):
     """K-bcsr's entry on ``tables``: its time on its work plan (built once,
-    as a prepared operand keeps it), its plain version's,
-    ``torch.sparse.mm`` on the tier's edges (f32 x), its bound (each tile
-    cell, each distinct x row of the panels the work items read and each
-    distinct output row of the row blocks they add into once, their index
-    entries once: ``utils/device.py:bcsr_traffic``) and the plan's
-    readings (:func:`plan_reading`)."""
+    as a prepared operand keeps it) on the route of ``x`` (``safe``: a
+    rounded x; ``ops/bcsr.py:kernel_route``), its plain
+    version's, ``torch.sparse.mm`` on the tier's edges (``sparse``, or
+    built here; x as f32, rounded where ``safe`` is given), its bound
+    (each tile cell, each distinct x row of the panels the work items read
+    and each distinct output row of the row blocks they add into once,
+    their index entries once: ``utils/device.py:bcsr_traffic``; the
+    route's products at its tensor rate) and the plan's readings
+    (:func:`plan_reading`)."""
     import torch
 
     from pygim_tpu_torch.ops.bcsr import (
+        ROUTES,
         bcsr_add,
         bcsr_plain,
         bcsr_plan,
-        compute_mode,
+        kernel_route,
     )
     from pygim_tpu_torch.utils.device import bcsr_bound, bcsr_traffic
 
     kind, tiles, pidx, rb = tables[:4]
     n, slots, tr, _ = tiles.shape
     plan = bcsr_plan(kind, pidx, rb, tr, x.shape[1],
-                     tile_bytes=tiles.element_size(), device=x.device)
+                     tile_bytes=tiles.element_size(),
+                     x_itemsize=x.element_size(), device=x.device)
     out = torch.zeros(nodes, x.shape[1], device=x.device)
-    got = bcsr_add(x, *tables, out, plan=plan)
+    got = bcsr_add(x, *tables, out, safe=safe, plan=plan)
     err = check_close(name, got, bcsr_plain(x, *tables,
-                                            torch.zeros_like(out)),
-                      bcsr_mag(x, tables, nodes), REL_TOL)
-    ms = cuda_ms(lambda: bcsr_add(x, *tables, out.zero_(), plan=plan))
-    plain_ms = cuda_ms(lambda: bcsr_plain(x, *tables, out.zero_()), iters=3,
-                       warmup=1)
-    a = sparse_of(*tables, nodes)
-    xf = x.float()
+                                            torch.zeros_like(out), safe),
+                      bcsr_mag(x, tables, nodes, safe), REL_TOL)
+    ms = cuda_ms(lambda: bcsr_add(x, *tables, out.zero_(), safe=safe,
+                                  plan=plan))
+    plain_ms = cuda_ms(lambda: bcsr_plain(x, *tables, out.zero_(), safe),
+                       iters=3, warmup=1)
+    a = sparse_of(*tables, nodes) if sparse is None else sparse
+    xf = x.float() if safe is None else torch.round(x / safe)
     library_ms = cuda_ms(lambda: torch.sparse.mm(a, xf))
-    mma = compute_mode(tiles.dtype, x.dtype) == "bf16"
+    route = kernel_route(tiles.dtype, x.dtype, safe)[0]
+    products, rate = ROUTES[route]
     traffic = bcsr_traffic(*tables[1:])
     bound, by = bcsr_bound(**traffic, h=x.shape[1], peaks_=peaks_,
                            tile_bytes=tiles.element_size(),
-                           x_itemsize=x.element_size(), mma=mma)
+                           x_itemsize=x.element_size(), products=products,
+                           tf32=rate == "tf32")
     n_panels, n_rb = tables[4].shape[0] // 128, tables[5].shape[0] // tr
     res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                bound_by=by, library_ms=library_ms, share_of_bound=bound / ms,
+               route=route, payload=str(x.dtype).replace("torch.", ""),
+               rounded=safe is not None,
                kind=kind, work=n, slots=slots, tile_rows=tr, panels=n_panels,
                row_blocks=n_rb, plan=plan_reading(plan),
                x_rows=traffic["x_rows"], out_rows=traffic["out_rows"],
@@ -3427,6 +3523,30 @@ def bcsr_timing(name, tables, nodes, x, peaks_, results, launches=None):
     return res
 
 
+def bcsr_route_timings(key, prep, xs, results, launches) -> None:
+    """The kernels line's route entries of :data:`BCSR_ROUTES` on the
+    tier of the operand ``key`` of :data:`BCSR_CONFIGS`: each route timed
+    by :func:`bcsr_timing` beside its bound and ``torch.sparse.mm``, with
+    its launches on the counted products (``launches``: route key ->
+    count over every operand)."""
+    import torch
+
+    tables = prep.bcsr_tables(prep.dev_arrays)
+    a = sparse_of(*tables, prep.nrows)
+    for route, tier, dt, rounded in BCSR_ROUTES:
+        if tier != key:
+            continue
+        x = xs[dt]
+        res = bcsr_timing(f"K-bcsr {route}", tables, prep.nrows, x,
+                          results["peaks"], results,
+                          launches=launches.get(route, 0),
+                          safe=rounded_safe(x) if rounded else None,
+                          sparse=a)
+        if res["route"] != route.split()[0]:
+            raise AssertionError(f"K-bcsr {route}: ran on {res['route']}")
+    del a
+
+
 def bcsr_paths(results, device="cuda"):
     """The three-tier hybrid on :data:`BCSR_GRAPH` at H 256, one operand
     per :data:`BCSR_CONFIGS` (a square core at 64 MiB, tiles at 256 MiB),
@@ -3436,8 +3556,10 @@ def bcsr_paths(results, device="cuda"):
     the sum of |terms| (the int8 table path bit-equal: every partial sum
     an integer below 2^24), K-bcsr launched once a product; the tier's
     tiles, captured edges and share of the merged edges, ``bcsr_time``;
-    K-bcsr timed on :data:`BCSR_TIMED`. Returns K-bcsr's launches in the
-    products of that operand."""
+    K-bcsr timed on :data:`BCSR_TIMED`, and each route of
+    :data:`BCSR_ROUTES` on its tier (:func:`bcsr_route_timings`). Returns
+    K-bcsr's launches in the products of that operand, and every route's
+    launches over all the counted products (``ops/bcsr.py:route_key``)."""
     import torch
 
     from pygim_tpu_torch.data import load_dataset
@@ -3453,7 +3575,7 @@ def bcsr_paths(results, device="cuda"):
     xs = {dt: bcsr_payload(n, HIDDEN, dt, gen, device)
           for dt in ("float32", "int8", "int16", "int32")}
     xs["bfloat16"] = xs["float32"].to(torch.bfloat16)
-    out, timed_launches = {}, None
+    out, timed_launches, routes = {}, None, {}
     for key, kw in BCSR_CONFIGS.items():
         t0 = time.perf_counter()
         prep = prepare_spmm(ds.graph, SpmmConfig(
@@ -3481,6 +3603,10 @@ def bcsr_paths(results, device="cuda"):
             raise AssertionError(f"bcsr {key}: K-bcsr launched "
                                  f"{n_launch['K-bcsr']} times in "
                                  f"{len(got)} products")
+        for k, v in n_launch.items():
+            if k.startswith("K-bcsr "):
+                routes[k[len("K-bcsr "):]] = routes.get(
+                    k[len("K-bcsr "):], 0) + v
         if not torch.equal(got["quantized int8"], prep.mul_quantized_plain(
                 xs["float32"], "int8")):
             raise AssertionError(f"bcsr {key}: the int8 table path is not "
@@ -3516,10 +3642,17 @@ def bcsr_paths(results, device="cuda"):
                         n, xs["float32"], results["peaks"], results,
                         launches=timed_launches)
         out[key] = info
+        out[key]["prep"] = prep
+    # each route's entry, with its launches over every counted product
+    for key in BCSR_CONFIGS:
+        prep = out[key].pop("prep")
+        bcsr_route_timings(key, prep, xs, results, routes)
         del prep
         free(device)
     results["bcsr"] = out
-    return timed_launches
+    results["bcsr route launches"] = routes
+    print(f"bcsr route launches: {routes}", flush=True)
+    return timed_launches, routes
 
 
 def prep_mag(prep, x):
@@ -3746,6 +3879,96 @@ def rows_plan(prep):
     return seg_rows.coo_plan(d["rows"], prep.nrows)
 
 
+def rows_call(prep, x, plan):
+    """One K-rows product of a blocked or coo operand on ``plan``."""
+    from pygim_tpu_torch.ops import seg_rows
+
+    d = prep.dev_arrays
+    if prep.config.backend == "blocked":
+        return seg_rows.blocked_rows(d["colind"], d["vals"], d["rowloc"],
+                                     d["row_slot"], x, prep.rows_pad,
+                                     plan=plan)
+    return seg_rows.coo_rows(d["rows"], d["cols"], d["vals"], x, prep.nrows,
+                             plan=plan)
+
+
+def rows_host_steps(prep, x, reps: int = 2000) -> dict:
+    """The host's µs a call of each step of a K-rows wrapper call
+    (``ops/seg_rows.py:_launch``) on ``prep`` (a small operand, so the card
+    keeps up) and ``x``, timed alone on the host clock ``reps`` times: the
+    dtype codes (as cached by dtype pair, and computed afresh), the tensor
+    checks, the output's allocation, the plan's device copy, the library
+    lookup, the device context (entered, and the test for whether it is
+    needed), the stream (PyTorch's raw query, and a stream object), the
+    pointers; the C entry point called alone; and the whole wrapper."""
+    import torch
+
+    from pygim_tpu_torch.ops import _build, seg_rows
+
+    d = prep.dev_arrays
+    blocked = prep.config.backend == "blocked"
+    cols = d["colind"] if blocked else d["cols"]
+    keys = d["rowloc"] if blocked else d["rows"]
+    vals = d["vals"]
+    plan = rows_plan(prep)
+    dp = plan.to(x.device)
+    lib = _build.load("seg_rows")
+    out = torch.empty((plan.nrows, x.shape[1]), device=x.device)
+
+    def checks():
+        for t in (cols, vals, keys, x):
+            if t.device != x.device or not t.is_contiguous():
+                raise AssertionError("K-rows: tables")
+
+    def pointers():
+        return (dp["units"].data_ptr(), dp["hub_rows"].data_ptr(),
+                cols.data_ptr(), vals.data_ptr(), keys.data_ptr(),
+                x.data_ptr(), out.data_ptr())
+
+    vc, xc, ia = seg_rows._codes(vals, x)
+    args = (dp["units"].data_ptr(), plan.n_units, dp["hub_rows"].data_ptr(),
+            int(plan.hub_rows.size), cols.data_ptr(), vals.data_ptr(), vc,
+            keys.data_ptr(), dp["inv"].data_ptr() if blocked else None,
+            cols.shape[1] if blocked else 0,
+            prep.rows_pad if blocked else 0, x.data_ptr(), xc, int(ia),
+            out.data_ptr(), x.shape[1], 0, _build.stream_of(x))
+
+    def device_context():
+        with torch.cuda.device(x.device):
+            pass
+
+    steps = {
+        "codes": lambda: seg_rows._codes(vals, x),
+        "codes afresh": lambda: seg_rows._dtype_codes.__wrapped__(
+            vals.dtype, x.dtype),
+        "checks": checks,
+        "output": lambda: torch.empty((plan.nrows, x.shape[1]),
+                                      device=x.device),
+        "device plan": lambda: plan.to(x.device),
+        "library lookup": lambda: _build.load("seg_rows"),
+        "device context": device_context,
+        "device test": lambda: x.device.index != torch.cuda.current_device(),
+        "stream": lambda: _build.stream_of(x),
+        "stream object": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "pointers": pointers,
+        "entry point": lambda: lib.seg_rows(*args),
+        "wrapper": lambda: rows_call(prep, x, plan),
+    }
+    res = {}
+    for k, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn()
+            if i % 200 == 199:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        res[k] = (time.perf_counter() - t0) / reps * 1e6
+    return res
+
+
 def rows_close(name, prep, x):
     """``prep.mul(x)`` (K-rows) against ``mul_plain``: bit-equal where
     both weights and payload are integers (int32 wrapping), else within
@@ -3842,6 +4065,7 @@ def rows_checks(ds, results, device="cuda"):
         plan = rows_plan(prep)
         res["units"] = plan.n_units
         res["hub_rows"] = int(plan.hub_rows.size)
+        res["plan"] = plan.reading()
         res["max_abs_err"] = rows_close(f"{key} H {HIDDEN}", prep, x)
         for h in ROWS_WIDTHS:
             res[f"err H {h}"] = rows_close(f"{key} H {h}", prep,
@@ -3892,6 +4116,87 @@ def rows_checks(ds, results, device="cuda"):
         del prep
         free(device)
     del csr
+
+
+def rows_full(dataset="reddit", device="cuda") -> int:
+    """``--rows-full``: the runners' default (``config=None``: ``blocked``
+    on K-rows) on reddit-sim at H 256, as ``PERF.md`` §4's one-liner: the
+    plan's readings, K-rows held to its plain version and timed beside
+    ``rows_bound`` and ``torch.sparse.mm``, then ``run_spmm_benchmark``
+    (``pim_time_spmm``) and the float and int32 forwards
+    (``infer_time``), each with ``repeat=10``."""
+    import numpy as np
+    import torch
+
+    from pygim_tpu_torch.bench.runners import (
+        run_inference_benchmark,
+        run_spmm_benchmark,
+    )
+    from pygim_tpu_torch.core.graph import merge_duplicate_edges
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+    from pygim_tpu_torch.utils.device import card_line, peaks
+    from pygim_tpu_torch.utils.metrics import DataReporter
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line() if torch.device(device).type == "cuda" else "cpu"
+    pk = peaks(torch.cuda.get_device_name(0) if card != "cpu"
+               else "NVIDIA H100 80GB HBM3")
+    t0 = time.perf_counter()
+    ds = load_dataset(dataset)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prep = prepare_spmm(ds.graph, SpmmConfig(), device=device)
+    res = dict(dataset=dataset, load_s=load_s,
+               prepare_s=time.perf_counter() - t0,
+               plan=rows_plan(prep).reading())
+    print(f"rows full: {json.dumps(res)}", flush=True)
+    x = torch.randn(ds.graph.ncols, HIDDEN,
+                    generator=torch.Generator().manual_seed(14)).to(device)
+    b = rows_bound(prep, HIDDEN, pk)
+    res.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+               bound_entries=b["entries"], bound_x_rows=b["x_rows"])
+    res["max_abs_err"] = rows_close("K-rows reddit", prep, x)
+    res["ms"] = cuda_ms(lambda: prep.mul(x), iters=10)
+    mg = merge_duplicate_edges(ds.graph)[0]
+    csr = torch.sparse_coo_tensor(
+        torch.stack([torch.from_numpy(mg.rows).long(),
+                     torch.from_numpy(mg.cols).long()]),
+        torch.from_numpy(mg.vals.astype(np.float32)),
+        (mg.nrows, mg.ncols)).coalesce().to_sparse_csr().to(device)
+    del mg
+    res["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x), iters=10)
+    del csr
+    free(device)
+    rep = DataReporter(echo=True)
+    reuse = lambda g, c: prep  # noqa: E731
+    run_spmm_benchmark(ds, repeat=10, reporter=rep, prepare_fn=reuse,
+                       device=device)
+    res["pim_time_spmm_ms"] = rep.records["pim_time_spmm(ms)"][-1]
+    res["verify"] = rep.records["verify"][-1]
+    for a in (None, "int32"):
+        run_inference_benchmark(ds, agg_dtype=a, repeat=10, reporter=rep,
+                                prepare_fn=reuse, device=device)
+        res[f"infer_time_ms {a or 'float'}"] = rep.records[
+            "infer_time(ms)"][-1]
+    del prep
+    free(device)
+    graph, cfg = rows_edge_graphs()["full"]
+    small = prepare_spmm(graph, SpmmConfig(backend="blocked", **cfg),
+                         device=device)
+    xs = torch.randn(graph.ncols, 64,
+                     generator=torch.Generator().manual_seed(15)).to(device)
+    rows_close("K-rows full blocks", small, xs)
+    res["host_us"] = rows_host_steps(small, xs)
+    print(f"rows full: {json.dumps(res)}", flush=True)
+    print(card, flush=True)
+    if res["verify"] != "OK":
+        print("chip_smoke --rows-full: the SpMM check failed",
+              file=sys.stderr)
+        return 1
+    return 0
 
 
 def rows_training(ds, results, card, device="cuda"):
@@ -4159,16 +4464,20 @@ def tune_audit(ds, device="cuda"):
     ``mul_plain`` at the verify tolerance, with its predicted and measured
     ms, its ``device_bytes`` and the rise of the card's peak memory; one
     JSON line each. The pick's measured time must be at most
-    :data:`TUNE_BAR` × the fastest audited."""
+    :data:`TUNE_BAR` × the fastest audited. Beside them, not ranked, the
+    audited BCSR variant on the graph's own f32 cells (f32 tiles, priced
+    at the 3xTF32 rate), its prediction by the same model."""
     import torch
 
     from pygim_tpu_torch.core.graph import merge_duplicate_edges
     from pygim_tpu_torch.ops.spmm import SpmmConfig
     from pygim_tpu_torch.tune import (
+        CardCostModel,
         DistPlan,
         TuneResult,
         autotune,
         plan_statistics,
+        predict_spmm_time,
         prepare_tuned,
     )
 
@@ -4183,9 +4492,8 @@ def tune_audit(ds, device="cuda"):
     csr = merge_duplicate_edges(ds.graph)[0].to_csr()
     x = torch.randn(csr.ncols, HIDDEN,
                     generator=torch.Generator().manual_seed(12)).to(device)
-    rows = []
-    for i in chosen:
-        point, dist, pred_s, _ = cands[i]
+
+    def audit_row(rank, family, point, dist, pred_s):
         cfg = SpmmConfig(**point)
         stats = plan_statistics(csr, HIDDEN, cfg)
         torch.cuda.empty_cache()
@@ -4200,16 +4508,21 @@ def tune_audit(ds, device="cuda"):
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: prep.mul(x), iters=10, warmup=1)
         rise = torch.cuda.max_memory_allocated() - base
-        err = verify_close(f"tune audit {i}", got, prep.mul_plain(x),
-                           verify_rtol(cfg))
-        row = dict(rank=i, family=tune_family(point), point=point,
+        err = verify_close(f"tune audit {family} {rank}", got,
+                           prep.mul_plain(x), verify_rtol(cfg))
+        row = dict(rank=rank, family=family, point=point,
                    predicted_ms=pred_s * 1e3, measured_ms=ms,
                    predicted_device_bytes=stats["device_bytes"],
                    memory_rise_bytes=rise, launches=stats["launches"],
                    max_abs_err=err, prepare_s=prep_s)
+        if family == "BCSR f32 tiles":
+            row["tile_dtype"] = str(prep.dev_arrays["tiles"].dtype)
         print(f"tune audit: {json.dumps(row)}", flush=True)
-        rows.append(row)
         del prep, got
+        return row
+
+    rows = [audit_row(i, tune_family(cands[i][0]), *cands[i][:3])
+            for i in chosen]
     torch.cuda.empty_cache()
     fastest = min(r["measured_ms"] for r in rows)
     pick = rows[0]
@@ -4220,7 +4533,22 @@ def tune_audit(ds, device="cuda"):
         raise AssertionError(f"tune: the model's pick takes "
                              f"{pick['measured_ms']} ms, {TUNE_BAR} × the "
                              f"fastest audited {fastest} ms")
-    return dict(rows=rows, pick_ratio=pick["measured_ms"] / fastest)
+    f32 = None
+    variant = next((r for r in rows if r["family"] == "BCSR variant"), None)
+    if variant is not None:
+        point = {**variant["point"], "hybrid_dtype": None}
+        dist = next(c[1] for c in cands if c[0] == variant["point"])
+        pred_s = predict_spmm_time(
+            plan_statistics(csr, HIDDEN, SpmmConfig(**point)),
+            CardCostModel.default())
+        f32 = audit_row(variant["rank"], "BCSR f32 tiles", point, dist,
+                        pred_s)
+        if f32["tile_dtype"] != "torch.float32":
+            raise AssertionError(f"tune audit: f32 tiles expected, got "
+                                 f"{f32['tile_dtype']}")
+        torch.cuda.empty_cache()
+    return dict(rows=rows, pick_ratio=pick["measured_ms"] / fastest,
+                f32_tiles=f32)
 
 
 def tune_measure(ds, device="cuda"):
@@ -4592,8 +4920,25 @@ def bcsr_full() -> int:
         print(f"{e.bcsr_layout}: prepared in {time.perf_counter() - t0:.1f} s "
               f"(phases {prep.prepare_timer.acc})", flush=True)
         tables = prep.bcsr_tables(prep.dev_arrays)
+        a = sparse_of(*tables, prep.nrows)
         bcsr_timing(f"K-bcsr three-tier {e.bcsr_layout}", tables,
-                    prep.nrows, x, results["peaks"], results)
+                    prep.nrows, x, results["peaks"], results, sparse=a)
+        # the wide payloads' routes on the same tier: an int32 x and x
+        # rounded for int32 (bf16x3), an int16 x (bf16x2)
+        for dt, rounded in (("int32", False), ("int16", False),
+                            ("float32", True)):
+            xq, safe = x, None
+            if rounded:
+                safe = rounded_safe(x)
+            else:
+                xq = torch.randint(-(1 << 12), 1 << 12, x.shape,
+                                   generator=torch.Generator().manual_seed(1),
+                                   dtype=getattr(torch, dt)).cuda()
+            bcsr_timing(f"K-bcsr three-tier {e.bcsr_layout} {dt}"
+                        f"{' rounded' if rounded else ''}", tables,
+                        prep.nrows, xq, results["peaks"], results, safe=safe,
+                        sparse=a)
+        del a
         band_sweep(f"three-tier {e.bcsr_layout}", tables, prep.nrows, x)
         del prep, tables
         free("cuda")
@@ -5628,6 +5973,8 @@ def main() -> int:
         return mesh_full()
     if "--halo-full" in sys.argv[1:]:
         return halo_full()
+    if "--rows-full" in sys.argv[1:]:
+        return rows_full()
     root = tempfile.mkdtemp(prefix="chip_smoke_cache_")
     os.environ["PYGIM_TPU_TORCH_DATA"] = root
     os.environ["PYGIM_TPU_TORCH_TUNE_CACHE"] = root
@@ -5896,7 +6243,13 @@ def run() -> int:
     # this slice's paths: the BCSR tier (K-bcsr; its main path counted in
     # bcsr_paths), the coo backend and SDDMM
     timed_phase("bcsr_kernel_checks", bcsr_kernel_checks, results)
-    launches["K-bcsr"] = timed_phase("bcsr_paths", bcsr_paths, results)
+    launches["K-bcsr"], bcsr_routes = timed_phase("bcsr_paths", bcsr_paths,
+                                                  results)
+    for route, *_ in BCSR_ROUTES:
+        launches[f"K-bcsr {route}"] = bcsr_routes.get(route, 0)
+        if launches[f"K-bcsr {route}"] <= 0:
+            raise AssertionError(f"K-bcsr's {route} route was never "
+                                 f"launched on the bcsr path")
     timed_phase("bcsr_scale", bcsr_scale, results)
     launches["K-rows coo"] = timed_phase("coo_sddmm", coo_sddmm, ds, results)
 
@@ -5963,6 +6316,9 @@ def run() -> int:
                                "pygim_tpu/ops/spmm.py:481"),
                "K-bcsr": ("cuda", "pygim_tpu_torch/csrc/bcsr.cu",
                           "pygim_tpu/ops/spmm.py:690"),
+               **{f"K-bcsr {route}": ("cuda", "pygim_tpu_torch/csrc/bcsr.cu",
+                                      "pygim_tpu/ops/spmm.py:633")
+                  for route, *_ in BCSR_ROUTES},
                "K-rows": ("cuda", "pygim_tpu_torch/csrc/seg_rows.cu",
                           "pygim_tpu/ops/spmm.py:136"),
                "K-rows coo": ("cuda", "pygim_tpu_torch/csrc/seg_rows.cu",

@@ -67,6 +67,14 @@
 // carried over and ran slower here (PERF.md): its waits and one-lane
 // copy issues come once an entry, and every entry here is a new row of
 // x. K-tail's entries, like these, stay in registers.
+// Staged panels were built and measured slower too (PERF.md): panels of
+// consecutive plain units of about 4,096 entries, each panel's x rows
+// read by two or more of its entries (at most 256) staged once a
+// 64-column slab into shared memory by a block of 8 warps that then
+// walked the panel's units from the stage. On the graphs this path
+// serves few x rows repeat within a panel that fits an SM (a sixth of
+// the stand-in's row reads came from a stage), and the stage's blocks
+// left too few warps resident: 2.3 to 2.8 times the walk's time.
 // Summation order: a row's entries in stream order within a unit, then
 // the pieces of a hub row in no fixed order — f32 results differ from the
 // plain version only in summation order.

@@ -30,6 +30,8 @@ def launch_counts() -> dict:
             "K-tail-quant": ell_tail.quant_launches,
             "K-tail bf16": ell_tail.bf16_launches,
             "K-bcsr": bcsr.launches,
+            **{f"K-bcsr {k}": bcsr.route_launches.get(k, 0)
+               for k in bcsr.route_keys()},
             "K-rows": seg_rows.launches,
             "K-rows coo": seg_rows.coo_launches}
 
@@ -41,6 +43,7 @@ def reset_launch_counts() -> None:
     core_f32.limb_launches = 0
     ell_tail.launches = ell_tail.quant_launches = ell_tail.bf16_launches = 0
     bcsr.launches = 0
+    bcsr.route_launches.clear()
     seg_rows.launches = seg_rows.coo_launches = 0
 
 

@@ -67,7 +67,7 @@ SIGNATURES = {
     },
     "bcsr": {
         # tiles, tile f32, tiles (n · slots), tr, plan entries, plan
-        # items, n_items, panel_nodes, row_nodes, x, payload, safe, mma,
+        # items, n_items, panel_nodes, row_nodes, x, payload, safe, parts,
         # out, h, vec, stream
         "bcsr_add": [_P, _I, _LL, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P,
                      _I, _I, _P],
@@ -184,10 +184,16 @@ def check(err: int, what: str) -> None:
 
 
 def stream_of(t) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    """The raw handle of PyTorch's current stream on ``t``'s device
+    (PyTorch's own raw-stream query where the build has it: no stream
+    object is made a call)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(t.device).cuda_stream
+    index = t.device.index
+    return raw(torch.cuda.current_device() if index is None else index)
 
 
 def refuse_grad(what: str, *tensors) -> None:

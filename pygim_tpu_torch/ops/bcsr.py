@@ -20,10 +20,18 @@ and ``R = row_nodes`` as ``(n_rb, Tr)``:
 (:func:`compute_mode`): bf16 tiles with a float32, bfloat16 or int8 x
 multiply ``bf16(x)`` (rounded to nearest even; int8 is exact) with f32
 sums; every other case (int16 or int32 x, a float32 x rounded to
-``round(x / safe)``, f32 tiles) computes in f32. ``out`` is the port's
-float32 ``(N, H)``, added into; the reference adds integer payloads'
-partials into an int32 output, which agrees wherever partial sums are
-integers below 2^24.
+``round(x / safe)``, which stands for the int32 quantized aggregate, f32
+tiles) computes in f32. ``out`` is the port's float32 ``(N, H)``, added
+into; the reference adds integer payloads' partials into an int32
+output, which agrees wherever partial sums are integers below 2^24.
+
+The kernel computes every case on the tensor cores, by one of the routes
+of :func:`kernel_route`: ``bf16`` (one bf16 part of x, the reference's
+bf16 cdt), ``bf16x2`` / ``bf16x3`` (x as f32 split into two or three
+bf16 parts, each product exact: the reference's f32 cdt on bf16 tiles,
+bit-equal wherever the partial sums are integers below 2^24), ``tf32x3``
+(f32 tiles, 3xTF32: about 3 · 2^-22 of the sum of |terms|) and
+``tf32x2`` (f32 tiles with an int8 or bf16 x, exact in TF32).
 
 Pads read x as the reference's do: pad virtual blocks (zero tiles,
 panel 0, the last row block), panel-kind pad slots (zero tiles, row
@@ -57,8 +65,10 @@ import torch
 from pygim_tpu_torch.core.bcsr import TILE_COLS
 from pygim_tpu_torch.ops import _build
 
-# kernel launches since the last reset (a plain int; launches only)
+# kernel launches since the last reset (a plain int; launches only), and
+# the same by route (:func:`route_key`)
 launches = 0
+route_launches: dict = {}
 
 KINDS = ("row", "panel")
 TILE_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -71,16 +81,54 @@ MAX_TILE_ROWS = 64  # the kernel's Tr: up to four 16-row MMA tiles
 GROUP_BYTES = 64 << 20  # the plain version's gather and partials a group
 
 
+# the kernel's routes: (products a term, tensor-core rate) — bf16 parts on
+# bf16 tiles, TF32 hi / lo on f32 tiles (csrc/bcsr.cu)
+ROUTES = {"bf16": (1, "bf16"), "bf16x2": (2, "bf16"), "bf16x3": (3, "bf16"),
+          "tf32x2": (2, "tf32"), "tf32x3": (3, "tf32")}
+
+
 def compute_mode(tiles_dtype, x_dtype, safe=None) -> str:
     """``"bf16"`` or ``"f32"``: the reference's compute dtype of the tier
     (``cdt``, ``pygim_tpu/ops/spmm.py:663, 717, 1632-1641, 1863-1867``):
     bf16 tiles with a float32, bfloat16 or int8 x take bf16; int16 and
-    int32 x (raw, or the int16 table), a rounded x (``safe``) and f32
-    tiles take f32."""
+    int32 x (raw, or the int16 table), a rounded x (``safe``: the int32
+    quantized aggregate; int8 and int16 read their integer tables) and
+    f32 tiles take f32."""
     if (tiles_dtype == torch.bfloat16 and safe is None
             and x_dtype in (torch.float32, torch.bfloat16, torch.int8)):
         return "bf16"
     return "f32"
+
+
+def kernel_route(tiles_dtype, x_dtype, safe=None):
+    """The kernel's route for these operands (:data:`ROUTES`) and its
+    payload parts: f32 tiles take ``tf32x2`` for an int8 or bfloat16 x
+    (exact in TF32) and ``tf32x3`` for any other; bf16 tiles take ``bf16``
+    where :func:`compute_mode` is bf16, ``bf16x2`` for an int16 x (every
+    value of 16 significant bits is two bf16 parts) and ``bf16x3`` for an
+    int32 x or a rounded x (any f32 is three). Returns ``(route,
+    parts)``."""
+    if tiles_dtype == torch.float32:
+        exact = safe is None and x_dtype in (torch.int8, torch.bfloat16)
+        return ("tf32x2", 1) if exact else ("tf32x3", 2)
+    if compute_mode(tiles_dtype, x_dtype, safe) == "bf16":
+        return "bf16", 1
+    if safe is None and x_dtype == torch.int16:
+        return "bf16x2", 2
+    return "bf16x3", 3
+
+
+def route_key(tiles_dtype, x_dtype, safe=None) -> str:
+    """The launch counter's key of a launch: its route, and " rounded"
+    for a rounded payload."""
+    route = kernel_route(tiles_dtype, x_dtype, safe)[0]
+    return route + (" rounded" if safe is not None else "")
+
+
+def route_keys() -> list:
+    """Every key :func:`route_key` gives: the routes, and the two a
+    rounded payload takes."""
+    return list(ROUTES) + ["bf16x3 rounded", "tf32x3 rounded"]
 
 
 def _payload(x, safe, cdt):
@@ -98,11 +146,11 @@ def bcsr_plain(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out,
     PyTorch: per group of virtual blocks (row kind) or virtual panels
     (panel kind), the panels gathered from x, one batched f32 product of
     the tiles and the panels in the compute dtype's values
-    (:func:`compute_mode`), and ``index_add_`` of the partial rows, as the
-    reference's einsum and scatter-add. A group holds about
-    :data:`GROUP_BYTES` of gathered rows and partials."""
-    cdt = (torch.bfloat16 if compute_mode(tiles.dtype, x.dtype, safe)
-           == "bf16" else torch.float32)
+    (:func:`compute_mode`), and ``index_add_`` of
+    the partial rows, as the reference's einsum and scatter-add. A group
+    holds about :data:`GROUP_BYTES` of gathered rows and partials."""
+    cdt = (torch.bfloat16 if compute_mode(tiles.dtype, x.dtype, safe) == "bf16"
+           else torch.float32)
     n, slots, tr, tc = tiles.shape
     h = x.shape[1]
     if n == 0 or h == 0:
@@ -315,8 +363,9 @@ def bcsr_add(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out,
     or "panel" (``panel_idx`` ``(n,)``, ``rb`` = ``tile_rb`` ``(n, T)``);
     tiles bfloat16 or float32 ``(n, S or T, Tr, 128)``; x float32,
     bfloat16, int8, int16 or int32, or float32 rounded to ``round(x /
-    safe)`` where ``safe`` is given (module docstring). CPU tensors take
-    :func:`bcsr_plain`; CUDA tensors launch the kernel once on ``plan``
+    safe)`` where ``safe`` is given. CPU tensors take :func:`bcsr_plain`;
+    CUDA tensors launch the kernel once, on the route of
+    :func:`kernel_route`, on ``plan``
     (:func:`bcsr_plan` of these tables on ``out``'s device; built here
     where it is None), any H and ``Tr <= 64``, tiles 16-byte aligned, or
     raise."""
@@ -346,7 +395,7 @@ def bcsr_add(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out,
         raise ValueError(f"a plan of {tuple(plan.entries.shape)} entries on "
                          f"{plan.entries.device} for {n * slots} tiles on "
                          f"{out.device}")
-    mma = compute_mode(tiles.dtype, x.dtype, safe) == "bf16"
+    _route, parts = kernel_route(tiles.dtype, x.dtype, safe)
     payload = PAYLOADS[x.dtype] if safe is None else _QUANT
     # the adds' width: four floats where every row of out is 16-byte
     # aligned, two where 8-byte aligned
@@ -359,8 +408,10 @@ def bcsr_add(x, kind, tiles, panel_idx, rb, panel_nodes, row_nodes, out,
             plan.entries.data_ptr(), plan.items.data_ptr(),
             plan.items.shape[0], panel_nodes.data_ptr(),
             row_nodes.data_ptr(), x.data_ptr(), payload,
-            None if safe is None else safe.data_ptr(), int(mma),
+            None if safe is None else safe.data_ptr(), parts,
             out.data_ptr(), h, vec, _build.stream_of(out))
     _build.check(err, "bcsr_add")
     launches += 1
+    key = route_key(tiles.dtype, x.dtype, safe)
+    route_launches[key] = route_launches.get(key, 0) + 1
     return out

@@ -43,7 +43,9 @@ launches.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -117,6 +119,15 @@ class SegPlan:
     @property
     def n_units(self) -> int:
         return int(self.units.shape[0])
+
+    def reading(self) -> dict:
+        """The plan's counts: units, the pieces of hub rows among them,
+        hub rows, and the entries the units walk."""
+        u = self.units.astype(np.int64)
+        return dict(units=self.n_units,
+                    pieces=int(((u[:, 3] >> 30) == 1).sum()),
+                    hub_rows=int(self.hub_rows.size),
+                    entries=int(u[:, 1].sum()))
 
     def to(self, device) -> dict:
         """The plan's tables on ``device`` (made once, then kept)."""
@@ -256,47 +267,61 @@ def coo_plan(rows, nrows: int) -> SegPlan:
     return SegPlan(units=units, hub_rows=hubs, inv=None, nrows=nrows)
 
 
-def _codes(vals, x):
-    """The kernel's (val code, x code, integer accumulation) for these
-    dtypes, or TypeError where it has none."""
-    acc = accum_dtype(torch.promote_types(vals.dtype, x.dtype))
-    if (vals.dtype not in VAL_CODES or x.dtype not in X_CODES
+@functools.lru_cache(maxsize=None)
+def _dtype_codes(vals_dtype, x_dtype):
+    acc = accum_dtype(torch.promote_types(vals_dtype, x_dtype))
+    if (vals_dtype not in VAL_CODES or x_dtype not in X_CODES
             or acc not in (torch.float32, torch.int32)):
         raise TypeError(
             f"K-rows takes float32, int32, int16 or int8 weights and a "
             f"float32, bfloat16, int8, int16 or int32 payload, got "
-            f"{vals.dtype} weights and a {x.dtype} payload")
-    return VAL_CODES[vals.dtype], X_CODES[x.dtype], acc == torch.int32
+            f"{vals_dtype} weights and a {x_dtype} payload")
+    return VAL_CODES[vals_dtype], X_CODES[x_dtype], acc == torch.int32
+
+
+def _codes(vals, x):
+    """The kernel's (val code, x code, integer accumulation) for these
+    dtypes, or TypeError where it has none (cached by dtype pair)."""
+    return _dtype_codes(vals.dtype, x.dtype)
+
+
+_lib = None  # the bound library, once loaded
 
 
 def _launch(plan: SegPlan, cols, vals, keys, x, blocked: bool,
             nnz_pad: int = 0, rows_pad: int = 0):
-    """One K-rows launch into a fresh (nrows, H) output."""
+    """One K-rows launch into a fresh (nrows, H) output. The host's part
+    of a call is kept to what changes between calls: the dtype codes are
+    cached by dtype pair, the library once, the plan's device copy once,
+    and the device is switched only where x is not on the current one
+    (``chip_smoke.py:rows_host_steps`` times each step)."""
+    global _lib
     val_code, x_code, int_acc = _codes(vals, x)
     h = x.shape[1]
+    dev = x.device
     out = torch.empty((plan.nrows, h),
                       dtype=torch.int32 if int_acc else torch.float32,
-                      device=x.device)
+                      device=dev)
     for name, t in (("cols", cols), ("vals", vals), ("keys", keys), ("x", x)):
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"K-rows: {name} must be contiguous on "
-                             f"{x.device}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"K-rows: {name} must be contiguous on {dev}")
     if cols.dtype != torch.int32 or keys.dtype != torch.int32:
         raise TypeError("K-rows: the index tables must be int32")
     if plan.nrows == 0 or h == 0:
         return out.zero_()
-    d = plan.to(x.device)
-    vec = (h % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
-           and out.data_ptr() % 16 == 0)
-    lib = _build.load("seg_rows")
-    with torch.cuda.device(x.device):
-        err = lib.seg_rows(
+    d = plan.to(dev)
+    xp, op = x.data_ptr(), out.data_ptr()
+    vec = h % 4 == 0 and xp % (4 * x.element_size()) == 0 and op % 16 == 0
+    if _lib is None:
+        _lib = _build.load("seg_rows")
+    switch = dev.index is not None and dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
+        err = _lib.seg_rows(
             d["units"].data_ptr(), plan.n_units, d["hub_rows"].data_ptr(),
             int(plan.hub_rows.size), cols.data_ptr(), vals.data_ptr(),
             val_code, keys.data_ptr(),
             d["inv"].data_ptr() if blocked else None, nnz_pad, rows_pad,
-            x.data_ptr(), x_code, int(int_acc), out.data_ptr(), h, int(vec),
-            _build.stream_of(x))
+            xp, x_code, int(int_acc), op, h, int(vec), _build.stream_of(x))
     _build.check(err, "seg_rows")
     return out
 

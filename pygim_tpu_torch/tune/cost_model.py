@@ -27,8 +27,9 @@ where K-tail on a real graph finds many rows in the L2. The core's rate
 follows its cells as the port runs them: bf16 ``wgmma`` for int8, int4
 and bf16 cells (K-core), three TF32 products at half that rate for f32
 cells (K-f32); ``core_eff`` is the share of that roofline K-core reaches.
-A BCSR tier's bf16 tiles run at the bf16 rate, its f32 tiles at the FFMA
-rate. ``scatter_bytes`` is the reference's materialized gather of the
+A BCSR tier's bf16 tiles run at the bf16 rate, its f32 tiles at
+``tensor_f32`` (K-bcsr's 3xTF32 route, three TF32 products a term as
+K-f32's). ``scatter_bytes`` is the reference's materialized gather of the
 ``blocked`` body; the port's ``blocked`` runs K-rows
 (``ops/seg_rows.py``), which gathers each entry's x row into registers
 and writes each output row once: K-tail's work on one-entry slots. So
@@ -58,8 +59,9 @@ Where the constants come from (``provenance``):
   at H 256 (``rows_factor``: its time over the fitted ELL issue time of
   its entries and rows, a ratio of two positive times), a tiny ``ell``
   product (``fixed_us``) and K-core on a 1 GiB int8 band
-  (``core_eff``). No efficiency is clipped: one above 1 is a
-  measurement to question.
+  (``core_eff``). The stream copy, the gather and K-core each read the
+  fastest of :data:`BEST_OF` runs. No efficiency is clipped: one above 1
+  is a measurement to question.
   Cached as ``card_constants.json`` under
   ``$PYGIM_TPU_TORCH_TUNE_CACHE`` (default ``~/.cache/pygim_tpu_torch``)
   with the card's ``nvidia-smi`` line: a file of another card or power
@@ -93,10 +95,12 @@ from pygim_tpu_torch.core.partition import ell_issue_seconds
 
 CONSTANTS_FILE = "card_constants.json"
 # the layout of the measured constants: 2 since the blocked family runs on
-# K-rows (``rows_factor``; ``launch_us`` and ``scatter_eff`` read afresh).
-# A file of another version was fitted on other bodies and is measured
-# again.
-CONSTANTS_VERSION = 2
+# K-rows (``rows_factor``; ``launch_us`` and ``scatter_eff`` read afresh),
+# 3 since f32 tiles run on K-bcsr's 3xTF32 route (priced at
+# ``tensor_f32``; the FFMA mode's ``simt_f32`` is gone) and K-rows' wrapper
+# was trimmed (``rows_factor`` and ``fixed_us`` measured again). A file of
+# another version was fitted on other bodies and is measured again.
+CONSTANTS_VERSION = 3
 # the card assumed for the data sheet where none is visible: the H100 SXM,
 # as torch names it
 DEFAULT_CARD = "NVIDIA H100 80GB HBM3"
@@ -131,8 +135,7 @@ class CardCostModel:
     scatter_eff: float       # the reference's scatter pass / hbm_bw
     fixed_us: float          # one product's fixed cost beyond its launches
     tensor_bf16: float       # FLOP/s: int8, int4, bf16 core cells, bf16 tiles
-    tensor_f32: float        # FLOP/s of f32 core cells (K-f32's 3xTF32)
-    simt_f32: float          # FLOP/s of f32 tiles (K-bcsr's FFMA mode)
+    tensor_f32: float        # FLOP/s of f32 core cells and f32 tiles (3xTF32)
     ell_slot_ns: float
     ell_vrow_fixed_ns: float
     ell_vrow_ns_per_h: float
@@ -211,11 +214,10 @@ def datasheet(card: Optional[str] = None) -> CardCostModel:
     else:
         # nvidia-smi's line: "<name>, <power limit>"
         name, where = card.rsplit(",", 1)[0].strip(), card
-    hbm, bf16, f32, _int8 = peaks(name)
+    hbm, bf16, _f32, _int8 = peaks(name)
     return CardCostModel(
         hbm_bw=hbm, ici_bw=NVLINK_BW, gather_eff=1.0, stream_eff=1.0,
         scatter_eff=1.0, fixed_us=0.0, tensor_bf16=bf16, tensor_f32=bf16 / 6,
-        simt_f32=f32,
         ell_slot_ns=0.0, ell_vrow_fixed_ns=0.0, ell_vrow_ns_per_h=0.0,
         provenance=f"datasheet:{name} ({where}; uncalibrated)",
     )
@@ -412,7 +414,7 @@ def predict_spmm_time(stats: dict,
         stats.get("core_bytes", 0) / (m.hbm_bw * m.stream_eff),
         stats.get("core_flops", 0) / _core_rate(m, stats.get("core_cell")),
     ) / m.core_eff
-    tile_rate = (m.simt_f32 if stats.get("bcsr_tile_dtype") == "float32"
+    tile_rate = (m.tensor_f32 if stats.get("bcsr_tile_dtype") == "float32"
                  else m.tensor_bf16)
     t += max(
         stats.get("bcsr_stream_bytes", 0) / (m.hbm_bw * m.stream_eff),
@@ -624,13 +626,30 @@ def _fixed_us(dev, launch_us: float) -> float:
     return max(0.0, t * 1e6 - RUN_OPS * launch_us)
 
 
-def _core_seconds(dev, gen) -> float:
+# Readings of the stream copy, the row gather and K-core are each the
+# fastest of this many timed runs (each after its own warm-up calls): one
+# run can come out several times slower than the card (the smoke's tune
+# phase once read the stream copy at about a quarter of its usual rate,
+# which put K-core at 2.3 times its roofline), and no run can come out
+# faster than the card.
+BEST_OF = 5
+
+
+def _best_times(fn, *args, iters: int, warmup: int = 2) -> "list[float]":
+    """``device_time(fn, *args)`` over :data:`BEST_OF` runs (s each),
+    fastest first."""
+    from pygim_tpu_torch.utils.timers import device_time
+
+    return sorted(device_time(fn, *args, iters=iters, warmup=warmup)
+                  for _ in range(BEST_OF))
+
+
+def _core_seconds(dev, gen) -> "list[float]":
     """K-core on one int8 band of :data:`CORE_BAND` rows and columns at H
-    256 (s)."""
+    256: :func:`_best_times` (s)."""
     import torch
 
     from pygim_tpu_torch.ops.core_dot import core_bands_scatter_add, core_plans
-    from pygim_tpu_torch.utils.timers import device_time
 
     r = w = CORE_BAND
     band = torch.randint(-8, 8, (r, w), device=dev, generator=gen,
@@ -640,7 +659,7 @@ def _core_seconds(dev, gen) -> float:
     out = torch.zeros((r, 256), device=dev)
     stair = [(0, r, w)]
     plans = core_plans([band], stair, 256)
-    return device_time(lambda: core_bands_scatter_add(
+    return _best_times(lambda: core_bands_scatter_add(
         [band], xc, rows, stair, out, plans=plans), iters=10)
 
 
@@ -651,22 +670,25 @@ def measure_constants(device="cuda", save: bool = True, n: int = 1 << 21,
     import torch
 
     from pygim_tpu_torch.utils.device import card_line, peaks
-    from pygim_tpu_torch.utils.timers import device_time
 
     dev = _card_device(device)
     card = card_line()
     name = torch.cuda.get_device_name(dev)
-    hbm, bf16, f32, _int8 = peaks(name)
+    hbm, bf16, _f32, _int8 = peaks(name)
     gen = torch.Generator(device=dev).manual_seed(0)
     readings: dict = {}
 
     x = torch.ones((n, h), device=dev)
-    stream_bw = 2 * n * h * 4 / device_time(lambda: x * 1.0000001, iters=5)
+    stream_t = _best_times(lambda: x * 1.0000001, iters=5)
     idx = torch.randint(0, n, (g,), device=dev, generator=gen)
-    gather_bw = 2 * g * h * 4 / device_time(
-        lambda: x.index_select(0, idx), iters=5)
+    gather_t = _best_times(lambda: x.index_select(0, idx), iters=5)
     del x, idx
-    readings.update(stream_GBps=stream_bw * 1e-9, gather_GBps=gather_bw * 1e-9)
+    stream_bw = 2 * n * h * 4 / stream_t[0]
+    gather_bw = 2 * g * h * 4 / gather_t[0]
+    readings.update(
+        stream_GBps=stream_bw * 1e-9, gather_GBps=gather_bw * 1e-9,
+        stream_GBps_runs=[2 * n * h * 4 / t * 1e-9 for t in stream_t],
+        gather_GBps_runs=[2 * g * h * 4 / t * 1e-9 for t in gather_t])
 
     tail_ns = {(d, w): _tail_ns(dev, d, w, gen)
                for d in TAIL_DEGREES for w in TAIL_WIDTHS}
@@ -682,18 +704,20 @@ def measure_constants(device="cuda", save: bool = True, n: int = 1 << 21,
     t_rows, rows_factor = _rows_factor(dev, fit)
     # K-core's share of its band's roofline (bytes at the stream rate,
     # operations at the bf16 rate)
-    t_core = _core_seconds(dev, gen)
+    core_t = _core_seconds(dev, gen)
+    t_core = core_t[0]
     roof = max(CORE_BAND * CORE_BAND / (hbm * stream_eff),
                2 * CORE_BAND * CORE_BAND * 256 / bf16)
     readings.update(launch_us=launch_us, fixed_us=fixed_us,
                     rows_ms=t_rows * 1e3, core_ms=t_core * 1e3,
+                    core_ms_runs=[t * 1e3 for t in core_t],
                     core_roofline_ms=roof * 1e3)
     torch.cuda.empty_cache()
 
     model = CardCostModel(
         hbm_bw=hbm, ici_bw=NVLINK_BW, gather_eff=gather_eff,
         stream_eff=stream_eff, scatter_eff=stream_eff, fixed_us=fixed_us,
-        tensor_bf16=bf16, tensor_f32=bf16 / 6, simt_f32=f32,
+        tensor_bf16=bf16, tensor_f32=bf16 / 6,
         ell_slot_ns=fit["ell_slot_ns"],
         ell_vrow_fixed_ns=fit["ell_vrow_fixed_ns"],
         ell_vrow_ns_per_h=fit["ell_vrow_ns_per_h"], launch_us=launch_us,

@@ -114,21 +114,22 @@ def f32_bound(shapes, h, peaks_, cell_bytes: float = 4.0,
 
 
 def bcsr_bound(cells, x_rows, out_rows, index_entries, h, peaks_,
-               tile_bytes=2, x_itemsize=4, mma=True):
+               tile_bytes=2, x_itemsize=4, products=1, tf32=False):
     """Least time of one K-bcsr launch over ``cells`` tile cells (every
     slot, pads included) at width ``h``: the larger of its bytes over HBM
-    and its operations over the mode's peak. Bytes: every cell at
+    and its operations over the route's peak. Bytes: every cell at
     ``tile_bytes``, ``x_rows`` payload rows at ``x_itemsize``,
     ``index_entries`` int32 table entries, and ``out_rows`` f32 output
-    rows read and written. Operations: ``2 · cells · h`` at the bf16
-    tensor rate (``mma``) or the f32 rate outside the tensor cores (the
-    FFMA mode). :func:`bcsr_traffic` gives the counts. Returns (ms,
-    "bytes" | "operations")."""
-    hbm, bf16, f32, _int8 = peaks_
+    rows read and written. Operations: ``2 · cells · h`` for each of the
+    route's ``products`` a term (1 to 3), at the bf16 tensor rate, or the
+    TF32 rate (half of it) where ``tf32``. :func:`bcsr_traffic` gives the
+    counts. Returns (ms, "bytes" | "operations")."""
+    hbm, bf16, _f32, _int8 = peaks_
     nbytes = (cells * tile_bytes + x_rows * h * x_itemsize
               + index_entries * 4 + 2 * out_rows * h * 4)
     t_bytes = nbytes / hbm * 1e3
-    t_ops = 2 * cells * h / (bf16 if mma else f32) * 1e3
+    t_ops = (products * 2 * cells * h
+             / (bf16 / 2 if tf32 else bf16) * 1e3)
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 

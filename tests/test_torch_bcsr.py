@@ -30,6 +30,7 @@ from pygim_tpu_torch.nn.models import gnn_apply, params_from_jax
 from pygim_tpu_torch.nn import train as ttrain
 from pygim_tpu_torch.ops import bcsr as kbcsr
 from pygim_tpu_torch.ops import spmm as tspmm
+from pygim_tpu_torch.quant import quant_scale
 from pygim_tpu_torch.utils.timers import PhaseTimer
 
 from test_torch_prepare import reference_planner
@@ -549,7 +550,7 @@ def test_bound_counts(kind):
     entries of those panels and row blocks; panels and row blocks of the
     tables that no work item uses (here most of them, as on a random
     tier) are not counted. ``bcsr_bound`` is the larger of its bytes and
-    its operations at the mode's rate."""
+    its operations at the route's rate."""
     from pygim_tpu_torch.utils.device import bcsr_bound, bcsr_traffic
 
     tr, n, slots = 16, 3, 2
@@ -574,6 +575,306 @@ def test_bound_counts(kind):
     nbytes = (c["cells"] * 2 + c["x_rows"] * 256 * 4
               + c["index_entries"] * 4 + 2 * c["out_rows"] * 256 * 4)
     assert by == "bytes" and ms == pytest.approx(nbytes / 1e12 * 1e3)
-    ms, by = bcsr_bound(**c, h=256, peaks_=peaks, mma=False)
+    # 3xTF32 (three products a term at half the bf16 rate) on a slow card
+    slow = (1e12, 1e11, 1e11, 2e15)
+    ms, by = bcsr_bound(**c, h=256, peaks_=slow, products=3, tf32=True)
     assert by == "operations"
-    assert ms == pytest.approx(2 * c["cells"] * 256 / 1e11 * 1e3)
+    assert ms == pytest.approx(3 * 2 * c["cells"] * 256 / 5e10 * 1e3)
+
+
+# --- the kernel's routes (csrc/bcsr.cu) --------------------------------------
+#
+# Every case runs on the tensor cores. bf16 tiles: x as one bf16 part (the
+# reference's bf16 cdt) or as two / three bf16 parts of its f32 value,
+# every product of a part and a bf16 cell exact in f32; f32 tiles: 3xTF32
+# (``cvt.rna`` hi and lo of both operands, a_lo b_lo dropped: at most about
+# 3 * 2^-22 of the sum of |terms|), two products where x is exact in TF32.
+# The emulations below repeat that arithmetic in NumPy bit operations and
+# sum in float64, so only the split's error remains.
+
+TF32_X3_BOUND = 3.01 * 2.0 ** -22  # a_lo b_lo and the TF32 rounding of lo
+TF32_X2_BOUND = 1.01 * 2.0 ** -22  # the tile's lo rounded to TF32
+
+
+def bf16_rne(v):
+    """float32 values rounded to bf16 (nearest, ties to even) by bit
+    operations on their 16 low bits; NaN kept."""
+    v = np.asarray(v, np.float32)
+    b = v.view(np.uint32).astype(np.uint64)
+    r = ((b + 0x7FFF + ((b >> 16) & 1)) >> 16 << 16).astype(np.uint32)
+    return np.where(np.isnan(v), v, r.view(np.float32))
+
+
+def tf32_rna(v):
+    """``cvt.rna.tf32.f32`` by bit operations: 13 low bits dropped,
+    nearest with ties away from zero (half an ulp added to the magnitude
+    bits); non-finite values kept."""
+    v = np.asarray(v, np.float32)
+    b = v.view(np.uint32).astype(np.uint64)
+    r = ((b + 0x1000) & np.uint64(0xFFFFE000)).astype(np.uint32)
+    return np.where(np.isfinite(v), r.view(np.float32), v)
+
+
+def bf16_parts(v, parts):
+    """The kernel's bf16 parts of f32 values: b0 = bf16(v), then each
+    remainder (exact in f32) rounded again; a remainder after a non-finite
+    part is 0."""
+    r, out = np.asarray(v, np.float32), []
+    for _ in range(parts):
+        b = bf16_rne(r)
+        out.append(b)
+        r = np.where(np.isfinite(b), r - b, np.float32(0)).astype(np.float32)
+    return out
+
+
+def tf32_split(v):
+    """The kernel's TF32 hi and lo: hi = rna(v), lo = rna(v - hi)."""
+    v = np.asarray(v, np.float32)
+    hi = tf32_rna(v)
+    lo = np.where(np.isfinite(hi), tf32_rna((v - hi).astype(np.float32)),
+                  np.float32(0))
+    return hi, lo
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0 ** -60, 2.0 ** 60])
+def test_tf32_rna_emulation(scale):
+    """The bit emulation of ``cvt.rna.tf32.f32`` keeps 11 significant bits
+    (the 13 low bits zero), lies within half an ulp of 11 bits of v, and
+    agrees with the arithmetic definition: |v| / ulp rounded half away
+    from zero, ulp = 2^(e - 10) for |v| in [2^e, 2^(e + 1)); ties (the
+    dropped bits exactly 0x1000) go away from zero."""
+    g = np.random.default_rng(3)
+    v = (g.standard_normal(20000) * scale).astype(np.float32)
+    ties = (v.view(np.uint32) & np.uint32(0xFFFFE000)) | np.uint32(0x1000)
+    v = np.concatenate([v, ties.view(np.float32)])
+    hi = tf32_rna(v)
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    v64, h64 = v.astype(np.float64), hi.astype(np.float64)
+    assert np.all(np.abs(v64 - h64) <= 2.0 ** -11 * np.abs(v64))
+    e = np.floor(np.log2(np.abs(v64)))
+    ulp = 2.0 ** (e - 10)
+    want = np.sign(v64) * np.floor(np.abs(v64) / ulp + 0.5) * ulp
+    np.testing.assert_array_equal(h64, want)
+    t = ties.view(np.float32).astype(np.float64)
+    assert np.all(np.abs(tf32_rna(ties.view(np.float32))) > np.abs(t))
+
+
+def test_parts_rebuild_every_payload():
+    """Two bf16 parts rebuild every int16 exactly and three parts every
+    f32 (so every int32's f32 value and every rounded payload); each part
+    is a bf16 value, and its product with any bf16 cell is exact in f32.
+    The TF32 hi and lo rebuild an int16 exactly (22 bits)."""
+    g = np.random.default_rng(8)
+    i16 = np.arange(-(1 << 15), 1 << 15).astype(np.float32)
+    i32 = np.concatenate([g.integers(-(1 << 31), 1 << 31, 50000),
+                          [-(1 << 31), (1 << 31) - 1, 0, 1, -1,
+                           (1 << 24) + 1]]).astype(np.float32)
+    f32 = (g.standard_normal(50000) * 2.0 ** g.integers(-40, 40, 50000)
+           ).astype(np.float32)
+    q = np.round(g.standard_normal(50000) * 2 ** 17).astype(np.float32)
+    cells = bf16_rne(g.standard_normal(257).astype(np.float32))
+    for v, parts in ((i16, 2), (i32, 3), (f32, 3), (q, 3)):
+        ps = bf16_parts(v, parts)
+        np.testing.assert_array_equal(
+            np.sum([p.astype(np.float64) for p in ps], axis=0),
+            v.astype(np.float64))
+        for p in ps:
+            assert not (p.view(np.uint32) & 0xFFFF).any()  # bf16 values
+            prod = p[:, None].astype(np.float64) * cells[None, :]
+            np.testing.assert_array_equal(prod, prod.astype(np.float32))
+    hi, lo = tf32_split(i16)
+    np.testing.assert_array_equal(hi.astype(np.float64) + lo, i16)
+
+
+def dense_tier(kind, tiles, pidx, rb, pn, rn, nodes):
+    """The tier as a dense float64 (nodes, nodes) matrix of the tile
+    values ``tiles`` (numpy, the tables' shape), duplicates summed."""
+    n, slots, tr, tc = tiles.shape
+    panel, rows = kbcsr._flat(kind, pidx, rb)
+    r = rn.long().view(-1, tr).numpy()[rows]
+    c = pn.long().view(-1, tc).numpy()[panel]
+    a = np.zeros((nodes, nodes))
+    np.add.at(a, (r[:, :, None], c[:, None, :]),
+              tiles.reshape(n * slots, tr, tc).astype(np.float64))
+    return a
+
+
+def route_product(x, kind, tiles, pidx, rb, pn, rn, nodes, safe=None):
+    """The kernel's arithmetic on these operands in float64: the payload
+    as f32 (rounded where ``safe`` is given, then to the compute dtype),
+    split as its route splits it, the tiles split likewise on f32 tiles,
+    each product exact, the sums in float64. Returns (product, the exact
+    product of the plain version's values, the sum of |terms|)."""
+    route, parts = kbcsr.kernel_route(tiles.dtype, x.dtype, safe)
+    cdt = (torch.bfloat16 if kbcsr.compute_mode(tiles.dtype, x.dtype, safe)
+           == "bf16" else torch.float32)
+    xv = kbcsr._payload(x, safe, cdt).numpy().astype(np.float32)
+    t = tiles.float().numpy()
+    tables = (kind, pidx, rb, pn, rn, nodes)
+    exact = dense_tier(kind, t, *tables[1:])
+    want = exact @ xv.astype(np.float64)
+    mag = np.abs(exact) @ np.abs(xv.astype(np.float64))
+    if route.startswith("bf16"):
+        got = sum(exact @ p.astype(np.float64) for p in bf16_parts(xv, parts))
+    else:
+        th, tl = (dense_tier(kind, p, *tables[1:]) for p in tf32_split(t))
+        xh, xl = tf32_split(xv)
+        got = th @ xh.astype(np.float64) + tl @ xh.astype(np.float64)
+        if route == "tf32x3":
+            got = got + th @ xl.astype(np.float64)
+        else:
+            assert not xl.any()
+    return got, want, mag, route
+
+
+ROUTE_CASES = [
+    # kind, tile dtype, payload, the quantized aggregate a rounded x is
+    # scaled for (None: not rounded), H, the route
+    ("row", "float32", "float32", None, 24, "tf32x3"),
+    ("panel", "float32", "float32", None, 40, "tf32x3"),
+    ("panel", "float32", "int16", None, 16, "tf32x3"),
+    ("row", "float32", "int32", None, 16, "tf32x3"),
+    ("row", "float32", "int8", None, 16, "tf32x2"),
+    ("panel", "float32", "bfloat16", None, 16, "tf32x2"),
+    ("panel", "float32", "float32", "int32", 16, "tf32x3"),
+    ("row", "bfloat16", "int16", None, 24, "bf16x2"),
+    ("panel", "bfloat16", "int32", None, 24, "bf16x3"),
+    ("row", "bfloat16", "float32", "int32", 16, "bf16x3"),
+    ("panel", "bfloat16", "float32", None, 16, "bf16"),
+]
+
+
+def route_inputs(kind, tdt, xdt, q, h, nodes=700, integer_tiles=False):
+    """A random tier (``test_torch_bcsr_plan.random_tier``) and x for a
+    route case: x of ``xdt`` (integers of its range), ``safe`` for a
+    rounded x (the quantized aggregate's scale of ``q``)."""
+    from test_torch_bcsr_plan import payload, random_tier
+
+    tier = random_tier(kind, 24, 3, 16, nodes, 5 + h, getattr(torch, tdt))
+    if integer_tiles:
+        t = torch.from_numpy(np.random.default_rng(h).integers(
+            -3, 4, tier[1].shape).astype(np.float32))
+        tier = (tier[0], (t * (tier[1] != 0)).to(tier[1].dtype), *tier[2:])
+    x = payload(nodes, h, xdt, 7 * h)
+    safe = None
+    if q is not None:
+        safe = quant_scale(x, q)[1].reshape(())
+    return tier, x, safe
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_route_arithmetic_matches_f64_and_jax(case):
+    """Each route's arithmetic (:func:`route_product`) against the exact
+    product of the plain version's payload values, within the route's
+    stated error (bf16 parts: exact products, so only float64's sums;
+    tf32x3 3.01 · 2^-22, tf32x2 1.01 · 2^-22 of the sum of |terms|), and
+    against the reference's scan body of the layout (its cdt, its
+    ``q_scale``) and ``bcsr_plain`` within REL of the sum of |terms|."""
+    kind, tdt, xdt, q, h, route = case
+    nodes = 700
+    tier, x, safe = route_inputs(kind, tdt, xdt, q, h, nodes)
+    got, want, mag, r = route_product(x, *tier, nodes, safe)
+    assert r == route
+    bound = {"tf32x3": TF32_X3_BOUND, "tf32x2": TF32_X2_BOUND}.get(
+        route, 2.0 ** -40)
+    assert np.all(np.abs(got - want) <= bound * mag + 1e-30)
+    plain = kbcsr.bcsr_plain(x, *tier, torch.zeros(nodes, h), safe).numpy()
+    assert np.all(np.abs(got - plain) <= REL * mag + 1e-30)
+    kind, tiles, pidx, rb, pn, rn = tier
+    jt = jnp.asarray(tiles.float().numpy())
+    if tiles.dtype == torch.bfloat16:
+        jt = jt.astype(jnp.bfloat16)
+    jx = jnp.asarray(x.float().numpy() if x.dtype == torch.bfloat16
+                     else x.numpy())
+    if x.dtype == torch.bfloat16:
+        jx = jx.astype(jnp.bfloat16)
+    mode = kbcsr.compute_mode(tiles.dtype, x.dtype, safe)
+    body = (jspmm.bcsr_panel_scan_spmm if kind == "panel"
+            else jspmm.bcsr_scan_spmm)
+    ref = body(jx, jnp.asarray(pn.numpy()), jt, jnp.asarray(pidx.numpy()),
+               jnp.asarray(rb.numpy()), jnp.asarray(rn.numpy()),
+               jnp.zeros((nodes, h), jnp.float32), step=1,
+               q_scale=None if safe is None else jnp.float32(float(safe)),
+               compute_dtype=jnp.float32 if mode == "f32" else None)
+    assert np.all(np.abs(got - np.asarray(ref)) <= REL * mag + 1e-30)
+
+
+@pytest.mark.parametrize("layout", ["row", "panel"])
+def test_int8_table_route_bit_equal_to_jax(layout):
+    """The int8 quantized aggregate's tier reads the int8 table
+    ``round(x / safe)`` (|q| <= 127), as the reference's does
+    (``pygim_tpu/ops/spmm.py:1632-1641``: no wide payload, bf16 cdt): on
+    bf16 tiles it takes the one-part bf16 route, and on integer tiles
+    every partial sum is an integer below 2^24, so the route,
+    ``bcsr_add``'s plain version and JAX's tier body are bit-equal."""
+    nodes, h = 700, 16
+    tier, x, _ = route_inputs(layout, "bfloat16", "float32", None, h, nodes,
+                              integer_tiles=True)
+    xq = torch.round(x / quant_scale(x, "int8")[1]).to(torch.int8)
+    assert 0 < int(xq.abs().max()) <= 127
+    assert kbcsr.kernel_route(torch.bfloat16, xq.dtype) == ("bf16", 1)
+    got = kbcsr.bcsr_add(xq, *tier, torch.zeros(nodes, h)).numpy()
+    kind, tiles, pidx, rb, pn, rn = tier
+    body = (jspmm.bcsr_panel_scan_spmm if kind == "panel"
+            else jspmm.bcsr_scan_spmm)
+    ref = body(jnp.asarray(xq.numpy()), jnp.asarray(pn.numpy()),
+               jnp.asarray(tiles.float().numpy()).astype(jnp.bfloat16),
+               jnp.asarray(pidx.numpy()), jnp.asarray(rb.numpy()),
+               jnp.asarray(rn.numpy()), jnp.zeros((nodes, h), jnp.float32),
+               step=1)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    emu, want, _mag, _r = route_product(xq, *tier, nodes)
+    np.testing.assert_array_equal(emu, want)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+def test_three_parts_needed_past_17_bits():
+    """Two bf16 parts rebuild every integer of at most 17 bits (the first
+    part's rounding leaves a remainder of at most 2^8) but not those of 18
+    bits, which three parts rebuild: so ``chip_smoke.py``'s bit-equal case
+    for ``bf16x3`` (|x| in [2^17, 2^18), cells in {-1, 0, 1}, at most 48
+    terms a row, every partial sum below 2^24) fails a kernel that drops
+    the third part."""
+    v17 = np.arange(1 << 16, 1 << 17).astype(np.float32)
+    np.testing.assert_array_equal(np.sum(bf16_parts(v17, 2), axis=0), v17)
+    g = np.random.default_rng(5)
+    v18 = (g.integers(1 << 17, 1 << 18, 4096)
+           * g.choice([-1, 1], 4096)).astype(np.float32)
+    two = np.sum([p.astype(np.float64) for p in bf16_parts(v18, 2)], axis=0)
+    assert (two != v18).mean() > 0.2
+    three = np.sum([p.astype(np.float64) for p in bf16_parts(v18, 3)],
+                   axis=0)
+    np.testing.assert_array_equal(three, v18)
+    assert 48 * (1 << 18) <= 1 << 24
+
+
+def test_kernel_route_table():
+    """The routes by tile dtype, payload and rounding, with the
+    reference's cdt beside each (``compute_mode``), and the launch
+    counter's keys."""
+    bf, f32 = torch.bfloat16, torch.float32
+    one = torch.tensor(1.0)
+    table = [
+        # tiles, x, safe, cdt, route, parts
+        (bf, f32, None, "bf16", "bf16", 1),
+        (bf, bf, None, "bf16", "bf16", 1),
+        (bf, torch.int8, None, "bf16", "bf16", 1),
+        (bf, torch.int16, None, "f32", "bf16x2", 2),
+        (bf, torch.int32, None, "f32", "bf16x3", 3),
+        (bf, f32, one, "f32", "bf16x3", 3),
+        (f32, f32, None, "f32", "tf32x3", 2),
+        (f32, bf, None, "f32", "tf32x2", 1),
+        (f32, torch.int8, None, "f32", "tf32x2", 1),
+        (f32, torch.int16, None, "f32", "tf32x3", 2),
+        (f32, torch.int32, None, "f32", "tf32x3", 2),
+        (f32, f32, one, "f32", "tf32x3", 2),
+    ]
+    keys = set()
+    for tiles, x, safe, cdt, route, parts in table:
+        assert kbcsr.compute_mode(tiles, x, safe) == cdt
+        assert kbcsr.kernel_route(tiles, x, safe) == (route, parts)
+        key = kbcsr.route_key(tiles, x, safe)
+        assert key == route + (" rounded" if safe is not None else "")
+        keys.add(key)
+    assert keys == set(kbcsr.route_keys())

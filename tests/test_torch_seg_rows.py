@@ -364,3 +364,40 @@ def test_seg_rows_is_built_like_the_others():
     assert "seg_rows" in _build.SIGNATURES
     assert (_build.CSRC / "seg_rows.cu").exists()
     assert len(_build.SIGNATURES["seg_rows"]["seg_rows"]) == 18
+
+
+def test_plan_reading_counts():
+    """``SegPlan.reading`` counts the plan's units, the hub pieces among
+    them, the hub rows and the entries the units walk (every stored
+    entry but the repeats of a full block's pads)."""
+    for kind in ("full", "hub"):
+        rows, cols, vals, n, cfg = edge_graph(kind)
+        for backend in BACKENDS:
+            _, tp = both(rows, cols, vals, n, backend, **cfg)
+            plan, tables, pads = plan_of(tp)
+            left = check_plan(plan, tables, pads)
+            r = plan.reading()
+            _e0, cnt, _r, _nr, atomic = unit_fields(plan)
+            assert r == dict(units=cnt.size, pieces=int(atomic.sum()),
+                             hub_rows=plan.hub_rows.size,
+                             entries=int(cnt.sum()))
+            keys = tables[2].reshape(-1)
+            live = targets(plan, keys, np.arange(keys.size), pads) >= 0
+            assert r["entries"] == int(live.sum()) - left.size
+
+
+def test_codes_are_cached_by_dtype_pair():
+    """The wrapper's dtype codes come from a cache keyed by the dtype pair
+    and equal a fresh computation; a pair without codes raises each time
+    (nothing cached for it)."""
+    pairs = [(torch.float32, torch.float32), (torch.int32, torch.int8),
+             (torch.int16, torch.int32), (torch.int8, torch.bfloat16)]
+    for v, x in pairs:
+        got = seg_rows._codes(torch.zeros(1, dtype=v),
+                              torch.zeros(1, 1, dtype=x))
+        assert got == seg_rows._dtype_codes.__wrapped__(v, x)
+        assert seg_rows._dtype_codes(v, x) is seg_rows._dtype_codes(v, x)
+    for _ in range(2):
+        with pytest.raises(TypeError, match="K-rows"):
+            seg_rows._codes(torch.zeros(1), torch.zeros(1, 1,
+                                                        dtype=torch.float64))

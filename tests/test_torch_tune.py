@@ -57,7 +57,7 @@ def reference_model(**over) -> tcost.CardCostModel:
         hbm_bw=r.hbm_bw, ici_bw=r.ici_bw, gather_eff=r.gather_eff,
         stream_eff=r.stream_eff, scatter_eff=r.stream_eff,
         fixed_us=r.fixed_us, tensor_bf16=r.mxu_bf16,
-        tensor_f32=r.mxu_bf16, simt_f32=r.mxu_bf16,
+        tensor_f32=r.mxu_bf16,
         ell_slot_ns=jpart._ELL_SLOT_NS,
         ell_vrow_fixed_ns=jpart._ELL_VROW_FIXED_NS,
         ell_vrow_ns_per_h=jpart._ELL_VROW_NS_PER_H, launch_us=0.0,
@@ -392,6 +392,38 @@ def test_constants_file_before_k_rows_is_measured_again(monkeypatch):
     tcost.save_measured(now, card)
     assert json.loads(path.read_text())["version"] == tcost.CONSTANTS_VERSION
     assert tcost.load_measured(card) == now
+
+
+def test_constants_file_before_tf32_tiles_is_measured_again(monkeypatch):
+    """A version-2 constants file (f32 tiles priced at the FFMA mode's
+    data-sheet ``simt_f32``; ``rows_factor`` fitted before K-rows' wrapper
+    was trimmed) is not read, though its card line matches:
+    ``load_measured`` gives None and ``default`` the data sheet, which
+    prices f32 tiles at K-bcsr's three TF32 products a term
+    (``tensor_f32``, a sixth of the bf16 rate)."""
+    from pygim_tpu_torch.utils.device import peaks
+
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    old = dataclasses.asdict(tcost.datasheet(None))
+    old.update(simt_f32=6.7e13, rows_factor=0.1884,
+               provenance=f"measured:{card}")
+    path = tcost.cache_dir() / tcost.CONSTANTS_FILE
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps({"card": card, "version": 2, "model": old,
+                                "readings": {}}))
+    monkeypatch.setattr(tcost, "visible_card", lambda: card)
+    assert tcost.CONSTANTS_VERSION == 3
+    assert tcost.load_measured(card) is None
+    sheet = tcost.CardCostModel.default()
+    assert "uncalibrated" in sheet.provenance
+    assert sheet.tensor_f32 == peaks(tcost.DEFAULT_CARD)[1] / 6
+    assert not hasattr(sheet, "simt_f32")
+    stats = dict(gather_bytes=0, stream_bytes=0, psum_bytes=0,
+                 n_dispatch=0, bcsr_flops=1e12, bcsr_tile_dtype="float32")
+    f32 = tcost.predict_spmm_time(stats, sheet)
+    bf16 = tcost.predict_spmm_time(dict(stats, bcsr_tile_dtype="bfloat16"),
+                                   sheet)
+    assert f32 == pytest.approx(6 * bf16) and f32 > 0
 
 
 def test_fit_tail_recovers_its_constants():
