@@ -29,17 +29,27 @@ launches held bit-identical); and a 32768 × 65536-cell int4 scale band
 (1 GiB packed, whole contractions) on sampled rows. Both kernels again
 on ragged shapes, int8 and int4 bands: K-int with every tile split in 2
 and 4 chunks, forced, at one to four limbs, and K-core on each of its two
-schedules, whole tiles and stream-K, forced. It checks
+schedules, whole tiles and stream-K, forced. K-epi (the evaluation
+forward's dequantize, bias, BatchNorm and ReLU in one pass) and K-quant
+(max|x| with the scale, the integer table, K-int's limb payload written
+from x) bit-equal to their plain versions at the smoke shape and at
+ragged and misaligned ones, with NaN, ±inf, -0, all-zero inputs and
+half-step ties, timed beside their bounds and a library call, and
+counted in one fused forward of each main path's model (the
+``epilogue_checks`` phase). It checks
 ``prep.mul`` against ``mul_plain`` at widths the kernels' tiles do not
 divide, then drives the three main paths, each with the launch counts
 set to 0 before it and read after it — 2-layer GCN inference at hidden
 256, on the ogbn-arxiv stand-in, through ``run_inference_benchmark`` and
 ``run_spmm_benchmark`` — on the stair-int8 hybrid first with a float
-payload (K-core, K-tail), then with int32 aggregation and an int32 SpMM
-(K-int, K-tail-quant), then tracked config 4's model, the int8 GCN, on a
-square int4 core with per-layer sampled validation (K-int int4,
-K-tail-quant) and a float32 SpMM on it (K-core int4). It runs the SpMM
-on the runners' default configuration (the blocked backend), holds the
+payload (K-core, K-tail, K-epi), then with int32 aggregation and an int32
+SpMM (K-int, K-tail-quant, K-epi, K-quant's max|x| and payload), then
+tracked config 4's model, the int8 GCN, on a square int4 core with
+per-layer sampled validation (K-int int4, K-tail-quant, K-epi, all three
+of K-quant's entry points) and a float32 SpMM on it (K-core int4). It runs
+the SpMM and the float and int32 forwards on the runners' default
+configuration (the blocked backend: K-rows, K-epi, K-quant's max|x| and
+table), holds the
 forwards' logits against the same forwards through the plain versions,
 and runs the flagship forward step, ``pygim_tpu_torch/entry.py:entry()``,
 on the card against the same step on the CPU.
@@ -1293,9 +1303,10 @@ def forward_safes(gnn, xf, prep):
     safes = []
 
     class Recording(PreparedAggregate):
-        def quantized(self, v, agg_dtype):
+        # the hook the evaluation forward takes (``quantized`` asks it too)
+        def quantized_raw(self, v, agg_dtype):
             safes.append(float(quant_scale(v, agg_dtype)[1]))
-            return super().quantized(v, agg_dtype)
+            return super().quantized_raw(v, agg_dtype)
 
     with torch.inference_mode():
         gnn(xf, Recording(prep))
@@ -1485,6 +1496,20 @@ class PlainAggregate:
         return self.prep.mul_quantized_plain(v, agg_dtype)
 
 
+def plain_forward(gnn, xf, prep):
+    """``gnn``'s evaluation forward through the plain versions alone:
+    :class:`PlainAggregate` and each stage as separate PyTorch ops
+    (``nn/models.py:forward_stem`` / ``forward_block`` unfused), so no
+    kernel runs where the aggregate's hook fuses the quantization."""
+    from pygim_tpu_torch.nn.models import forward_block, forward_stem
+
+    agg = PlainAggregate(prep)
+    h = forward_stem(gnn, xf, fused=False)
+    for i in range(len(gnn.convs)):
+        h = forward_block(gnn, i, h, agg, fused=False)
+    return gnn.ln2(h)
+
+
 def logits_check(name, gnn, xf, prep, n_classes):
     """The forward through the kernels against the same forward through
     the plain versions: two layers of f32 reordering in the aggregates
@@ -1498,7 +1523,7 @@ def logits_check(name, gnn, xf, prep, n_classes):
 
     with torch.inference_mode():
         logits = gnn(xf, PreparedAggregate(prep))
-        plain = gnn(xf, PlainAggregate(prep))
+        plain = plain_forward(gnn, xf, prep)
     if logits.shape != (prep.nrows, n_classes):
         raise AssertionError(f"{name} logits shape {tuple(logits.shape)}")
     scale = max(1.0, float(plain.abs().max()))
@@ -1558,7 +1583,8 @@ def ell_backend(graph, x, results, reps: int = 3):
     under 2^24, so f32 sums are exact in any order), the fused int32
     ``mul_quantized`` against ``mul_quantized_plain`` (REL_TOL: its
     rounded rows reach 2^30, so f32 sums are not exact), each with one
-    K-tail launch per SpMM. Returns the operand."""
+    K-tail launch per SpMM (and, for the quantized one, one K-quant
+    max|x| and nothing else). Returns the operand."""
     import torch
 
     from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1595,7 +1621,9 @@ def ell_backend(graph, x, results, reps: int = 3):
         got = prep.mul_quantized(x, "int32")
     torch.cuda.synchronize()
     n = launch_counts()
-    if n["K-tail-quant"] != reps or sum(n.values()) != reps:
+    # K-tail-quant and K-quant's max|x| ("K-quant" counts it again)
+    if (n["K-tail-quant"] != reps or n["K-quant abs_max"] != reps
+            or sum(n.values()) != 3 * reps):
         raise AssertionError(f"ell mul_quantized: launches {n}")
     want = prep.mul_quantized_plain(x, "int32")
     scale, safe = quant_scale(x, "int32")
@@ -5960,6 +5988,319 @@ def halo_cards() -> int:
     return 0
 
 
+EPI_EPS = 1e-5
+EPI_RAGGED = ((1037, 41), (1037, 1100))  # N off every block; H 41: single elements
+
+
+def same(got, want) -> bool:
+    """Equal shape, dtype and values, NaN where the other has NaN
+    (``torch.equal`` alone holds a NaN unequal to itself)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan]))
+
+
+def same_bits(got, want) -> bool:
+    """:func:`same` for float32, and every non-NaN value equal in its bits
+    (the sign of a zero too)."""
+    import torch
+
+    ok = ~torch.isnan(want)
+    return same(got, want) and torch.equal(
+        got[ok].contiguous().view(torch.int32),
+        want[ok].contiguous().view(torch.int32))
+
+
+def with_specials(t):
+    """``t`` (float32) with a NaN, +inf, -inf and -0 in four of its
+    elements, in place."""
+    flat = t.view(-1)
+    n = flat.numel()
+    for i, v in zip((0, n // 3, n // 2, n - 1),
+                    (float("nan"), float("inf"), float("-inf"), -0.0)):
+        flat[i] = v
+    return t
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` one element off 16-byte alignment: the
+    kernels' single-element paths."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def half_steps(n, h, k, step, gen, dev):
+    """float32 (n, h) of half steps ``(j + 1/2) · step`` with max|x| =
+    ``2^(k-1) · step``, so ``safe`` is ``step`` and every value a tie."""
+    import torch
+
+    half = 1 << (k - 1)
+    j = torch.randint(-half, half, (n, h), generator=gen)
+    x = ((j + 0.5) * step).float()
+    x.view(-1)[0] = half * step
+    return x.to(dev)
+
+
+def epi_params(h, gen, dev, scale, bias):
+    import torch
+
+    mean, gamma, beta = (torch.randn(h, generator=gen).to(dev)
+                         for _ in range(3))
+    var = (torch.rand(h, generator=gen) + 0.2).to(dev)
+    s = torch.tensor(0.37).to(dev) if scale else None
+    c = torch.randn(h, generator=gen).to(dev) if bias else None
+    return mean, var, gamma, beta, s, c
+
+
+def forward_launches(gnn, xf, agg) -> dict:
+    """The kernels' launches of one evaluation forward, by name (the
+    counts set to 0 before it)."""
+    import torch
+
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    with torch.inference_mode():
+        gnn(xf, agg)
+    torch.cuda.synchronize()
+    return {k: v for k, v in launch_counts().items() if v}
+
+
+def epilogue_checks(ds, prep, prep4, results, device="cuda"):
+    """K-epi (``csrc/epilogue.cu``) and K-quant (``csrc/quant.cu``) against
+    their plain versions, bit for bit (:func:`same`; K-quant's scales in
+    their bits): K-epi at the smoke shape (the stand-in's N at H 256) and
+    at ragged shapes (:data:`EPI_RAGGED`), a misaligned input, each with
+    the scale and the bias absent and present, NaN, ±inf and -0 entries;
+    K-quant's max|x| at the same shapes and with NaN, ±inf, -0 and
+    all-zero inputs for each scale exponent; its table (int8, int16, int32,
+    int64) there and on half-step ties; its core payload on the smoke
+    operand's rank gather (f32 rounded at three limbs, the int8 and int16
+    tables at one and two, a raw int32 at four) and at the ragged widths
+    with ties, specials and zeros. Each timed at the smoke shape beside its
+    plain version, its bytes bound and a library call where one computes
+    it (K-epi: ``F.batch_norm(training=False)`` and ``torch.relu``, two
+    calls, on the input without scale and bias; max|x|:
+    ``torch.linalg.vector_norm(x, inf)``). Then one fused forward of each
+    main path's model counted: three K-epi launches a 2-layer GCN, and
+    K-quant's entry points where it quantizes."""
+    import torch
+    import torch.nn.functional as F
+
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.ops import epilogue as epi
+    from pygim_tpu_torch.ops import quant_prologue as kq
+    from pygim_tpu_torch.ops.spmm import (
+        PreparedAggregate,
+        SpmmConfig,
+        prepare_spmm,
+    )
+
+    hbm, _bf16, f32_rate, _int8 = results["peaks"]
+    gen = torch.Generator().manual_seed(22)
+    n_smoke = prep.nrows
+    t0 = time.perf_counter()
+    cases = {"K-epi": 0, "K-quant abs_max": 0, "K-quant table": 0,
+             "K-quant payload": 0}
+
+    # K-epi
+    for n, h in ((n_smoke, HIDDEN),) + EPI_RAGGED:
+        for scale, bias in itertools.product((False, True), repeat=2):
+            mean, var, gamma, beta, s, c = epi_params(h, gen, device, scale,
+                                                      bias)
+            inv = torch.rsqrt(var + EPI_EPS)
+            a = (3 * torch.randn(n, h, generator=gen)).to(device)
+            for label, x in (("", a), ("specials", with_specials(a.clone())),
+                             ("misaligned", misaligned(a))):
+                got = epi.epilogue(x, mean, var, gamma, beta, EPI_EPS,
+                                   scale=s, bias=c)
+                want = epi.epilogue_plain(x, mean, inv, gamma, beta, s, c)
+                if not same(got, want):
+                    raise AssertionError(
+                        f"K-epi {n}x{h} scale {scale} bias {bias} {label}: "
+                        f"{int((got != want).sum())} elements differ")
+                cases["K-epi"] += 1
+    n, h = n_smoke, HIDDEN
+    mean, var, gamma, beta, s, c = epi_params(h, gen, device, True, True)
+    inv = torch.rsqrt(var + EPI_EPS)
+    a = torch.randn(n, h, generator=gen).to(device)
+    res = dict(cases=cases["K-epi"], max_abs_err=0.0, shape=[n, h])
+    res["ms"] = cuda_ms(lambda: epi.epilogue(a, mean, var, gamma, beta,
+                                             EPI_EPS, scale=s, bias=c))
+    res["ms_no_scale_bias"] = cuda_ms(
+        lambda: epi.epilogue(a, mean, var, gamma, beta, EPI_EPS))
+    res["plain_ms"] = cuda_ms(
+        lambda: epi.epilogue_plain(a, mean, inv, gamma, beta, s, c))
+    res["library_ms"] = cuda_ms(lambda: torch.relu(F.batch_norm(
+        a, mean, var, gamma, beta, training=False, eps=EPI_EPS)))
+    res["library"] = "F.batch_norm(training=False) + torch.relu, two calls"
+    res["bound_ms"], res["bound_by"] = least_time(
+        2 * n * h * 4 + 5 * h * 4, 7 * n * h, hbm, f32_rate)
+    results["K-epi"] = res
+    print(f"K-epi: {json.dumps(res)}", flush=True)
+    del a
+
+    # K-quant (a): max|x|, scale, safe
+    def abs_max_case(name, x, dtype):
+        got = kq.abs_max_scale(x, dtype)
+        want = kq.abs_max_scale_plain(x, dtype)
+        for what, g_, w_ in zip(("abs_max", "scale", "safe"), got, want):
+            if not same_bits(g_.reshape(1), w_.reshape(1).float()):
+                raise AssertionError(f"K-quant abs_max {name} {dtype} {what}:"
+                                     f" {float(g_)} != {float(w_)}")
+        cases["K-quant abs_max"] += 1
+
+    xs = {"smoke": torch.randn(n_smoke, HIDDEN, generator=gen).to(device)}
+    for n, h in EPI_RAGGED:
+        xs[f"{n}x{h}"] = torch.randn(n, h, generator=gen).to(device)
+    base = xs["1037x41"]
+    xs["misaligned"] = misaligned(base)
+    for what, v in (("nan", float("nan")), ("+inf", float("inf")),
+                    ("-inf", float("-inf"))):
+        t = base.clone()
+        t[5, 7] = v
+        xs[what] = t
+    xs["-0 and zeros"] = torch.zeros_like(base)
+    xs["-0 and zeros"][3, 3] = -0.0
+    xs["tiny"] = base * 1e-40
+    for name, x in xs.items():
+        for dtype in ("int8", "int16", "int32", "float32"):
+            abs_max_case(name, x, dtype)
+    x = xs["smoke"]
+    res = dict(cases=cases["K-quant abs_max"], max_abs_err=0.0,
+               shape=list(x.shape))
+    res["ms"] = cuda_ms(lambda: kq.abs_max_scale(x, "int32"))
+    res["plain_ms"] = cuda_ms(lambda: kq.abs_max_scale_plain(x, "int32"))
+    res["library_ms"] = cuda_ms(
+        lambda: torch.linalg.vector_norm(x, float("inf")))
+    res["library"] = "torch.linalg.vector_norm(x, inf)"
+    res["bound_ms"], res["bound_by"] = least_time(x.numel() * 4, x.numel(),
+                                                  hbm, f32_rate)
+    results["K-quant abs_max"] = res
+    print(f"K-quant abs_max: {json.dumps(res)}", flush=True)
+
+    # K-quant (b): the table
+    ties = {f"ties {dtype} step {step}": half_steps(
+        1037, 41, kq.scale_exponent(dtype), step, gen, device)
+        for dtype in ("int8", "int16", "int32") for step in (1.0, 1.5)}
+    for name, x in {**xs, **ties}.items():
+        for dtype in (torch.int8, torch.int16, torch.int32, torch.int64):
+            safe = kq.abs_max_scale_plain(x, dtype)[2]
+            got = kq.quant_table(x, safe, dtype)
+            want = kq.quant_table_plain(x, safe, dtype)
+            if not same(got, want):
+                raise AssertionError(
+                    f"K-quant table {name} {dtype}: "
+                    f"{int((got != want).sum())} elements differ")
+            cases["K-quant table"] += 1
+    x = xs["smoke"]
+    safe = kq.abs_max_scale_plain(x, "int8")[2]
+    res = dict(cases=cases["K-quant table"], max_abs_err=0.0,
+               shape=list(x.shape), dtype="int8")
+    res["ms"] = cuda_ms(lambda: kq.quant_table(x, safe, torch.int8))
+    res["ms_int32"] = cuda_ms(lambda: kq.quant_table(x, safe, torch.int32))
+    res["plain_ms"] = cuda_ms(lambda: kq.quant_table_plain(x, safe,
+                                                           torch.int8))
+    res["library_ms"] = None  # no one PyTorch call rounds and casts
+    res["bound_ms"], res["bound_by"] = least_time(x.numel() * 5, x.numel(),
+                                                  hbm, f32_rate)
+    results["K-quant table"] = res
+    print(f"K-quant table: {json.dumps(res)}", flush=True)
+
+    # K-quant (c): the core payload
+    def payload_case(name, x, rows, safe, limbs):
+        dims = kq.payload_dims(rows.numel(), x.shape[1])
+        got = kq.core_payload(x, rows, safe, limbs, *dims)
+        want = kq.core_payload_plain(x, rows, safe, limbs, *dims)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K-quant payload {name} limbs {limbs}: "
+                                 f"{int((got != want).sum())} bytes differ")
+        cases["K-quant payload"] += 1
+
+    w_max = max(w for *_, w in prep.stair)
+    rows = prep.dev_arrays["core_nodes"][:w_max]
+    x = xs["smoke"]
+    safe32 = kq.abs_max_scale_plain(x, "int32")[2]
+    tables = {d: kq.quant_table_plain(x, kq.abs_max_scale_plain(x, d)[2], d)
+              for d in ("int8", "int16")}
+    raw = torch.randint(-(1 << 31), 1 << 31, x.shape, generator=gen,
+                        dtype=torch.int64).to(torch.int32).to(device)
+    payload_case("smoke f32", x, rows, safe32, 3)
+    payload_case("smoke int8 table", tables["int8"], rows, None, 1)
+    payload_case("smoke int16 table", tables["int16"], rows, None, 2)
+    payload_case("smoke raw int32", raw, rows, None, 4)
+    rows4 = prep4.dev_arrays["core_nodes"][:max(w for *_, w in prep4.stair)]
+    payload_case("square int4 int8 table", tables["int8"], rows4, None, 1)
+    for name, xr in {**xs, **ties}.items():
+        if name == "smoke":
+            continue
+        r = torch.randperm(xr.shape[0], generator=gen)[:1000].to(
+            torch.int32).to(device)
+        for limbs in (1, 3):
+            payload_case(name, xr, r, kq.abs_max_scale_plain(
+                xr, "int8" if limbs == 1 else "int32")[2], limbs)
+        payload_case(f"{name} int16", kq.quant_table_plain(
+            xr, kq.abs_max_scale_plain(xr, "int16")[2], "int16"), r, None, 2)
+    dims = kq.payload_dims(rows.numel(), HIDDEN)
+    res = dict(cases=cases["K-quant payload"], max_abs_err=0.0,
+               rows=rows.numel(), h=HIDDEN, limbs=3, dims=list(dims))
+    res["ms"] = cuda_ms(lambda: kq.core_payload(x, rows, safe32, 3, *dims))
+    res["ms_int8_table_1_limb"] = cuda_ms(
+        lambda: kq.core_payload(tables["int8"], rows, None, 1, *dims))
+    res["plain_ms"] = cuda_ms(
+        lambda: kq.core_payload_plain(x, rows, safe32, 3, *dims))
+    res["library_ms"] = None  # no PyTorch call writes the limb layout
+    res["bound_ms"], res["bound_by"] = least_time(
+        rows.numel() * (HIDDEN * 4 + 4) + 3 * dims[0] * dims[1],
+        rows.numel() * HIDDEN, hbm, f32_rate)
+    results["K-quant payload"] = res
+    print(f"K-quant payload: {json.dumps(res)}", flush=True)
+    del xs, ties, tables, raw, x
+    print(f"epilogue_checks: kernels held and timed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # one fused forward of each main path's model, counted
+    xf = torch.as_tensor(ds.x).to(device)
+    blocked = prepare_spmm(ds.graph, SpmmConfig(), device=device)
+    want = {  # (agg_dtype, operand): launches of one 2-layer GCN forward
+        (None, "stair int8"): {"K-epi": 3},
+        ("int32", "stair int8"): {"K-epi": 3, "K-quant abs_max": 2,
+                                  "K-quant payload": 2},
+        ("int8", "square int4"): {"K-epi": 3, "K-quant abs_max": 2,
+                                  "K-quant table": 2, "K-quant payload": 2},
+        ("int32", "blocked"): {"K-epi": 3, "K-quant abs_max": 2,
+                               "K-quant table": 2},
+    }
+    ops = {"stair int8": prep, "square int4": prep4, "blocked": blocked}
+    counted = {}
+    for (agg_dtype, name), kernels in want.items():
+        gnn = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
+                       num_layers=2, agg_dtype=agg_dtype, device=device)
+        n = forward_launches(gnn, xf, PreparedAggregate(ops[name]))
+        label = f"{agg_dtype or 'float'} {name}"
+        counted[label] = n
+        for k in ("K-epi", "K-quant abs_max", "K-quant table",
+                  "K-quant payload"):
+            if n.get(k, 0) != kernels.get(k, 0):
+                raise AssertionError(f"one {label} forward: {k} launched "
+                                     f"{n.get(k, 0)} times, want "
+                                     f"{kernels.get(k, 0)} ({n})")
+    results["epilogue forwards"] = counted
+    print(f"one forward's launches: {json.dumps(counted)}", flush=True)
+    del blocked, xf
+    free(device)
+
+
 def main() -> int:
     """Run every phase in a fresh prepare and dataset cache, removed at
     the end: no phase reads the user's cache."""
@@ -6102,6 +6443,7 @@ def run() -> int:
     tail_scale(results, torch.device("cuda"))
     for k in ("K-tail scale tables", "K-tail-quant scale tables"):
         print(f"{k}: {results[k]}", flush=True)
+    timed_phase("epilogue_checks", epilogue_checks, ds, prep, prep4, results)
 
     # the main paths, each counted: float aggregation, then int32
     # aggregation (the reference's default) with the int32 SpMM
@@ -6109,8 +6451,9 @@ def run() -> int:
     reuse = lambda g, c: prep  # noqa: E731 — the operand prepared above
     launches = {}
     for agg_dtype, spmm_dtype, kernels in (
-            (None, "float32", ("K-core", "K-tail")),
-            ("int32", "int32", ("K-int", "K-tail-quant"))):
+            (None, "float32", ("K-core", "K-tail", "K-epi")),
+            ("int32", "int32", ("K-int", "K-tail-quant", "K-epi",
+                                "K-quant abs_max", "K-quant payload"))):
         reset_launch_counts()
         run_inference_benchmark(
             ds, model="gcn", num_layers=2, hidden=HIDDEN, agg_dtype=agg_dtype,
@@ -6155,11 +6498,16 @@ def run() -> int:
           f"{n_gcn}; with the float32 SpMM: {n}", flush=True)
     for k, got in (("K-int int4", n_gcn["K-int int4"]),
                    ("K-tail-quant", n_gcn["K-tail-quant"]),
+                   ("K-epi", n_gcn["K-epi"]),
+                   ("K-quant abs_max", n_gcn["K-quant abs_max"]),
+                   ("K-quant table", n_gcn["K-quant table"]),
+                   ("K-quant payload", n_gcn["K-quant payload"]),
                    ("K-core int4", n["K-core int4"] - n_gcn["K-core int4"])):
         if got <= 0:
             raise AssertionError(f"{k} was never launched on the square int4 "
                                  "main path")
     launches["K-int int4"] = n_gcn["K-int int4"]
+    launches["K-quant table"] = n_gcn["K-quant table"]
     launches["K-core int4"] = n["K-core int4"] - n_gcn["K-core int4"]
     if rep.records["validate"][-1] != "OK":
         raise AssertionError("int8 GCN per-layer validation failed")
@@ -6187,9 +6535,10 @@ def run() -> int:
         infer_ms[agg_dtype or "float"] = rep.records["infer_time(ms)"][-1]
     torch.cuda.synchronize()
     n = launch_counts()
-    if n["K-rows"] <= 0:
-        raise AssertionError(f"K-rows was never launched on the runners' "
-                             f"default path: {n}")
+    for k in ("K-rows", "K-epi", "K-quant abs_max", "K-quant table"):
+        if n[k] <= 0:
+            raise AssertionError(f"{k} was never launched on the runners' "
+                                 f"default path: {n}")
     launches["K-rows"] = n["K-rows"]
     bound = rows_bound(prepare_spmm(ds.graph, SpmmConfig(),
                                        device="cuda"), HIDDEN,
@@ -6322,7 +6671,15 @@ def run() -> int:
                "K-rows": ("cuda", "pygim_tpu_torch/csrc/seg_rows.cu",
                           "pygim_tpu/ops/spmm.py:136"),
                "K-rows coo": ("cuda", "pygim_tpu_torch/csrc/seg_rows.cu",
-                              "pygim_tpu/ops/spmm.py:1883")}
+                              "pygim_tpu/ops/spmm.py:1883"),
+               "K-epi": ("cuda", "pygim_tpu_torch/csrc/epilogue.cu",
+                         "pygim_tpu/nn/layers.py:65"),
+               "K-quant abs_max": ("cuda", "pygim_tpu_torch/csrc/quant.cu",
+                                   "pygim_tpu/ops/spmm.py:1576"),
+               "K-quant table": ("cuda", "pygim_tpu_torch/csrc/quant.cu",
+                                 "pygim_tpu/ops/spmm.py:1587"),
+               "K-quant payload": ("cuda", "pygim_tpu_torch/csrc/quant.cu",
+                                   "pygim_tpu/ops/spmm.py:1622")}
     kernels = []
     for k, (route, src, repl) in sources.items():
         res = results[k]

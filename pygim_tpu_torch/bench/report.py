@@ -161,13 +161,26 @@ def square_core_calls(prep, hidden: int, dev, iters: int = 5) -> dict:
     return res
 
 
+def kernel_family(name: str) -> str:
+    """The family of a device kernel by its name: ``"torch"`` for
+    PyTorch's own kernels (elementwise, reductions, copies, fills,
+    gathers: the unfused passes), ``"gemm"`` for cuBLAS's matrix products,
+    ``"hand"`` for this package's kernels (``csrc/``) and anything else."""
+    if "at::native" in name or "at_cuda_detail" in name:
+        return "torch"
+    if any(k in name.lower() for k in ("gemm", "cutlass", "xmma")):
+        return "gemm"
+    return "hand"
+
+
 def profile_calls(fn, what: str, iters: int = 5, out=None) -> dict:
     """Device time by kernel for one call of ``fn`` (torch.profiler over
     ``iters`` calls), and the device's busy share of its wall time;
     printed (to ``out``, default stdout) and returned as ``{"wall_ms",
-    "busy_ms", "kernels": [(ms, launches, name)]}`` per call. ``fn``
-    returns a tensor of its result, so ``device_time`` times it on the
-    card."""
+    "busy_ms", "families", "kernels": [(ms, launches, name)]}`` per call
+    (``families``: ms by :func:`kernel_family` over every kernel, the top
+    25 kernels alone in ``kernels``). ``fn`` returns a tensor of its
+    result, so ``device_time`` times it on the card."""
     from torch.profiler import ProfilerActivity, profile
 
     out = out or sys.stdout
@@ -189,12 +202,20 @@ def profile_calls(fn, what: str, iters: int = 5, out=None) -> dict:
     busy_ms = sum(dev_us(e) for e in evs) / iters / 1e3
     print(f"profile: {what} {wall_ms:.4f} ms wall, {busy_ms:.4f} ms device "
           f"busy ({100 * busy_ms / wall_ms:.1f}%)", file=out, flush=True)
+    families = {}
+    for e in evs:
+        fam = kernel_family(e.key)
+        families[fam] = families.get(fam, 0.0) + dev_us(e) / iters / 1e3
+    print(f"profile: {what} by family (ms): "
+          f"{ {k: round(v, 4) for k, v in sorted(families.items())} }",
+          file=out, flush=True)
     kernels = []
     for e in sorted(evs, key=dev_us, reverse=True)[:25]:
         kernels.append((dev_us(e) / iters / 1e3, e.count // iters, e.key))
         print(f"profile: {kernels[-1][0]:9.4f} ms  {kernels[-1][1]:4d}x  "
               f"{e.key[:90]}", file=out, flush=True)
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=kernels)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, families=families,
+                kernels=kernels)
 
 
 def profile_forward(gnn, x, agg, iters: int = 5, out=None) -> dict:

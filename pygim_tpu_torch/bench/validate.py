@@ -19,20 +19,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pygim_tpu_torch.nn.models import forward_block, forward_stem
 from pygim_tpu_torch.ops.spmm import PreparedAggregate, SpmmConfig, prepare_spmm
 from pygim_tpu_torch.quant import _SCALE_EXP
 from pygim_tpu_torch.utils.metrics import DataReporter
 
 
 def layer_activations(model, x, aggregate) -> "list[np.ndarray]":
-    """The activation after every stage of ``model``'s forward (input
-    projection, each conv block, output head), as numpy arrays."""
+    """The activation after every stage of ``model``'s evaluation forward
+    (input projection, each conv block, output head), as numpy arrays:
+    the stages of ``nn/models.py:gnn_apply``, fused as it fuses them."""
     acts = []
     with torch.inference_mode():
-        h = torch.relu(model.bn0(model.ln1(x)))
+        h = forward_stem(model, x, fused=True)
         acts.append(h.cpu().numpy())
-        for conv, bn in zip(model.convs, model.bns):
-            h = torch.relu(bn(conv(h, aggregate, model.agg_dtype)))
+        for i in range(len(model.convs)):
+            h = forward_block(model, i, h, aggregate, fused=True)
             acts.append(h.cpu().numpy())
         acts.append(model.ln2(h).cpu().numpy())
     return acts
@@ -84,15 +86,18 @@ class _CaptureAggregate:
     """Wraps an aggregate and keeps, of each call, only the sampled output
     rows, the sampled neighbours' input rows and the input's max|v| (on
     the host), with the quantization dtype of a fused call (None for a
-    plain one)."""
+    plain one). It offers the fused hooks the forward probes
+    (``quantized_raw``, ``quantized``) where the wrapped aggregate has
+    them, so the check sees the timed forward's own products; of an
+    undequantized product it keeps the sampled rows times the scale."""
 
     def __init__(self, base, rows_idx, nbr_idx):
         self._base, self._rows, self._nbr = base, rows_idx, nbr_idx
         self.capture: list = []
 
-    def _rec(self, v, out, qname) -> None:
+    def _rec(self, v, out, qname, sampled=False) -> None:
         self.capture.append((
-            out.index_select(0, self._rows).cpu().numpy(),
+            (out if sampled else out.index_select(0, self._rows)).cpu().numpy(),
             v.index_select(0, self._nbr).cpu().numpy(),
             float(torch.linalg.vector_norm(v, float("inf"))
                   if v.is_floating_point() else v.abs().max()),
@@ -110,6 +115,15 @@ class _CaptureAggregate:
         if out is not None:
             self._rec(v, out, agg_dtype)
         return out
+
+    def quantized_raw(self, v, agg_dtype: str):
+        raw = getattr(self._base, "quantized_raw", None)
+        got = None if raw is None else raw(v, agg_dtype)
+        if got is not None:
+            out, scale = got
+            self._rec(v, out.index_select(0, self._rows) * scale, agg_dtype,
+                      sampled=True)
+        return got
 
 
 def validate_inference_sampled(graph, model, x, aggregate, *,
@@ -146,10 +160,11 @@ def validate_inference_sampled(graph, model, x, aggregate, *,
 
     capture = []
     with torch.inference_mode():
-        h = torch.relu(model.bn0(model.ln1(x)))
-        for conv, bn in zip(model.convs, model.bns):
+        # the timed forward's stages (nn/models.py:gnn_apply), fused alike
+        h = forward_stem(model, x, fused=True)
+        for i in range(len(model.convs)):
             cap = _CaptureAggregate(aggregate, rows_idx, nbr_idx)
-            h2 = torch.relu(bn(conv(h, cap, model.agg_dtype)))
+            h2 = forward_block(model, i, h, cap, fused=True)
             del h  # one activation and the one being made
             h = h2
             capture.extend(cap.capture)

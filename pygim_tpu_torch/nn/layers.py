@@ -19,6 +19,13 @@ reference's forked PyG layers:
   :func:`batchnorm_train_apply` is the training-mode BatchNorm of the
   model's own ``bn0``/``bns``, which returns the updated running
   statistics for the caller to merge.
+* Where no gradient is needed (:func:`fusable`), an evaluation forward
+  ends each block in :func:`bn_epilogue`, one K-epi pass
+  (``ops/epilogue.py``) for what comes before the BatchNorm's output
+  (a dequantize scale, a bias), the BatchNorm and the ReLU; each conv's
+  ``epilogue_parts`` gives that pass its input, and the GCN takes its
+  aggregate undequantized (:func:`raw_quantized_aggregate`). The values
+  are those of the separate ops, bit for bit.
 """
 
 from __future__ import annotations
@@ -29,10 +36,10 @@ from typing import Callable
 import torch
 from torch import nn
 
+from pygim_tpu_torch.ops.epilogue import epilogue
 from pygim_tpu_torch.quant import (
     _SCALE_EXP,
     dtype_name,
-    symmetric_dequantize,
     symmetric_quantize,
 )
 
@@ -54,6 +61,24 @@ def linear_apply(w, b, x):
 def batchnorm_apply(scale, bias, mean, var, x, eps: float = 1e-5):
     inv = torch.rsqrt(var + eps)
     return (x - mean) * inv * scale + bias
+
+
+def fusable(*tensors) -> bool:
+    """Whether a forward through ``tensors`` may take the fused kernels:
+    grad mode is off, or none of them requires grad (the kernels write
+    through raw pointers, which autograd does not follow)."""
+    return not torch.is_grad_enabled() or not any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def bn_epilogue(bn, a, scale=None, bias=None):
+    """``relu(bn(a * scale + bias))`` in one K-epi pass (``scale`` a 0-dim
+    tensor and ``bias`` an (H,) one, each optional): the same values as
+    the ops ``a * scale``, ``+ bias``, :func:`batchnorm_apply` with
+    ``bn``'s running statistics, ``torch.relu``. CPU tensors take those
+    ops (``ops/epilogue.py:epilogue_plain``)."""
+    return epilogue(a, bn.mean, bn.var, bn.scale, bn.bias, bn.eps,
+                    scale=scale, bias=bias)
 
 
 def batchnorm_train_apply(scale, bias, mean, var, x, eps: float = 1e-5,
@@ -93,21 +118,51 @@ def quantized_aggregate(aggregate: Aggregate, x, agg_dtype=None):
     """quantize → A·x → dequantize. ``agg_dtype=None`` aggregates in x's
     own dtype (scale 1). An integer ``agg_dtype`` (int8, int16, int32)
     goes to the aggregate's fused hook where it has one
-    (:meth:`PreparedAggregate.quantized
-    <pygim_tpu_torch.ops.spmm.PreparedAggregate.quantized>`: K-tail and
+    (:meth:`PreparedAggregate.quantized_raw
+    <pygim_tpu_torch.ops.spmm.PreparedAggregate.quantized_raw>`: K-tail and
     K-int, bit-identical to the round trip); a plain callable takes the
     unfused quantize round trip, as does a hook that returns None (a
-    backend that does not fuse, the oracle)."""
+    backend that does not fuse, the oracle). The dequantize is ``a *
+    scale`` of :func:`raw_quantized_aggregate`, which is
+    ``symmetric_dequantize(a, 1.0, scale)``."""
+    a, s = raw_quantized_aggregate(aggregate, x, agg_dtype)
+    return (a if s is None else a * s).to(x.dtype)
+
+
+def raw_quantized_aggregate(aggregate: Aggregate, x, agg_dtype=None):
+    """:func:`quantized_aggregate` before its dequantize and its cast:
+    ``(a, s)`` with ``(a * s).to(x.dtype)`` (``a.to(x.dtype)`` where ``s``
+    is None) its value, bit for bit. A fused aggregate gives it through
+    its ``quantized_raw`` hook (:meth:`PreparedAggregate.quantized_raw
+    <pygim_tpu_torch.ops.spmm.PreparedAggregate.quantized_raw>`), or
+    through ``quantized`` where it has only that; the round trip gives
+    the plain aggregate of the quantized x and the scale (None for
+    ``agg_dtype=None``: ``x``'s own dtype, scale 1)."""
     if agg_dtype is not None:
         name = dtype_name(agg_dtype)
-        fused = getattr(aggregate, "quantized", None)
-        if fused is not None and name in _SCALE_EXP:
-            out = fused(x, name)
+        if name in _SCALE_EXP:
+            raw = getattr(aggregate, "quantized_raw", None)
+            got = None if raw is None else raw(x, name)
+            if got is not None:
+                return got
+            fused = getattr(aggregate, "quantized", None)
+            out = None if fused is None else fused(x, name)
             if out is not None:
-                return out.to(x.dtype)
+                return out, None
     scale, x_q = symmetric_quantize(x, agg_dtype)
-    out = symmetric_dequantize(aggregate(x_q), 1.0, scale)
-    return out.to(x.dtype)
+    return aggregate(x_q), None if agg_dtype is None else scale
+
+
+def epilogue_input(a, s, dtype):
+    """``(a, s)`` of :func:`raw_quantized_aggregate` as K-epi takes them
+    for an activation of ``dtype``: float32 ``a``; an integer ``a``
+    becomes float32 first, as the promoting ``a * s`` converts it; any
+    other ``a`` is dequantized and cast here (``s`` None)."""
+    if dtype == torch.float32 and a.dtype == torch.float32:
+        return a, s
+    if dtype == torch.float32 and not a.is_floating_point() and s is not None:
+        return a.float(), s
+    return (a if s is None else a * s).to(dtype), None
 
 
 class Linear(nn.Module):
@@ -122,6 +177,11 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return linear_apply(self.w, self.b, x)
+
+    def epilogue_parts(self, x):
+        """``(x @ w, None, b)``: the linear's product and its bias, for
+        :func:`bn_epilogue`."""
+        return linear_apply(self.w, None, x), None, self.b
 
 
 class BatchNorm(nn.Module):
@@ -160,6 +220,15 @@ class GCNConv(nn.Module):
         out = quantized_aggregate(aggregate, self.lin(x), agg_dtype)
         return out + self.bias
 
+    def epilogue_parts(self, x, aggregate: Aggregate, agg_dtype=None):
+        """``(a, s, bias)`` with ``forward(x) == a * s + bias`` (``s``
+        None: ``a + bias``): the aggregate undequantized, its scale and the
+        conv's bias, for :func:`bn_epilogue`."""
+        h = self.lin(x)
+        a, s = epilogue_input(*raw_quantized_aggregate(aggregate, h,
+                                                       agg_dtype), h.dtype)
+        return a, s, self.bias
+
 
 class GINConv(nn.Module):
     """aggregate → ``+ (1 + eps)·x`` → Linear → BatchNorm (running
@@ -181,6 +250,16 @@ class GINConv(nn.Module):
         m = self.mlp
         return m.lin2(torch.relu(m.bn(m.lin1(out))))
 
+    def epilogue_parts(self, x, aggregate: Aggregate, agg_dtype=None):
+        """``(h @ w2, None, b2)`` with ``forward(x) == h @ w2 + b2``: the
+        MLP's inner Linear → BatchNorm → ReLU in one :func:`bn_epilogue`,
+        its last product and bias for the block's."""
+        out = quantized_aggregate(aggregate, x, agg_dtype)
+        out = out + (1.0 + self.eps) * x
+        m = self.mlp
+        h = bn_epilogue(m.bn, *m.lin1.epilogue_parts(out))
+        return m.lin2.epilogue_parts(h)
+
 
 class SAGEConv(nn.Module):
     """aggregate → ``lin_l`` (with bias) → ``+ lin_r(x)`` (no bias) →
@@ -200,3 +279,7 @@ class SAGEConv(nn.Module):
             norm = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
             out = out / torch.clamp(norm, min=1e-12)
         return out
+
+    def epilogue_parts(self, x, aggregate: Aggregate, agg_dtype=None):
+        """``(forward(x), None, None)``: the bias sits inside the sum."""
+        return self(x, aggregate, agg_dtype), None, None

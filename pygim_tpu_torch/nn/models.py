@@ -4,7 +4,8 @@
 ``Linear(in, hidden)`` → BatchNorm → ReLU → dropout, then ``num_layers``
 × (conv → BatchNorm → ReLU → dropout), then ``Linear(hidden, out)``. In
 evaluation BatchNorm applies its running statistics and dropout is the
-identity; in training (:func:`gnn_apply` with ``training=True``) the
+identity, and where no gradient is needed each block ends in one K-epi
+pass (:func:`forward_stem`, :func:`forward_block`); in training (:func:`gnn_apply` with ``training=True``) the
 model's ``bn0``/``bns`` normalise by batch statistics and return their
 updated running statistics (:func:`merge_bn_stats` writes them back), and
 dropout draws from a ``torch.Generator``, one mask per dropout site in
@@ -31,7 +32,9 @@ from pygim_tpu_torch.nn.layers import (
     Linear,
     SAGEConv,
     batchnorm_train_apply,
+    bn_epilogue,
     dropout,
+    fusable,
 )
 
 CONVS = ("gcn", "sage", "gin")
@@ -92,6 +95,27 @@ def make_gnn(seed: int, conv: str, in_channels: int, hidden_channels: int,
     return model.to(device).eval()
 
 
+def forward_stem(model: GNN, x, fused: bool):
+    """The evaluation forward's first block, ``relu(bn0(ln1(x)))``: one
+    K-epi pass after the product where ``fused``, the ops otherwise (the
+    same values)."""
+    if fused:
+        return bn_epilogue(model.bn0, *model.ln1.epilogue_parts(x))
+    return torch.relu(model.bn0(model.ln1(x)))
+
+
+def forward_block(model: GNN, i: int, h, aggregate, fused: bool):
+    """The evaluation forward's conv block ``i``, ``relu(bns[i](conv(h)))``
+    at ``model.agg_dtype``: the conv's ``epilogue_parts`` and one K-epi
+    pass where ``fused`` (a GCN's dequantize and bias, a GIN's last bias
+    go into it), the ops otherwise (the same values)."""
+    conv, bn = model.convs[i], model.bns[i]
+    if fused:
+        return bn_epilogue(bn, *conv.epilogue_parts(h, aggregate,
+                                                    model.agg_dtype))
+    return torch.relu(bn(conv(h, aggregate, model.agg_dtype)))
+
+
 def gnn_apply(model: GNN, x, aggregate, *, training: Optional[bool] = None,
               generator: Optional[torch.Generator] = None,
               return_bn_stats: bool = False):
@@ -106,20 +130,26 @@ def gnn_apply(model: GNN, x, aggregate, *, training: Optional[bool] = None,
     ``(logits, {"bn0": {...}, "bns": [...]})`` (None in evaluation), for
     :func:`merge_bn_stats`."""
     training = model.training if training is None else training
+    if not training:
+        fused = fusable(x, *model.parameters())
+        h = forward_stem(model, x, fused)
+        for i in range(len(model.convs)):
+            h = forward_block(model, i, h, aggregate, fused)
+        out = model.ln2(h)
+        if return_bn_stats:
+            return out, {"bns": [None] * len(model.convs), "bn0": None}
+        return out
     rate = model.dropout
 
     def bn(layer, h):
-        if training:
-            return batchnorm_train_apply(layer.scale, layer.bias, layer.mean,
-                                         layer.var, h, layer.eps)
-        return layer(h), None
+        return batchnorm_train_apply(layer.scale, layer.bias, layer.mean,
+                                     layer.var, h, layer.eps)
 
     stats = {"bns": []}
     h, stats["bn0"] = bn(model.bn0, model.ln1(x))
     h = dropout(torch.relu(h), rate, generator, training)
-    agg_dtype = None if training else model.agg_dtype
     for conv, layer in zip(model.convs, model.bns):
-        h, s = bn(layer, conv(h, aggregate, agg_dtype))
+        h, s = bn(layer, conv(h, aggregate, None))
         stats["bns"].append(s)
         h = dropout(torch.relu(h), rate, generator, training)
     out = model.ln2(h)

@@ -6,6 +6,8 @@ from pygim_tpu_torch.ops import (
     core_f32,
     core_int,
     ell_tail,
+    epilogue,
+    quant_prologue,
     seg_rows,
 )
 from pygim_tpu_torch.ops.reference import spmm_coo_oracle, spmm_csr_oracle
@@ -33,7 +35,11 @@ def launch_counts() -> dict:
             **{f"K-bcsr {k}": bcsr.route_launches.get(k, 0)
                for k in bcsr.route_keys()},
             "K-rows": seg_rows.launches,
-            "K-rows coo": seg_rows.coo_launches}
+            "K-rows coo": seg_rows.coo_launches,
+            "K-epi": epilogue.launches,
+            "K-quant": quant_prologue.launches,
+            **{f"K-quant {k}": n
+               for k, n in quant_prologue.entry_launches.items()}}
 
 
 def reset_launch_counts() -> None:
@@ -45,6 +51,9 @@ def reset_launch_counts() -> None:
     bcsr.launches = 0
     bcsr.route_launches.clear()
     seg_rows.launches = seg_rows.coo_launches = 0
+    epilogue.launches = quant_prologue.launches = 0
+    quant_prologue.entry_launches.update(
+        dict.fromkeys(quant_prologue.entry_launches, 0))
 
 
 __all__ = ["PreparedAggregate", "PreparedSpmm", "SpmmConfig", "prepare_spmm",

@@ -83,6 +83,20 @@ SIGNATURES = {
         "seg_rows": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _LL, _I, _P, _I, _I,
                      _P, _I, _I, _P],
     },
+    "epilogue": {
+        # a, y, n, h, vec, scale, bias, mean, inv, gamma, beta, stream
+        "epilogue": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "quant": {
+        # x, numel, vec, partials, 2^-k, out (3,), stream
+        "quant_abs_max": [_P, _LL, _I, _P, ctypes.c_float, _P, _P],
+        # x, numel, vec, safe, out, out type, stream
+        "quant_table": [_P, _LL, _I, _P, _P, _I, _P],
+        # x, x type, rows, n_rows, safe, limbs, h, h_pad, k_pad, vec, out,
+        # stream
+        "quant_core_payload": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P,
+                               _P],
+    },
 }
 
 _libs: dict = {}

@@ -109,18 +109,26 @@ def core_bands_plain(bands, xc, core_nodes, stair, out):
 
 def _check(bands, xc, core_nodes, stair, out,
            xc_dtypes=(torch.bfloat16,)) -> None:
-    if len(bands) != len(stair):
-        raise ValueError(f"{len(bands)} bands for {len(stair)} stair entries")
     if xc.dtype not in xc_dtypes or xc.dim() != 2:
         raise TypeError(f"xc must be 2-D {' or '.join(map(str, xc_dtypes))}, "
                         f"got {xc.dtype} {tuple(xc.shape)}")
+    if xc.shape[1] != out.shape[1]:
+        raise ValueError(f"xc width {xc.shape[1]} != out width {out.shape[1]}")
+    _check_operands(bands, core_nodes, stair, out, "xc", xc, xc.shape[0])
+
+
+def _check_operands(bands, core_nodes, stair, out, name, payload,
+                    payload_rows: int) -> None:
+    """:func:`_check`'s rules on the bands, the rows, ``out`` and the
+    payload's rows, device and layout (``payload_rows``: the payload rows
+    it holds, xc's first dimension or a limb payload's padded K)."""
+    if len(bands) != len(stair):
+        raise ValueError(f"{len(bands)} bands for {len(stair)} stair entries")
     if core_nodes.dtype != torch.int32 or core_nodes.dim() != 1:
         raise TypeError(f"rows must be 1-D int32, got {core_nodes.dtype} "
                         f"{tuple(core_nodes.shape)}")
     if out.dtype != torch.float32 or out.dim() != 2:
         raise TypeError(f"out must be 2-D float32, got {out.dtype} {tuple(out.shape)}")
-    if xc.shape[1] != out.shape[1]:
-        raise ValueError(f"xc width {xc.shape[1]} != out width {out.shape[1]}")
     if len({band.dtype for band in bands}) > 1:
         raise TypeError("bands of one call must share their cell type")
     for band, (lo, hi, w) in zip(bands, stair):
@@ -133,18 +141,19 @@ def _check(bands, xc, core_nodes, stair, out,
         if tuple(band.shape) != (hi - lo, w // (1 + (band.dtype == torch.uint8))):
             raise ValueError(f"band {band.dtype} {tuple(band.shape)} for "
                              f"stair entry {(lo, hi, w)}")
-        if xc.shape[0] < w:
-            raise ValueError(f"xc has {xc.shape[0]} rows for a band of width {w}")
+        if payload_rows < w:
+            raise ValueError(f"{name} has {payload_rows} rows for a band of "
+                             f"width {w}")
         if core_nodes.shape[0] < hi:
             raise ValueError(
                 f"rows has {core_nodes.shape[0]} entries for band rows up to {hi}")
-    devs = {t.device for t in (*bands, xc, core_nodes, out)}
+    devs = {t.device for t in (*bands, payload, core_nodes, out)}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
-    for name, t in (("xc", xc), ("rows", core_nodes), ("out", out), *(
+    for label, t in ((name, payload), ("rows", core_nodes), ("out", out), *(
             (f"band {b}", t) for b, t in enumerate(bands))):
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{label} must be contiguous")
 
 
 def width_rule(packed: bool) -> int:

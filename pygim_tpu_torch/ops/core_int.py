@@ -28,9 +28,12 @@ where the payload's range leaves it in [-128, 127]. So:
 * quantized payloads: :data:`QUANT_LIMBS`, 1 for int8 (|q| ≤ 16), 2 for
   int16 (|q| ≤ 2^9 + 1), 3 for int32 (|q| ≤ 2^19 + 1).
 
-The limb split and the transpose stay PyTorch ops, as the float path's
-gather and bf16 cast do. Every product is exact, so the kernel and
-:func:`core_int_plain` agree bit for bit on ``out``.
+A prepared operand's integer products get the payload from K-quant
+(``ops/quant_prologue.py:core_payload``: the rank gather, the rounding
+and the limb split in one pass); a caller that passes its own ``xc`` (a
+halo shard's hub rows) gets :func:`limb_split` as PyTorch ops. Every
+product is exact, so the kernel and :func:`core_int_plain` agree bit for
+bit on ``out``.
 
 A band is int8 ``(r, w)`` or int4 nibble-packed into uint8 ``(r, w //
 2)`` (``core_dot.py``): the packed core's s8 and wide-integer products
@@ -54,6 +57,7 @@ from pygim_tpu_torch.ops import _build, core_dot
 from pygim_tpu_torch.ops.core_dot import (
     CorePlan,
     _check,
+    _check_operands,
     band_cells,
     band_groups,
     band_maps,
@@ -277,8 +281,20 @@ def core_int_launch(bands, xct, core_nodes, stair, out, plans):
     return out
 
 
+def limb_join(xct, k: int, h: int):
+    """The integer payload ``(k, h)`` int32 whose :func:`limb_split` is
+    ``xct`` (``(limbs, h_pad, k_pad)``): ``Σ_l 2^(8l) · digit_l`` wrapped
+    mod 2^32, the value K-int multiplies wherever the last digit fits
+    (module docstring)."""
+    q = torch.zeros(xct.shape[2], xct.shape[1], dtype=torch.int64,
+                    device=xct.device)
+    for l in range(xct.shape[0]):
+        q += xct[l].T.to(torch.int64) << (8 * l)
+    return _wrap32(q[:k, :h])
+
+
 def core_int_scatter_add(bands, xc, core_nodes, stair, out, limbs=None,
-                         plans=None):
+                         plans=None, payload=None):
     """``out[core_nodes[lo + i]] += f32(int32(Σ_{j<w} band[i, j] ·
     xc[j]))`` (the sum wrapped mod 2^32) for every band ``(lo, hi, w)`` of
     ``stair``, in one launch per group of up to 16 bands.
@@ -291,19 +307,32 @@ def core_int_scatter_add(bands, xc, core_nodes, stair, out, limbs=None,
     caller passes :data:`QUANT_LIMBS`. CPU tensors take
     :func:`core_int_plain`; CUDA tensors launch the kernel or raise.
     ``plans`` (:func:`core_int_plans` at this H and ``limbs``) is built
-    here when not given."""
-    _check(bands, xc, core_nodes, stair, out, xc_dtypes=INT_DTYPES)
-    _build.refuse_grad("core_int_scatter_add", xc, out)
+    here when not given. ``payload``, in place of ``xc`` (None), is the
+    ready limb payload of ``limbs`` digits (:func:`limb_split` of xc, as
+    ``ops/quant_prologue.py:core_payload`` writes it from x); on the CPU
+    :func:`limb_join` turns it back into xc."""
+    h = out.shape[1]
+    w_max = max((w for *_, w in stair), default=0)
+    if payload is None:
+        _check(bands, xc, core_nodes, stair, out, xc_dtypes=INT_DTYPES)
+    elif xc is not None or limbs is None or payload.shape[0] != limbs:
+        raise ValueError("a ready payload comes alone, with its limbs")
+    else:  # core_int_launch checks the payload's own type and shape
+        _check_operands(bands, core_nodes, stair, out, "payload", payload,
+                        payload.shape[2])
+        if out.device.type == "cpu":
+            xc = limb_join(payload, w_max, h)
+    _build.refuse_grad("core_int_scatter_add", out)
     if out.device.type == "cpu":
         return core_int_plain(bands, xc, core_nodes, stair, out)
     if out.device.type != "cuda":
         raise ValueError(f"no K-int kernel for device {out.device}")
     _check_kernel_contract(bands, stair)
-    limbs = RAW_LIMBS[xc.dtype] if limbs is None else limbs
-    h = out.shape[1]
+    if limbs is None:
+        limbs = RAW_LIMBS[xc.dtype]
     if plans is None:
         plans = core_int_plans(bands, stair, h, limbs)
-    w_max = max((w for *_, w in stair), default=0)
-    xct = limb_split(xc[:w_max], limbs, -(-h // 64) * 64,
-                     -(-w_max // 16) * 16)
-    return core_int_launch(bands, xct, core_nodes, stair, out, plans)
+    if payload is None:
+        payload = limb_split(xc[:w_max], limbs, -(-h // 64) * 64,
+                             -(-w_max // 16) * 16)
+    return core_int_launch(bands, payload, core_nodes, stair, out, plans)

@@ -145,6 +145,14 @@ from pygim_tpu_torch.ops.ell_tail import (
     ell_tables_plain,
     tail_plan,
 )
+from pygim_tpu_torch.ops.quant_prologue import (
+    abs_max_scale,
+    abs_max_scale_plain,
+    core_payload,
+    payload_dims,
+    quant_table,
+    quant_table_plain,
+)
 from pygim_tpu_torch.ops.reference import (
     spmm_coo_oracle,
     spmm_coo_oracle_chunked,
@@ -157,7 +165,7 @@ from pygim_tpu_torch.ops.seg_rows import (
     coo_plan,
     coo_rows,
 )
-from pygim_tpu_torch.quant import _SCALE_EXP, dtype_name, quant_scale
+from pygim_tpu_torch.quant import _SCALE_EXP, dtype_name
 from pygim_tpu_torch.utils.cache import LOAD_ERRORS, cache_dir, save_npz
 from pygim_tpu_torch.utils.timers import PhaseTimer, device_time
 
@@ -1119,7 +1127,8 @@ class PreparedSpmm:
         return core_f32_scatter_add(bands, xc, core_nodes, stair, out,
                                     plans=plans)
 
-    def _core_int(self, bands, xc, core_nodes, stair, out, limbs):
+    def _core_int(self, bands, xc, core_nodes, stair, out, limbs,
+                  payload=None):
         """K-int over this operand's own bands, with their plans built
         once per (H, limbs) on the card."""
         plans = None
@@ -1129,7 +1138,7 @@ class PreparedSpmm:
                 self._int_plans[key] = core_int_plans(bands, stair, *key)
             plans = self._int_plans[key]
         return core_int_scatter_add(bands, xc, core_nodes, stair, out,
-                                    limbs, plans=plans)
+                                    limbs, plans=plans, payload=payload)
 
     def mul_plain(self, x):
         """The same product through the plain PyTorch versions on any
@@ -1187,7 +1196,7 @@ class PreparedSpmm:
             else:
                 kernels[0](x, self.ell_tables(dev), out, safe=safe)
             if self.stair:
-                self._core_add(x, dev, out, kernels, safe, limbs)
+                self._core_add(x, dev, out, kernels, safe, limbs, plain=plain)
         if self.has_bcsr:
             kernels[4](x, *self.bcsr_tables(dev), out, safe=safe)
         return out
@@ -1223,6 +1232,13 @@ class PreparedSpmm:
         main.wait_stream(side)
         return out.index_add_(0, cn[:k], buf)
 
+    def _gather_rows(self, dev):
+        """The rows of the rank gather that the core's products read:
+        ``core_nodes[:max w]``, or a mesh shard's ``core_rows[:max w]``
+        where ``dev`` holds them."""
+        rows = dev["core_rows"] if "core_rows" in dev else dev["core_nodes"]
+        return rows[:max(w for *_, w in self.stair)]
+
     def _xc(self, x, cn, dev=None):
         """The rank gather ``x[core_nodes[:max w]]``, zero rows appended
         where a padded square core is wider than its k nodes; a mesh
@@ -1236,7 +1252,7 @@ class PreparedSpmm:
         return xc
 
     def _core_add(self, x, dev, out, kernels, safe=None, limbs=None,
-                  rows=None, xc=None):
+                  rows=None, xc=None, plain=False):
         """The core tier of :meth:`_run` into ``out`` at ``core_nodes`` (or
         ``rows``): the rank gather ``xc`` (or the caller's ``xc``, as wide
         as the stored band: a halo shard's hub buffer), rounded to
@@ -1256,10 +1272,24 @@ class PreparedSpmm:
         ========== ======================== =====================
 
         A float64 core (a float64 graph with ``hybrid_dtype`` None) holds
-        f32 cells, so it is the float32 row."""
+        f32 cells, so it is the float32 row.
+
+        Through the kernels (not ``plain``), an integer product on an int8
+        or int4 core without the caller's ``xc`` takes its payload from
+        K-quant (``ops/quant_prologue.py:core_payload``): the gather, the
+        rounding and K-int's limbs in one pass."""
         _tail_fn, core_fn, int_fn, f32_fn, _bcsr_fn = kernels
         cn = dev["core_nodes"] if rows is None else rows
         bands = [dev[k] for k in self._band_keys]
+        if (xc is None and not plain and self.core_dtype in INT_CORES
+                and (safe is not None or not x.is_floating_point())):
+            limbs = limbs or RAW_LIMBS[torch.int32 if safe is not None
+                                       else x.dtype]
+            w_max = max(w for *_, w in self.stair)
+            payload = core_payload(x, self._gather_rows(dev), safe, limbs,
+                                   *payload_dims(w_max, out.shape[1]))
+            return int_fn(bands, None, cn, self.stair, out, limbs=limbs,
+                          payload=payload)
         if xc is None:
             xc = self._xc(x, dev["core_nodes"], dev)
         if safe is not None:
@@ -1281,7 +1311,8 @@ class PreparedSpmm:
         into the aggregate: the ell and hybrid backends."""
         return self.config.backend in ("ell", "hybrid")
 
-    def raw_mul_quantized(self, x, dev: dict, agg_dtype, plain=False):
+    def raw_mul_quantized(self, x, dev: dict, agg_dtype, plain=False,
+                          dequantize=True):
         """Fused quantize → A·x → dequantize, the reference's
         ``raw_mul_quantized``: ``scale = 2·max|x| / 2^k`` on the device,
         ``q = round(x / safe)`` (a true division, half to even), the exact
@@ -1299,7 +1330,15 @@ class PreparedSpmm:
         an f32 core takes it in K-f32; the tier in its float compute
         dtype), then ``out * scale``. Rounding before the gathers gives the
         reference's values, which rounds after them. ``x`` float32;
-        returns float32. ``plain`` runs the plain versions."""
+        returns float32. ``plain`` runs the plain versions.
+
+        On the card K-quant computes the prologue
+        (``ops/quant_prologue.py``): ``scale`` and ``safe`` in one
+        reduction, the int8 / int16 table in one pass, and the core's
+        limb payload straight from x or the table (:meth:`_core_add`).
+        With ``dequantize=False`` the product comes back undequantized,
+        as ``(out, scale)``: the caller folds ``out * scale`` into its
+        epilogue (K-epi, ``nn/layers.py:bn_epilogue``)."""
         if not self.supports_fused_quant:
             raise ValueError(f"fused quantization unsupported for backend "
                              f"{self.config.backend!r}")
@@ -1317,16 +1356,17 @@ class PreparedSpmm:
         if x.dtype != torch.float32:
             raise TypeError(f"quantized aggregation takes a float32 x, got "
                             f"{x.dtype}")
-        scale, safe = quant_scale(x, name)
+        _abs_max, scale, safe = (abs_max_scale_plain if plain
+                                 else abs_max_scale)(x, name)
         if passthrough:
-            return self._run(torch.round(x / safe), dev, plain) * scale
-        limbs = QUANT_LIMBS[name]
-        if name == "int32":
-            out = self._run(x, dev, plain, safe=safe, limbs=limbs)
+            out = self._run(torch.round(x / safe), dev, plain)
+        elif name == "int32":
+            out = self._run(x, dev, plain, safe=safe,
+                            limbs=QUANT_LIMBS[name])
         else:
-            xq = torch.round(x / safe).to(getattr(torch, name))
-            out = self._run(xq, dev, plain, limbs=limbs)
-        return out * scale
+            xq = (quant_table_plain if plain else quant_table)(x, safe, name)
+            out = self._run(xq, dev, plain, limbs=QUANT_LIMBS[name])
+        return out * scale if dequantize else (out, scale)
 
     def mul_quantized(self, x, agg_dtype):
         """:meth:`raw_mul_quantized` on this operand's own tables."""
@@ -1432,9 +1472,11 @@ class SpmmFunction(torch.autograd.Function):
 
 class PreparedAggregate:
     """Callable aggregate ``v -> A·v`` bound to a prepared operand, with
-    ``quantized``, the fused quantized-aggregate hook the conv layers
-    probe (:func:`pygim_tpu_torch.nn.layers.quantized_aggregate`): the
-    integer dtypes and the float passthrough. Under grad
+    ``quantized_raw`` and ``quantized``, the fused quantized-aggregate
+    hooks the conv layers probe
+    (:func:`pygim_tpu_torch.nn.layers.raw_quantized_aggregate`): the
+    integer dtypes and the float passthrough, undequantized and
+    dequantized. Under grad
     mode a payload that requires grad goes through :class:`SpmmFunction`
     on the kernel backends, whose operand's transpose must be prepared
     first (``prep.transpose(graph)``), as on a mesh operand; ``oracle``
@@ -1463,13 +1505,23 @@ class PreparedAggregate:
         grad: training aggregates the float payload, as the reference's
         train step, and the port does not imitate the gradient JAX passes
         through ``max|x|`` in the scale."""
+        raw = self.quantized_raw(v, agg_dtype)
+        return None if raw is None else raw[0] * raw[1]
+
+    def quantized_raw(self, v, agg_dtype: str):
+        """:meth:`quantized` before its dequantize: ``(out, scale)`` with
+        the aggregate ``out * scale``, or None where the backend does not
+        fuse. The evaluation forward takes this hook and folds ``out *
+        scale`` into the layer's epilogue (K-epi,
+        ``nn/layers.py:bn_epilogue``)."""
         if torch.is_grad_enabled() and v.requires_grad:
             raise NotImplementedError(
                 f"a gradient through the {agg_dtype} quantized aggregate: "
                 "training aggregates the float payload (agg_dtype=None)")
         if not self.prep.supports_fused_quant:
             return None
-        return self.prep.raw_mul_quantized(v, self.dev, agg_dtype)
+        return self.prep.raw_mul_quantized(v, self.dev, agg_dtype,
+                                           dequantize=False)
 
 
 def prepare_spmm(graph, config: Optional[SpmmConfig] = None, *,

@@ -32,11 +32,13 @@ def quant_scale(v, dtype="int32"):
     with a zero replaced by 1. Divide by ``safe`` (``v / safe``, a true
     division: a 0-dim CUDA divisor is not turned into a reciprocal
     multiply), never multiply by its reciprocal, so the rounding matches
-    the reference bit for bit."""
-    abs_max = torch.linalg.vector_norm(v, float("inf"))  # max|v|, one pass
-    k = _SCALE_EXP.get(dtype_name(dtype), 20)
-    scale = abs_max * 2.0 / (2.0 ** k)
-    return scale, torch.where(scale == 0, torch.ones_like(scale), scale)
+    the reference bit for bit. On the card one K-quant reduction
+    (``ops/quant_prologue.py:abs_max_scale``) computes both."""
+    # imported here: ops/ imports this module
+    from pygim_tpu_torch.ops.quant_prologue import abs_max_scale
+
+    _abs_max, scale, safe = abs_max_scale(v, dtype)
+    return scale, safe
 
 
 def symmetric_quantize(v, dtype="int32"):
@@ -48,10 +50,12 @@ def symmetric_quantize(v, dtype="int32"):
         return (torch.ones((), dtype=torch.float32, device=v.device),
                 v.to(torch.bfloat16))
     scale, safe = quant_scale(v, name)
-    v_q = torch.round(v / safe)
     if name in _SCALE_EXP or name == "int64":
-        v_q = v_q.to(getattr(torch, name))
-    return scale, v_q
+        # one K-quant pass on the card; imported here as above
+        from pygim_tpu_torch.ops.quant_prologue import quant_table
+
+        return scale, quant_table(v, safe, name)
+    return scale, torch.round(v / safe)
 
 
 def symmetric_dequantize(out, scale_edge, scale_x):

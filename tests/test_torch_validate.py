@@ -153,9 +153,11 @@ def test_run_inference_benchmark_raises_on_a_failed_check(monkeypatch):
     cfg = tspmm.SpmmConfig(**CONFIGS["square-int4"])
     real = tspmm.PreparedSpmm.raw_mul_quantized
 
-    def off(self, x, dev, agg_dtype, plain=False):
-        out = real(self, x, dev, agg_dtype, plain)
-        out[::7] += 1.0
+    def off(self, x, dev, agg_dtype, plain=False, dequantize=True):
+        out = real(self, x, dev, agg_dtype, plain, dequantize)
+        # the evaluation forward takes the product undequantized
+        raw, scale = (out, 1.0) if dequantize else out
+        raw[::7] += 1.0 / scale
         return out
 
     monkeypatch.setattr(tspmm.PreparedSpmm, "raw_mul_quantized", off)
