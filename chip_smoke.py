@@ -208,7 +208,8 @@ beside the exchange's bytes bound at nd 4; then
 Then training over the meshes (``mesh train``): a (2, 2) 2D mesh and a
 4-way halo, each of ``ell`` and an int8 square core, their transposes
 prepared, the GCN's gradients and 3 Adam steps through the kernels held
-to the plain versions' while both negative controls fail. Then
+to the plain versions' while both negative controls fail the gradient
+check (the cut control the losses' too). Then
 ``entry.py:dryrun_multichip(8)``, the twin of ``__graft_entry__``'s.
 
 The blocked and coo backends run K-rows (``csrc/seg_rows.cu``, one
@@ -227,9 +228,29 @@ entries; and times each mode beside its plain version,
 on Aᵀ through K-rows) to the plain versions' while both controls fail,
 and ``run_training_benchmark`` trains the GCN with ``config=None``.
 
+The training step's BatchNorm → ReLU → dropout blocks run K-bn
+(``csrc/bn_train.cu``: the batch statistics, one normalize–ReLU–dropout
+pass with an in-kernel Philox mask, the backward's column sums and dz).
+The ``bn_train_checks`` phase holds each kernel to its plain version at
+the smoke shape, at N 1037 with H 41 and 256 and on a misaligned copy,
+at dropout rates 0, 0.5 and 0.3: the forward and the mask bit for bit
+(the forward also with NaN, ±inf and -0 inputs), the statistics (also
+over chunk counts with empty chunks) and the backward's sums within 1e-5
+of the sum of |terms|, dz within 1e-6 of it given the same sums; times
+each beside its bound, its plain version and the library
+(``torch.var_mean``; ``F.batch_norm(training=False)`` + ``torch.relu`` +
+``F.dropout`` for the forward; the block beside the chain with the
+batch's statistics and that chain's backward); holds one training
+step's gradients of GCN, GIN and SAGE through K-bn to autograd through
+the plain chain within GRAD_BAR while a backward with the ReLU's sign
+dropped fails it; and counts one GCN step, each kernel three times. The
+training checks' plain arms take the plain chain (:func:`bn_block`), and
+the GCN step's split says each K-bn kernel ran three times in its phase.
+
 Its last three lines are the ``kernels`` JSON object (each kernel with
-its split and schedule balance where it has a tile schedule, K-core
-and K-tail with their launches in one training step, and every kernel
+its split and schedule balance where it has a tile schedule, K-core,
+K-tail and the K-bn kernels with their launches in one training step,
+and every kernel
 with its launches in the harness phase), the card's
 name and power limit (``nvidia-smi``), and ``{"ok": true, "device":
 ...}``.
@@ -270,6 +291,7 @@ dataset synthesis and host prepare where the cache is cold).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -1496,6 +1518,55 @@ class PlainAggregate:
         return self.prep.mul_quantized_plain(v, agg_dtype)
 
 
+def plain_bn_block(layer, z, rate, generator, momentum=0.1):
+    """The training block through the plain chain, which autograd follows:
+    ``batchnorm_train_apply``, ``torch.relu``, ``dropout`` (the mask of
+    the same key as K-bn's, from the same generator state)."""
+    import torch
+
+    from pygim_tpu_torch.nn.layers import batchnorm_train_apply, dropout
+
+    y, stats = batchnorm_train_apply(layer.scale, layer.bias, layer.mean,
+                                     layer.var, z, layer.eps, momentum)
+    return dropout(torch.relu(y), rate, generator, True), stats
+
+
+def no_relu_sign_block(layer, z, rate, generator, momentum=0.1):
+    """A negative control: the plain chain whose backward drops the ReLU's
+    sign (the forward value is the ReLU's, the gradient passes
+    everywhere)."""
+    import torch
+
+    from pygim_tpu_torch.nn.layers import batchnorm_train_apply, dropout
+
+    y, stats = batchnorm_train_apply(layer.scale, layer.bias, layer.mean,
+                                     layer.var, z, layer.eps, momentum)
+    return dropout(y + (torch.relu(y) - y).detach(), rate, generator,
+                   True), stats
+
+
+def plain_block_of(agg):
+    """The plain chain for a :class:`PlainAggregate` (the plain arms run
+    no kernel), else None (K-bn)."""
+    return plain_bn_block if isinstance(agg, PlainAggregate) else None
+
+
+@contextlib.contextmanager
+def bn_block(fn):
+    """``with bn_block(fn):`` the training forward's BatchNorm → ReLU →
+    dropout blocks run ``fn`` (``nn/models.py``'s
+    ``bn_relu_dropout_train``, patched here); None leaves K-bn."""
+    from pygim_tpu_torch.nn import models
+
+    saved = models.bn_relu_dropout_train
+    if fn is not None:
+        models.bn_relu_dropout_train = fn
+    try:
+        yield
+    finally:
+        models.bn_relu_dropout_train = saved
+
+
 def plain_forward(gnn, xf, prep):
     """``gnn``'s evaluation forward through the plain versions alone:
     :class:`PlainAggregate` and each stage as separate PyTorch ops
@@ -1814,14 +1885,18 @@ def entry_points(results, timeout: int = 300):
 TRAIN_GRAPH = "planted-20000-240000-8"
 TRAIN_STEPS = 3
 # the 3-step loss check's learning rate and bar, and the gradient check's
-# bar, set from the readings of ``--train-sweep`` (PERF.md §6, H100): at
-# lr 1e-3 the kernels drift at most 4.3e-4 from the plain versions and
-# the plain versions 2.4e-4 from themselves, while the cut and
-# untransposed controls drift 2.3e-3 to 1.3e-2 for every conv; at 3e-3 the
-# untransposed GCN drifted only 2.9e-4, and at 3e-3 and 1e-2 the plain
-# versions drifted from themselves by 1.3e-3 and 1.0e-3 (GIN). Gradients:
-# kernels against plain at most 7.1e-3 of a leaf (SAGE), the controls 0.57
-# or more
+# bar, set from the readings of ``--train-sweep`` and of the same arms
+# over 3 to 10 steps (PERF.md §6, H100). With dropout's masks from
+# Philox keys (K-bn), at lr 1e-3 and 3 steps the kernels drift at most
+# 1.6e-4 from the plain versions (GIN; 6e-5 GCN, 3e-5 SAGE; six kernel
+# runs each) and the cut control 6.4e-3 or more, so the loss check holds
+# the kernels and must catch the cut control with a margin of six either
+# way. It cannot catch the untransposed control: in 3 steps that drifted
+# 3e-5 to 6e-5 (GCN), as little as the kernels, and at 4 and 5 steps the
+# kernels' and that control's drifts overlap (kernels up to 1.25e-3 at
+# 8 steps, the control 9.7e-4 at 4). The gradient check catches both
+# controls: kernels against plain at most 4.6e-3 of a leaf (GIN), the
+# controls 0.57 or more
 TRAIN_LR = 1e-3  # train.py's default
 LOSS_BAR = 1e-3
 GRAD_BAR = 2e-2
@@ -1832,6 +1907,9 @@ GRAD_FLOOR = 1e-4
 SWEEP_LRS = (1e-3, 3e-3, 1e-2)
 CONVS = ("gcn", "gin", "sage")
 CONTROLS = ("cut", "untransposed")
+# the controls the loss check must catch as well (every control must
+# fail the gradient check)
+LOSS_CONTROLS = ("cut",)
 
 
 TRAIN_EPOCHS = 50  # run_training_benchmark's default
@@ -1880,10 +1958,12 @@ def training_arms(prep) -> dict:
             "cut": CutAggregate(prep), "untransposed": untransposed(prep)}
 
 
-def leaf_grads(conv, ds, agg, inputs) -> dict:
+def leaf_grads(conv, ds, agg, inputs, block=None) -> dict:
     """Every parameter's gradient after one training forward (dropout
     0.5, generator seed 0) and backward of the masked loss from the seeded
-    initialisation; a leaf no gradient reached has zeros."""
+    initialisation; a leaf no gradient reached has zeros. The BatchNorm
+    blocks run ``block`` where given, else the plain chain for a
+    :class:`PlainAggregate` and K-bn otherwise (:func:`plain_block_of`)."""
     import torch
 
     from pygim_tpu_torch.nn.models import gnn_apply, make_gnn
@@ -1892,10 +1972,11 @@ def leaf_grads(conv, ds, agg, inputs) -> dict:
     x, labels, mask = inputs
     model = make_gnn(0, conv, ds.x.shape[1], HIDDEN, ds.num_classes,
                      device=x.device)
-    logits = gnn_apply(model, x, agg, training=True,
-                       generator=torch.Generator(device=x.device)
-                       .manual_seed(0))
-    softmax_cross_entropy(logits, labels, mask).backward()
+    with bn_block(block if block is not None else plain_block_of(agg)):
+        logits = gnn_apply(model, x, agg, training=True,
+                           generator=torch.Generator(device=x.device)
+                           .manual_seed(0))
+        softmax_cross_entropy(logits, labels, mask).backward()
     return {k: (p.grad if p.grad is not None else torch.zeros_like(p))
             for k, p in model.named_parameters()}
 
@@ -1911,8 +1992,9 @@ def leaf_errs(got: dict, want: dict) -> dict:
 
 def arm_losses(conv, ds, agg, inputs, lr, steps=TRAIN_STEPS):
     """``steps`` steps of ``make_train_step`` (Adam at ``lr``, dropout
-    0.5 with generator seeds 0, 1, ...) from the seeded initialisation:
-    (model, losses, launches)."""
+    0.5 with generator seeds 0, 1, ...) from the seeded initialisation,
+    the BatchNorm blocks as :func:`plain_block_of` says: (model, losses,
+    launches)."""
     import torch
 
     from pygim_tpu_torch.nn.models import make_gnn
@@ -1925,8 +2007,10 @@ def arm_losses(conv, ds, agg, inputs, lr, steps=TRAIN_STEPS):
     step = make_train_step(model, agg, torch.optim.Adam(
         model.parameters(), lr=lr))
     reset_launch_counts()
-    losses = [float(step(*inputs, torch.Generator(device=dev).manual_seed(e)))
-              for e in range(steps)]
+    with bn_block(plain_block_of(agg)):
+        losses = [float(step(*inputs,
+                             torch.Generator(device=dev).manual_seed(e)))
+                  for e in range(steps)]
     sync(dev)
     return model, losses, launch_counts()
 
@@ -2046,10 +2130,13 @@ def train_steps(ds, prep, results, card):
       learning rate whatever its gradient's size, so a rounding-sized
       difference that flips a near-zero gradient's sign moves a weight by
       twice the rate, and the losses of two runs of the same code drift
-      apart: TRAIN_LR is the swept rate at which the honest runs stay
-      inside the bar and both controls fail it;
-    * each negative control must fail both checks, so neither can pass a
-      cut or untransposed backward;
+      apart: TRAIN_LR and TRAIN_STEPS are the swept rate and steps at
+      which the honest runs stay inside the bar and the cut control
+      fails it, each by a margin of six;
+    * each negative control must fail the gradient check, and the cut
+      control the loss check too (LOSS_CONTROLS; in 3 steps an
+      untransposed backward can move the losses as little as rounding
+      does), so neither check can pass a cut or untransposed backward;
     * the kernel-trained model's per-layer activations through the
       kernels and through the plain versions within the hybrid's 1e-2
       (``validate_model``'s bar, ``1e-2 + 1e-2 · max|activation|``), and
@@ -2094,7 +2181,8 @@ def train_steps(ds, prep, results, card):
                                  f"losses {ldrift['kernels']} (bar "
                                  f"{LOSS_BAR})")
         for c in CONTROLS:
-            if gerr[c] <= GRAD_BAR or ldrift[c] <= LOSS_BAR:
+            if gerr[c] <= GRAD_BAR or (c in LOSS_CONTROLS
+                                       and ldrift[c] <= LOSS_BAR):
                 raise AssertionError(f"{conv}: the {c} control passed "
                                      f"(gradients {gerr[c]}, losses "
                                      f"{ldrift[c]})")
@@ -2130,6 +2218,14 @@ def train_steps(ds, prep, results, card):
         step(*inputs, torch.Generator(device=dev).manual_seed(e))
     ms = {p: float(np.mean(split.ms[p][1:])) for p in split.PHASES}
     out["gcn step"] = dict(ms=ms, launches=split.launches)
+    for phase, kernels in (("forward", ("K-bn stats", "K-bn fwd")),
+                           ("backward", ("K-bn bwd stats", "K-bn bwd"))):
+        for k in BN_KERNELS:  # three BatchNorm blocks in a 2-layer step
+            want = 3 if k in kernels else 0
+            if split.launches[phase][k] != want:
+                raise AssertionError(f"gcn step {phase}: {k} launched "
+                                     f"{split.launches[phase][k]} times, "
+                                     f"want {want}")
     print(f"training, gcn step at hidden {HIDDEN}: forward "
           f"{ms['forward']:.4f} ms, backward {ms['backward']:.4f} ms, Adam + "
           f"merge {ms['adam']:.4f} ms; launches forward "
@@ -5798,8 +5894,9 @@ def mesh_train_phase(ds, results, card, device="cuda"):
     versions (autograd through ``mul_plain`` on A) and through the two
     negative controls: every leaf's gradient of one step within GRAD_BAR
     of the plain arm's and the losses of TRAIN_STEPS Adam steps within
-    LOSS_BAR, both controls failing both, the kernels' launches counted
-    and none in the plain arm."""
+    LOSS_BAR, both controls failing the gradient check and the cut control
+    the loss check too (LOSS_CONTROLS), the kernels' launches counted and
+    none in the plain arm."""
     import numpy as np
     import torch
 
@@ -5848,7 +5945,8 @@ def mesh_train_phase(ds, results, card, device="cuda"):
                                  f"gradients {gerr['kernels']}, losses "
                                  f"{ldrift['kernels']}")
         for c in CONTROLS:
-            if gerr[c] <= GRAD_BAR or ldrift[c] <= LOSS_BAR:
+            if gerr[c] <= GRAD_BAR or (c in LOSS_CONTROLS
+                                       and ldrift[c] <= LOSS_BAR):
                 raise AssertionError(f"mesh train {key}: the {c} control "
                                      f"passed ({gerr[c]}, {ldrift[c]})")
         want = HALO_KERNELS[name][0]
@@ -6301,6 +6399,319 @@ def epilogue_checks(ds, prep, prep4, results, device="cuda"):
     free(device)
 
 
+BN_KERNELS = ("K-bn stats", "K-bn fwd", "K-bn bwd stats", "K-bn bwd")
+BN_EPS = 1e-5
+# rate 0: no dropout; 0.5: 1 / (1 - rate) exact; 0.3: its f32 reciprocal
+BN_RATES = (0.0, 0.5, 0.3)
+BN_RAGGED = ((1037, 41), (1037, 256))  # N odd; H 41: single elements
+# the statistics and the backward's column sums: sums in another order,
+# held within 1e-5 of the sum of |terms| (REL_TOL's reasoning); dz given
+# the same sums: four roundings of terms each at most the sum of |terms|
+BN_SUM_TOL = 1e-5
+BN_DZ_TOL = 1e-6
+
+
+def rel_err(got, want, mag):
+    """``(max |got - want| / mag, max |got - want|)`` (mag: the sum of
+    |terms| behind each value; NaN where anything is not finite)."""
+    import torch
+
+    diff = (got.double() - want.double()).abs()
+    err = diff / mag.double().clamp_min(1e-30)
+    if not torch.isfinite(err).all():
+        return float("nan"), float("nan")
+    return float(err.max()), float(diff.max())
+
+
+def bn_case(name, z, g, gamma, beta, key, rate, counts):
+    """The four K-bn kernels against their plain versions on one input:
+    the statistics and the backward's sums within BN_SUM_TOL of the sum of
+    |terms|, the forward bit-equal given the same statistics and key (and
+    the mask: with β large every kept element is above 0), dz within
+    BN_DZ_TOL given the same sums. Returns ``{piece: (error over the sum
+    of |terms|, abs error)}`` and whether dz was bit-equal."""
+    import torch
+
+    from pygim_tpu_torch.ops import bn_train as kb
+
+    zd = z.double()
+    mean, var = kb.bn_stats(z)
+    pm, pv = kb.bn_stats_plain(z)
+    err = {"stats": max(rel_err(mean, pm, zd.abs().mean(0)),
+                        rel_err(var, pv, (zd - zd.mean(0)).square().mean(0)))}
+    inv = torch.rsqrt(var + BN_EPS)
+    got = kb.bn_apply(z, mean, inv, gamma, beta, key, rate)
+    if not same_bits(got, kb.bn_apply_plain(z, mean, inv, gamma, beta, key,
+                                            rate)):
+        raise AssertionError(f"K-bn fwd {name} rate {rate}: not bit-equal")
+    counts["K-bn fwd"] += 1
+    if key is not None:
+        big = torch.full_like(beta, 1e4)
+        kept = kb.bn_apply(z, mean, inv, gamma, big, key, rate) != 0
+        if not torch.equal(kept, kb.keep_mask(key, z.shape, rate)):
+            raise AssertionError(f"K-bn mask {name} rate {rate}: "
+                                 f"{int((kept != kb.keep_mask(key, z.shape, rate)).sum())} "
+                                 "elements differ")
+        counts["mask"] += 1
+    sb, sx = kb.bn_bwd_stats(g, z, mean, inv, gamma, beta, key, rate)
+    psb, psx = kb.bn_bwd_stats_plain(g, z, mean, inv, gamma, beta, key, rate)
+    xhat = (z - mean) * inv
+    gb = kb._grad_b(g, xhat, gamma, beta, key, rate).double().abs()
+    err["bwd stats"] = max(rel_err(sb, psb, gb.sum(0)),
+                           rel_err(sx, psx, (gb * xhat.double().abs()).sum(0)))
+    dz = kb.bn_bwd(g, z, mean, inv, gamma, beta, key, rate, sb, sx)
+    pdz = kb.bn_bwd_plain(g, z, mean, inv, gamma, beta, key, rate, sb, sx)
+    a, m_b, m_x = (f.double().abs() for f in kb.bn_bwd_factors(
+        gamma, inv, z.shape[0], sb, sx))
+    mag = a * gb + m_b + xhat.double().abs() * m_x
+    err["bwd"] = rel_err(dz, pdz, mag)
+    err["bwd bit-equal"] = same_bits(dz, pdz)
+    for k, bar in (("stats", BN_SUM_TOL), ("bwd stats", BN_SUM_TOL),
+                   ("bwd", BN_DZ_TOL)):
+        if not err[k][0] <= bar:
+            raise AssertionError(f"K-bn {k} {name} rate {rate}: {err[k]} > "
+                                 f"{bar} of the sum of |terms|")
+    for k in ("K-bn stats", "K-bn bwd stats", "K-bn bwd"):
+        counts[k] += 1
+    return err
+
+
+def bn_train_checks(ds, prep, results, card, device="cuda"):
+    """K-bn (``csrc/bn_train.cu``) against its plain versions
+    (``ops/bn_train.py``) on the card, then the training step through it.
+
+    * Kernels (:func:`bn_case`): at the smoke shape (the stand-in's N at H
+      256) and at :data:`BN_RAGGED`, each at every rate of
+      :data:`BN_RATES`, and on a misaligned copy (the single-element path
+      at H 256); the forward also on inputs with NaN, ±inf and -0, bit for
+      bit; the statistics also in 1, 1000 (the last 481 empty) and N
+      chunks of rows. Each kernel timed at the smoke shape (rate 0.5)
+      beside its plain version, its bytes bound and the library:
+      ``torch.var_mean`` for the statistics, the chain without statistics
+      ``F.batch_norm(training=False)`` on the batch mean and var +
+      ``torch.relu`` + ``F.dropout`` for the forward, none for the
+      backward's pieces alone. The block (statistics and forward;
+      backward sums and dz) beside the chain with
+      ``F.batch_norm(training=True)`` and its autograd backward.
+    * One training step's gradients, GCN, GIN and SAGE at H 256 on the
+      smoke operand (its Aᵀ prepared by the training phase): every leaf
+      through K-bn against autograd through the plain chain
+      (:func:`plain_bn_block`) within GRAD_BAR, K-bn run twice (the
+      run-to-run noise of the aggregate's atomics), and the negative
+      control, a backward with the ReLU's sign dropped
+      (:func:`no_relu_sign_block`), must fail it.
+    * One GCN training step counted, the counts set to 0 before it: each
+      K-bn kernel three times, no plain version run (each made to raise).
+      Returns those launches."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from pygim_tpu_torch.bench.runners import train_inputs
+    from pygim_tpu_torch.nn.models import make_gnn
+    from pygim_tpu_torch.nn.train import make_train_step
+    from pygim_tpu_torch.ops import bn_train as kb
+    from pygim_tpu_torch.ops import launch_counts, reset_launch_counts
+    from pygim_tpu_torch.ops.spmm import PreparedAggregate
+
+    hbm, _bf16, f32_rate, _int8 = results["peaks"]
+    gen = torch.Generator().manual_seed(23)
+    dgen = torch.Generator(device=device).manual_seed(23)
+    n_smoke = prep.nrows
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(BN_KERNELS, 0)
+    counts["mask"] = 0
+    worst, dz_bits = {}, True
+
+    def inputs(n, h):
+        z = (torch.randn(n, h, generator=gen) * (torch.rand(h, generator=gen)
+                                                  * 2.5 + 0.5)
+             + torch.randn(h, generator=gen)).to(device)
+        g = torch.randn(n, h, generator=gen).to(device)
+        gamma = (torch.rand(h, generator=gen) + 0.5).to(device)
+        beta = (0.3 * torch.randn(h, generator=gen)).to(device)
+        return z, g, gamma, beta
+
+    for n, h in ((n_smoke, HIDDEN),) + BN_RAGGED:
+        z, g, gamma, beta = inputs(n, h)
+        cases = [("", z, g)]
+        if (n, h) == BN_RAGGED[-1]:
+            cases.append(("misaligned", misaligned(z), misaligned(g)))
+        for label, zc, gc in cases:
+            for rate in BN_RATES:
+                key = kb.draw_key(dgen, device) if rate else None
+                err = bn_case(f"{n}x{h} {label}", zc, gc, gamma, beta, key,
+                              rate, counts)
+                dz_bits = dz_bits and err.pop("bwd bit-equal")
+                for k, (rel, ab) in err.items():
+                    worst[k] = max(worst.get(k, (0.0, 0.0)), (rel, ab))
+        # the forward with NaN, ±inf and -0 in z, given finite statistics
+        mean, var = kb.bn_stats_plain(z)
+        inv = torch.rsqrt(var + BN_EPS)
+        zs = with_specials(z.clone())
+        for rate in BN_RATES:
+            key = kb.draw_key(dgen, device) if rate else None
+            got = kb.bn_apply(zs, mean, inv, gamma, beta, key, rate)
+            if not same_bits(got, kb.bn_apply_plain(zs, mean, inv, gamma,
+                                                    beta, key, rate)):
+                raise AssertionError(f"K-bn fwd {n}x{h} specials rate {rate}")
+            counts["K-bn fwd"] += 1
+        del z, g, zs
+    # the statistics over chunk counts the default never takes: one
+    # chunk, one row a chunk, and 1000 chunks of 2 rows of which the last
+    # 481 are empty
+    for n, h in BN_RAGGED:
+        z = inputs(n, h)[0]
+        zd = z.double()
+        pm, pv = kb.bn_stats_plain(z)
+        for chunks in (1, 1000, n):
+            mean, var = kb.bn_stats(z, chunks=chunks)
+            e = max(rel_err(mean, pm, zd.abs().mean(0)),
+                    rel_err(var, pv, (zd - zd.mean(0)).square().mean(0)))
+            if not e[0] <= BN_SUM_TOL:
+                raise AssertionError(f"K-bn stats {n}x{h} in {chunks} "
+                                     f"chunks: {e} > {BN_SUM_TOL}")
+            counts["K-bn stats"] += 1
+            worst["stats"] = max(worst["stats"], e)
+        del z, zd
+    # the plain mask does not depend on the device
+    key = kb.draw_key(dgen, device)
+    if not torch.equal(kb.keep_mask(key, (1037, 41), 0.3).cpu(),
+                       kb.keep_mask(key.cpu(), (1037, 41), 0.3)):
+        raise AssertionError("keep_mask differs between the card and the CPU")
+    print(f"bn_train_checks: cases {counts}; worst (of the sum of |terms|,"
+          f" abs) {worst}; dz bit-equal in every case: {dz_bits}", flush=True)
+
+    # timed at the smoke shape, rate 0.5
+    n, h = n_smoke, HIDDEN
+    z, g, gamma, beta = inputs(n, h)
+    key = kb.draw_key(dgen, device)
+    mean, var = kb.bn_stats(z)
+    inv = torch.rsqrt(var + BN_EPS)
+    sb, sx = kb.bn_bwd_stats(g, z, mean, inv, gamma, beta, key, 0.5)
+    zl, gl, bl = (t.clone().requires_grad_() for t in (z, gamma, beta))
+
+    def chain():
+        return F.dropout(torch.relu(F.batch_norm(
+            zl, None, None, gl, bl, training=True, eps=BN_EPS)), 0.5,
+            training=True)
+
+    out = chain()
+    chain_fwd_ms = cuda_ms(lambda: chain().detach())
+    chain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (zl, gl, bl), g, retain_graph=True))
+    del out
+    nh = n * h
+    timed = {
+        "K-bn stats": (lambda: kb.bn_stats(z),
+                       lambda: kb.bn_stats_plain(z),
+                       lambda: torch.var_mean(z, 0, unbiased=False),
+                       "torch.var_mean(z, 0, unbiased=False)",
+                       (nh * 4 + 2 * h * 4, 4 * nh)),
+        "K-bn fwd": (lambda: kb.bn_apply(z, mean, inv, gamma, beta, key, 0.5),
+                     lambda: kb.bn_apply_plain(z, mean, inv, gamma, beta, key,
+                                               0.5),
+                     lambda: F.dropout(torch.relu(F.batch_norm(
+                         z, mean, var, gamma, beta, training=False,
+                         eps=BN_EPS)), 0.5, training=True),
+                     "the chain without statistics: F.batch_norm("
+                     "training=False) on the batch mean and var + "
+                     "torch.relu + F.dropout, three calls",
+                     (nh * 8 + 4 * h * 4 + 16, 7 * nh)),
+        "K-bn bwd stats": (
+            lambda: kb.bn_bwd_stats(g, z, mean, inv, gamma, beta, key, 0.5),
+            lambda: kb.bn_bwd_stats_plain(g, z, mean, inv, gamma, beta, key,
+                                          0.5),
+            None, "none alone: the chain's autograd backward computes both "
+            "pieces (the K-bn block line)", (nh * 8 + 6 * h * 4 + 16,
+                                              10 * nh)),
+        "K-bn bwd": (
+            lambda: kb.bn_bwd(g, z, mean, inv, gamma, beta, key, 0.5, sb, sx),
+            lambda: kb.bn_bwd_plain(g, z, mean, inv, gamma, beta, key, 0.5,
+                                    sb, sx),
+            None, "none alone: the chain's autograd backward computes both "
+            "pieces (the K-bn block line)", (nh * 12 + 7 * h * 4 + 16,
+                                              12 * nh)),
+    }
+    for k, (fn, plain, lib, lib_name, (nbytes, ops)) in timed.items():
+        piece = {"K-bn stats": "stats", "K-bn bwd stats": "bwd stats",
+                 "K-bn bwd": "bwd"}.get(k)
+        res = dict(shape=[n, h], rate=0.5, cases=counts[k],
+                   max_abs_err=worst[piece][1] if piece else 0.0,
+                   max_err_of_terms=worst[piece][0] if piece else 0.0)
+        if k == "K-bn bwd":
+            res["bit_equal"] = dz_bits
+        res["ms"] = cuda_ms(fn)
+        res["plain_ms"] = cuda_ms(plain, iters=5)
+        res["library_ms"] = cuda_ms(lib) if lib is not None else None
+        res["library"] = lib_name
+        res["bound_ms"], res["bound_by"] = least_time(nbytes, ops, hbm,
+                                                      f32_rate)
+        results[k] = res
+        print(f"{k}: {json.dumps(res)}", flush=True)
+    fused = dict(forward_ms=results["K-bn stats"]["ms"]
+                 + results["K-bn fwd"]["ms"],
+                 backward_ms=results["K-bn bwd stats"]["ms"]
+                 + results["K-bn bwd"]["ms"],
+                 chain_forward_ms=chain_fwd_ms, chain_backward_ms=chain_bwd_ms)
+    results["K-bn block"] = fused
+    print(f"K-bn block at {n}x{h}: {json.dumps(fused)} ({card})", flush=True)
+    del z, g, zl, gl, bl
+    free(device)
+    print(f"bn_train_checks: kernels held and timed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # one training step's gradients: K-bn against the plain chain
+    dev = prep.device
+    tin = train_inputs(ds, dev)
+    agg = PreparedAggregate(prep)
+    grads_out = {}
+    for conv in CONVS:
+        grads = {"plain": leaf_grads(conv, ds, agg, tin, plain_bn_block),
+                 "kernels": leaf_grads(conv, ds, agg, tin),
+                 "kernels again": leaf_grads(conv, ds, agg, tin),
+                 "no relu sign": leaf_grads(conv, ds, agg, tin,
+                                            no_relu_sign_block)}
+        errs = {a: max(leaf_errs(gr, grads["plain"]).values())
+                for a, gr in grads.items() if a != "plain"}
+        grads_out[conv] = errs
+        print(f"K-bn training step, {conv}: max leaf err against the plain "
+              f"chain {errs} ({card})", flush=True)
+        if errs["kernels"] > GRAD_BAR or errs["kernels again"] > GRAD_BAR:
+            raise AssertionError(f"K-bn {conv} step gradients: {errs}")
+        if errs["no relu sign"] <= GRAD_BAR:
+            raise AssertionError(f"K-bn {conv}: the no-relu-sign control "
+                                 f"passed ({errs})")
+        del grads
+    results["K-bn step gradients"] = grads_out
+
+    # one GCN training step, counted, every plain version of K-bn made to
+    # raise while it runs
+    model = make_gnn(0, "gcn", ds.x.shape[1], HIDDEN, ds.num_classes,
+                     device=dev)
+    step = make_train_step(model, agg, torch.optim.Adam(
+        model.parameters(), lr=TRAIN_LR))
+    plains = ("bn_stats_plain", "bn_apply_plain", "bn_bwd_stats_plain",
+              "bn_bwd_plain", "keep_mask")
+    saved = {name: getattr(kb, name) for name in plains}
+    reset_launch_counts()
+    try:
+        for name in plains:
+            setattr(kb, name, _refuse_plain)
+        loss = float(step(*tin, torch.Generator(device=dev).manual_seed(0)))
+        sync(dev)
+    finally:
+        for name, f in saved.items():
+            setattr(kb, name, f)
+    n = launch_counts()
+    got = {k: n[k] for k in BN_KERNELS}
+    if got != dict.fromkeys(BN_KERNELS, 3) or not np.isfinite(loss):
+        raise AssertionError(f"one GCN step: K-bn launches {got}, loss {loss}")
+    print(f"K-bn: one GCN training step launches {got}", flush=True)
+    free(dev)
+    return got
+
+
 def main() -> int:
     """Run every phase in a fresh prepare and dataset cache, removed at
     the end: no phase reads the user's cache."""
@@ -6608,6 +7019,11 @@ def run() -> int:
     train_steps(ds, prep, results, card)
     training_entry(results, card)
     training = results["train steps"]["gcn step"]["launches"]
+    # this slice's path: the training block's BatchNorm, ReLU and dropout
+    # (K-bn), each kernel held and timed, a step's gradients, one step
+    # counted
+    launches.update(timed_phase("bn_train_checks", bn_train_checks, ds, prep,
+                                results, card))
     float_core_training(ds, fpreps, results, card)
     float_core_entry(results, card)
     del fpreps
@@ -6679,7 +7095,15 @@ def run() -> int:
                "K-quant table": ("cuda", "pygim_tpu_torch/csrc/quant.cu",
                                  "pygim_tpu/ops/spmm.py:1587"),
                "K-quant payload": ("cuda", "pygim_tpu_torch/csrc/quant.cu",
-                                   "pygim_tpu/ops/spmm.py:1622")}
+                                   "pygim_tpu/ops/spmm.py:1622"),
+               "K-bn stats": ("cuda", "pygim_tpu_torch/csrc/bn_train.cu",
+                              "pygim_tpu/nn/layers.py:76"),
+               "K-bn fwd": ("cuda", "pygim_tpu_torch/csrc/bn_train.cu",
+                            "pygim_tpu/nn/layers.py:79"),
+               "K-bn bwd stats": ("cuda", "pygim_tpu_torch/csrc/bn_train.cu",
+                                  "pygim_tpu/nn/layers.py:72"),
+               "K-bn bwd": ("cuda", "pygim_tpu_torch/csrc/bn_train.cu",
+                            "pygim_tpu/nn/layers.py:72")}
     kernels = []
     for k, (route, src, repl) in sources.items():
         res = results[k]
@@ -6693,7 +7117,7 @@ def run() -> int:
             "split": res.get("split"),
             "train_step_launches": {
                 part: training[part][k] for part in ("forward", "backward")
-            } if k in ("K-core", "K-tail") else None,
+            } if k in ("K-core", "K-tail") + BN_KERNELS else None,
             "harness_launches": harness_launches.get(k),
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

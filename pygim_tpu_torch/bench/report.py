@@ -165,9 +165,13 @@ def kernel_family(name: str) -> str:
     """The family of a device kernel by its name: ``"torch"`` for
     PyTorch's own kernels (elementwise, reductions, copies, fills,
     gathers: the unfused passes), ``"gemm"`` for cuBLAS's matrix products,
-    ``"hand"`` for this package's kernels (``csrc/``) and anything else."""
+    ``"K-bn"`` for the training block's kernels (``csrc/bn_train.cu``:
+    BatchNorm, ReLU and dropout, forward and backward), ``"hand"`` for this
+    package's other kernels (``csrc/``) and anything else."""
     if "at::native" in name or "at_cuda_detail" in name:
         return "torch"
+    if "bn_train::" in name:
+        return "K-bn"
     if any(k in name.lower() for k in ("gemm", "cutlass", "xmma")):
         return "gemm"
     return "hand"

@@ -8,9 +8,11 @@ transpose for the backward, a 2-layer GCN at hidden 256. It prints (on
 stderr) the card, the prepare phases of A and of Aᵀ and their device
 bytes, ``run_training_benchmark`` over ``EPOCHS`` epochs without the
 oracle arm, its steps split into forward, backward and Adam (CUDA
-events, the launches of each phase), a device profile of one step,
-and the peak card and host memory; its last stdout line is the report
-as JSON.
+events, the launches of each phase by kernel name), a device profile of
+one step by kernel family (``bench/report.py:kernel_family``: ``K-bn``
+for the BatchNorm blocks' kernels beside ``torch`` for the unfused
+passes left), and the peak card and host memory; its last stdout line is
+the report as JSON.
 """
 
 from __future__ import annotations

@@ -18,7 +18,9 @@ reference's forked PyG layers:
 * :class:`BatchNorm` applies its running statistics;
   :func:`batchnorm_train_apply` is the training-mode BatchNorm of the
   model's own ``bn0``/``bns``, which returns the updated running
-  statistics for the caller to merge.
+  statistics for the caller to merge; :func:`bn_relu_dropout_train`
+  runs it with the ReLU and the dropout after it as one block (K-bn,
+  ``ops/bn_train.py``), which the training forward takes.
 * Where no gradient is needed (:func:`fusable`), an evaluation forward
   ends each block in :func:`bn_epilogue`, one K-epi pass
   (``ops/epilogue.py``) for what comes before the BatchNorm's output
@@ -36,6 +38,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from pygim_tpu_torch.ops.bn_train import BnReluDropout, draw_key, keep_mask
 from pygim_tpu_torch.ops.epilogue import epilogue
 from pygim_tpu_torch.quant import (
     _SCALE_EXP,
@@ -101,17 +104,44 @@ def batchnorm_train_apply(scale, bias, mean, var, x, eps: float = 1e-5,
 
 def dropout(x, rate: float, generator: torch.Generator | None,
             training: bool):
-    """Inverted dropout: keep each element with probability ``1 - rate``
-    (``uniform < 1 - rate``, drawn from ``generator`` on x's device) and
+    """Inverted dropout: keep each element where :func:`keep_mask
+    <pygim_tpu_torch.ops.bn_train.keep_mask>` of a key drawn from
+    ``generator`` on x's device keeps it (probability ``1 - rate``) and
     scale the kept ones by ``1 / (1 - rate)``. Identity in evaluation or
-    at rate 0."""
+    at rate 0. The mask is the one :func:`bn_relu_dropout_train` draws
+    for the same generator state."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < 1.0 - rate
+    keep = keep_mask(draw_key(generator, x.device), x.shape, rate)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def bn_relu_dropout_train(layer, z, rate: float,
+                          generator: torch.Generator | None,
+                          momentum: float = 0.1):
+    """The training block ``dropout(relu(batchnorm_train(z)))`` of
+    BatchNorm ``layer`` through :class:`BnReluDropout
+    <pygim_tpu_torch.ops.bn_train.BnReluDropout>` (K-bn on the card, its
+    plain versions on the CPU): the same values and running statistics as
+    :func:`batchnorm_train_apply`, ``torch.relu`` and :func:`dropout` for
+    the same generator state, and its own backward. Returns ``(out,
+    {"mean", "var"})``, the updated running statistics detached. A rate
+    above 0 draws the site's key from ``generator`` (required)."""
+    key = None
+    if rate > 0.0:
+        if generator is None:
+            raise ValueError("dropout in training needs a torch.Generator")
+        key = draw_key(generator, z.device)
+    out, b_mean, b_var = BnReluDropout.apply(z, layer.scale, layer.bias, key,
+                                             rate, layer.eps)
+    n = z.shape[0]
+    with torch.no_grad():
+        unbiased = b_var * (n / max(1, n - 1))
+        stats = {"mean": (1 - momentum) * layer.mean + momentum * b_mean,
+                 "var": (1 - momentum) * layer.var + momentum * unbiased}
+    return out, stats
 
 
 def quantized_aggregate(aggregate: Aggregate, x, agg_dtype=None):

@@ -8,8 +8,10 @@ identity, and where no gradient is needed each block ends in one K-epi
 pass (:func:`forward_stem`, :func:`forward_block`); in training (:func:`gnn_apply` with ``training=True``) the
 model's ``bn0``/``bns`` normalise by batch statistics and return their
 updated running statistics (:func:`merge_bn_stats` writes them back), and
-dropout draws from a ``torch.Generator``, one mask per dropout site in
-layer order.
+dropout draws from a ``torch.Generator``, one key per dropout site in
+layer order: each BatchNorm → ReLU → dropout block is one
+:func:`~pygim_tpu_torch.nn.layers.bn_relu_dropout_train` (K-bn on the
+card), with its own backward.
 
 The aggregate is any ``x -> A @ x`` callable, e.g. a
 :class:`~pygim_tpu_torch.ops.spmm.PreparedAggregate`, which is
@@ -31,9 +33,8 @@ from pygim_tpu_torch.nn.layers import (
     GINConv,
     Linear,
     SAGEConv,
-    batchnorm_train_apply,
     bn_epilogue,
-    dropout,
+    bn_relu_dropout_train,
     fusable,
 )
 
@@ -140,18 +141,13 @@ def gnn_apply(model: GNN, x, aggregate, *, training: Optional[bool] = None,
             return out, {"bns": [None] * len(model.convs), "bn0": None}
         return out
     rate = model.dropout
-
-    def bn(layer, h):
-        return batchnorm_train_apply(layer.scale, layer.bias, layer.mean,
-                                     layer.var, h, layer.eps)
-
     stats = {"bns": []}
-    h, stats["bn0"] = bn(model.bn0, model.ln1(x))
-    h = dropout(torch.relu(h), rate, generator, training)
+    h, stats["bn0"] = bn_relu_dropout_train(model.bn0, model.ln1(x), rate,
+                                            generator)
     for conv, layer in zip(model.convs, model.bns):
-        h, s = bn(layer, conv(h, aggregate, None))
+        h, s = bn_relu_dropout_train(layer, conv(h, aggregate, None), rate,
+                                     generator)
         stats["bns"].append(s)
-        h = dropout(torch.relu(h), rate, generator, training)
     out = model.ln2(h)
     return (out, stats) if return_bn_stats else out
 

@@ -51,9 +51,11 @@ class StepSplit:
     ``adam`` (the optimizer's step and the BatchNorm merge). On the card
     each phase lies between CUDA events, and a step synchronises at its
     end; on the CPU, between host clock reads. ``ms[phase]`` lists every
-    step's time, ``launches[phase]`` the last step's launches (differences
-    of :func:`~pygim_tpu_torch.ops.launch_counts`, which it does not
-    reset)."""
+    step's time, ``launches[phase]`` the last step's launches by kernel
+    name (differences of :func:`~pygim_tpu_torch.ops.launch_counts`, which
+    it does not reset): a 2-layer step on the card launches ``K-bn stats``
+    and ``K-bn fwd`` three times in its forward and ``K-bn bwd stats`` and
+    ``K-bn bwd`` three times in its backward, one each a BatchNorm block."""
 
     PHASES = ("forward", "backward", "adam")
 

@@ -2,6 +2,7 @@
 
 from pygim_tpu_torch.ops import (
     bcsr,
+    bn_train,
     core_dot,
     core_f32,
     core_int,
@@ -39,7 +40,8 @@ def launch_counts() -> dict:
             "K-epi": epilogue.launches,
             "K-quant": quant_prologue.launches,
             **{f"K-quant {k}": n
-               for k, n in quant_prologue.entry_launches.items()}}
+               for k, n in quant_prologue.entry_launches.items()},
+            **{f"K-bn {k}": n for k, n in bn_train.launches.items()}}
 
 
 def reset_launch_counts() -> None:
@@ -54,6 +56,7 @@ def reset_launch_counts() -> None:
     epilogue.launches = quant_prologue.launches = 0
     quant_prologue.entry_launches.update(
         dict.fromkeys(quant_prologue.entry_launches, 0))
+    bn_train.launches.update(dict.fromkeys(bn_train.launches, 0))
 
 
 __all__ = ["PreparedAggregate", "PreparedSpmm", "SpmmConfig", "prepare_spmm",

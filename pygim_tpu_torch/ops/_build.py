@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points per source: name -> argtypes (all return int)
 SIGNATURES = {
     "core_dot": {
@@ -86,6 +87,20 @@ SIGNATURES = {
     "epilogue": {
         # a, y, n, h, vec, scale, bias, mean, inv, gamma, beta, stream
         "epilogue": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "bn_train": {
+        # z, n, h, vec, chunks, partials, mean, var, stream
+        "bn_stats": [_P, _LL, _I, _I, _I, _P, _P, _P, _P],
+        # z, out, n, h, vec, mean, inv, gamma, beta, key, t, scale, stream
+        "bn_fwd": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _I, _F, _P],
+        # g, z, n, h, vec, mean, inv, gamma, beta, key, t, scale, chunks,
+        # partials, sum_gb, sum_gbx, stream
+        "bn_bwd_stats": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _I, _F, _I,
+                         _P, _P, _P, _P],
+        # g, z, dz, n, h, vec, mean, inv, gamma, beta, key, t, scale, a,
+        # m_b, m_x, stream
+        "bn_bwd": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _I, _F, _P,
+                   _P, _P, _P],
     },
     "quant": {
         # x, numel, vec, partials, 2^-k, out (3,), stream

@@ -26,6 +26,7 @@ MODULES = [
     "pygim_tpu_torch.data",
     "pygim_tpu_torch.ops",
     "pygim_tpu_torch.ops._build",
+    "pygim_tpu_torch.ops.bn_train",
     "pygim_tpu_torch.ops.core_dot",
     "pygim_tpu_torch.ops.core_int",
     "pygim_tpu_torch.ops.core_f32",
