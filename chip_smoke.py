@@ -287,6 +287,14 @@ beside ``rows_bound`` and ``torch.sparse.mm``, ``pim_time_spmm`` and
 the float and int32 forwards, then the host's µs of each step of a
 K-rows wrapper call on a small operand (``rows_full``; minutes of
 dataset synthesis and host prepare where the cache is cold).
+``--prologue-full`` runs the main path's shapes of K-tail's bf16 rows
+and K-quant's core payload (``prologue_full``): reddit-sim's bf16 SpMM
+on the stair int8 8 GiB core (``tail_time``) and K-tail on its tables
+beside the least-bytes bound and the gather without reuse; the payload
+of the int32 GCN's two layers (the stair's gathered rows, f32 x, 3
+limbs, H 256 and 41) and of config 4's int8 GCN (113,408 rows of a
+2,449,029-row int8 table, 1 limb, H 256 and 47), each equal to the
+plain version, with call and device ms, bound and share.
 """
 
 from __future__ import annotations
@@ -322,6 +330,43 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+L2_FLUSH_BYTES = 128 << 20  # read between timed calls: over twice the 50 MB L2
+
+
+def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device milliseconds a call of ``fn`` on a cold L2, the host's part
+    left out: ``iters`` calls, each after a read of
+    :data:`L2_FLUSH_BYTES`, captured once into a CUDA graph (after a warm
+    call), and the same reads alone into another; CUDA events around
+    ``replays`` replays of each, in turns, and the difference a call."""
+    import torch
+
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    for with_fn, graph in zip((True, False), graphs):
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                flush.sum()
+                if with_fn:
+                    fn()
+        graph.replay()
+    torch.cuda.synchronize()
+    total = [0.0, 0.0]
+    for _ in range(replays):
+        for i, graph in enumerate(graphs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            total[i] += a.elapsed_time(b)
+    del graphs, flush
+    return (total[0] - total[1]) / (iters * replays)
 
 
 def check_close(name, got, want, mag, rel):
@@ -1087,15 +1132,20 @@ def tail_close(name, x, tables, got, out0, safe=None):
 def tail_bound(tables, h, peaks_, itemsize=4):
     """Least time of one grouped K-tail call (``utils/device.tail_bound``)
     and beside it the per-slot model, where every stored slot reads its x
-    row from HBM. Also the library yardstick's matrix: the real entries
+    row from HBM, and the gather without reuse (``bound_gather_ms``: every
+    counted slot's x row, h · itemsize bytes, read from HBM once, nothing
+    else; above the least-bytes bound, it says how much of x's reuse the
+    L2 must catch). Also the library yardstick's matrix: the real entries
     as one CSR (cuSPARSE through torch.sparse.mm)."""
     import torch
 
-    from pygim_tpu_torch.ops.ell_tail import real_entries
+    from pygim_tpu_torch.ops.ell_tail import real_entries, slot_counts
     from pygim_tpu_torch.utils.device import tail_bound as bound
 
     rows_t, cols_t, vals_t = real_entries(tables)
     slots = sum(c.numel() for c, _v, _r, _d in tables)
+    counted = sum(int(slot_counts(v.cpu().numpy(), d).sum())
+                  for _c, v, _r, d in tables)
     vrows = sum(r.numel() for _c, _v, r, _d in tables)
     nnz = int(rows_t.numel())
     u_cols = int(torch.unique(cols_t).numel())
@@ -1106,8 +1156,9 @@ def tail_bound(tables, h, peaks_, itemsize=4):
         bound_ms=bound_ms, bound_by=bound_by,
         bound_slot_ms=(slots * (8 + itemsize * h) + vrows * 4 * h) / hbm
         * 1e3,
-        nnz=nnz, slots=slots, vrows=vrows, unique_cols=u_cols,
-        unique_rows=u_rows,
+        bound_gather_ms=counted * itemsize * h / hbm * 1e3,
+        nnz=nnz, slots=slots, counted_slots=counted, vrows=vrows,
+        unique_cols=u_cols, unique_rows=u_rows,
     ), (rows_t, cols_t, vals_t)
 
 
@@ -1118,6 +1169,34 @@ def off_aligned(t):
 
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     return buf[1:].view(t.shape).copy_(t)
+
+
+def tail_bf16_timing(tables, plan, xb, check=True) -> dict:
+    """K-tail on the bf16 rows ``xb`` over ``tables`` (``plan``: their
+    ``tail_plan``) into a zero output, on the path the wrapper picks: held
+    to the plain version first (``check``), then the call's ms (CUDA events
+    around wrapper calls) and the kernel's device ms on a cold L2
+    (``device_ms``), and the path's name where the tree names it."""
+    import torch
+
+    from pygim_tpu_torch.ops import ell_tail
+
+    z = torch.zeros(xb.shape, dtype=torch.float32, device=xb.device)
+    res = {}
+    if check:
+        got = ell_tail.ell_tables_add(xb, tables, z.clone(), plan=plan)
+        res["max_abs_err"] = tail_close("K-tail bf16 rows", xb, tables, got,
+                                        z)
+        del got
+    if hasattr(ell_tail, "kernel_path"):
+        res["route"] = ell_tail.kernel_path(xb, z)
+
+    def call():
+        return ell_tail.ell_tables_add(xb, tables, z, plan=plan)
+
+    res["ms"] = cuda_ms(call)
+    res["device_ms"] = device_ms(call)
+    return res
 
 
 def tail_checks(prep, x, results):
@@ -1171,8 +1250,10 @@ def tail_checks(prep, x, results):
         tables=[[int(c.shape[0]), int(c.shape[1]) // dg, dg]
                 for c, _v, _r, dg in tables],
         units=plan.n_units, split_units=int(plan.units[:, 3].sum()),
-        real_vrows=plan.n_real, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, **bound,
+        real_vrows=plan.n_real, max_abs_err=err,
+        route=ell_tail.kernel_path(x, z), ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms,
+        **bound,
     )
 
 
@@ -2523,8 +2604,9 @@ def float_core_checks(preps, x, results):
       with an f32 payload, also at H 41, and the bf16 square with the
       int32 forward's payload range (|q| <= 2^19);
     * K-tail's bf16-row mode: the ragged tables at H 36 and 41 (register
-      path), 256 and 1104 (bulk copy), 256 unaligned (register path), and
-      the bf16 square's tables.
+      path), 256 and 1104 (16-byte lanes), 256 unaligned (register
+      path), and the bf16 square's tables on the wrapper's path (call and
+      device ms, the gather without reuse).
 
     Float products at ``check_close``'s REL_TOL of the sum of |terms|."""
     import torch
@@ -2774,11 +2856,7 @@ def float_core_checks(preps, x, results):
     plan = ell_tail.tail_plan(tables)
     xb = x.to(torch.bfloat16)
     z = torch.zeros_like(x)
-    got = ell_tail.ell_tables_add(xb, tables, z.clone(), plan=plan)
-    e = tail_close("K-tail bf16 rows, bf16 square's tables", xb, tables, got,
-                   z)
-    del got
-    ms = cuda_ms(lambda: ell_tail.ell_tables_add(xb, tables, z, plan=plan))
+    timing = tail_bf16_timing(tables, plan, xb)
     plain_ms = cuda_ms(lambda: ell_tail.ell_tables_plain(xb, tables, z),
                        iters=5)
     bound, (rows_t, cols_t, vals_t) = tail_bound(tables, h, pk, itemsize=2)
@@ -2786,8 +2864,9 @@ def float_core_checks(preps, x, results):
                                 (x.shape[0],) * 2).coalesce().to_sparse_csr()
     xw = xb.float()  # cuSPARSE on the rows widened beforehand
     library_ms = cuda_ms(lambda: torch.sparse.mm(a, xw))
-    results["K-tail bf16"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                                  library_ms=library_ms, **bound)
+    results["K-tail bf16"] = dict(
+        timing, plain_ms=plain_ms, library_ms=library_ms,
+        share_of_bound=bound["bound_ms"] / timing["device_ms"], **bound)
     del xw, a, z
 
 
@@ -4240,6 +4319,107 @@ def rows_checks(ds, results, device="cuda"):
         del prep
         free(device)
     del csr
+
+
+# the main path's operand of K-tail's bf16 rows and K-quant's payload:
+# PERF.md §4's stair (reddit-sim), and config 4's table and core width
+# (products-sim's nodes, its square int4 core's k)
+PROLOGUE_GRAPH = "reddit"
+PROLOGUE_CORE = dict(backend="hybrid", format="csr", hybrid_shape="stair",
+                     hybrid_dtype="int8", hybrid_core_bytes=8 << 30)
+CONFIG4_ROWS = (2_449_029, 113_408)
+
+
+def prologue_shapes(ds, prep, hbm, rate, check=True, device="cuda") -> dict:
+    """K-tail's bf16 rows and K-quant's core payload at the main path's
+    shapes on ``prep`` (``ds``'s graph at :data:`PROLOGUE_CORE`): the bf16
+    SpMM through ``run_spmm_benchmark`` (its ``tail_time`` and sampled-row
+    check), K-tail alone on the operand's tables (``tail_bf16_timing``,
+    ``tail_bound``); the payload of the int32 GCN's layers (the gathered
+    rows, f32 x rounded, 3 limbs, H 256 and 41) and of config 4's (the
+    int8 table of :data:`CONFIG4_ROWS`, random distinct rows, 1 limb, H
+    256 and 47), each held ``torch.equal`` to the plain version
+    (``check``) and timed by ``payload_timing``. Only what the parent
+    tree has too is called, so ``tools/kernel_ab.py`` runs it on both."""
+    import torch
+
+    from pygim_tpu_torch.bench.runners import run_spmm_benchmark
+    from pygim_tpu_torch.ops import ell_tail
+    from pygim_tpu_torch.ops import quant_prologue as kq
+    from pygim_tpu_torch.utils.metrics import DataReporter
+
+    res = {}
+    rep = DataReporter()
+    run_spmm_benchmark(ds, hidden=HIDDEN, dtype="bfloat16",
+                       config=prep.config, repeat=10, reporter=rep,
+                       prepare_fn=lambda g, c: prep, phases=True,
+                       device=device)
+    res["spmm bf16"] = {k: rep.records[k][-1] for k in (
+        "pim_time_spmm(ms)", "tail_time(ms)", "core_time(ms)", "verify")}
+    if res["spmm bf16"]["verify"] != "OK":
+        raise AssertionError("reddit-sim bf16 SpMM sampled-row check failed")
+    gen = torch.Generator(device=device).manual_seed(24)
+    x = torch.randn(ds.graph.ncols, HIDDEN, generator=gen, device=device)
+    tables = prep.ell_tables(prep.dev_arrays)
+    plan = ell_tail.tail_plan(tables)
+    xb = x.to(torch.bfloat16)
+    tail = tail_bf16_timing(tables, plan, xb, check)
+    bound, _entries = tail_bound(tables, HIDDEN, (hbm, 0, rate, 0),
+                                 itemsize=2)
+    res["K-tail bf16"] = dict(tail, share_of_bound=bound["bound_ms"]
+                              / tail["device_ms"], **bound)
+    del _entries, xb
+
+    def payload(name, xh, rows, safe, limbs):
+        if check:
+            dims = kq.payload_dims(rows.numel(), xh.shape[1])
+            if not torch.equal(kq.core_payload(xh, rows, safe, limbs, *dims),
+                               kq.core_payload_plain(xh, rows, safe, limbs,
+                                                     *dims)):
+                raise AssertionError(f"K-quant payload {name}: differs")
+        res[f"K-quant payload, {name}"] = payload_timing(xh, rows, safe,
+                                                         limbs, hbm, rate)
+
+    rows = prep._gather_rows(prep.dev_arrays)
+    for h in (HIDDEN, 41):
+        xh = x[:, :h].contiguous()
+        payload(f"int32 GCN H {h}", xh, rows,
+                kq.abs_max_scale_plain(xh, "int32")[2], 3)
+    del x, xh
+    n4, k4 = CONFIG4_ROWS
+    rows4 = torch.randperm(n4, generator=gen, device=device)[:k4].to(
+        torch.int32)
+    for h in (HIDDEN, 47):
+        x4 = torch.randint(-128, 128, (n4, h), generator=gen, device=device,
+                           dtype=torch.int8)
+        payload(f"config 4 H {h}", x4, rows4, None, 1)
+        del x4
+    torch.cuda.empty_cache()
+    return res
+
+
+def prologue_full(device="cuda") -> int:
+    """``--prologue-full``: :func:`prologue_shapes` on reddit-sim's stair
+    int8 8 GiB core (minutes of synthesis and prepare where the caches
+    are cold), printed as one JSON line with the card's."""
+    import torch
+
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+    from pygim_tpu_torch.utils.device import card_line, peaks
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    pk = peaks(torch.cuda.get_device_name(0))
+    t0 = time.perf_counter()
+    ds = load_dataset(PROLOGUE_GRAPH)
+    prep = prepare_spmm(ds.graph, SpmmConfig(**PROLOGUE_CORE), device=device)
+    res = dict(prepare_s=time.perf_counter() - t0, stair=prep.stair,
+               **prologue_shapes(ds, prep, pk[0], pk[2], device=device))
+    print(f"prologue full: {json.dumps(res)}", flush=True)
+    print(card_line())
+    return 0
 
 
 def rows_full(dataset="reddit", device="cuda") -> int:
@@ -6087,6 +6267,88 @@ def halo_cards() -> int:
 
 
 EPI_EPS = 1e-5
+def payload_timing(x, rows, safe, limbs, hbm, rate) -> dict:
+    """K-quant's core payload of ``x[rows]`` at ``limbs`` limbs (``safe``:
+    f32 x rounded by it): the call's ms (CUDA events around wrapper
+    calls), the kernel's device ms (``device_ms``), the least-bytes bound
+    (each gathered row and its index read once, the payload written once)
+    and its share of the device time, and the kernel's tiling where the
+    tree names it."""
+    from pygim_tpu_torch.ops import quant_prologue as kq
+
+    h = x.shape[1]
+    dims = kq.payload_dims(rows.numel(), h)
+
+    def call():
+        return kq.core_payload(x, rows, safe, limbs, *dims)
+
+    res = dict(rows=rows.numel(), h=h, limbs=limbs, x=str(x.dtype),
+               dims=list(dims))
+    if hasattr(kq, "payload_route"):
+        res["route"] = kq.payload_route(x)
+    res["ms"] = cuda_ms(call, iters=50)
+    res["device_ms"] = device_ms(call, iters=50)
+    res["bound_ms"], res["bound_by"] = least_time(
+        rows.numel() * (h * x.element_size() + 4) + limbs * dims[0] * dims[1],
+        rows.numel() * h, hbm, rate)
+    res["share_of_bound"] = res["bound_ms"] / res["device_ms"]
+    return res
+
+
+def payload_host_steps(x, rows, safe, limbs, dims, reps: int = 2000) -> dict:
+    """The host's µs a call of each step of a ``core_payload`` call on the
+    card, timed alone on the host clock ``reps`` times (as
+    ``rows_host_steps`` does for K-rows): the argument checks, the rows'
+    dtype and contiguity test, the output's allocation, the library
+    lookup, the device context (entered, and the test for whether it is
+    needed), the stream, the C entry point called alone into one output,
+    and the whole wrapper."""
+    import torch
+
+    from pygim_tpu_torch.ops import _build
+    from pygim_tpu_torch.ops import quant_prologue as kq
+
+    lib = _build.load("quant")
+    out = torch.empty((limbs, *dims), dtype=torch.int8, device=x.device)
+    args = (x.data_ptr(), kq.PAYLOAD_TYPES[x.dtype], rows.data_ptr(),
+            rows.numel(), None if safe is None else safe.data_ptr(), limbs,
+            x.shape[1], *dims, out.data_ptr(), _build.stream_of(x))
+
+    def checks():
+        kq._check_payload(x, rows, safe, limbs, *dims)
+        _build.refuse_grad("core_payload", x)
+        kq._on_card("core_payload", x)
+
+    def device_context():
+        with torch.cuda.device(x.device):
+            pass
+
+    steps = {
+        "checks": checks,
+        "rows": lambda: rows.dtype != torch.int32 or not rows.is_contiguous(),
+        "output": lambda: torch.empty((limbs, *dims), dtype=torch.int8,
+                                      device=x.device),
+        "library lookup": lambda: _build.load("quant"),
+        "device context": device_context,
+        "device test": lambda: x.device.index != torch.cuda.current_device(),
+        "stream": lambda: _build.stream_of(x),
+        "entry point": lambda: lib.quant_core_payload(*args),
+        "wrapper": lambda: kq.core_payload(x, rows, safe, limbs, *dims),
+    }
+    res = {}
+    for k, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn()
+            if i % 200 == 199:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        res[k] = (time.perf_counter() - t0) / reps * 1e6
+    return res
+
+
 EPI_RAGGED = ((1037, 41), (1037, 1100))  # N off every block; H 41: single elements
 
 
@@ -6184,10 +6446,14 @@ def epilogue_checks(ds, prep, prep4, results, device="cuda"):
     all-zero inputs for each scale exponent; its table (int8, int16, int32,
     int64) there and on half-step ties; its core payload on the smoke
     operand's rank gather (f32 rounded at three limbs, the int8 and int16
-    tables at one and two, a raw int32 at four) and at the ragged widths
-    with ties, specials and zeros. Each timed at the smoke shape beside its
-    plain version, its bytes bound and a library call where one computes
-    it (K-epi: ``F.batch_norm(training=False)`` and ``torch.relu``, two
+    tables at one and two, a raw int32 at four), at the ragged widths
+    with ties, specials and zeros, and every x type at one to four limbs
+    at H 41 and 1100, misaligned and on 20,000 rows. Each timed at the
+    smoke shape beside its plain version, its bytes bound and a library
+    call where one computes it (the payload: call and device ms, its
+    share of the bound, and the wrapper's host µs by step,
+    ``payload_host_steps``; K-epi: ``F.batch_norm(training=False)`` and
+    ``torch.relu``, two
     calls, on the input without scale and bias; max|x|:
     ``torch.linalg.vector_norm(x, inf)``). Then one fused forward of each
     main path's model counted: three K-epi launches a 2-layer GCN, and
@@ -6349,18 +6615,34 @@ def epilogue_checks(ds, prep, prep4, results, device="cuda"):
                 xr, "int8" if limbs == 1 else "int32")[2], limbs)
         payload_case(f"{name} int16", kq.quant_table_plain(
             xr, kq.abs_max_scale_plain(xr, "int16")[2], "int16"), r, None, 2)
+    # every x type at every limb count: ragged widths (H 41 and 1100:
+    # element loads for some types, 16-byte loads for others), rows off
+    # 16-byte alignment, and 20,000 rows
+    many = torch.randperm(n_smoke, generator=gen)[:20000].to(
+        torch.int32).to(device)
+    for name, xr, r in (("1037x41", xs["1037x41"], rows[:1000]),
+                        ("1037x1100", xs["1037x1100"], rows[:1000]),
+                        ("misaligned", xs["misaligned"], rows[:1000]),
+                        ("smoke, 20000 rows", x, many)):
+        r = r % xr.shape[0]
+        for dt in (torch.float32, torch.int8, torch.int16, torch.int32):
+            if dt == torch.float32:
+                xt, safe = xr, kq.abs_max_scale_plain(xr, "int32")[2]
+            else:
+                xt, safe = kq.quant_table_plain(xr, kq.abs_max_scale_plain(
+                    xr, dt)[2], dt), None
+            for limbs in (1, 2, 3, 4):
+                payload_case(f"{name} {dt}", xt, r, safe, limbs)
     dims = kq.payload_dims(rows.numel(), HIDDEN)
     res = dict(cases=cases["K-quant payload"], max_abs_err=0.0,
                rows=rows.numel(), h=HIDDEN, limbs=3, dims=list(dims))
-    res["ms"] = cuda_ms(lambda: kq.core_payload(x, rows, safe32, 3, *dims))
-    res["ms_int8_table_1_limb"] = cuda_ms(
-        lambda: kq.core_payload(tables["int8"], rows, None, 1, *dims))
+    res.update(payload_timing(x, rows, safe32, 3, hbm, f32_rate))
+    res["int8_table_1_limb"] = payload_timing(tables["int8"], rows, None, 1,
+                                              hbm, f32_rate)
     res["plain_ms"] = cuda_ms(
         lambda: kq.core_payload_plain(x, rows, safe32, 3, *dims))
     res["library_ms"] = None  # no PyTorch call writes the limb layout
-    res["bound_ms"], res["bound_by"] = least_time(
-        rows.numel() * (HIDDEN * 4 + 4) + 3 * dims[0] * dims[1],
-        rows.numel() * HIDDEN, hbm, f32_rate)
+    res["host_us"] = payload_host_steps(x, rows, safe32, 3, dims)
     results["K-quant payload"] = res
     print(f"K-quant payload: {json.dumps(res)}", flush=True)
     del xs, ties, tables, raw, x
@@ -6727,6 +7009,8 @@ def main() -> int:
         return halo_full()
     if "--rows-full" in sys.argv[1:]:
         return rows_full()
+    if "--prologue-full" in sys.argv[1:]:
+        return prologue_full()
     root = tempfile.mkdtemp(prefix="chip_smoke_cache_")
     os.environ["PYGIM_TPU_TORCH_DATA"] = root
     os.environ["PYGIM_TPU_TORCH_TUNE_CACHE"] = root

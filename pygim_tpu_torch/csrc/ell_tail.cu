@@ -80,9 +80,19 @@
 // - a warp lays its unit's counted slots out as one stream (a prefix sum
 //   of cnt over its virtual rows, one per lane), so no pad slot costs a
 //   read and a D = 2 table streams x rows as densely as a D = 512 one;
-// - path (b), wherever h * sizeof(element) % 16 == 0 (h % 4 for 4-byte
-//   rows, h % 8 for int16 and bf16, h % 16 for int8) and x and out are
-//   16-byte aligned:
+// - path (c), bf16 rows wherever h % 8 == 0 and x and out are 16-byte
+//   aligned: a lane owns 8 consecutive columns of a 256-column slab, so
+//   one 16-byte load a lane gathers a 512-byte bf16 row slice straight
+//   into registers (no bulk copy, no mbarrier a row); a warp issues the x
+//   rows of B = 8 slots (4 KiB, as many bytes as path (b)'s ring holds in
+//   f32) before it uses any, widens by a shift and keeps the sums in
+//   registers; a row is added into out from registers where its last slot
+//   is used, its output row read and written as streaming (evict-first)
+//   accesses so the L2 keeps more of x; the path holds no shared memory,
+//   so more warps fit an SM;
+// - path (b), the other modes wherever h * sizeof(element) % 16 == 0 (h %
+//   4 for 4-byte rows, h % 16 for int8, h % 8 for int16) and x and out
+//   are 16-byte aligned:
 //   lane 0 keeps a ring of RING shared-memory stages per warp filled with
 //   cp.async.bulk row copies completed on mbarriers, the next copy issued
 //   as soon as a stage is read, and the warp applies the weights from
@@ -91,15 +101,17 @@
 // - path (a), every other width or alignment: each lane issues its
 //   columns of BATCH independent x row reads into registers before it
 //   uses any;
-// - the weighted sums stay in registers; a finished row's sum is parked
-//   in shared memory, and the parked rows are added into out together,
-//   every row's load issued before any store, so a table of one-slot rows
-//   does not pay a memory latency per row;
+// - paths (a) and (b) keep the weighted sums in registers; a finished
+//   row's sum is parked in shared memory, and the parked rows are added
+//   into out together, every row's load issued before any store, so a
+//   table of one-slot rows does not pay a memory latency per row;
 // - a run that the unit holds whole is added with plain read-modify-
 //   writes; only the pieces of a split hub run use f32 atomics;
-// PERF.md has the times of both paths, and of L2 cache hints (x rows
-// evict_last, the other streams evict first) that were tried and lost on
-// the smoke tables.
+// PERF.md has the times of the paths, of path (c)'s variants that lost
+// (B = 16, the output rows read with the batch's x rows, no streaming
+// accesses) and of path (c) on f32 rows, and of L2 cache hints on path
+// (b) (x rows evict_last, the other streams evict first) that were tried
+// and lost on the smoke tables.
 // Summation order: a row's counted slots in order within a unit, then the
 // pieces of a split run in no fixed order — the result differs from the
 // plain version only in f32 summation order.
@@ -547,6 +559,102 @@ tail_bulk_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
   }
 }
 
+// Path (c): a lane's 8 consecutive bf16 elements of a row, one 16-byte
+// word; B slots' x rows issued a batch
+constexpr int LANE_ELEMS = 8;
+constexpr int LANE_SLAB = 32 * LANE_ELEMS;  // columns a warp covers
+constexpr int LANE_BATCH = 8;
+
+// element 2i is the low half of word i; widened by a shift (exact)
+__device__ __forceinline__ void widen8(uint4 r, float (&v)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Path (c) for one unit: the stream in chunks of 32 entries (one a lane,
+// the next chunk's loaded a chunk ahead), each chunk in batches of
+// LANE_BATCH slots. A batch first issues every slot's x row slice, then
+// applies the weights in slot order; at a row's last slot its sum is
+// added into out from registers, the output row read and written as
+// streaming (evict-first) accesses, and zeroed.
+__global__ void __launch_bounds__(WARPS * 32, 4)
+tail_lanes_kernel(const Table* __restrict__ tabs, const int2* __restrict__ units,
+                  int n_units, const uint16_t* __restrict__ x,
+                  float* __restrict__ out, int h) {
+  const int u = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (u >= n_units) return;
+  const int lane = threadIdx.x & 31;
+  const Unit U = load_unit(tabs, units, u, lane);
+  const int col = blockIdx.y * LANE_SLAB + LANE_ELEMS * lane;
+  const bool live = col < h;  // h % 8 == 0: all 8 columns or none
+  float acc[LANE_ELEMS];
+#pragma unroll
+  for (int i = 0; i < LANE_ELEMS; ++i) acc[i] = 0.f;
+  Entry e = load_entry(U, lane);
+  for (int c0 = 0; c0 < U.T; c0 += 32) {
+    const Entry en = load_entry(U, c0 + 32 + lane);
+    // slot c0 + lane ends its row where the next slot's row differs
+    int next = __shfl_down_sync(FULL, e.row, 1);
+    const int first = __shfl_sync(FULL, en.row, 0);
+    if (lane == 31) next = first;
+    const int q = c0 + lane;
+    const unsigned ends =
+        __ballot_sync(FULL, q < U.T && (q == U.T - 1 || next != e.row));
+    const int m = min(32, U.T - c0);
+    for (int b = 0; b < m; b += LANE_BATCH) {
+      uint4 xv[LANE_BATCH];
+#pragma unroll
+      for (int k = 0; k < LANE_BATCH; ++k) {
+        const int cx = __shfl_sync(FULL, e.col, b + k);
+        if (b + k < m && live)
+          xv[k] = __ldg(reinterpret_cast<const uint4*>(
+              x + static_cast<int64_t>(cx) * h + col));
+      }
+#pragma unroll
+      for (int k = 0; k < LANE_BATCH; ++k) {
+        if (b + k >= m) break;
+        const float wgt = __shfl_sync(FULL, e.val, b + k);
+        const int r = __shfl_sync(FULL, e.row, b + k);
+        if (live) {
+          float v[LANE_ELEMS];
+          widen8(xv[k], v);
+#pragma unroll
+          for (int i = 0; i < LANE_ELEMS; ++i) acc[i] = fmaf(wgt, v[i], acc[i]);
+        }
+        if (ends >> (b + k) & 1) {
+          if (live) {
+            float* o = out + static_cast<int64_t>(r) * h + col;
+            if (U.atomic) {
+#pragma unroll
+              for (int i = 0; i < LANE_ELEMS; ++i) atomicAdd(o + i, acc[i]);
+            } else {
+              float4* o4 = reinterpret_cast<float4*>(o);
+              float4 a0 = __ldcs(o4), a1 = __ldcs(o4 + 1);
+              a0.x += acc[0];
+              a0.y += acc[1];
+              a0.z += acc[2];
+              a0.w += acc[3];
+              a1.x += acc[4];
+              a1.y += acc[5];
+              a1.z += acc[6];
+              a1.w += acc[7];
+              __stcs(o4, a0);
+              __stcs(o4 + 1, a1);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < LANE_ELEMS; ++i) acc[i] = 0.f;
+        }
+      }
+    }
+    e = en;
+  }
+}
+
 struct Args {
   const Table* tabs;
   const int2* units;
@@ -582,10 +690,24 @@ int launch_regs(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_lanes(const Args& a, cudaStream_t s) {
+  const dim3 grid((a.n_units + WARPS - 1) / WARPS,
+                  (a.h + LANE_SLAB - 1) / LANE_SLAB);
+  tail_lanes_kernel<<<grid, WARPS * 32, 0, s>>>(
+      a.tabs, a.units, a.n_units, static_cast<const uint16_t*>(a.x), a.out,
+      a.h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vec: path (c) for bf16 rows, (b) for the others; else (a)
 template <typename P>
 int launch(const Args& a, int vec, cudaStream_t s) {
-  if (vec) return a.h <= 128 ? launch_bulk<1, P>(a, s) : launch_bulk<2, P>(a, s);
-  return a.h <= 64 ? launch_regs<2, P>(a, s) : launch_regs<8, P>(a, s);
+  if (!vec) return a.h <= 64 ? launch_regs<2, P>(a, s) : launch_regs<8, P>(a, s);
+  if constexpr (std::is_same_v<P, Bf16>) {
+    return a.h % LANE_ELEMS ? 901 : launch_lanes(a, s);
+  } else {
+    return a.h <= 128 ? launch_bulk<1, P>(a, s) : launch_bulk<2, P>(a, s);
+  }
 }
 
 }  // namespace
@@ -595,8 +717,8 @@ int launch(const Args& a, int vec, cudaStream_t s) {
 // table | (count - 1) << 8 | atomic << 13). payload: 0 f32, 1 int8, 2 int16,
 // 3 int32 rows, 4 f32 rows rounded to multiples of *safe (a float on the
 // card; null otherwise), 5 bf16 rows. vec: h * sizeof(element) % 16 == 0
-// and x, out 16-byte aligned (the caller checks); path (b) where it holds,
-// else (a).
+// and x, out 16-byte aligned (the caller checks); path (c) for bf16 rows
+// and path (b) for the others where it holds, else (a).
 // Returns 0 or an error code (cudaError_t, or 901: arguments refused).
 extern "C" int ell_tables_add(const void* tabs, const void* units, int n_units,
                               const void* x, void* out, int h, int vec,

@@ -43,14 +43,30 @@
 //   registers, then a warp (__reduce_max_sync), then a block, and writes
 //   one partial a block; a one-block launch reduces the partials and
 //   writes max|x|, scale and safe (no atomics, nothing to zero first);
-// - (c) is a tiled transpose: a block gathers a 64-row by 64-column tile
-//   of x (4 consecutive columns a thread, one access where the row allows),
-//   rounds it and keeps the 32-bit u of each element in shared memory, then
-//   writes each limb's 64 columns of 64 bytes (4 bytes a thread,
-//   contiguous across the warp) of the K-major payload.
+// - (c) is a tiled transpose: a block takes a 64-row by 64-column tile of
+//   the payload. It loads the tile's 64 row indices into shared memory
+//   once, before any x load; each thread then issues all of its 16-byte
+//   loads (16 / sizeof(T) consecutive columns of a row each: 4 for f32
+//   and int32, 8 for int16, 16 for int8; where a chunk could cross its
+//   row's end or x is not 16-byte aligned, 4-byte elements one by one and
+//   int8 or int16 ones as the one or two aligned 16-byte granules that
+//   hold the chunk's bytes, shifted into place in registers) before it
+//   rounds any, and keeps the 32-bit u of each element in a [column][row]
+//   shared tile whose odd row stride, with the lanes laid out as C chunks
+//   by 32 / C rows, puts a warp's 32 words in 32 banks; then each thread
+//   writes 16 contiguous K-major bytes of one (limb, column) a limb, two
+//   threads a 32-byte sector.
+// A granule read past a row's bytes or x's first or last byte stays inside
+// that 16-byte granule, which lies in x's allocation (the caching allocator
+// hands out blocks of 512 bytes); the bytes outside the row are never used.
+// PERF.md has this design's times and those of the designs tried and not
+// kept (blocks of 128 rows, their slices staged or transposed in
+// registers).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "payload.cuh"
 
@@ -58,7 +74,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_BLOCKS = 1024;
-constexpr int TILE = 64;  // (c): payload rows (j) and columns (n) a block
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ unsigned abs_bits(float v) {
@@ -165,68 +180,151 @@ __global__ void __launch_bounds__(THREADS)
     out[i] = static_cast<T>(quant_round(__ldcs(x + i), d, rcp));
 }
 
-// (c): one TILE x TILE tile of the payload a block: payload rows
-// j0 .. j0 + 63 (gathered x rows) by columns n0 .. n0 + 63.
+// (c): one TILE x TILE tile of the payload a block: payload rows j0 ..
+// j0 + 63 (gathered x rows) by columns n0 .. n0 + 63. A thread's load is
+// a 16-byte chunk of EPT = 16 / sizeof(T) consecutive columns of a row.
+// Load and rounding: in pass p, warp g = warp + 8p of the block takes
+// chunks C·(g & 1) .. + C - 1 (C = 32 / EPT) of rows EPT·(g >> 1) .. + EPT
+// - 1, lane i chunk i % C of row i / C. Stores: thread t writes rows
+// 32·(t >> 7) + 16·(t & 1) .. + 15 of column (t >> 1) & 63.
+constexpr int TILE = 64;
+
+__device__ __forceinline__ unsigned word_of(const uint4& c, int i) {
+  return i == 0 ? c.x : i == 1 ? c.y : i == 2 ? c.z : c.w;
+}
+
+// element e (a compile-time index) of a 16-byte chunk of T
+template <typename T>
+__device__ __forceinline__ T element(const uint4& c, int e) {
+  constexpr int SZ = static_cast<int>(sizeof(T));
+  const unsigned w = word_of(c, e * SZ / 4);
+  if constexpr (std::is_same_v<T, float>)
+    return __uint_as_float(w);
+  else
+    return static_cast<T>(w >> (8 * ((e * SZ) & 3)));
+}
+
+// bytes s .. s + 15 of the 32 bytes a, b (s < 16, known only at run time)
+__device__ __forceinline__ uint4 bytes_from(const uint4& a, const uint4& b,
+                                            int s) {
+  unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  if (s & 4) {  // move by whole words, in registers
+#pragma unroll
+    for (int i = 0; i < 7; ++i) w[i] = w[i + 1];
+  }
+  if (s & 8) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) w[i] = w[i + 2];
+  }
+  const unsigned r = 8 * (s & 3);
+  return make_uint4(__funnelshift_r(w[0], w[1], r), __funnelshift_r(w[1], w[2], r),
+                    __funnelshift_r(w[2], w[3], r), __funnelshift_r(w[3], w[4], r));
+}
+
 template <typename T, bool ROUND, bool VEC>
 __global__ void __launch_bounds__(THREADS)
     payload_kernel(const T* __restrict__ x, const int32_t* __restrict__ rows,
                    int n_rows, const float* __restrict__ safe_p, int limbs,
                    unsigned bias, int h, int h_pad, int k_pad,
                    int8_t* __restrict__ out) {
-  __shared__ unsigned su[TILE][TILE + 1];  // [column][row]: u of each element
+  constexpr int EPT = 16 / static_cast<int>(sizeof(T));  // elements a load
+  constexpr int C = 32 / EPT;         // a warp's chunks of one row
+  constexpr int PASSES = 16 / EPT;    // loads a thread
+  // [column][row]: u of each element; the odd row stride puts a warp's
+  // 32 words in 32 banks in both phases
+  __shared__ unsigned su[TILE][TILE + 1];
+  __shared__ int srow[TILE];
   const int j0 = blockIdx.x * TILE, n0 = blockIdx.y * TILE;
-  const int tr = threadIdx.x >> 4, tc = (threadIdx.x & 15) * 4;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   float2 d = make_float2(1.0f, 1.0f);
   bool rcp = false;
   if (ROUND) {
     d = divisor(safe_p);
     rcp = rcp_route(d);
   }
-#pragma unroll
-  for (int p = 0; p < TILE / 16; ++p) {
-    const int jl = tr + 16 * p, j = j0 + jl;
-    const int n = n0 + tc;
-    unsigned u[4] = {bias, bias, bias, bias};
-    if (j < n_rows && n < h) {
-      const T* src = x + static_cast<long long>(__ldg(rows + j)) * h + n;
-      T v[4];
-      if (VEC) {  // h % 4 == 0, so all four columns are in the row
-        const typename Vec4<T>::V w = *reinterpret_cast<const typename Vec4<T>::V*>(src);
-        v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = n + e < h ? src[e] : T(0);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (n + e >= h) continue;
-        int32_t q;
-        if constexpr (ROUND)
-          q = static_cast<int32_t>(quant_round(static_cast<float>(v[e]), d, rcp));
-        else
-          q = static_cast<int32_t>(v[e]);
-        u[e] = static_cast<unsigned>(q) + bias;
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) su[tc + e][jl] = u[e];
-  }
+  if (t < TILE) srow[t] = j0 + t < n_rows ? __ldg(rows + j0 + t) : -1;
   __syncthreads();
-  // writes: 16 threads a column (4 payload rows each), 16 columns a pass
-  const int jw = (threadIdx.x & 15) * 4, cr = threadIdx.x >> 4;
-  if (j0 + jw >= k_pad) return;
-  for (int l = 0; l < limbs; ++l) {
+  // every pass's chunk loaded before any is used: one 16-byte load
+  // (VEC: h % EPT == 0 and x 16-byte aligned, so the chunk is whole and
+  // aligned); else 4-byte elements one by one, and narrower ones as the
+  // one or two aligned 16-byte granules holding the chunk's bytes in the
+  // row, shifted into place in registers (PERF.md: each the faster there)
+  uint4 g[PASSES], hi[PASSES];
+  int shift[PASSES];
 #pragma unroll
-    for (int p = 0; p < TILE / 16; ++p) {
-      const int nl = cr + 16 * p;
-      unsigned word = 0;
+  for (int p = 0; p < PASSES; ++p) {
+    const int grp = warp + 8 * p;
+    const int jl = EPT * (grp >> 1) + lane / C;
+    const int n = n0 + EPT * (C * (grp & 1) + lane % C);
+    const int r = srow[jl];
+    g[p] = hi[p] = make_uint4(0u, 0u, 0u, 0u);
+    shift[p] = 0;
+    if (r < 0 || n >= h) continue;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(
+        x + static_cast<long long>(r) * h + n);
+    if (VEC) {
+      g[p] = __ldg(reinterpret_cast<const uint4*>(a));
+    } else if constexpr (sizeof(T) == 4) {  // 4 loads of 4 bytes
+      const T* src = reinterpret_cast<const T*>(a);
+      unsigned w[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        word |= (((su[nl][jw + e] >> (8 * l)) & 0xffu) ^ 0x80u) << (8 * e);
-      const long long off =
-          (static_cast<long long>(l) * h_pad + n0 + nl) * k_pad + j0 + jw;
-      *reinterpret_cast<unsigned*>(out + off) = word;
+        w[e] = n + e < h ? __ldg(reinterpret_cast<const unsigned*>(src + e))
+                         : 0u;
+      g[p] = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      const uintptr_t a0 = a & ~static_cast<uintptr_t>(15);
+      const uintptr_t end = a + min(EPT, h - n) * static_cast<int>(sizeof(T));
+      shift[p] = static_cast<int>(a - a0);
+      g[p] = __ldg(reinterpret_cast<const uint4*>(a0));
+      if (shift[p] && a0 + 16 < end)
+        hi[p] = __ldg(reinterpret_cast<const uint4*>(a0 + 16));
     }
+  }
+  if (!VEC && sizeof(T) < 4) {
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) g[p] = bytes_from(g[p], hi[p], shift[p]);
+  }
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    const int grp = warp + 8 * p;
+    const int jl = EPT * (grp >> 1) + lane / C;
+    const int nl = EPT * (C * (grp & 1) + lane % C);
+    const bool row_live = srow[jl] >= 0;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      unsigned u = bias;
+      if (row_live && n0 + nl + e < h) {
+        const T v = element<T>(g[p], e);
+        int32_t q;
+        if constexpr (ROUND)
+          q = static_cast<int32_t>(quant_round(v, d, rcp));
+        else
+          q = static_cast<int32_t>(v);
+        u = static_cast<unsigned>(q) + bias;
+      }
+      su[nl + e][jl] = u;
+    }
+  }
+  __syncthreads();
+  // 16 rows of one column a thread, a 16-byte store a limb
+  const int nl = (t >> 1) & (TILE - 1), jw = 32 * (t >> 7) + 16 * (t & 1);
+  if (j0 + jw >= k_pad) return;  // k_pad % 16 == 0
+  unsigned u[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) u[k] = su[nl][jw + k];
+  for (int l = 0; l < limbs; ++l) {
+    unsigned w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      w[q] = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[q] |= (((u[4 * q + e] >> (8 * l)) & 0xffu) ^ 0x80u) << (8 * e);
+    }
+    const long long off =
+        (static_cast<long long>(l) * h_pad + n0 + nl) * k_pad + j0 + jw;
+    *reinterpret_cast<uint4*>(out + off) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
@@ -250,12 +348,13 @@ int launch_table(const float* x, long long numel, int vec, const float* safe,
 template <typename T, bool ROUND>
 int launch_payload(const void* x, const int32_t* rows, int n_rows,
                    const float* safe, int limbs, int h, int h_pad, int k_pad,
-                   int vec, int8_t* out, cudaStream_t s) {
+                   int8_t* out, cudaStream_t s) {
   unsigned bias = 0;
   for (int l = 0; l < limbs; ++l) bias += 128u << (8 * l);
   const dim3 grid((k_pad + TILE - 1) / TILE, h_pad / TILE);
   const T* x_ = static_cast<const T*>(x);
-  if (vec)
+  // 16-byte loads where every chunk lies whole in its row, aligned
+  if (h % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
     payload_kernel<T, ROUND, true><<<grid, THREADS, 0, s>>>(
         x_, rows, n_rows, safe, limbs, bias, h, h_pad, k_pad, out);
   else
@@ -307,15 +406,15 @@ extern "C" int quant_table(const void* x, long long numel, int vec,
 }
 
 // (c): x (N, h) row-major of type code (0 f32, rounded by safe; 1 int8,
-// 2 int16, 3 int32, taken as they are), rows int32 (n_rows,), out int8
-// (limbs, h_pad, k_pad) with h_pad % 64 == 0, k_pad % 16 == 0, n_rows <=
-// k_pad. vec: h % 4 == 0 and x aligned to 4 elements.
+// 2 int16, 3 int32, taken as they are), any h and alignment; rows int32
+// (n_rows,); out int8 (limbs, h_pad, k_pad), 16-byte aligned, with h_pad
+// % 64 == 0, k_pad % 16 == 0, n_rows <= k_pad.
 extern "C" int quant_core_payload(const void* x, int x_type, const void* rows,
                                   int n_rows, const void* safe, int limbs,
-                                  int h, int h_pad, int k_pad, int vec,
-                                  void* out, void* stream) {
-  if (limbs < 1 || limbs > 4 || h_pad % TILE || k_pad % 16 || n_rows > k_pad
-      || h > h_pad || (vec && h % 4))
+                                  int h, int h_pad, int k_pad, void* out,
+                                  void* stream) {
+  if (limbs < 1 || limbs > 4 || h_pad % 64 || k_pad % 16 || n_rows > k_pad
+      || h > h_pad || reinterpret_cast<uintptr_t>(out) % 16)
     return 901;
   if (h_pad == 0 || k_pad == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -325,17 +424,17 @@ extern "C" int quant_core_payload(const void* x, int x_type, const void* rows,
   switch (x_type) {
     case 0:
       return sp ? launch_payload<float, true>(x, r, n_rows, sp, limbs, h,
-                                              h_pad, k_pad, vec, o, s)
+                                              h_pad, k_pad, o, s)
                 : 901;
     case 1:
       return launch_payload<int8_t, false>(x, r, n_rows, sp, limbs, h, h_pad,
-                                           k_pad, vec, o, s);
+                                           k_pad, o, s);
     case 2:
       return launch_payload<int16_t, false>(x, r, n_rows, sp, limbs, h, h_pad,
-                                            k_pad, vec, o, s);
+                                            k_pad, o, s);
     case 3:
       return launch_payload<int32_t, false>(x, r, n_rows, sp, limbs, h, h_pad,
-                                            k_pad, vec, o, s);
+                                            k_pad, o, s);
     default:
       return 901;
   }

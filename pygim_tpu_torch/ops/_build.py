@@ -107,10 +107,9 @@ SIGNATURES = {
         "quant_abs_max": [_P, _LL, _I, _P, ctypes.c_float, _P, _P],
         # x, numel, vec, safe, out, out type, stream
         "quant_table": [_P, _LL, _I, _P, _P, _I, _P],
-        # x, x type, rows, n_rows, safe, limbs, h, h_pad, k_pad, vec, out,
+        # x, x type, rows, n_rows, safe, limbs, h, h_pad, k_pad, out,
         # stream
-        "quant_core_payload": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P,
-                               _P],
+        "quant_core_payload": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
     },
 }
 

@@ -22,7 +22,13 @@ quantized aggregate); the kernel takes the quotient from one reciprocal
 a thread and a correction step, not a division per element; (iv)
 bfloat16 rows widened exactly to f32 (``ell_scan_spmm`` on a bf16
 payload, ``pygim_tpu/ops/spmm.py:489-493``).
-The kernel takes any width H. It reads only the slots up to each virtual row's last nonzero
+The kernel takes any width H on one of three paths (:func:`kernel_path`):
+bf16 rows at H % 8 == 0 with x and out 16-byte aligned gather 16 bytes a
+lane straight into registers (path (c)); the other modes at rows of a
+multiple of 16 bytes so aligned bulk-copy x rows into shared memory
+(path (b)); every other width or alignment reads x into registers
+element by element (path (a)).
+It reads only the slots up to each virtual row's last nonzero
 weight, so a non-finite x row that only pad slots (or trailing zero
 weights) reach does not spread NaN, where the plain version and the
 reference spread it; for finite x the two agree up to f32 summation order.
@@ -272,6 +278,18 @@ def tail_plan(tables, host=None) -> TailPlan:
                     units=units, packed=packed, tabs=tabs)
 
 
+def kernel_path(x, out) -> str:
+    """The path the kernel takes for ``x`` into ``out`` on the card
+    (``csrc/ell_tail.cu``): where a row is a multiple of 16 bytes (H % 8
+    for bf16 and int16, H % 4 for 4-byte rows, H % 16 for int8) and x and
+    out are 16-byte aligned, ``"lanes"`` (c) for bf16 rows and ``"bulk"``
+    (b) for the other modes; else ``"registers"`` (a)."""
+    if (x.shape[1] * x.element_size() % 16 or x.data_ptr() % 16
+            or out.data_ptr() % 16):
+        return "registers"
+    return "lanes" if x.dtype == torch.bfloat16 else "bulk"
+
+
 def ell_tables_add(x, tables, out, plan=None, safe=None):
     """Add every ELL table's product into ``out`` (in place; returned):
     ``tables`` is ``[(cols2d, vals2d, vrow_to_row, degree)]``, each
@@ -279,10 +297,7 @@ def ell_tables_add(x, tables, out, plan=None, safe=None):
     bfloat16, int8, int16 or int32, or float32 rounded to ``round(x /
     safe)`` where ``safe`` is given (module docstring). CPU tensors take
     :func:`ell_tables_plain`; CUDA tensors launch the kernel once for all
-    tables, any H, or raise: its bulk-copy path where a row is a multiple
-    of 16 bytes (H % 4 for 4-byte elements, H % 8 for int16 and bf16,
-    H % 16 for int8) and x and out are 16-byte aligned, its register path
-    elsewhere.
+    tables, any H, or raise, on :func:`kernel_path`'s path.
     ``plan`` (:func:`tail_plan` of these tables) is built here when not
     given."""
     global launches, quant_launches, bf16_launches
@@ -301,8 +316,7 @@ def ell_tables_add(x, tables, out, plan=None, safe=None):
     h = x.shape[1]
     if plan.n_units == 0 or h == 0 or x.shape[0] == 0:
         return out
-    vec = (h * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
-           and out.data_ptr() % 16 == 0)
+    vec = kernel_path(x, out) != "registers"
     payload = PAYLOADS[x.dtype] if safe is None else _QUANT
     lib = _build.load("ell_tail")
     with torch.cuda.device(out.device):

@@ -27,6 +27,8 @@ launch the kernel or raise.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from pygim_tpu_torch.ops import _build
@@ -137,6 +139,22 @@ def quant_table(x, safe, dtype):
     return out
 
 
+def payload_route(x) -> str:
+    """The payload kernel's loads for ``x`` (``csrc/quant.cu:
+    payload_kernel``): ``16 / itemsize`` columns a 16-byte load where every
+    such chunk lies whole in its row and x is 16-byte aligned, else 4-byte
+    elements one by one, or narrower ones from the one or two aligned
+    16-byte granules holding them; 64 x 64 tiles."""
+    e = 16 // x.element_size()
+    if x.shape[1] % e == 0 and x.data_ptr() % 16 == 0:
+        how = "a 16-byte load"
+    elif e == 4:
+        how = "4 element loads"
+    else:
+        how = "a pair of 16-byte granules"
+    return f"64x64 tiles, {e} columns {how}"
+
+
 def payload_dims(w_max: int, h: int) -> "tuple[int, int]":
     """``(h_pad, k_pad)`` of K-int's payload for a core whose widest band
     is ``w_max`` at width ``h``: multiples of 64 and 16."""
@@ -173,26 +191,30 @@ def core_payload(x, rows, safe, limbs: int, h_pad: int, k_pad: int):
     ``x[rows]``: each ``q = round(x[r] / safe)`` (float32 x) or ``x[r]``
     (int8, int16, int32 x) as ``limbs`` balanced digits, digit l of row j,
     column n at ``[l, n, j]``; zero past the rows, past H and in the pads
-    (module docstring)."""
+    (module docstring). On the card any H and alignment, into a fresh
+    output a call (the interleave runs the core on a second stream). The
+    host's part of a call is kept to the checks, the output and the
+    launch: int32 contiguous rows are taken as they are, and the device
+    is switched only where x is not on the current one (``chip_smoke.py:payload_host_steps`` times each step)."""
     _check_payload(x, rows, safe, limbs, h_pad, k_pad)
     _build.refuse_grad("core_payload", x)
     if not _on_card("core_payload", x):
         return core_payload_plain(x, rows, safe, limbs, h_pad, k_pad)
-    if rows.device != x.device or (safe is not None and (
-            safe.device != x.device or safe.dtype != torch.float32
+    dev = x.device
+    if rows.device != dev or (safe is not None and (
+            safe.device != dev or safe.dtype != torch.float32
             or safe.dim() != 0)):
         raise ValueError("core_payload's rows and safe lie on x's device")
-    rows = rows.to(torch.int32).contiguous()
-    h = x.shape[1]
-    out = torch.empty((limbs, h_pad, k_pad), dtype=torch.int8,
-                      device=x.device)
-    vec = int(h % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0)
+    if rows.dtype != torch.int32 or not rows.is_contiguous():
+        rows = rows.to(torch.int32).contiguous()
+    out = torch.empty((limbs, h_pad, k_pad), dtype=torch.int8, device=dev)
     lib = _build.load("quant")
-    with torch.cuda.device(x.device):
+    switch = dev.index is not None and dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
         err = lib.quant_core_payload(
             x.data_ptr(), PAYLOAD_TYPES[x.dtype], rows.data_ptr(),
-            rows.numel(), None if safe is None else safe.data_ptr(), limbs, h,
-            h_pad, k_pad, vec, out.data_ptr(), _build.stream_of(x))
+            rows.numel(), None if safe is None else safe.data_ptr(), limbs,
+            x.shape[1], h_pad, k_pad, out.data_ptr(), _build.stream_of(x))
     _build.check(err, "quant_core_payload")
     _count("payload")
     return out

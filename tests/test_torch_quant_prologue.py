@@ -6,8 +6,9 @@ included), and K-int's limb payload against the reference's rounded
 core gather (``pygim_tpu/ops/spmm.py:1618-1624``) split by the port's
 ``limb_split``, with the int32 wraparound. A NumPy model of the CUDA
 payload kernel's tiles (``csrc/quant.cu:payload_kernel``) is held to
-``limb_split`` at ragged shapes, and the prepared operand's products are
-held to take the payload route and to give the same values as before.
+``limb_split`` at ragged rows and widths, every type and limb count and
+a misaligned x, and the prepared operand's products are held to take
+the payload route and to give the same values as before.
 Every comparison is exact: the port rounds as the reference does."""
 
 import numpy as np
@@ -194,67 +195,154 @@ def test_int32_wraparound_through_k_int():
                                       payload=payload)
 
 
-def emulate_payload_kernel(x, rows, safe, limbs, h_pad, k_pad):
-    """``csrc/quant.cu:payload_kernel`` in NumPy, block by block and
-    thread by thread as the CUDA source indexes: each 64 × 64 tile's u
-    words in ``su[column][row]`` (pads at the bias), then each limb's
-    4-byte words of the K-major payload."""
-    tile = 64
+def emulate_payload_kernel(x, rows, safe, limbs, h_pad, k_pad, base=0):
+    """``csrc/quant.cu:payload_kernel`` in NumPy, as the CUDA source
+    indexes it, with x at byte ``base`` of a memory of junk bytes: 64 x 64
+    tiles; in pass p, warp g = warp + 8p takes chunks C·(g & 1) .. + C - 1
+    (C = 32 / EPT, EPT = 16 / itemsize) of rows EPT·(g >> 1) .. + EPT - 1,
+    lane i chunk i % C of row i / C, a 16-byte load where x is aligned and
+    H % EPT == 0, else 4-byte elements one by one and narrower ones from
+    the one or two aligned granules holding the chunk's bytes in its row
+    (asserted inside x's first and last granules), shifted into place; its
+    u words go to ``su[col]
+    [row]`` (every word once, and each warp's 32 words in 32 banks at the
+    odd row stride); thread t writes rows 32·(t >> 7) + 16·(t & 1) .. + 15
+    of column (t >> 1) & 63, 16 bytes a limb (each warp's reads in 32
+    banks). Every byte of ``out`` must be written once."""
     n_rows, h = rows.size, x.shape[1]
+    sz = x.dtype.itemsize
+    ept = 16 // sz
+    cpw, passes = 32 // ept, 16 // ept
+    vec = h % ept == 0 and base % 16 == 0
+    mem = np.full(base + x.nbytes + 48, 0xAB, np.uint8)
+    mem[base:base + x.nbytes] = np.ascontiguousarray(x).view(np.uint8).ravel()
+    lo, hi = base // 16 * 16, -(-(base + x.nbytes) // 16) * 16
     bias = sum(128 << (8 * l) for l in range(limbs))
-    out = np.full((limbs, h_pad, k_pad), 0x55, np.uint8)  # every byte written
+    out = np.zeros((limbs, h_pad, k_pad), np.uint8)
+    written = np.zeros(out.shape, np.int64)
     t = np.arange(256)
-    for bx in range(-(-k_pad // tile)):
-        for by in range(h_pad // tile):
-            j0, n0 = bx * tile, by * tile
-            su = np.zeros((tile, tile + 1), np.uint64)
-            tr, tc = t >> 4, (t & 15) * 4
-            for p in range(tile // 16):
-                jl = tr + 16 * p
-                j = j0 + jl
-                for e in range(4):
-                    n = n0 + tc + e
-                    ok = (j < n_rows) & (n < h)
-                    u = np.full(256, bias, np.int64)
-                    src = x[rows[np.minimum(j, n_rows - 1)],
-                            np.minimum(n, h - 1)]
-                    if safe is None:
-                        q = src.astype(np.int64)
-                    else:
-                        q = np.round(src / np.float32(safe)).astype(np.int64)
-                    u[ok] = (q[ok] + bias) & 0xFFFFFFFF
-                    su[tc + e, jl] = u
-            jw, cr = (t & 15) * 4, t >> 4
-            live = j0 + jw < k_pad
-            for l in range(limbs):
-                for p in range(tile // 16):
-                    nl = cr + 16 * p
-                    for e in range(4):
-                        byte = ((su[nl, jw + e] >> np.uint64(8 * l)) & 0xFF) \
-                            ^ 0x80
-                        out[l, (n0 + nl)[live], (j0 + jw + e)[live]] = \
-                            byte[live]
+
+    def chunk(a, valid):
+        """The 16 bytes at ``a`` as the kernel reads them: one aligned
+        load, 4-byte elements of ``[a, a + valid)``, or the aligned
+        granules that hold a byte of it."""
+        a0 = a // 16 * 16
+        if vec:
+            assert a == a0
+        elif sz == 4:
+            out = np.zeros(16, np.uint8)
+            out[:valid] = mem[a:a + valid]
+            return out
+        got = []
+        for g in (a0, a0 + 16):
+            if g < a + valid and (g == a0 or a > a0):
+                assert lo <= g and g + 16 <= hi
+                got.append(mem[g:g + 16])
+            else:
+                got.append(np.zeros(16, np.uint8))
+        return np.concatenate(got)[a - a0:a - a0 + 16]
+
+    lane, warp = t & 31, t >> 5
+    for bx in range(-(-k_pad // 64)):
+        for by in range(h_pad // 64):
+            j0, n0 = bx * 64, by * 64
+            srow = np.array([rows[j0 + r] if j0 + r < n_rows else -1
+                             for r in range(64)])
+            su = np.full((64, 65), -1, np.int64)
+            for p in range(passes):
+                grp = warp + 8 * p
+                jl = ept * (grp >> 1) + lane // cpw
+                nl = ept * (cpw * (grp & 1) + lane % cpw)
+                for tt in range(256):
+                    r, n = srow[jl[tt]], n0 + nl[tt]
+                    c = np.zeros(16, np.uint8)
+                    if r >= 0 and n < h:
+                        c = chunk(base + (int(r) * h + n) * sz,
+                                  min(ept, h - n) * sz)
+                    vals = c.view(x.dtype)
+                    for e in range(ept):
+                        col, row = nl[tt] + e, jl[tt]
+                        u = bias
+                        if r >= 0 and n + e < h:
+                            q = (int(vals[e]) if safe is None else
+                                 int(np.round(vals[e] / np.float32(safe))))
+                            u = (q + bias) & 0xFFFFFFFF
+                        assert su[col, row] == -1
+                        su[col, row] = u
+                # each warp's 32 words of one element index in 32 banks
+                for e in range(ept):
+                    banks = (((nl + e) * 65 + jl) % 32).reshape(8, 32)
+                    assert all(len(set(b)) == 32 for b in banks)
+            assert (su[:, :64] >= 0).all()
+            nl = (t >> 1) & 63
+            jw = 32 * (t >> 7) + 16 * (t & 1)
+            banks = ((nl * 65 + jw) % 32).reshape(8, 32)
+            assert all(len(set(b)) == 32 for b in banks)
+            for tt in range(256):
+                if j0 + jw[tt] >= k_pad:
+                    continue
+                u = su[nl[tt], jw[tt]:jw[tt] + 16]
+                for l in range(limbs):
+                    byte = ((u >> (8 * l)) & 0xFF) ^ 0x80
+                    n, j = n0 + nl[tt], j0 + jw[tt]
+                    out[l, n, j:j + 16] = byte
+                    written[l, n, j:j + 16] += 1
+    assert (written == 1).all()
     return torch.from_numpy(out.view(np.int8))
 
 
-@pytest.mark.parametrize("h,n_rows,limbs,rounded", [
-    (41, 37, 1, True), (100, 130, 3, True), (64, 64, 2, False),
-    (7, 200, 4, False), (130, 16, 3, True)])
-def test_kernel_tiles_match_limb_split(h, n_rows, limbs, rounded):
-    rng = np.random.default_rng(h)
-    if rounded:
+PAYLOAD_CASES = [  # (h, rows): rows not a multiple of 128; H 41, 100, 1104;
+    # every row shorter than one load chunk (H 7); exact 64-wide tiles (64,
+    # 64); H just past two tiles with few rows (130, 16)
+    (41, 37), (100, 300), (1104, 130), (7, 200), (64, 64), (130, 16)]
+
+
+@pytest.mark.parametrize("h,n_rows", PAYLOAD_CASES)
+@pytest.mark.parametrize("limbs", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int16", "int32"])
+def test_kernel_tiles_match_limb_split(dtype, limbs, h, n_rows):
+    """The emulated kernel against ``core_payload`` (the plain version)
+    and the limb split of the reference's rounded gather, x 16-byte
+    aligned (even limb counts) and one element off it (odd)."""
+    rng = np.random.default_rng(h + limbs)
+    if dtype == "float32":
         x = (300 * rng.standard_normal((n_rows + 9, h))).astype(np.float32)
         safe = np.float32(0.75)
     else:
-        x = rng.integers(-(1 << 31), 1 << 31, (n_rows + 9, h)).astype(np.int32)
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max, (n_rows + 9, h),
+                         endpoint=True).astype(dtype)
         safe = None
     rows = rng.permutation(n_rows + 9)[:n_rows].astype(np.int32)
     h_pad, k_pad = kq.payload_dims(n_rows + 3, h)
-    got = emulate_payload_kernel(x, rows, safe, limbs, h_pad, k_pad)
     want = kq.core_payload(
         torch.from_numpy(x), torch.from_numpy(rows),
         None if safe is None else torch.tensor(safe), limbs, h_pad, k_pad)
+    if safe is None:
+        ref = torch.from_numpy(x[rows].astype(np.int32))
+    else:
+        ref = torch.from_numpy(np.array(jnp.round(
+            jnp.asarray(x[rows]) / safe).astype(jnp.int32)))
+    assert torch.equal(want, core_int.limb_split(ref, limbs, h_pad, k_pad))
+    base = x.dtype.itemsize * (limbs % 2)  # odd limbs: x off 16 bytes
+    got = emulate_payload_kernel(x, rows, safe, limbs, h_pad, k_pad, base)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,h,offset,want", [
+    (torch.int8, 48, 0, "16 columns a 16-byte load"),
+    (torch.int8, 47, 0, "16 columns a pair of 16-byte granules"),
+    (torch.int16, 40, 0, "8 columns a 16-byte load"),
+    (torch.int16, 41, 0, "8 columns a pair of 16-byte granules"),
+    (torch.float32, 256, 0, "4 columns a 16-byte load"),
+    (torch.float32, 256, 1, "4 columns 4 element loads"),
+    (torch.float32, 41, 0, "4 columns 4 element loads")])
+def test_payload_route(dtype, h, offset, want):
+    """16-byte loads where each chunk lies whole in a 16-byte aligned row;
+    elsewhere 4-byte elements one by one and narrower ones from the
+    aligned granules holding the chunk."""
+    x = torch.zeros(4 * h + offset, dtype=dtype)[offset:].view(4, h)
+    assert kq.payload_route(x) == f"64x64 tiles, {want}"
 
 
 def test_core_payload_checks_its_arguments():

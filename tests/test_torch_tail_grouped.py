@@ -1,7 +1,9 @@
 """K-tail's grouped form (every ELL table in one launch) on the CPU: the
 host plan the kernel walks, a NumPy emulation of the kernel's unit order
-and slot skipping against the plain version and the JAX reference, the
-wrapper on CPU tensors and its checks, and the run path's width rule.
+and slot skipping against the plain version and the JAX reference, a
+NumPy emulation of the bf16-row path (c) walk (8-column lanes, B slots in
+flight, the flush from registers) on bf16 rows, the wrapper on CPU tensors, its checks and its path choice, and
+the run path's width rule.
 The CUDA kernel itself is held against the plain version on the card by
 chip_smoke.py.
 
@@ -254,6 +256,159 @@ def test_emulation_reads_no_pad_slot():
     assert np.all(np.abs(got - want) <= REL * mag_np(x, tables, n) + 1e-30)
 
 
+# --- path (c): the bf16-row walk -----------------------------------------
+
+
+def bf16_bits(x):
+    """float32 ``x`` rounded to bf16 (RNE, as ``torch``), as uint16 bits."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def widen8(words):
+    """``csrc/ell_tail.cu:widen8`` on a lane's four 32-bit words: element
+    2i is the low half of word i, each widened by a shift."""
+    lo = (words << np.uint32(16)).view(np.float32)
+    hi = (words & np.uint32(0xFFFF0000)).view(np.float32)
+    return np.stack([lo, hi], -1).reshape(*words.shape[:-1], 8)
+
+
+LANE_BATCH = 8  # csrc/ell_tail.cu: slots whose x rows a batch issues
+
+
+def emulate_lanes(xbits, tables, units, counts, out):
+    """``csrc/ell_tail.cu:tail_lanes_kernel`` in NumPy, as the source
+    indexes it: per unit, its counted slots as one stream in chunks of 32
+    (a slot ends its row where the next slot's row differs, the next
+    chunk's first slot read for the last lane), each chunk in batches of
+    ``LANE_BATCH`` slots whose x rows are loaded before any is applied;
+    every lane of every 256-column slab loads its 8 columns as four 32-bit
+    words of bf16 pairs (lanes past H load nothing); at a row's last slot
+    the lanes' sums are added into the output row and zeroed."""
+    n, h = xbits.shape
+    assert h % 8 == 0
+    words = np.ascontiguousarray(xbits).view(np.uint32).reshape(n, h // 2)
+    slabs = -(-h // 256)
+    for t, v0, nv, _atomic in units:
+        cols, vals, vrow, d = tables[t]
+        cols, vals = cols.reshape(-1, d), vals.reshape(-1, d)
+        vrow = vrow.reshape(-1)
+        stream = [(cols[v, s], vals[v, s], vrow[v])
+                  for v in range(v0, v0 + nv) for s in range(counts[t][v])]
+        T = len(stream)
+        for sy in range(slabs):
+            lanes = sy * 256 + 8 * np.arange(32)
+            live = lanes < h
+            c = lanes[live]  # first column of each live lane
+            wsel = (c // 2)[:, None] + np.arange(4)  # its four words
+            acc = np.zeros((live.sum(), 8), np.float32)
+            for c0 in range(0, T, 32):
+                m = min(32, T - c0)
+                ends = [q == T - 1 or stream[q + 1][2] != stream[q][2]
+                        for q in range(c0, c0 + m)]
+                for b in range(0, m, LANE_BATCH):
+                    ks = range(b, min(b + LANE_BATCH, m))
+                    xv = {k: widen8(words[stream[c0 + k][0]][wsel])
+                          for k in ks}
+                    for k in ks:
+                        col_, wgt, row = stream[c0 + k]
+                        acc = (acc + np.float32(wgt) * xv[k]).astype(
+                            np.float32)
+                        if ends[k]:
+                            idx = c[:, None] + np.arange(8)
+                            out[row][idx] = (out[row][idx] + acc).astype(
+                                np.float32)
+                            acc[:] = 0
+    return out
+
+
+def bf16_plain(xbits, tables, out):
+    x = torch.from_numpy(xbits.view(np.int16)).view(torch.bfloat16)
+    t = [tuple(torch.from_numpy(a) for a in tb[:3]) + (tb[3],)
+         for tb in tables]
+    return ell_tail.ell_tables_plain(x, t, torch.from_numpy(out)).numpy()
+
+
+def bf16_mag(xbits, tables, n):
+    x = torch.from_numpy(xbits.view(np.int16)).view(torch.bfloat16)
+    return mag_np(x.float().numpy(), tables, n)
+
+
+@pytest.mark.parametrize("h", [8, 56, 248, 256, 264, 520])
+def test_lanes_walk_matches_plain_with_split_hub_runs(h):
+    """Ragged multi-degree tables with a hub run cut into atomic pieces:
+    a slab's first lanes only, one slab short of its last lane, one whole
+    slab, two slabs and three, onto a nonzero output."""
+    n = 300
+    rows, cols, vals = ragged_graph(n, seed=h + 8)
+    tables = tables_of(rows, cols, vals, n)
+    units, _n_real, counts = plan_of(tables)
+    assert units[:, 3].any() and not units[:, 3].all()  # split hub run
+    rng = np.random.default_rng(h)
+    xbits = bf16_bits(rng.standard_normal((n, h)))
+    out0 = rng.standard_normal((n, h)).astype(np.float32)
+    got = emulate_lanes(xbits, tables, units, counts, out0.copy())
+    want = bf16_plain(xbits, tables, out0.copy())
+    mag = bf16_mag(xbits, tables, n) + np.abs(out0)
+    assert np.all(np.abs(got - want) <= REL * mag + 1e-30)
+
+
+@pytest.mark.parametrize("kind", GRAPHS)
+def test_lanes_walk_matches_jax_on_multi_table_prepares(kind):
+    rows, cols, vals = make_graph(kind)
+    tp = tspmm.prepare_spmm(
+        tgraph.CooGraph.from_edges(rows, cols, vals, nrows=N, ncols=N),
+        tspmm.SpmmConfig(**KW), device="cpu")
+    assert len(tp.ell_meta) > 1
+    tables = [(c.numpy(), v.numpy(), r.numpy(), d)
+              for c, v, r, d in tp.ell_tables(tp.dev_arrays)]
+    units, _n_real, counts = plan_of(tables)
+    h = 16
+    xbits = bf16_bits(np.random.default_rng(6).standard_normal((N, h)))
+    got = emulate_lanes(xbits, tables, units, counts,
+                        np.zeros((N, h), np.float32))
+    xj = jnp.asarray(xbits.view(np.int16)).view(jnp.bfloat16)
+    want = np.zeros((N, h), np.float32)
+    for (chunk, degree), (c3, v3, r3, _d) in zip(tp.ell_meta, tables):
+        part = jspmm.ell_scan_spmm(xj, jnp.asarray(c3), jnp.asarray(v3),
+                                   jnp.asarray(r3), chunk, degree, N)
+        assert part.dtype == jnp.float32  # result_type(f32 vals, bf16)
+        want += np.asarray(part)
+    mag = bf16_mag(xbits, tables, N)
+    assert mag.any()
+    assert np.all(np.abs(got - want) <= REL * mag + 1e-30)
+    plain = bf16_plain(xbits, tables, np.zeros((N, h), np.float32))
+    assert np.all(np.abs(got - plain) <= REL * mag + 1e-30)
+
+
+def test_lanes_walk_reads_no_pad_slot():
+    """The documented difference on path (c) too: a NaN bf16 x row that
+    only pad slots reach spreads NaN in the plain version, not in the
+    walk."""
+    n = 300
+    rows, cols, vals = ragged_graph(n, seed=2)
+    tables = tables_of(rows, cols, vals, n)
+    units, _n_real, counts = plan_of(tables)
+    xbits = bf16_bits(np.random.default_rng(3).standard_normal((n, 8)))
+    xbits[0] = bf16_bits(np.full((1, 8), np.nan))[0]
+    got = emulate_lanes(xbits, tables, units, counts,
+                        np.zeros((n, 8), np.float32))
+    plain = bf16_plain(xbits, tables, np.zeros((n, 8), np.float32))
+    assert np.isfinite(got).all()
+    assert np.isnan(plain[n - 1]).all()  # the pad rows' target
+    xbits[0] = 0
+    want = bf16_plain(xbits, tables, np.zeros((n, 8), np.float32))
+    assert np.all(np.abs(got - want)
+                  <= REL * bf16_mag(xbits, tables, n) + 1e-30)
+
+
+def test_widen8_is_the_bf16_value():
+    xbits = bf16_bits(np.random.default_rng(0).standard_normal((3, 8)))
+    words = xbits.view(np.uint32)
+    want = torch.from_numpy(xbits.view(np.int16)).view(torch.bfloat16)
+    np.testing.assert_array_equal(widen8(words), want.float().numpy())
+
+
 # --- the wrapper ----------------------------------------------------------
 
 
@@ -328,6 +483,28 @@ def test_tables_wrapper_rejects(bad):
         out = out.to("meta")
     with pytest.raises((TypeError, ValueError)):
         ell_tail.ell_tables_add(x, [(c, v, r, d)], out)
+
+
+@pytest.mark.parametrize("dtype,h,offset,want", [
+    (torch.bfloat16, 256, 0, "lanes"),
+    (torch.bfloat16, 1104, 0, "lanes"),
+    (torch.bfloat16, 36, 0, "registers"),
+    (torch.bfloat16, 256, 1, "registers"),
+    (torch.float32, 256, 0, "bulk"),
+    (torch.float32, 41, 0, "registers"),
+    (torch.float32, 256, 1, "registers"),
+    (torch.int8, 48, 0, "bulk"),
+    (torch.int8, 40, 0, "registers"),
+    (torch.int16, 40, 0, "bulk"),
+])
+def test_kernel_path_rule(dtype, h, offset, want):
+    """Path (c) takes bf16 rows at H % 8 == 0, 16-byte aligned; the other
+    modes keep path (b) at rows of a multiple of 16 bytes; every other
+    width or alignment path (a)."""
+    buf = torch.zeros(8 * h + offset, dtype=dtype)
+    x = buf[offset:].view(8, h)
+    out = torch.zeros(8, h)
+    assert ell_tail.kernel_path(x, out) == want
 
 
 # --- the run path's width rule -------------------------------------------

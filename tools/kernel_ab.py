@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the hand kernels of two checkouts on one card, in turns.
 
-    python3 tools/kernel_ab.py --parent DIR [--full | --bcsr]
+    python3 tools/kernel_ab.py --parent DIR [--full | --bcsr | --prologue
+                                            [--full]]
 
 ``DIR`` is an unpacked checkout of the parent commit (``git archive``);
 the change is the checkout this script lies in. The script runs one
@@ -41,6 +42,19 @@ panel ``lp``) and both layouts of its 1 GiB random tier
 (``scale_tiers``), each product checked against ``bcsr_plain`` first, at
 H 256 with an f32 x. A tree whose ``bcsr_add`` takes a work plan gets it
 built once a tier, as a prepared operand keeps it.
+
+``--prologue`` times K-tail on bf16 rows and K-quant's core payload
+instead, in the same turns (parent, change, change, parent), with the
+change's measuring code (``chip_smoke.py``: ``tail_bf16_timing``,
+``payload_timing``, ``prologue_shapes``) run on each turn's tree: at the
+smoke shapes (K-tail on the bf16 square's tables; the payload of the
+stair int8 core's gathered rows, f32 x at 3 limbs and the int8 table at
+one), each checked against its plain version, the call's ms (CUDA
+events) and the kernel's device ms on a cold L2 (``device_ms``: a CUDA
+graph of calls, each after a 128 MiB read, less the reads alone);
+with ``--full`` also at the main path's (``chip_smoke.py:
+prologue_shapes`` on reddit-sim's stair int8 8 GiB core, prepared once
+into a cache the turns share).
 
 ``--clocks`` (the change alone) runs K-core bf16 on the smoke bf16
 square at split 1 and at stream-K, each back to back for about 3 s, with
@@ -374,6 +388,74 @@ def full_turn(change: bool) -> dict:
     return out
 
 
+def change_smoke():
+    """The change's ``chip_smoke.py`` as a module, whatever tree the turn
+    imports ``pygim_tpu_torch`` from."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("change_smoke",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def prologue_turn(full: bool) -> dict:
+    """K-tail's bf16 rows and K-quant's payload on this turn's tree: the
+    smoke shapes, and with ``full`` the main path's."""
+    import torch
+
+    from pygim_tpu_torch.data import load_dataset
+    from pygim_tpu_torch.ops import ell_tail
+    from pygim_tpu_torch.ops import quant_prologue as kq
+    from pygim_tpu_torch.ops.spmm import SpmmConfig, prepare_spmm
+    from pygim_tpu_torch.utils.device import peaks
+
+    cs = change_smoke()
+    hbm, _bf16, rate, _int8 = peaks(torch.cuda.get_device_name(0))
+    ds = load_dataset(SMOKE)
+    x = torch.randn(ds.graph.nrows, H,
+                    generator=torch.Generator().manual_seed(0)).cuda()
+    res = {}
+    prep = prepare_spmm(ds.graph, SpmmConfig(
+        backend="hybrid", hybrid_core_bytes=SMOKE_BYTES,
+        **SMOKE_CORES["bf16 square"]), device="cuda")
+    tables = prep.ell_tables(prep.dev_arrays)
+    plan = ell_tail.tail_plan(tables)
+    xb = x.to(torch.bfloat16)
+    res["K-tail bf16 smoke"] = cs.tail_bf16_timing(tables, plan, xb)
+    del prep, tables, plan, xb
+    prep = prepare_spmm(ds.graph, SpmmConfig(
+        backend="hybrid", hybrid_core_bytes=SMOKE_BYTES,
+        **SMOKE_CORES["stair int8"]), device="cuda")
+    rows = prep._gather_rows(prep.dev_arrays)
+    dims = kq.payload_dims(rows.numel(), H)
+    for name, xp, safe, limbs in (
+            ("f32 3 limbs", x, kq.abs_max_scale_plain(x, "int32")[2], 3),
+            ("int8 table 1 limb", kq.quant_table_plain(
+                x, kq.abs_max_scale_plain(x, "int8")[2], "int8"), None, 1)):
+        if not torch.equal(kq.core_payload(xp, rows, safe, limbs, *dims),
+                           kq.core_payload_plain(xp, rows, safe, limbs,
+                                                 *dims)):
+            raise AssertionError(f"K-quant payload smoke {name}: differs")
+        res[f"K-quant payload smoke {name}"] = cs.payload_timing(
+            xp, rows, safe, limbs, hbm, rate)
+    del prep, x
+    torch.cuda.empty_cache()
+    if full:
+        ds = load_dataset(cs.PROLOGUE_GRAPH)
+        prep = prepare_spmm(ds.graph, SpmmConfig(**cs.PROLOGUE_CORE),
+                            device="cuda")
+        res.update(cs.prologue_shapes(ds, prep, hbm, rate))
+        res["spmm bf16"]["stair"] = prep.stair
+    ms = {}
+    for k, v in res.items():
+        for key in ("ms", "device_ms", "tail_time(ms)", "pim_time_spmm(ms)"):
+            if key in v:
+                ms[f"{k} {key}"] = v[key]
+    return {"ms": ms, "readings": res}
+
+
 def clocks_turn() -> dict:
     """K-core bf16 on the smoke bf16 square at split 1 (90 blocks) and at
     stream-K (132), each launched back to back for about 3 s while
@@ -426,7 +508,7 @@ def clocks_turn() -> dict:
 
 
 def child(tree: str, change: bool, full: bool, clocks: bool = False,
-          bcsr: bool = False) -> None:
+          bcsr: bool = False, prologue: bool = False) -> None:
     sys.path.insert(0, tree)
     import pygim_tpu_torch
     import torch
@@ -439,10 +521,12 @@ def child(tree: str, change: bool, full: bool, clocks: bool = False,
         raise RuntimeError(f"imported {where}, not the tree {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build(["bcsr"] if bcsr else None)
+    kernels = (("bcsr",) if bcsr else ("ell_tail", "quant") if prologue
+               else None)
+    _build.build(kernels)
     built = time.perf_counter() - t0
     if change:  # the compiler's report of each kernel (-Xptxas -v)
-        for name in ("bcsr",) if bcsr else ("core_dot", "core_f32"):
+        for name in kernels or ("core_dot", "core_f32"):
             log = _build.BUILD_DIR / f"{name}.log"
             kernel = ""
             for line in log.read_text().splitlines() if log.exists() else ():
@@ -456,6 +540,8 @@ def child(tree: str, change: bool, full: bool, clocks: bool = False,
         res = {"clocks": clocks_turn()}
     elif bcsr:
         res = bcsr_turn()
+    elif prologue:
+        res = prologue_turn(full)
     else:
         res = full_turn(change) if full else smoke_turn(change)
     print(json.dumps({"tree": tree, "change": change, "card": card_line(),
@@ -470,16 +556,17 @@ def main() -> int:
     ap.add_argument("--change", action="store_true")
     ap.add_argument("--clocks", action="store_true")
     ap.add_argument("--bcsr", action="store_true")
+    ap.add_argument("--prologue", action="store_true")
     a = ap.parse_args()
     if a.child:
-        child(a.child, a.change, a.full, bcsr=a.bcsr)
+        child(a.child, a.change, a.full, bcsr=a.bcsr, prologue=a.prologue)
         return 0
     if a.clocks:  # the change alone, in this process
         child(str(HERE), True, False, clocks=True)
         return 0
     env = dict(os.environ)
     env.setdefault("PYGIM_TPU_TORCH_DATA", tempfile.mkdtemp(prefix="ab_"))
-    order = ((True, False) if a.full
+    order = ((True, False) if a.full and not a.prologue
              else (False, True, True, False))
     runs = []
     for change in order:
@@ -487,7 +574,8 @@ def main() -> int:
         cmd = [sys.executable, __file__, "--parent", a.parent, "--child",
                tree, *(["--change"] if change else []),
                *(["--full"] if a.full else []),
-               *(["--bcsr"] if a.bcsr else [])]
+               *(["--bcsr"] if a.bcsr else []),
+               *(["--prologue"] if a.prologue else [])]
         t0 = time.time()
         res = subprocess.run(cmd, env=env, capture_output=True, text=True)
         print(f"turn {'change' if change else 'parent'}: exit "
@@ -501,7 +589,7 @@ def main() -> int:
         line = res.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
-    if not a.full and runs:
+    if (a.prologue or not a.full) and runs:
         table = {}
         for r in runs:
             for k, v in r["ms"].items():
